@@ -1,0 +1,412 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing falls back to the CPU):
+  1. card      nvidia-smi name and power limit, versions, kernel build time
+  2. bandwidth dense device-to-device copy of 2 GiB, timed with CUDA events
+  3. kernels   each of the four Q4_K kernels against its plain PyTorch
+               version at the llama-2-7B matmul shapes, with times beside
+               the card's bound and a bf16 torch.matmul yardstick
+  4. tiny      a tiny Q4_K llama served on the card and on the CPU
+  5. main      a llama-2-7B-width Q4_K GGUF (random weights from a seed)
+               through AutoModelForCausalLM.from_pretrained -> llm(...):
+               text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
+               decode, with every kernel's launch count from this phase
+Prints a JSON line of per-kernel results, then, as the last line,
+{"ok": true, "device": {...}}. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+# published H100 SXM peaks (dense): HBM rate, bf16 and int8 tensor-core rates
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_S = 989e12
+PEAK_INT8_S = 1979e12
+# llama-2-7B matmul shapes (K, N) as the engine runs them (QKV and gate/up
+# fused) and the batch sizes m the main path gives each kernel
+SHAPES = {
+    "qkv": (4096, 12288),
+    "o": (4096, 4096),
+    "gate_up": (4096, 22016),
+    "down": (11008, 4096),
+    "lm_head": (4096, 32000),
+}
+M_OF = {"qmm_qx": 1, "qmm_q": 8, "qmm_si": 128, "qmm_i": 128}
+# int8 dots for the activation-quantized kernels, bf16 for the GEMMs
+PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S,
+           "qmm_si": PEAK_BF16_S, "qmm_i": PEAK_BF16_S}
+TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3}
+MAIN_LAYERS = 32
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_time_ms(fn, reps: int, graph: bool = False) -> float:
+    """Mean ms per call of `fn(i)` over `reps` back-to-back calls. With
+    graph=True the calls are captured in one CUDA graph and replayed, so
+    the time is the device's alone, free of the host's launch cost."""
+    fn(0)
+    torch.cuda.synchronize()
+    run = lambda: [fn(i) for i in range(reps)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    run()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def phase_card(K):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    log(f"[card] {smi}")
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    info = K.build()
+    log(f"[card] kernel build {time.perf_counter() - t0:.3f} s "
+        f"(compiled {info['compiled']} into {os.path.relpath(info['dir'], HERE)})")
+    return smi
+
+
+def phase_bandwidth() -> float:
+    n = 2 << 30
+    a = torch.empty(n, dtype=torch.uint8, device="cuda")
+    b = torch.empty_like(a)
+    ms = cuda_time_ms(lambda i: b.copy_(a), 20)
+    gbs = 2 * n / (ms * 1e-3) / 1e9  # read + write
+    log(f"[bandwidth] device copy of {n >> 30} GiB: {ms:.4f} ms, {gbs:.1f} GB/s "
+        f"(read + write), {100 * gbs * 1e9 / PEAK_BYTES_S:.1f}% of 3.35 TB/s")
+    del a, b
+    torch.cuda.empty_cache()
+    return gbs * 1e9
+
+
+def random_q4k(kp: int, npad: int, k: int, n: int, gen: torch.Generator):
+    """Q4_K planes at padded shape (kp, npad); padding rows and columns are
+    zero, as make_qtensor leaves them."""
+    from ctransformers_tpu_torch.ops.qmatmul import QTensor
+
+    def rnd(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    qs = rnd(-128, 128, (kp // 2, npad))
+    sub_s = rnd(0, 64, (kp // 32, npad))
+    sub_m = rnd(0, 64, (kp // 32, npad))
+    sd = torch.rand((kp // 256, npad), generator=gen, device="cuda") * 9e-4 + 1e-4
+    sm = -torch.rand((kp // 256, npad), generator=gen, device="cuda") * 1e-3
+    for a, rows in ((qs, k // 2), (sub_s, k // 32), (sub_m, k // 32), (sd, k // 256), (sm, k // 256)):
+        a[rows:] = 0
+        a[:, n:] = 0
+    return QTensor(qs, sub_s, sub_m, "Q4_K", 32, (kp, npad), packed=True, zp=0,
+                   sd=sd, sm=sm, sfactor=8, pack_layout="adjk")
+
+
+def plane_bytes(qt) -> int:
+    return sum(a.numel() * a.element_size() for a in (qt.qs, qt.scales, qt.mins, qt.sd, qt.sm))
+
+
+def phase_kernels(K, copy_bw: float):
+    from ctransformers_tpu_torch.ops.qmatmul import _round_up
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {name: [] for name in M_OF}
+    for sname, (k, n) in SHAPES.items():
+        kp = _round_up(k, 1024)
+        npad = _round_up(n, 1024)
+        base = random_q4k(kp, npad, k, n, gen)
+        wbytes = plane_bytes(base)
+        # distinct weight copies cycled between launches: > 3x the 50 MB L2,
+        # so every launch streams its weight from device memory as decode does
+        copies = [base] + [
+            random_q4k(kp, npad, k, n, gen) for _ in range(max(0, math.ceil(150e6 / wbytes) - 1))
+        ]
+        s, b = K.group_planes(base)
+        w_bf16 = (K.unpack_w4(base.qs).float() * s.repeat_interleave(32, 0)
+                  + b.repeat_interleave(32, 0)).to(torch.bfloat16)
+        lib_copies = [w_bf16] + [w_bf16.clone() for _ in range(max(0, math.ceil(150e6 / (w_bf16.numel() * 2)) - 1))]
+        for name, m in M_OF.items():
+            x = torch.zeros((m, kp), device="cuda")
+            x[:, :k] = torch.randn((m, k), generator=gen, device="cuda")
+            args = K.quantize_activations(x) if name == "qmm_q" else (x,)
+            kern, plain = K.KERNELS[name], K.PLAIN[name]
+            got = kern(*args, base)
+            torch.cuda.synchronize()
+            ref = plain(*args, base)
+            err = (torch.linalg.norm(got - ref) / torch.linalg.norm(ref)).item()
+            max_abs = (got - ref).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= TOL[name]
+            ms = cuda_time_ms(lambda i: kern(*args, copies[i % len(copies)]), 50, graph=True)
+            plain_ms = cuda_time_ms(lambda i: plain(*args, base), 3)
+            xb = x.to(torch.bfloat16)
+            lib_ms = cuda_time_ms(
+                lambda i: torch.matmul(xb, lib_copies[i % len(lib_copies)]), 50, graph=True
+            )
+            act = sum(a.numel() * a.element_size() for a in args)
+            nbytes = wbytes + act + m * npad * 4
+            ops = 2 * m * kp * npad
+            bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_OF[name]) * 1e3
+            bound_copy_ms = nbytes / copy_bw * 1e3
+            r = dict(shape=sname, k=k, n=n, m=m, rel_err=err, max_abs_err=max_abs,
+                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                     bound_copy_ms=bound_copy_ms, bytes=nbytes, ops=ops)
+            results[name].append(r)
+            log(f"[kernels] {name:7s} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
+                f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f} "
+                f"launches={K.LAUNCHES[name]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name} at {sname} m={m}: rel err {err:.3e} > {TOL[name]}")
+        del copies, base, lib_copies, w_bf16, s, b
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_tiny(K, tmpdir: str):
+    """A tiny Q4_K llama on the card and on the CPU (prompt chunks 64 + 8,
+    then greedy decode). Every kernel call of the card run is held against
+    its plain version on the same operands (the kernels' tolerances), the
+    greedy tokens must be equal, and the logits must agree within the
+    wiring class (5%): they cannot agree much closer, because bf16 and int8
+    rounding of the activations turn the ~1e-7 differences of the two
+    devices' other ops into whole rounding steps here and there."""
+    from ctransformers_tpu_torch import AutoModelForCausalLM
+    from ctransformers_tpu_torch.models.synthetic import write_llama_gguf
+
+    path = os.path.join(tmpdir, "tiny_q4k.gguf")
+    write_llama_gguf(path, n_vocab=512, n_ctx=128, n_embd=256, n_ff=512, n_layer=2, seed=1)
+    gpu = AutoModelForCausalLM.from_pretrained(path)
+    cpu = AutoModelForCausalLM.from_pretrained(path, device="cpu")
+    os.remove(path)
+    if gpu.device.type != "cuda" or cpu.device.type != "cpu":
+        raise SystemExit(f"tiny: models on {gpu.device} and {cpu.device}")
+
+    worst_call = dict.fromkeys(K.KERNELS, 0.0)
+    calls = dict.fromkeys(K.KERNELS, 0)
+    originals = dict(K.KERNELS)
+
+    def checked(name):
+        def run(*args):
+            out = originals[name](*args)
+            ref = K.PLAIN[name](*args)
+            err = (torch.linalg.norm(out - ref) / torch.linalg.norm(ref)).item()
+            worst_call[name] = max(worst_call[name], err)
+            calls[name] += 1
+            return out
+        return run
+
+    for name in originals:
+        setattr(K, name, checked(name))
+    try:
+        ids = [1] + [int(t) for t in np.random.default_rng(3).integers(3, 512, 71)]
+        gpu.eval(ids)
+        cpu.eval(ids)
+        worst = 0.0
+        greedy = [[], []]
+        for _ in range(8):
+            a, b = np.asarray(gpu.logits), np.asarray(cpu.logits)
+            if not np.isfinite(a).all():
+                raise SystemExit("tiny: non-finite logits on the card")
+            worst = max(worst, float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+            greedy[0].append(int(np.argmax(a)))
+            greedy[1].append(int(np.argmax(b)))
+            gpu.eval([greedy[0][-1]])
+            cpu.eval([greedy[1][-1]])
+    finally:
+        for name, fn in originals.items():
+            setattr(K, name, fn)
+    log(f"[tiny] every kernel call vs its plain version on the same operands: "
+        f"calls {calls}, worst rel err {worst_call}")
+    log(f"[tiny] card vs CPU logits rel err (worst of 8 steps) {worst:.3e}; "
+        f"greedy card {greedy[0]} cpu {greedy[1]}")
+    if any(worst_call[k] > TOL[k] or not calls[k] for k in worst_call):
+        raise SystemExit("tiny: a kernel disagrees with its plain version (or never ran)")
+    if worst > 0.05 or greedy[0] != greedy[1]:
+        raise SystemExit("tiny: card and CPU disagree")
+
+
+def phase_main(K, tmpdir: str, copy_bw: float, n_layer: int):
+    from ctransformers_tpu_torch import AutoModelForCausalLM
+    from ctransformers_tpu_torch.formats.quants import GGMLType
+    from ctransformers_tpu_torch.models.synthetic import LLAMA2_7B, write_llama_gguf
+    from ctransformers_tpu_torch.ops.qmatmul import QTensor
+
+    cfg = dict(LLAMA2_7B, n_layer=n_layer, n_ctx=2048)
+    path = os.path.join(tmpdir, f"llama7b_{n_layer}l_q4k.gguf")
+    t0 = time.perf_counter()
+    write_llama_gguf(path, wtype=GGMLType.Q4_K, embed_type=GGMLType.F16,
+                     synthesize_blocks=True, seed=7, **cfg)
+    log(f"[main] wrote {os.path.getsize(path) / 2**30:.3f} GiB GGUF ({n_layer} layers, "
+        f"llama-2-7B width, Q4_K matmuls, F16 embedding) in {time.perf_counter() - t0:.1f} s")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        llm = AutoModelForCausalLM.from_pretrained(path)
+        load_s = time.perf_counter() - t0
+        os.remove(path)
+        eng = llm._engine
+        qts = [v for v in [eng.params["lm_head"]] + [x for l in eng.params["layers"] for x in l.values()]
+               if isinstance(v, QTensor)]
+        wbytes = sum(plane_bytes(q) for q in qts)
+        log(f"[main] load {load_s:.2f} s ({eng.init_timings}); {len(qts)} QTensors, "
+            f"{wbytes / 1e9:.3f} GB of weight planes")
+
+        for prompt in ("hello world", "the big cat is", "tell me a story once"):
+            text = llm(prompt, max_new_tokens=16, seed=42)
+            log(f"[main] llm({prompt!r}) -> {text!r}")
+
+        ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, cfg["n_vocab"], 136)]
+        before = dict(K.LAUNCHES)
+        with warnings.catch_warnings():  # LLM.reset() is marked deprecated
+            warnings.simplefilter("ignore")
+            llm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm.eval(ids)
+        prefill_s = time.perf_counter() - t0
+        tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+        ttft_s = time.perf_counter() - t0
+        prefill_launch = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        if not np.isfinite(llm.logits).all():
+            raise SystemExit("main: non-finite logits after the prompt")
+        before = dict(K.LAUNCHES)
+        n_dec = 32
+        sample_s = 0.0
+        t0 = time.perf_counter()
+        for _ in range(n_dec):
+            llm.eval([tok])
+            t1 = time.perf_counter()
+            tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+            sample_s += time.perf_counter() - t1
+        dec_s = (time.perf_counter() - t0) / n_dec
+        dec_launch = {k: (K.LAUNCHES[k] - before[k]) / n_dec for k in K.LAUNCHES}
+        tok = profile_decode(llm, tok, dec_s)
+        runs = []
+        for _ in range(2):  # each from an empty context: chunks 128 + 8 + 1
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                llm.reset()
+            gen = llm.generate(ids, seed=5, top_k=40, temperature=0.8)
+            runs.append(list(itertools.islice(gen, 16)))
+            gen.close()
+        if runs[0] != runs[1]:
+            raise SystemExit(f"main: same seed, different tokens {runs}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = dict(K.LAUNCHES)
+        log(f"[main] 137-token prompt (chunks 128 + 8 + 1): launches {prefill_launch} "
+            f"(expected qmm_si {2 * n_layer}, qmm_i {2 * n_layer}, qmm_q {4 * n_layer}, "
+            f"qmm_qx {4 * n_layer + 3})")
+        log(f"[main] decode launches per token {dec_launch} (expected qmm_qx {4 * n_layer + 1})")
+        log(f"[main] seeded generate twice -> identical {runs[0]}")
+        log(f"[main] decode step: {dec_s * 1e3:.3f} ms, of which host sampling "
+            f"{sample_s / n_dec * 1e3:.3f} ms")
+        log(f"[main] load_s={load_s:.3f} ttft_ms={ttft_s * 1e3:.2f} "
+            f"prefill_tok_s={len(ids) / prefill_s:.1f} decode_ms_per_token={dec_s * 1e3:.3f} "
+            f"decode_bound_ms={wbytes / copy_bw * 1e3:.3f} (copy) "
+            f"{wbytes / PEAK_BYTES_S * 1e3:.3f} (3.35 TB/s) peak_mem_gb={peak_gb:.2f}")
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise SystemExit(f"main: kernels never launched on the main path: {missing}")
+        return launches
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def profile_decode(llm, tok: int, dec_s: float, steps: int = 4) -> int:
+    """torch.profiler over a few decode steps: device time by kernel and
+    the device's busy share of the unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with warnings.catch_warnings():  # "clears events at the end of each cycle"
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                llm.eval([tok])
+                tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+        events = prof.key_averages()
+    rows = []
+    for e in events:
+        # device-side events only: CPU ops carry their kernels' time too
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / steps, e.count // steps, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"[profile] decode: device busy {busy_ms:.3f} ms per token = "
+        f"{100 * busy_ms / (dec_s * 1e3):.1f}% of the {dec_s * 1e3:.3f} ms step "
+        f"(idle {100 - 100 * busy_ms / (dec_s * 1e3):.1f}%)")
+    for us, count, key in rows[:8]:
+        log(f"[profile]   {us / 1e3:8.4f} ms/token  {count:4d} launches  {key[:90]}")
+    return tok
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from ctransformers_tpu_torch.ops import qmm_kernels as K
+
+    smi = phase_card(K)
+    copy_bw = phase_bandwidth()
+    results = phase_kernels(K, copy_bw)
+    tmpdir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(tmpdir, exist_ok=True)
+    phase_tiny(K, tmpdir)
+    launches = phase_main(K, tmpdir, copy_bw, MAIN_LAYERS)
+
+    # one entry per kernel: sums over the five shapes at the kernel's m
+    kernels = []
+    for name, rows in results.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": K.SOURCE_OF[name],
+            "replaces": K.REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "operations" if sum(r["ops"] / PEAK_OF[name] for r in rows)
+            > sum(r["bytes"] / PEAK_BYTES_S for r in rows) else "bytes",
+            "library_ms": sum(r["library_ms"] for r in rows),
+        })
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

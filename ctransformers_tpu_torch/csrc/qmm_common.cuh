@@ -1,0 +1,45 @@
+// Shared helpers for the Q4_K quantized-matmul kernels.
+//
+// Weight layout (ctransformers_tpu_torch/ops/qmatmul.py, QTensor in the
+// "adjk" layout): for a logical (K, N) weight padded to (Kp, Np),
+//   qs     int8 (Kp/2, Np)   byte (r, n) holds rows 2r (low nibble) and
+//                            2r+1 (high nibble) of column n, each stored as
+//                            the two's-complement value w4 = q - 8 in [-8, 7]
+//   sub_s  int8 (Kp/32, Np)  6-bit sub-scales, one per group of 32 rows
+//   sub_m  int8 (Kp/32, Np)  6-bit sub-mins
+//   sd     f32  (Kp/256, Np) superblock scale d
+//   sm     f32  (Kp/256, Np) superblock min (-dmin)
+// so that W[k, n] = w4 * s + B with s = sd * sub_s, m = sm * sub_m and the
+// per-group bias B = 8 * s + m.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ctq {
+
+constexpr int kGroup = 32;    // K rows per quant group
+constexpr int kSfactor = 8;   // groups per Q4_K superblock
+
+// Sign-extended nibble `idx` (0..7, low nibble first) of a 32-bit word.
+__device__ __forceinline__ int nibble(uint32_t w, int idx) {
+  return static_cast<int>(w << (28 - 4 * idx)) >> 28;
+}
+
+// Signed byte `idx` (0..3) of a 32-bit word.
+__device__ __forceinline__ int sbyte(uint32_t w, int idx) {
+  return static_cast<int>(w << (24 - 8 * idx)) >> 24;
+}
+
+// Group scale and bias for one column, rounded exactly as the reference
+// formula: s = sd * sub_s, B = 8 * s + sm * sub_m (no fused multiply-add,
+// so the f32 values match the plain PyTorch version bit for bit).
+__device__ __forceinline__ void group_scale(float d, int sub_s, float dm,
+                                            int sub_m, float* s, float* b) {
+  const float sv = __fmul_rn(d, static_cast<float>(sub_s));
+  const float mv = __fmul_rn(dm, static_cast<float>(sub_m));
+  *s = sv;
+  *b = __fadd_rn(__fmul_rn(8.0f, sv), mv);
+}
+
+}  // namespace ctq

@@ -1,0 +1,227 @@
+// Activation-quantized Q4_K matmul for small m (decode and short chunks).
+//
+// Replaces, in ctransformers_tpu/ops/qmatmul.py:
+//   _qmm_qx_kernel (mode "qx"): int8 quantization of x inside the kernel;
+//   _qmm_q_kernel  (modes "q"/"q4"): the same function with x quantized
+//                  outside (xq, sx, xsum given).
+// Both compute, per output (t, n):
+//   out = sum_g xsum[t,g] * B[g,n] + sum_g (dot_g(xq[t], w4[:,n]) * sx[t,g]) * s[g,n]
+// with sx = absmax/127 per (token, group of 32), xq = clip(rint(x / max(sx,
+// 1e-20)), -127, 127) and the group dot taken exactly in int32.
+//
+// Bound on an H100: bytes. At m <= 32 every weight byte is used for at most
+// 64 multiply-adds, far below the card's ~295 operations per byte, so the
+// kernel is as fast as it streams the 4-bit planes (0.5 B/weight plus
+// ~0.09 B/weight of scale planes). Design: one block owns 32 output columns
+// and ALL of K, so every output element is summed by one block in a fixed
+// order (no atomics, no split-K: runs are bitwise repeatable). Its 256
+// threads lie 8 across the columns (4 columns each, one 32-bit load per
+// byte row, so a warp reads 32 contiguous bytes from each of 4 rows) and 32
+// down K (one quant group each per 1024-row chunk). The block stages the
+// chunk's quantized activations in shared memory, takes int32 group dots,
+// rescales them in f32, and reduces the 32 K-lanes in shared memory in a
+// fixed order at the end.
+#include "qmm_common.cuh"
+
+namespace {
+
+constexpr int kTN = 32;                 // output columns per block
+constexpr int kThreads = 256;
+constexpr int kCQ = kTN / 4;            // column quads per block
+constexpr int kGL = kThreads / kCQ;     // K lanes (one group each per chunk)
+constexpr int kKC = kGL * ctq::kGroup;  // K rows staged per chunk
+
+template <int MT>
+struct DecodeSmem {
+  int8_t xq[MT][kKC];
+  float sx[MT][kGL];
+  float xs[MT][kGL];
+  float red[kGL][MT][kTN];
+};
+
+template <int MT, bool QUANT_IN>
+__global__ void __launch_bounds__(kThreads)
+qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
+             const int8_t* __restrict__ xq_g,   // (m, kp) int8     [!QUANT_IN]
+             const float* __restrict__ sx_g,    // (m, kp/32) f32   [!QUANT_IN]
+             const float* __restrict__ xs_g,    // (m, kp/32) f32   [!QUANT_IN]
+             const int8_t* __restrict__ qs,     // (kp/2, np)
+             const int8_t* __restrict__ sub_s,  // (kp/32, np)
+             const int8_t* __restrict__ sub_m,  // (kp/32, np)
+             const float* __restrict__ sd,      // (kp/256, np)
+             const float* __restrict__ sm,      // (kp/256, np)
+             float* __restrict__ out,           // (m, np)
+             int m, int kp, int np) {
+  __shared__ DecodeSmem<MT> sh;
+  const int tid = threadIdx.x;
+  const int cq = tid % kCQ;
+  const int gl = tid / kCQ;
+  const int n = blockIdx.x * kTN + 4 * cq;  // first of this thread's columns
+  const int t0 = blockIdx.y * MT;
+  const int ng = kp / ctq::kGroup;
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  for (int k0 = 0; k0 < kp; k0 += kKC) {
+    // ---- stage this chunk's activations (int8) and group statistics ----
+    if (QUANT_IN) {
+      // thread tid holds x[k0 + 4*tid .. +3]; 8 neighbouring lanes = 1 group
+      const int k = k0 + 4 * tid;
+      const int gi = tid / 8;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int t = t0 + i;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t < m && k < kp)
+          v = __ldg(reinterpret_cast<const float4*>(x + (size_t)t * kp + k));
+        float amax = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                           fmaxf(fabsf(v.z), fabsf(v.w)));
+        float sum = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1) {
+          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+          sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+        }
+        const float sxv = __fdiv_rn(amax, 127.0f);
+        const float den = fmaxf(sxv, 1e-20f);
+        char4 q;
+        q.x = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.x, den)), -127.f), 127.f);
+        q.y = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.y, den)), -127.f), 127.f);
+        q.z = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.z, den)), -127.f), 127.f);
+        q.w = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.w, den)), -127.f), 127.f);
+        *reinterpret_cast<char4*>(&sh.xq[i][4 * tid]) = q;
+        if ((tid & 7) == 0) {
+          sh.sx[i][gi] = sxv;
+          sh.xs[i][gi] = sum;
+        }
+      }
+    } else {
+      const int k = k0 + 4 * tid;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int t = t0 + i;
+        int v = 0;
+        if (t < m && k < kp)
+          v = __ldg(reinterpret_cast<const int*>(xq_g + (size_t)t * kp + k));
+        *reinterpret_cast<int*>(&sh.xq[i][4 * tid]) = v;
+      }
+      for (int e = tid; e < MT * kGL; e += kThreads) {
+        const int i = e / kGL, gi = e % kGL;
+        const int t = t0 + i, g = k0 / ctq::kGroup + gi;
+        const bool ok = t < m && g < ng;
+        sh.sx[i][gi] = ok ? __ldg(sx_g + (size_t)t * ng + g) : 0.0f;
+        sh.xs[i][gi] = ok ? __ldg(xs_g + (size_t)t * ng + g) : 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // ---- one quant group per K lane: int32 dots, then f32 rescale ----
+    const int g = k0 / ctq::kGroup + gl;
+    if (g < ng) {
+      int idot[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) idot[i][c] = 0;
+      const int8_t* qrow = qs + (size_t)g * (ctq::kGroup / 2) * np + n;
+      uint32_t w[ctq::kGroup / 2];
+#pragma unroll
+      for (int rr = 0; rr < ctq::kGroup / 2; ++rr)
+        w[rr] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)rr * np));
+#pragma unroll
+      for (int rr = 0; rr < ctq::kGroup / 2; ++rr) {
+        const int kl = gl * ctq::kGroup + 2 * rr;
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int x0 = sh.xq[i][kl];
+          const int x1 = sh.xq[i][kl + 1];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            idot[i][c] += ctq::nibble(w[rr], 2 * c) * x0 +
+                          ctq::nibble(w[rr], 2 * c + 1) * x1;
+        }
+      }
+      const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
+      const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
+      const size_t fo = (size_t)(g / ctq::kSfactor) * np + n;
+      const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+      const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+      float s[4], b[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &b[c]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float sxv = sh.sx[i][gl];
+        const float xsv = sh.xs[i][gl];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float part = __fmul_rn(__fmul_rn((float)idot[i][c], sxv), s[c]);
+          acc[i][c] = __fadd_rn(acc[i][c], __fadd_rn(part, __fmul_rn(xsv, b[c])));
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- fixed-order reduction of the K lanes ----
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sh.red[gl][i][4 * cq + c] = acc[i][c];
+  __syncthreads();
+  for (int e = tid; e < MT * kTN; e += kThreads) {
+    const int i = e / kTN, col = e % kTN;
+    const int t = t0 + i;
+    float v = 0.0f;
+    for (int l = 0; l < kGL; ++l) v = __fadd_rn(v, sh.red[l][i][col]);
+    if (t < m) out[(size_t)t * np + blockIdx.x * kTN + col] = v;
+  }
+}
+
+template <bool QUANT_IN>
+int launch(const float* x, const int8_t* xq, const float* sx, const float* xs,
+           const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+           const float* sd, const float* sm, float* out, int m, int kp,
+           int np, cudaStream_t stream) {
+  if (m == 1) {
+    dim3 grid(np / kTN, 1);
+    qmm_q_kernel<1, QUANT_IN><<<grid, kThreads, 0, stream>>>(
+        x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+  } else {
+    constexpr int MT = 8;
+    dim3 grid(np / kTN, (m + MT - 1) / MT);
+    qmm_q_kernel<MT, QUANT_IN><<<grid, kThreads, 0, stream>>>(
+        x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode "qx": x f32 (m, kp), quantized in the kernel.
+int ct_qmm_qx(const float* x, const int8_t* qs, const int8_t* sub_s,
+              const int8_t* sub_m, const float* sd, const float* sm,
+              float* out, int m, int kp, int np, void* stream) {
+  return launch<true>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m, sd, sm,
+                      out, m, kp, np, static_cast<cudaStream_t>(stream));
+}
+
+// mode "q": xq int8 (m, kp), sx and xsum f32 (m, kp/32) given.
+int ct_qmm_q(const int8_t* xq, const float* sx, const float* xs,
+             const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+             const float* sd, const float* sm, float* out, int m, int kp,
+             int np, void* stream) {
+  return launch<false>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m,
+                       kp, np, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

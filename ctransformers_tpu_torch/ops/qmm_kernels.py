@@ -1,0 +1,340 @@
+"""The four hand-written Hopper kernels of the Q4_K matmul, their plain
+PyTorch versions, launch counters and the nvcc/ctypes loader.
+
+Every wrapper takes activations already zero-padded to the weight's
+storage rows, x (m, Kp) float32, and a Q4_K QTensor in the adjk layout
+(ops/qmatmul.py), and returns the padded product (m, Np) float32:
+
+  qmm_qx  x quantized to int8 per (token, group) inside the kernel
+          (replaces ctransformers_tpu/ops/qmatmul.py:_qmm_qx_kernel)
+  qmm_q   the same function on activations quantized outside
+          (replaces _qmm_q_kernel, modes "q" and "q4")
+  qmm_si  bf16(x) @ bf16(w4 * s) + xsum @ B   (replaces _qmm_i4_s_kernel)
+  qmm_i   bf16(x) @ bf16(w4 * s + B)         (replaces _qmm_i4_kernel)
+
+with w4 = q - 8 the stored nibble, s = sd * sub_s, m = sm * sub_m and
+B = 8 * s + m per group of 32 rows. A CUDA tensor launches the kernel or
+raises; a CPU tensor takes the plain version, which computes the same
+function with torch ops (and is what chip_smoke.py holds each kernel
+against on the card). There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Tuple
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
+SOURCES = ("qmm_decode.cu", "qmm_prefill.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# kernel launches (incremented only where a kernel is launched) and calls
+# of the plain versions through the wrappers (CPU tensors)
+LAUNCHES: Dict[str, int] = {"qmm_qx": 0, "qmm_q": 0, "qmm_si": 0, "qmm_i": 0}
+PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_INFO: Dict[str, object] = {}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+# -- build -------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the Q4_K kernels need the CUDA toolkit")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> Dict[str, object]:
+    """Compile every source under csrc/ (one nvcc per file, all started
+    together) into <package>/_build/<source hash>/, unless already built,
+    and load the libraries. Returns BUILD_INFO: seconds and ptxas output."""
+    if len(_LIBS) == len(SOURCES):
+        return BUILD_INFO
+    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for src in SOURCES:
+        so = os.path.join(out_dir, f"lib{src[:-3]}.so")
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        procs[src] = (so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    logs = {}
+    for src, (so, tmp, p) in procs.items():
+        out, _ = p.communicate()
+        logs[src] = out
+        if p.returncode != 0:
+            for _, t, q in procs.values():
+                q.wait()
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+        os.replace(tmp, so)
+    BUILD_INFO.update(
+        dir=out_dir, seconds=time.perf_counter() - t0, compiled=sorted(procs),
+        log=logs,
+    )
+    for src in SOURCES:
+        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{src[:-3]}.so"))
+        _bind(lib)
+        _LIBS[src[:-3]] = lib
+    return BUILD_INFO
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = {
+        "ct_qmm_qx": [P] * 7 + [I, I, I, P],
+        "ct_qmm_q": [P] * 9 + [I, I, I, P],
+        "ct_qmm_si": [P] * 7 + [I, I, I, P],
+        "ct_qmm_i": [P] * 7 + [I, I, I, P],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+
+
+def _fn(lib: str, name: str):
+    build()
+    return getattr(_LIBS[lib], name)
+
+
+# -- argument checks -----------------------------------------------------------
+
+
+def check_qtensor(qt) -> Tuple[int, int]:
+    """The kernels take exactly the Q4_K adjk layout; returns (Kp, Np)."""
+    if not (
+        qt.kind == "Q4_K" and qt.packed and qt.pack_layout == "adjk"
+        and qt.zp == 0 and qt.group == 32 and qt.sfactor == 8
+        and qt.mins is not None and qt.sd is not None and qt.sm is not None
+        and qt.perm is None
+    ):
+        raise NotImplementedError(
+            f"qmm kernels take Q4_K adjk QTensors, got {qt.kind} "
+            f"(layout {qt.pack_layout}); other types are not yet ported, see ROADMAP"
+        )
+    rows, np_ = qt.qs.shape
+    kp = 2 * rows
+    want = {
+        "qs": (qt.qs, torch.int8, (rows, np_)),
+        "scales": (qt.scales, torch.int8, (kp // 32, np_)),
+        "mins": (qt.mins, torch.int8, (kp // 32, np_)),
+        "sd": (qt.sd, torch.float32, (kp // 256, np_)),
+        "sm": (qt.sm, torch.float32, (kp // 256, np_)),
+    }
+    dev = qt.qs.device
+    for name, (a, dt, shape) in want.items():
+        if a.dtype != dt or tuple(a.shape) != shape or a.device != dev:
+            raise ValueError(
+                f"QTensor.{name}: {a.dtype} {tuple(a.shape)} on {a.device}, "
+                f"expected {dt} {shape} on {dev}"
+            )
+        if not a.is_contiguous():
+            raise ValueError(f"QTensor.{name} must be contiguous")
+    if kp % 256 or np_ % 128:
+        raise ValueError(f"padded weight shape ({kp}, {np_}) is not (256k, 128j)")
+    return kp, np_
+
+
+def _check_act(t: torch.Tensor, dtype, shape, dev, name: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != dev:
+        raise ValueError(
+            f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, "
+            f"expected {dtype} {tuple(shape)} on {dev}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptrs(*ts):
+    out = []
+    for t in ts:
+        p = t.data_ptr()
+        if p % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+        out.append(ctypes.c_void_p(p))
+    return out
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _planes(qt):
+    return (qt.qs, qt.scales, qt.mins, qt.sd, qt.sm)
+
+
+def _launch(name: str, lib: str, dev, acts, qt, m: int, kp: int, np_: int):
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}; the kernel runs on CUDA only")
+    out = torch.empty((m, np_), dtype=torch.float32, device=dev)
+    fn = _fn(lib, "ct_" + name)
+    rc = fn(*_ptrs(*acts, *_planes(qt), out), m, kp, np_, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+# -- plain versions ------------------------------------------------------------
+
+
+def group_planes(qt) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Kp/32, Np) f32 planes s = sd * sub_s and B = 8 * s + sm * sub_m."""
+    s = qt.scales.float() * qt.sd.repeat_interleave(qt.sfactor, 0)
+    m = qt.mins.float() * qt.sm.repeat_interleave(qt.sfactor, 0)
+    return s, 8.0 * s + m
+
+
+def unpack_w4(qs: torch.Tensor) -> torch.Tensor:
+    """adjk bytes (Kp/2, Np) -> stored nibbles w4 = q - 8, (Kp, Np) int32."""
+    u = qs.to(torch.int32)
+    lo = ((u & 0xF) ^ 8) - 8
+    hi = (((u >> 4) & 0xF) ^ 8) - 8
+    return torch.stack([lo, hi], dim=1).reshape(2 * qs.shape[0], qs.shape[1])
+
+
+def quantize_activations(x: torch.Tensor):
+    """Per-(token, group of 32) symmetric int8: (xq (m, Kp) int8,
+    sx (m, Kp/32) f32, xsum (m, Kp/32) f32), the formula of the reference's
+    "q" mode: sx = absmax/127, xq = clip(round(x / max(sx, 1e-20)), +-127);
+    torch.round rounds half to even, as jnp.round does."""
+    m, kp = x.shape
+    xr = x.reshape(m, kp // 32, 32)
+    sx = xr.abs().amax(-1) / 127.0
+    xq = torch.clamp(torch.round(xr / torch.clamp_min(sx, 1e-20)[..., None]), -127, 127)
+    return xq.to(torch.int8).reshape(m, kp), sx, xr.sum(-1)
+
+
+def plain_q(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
+    """Group dots in f32, exact for integer operands (|sum| <= 32*127*8 <
+    2**24), rescaled by sx * s, plus the bias xsum @ B."""
+    m, kp = xq.shape
+    ng = kp // 32
+    s, b = group_planes(qt)
+    w = unpack_w4(qt.qs).float().reshape(ng, 32, -1)
+    parts = torch.bmm(xq.float().reshape(m, ng, 32).transpose(0, 1), w)
+    d = (parts * sx.T[:, :, None] * s[:, None, :]).sum(0)
+    return xs @ b + d
+
+
+def plain_qx(x: torch.Tensor, qt) -> torch.Tensor:
+    return plain_q(*quantize_activations(x), qt)
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def plain_si(x: torch.Tensor, qt) -> torch.Tensor:
+    """bf16 operands, exact products and f32 sums (a bf16 matmul on a CPU
+    returns bf16, so the operands are rounded and multiplied in f32)."""
+    m, kp = x.shape
+    s, b = group_planes(qt)
+    w = _bf16_round(unpack_w4(qt.qs).float() * s.repeat_interleave(32, 0))
+    xs = x.reshape(m, kp // 32, 32).sum(-1)
+    return xs @ b + _bf16_round(x) @ w
+
+
+def plain_i(x: torch.Tensor, qt) -> torch.Tensor:
+    s, b = group_planes(qt)
+    w = unpack_w4(qt.qs).float() * s.repeat_interleave(32, 0)
+    w = _bf16_round(w + b.repeat_interleave(32, 0))
+    return _bf16_round(x) @ w
+
+
+# -- wrappers ------------------------------------------------------------------
+
+
+def qmm_qx(x: torch.Tensor, qt) -> torch.Tensor:
+    kp, np_ = check_qtensor(qt)
+    m = x.shape[0]
+    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
+    if x.device.type == "cpu":
+        PLAIN_CALLS["qmm_qx"] += 1
+        return plain_qx(x, qt)
+    return _launch("qmm_qx", "qmm_decode", x.device, (x,), qt, m, kp, np_)
+
+
+def qmm_q(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
+    kp, np_ = check_qtensor(qt)
+    m = xq.shape[0]
+    dev = qt.qs.device
+    _check_act(xq, torch.int8, (m, kp), dev, "xq")
+    _check_act(sx, torch.float32, (m, kp // 32), dev, "sx")
+    _check_act(xs, torch.float32, (m, kp // 32), dev, "xsum")
+    if dev.type == "cpu":
+        PLAIN_CALLS["qmm_q"] += 1
+        return plain_q(xq, sx, xs, qt)
+    return _launch("qmm_q", "qmm_decode", dev, (xq, sx, xs), qt, m, kp, np_)
+
+
+def qmm_si(x: torch.Tensor, qt) -> torch.Tensor:
+    kp, np_ = check_qtensor(qt)
+    m = x.shape[0]
+    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
+    if x.device.type == "cpu":
+        PLAIN_CALLS["qmm_si"] += 1
+        return plain_si(x, qt)
+    return _launch("qmm_si", "qmm_prefill", x.device, (x,), qt, m, kp, np_)
+
+
+def qmm_i(x: torch.Tensor, qt) -> torch.Tensor:
+    kp, np_ = check_qtensor(qt)
+    m = x.shape[0]
+    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
+    if x.device.type == "cpu":
+        PLAIN_CALLS["qmm_i"] += 1
+        return plain_i(x, qt)
+    return _launch("qmm_i", "qmm_prefill", x.device, (x,), qt, m, kp, np_)
+
+
+KERNELS = {"qmm_qx": qmm_qx, "qmm_q": qmm_q, "qmm_si": qmm_si, "qmm_i": qmm_i}
+PLAIN = {"qmm_qx": plain_qx, "qmm_q": plain_q, "qmm_si": plain_si, "qmm_i": plain_i}
+SOURCE_OF = {
+    "qmm_qx": "ctransformers_tpu_torch/csrc/qmm_decode.cu",
+    "qmm_q": "ctransformers_tpu_torch/csrc/qmm_decode.cu",
+    "qmm_si": "ctransformers_tpu_torch/csrc/qmm_prefill.cu",
+    "qmm_i": "ctransformers_tpu_torch/csrc/qmm_prefill.cu",
+}
+REPLACES = {
+    "qmm_qx": "ctransformers_tpu/ops/qmatmul.py:1370",
+    "qmm_q": "ctransformers_tpu/ops/qmatmul.py:1288",
+    "qmm_si": "ctransformers_tpu/ops/qmatmul.py:1148",
+    "qmm_i": "ctransformers_tpu/ops/qmatmul.py:1090",
+}

@@ -5,20 +5,26 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. card      nvidia-smi name and power limit, versions, kernel build time
   2. bandwidth dense device-to-device copy of 2 GiB, timed with CUDA events
-  3. kernels   each of the four Q4_K kernels against its plain PyTorch
-               version at the llama-2-7B matmul shapes, with times beside
-               the card's bound and a bf16 torch.matmul yardstick
-  4. tiny      a tiny Q4_K llama served on the card and on the CPU
-  5. main      a llama-2-7B-width Q4_K GGUF (random weights from a seed)
-               through AutoModelForCausalLM.from_pretrained -> llm(...):
-               text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
-               decode, with every kernel's launch count from this phase
+  3. kernels   each of the seven qmm kernels against its plain PyTorch
+               version at the llama-2-7B matmul shapes its main path gives
+               it (Q4_K, and the Q6_K / Q5_K int8 grids of Q4_K_M / Q5_K_M
+               files), with times beside the card's bound and a bf16
+               torch.matmul yardstick
+  4. tiny      tiny all-Q4_K, Q4_K_M and Q5_K_M llamas served on the card and
+               on the CPU, every kernel call held against its plain version
+  5. main      llama-2-7B-width GGUFs (random weights from a seed) through
+               AutoModelForCausalLM.from_pretrained -> llm(...): text
+               prompts, a 137-token prompt (chunks 128 + 8 + 1) and decode,
+               on three paths, each with its kernels' launch counts asserted:
+               a Q4_K_M file at full depth, a Q5_K_M file at 4 layers and an
+               all-Q4_K file at 8 layers
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
@@ -39,20 +45,57 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_S = 989e12
 PEAK_INT8_S = 1979e12
 # llama-2-7B matmul shapes (K, N) as the engine runs them (QKV and gate/up
-# fused) and the batch sizes m the main path gives each kernel
+# fused where their types agree)
 SHAPES = {
     "qkv": (4096, 12288),
     "o": (4096, 4096),
+    "v": (4096, 4096),
     "gate_up": (4096, 22016),
     "down": (11008, 4096),
     "lm_head": (4096, 32000),
 }
+# the batch size m the main path gives each Q4_K kernel
 M_OF = {"qmm_qx": 1, "qmm_q": 8, "qmm_si": 128, "qmm_i": 128}
+# (weight type, shape, [(kernel, m), ...]) held against the plain versions:
+# Q4_K at five shapes; the Q6_K tensors of a Q4_K_M file (attn_v and ffn_down of
+# the more-bits layers, output) and the Q5_K tensors of a Q5_K_M file, each in
+# decode, 8-token and 128-token chunks
+KERNEL_CASES = [
+    ("Q4_K", s, [(name, m) for name, m in M_OF.items()])
+    for s in ("qkv", "o", "gate_up", "down", "lm_head")
+] + [
+    ("Q6_K", "v", [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_b", 128)]),
+    ("Q6_K", "down", [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_b", 128)]),
+    ("Q6_K", "lm_head", [("qmm_q8", 1), ("qmm_q8", 8)]),
+] + [
+    ("Q5_K", s, [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_sb", 128)])
+    for s in ("qkv", "o", "gate_up", "down")
+]
 # int8 dots for the activation-quantized kernels, bf16 for the GEMMs
-PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S,
-           "qmm_si": PEAK_BF16_S, "qmm_i": PEAK_BF16_S}
-TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3}
-MAIN_LAYERS = 32
+PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S, "qmm_q8": PEAK_INT8_S,
+           "qmm_si": PEAK_BF16_S, "qmm_i": PEAK_BF16_S, "qmm_b": PEAK_BF16_S,
+           "qmm_sb": PEAK_BF16_S}
+# q/qx/q8: the integer group dots are exact, only f32 rescale sums differ in
+# order; i/si/b/sb: bf16 products summed in another order on tensor cores
+TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
+       "qmm_si": 1e-3, "qmm_i": 1e-3, "qmm_b": 1e-3, "qmm_sb": 1e-3}
+# main paths: (label, K_M mix or None for all-Q4_K, layers); the all-Q4_K
+# path is cut to 8 layers so that the whole run stays near two minutes
+MAIN_PATHS = [
+    ("Q4_K_M", "Q4_K_M", 32),
+    ("Q5_K_M", "Q5_K_M", 4),
+    ("Q4_K", None, 8),
+]
+PROMPT_LEN = 137  # chunks 128 + 8 + 1
+# tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
+# K_M mix (None: all-Q4_K), prompt and greedy steps
+TINY = dict(n_vocab=512, n_ctx=128, n_embd=256, n_ff=512, n_layer=2)
+TINY_MODELS = (("Q4_K", None), ("Q4_K_M", "Q4_K_M"), ("Q5_K_M", "Q5_K_M"))
+TINY_STEPS = 8
+# a seed serves when every greedy step on the CPU keeps its top-2 logits
+# this far apart (relative to the top one): card-vs-CPU logits differ by a
+# few percent (rounding amplification), which may rightly flip a near-tie
+TINY_MIN_MARGIN = 0.025
 
 
 def log(*a):
@@ -109,53 +152,67 @@ def phase_bandwidth() -> float:
     return gbs * 1e9
 
 
-def random_q4k(kp: int, npad: int, k: int, n: int, gen: torch.Generator):
-    """Q4_K planes at padded shape (kp, npad); padding rows and columns are
-    zero, as make_qtensor leaves them."""
+def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.Generator):
+    """`kind` planes at padded shape (kp, npad): Q4_K adjk nibbles, or the
+    Q6_K / Q5_K int8 grid; padding rows and columns are zero, as
+    make_qtensor leaves them."""
     from ctransformers_tpu_torch.ops.qmatmul import QTensor
 
     def rnd(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
 
-    qs = rnd(-128, 128, (kp // 2, npad))
-    sub_s = rnd(0, 64, (kp // 32, npad))
-    sub_m = rnd(0, 64, (kp // 32, npad))
-    sd = torch.rand((kp // 256, npad), generator=gen, device="cuda") * 9e-4 + 1e-4
-    sm = -torch.rand((kp // 256, npad), generator=gen, device="cuda") * 1e-3
-    for a, rows in ((qs, k // 2), (sub_s, k // 32), (sub_m, k // 32), (sd, k // 256), (sm, k // 256)):
-        a[rows:] = 0
-        a[:, n:] = 0
-    return QTensor(qs, sub_s, sub_m, "Q4_K", 32, (kp, npad), packed=True, zp=0,
-                   sd=sd, sm=sm, sfactor=8, pack_layout="adjk")
+    def rand(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    group, sf, has_mins, packed = K.LAYOUTS[kind]
+    if packed:
+        rows = kp // 2
+        qs, sub_s, sub_m = rnd(-128, 128, (rows, npad)), rnd(0, 64, (kp // 32, npad)), rnd(0, 64, (kp // 32, npad))
+        sd, sm = rand(1e-4, 1e-3, (kp // 256, npad)), -rand(0.0, 1e-3, (kp // 256, npad))
+    else:
+        rows = kp
+        q6 = kind == "Q6_K"
+        qs = rnd(-32 if q6 else 0, 32, (kp, npad))
+        sub_s = rnd(-64 if q6 else 0, 64, (kp // group, npad))
+        sd = rand(2e-5, 2e-4, (kp // 256, npad)) if q6 else rand(5e-5, 5e-4, (kp // 256, npad))
+        sub_m = rnd(0, 64, (kp // group, npad)) if has_mins else None
+        sm = -rand(0.0, 1e-3, (kp // 256, npad)) if has_mins else None
+    for a, r in ((qs, k * rows // kp), (sub_s, k // group), (sub_m, k // group),
+                 (sd, k // 256), (sm, k // 256)):
+        if a is not None:
+            a[r:] = 0
+            a[:, n:] = 0
+    return QTensor(qs, sub_s, sub_m, kind, group, (kp, npad), packed=packed, zp=0,
+                   sd=sd, sm=sm, sfactor=sf, pack_layout="adjk")
 
 
 def plane_bytes(qt) -> int:
-    return sum(a.numel() * a.element_size() for a in (qt.qs, qt.scales, qt.mins, qt.sd, qt.sm))
+    return sum(a.numel() * a.element_size() for a in (qt.qs, qt.scales, qt.mins, qt.sd, qt.sm)
+               if a is not None)
 
 
 def phase_kernels(K, copy_bw: float):
-    from ctransformers_tpu_torch.ops.qmatmul import _round_up
+    from ctransformers_tpu_torch.ops.qmatmul import dequantize_qtensor, padded_shape
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {name: [] for name in M_OF}
-    for sname, (k, n) in SHAPES.items():
-        kp = _round_up(k, 1024)
-        npad = _round_up(n, 1024)
-        base = random_q4k(kp, npad, k, n, gen)
+    results = collections.defaultdict(list)
+    for kind, sname, runs in KERNEL_CASES:
+        k, n = SHAPES[sname]
+        kp, npad = padded_shape(k, n)
+        base = random_planes(K, kind, kp, npad, k, n, gen)
         wbytes = plane_bytes(base)
         # distinct weight copies cycled between launches: > 3x the 50 MB L2,
         # so every launch streams its weight from device memory as decode does
         copies = [base] + [
-            random_q4k(kp, npad, k, n, gen) for _ in range(max(0, math.ceil(150e6 / wbytes) - 1))
+            random_planes(K, kind, kp, npad, k, n, gen)
+            for _ in range(max(0, math.ceil(150e6 / wbytes) - 1))
         ]
-        s, b = K.group_planes(base)
-        w_bf16 = (K.unpack_w4(base.qs).float() * s.repeat_interleave(32, 0)
-                  + b.repeat_interleave(32, 0)).to(torch.bfloat16)
+        w_bf16 = dequantize_qtensor(base).to(torch.bfloat16)
         lib_copies = [w_bf16] + [w_bf16.clone() for _ in range(max(0, math.ceil(150e6 / (w_bf16.numel() * 2)) - 1))]
-        for name, m in M_OF.items():
+        for name, m in runs:
             x = torch.zeros((m, kp), device="cuda")
             x[:, :k] = torch.randn((m, k), generator=gen, device="cuda")
-            args = K.quantize_activations(x) if name == "qmm_q" else (x,)
+            args = K.quantize_activations(x, base.group) if name in ("qmm_q", "qmm_q8") else (x,)
             kern, plain = K.KERNELS[name], K.PLAIN[name]
             got = kern(*args, base)
             torch.cuda.synchronize()
@@ -174,40 +231,69 @@ def phase_kernels(K, copy_bw: float):
             ops = 2 * m * kp * npad
             bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_OF[name]) * 1e3
             bound_copy_ms = nbytes / copy_bw * 1e3
-            r = dict(shape=sname, k=k, n=n, m=m, rel_err=err, max_abs_err=max_abs,
+            r = dict(kind=kind, shape=sname, k=k, n=n, m=m, rel_err=err, max_abs_err=max_abs,
                      ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                      bound_copy_ms=bound_copy_ms, bytes=nbytes, ops=ops)
             results[name].append(r)
-            log(f"[kernels] {name:7s} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
+            log(f"[kernels] {name:7s} {kind} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
                 f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
                 f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f} "
-                f"launches={K.LAUNCHES[name]} {'ok' if ok else 'FAIL'}")
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"{name} at {sname} m={m}: rel err {err:.3e} > {TOL[name]}")
-        del copies, base, lib_copies, w_bf16, s, b
+                raise SystemExit(f"{name} on {kind} at {sname} m={m}: rel err {err:.3e} > {TOL[name]}")
+        del copies, base, lib_copies, w_bf16
         torch.cuda.empty_cache()
     return results
 
 
-def phase_tiny(K, tmpdir: str):
-    """A tiny Q4_K llama on the card and on the CPU (prompt chunks 64 + 8,
-    then greedy decode). Every kernel call of the card run is held against
-    its plain version on the same operands (the kernels' tolerances), the
-    greedy tokens must be equal, and the logits must agree within the
-    wiring class (5%): they cannot agree much closer, because bf16 and int8
-    rounding of the activations turn the ~1e-7 differences of the two
-    devices' other ops into whole rounding steps here and there."""
+def tiny_prompt() -> list:
+    return [1] + [int(t) for t in np.random.default_rng(3).integers(3, TINY["n_vocab"], 71)]
+
+
+def greedy_margins(llm) -> tuple:
+    """Greedy tokens of TINY_STEPS steps after the tiny prompt (chunks
+    64 + 8), each step's logits, and each step's top-2 margin relative to
+    the top logit."""
+    llm.eval(tiny_prompt())
+    toks, logits, margins = [], [], []
+    for _ in range(TINY_STEPS):
+        a = np.asarray(llm.logits, dtype=np.float64)
+        top2 = np.sort(a)[-2:]
+        logits.append(a)
+        margins.append(float((top2[1] - top2[0]) / abs(top2[1])))
+        toks.append(int(np.argmax(a)))
+        llm.eval([toks[-1]])
+    return toks, logits, margins
+
+
+def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 16) -> int:
+    """The first seed from 1 whose tiny model keeps every greedy step's
+    top-2 margin on the CPU above TINY_MIN_MARGIN; writes it to `path`."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
     from ctransformers_tpu_torch.models.synthetic import write_llama_gguf
 
-    path = os.path.join(tmpdir, "tiny_q4k.gguf")
-    write_llama_gguf(path, n_vocab=512, n_ctx=128, n_embd=256, n_ff=512, n_layer=2, seed=1)
-    gpu = AutoModelForCausalLM.from_pretrained(path)
-    cpu = AutoModelForCausalLM.from_pretrained(path, device="cpu")
-    os.remove(path)
-    if gpu.device.type != "cuda" or cpu.device.type != "cpu":
-        raise SystemExit(f"tiny: models on {gpu.device} and {cpu.device}")
+    for seed in range(1, max_seed + 1):
+        write_llama_gguf(path, seed=seed, mix=mix, **TINY)
+        _, _, margins = greedy_margins(AutoModelForCausalLM.from_pretrained(path, device="cpu"))
+        log(f"[tiny] {label} seed {seed}: CPU top-2 margins "
+            f"{[round(x, 4) for x in margins]}")
+        if min(margins) > TINY_MIN_MARGIN:
+            return seed
+    raise SystemExit(f"tiny {label}: no seed up to {max_seed} without a greedy near-tie")
+
+
+def phase_tiny(K, tmpdir: str):
+    """Tiny llamas (TINY_MODELS) on the card and on the CPU (prompt chunks
+    64 + 8, then greedy decode). Every kernel call of the card runs is held
+    against its plain version on the same operands (the kernels'
+    tolerances), each of the seven kernels must run, the greedy tokens must
+    be equal, and the logits must agree within the wiring class (5%): they
+    cannot agree much closer, because bf16 and int8 rounding of the
+    activations turn the ~1e-7 differences of the two devices' other ops
+    into whole rounding steps here and there. Each model's seed is the
+    first without a greedy near-tie on the CPU (pick_tiny_seed)."""
+    from ctransformers_tpu_torch import AutoModelForCausalLM
 
     worst_call = dict.fromkeys(K.KERNELS, 0.0)
     calls = dict.fromkeys(K.KERNELS, 0)
@@ -223,49 +309,69 @@ def phase_tiny(K, tmpdir: str):
             return out
         return run
 
-    for name in originals:
-        setattr(K, name, checked(name))
-    try:
-        ids = [1] + [int(t) for t in np.random.default_rng(3).integers(3, 512, 71)]
-        gpu.eval(ids)
-        cpu.eval(ids)
-        worst = 0.0
-        greedy = [[], []]
-        for _ in range(8):
-            a, b = np.asarray(gpu.logits), np.asarray(cpu.logits)
-            if not np.isfinite(a).all():
-                raise SystemExit("tiny: non-finite logits on the card")
-            worst = max(worst, float(np.linalg.norm(a - b) / np.linalg.norm(b)))
-            greedy[0].append(int(np.argmax(a)))
-            greedy[1].append(int(np.argmax(b)))
-            gpu.eval([greedy[0][-1]])
-            cpu.eval([greedy[1][-1]])
-    finally:
-        for name, fn in originals.items():
-            setattr(K, name, fn)
+    for label, mix in TINY_MODELS:
+        path = os.path.join(tmpdir, f"tiny_{label}.gguf")
+        seed = pick_tiny_seed(path, label, mix)
+        gpu = AutoModelForCausalLM.from_pretrained(path)
+        cpu = AutoModelForCausalLM.from_pretrained(path, device="cpu")
+        os.remove(path)
+        if gpu.device.type != "cuda" or cpu.device.type != "cpu":
+            raise SystemExit(f"tiny: models on {gpu.device} and {cpu.device}")
+        for name in originals:
+            setattr(K, name, checked(name))
+        try:
+            got = greedy_margins(gpu)
+        finally:
+            for name, fn in originals.items():
+                setattr(K, name, fn)
+        want = greedy_margins(cpu)
+        if not all(np.isfinite(a).all() for a in got[1]):
+            raise SystemExit(f"tiny {label}: non-finite logits on the card")
+        worst = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                    for a, b in zip(got[1], want[1]))
+        log(f"[tiny] {label} seed {seed}: card vs CPU logits rel err (worst of "
+            f"{TINY_STEPS} steps) {worst:.3e}; greedy card {got[0]} cpu {want[0]}")
+        if worst > 0.05 or got[0] != want[0]:
+            raise SystemExit(f"tiny {label}: card and CPU disagree")
     log(f"[tiny] every kernel call vs its plain version on the same operands: "
         f"calls {calls}, worst rel err {worst_call}")
-    log(f"[tiny] card vs CPU logits rel err (worst of 8 steps) {worst:.3e}; "
-        f"greedy card {greedy[0]} cpu {greedy[1]}")
     if any(worst_call[k] > TOL[k] or not calls[k] for k in worst_call):
         raise SystemExit("tiny: a kernel disagrees with its plain version (or never ran)")
-    if worst > 0.05 or greedy[0] != greedy[1]:
-        raise SystemExit("tiny: card and CPU disagree")
 
 
-def phase_main(K, tmpdir: str, copy_bw: float, n_layer: int):
+def expected_launches(eng, chunks) -> dict:
+    """Kernel launches of one forward per chunk size in `chunks`: every
+    matmul weight of the loaded engine (QKV and gate/up as the engine fused
+    them) once per chunk, lm_head once at m = 1 (the last token), each
+    through ops/qmatmul.py:select_mode."""
+    from ctransformers_tpu_torch.ops import qmm_kernels as K
+    from ctransformers_tpu_torch.ops.qmatmul import QTensor, select_mode
+
+    weights = [w for layer in eng.params["layers"] for w in layer.values()
+               if isinstance(w, QTensor)]
+    counts = collections.Counter()
+    for m in chunks:
+        counts.update("qmm_" + select_mode(m, w) for w in weights)
+        counts["qmm_" + select_mode(1, eng.params["lm_head"])] += 1
+    return {k: counts.get(k, 0) for k in K.LAUNCHES}
+
+
+def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int):
     from ctransformers_tpu_torch import AutoModelForCausalLM
+    from ctransformers_tpu_torch.engine.engine import Engine
     from ctransformers_tpu_torch.formats.quants import GGMLType
     from ctransformers_tpu_torch.models.synthetic import LLAMA2_7B, write_llama_gguf
     from ctransformers_tpu_torch.ops.qmatmul import QTensor
 
     cfg = dict(LLAMA2_7B, n_layer=n_layer, n_ctx=2048)
-    path = os.path.join(tmpdir, f"llama7b_{n_layer}l_q4k.gguf")
+    path = os.path.join(tmpdir, f"llama7b_{n_layer}l_{label}.gguf")
     t0 = time.perf_counter()
     write_llama_gguf(path, wtype=GGMLType.Q4_K, embed_type=GGMLType.F16,
-                     synthesize_blocks=True, seed=7, **cfg)
-    log(f"[main] wrote {os.path.getsize(path) / 2**30:.3f} GiB GGUF ({n_layer} layers, "
-        f"llama-2-7B width, Q4_K matmuls, F16 embedding) in {time.perf_counter() - t0:.1f} s")
+                     synthesize_blocks=True, seed=7, mix=mix, **cfg)
+    log(f"[main {label}] wrote {os.path.getsize(path) / 2**30:.3f} GiB GGUF ({n_layer} layers, "
+        f"llama-2-7B width, {'llama.cpp ' + mix + ' types, ' + mix[:4] + ' token_embd' if mix else 'Q4_K matmuls, F16 embedding'}) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    chunks = Engine._chunks(PROMPT_LEN, cfg["n_ctx"])
     try:
         torch.cuda.reset_peak_memory_stats()
         K.reset_counts()
@@ -274,17 +380,21 @@ def phase_main(K, tmpdir: str, copy_bw: float, n_layer: int):
         load_s = time.perf_counter() - t0
         os.remove(path)
         eng = llm._engine
+        want_prompt = expected_launches(eng, chunks)
+        want_decode = expected_launches(eng, [1])
         qts = [v for v in [eng.params["lm_head"]] + [x for l in eng.params["layers"] for x in l.values()]
                if isinstance(v, QTensor)]
         wbytes = sum(plane_bytes(q) for q in qts)
-        log(f"[main] load {load_s:.2f} s ({eng.init_timings}); {len(qts)} QTensors, "
-            f"{wbytes / 1e9:.3f} GB of weight planes")
+        kinds = collections.Counter(q.kind for q in qts)
+        log(f"[main {label}] load {load_s:.2f} s ({eng.init_timings}); {len(qts)} QTensors "
+            f"{dict(kinds)}, {wbytes / 1e9:.3f} GB of weight planes; token_embd "
+            f"{tuple(eng.params['wte'].shape)} {eng.params['wte'].dtype}")
 
         for prompt in ("hello world", "the big cat is", "tell me a story once"):
             text = llm(prompt, max_new_tokens=16, seed=42)
-            log(f"[main] llm({prompt!r}) -> {text!r}")
+            log(f"[main {label}] llm({prompt!r}) -> {text!r}")
 
-        ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, cfg["n_vocab"], 136)]
+        ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, cfg["n_vocab"], PROMPT_LEN - 1)]
         before = dict(K.LAUNCHES)
         with warnings.catch_warnings():  # LLM.reset() is marked deprecated
             warnings.simplefilter("ignore")
@@ -297,7 +407,7 @@ def phase_main(K, tmpdir: str, copy_bw: float, n_layer: int):
         ttft_s = time.perf_counter() - t0
         prefill_launch = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         if not np.isfinite(llm.logits).all():
-            raise SystemExit("main: non-finite logits after the prompt")
+            raise SystemExit(f"main {label}: non-finite logits after the prompt")
         before = dict(K.LAUNCHES)
         n_dec = 32
         sample_s = 0.0
@@ -309,7 +419,7 @@ def phase_main(K, tmpdir: str, copy_bw: float, n_layer: int):
             sample_s += time.perf_counter() - t1
         dec_s = (time.perf_counter() - t0) / n_dec
         dec_launch = {k: (K.LAUNCHES[k] - before[k]) / n_dec for k in K.LAUNCHES}
-        tok = profile_decode(llm, tok, dec_s)
+        tok = profile_decode(llm, tok, dec_s, label)
         runs = []
         for _ in range(2):  # each from an empty context: chunks 128 + 8 + 1
             with warnings.catch_warnings():
@@ -319,30 +429,28 @@ def phase_main(K, tmpdir: str, copy_bw: float, n_layer: int):
             runs.append(list(itertools.islice(gen, 16)))
             gen.close()
         if runs[0] != runs[1]:
-            raise SystemExit(f"main: same seed, different tokens {runs}")
+            raise SystemExit(f"main {label}: same seed, different tokens {runs}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = dict(K.LAUNCHES)
-        log(f"[main] 137-token prompt (chunks 128 + 8 + 1): launches {prefill_launch} "
-            f"(expected qmm_si {2 * n_layer}, qmm_i {2 * n_layer}, qmm_q {4 * n_layer}, "
-            f"qmm_qx {4 * n_layer + 3})")
-        log(f"[main] decode launches per token {dec_launch} (expected qmm_qx {4 * n_layer + 1})")
-        log(f"[main] seeded generate twice -> identical {runs[0]}")
-        log(f"[main] decode step: {dec_s * 1e3:.3f} ms, of which host sampling "
+        log(f"[main {label}] {PROMPT_LEN}-token prompt (chunks {chunks}): launches {prefill_launch} "
+            f"(expected {want_prompt})")
+        log(f"[main {label}] decode launches per token {dec_launch} (expected {want_decode})")
+        log(f"[main {label}] seeded generate twice -> identical {runs[0]}")
+        log(f"[main {label}] decode step: {dec_s * 1e3:.3f} ms, of which host sampling "
             f"{sample_s / n_dec * 1e3:.3f} ms")
-        log(f"[main] load_s={load_s:.3f} ttft_ms={ttft_s * 1e3:.2f} "
+        log(f"[main {label}] load_s={load_s:.3f} ttft_ms={ttft_s * 1e3:.2f} "
             f"prefill_tok_s={len(ids) / prefill_s:.1f} decode_ms_per_token={dec_s * 1e3:.3f} "
             f"decode_bound_ms={wbytes / copy_bw * 1e3:.3f} (copy) "
             f"{wbytes / PEAK_BYTES_S * 1e3:.3f} (3.35 TB/s) peak_mem_gb={peak_gb:.2f}")
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise SystemExit(f"main: kernels never launched on the main path: {missing}")
+        if prefill_launch != want_prompt or dec_launch != want_decode:
+            raise SystemExit(f"main {label}: launch counts differ from the engine's weights'")
         return launches
     finally:
         if os.path.exists(path):
             os.remove(path)
 
 
-def profile_decode(llm, tok: int, dec_s: float, steps: int = 4) -> int:
+def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> int:
     """torch.profiler over a few decode steps: device time by kernel and
     the device's busy share of the unprofiled step time."""
     from torch.profiler import ProfilerActivity, profile
@@ -361,11 +469,11 @@ def profile_decode(llm, tok: int, dec_s: float, steps: int = 4) -> int:
             rows.append((e.self_device_time_total / steps, e.count // steps, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"[profile] decode: device busy {busy_ms:.3f} ms per token = "
+    log(f"[profile {label}] decode: device busy {busy_ms:.3f} ms per token = "
         f"{100 * busy_ms / (dec_s * 1e3):.1f}% of the {dec_s * 1e3:.3f} ms step "
         f"(idle {100 - 100 * busy_ms / (dec_s * 1e3):.1f}%)")
     for us, count, key in rows[:8]:
-        log(f"[profile]   {us / 1e3:8.4f} ms/token  {count:4d} launches  {key[:90]}")
+        log(f"[profile {label}]   {us / 1e3:8.4f} ms/token  {count:4d} launches  {key[:90]}")
     return tok
 
 
@@ -375,17 +483,25 @@ def main() -> int:
         return 2
     from ctransformers_tpu_torch.ops import qmm_kernels as K
 
+    t_start = time.perf_counter()
     smi = phase_card(K)
     copy_bw = phase_bandwidth()
     results = phase_kernels(K, copy_bw)
     tmpdir = os.path.join(HERE, "build", "smoke")
     os.makedirs(tmpdir, exist_ok=True)
     phase_tiny(K, tmpdir)
-    launches = phase_main(K, tmpdir, copy_bw, MAIN_LAYERS)
+    launches = collections.Counter()
+    for label, mix, n_layer in MAIN_PATHS:
+        launches.update(phase_main(K, tmpdir, copy_bw, label, mix, n_layer))
+    missing = [k for k in K.LAUNCHES if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"main: kernels never launched on the main paths: {missing}")
 
-    # one entry per kernel: sums over the five shapes at the kernel's m
+    # one entry per kernel: times and bounds summed over its shapes and batch
+    # sizes in phase 3, launches summed over the three main paths of phase 5
     kernels = []
-    for name, rows in results.items():
+    for name in K.KERNELS:
+        rows = results[name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -400,6 +516,7 @@ def main() -> int:
             > sum(r["bytes"] / PEAK_BYTES_S for r in rows) else "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
         })
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,173 @@
+// Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the Q4_K
+// kernels (qmm_prefill.cu: "si", "i") and the int8-grid kernels
+// (qmm_grid.cu: "sb", "b"). Only the weight tile's decoding differs between
+// formats; it comes in as a tile type W:
+//
+//   W::kGroup    K rows per quant group (32, or 16 for Q6_K)
+//   W::kHasBias  whether the format adds a per-group bias B (its mins)
+//   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s)
+//                dequantizes rows k0 .. k0+kGemmBK-1 of columns
+//                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
+//                kGemmLDB): W = q * s + B rounded once to bf16, or, when
+//                FOLD, q * s alone, with B of each of the step's groups
+//                written to b_s[group in step][column].
+//
+// The kernel computes
+//   SUMFOLD and W has a bias:  out = bf16(x) @ bf16(q * s) + xsum @ B
+//   otherwise:                 out = bf16(x) @ bf16(q * s + B)
+// with xsum the f32 sums of x over each quant group.
+//
+// Design (simple first): a block owns a 64 x 64 output tile and walks all
+// of K 32 rows at a time, so every output element is summed by one block in
+// a fixed order (no atomics, no split-K) and runs are bitwise repeatable.
+// Per step its 128 threads round the 64 x 32 activation tile to bf16 and
+// dequantize the 32 x 64 weight tile into shared memory, then four warps
+// multiply 32 x 32 sub-tiles on the tensor cores with WMMA bf16 16x16x16
+// fragments and f32 accumulators. For the fold each thread also keeps the
+// bias sums of 32 of the tile's outputs, from the group sums of the f32
+// activations it loaded. Later work: a TMA + wgmma pipeline with several
+// stages in flight.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <mma.h>
+
+#include "qmm_common.cuh"
+
+namespace ctq {
+
+constexpr int kGemmBM = 64;
+constexpr int kGemmBN = 64;
+constexpr int kGemmBK = 32;  // K rows per step
+constexpr int kGemmThreads = 128;
+constexpr int kGemmLDA = kGemmBK + 8;  // bf16 elements, multiple of 8 for WMMA
+constexpr int kGemmLDB = kGemmBN + 8;
+constexpr int kGemmLDC = kGemmBN + 4;  // f32 elements, multiple of 4 for WMMA
+constexpr int kGemmRowsPerThread = kGemmBM * kGemmBN / kGemmThreads;  // 32 outputs
+
+template <class W, bool SUMFOLD>
+__global__ void __launch_bounds__(kGemmThreads)
+qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
+                const int8_t* __restrict__ qs,     // weight grid, W's layout
+                const int8_t* __restrict__ sub_s,  // (kp/G, np)
+                const int8_t* __restrict__ sub_m,  // (kp/G, np)   [bias]
+                const float* __restrict__ sd,      // (kp/256, np)
+                const float* __restrict__ sm,      // (kp/256, np) [bias]
+                float* __restrict__ out,           // (m, np)
+                int m, int kp, int np) {
+  using namespace nvcuda;
+  constexpr int G = W::kGroup;
+  constexpr int kNGS = kGemmBK / G;  // quant groups per K step (1 or 2)
+  constexpr bool kFold = SUMFOLD && W::kHasBias;
+  static_assert(kNGS * G == kGemmBK, "a K step holds whole quant groups");
+  __shared__ __align__(128) __nv_bfloat16 As[kGemmBM * kGemmLDA];
+  __shared__ __align__(128) __nv_bfloat16 Bs[kGemmBK * kGemmLDB];
+  __shared__ __align__(128) float Cs[kGemmBM * kGemmLDC];
+  __shared__ float xs_s[kGemmBM][kNGS];
+  __shared__ float b_s[kNGS][kGemmBN];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int row0 = blockIdx.y * kGemmBM;
+  const int col0 = blockIdx.x * kGemmBN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
+
+  // bias sums: this thread owns column bn of the tile, rows br0 .. br0+31
+  const int bn = tid % kGemmBN;
+  const int br0 = (tid / kGemmBN) * kGemmRowsPerThread;
+  float bacc[kGemmRowsPerThread];
+#pragma unroll
+  for (int i = 0; i < kGemmRowsPerThread; ++i) bacc[i] = 0.0f;
+
+  // activation tile: rows ar + 16*i, columns ac .. ac+3
+  const int ar = tid / 8, ac = (tid % 8) * 4;
+
+  for (int k0 = 0; k0 < kp; k0 += kGemmBK) {
+#pragma unroll
+    for (int i = 0; i < kGemmBM / 16; ++i) {
+      const int r = ar + 16 * i;
+      const int grow = row0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (grow < m)
+        v = __ldg(reinterpret_cast<const float4*>(x + (size_t)grow * kp + k0 + ac));
+      if (kFold) {
+        // G/4 neighbouring lanes hold one group of this row
+        float s = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
+#pragma unroll
+        for (int off = 1; off < G / 4; off <<= 1)
+          s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+        if (tid % (G / 4) == 0) xs_s[r][ac / G] = s;
+      }
+      __nv_bfloat16* a = As + r * kGemmLDA + ac;
+      a[0] = __float2bfloat16(v.x);
+      a[1] = __float2bfloat16(v.y);
+      a[2] = __float2bfloat16(v.z);
+      a[3] = __float2bfloat16(v.w);
+    }
+    W::template load<kFold>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s);
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * 32 + 16 * i) * kGemmLDA + kk, kGemmLDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * kGemmLDB + wn * 32 + 16 * j, kGemmLDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
+    }
+    if (kFold) {
+#pragma unroll
+      for (int gi = 0; gi < kNGS; ++gi) {
+        const float bv = b_s[gi][bn];
+#pragma unroll
+        for (int i = 0; i < kGemmRowsPerThread; ++i)
+          bacc[i] = __fadd_rn(bacc[i], __fmul_rn(xs_s[br0 + i][gi], bv));
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + 16 * i) * kGemmLDC + wn * 32 + 16 * j,
+                              c[i][j], kGemmLDC, wmma::mem_row_major);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kGemmRowsPerThread; ++i) {
+    const int r = br0 + i;
+    const int grow = row0 + r;
+    if (grow < m) {
+      float v = Cs[r * kGemmLDC + bn];
+      if (kFold) v = __fadd_rn(v, bacc[i]);
+      out[(size_t)grow * np + col0 + bn] = v;
+    }
+  }
+}
+
+// Launch over an (m, np) output: one block per 64 x 64 tile.
+template <class W, bool SUMFOLD>
+int launch_gemm(const float* x, const int8_t* qs, const int8_t* sub_s,
+                const int8_t* sub_m, const float* sd, const float* sm,
+                float* out, int m, int kp, int np, cudaStream_t stream) {
+  dim3 grid(np / kGemmBN, (m + kGemmBM - 1) / kGemmBM);
+  qmm_gemm_kernel<W, SUMFOLD><<<grid, kGemmThreads, 0, stream>>>(
+      x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ctq

@@ -1,0 +1,319 @@
+// Quantized matmuls on int8 grids: the Q6_K and Q5_K tensors of llama
+// Q4_K_M / Q5_K_M files, for decode and for prompt chunks.
+//
+// Replaces, in ctransformers_tpu/ops/qmatmul.py:
+//   _qmm_q_kernel with packed4=False (mode "q" on an int8 grid) -> ct_qmm_q8
+//   _qmm_kernel,   mode "b"  (bf16 dots)                         -> ct_qmm_b
+//   _qmm_s_kernel, mode "sb" (sum-fold mins, bf16 dots)          -> ct_qmm_sb
+//
+// Weight layout (ctransformers_tpu_torch/ops/qmatmul.py, an unpacked
+// QTensor) for a logical (K, N) weight padded to (Kp, Np):
+//   qs     int8 (Kp, Np)      the grid q (Q6_K: [-32, 31]; Q5_K: [0, 31])
+//   sub_s  int8 (Kp/G, Np)    sub-scales, one per group of G rows
+//                             (G = 16 for Q6_K, 32 for Q5_K)
+//   sub_m  int8 (Kp/G, Np)    sub-mins (Q5_K; null for Q6_K)
+//   sd     f32  (Kp/256, Np)  superblock scale
+//   sm     f32  (Kp/256, Np)  superblock min (Q5_K; null for Q6_K)
+// so that W[k, n] = q * s + m with s = sd * sub_s and m = sm * sub_m, each
+// an f32 product rounded once, as the reference's _apply_factors.
+//
+// The kernels are templated on G and on HAS_MINS (the two layouts), and the
+// GEMM on SUMFOLD ("b" adds m per element before the bf16 cast; "sb" folds
+// it through the group sums of x). Every block owns one output tile and
+// all of K and sums in a fixed order (no atomics, no split-K), so runs are
+// bitwise repeatable.
+//
+// ct_qmm_q8, decode and short chunks (m <= 32):
+//   out = xsum @ M + sum_g (int32 dot_g(xq, q[:, n]) * sx[t, g]) * s[g, n]
+//   with xq, sx, xsum per group of G from ops/qmm_kernels.py
+//   quantize_activations. Bound: bytes. One weight byte feeds at most 32
+//   multiply-adds at m = 8, far below the ~295 operations per byte at which
+//   the card turns compute-bound, so the kernel is as fast as it streams
+//   the grid (1 B/weight) and its scale planes (~0.08 B/weight). Design: as
+//   ct_qmm_q in qmm_decode.cu. A block owns 32 output columns; its 256
+//   threads lie 8 across the columns (4 columns each, one 32-bit load per
+//   row, so a warp reads 32 contiguous bytes from each of 4 rows) and 32
+//   down K (one quant group each per chunk of 32 groups). Each thread loads
+//   its group's G rows at once, takes exact int32 dots against the int8
+//   activations staged in shared memory, rescales in f32, and the 32
+//   K-lanes are reduced in shared memory in a fixed order at the end.
+//
+// ct_qmm_b / ct_qmm_sb, prompt chunks (m > 32):
+//   b:  out = bf16(x) @ bf16(q * s + m)            f32 accumulation
+//   sb: out = xsum @ M + bf16(x) @ bf16(q * s)
+//   Bound: at m = 128 a weight byte (1.08 B/weight) feeds ~237 operations,
+//   just under the bf16 ridge, so bytes and tensor-core operations bound it
+//   about equally; chip_smoke.py reports the larger. The GEMM (64 x 64
+//   tiles, WMMA bf16, fixed-order sums, the bias fold) is qmm_gemm.cuh's,
+//   shared with the Q4_K kernels; this file decodes the int8-grid weight
+//   tile: each of the 128 threads takes 4 rows x 4 columns of a 32-row K
+//   step (one 32-bit load per row, its group's scales once), and for "sb"
+//   the step's rows of the min plane M.
+#include "qmm_gemm.cuh"
+
+namespace {
+
+// ---- ct_qmm_q8 ----------------------------------------------------------
+
+constexpr int kTN = 32;               // output columns per block
+constexpr int kThreads = 256;
+constexpr int kCQ = kTN / 4;          // column quads per block
+constexpr int kGL = kThreads / kCQ;   // K lanes (one group each per chunk)
+
+template <int MT, int G>
+struct Q8Smem {
+  int8_t xq[MT][kGL * G];
+  float sx[MT][kGL];
+  float xs[MT][kGL];
+  float red[kGL][MT][kTN];
+};
+
+template <int MT, int G, bool HAS_MINS>
+__global__ void __launch_bounds__(kThreads)
+qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
+              const float* __restrict__ sx_g,    // (m, kp/G) f32
+              const float* __restrict__ xs_g,    // (m, kp/G) f32   [HAS_MINS]
+              const int8_t* __restrict__ qs,     // (kp, np)
+              const int8_t* __restrict__ sub_s,  // (kp/G, np)
+              const int8_t* __restrict__ sub_m,  // (kp/G, np)      [HAS_MINS]
+              const float* __restrict__ sd,      // (kp/256, np)
+              const float* __restrict__ sm,      // (kp/256, np)    [HAS_MINS]
+              float* __restrict__ out,           // (m, np)
+              int m, int kp, int np) {
+  constexpr int kKC = kGL * G;  // K rows staged per chunk
+  constexpr int kSF = 256 / G;  // groups per superblock
+  __shared__ Q8Smem<MT, G> sh;
+  const int tid = threadIdx.x;
+  const int cq = tid % kCQ;
+  const int gl = tid / kCQ;
+  const int n = blockIdx.x * kTN + 4 * cq;  // first of this thread's columns
+  const int t0 = blockIdx.y * MT;
+  const int ng = kp / G;
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  for (int k0 = 0; k0 < kp; k0 += kKC) {
+    // ---- stage this chunk's int8 activations and group statistics ----
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int t = t0 + i;
+      for (int kk = 4 * tid; kk < kKC; kk += 4 * kThreads) {
+        const int k = k0 + kk;
+        int v = 0;
+        if (t < m && k < kp)
+          v = __ldg(reinterpret_cast<const int*>(xq_g + (size_t)t * kp + k));
+        *reinterpret_cast<int*>(&sh.xq[i][kk]) = v;
+      }
+    }
+    for (int e = tid; e < MT * kGL; e += kThreads) {
+      const int i = e / kGL, gi = e % kGL;
+      const int t = t0 + i, g = k0 / G + gi;
+      const bool ok = t < m && g < ng;
+      sh.sx[i][gi] = ok ? __ldg(sx_g + (size_t)t * ng + g) : 0.0f;
+      if (HAS_MINS) sh.xs[i][gi] = ok ? __ldg(xs_g + (size_t)t * ng + g) : 0.0f;
+    }
+    __syncthreads();
+
+    // ---- one quant group per K lane: int32 dots, then f32 rescale ----
+    const int g = k0 / G + gl;
+    if (g < ng) {
+      const int8_t* qrow = qs + (size_t)g * G * np + n;
+      uint32_t w[G];
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+        w[r] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)r * np));
+      int idot[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) idot[i][c] = 0;
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int xv = sh.xq[i][gl * G + r];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) idot[i][c] += ctq::sbyte(w[r], c) * xv;
+        }
+      }
+      const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
+      const size_t fo = (size_t)(g / kSF) * np + n;
+      const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      float s[4], b[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+      if (HAS_MINS) {
+        const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
+        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) b[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float sxv = sh.sx[i][gl];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float part = __fmul_rn(__fmul_rn(static_cast<float>(idot[i][c]), sxv), s[c]);
+          if (HAS_MINS) part = __fadd_rn(part, __fmul_rn(sh.xs[i][gl], b[c]));
+          acc[i][c] = __fadd_rn(acc[i][c], part);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- fixed-order reduction of the K lanes ----
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sh.red[gl][i][4 * cq + c] = acc[i][c];
+  __syncthreads();
+  for (int e = tid; e < MT * kTN; e += kThreads) {
+    const int i = e / kTN, col = e % kTN;
+    const int t = t0 + i;
+    float v = 0.0f;
+    for (int l = 0; l < kGL; ++l) v = __fadd_rn(v, sh.red[l][i][col]);
+    if (t < m) out[(size_t)t * np + blockIdx.x * kTN + col] = v;
+  }
+}
+
+template <int G, bool HAS_MINS>
+int launch_q8(const int8_t* xq, const float* sx, const float* xs,
+              const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+              const float* sd, const float* sm, float* out, int m, int kp,
+              int np, cudaStream_t stream) {
+  if (m == 1) {
+    dim3 grid(np / kTN, 1);
+    qmm_q8_kernel<1, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+        xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+  } else {
+    constexpr int MT = 8;
+    dim3 grid(np / kTN, (m + MT - 1) / MT);
+    qmm_q8_kernel<MT, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+        xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- ct_qmm_b / ct_qmm_sb: the int8-grid tile of qmm_gemm.cuh ----------
+
+template <int G, bool HAS_MINS>
+struct GridTile {
+  static constexpr int kGroup = G;
+  static constexpr bool kHasBias = HAS_MINS;
+  // weight rows per thread: 128 threads x 4 rows x 4 columns tile the step
+  static constexpr int kWRows = ctq::kGemmBK * ctq::kGemmBN / 4 / ctq::kGemmThreads;
+  static_assert(kWRows * ctq::kGemmThreads * 4 == ctq::kGemmBK * ctq::kGemmBN,
+                "threads must tile the weight step");
+  static_assert(G % kWRows == 0, "a thread's rows lie in one quant group");
+
+  template <bool FOLD>
+  __device__ __forceinline__ static void load(
+      const int8_t* __restrict__ qs,     // (kp, np)
+      const int8_t* __restrict__ sub_s,  // (kp/G, np)
+      const int8_t* __restrict__ sub_m,  // (kp/G, np)   [HAS_MINS]
+      const float* __restrict__ sd,      // (kp/256, np)
+      const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]
+      int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
+      float (*b_s)[ctq::kGemmBN]) {
+    constexpr int kSF = 256 / G;
+    constexpr int kNGS = ctq::kGemmBK / G;
+    // rows wr .. wr+kWRows-1 of the step, columns wc .. wc+3
+    const int wr = (tid / 16) * kWRows, wc = (tid % 16) * 4;
+    const int n = col0 + wc;
+    const int g = (k0 + wr) / G;
+    const size_t fo = (size_t)(g / kSF) * np + n;
+    const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
+    const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+    float s[4], mv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
+    if (HAS_MINS && !FOLD) {
+      const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
+      const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+      const float mm[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mv[j] = __fmul_rn(mm[j], static_cast<float>(ctq::sbyte(mw, j)));
+    }
+    if (FOLD) {
+      // the step's rows of the min plane M = sm * sub_m, one per group
+      for (int e = tid; e < kNGS * ctq::kGemmBN; e += ctq::kGemmThreads) {
+        const int gi = e / ctq::kGemmBN, col = e % ctq::kGemmBN;
+        const int gg = k0 / G + gi;
+        b_s[gi][col] = __fmul_rn(__ldg(sm + (size_t)(gg / kSF) * np + col0 + col),
+                                 static_cast<float>(__ldg(sub_m + (size_t)gg * np + col0 + col)));
+      }
+    }
+    uint32_t w[kWRows];
+#pragma unroll
+    for (int r = 0; r < kWRows; ++r)
+      w[r] = __ldg(reinterpret_cast<const unsigned int*>(qs + (size_t)(k0 + wr + r) * np + n));
+#pragma unroll
+    for (int r = 0; r < kWRows; ++r) {
+      __nv_bfloat16* b = Bs + (wr + r) * ctq::kGemmLDB + wc;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = __fmul_rn(static_cast<float>(ctq::sbyte(w[r], j)), s[j]);
+        if (HAS_MINS && !FOLD) v = __fadd_rn(v, mv[j]);
+        b[j] = __float2bfloat16(v);
+      }
+    }
+  }
+};
+
+template <bool SUMFOLD>
+int launch_grid_gemm(const float* x, const int8_t* qs, const int8_t* sub_s,
+                const int8_t* sub_m, const float* sd, const float* sm,
+                float* out, int m, int kp, int np, int group,
+                cudaStream_t stream) {
+  if (group == 16 && sub_m == nullptr)
+    return ctq::launch_gemm<GridTile<16, false>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm, out,
+                                                          m, kp, np, stream);
+  if (group == 32 && sub_m != nullptr)
+    return ctq::launch_gemm<GridTile<32, true>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm, out,
+                                                         m, kp, np, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode "q" on an int8 grid: xq int8 (m, kp), sx and xsum f32 (m, kp/group).
+// group 16 without mins (Q6_K) or 32 with mins (Q5_K).
+int ct_qmm_q8(const int8_t* xq, const float* sx, const float* xs,
+              const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+              const float* sd, const float* sm, float* out, int m, int kp,
+              int np, int group, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group == 16 && sub_m == nullptr)
+    return launch_q8<16, false>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
+  if (group == 32 && sub_m != nullptr)
+    return launch_q8<32, true>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// mode "b": bf16(x) @ bf16(q * s + m)
+int ct_qmm_b(const float* x, const int8_t* qs, const int8_t* sub_s,
+             const int8_t* sub_m, const float* sd, const float* sm,
+             float* out, int m, int kp, int np, int group, void* stream) {
+  return launch_grid_gemm<false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// mode "sb": xsum @ M + bf16(x) @ bf16(q * s)
+int ct_qmm_sb(const float* x, const int8_t* qs, const int8_t* sub_s,
+              const int8_t* sub_m, const float* sd, const float* sm,
+              float* out, int m, int kp, int np, int group, void* stream) {
+  return launch_grid_gemm<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                           static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -1,10 +1,11 @@
 """GGML block quantization, numpy, limited to the types the port serves.
 
-A copy of ctransformers_tpu/formats/quants.py for F32, F16 and Q4_K (block
-layouts: the reference's k_quants.h; decode: dequantize_row_q4_K; encode:
-quantize_row_q4_K_reference). Every other block type has its size here, so
-a GGUF holding it can be parsed, but decoding it raises NotImplementedError
-until a later slice ports it (see ROADMAP).
+A copy of ctransformers_tpu/formats/quants.py for F32, F16, Q4_K, Q5_K and
+Q6_K: the types of llama Q4_K_M and Q5_K_M files (block layouts: the
+reference's k_quants.h; decode: dequantize_row_q{4,5,6}_K; encode:
+quantize_row_q{4,5,6}_K_reference). Every other block type has its size
+here, so a GGUF holding it can be parsed, but decoding it raises
+NotImplementedError until a later slice ports it (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -93,19 +94,6 @@ def _blocks(data, t: GGMLType, n: int) -> np.ndarray:
     return data.reshape(nb, ts)
 
 
-def _q45k_tables():
-    # dequantize_row_q4_K: 4 chunks of 64; within a chunk, 32 low nibbles
-    # then 32 high nibbles; qs advances 32 per chunk
-    l = np.arange(QK_K)
-    chunk = l // 64
-    hi = (l % 64) // 32
-    pos = l % 32
-    return 32 * chunk + pos, 4 * hi, 2 * chunk + hi
-
-
-_Q4K_BYTE, _Q4K_SHIFT, _Q4K_SC = _q45k_tables()
-
-
 def _unpack_scale_min_k4(sc_bytes: np.ndarray):
     """The 12-byte 6-bit packed scales/mins of q4_K -> (nb, 8) each."""
     q = sc_bytes.astype(np.uint8)
@@ -142,19 +130,25 @@ def dequantize(data, t: GGMLType, n: int) -> np.ndarray:
         else:
             raw = np.asarray(data, np.uint8).reshape(-1)[: n * np.dtype(dt).itemsize].view(dt)
         return raw.astype(np.float32)
-    if t != GGMLType.Q4_K:
+    if t not in _DEQUANT:
         raise _not_ported(t)
-    b = _blocks(data, t, n)
-    d = _f16(b[:, 0:2])
-    dmin = _f16(b[:, 2:4])
-    sc, mn = _unpack_scale_min_k4(b[:, 4:16])
-    q = (b[:, 16:144][:, _Q4K_BYTE] >> _Q4K_SHIFT) & 0xF
-    dl = d * sc[:, _Q4K_SC].astype(np.float32)
-    ml = dmin * mn[:, _Q4K_SC].astype(np.float32)
-    return (dl * q.astype(np.float32) - ml).reshape(-1)[:n]
+    return _DEQUANT[t](_blocks(data, t, n)).reshape(-1)[:n]
 
 
-# -- quantization (quantize_row_q4_K_reference) ---------------------------------
+def _dq_from_dc(dc):
+    """dequantize_row_q*_K as q * s + m from the format's decomposition:
+    the same f32 products and sums as the reference (dl * q - ml)."""
+    def dq(b):
+        q, s, m, group = dc(b)
+        nb = b.shape[0]
+        w = q.reshape(nb, -1, group).astype(np.float32) * s.reshape(nb, -1, 1)
+        if m is not None:
+            w = w + m.reshape(nb, -1, 1)
+        return w.reshape(nb, -1)
+    return dq
+
+
+# -- quantization (quantize_row_q{4,5,6}_K_reference) ----------------------------
 
 
 def _round_half_away(x):
@@ -214,12 +208,48 @@ def _make_qkx2_quants(xs, nmax, weights, rmin, rdelta, nstep):
     return scale, L, the_min
 
 
-def _q_q4_K(xb):
+def _make_qx_quants(xs, nmax):
+    """Vectorized make_qx_quants with rmse_type 1 (the Q6_K fit): x = d*q,
+    q in [-nmax, nmax-1]. xs: (..., gs) groups; returns (scales, quants)."""
+    amax = np.abs(xs).max(axis=-1)
+    idx = np.abs(xs).argmax(axis=-1)
+    mx = np.take_along_axis(xs, idx[..., None], axis=-1)[..., 0]
+    zero = amax == 0
+    iscale = np.where(zero, 0.0, -nmax / np.where(zero, 1.0, mx))
+    w = xs * xs
+    best_q = np.clip(_nearest_int(iscale[..., None] * xs), -nmax, nmax - 1)
+    sumlx = (w * xs * best_q).sum(axis=-1)
+    suml2 = (w * best_q * best_q).sum(axis=-1)
+    best = np.where(suml2 > 0, sumlx * sumlx / np.where(suml2 > 0, suml2, 1), 0.0)
+    best_scale = np.where(suml2 > 0, sumlx / np.where(suml2 > 0, suml2, 1), 0.0)
+    for is_ in range(-4, 5):
+        if is_ == 0:
+            continue
+        isc = -(nmax + 0.1 * is_) / np.where(zero, 1.0, mx)
+        q = np.clip(_nearest_int(isc[..., None] * xs), -nmax, nmax - 1)
+        sl = (w * xs * q).sum(axis=-1)
+        s2 = (w * q * q).sum(axis=-1)
+        cand = np.where(s2 > 0, sl * sl / np.where(s2 > 0, s2, 1), -1.0)
+        upd = (s2 > 0) & (cand > best)
+        best = np.where(upd, cand, best)
+        new_scale = np.where(s2 > 0, sl / np.where(s2 > 0, s2, 1), 0.0)
+        best_scale = np.where(upd, new_scale, best_scale)
+        best_q = np.where(upd[..., None], q, best_q)
+    best_scale = np.where(zero, 0.0, best_scale)
+    best_q = np.where(zero[..., None], 0, best_q)
+    return best_scale, best_q
+
+
+def _qkx_45(xb, nmax):
+    """The shared Q4_K / Q5_K encoder: 6-bit sub-scales and sub-mins per
+    group of 32, f16 d and dmin per superblock, and the grid Lq."""
     nb = xb.shape[0]
     groups = xb.reshape(nb, 8, 32)
     weights = np.sqrt((groups * groups).mean(axis=-1, keepdims=True)) + np.abs(groups)
+    # Q4_K: (rmin -1, nstep 20); Q5_K: (rmin -0.5, nstep 15)
+    rmin, nstep = (-1.0, 20) if nmax == 15 else (-0.5, 15)
     scales, _, mins = _make_qkx2_quants(
-        groups, 15, weights, rmin=-1.0, rdelta=0.1, nstep=20
+        groups, nmax, weights, rmin=rmin, rdelta=0.1, nstep=nstep
     )
     max_scale = scales.max(axis=1)
     max_min = mins.max(axis=1)
@@ -233,14 +263,74 @@ def _q_q4_K(xb):
     ml = dmin.astype(np.float32)[:, None] * lm
     with np.errstate(divide="ignore", invalid="ignore"):
         Lq = _nearest_int((groups + ml[..., None]) / np.where(dl == 0, 1, dl)[..., None])
-    Lq = np.clip(Lq, 0, 15).astype(np.uint8)
-    Lq = np.where((dl == 0)[..., None], 0, Lq).reshape(nb, 4, 2, 32)
-    out = np.empty((nb, 144), np.uint8)
+    Lq = np.clip(Lq, 0, nmax).astype(np.uint8)
+    Lq = np.where((dl == 0)[..., None], 0, Lq)
+    return d, dmin, _pack_scale_min_k4(ls, lm), Lq.reshape(nb, 4, 2, 32)
+
+
+def _kquant_head(d, dmin, sc_packed, nbytes):
+    out = np.empty((d.shape[0], nbytes), np.uint8)
     out[:, 0:2] = d.astype("<f2").view(np.uint8).reshape(-1, 2)
     out[:, 2:4] = dmin.astype("<f2").view(np.uint8).reshape(-1, 2)
-    out[:, 4:16] = _pack_scale_min_k4(ls, lm)
-    out[:, 16:144] = (Lq[:, :, 0] | (Lq[:, :, 1] << 4)).reshape(nb, 128)
+    out[:, 4:16] = sc_packed
     return out
+
+
+def _q_q4_K(xb):
+    d, dmin, sc_packed, Lq = _qkx_45(xb, 15)
+    out = _kquant_head(d, dmin, sc_packed, 144)
+    out[:, 16:144] = (Lq[:, :, 0] | (Lq[:, :, 1] << 4)).reshape(-1, 128)
+    return out
+
+
+def _q_q5_K(xb):
+    d, dmin, sc_packed, Lq = _qkx_45(xb, 31)
+    lo, hi = Lq[:, :, 0], Lq[:, :, 1]  # (nb, chunk, 32)
+    out = _kquant_head(d, dmin, sc_packed, 176)
+    qh = np.zeros((xb.shape[0], 32), np.uint8)
+    for chunk in range(4):
+        qh |= (lo[:, chunk] >> 4) << (2 * chunk)
+        qh |= (hi[:, chunk] >> 4) << (2 * chunk + 1)
+    out[:, 16:48] = qh
+    out[:, 48:176] = ((lo & 0xF) | ((hi & 0xF) << 4)).reshape(-1, 128)
+    return out
+
+
+def _q_q6_K(xb):
+    nb = xb.shape[0]
+    groups = xb.reshape(nb, 16, 16)
+    scales, _ = _make_qx_quants(groups, 32)
+    amax_idx = np.abs(scales).argmax(axis=1)
+    max_abs_scale = np.take_along_axis(np.abs(scales), amax_idx[:, None], axis=1)[:, 0]
+    max_scale = np.take_along_axis(scales, amax_idx[:, None], axis=1)[:, 0]
+    nz = max_abs_scale != 0
+    iscale = np.where(nz, -128.0 / np.where(nz, max_scale, 1.0), 0.0)
+    d = np.where(nz, 1.0 / np.where(iscale == 0, 1.0, iscale), 0.0).astype(np.float16)
+    l8 = np.clip(_nearest_int(iscale[:, None] * scales), -128, 127).astype(np.int8)
+    dl = d.astype(np.float32)[:, None] * l8.astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        Lq = _nearest_int(groups / np.where(dl == 0, 1, dl)[..., None])
+    Lq = np.clip(Lq, -32, 31)
+    Lq = np.where((dl == 0)[..., None], 0, Lq) + 32
+    flat = Lq.reshape(nb, 256).astype(np.uint8)
+    ql = np.zeros((nb, 128), np.uint8)
+    qh = np.zeros((nb, 64), np.uint8)
+    for half in range(2):
+        q1, q2, q3, q4 = (flat[:, 128 * half + 32 * j : 128 * half + 32 * j + 32] for j in range(4))
+        ql[:, 64 * half : 64 * half + 32] = (q1 & 0xF) | ((q3 & 0xF) << 4)
+        ql[:, 64 * half + 32 : 64 * half + 64] = (q2 & 0xF) | ((q4 & 0xF) << 4)
+        qh[:, 32 * half : 32 * half + 32] = (
+            (q1 >> 4) | ((q2 >> 4) << 2) | ((q3 >> 4) << 4) | ((q4 >> 4) << 6)
+        )
+    out = np.empty((nb, 210), np.uint8)
+    out[:, 0:128] = ql
+    out[:, 128:192] = qh
+    out[:, 192:208] = l8.view(np.uint8)
+    out[:, 208:210] = d.astype("<f2").view(np.uint8).reshape(-1, 2)
+    return out
+
+
+_QUANT = {GGMLType.Q4_K: _q_q4_K, GGMLType.Q5_K: _q_q5_K, GGMLType.Q6_K: _q_q6_K}
 
 
 def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
@@ -251,23 +341,17 @@ def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
         return x.view(np.uint8).copy()
     if t == GGMLType.F16:
         return x.astype("<f2").view(np.uint8).copy()
-    if t != GGMLType.Q4_K:
+    if t not in _QUANT:
         raise _not_ported(t)
     if x.size % QK_K:
         raise ValueError(f"{x.size} not a multiple of block size {QK_K}")
-    return _q_q4_K(x.reshape(-1, QK_K)).reshape(-1)
+    return _QUANT[t](x.reshape(-1, QK_K)).reshape(-1)
 
 
 # -- structured decomposition: x[i] = q[i] * s[i // g] + m[i // g] ---------------
 
 
-def decompose(data, t: GGMLType, n: int):
-    """Flat buffer -> (q int8 (n,), s f32 (n/group,), m f32, group).
-    Bit-exact with dequantize (the same float ops)."""
-    t = GGMLType(t)
-    if t != GGMLType.Q4_K:
-        raise _not_ported(t)
-    b = _blocks(data, t, n)
+def _dc_q4_K(b):
     nb = b.shape[0]
     d = _f16(b[:, 0:2])
     dmin = _f16(b[:, 2:4])
@@ -277,17 +361,69 @@ def decompose(data, t: GGMLType, n: int):
     q = np.concatenate([qs & 0xF, qs >> 4], axis=2).view(np.int8)
     s = d * sc.astype(np.float32)
     m = -(dmin * mn.astype(np.float32))
-    return q.reshape(-1)[:n], s.reshape(-1), m.reshape(-1), QK
+    return q, s, m, QK
+
+
+def _dc_q5_K(b):
+    nb = b.shape[0]
+    d = _f16(b[:, 0:2])
+    dmin = _f16(b[:, 2:4])
+    sc, mn = _unpack_scale_min_k4(b[:, 4:16])
+    qh = b[:, 16:48].reshape(nb, 1, 1, 32)
+    qs = b[:, 48:176].reshape(nb, 4, 1, 32)
+    # as Q4_K, plus bit 2*chunk + hi of qh[pos] as the fifth bit
+    lo = np.concatenate([qs & 0xF, qs >> 4], axis=2)
+    hb = (qh >> np.arange(8, dtype=np.uint8).reshape(4, 2, 1)) & 1
+    q = (lo | (hb << 4)).view(np.int8)
+    s = d * sc.astype(np.float32)
+    m = -(dmin * mn.astype(np.float32))
+    return q, s, m, QK
+
+
+def _dc_q6_K(b):
+    nb = b.shape[0]
+    ql = b[:, 0:128].reshape(nb, 2, 1, 2, 32)
+    qh = b[:, 128:192].reshape(nb, 2, 1, 32)
+    d = _f16(b[:, 208:210])
+    # element 128*half + 32*grp + pos: nibble grp//2 of ql[64*half +
+    # 32*(grp%2) + pos], high bits 2*grp of qh[32*half + pos]
+    lo = np.concatenate([ql & 0xF, ql >> 4], axis=2).reshape(nb, 2, 4, 32)
+    hi = (qh >> (2 * np.arange(4, dtype=np.uint8)).reshape(4, 1)) & 3
+    q = (lo | (hi << 4)).view(np.int8) - np.int8(32)
+    # group l // 16 = 8*half + 2*grp + pos//16 is the scales' own order
+    s = d * b[:, 192:208].view(np.int8).astype(np.float32)
+    return q, s, None, 16
+
+
+_DECOMP = {GGMLType.Q4_K: _dc_q4_K, GGMLType.Q5_K: _dc_q5_K, GGMLType.Q6_K: _dc_q6_K}
+_DEQUANT = {t: _dq_from_dc(dc) for t, dc in _DECOMP.items()}
+
+
+def decompose(data, t: GGMLType, n: int):
+    """Flat buffer -> (q int8 (n,), s f32 (n/group,), m f32 | None, group).
+    Bit-exact with dequantize (the same float ops)."""
+    t = GGMLType(t)
+    if t not in _DECOMP:
+        raise _not_ported(t)
+    q, s, m, group = _DECOMP[t](_blocks(data, t, n))
+    q = q.reshape(-1)[:n]
+    s = np.ascontiguousarray(s, np.float32).reshape(-1)[: n // group]
+    if m is not None:
+        m = np.ascontiguousarray(m, np.float32).reshape(-1)[: n // group]
+    return q, s, m, group
 
 
 def decompose_factors(data, t: GGMLType, n: int):
     """Factored scale planes of a k-quant: (sd (nb, 1) f32, sub-scales
-    (nb, 8) int8, sm = -dmin (nb, 1) f32, sub-mins (nb, 8) int8, group).
-    s = sd * sub and m = sm * sub reproduce decompose's planes bit for bit."""
+    (nb, 256/group) int8, sm = -dmin (nb, 1) f32 or None, sub-mins int8 or
+    None, group). s = sd * sub and m = sm * sub reproduce decompose's planes
+    bit for bit. Q6_K has no mins."""
     t = GGMLType(t)
-    if t != GGMLType.Q4_K:
+    if t not in _DECOMP:
         raise _not_ported(t)
     b = _blocks(data, t, n)
+    if t == GGMLType.Q6_K:
+        return _f16(b[:, 208:210]), b[:, 192:208].view(np.int8).copy(), None, None, 16
     d = _f16(b[:, 0:2])
     dmin = _f16(b[:, 2:4])
     sc, mn = _unpack_scale_min_k4(b[:, 4:16])

@@ -5,8 +5,11 @@ weights for x @ W are transposed at load, and the token embedding stays at
 file precision (the engine upcasts it on the device). Llama GGUF q/k
 weights are stored pre-permuted for interleaved (mode 0) rope.
 
-This slice loads F32, F16 and Q4_K tensors; any other quantized type (Q6_K
-tensors of real Q4_K_M files among them) raises NotImplementedError.
+Matmul weights load as F32, F16, Q4_K, Q5_K or Q6_K: the types of llama
+Q4_K_M and Q5_K_M files, whose output, attn_v and ffn_down tensors are
+partly Q6_K. The token embedding loads in any type the port's codecs
+decode (F32 and F16 stay at file precision, Q4_K / Q5_K / Q6_K become f32
+on the host). Any other quantized type raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,8 +21,12 @@ import numpy as np
 from ..formats.gguf import GGUFReader
 from ..formats.quants import GGMLType
 from ..ops.qmatmul import repack
+from ..ops.qmm_kernels import LAYOUTS
 from .spec import ArchSpec
 from .vocab import GGUFVocab
+
+# quantized matmul weight types with kernels in ops/qmm_kernels.py
+SERVED_TYPES = tuple(GGMLType[kind] for kind in LAYOUTS)
 
 
 def _kv(r: GGUFReader, key: str, default=None, required: bool = False):
@@ -57,7 +64,7 @@ def _weight(r: GGUFReader, name: str):
     rows, cols = info.numpy_shape  # (out, in)
     if info.type in (GGMLType.F32, GGMLType.F16):
         return np.ascontiguousarray(r.tensor_f32(name).T)
-    if info.type != GGMLType.Q4_K:
+    if info.type not in SERVED_TYPES:
         raise NotImplementedError(
             f"{name}: {info.type.name} weights are not yet ported, see ROADMAP"
         )
@@ -69,12 +76,9 @@ def _dense(r: GGUFReader, name: str):
 
 
 def _embed(r: GGUFReader, name: str):
-    """Embedding table at file precision (f16 stays f16)."""
-    info = r.tensors[name]
-    if info.type not in (GGMLType.F32, GGMLType.F16):
-        raise NotImplementedError(
-            f"{name}: {info.type.name} embeddings are not yet ported, see ROADMAP"
-        )
+    """Embedding table at file precision (f16 stays f16); a quantized table
+    is dequantized to f32 on the host, as the JAX loader does (the codecs
+    raise NotImplementedError on a type not yet ported)."""
     return r.tensor_storage(name)
 
 

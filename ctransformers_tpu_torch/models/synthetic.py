@@ -1,10 +1,11 @@
 """Synthetic llama GGUF files written with the port's own GGUF writer: the
-tiny test model and the llama-2-7B-width Q4_K model that chip_smoke.py
-serves. Weights are random, made from a seed; nothing is downloaded."""
+tiny test models and the llama-2-7B-width models that chip_smoke.py serves,
+all-Q4_K or laid out tensor for tensor as llama.cpp lays out a Q4_K_M or
+Q5_K_M file. Weights are random, made from a seed; nothing is downloaded."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +43,10 @@ def spm_vocab(n_vocab: int) -> Tuple[List[str], List[float], List[int]]:
     return pieces[:n_vocab], scores[:n_vocab], types[:n_vocab]
 
 
+def _f16_bytes(rng: np.random.Generator, nb: int, lo: float, hi: float) -> np.ndarray:
+    return (rng.random(nb, np.float32) * (hi - lo) + lo).astype("<f2").view(np.uint8).reshape(nb, 2)
+
+
 def random_q4k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
     """Valid Q4_K blocks (144 bytes per 256 weights) drawn directly: small
     positive f16 d and dmin, random 6-bit scales and nibbles. Running
@@ -49,11 +54,65 @@ def random_q4k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
     an hour; the matmul kernels' work does not depend on the values."""
     nb = n_elements // 256
     buf = rng.integers(0, 256, (nb, 144), dtype=np.uint8)
-    d = (rng.random(nb, np.float32) * 9e-4 + 1e-4).astype("<f2")
-    dm = (rng.random(nb, np.float32) * 1e-3).astype("<f2")
-    buf[:, 0:2] = d.view(np.uint8).reshape(nb, 2)
-    buf[:, 2:4] = dm.view(np.uint8).reshape(nb, 2)
+    buf[:, 0:2] = _f16_bytes(rng, nb, 1e-4, 1e-3)
+    buf[:, 2:4] = _f16_bytes(rng, nb, 0.0, 1e-3)
     return buf.reshape(-1)
+
+
+def random_q5k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
+    """Valid Q5_K blocks (176 bytes per 256 weights), as random_q4k_blocks;
+    the 5-bit grid spans twice the 4-bit one, so d is halved to keep the
+    weights, and the activations through many layers, at Q4_K's scale."""
+    nb = n_elements // 256
+    buf = rng.integers(0, 256, (nb, 176), dtype=np.uint8)
+    buf[:, 0:2] = _f16_bytes(rng, nb, 5e-5, 5e-4)
+    buf[:, 2:4] = _f16_bytes(rng, nb, 0.0, 1e-3)
+    return buf.reshape(-1)
+
+
+def random_q6k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
+    """Valid Q6_K blocks (210 bytes per 256 weights): random 6-bit grids
+    (q - 32 in [-32, 31]), int8 sub-scales in [-64, 63] and a small positive
+    f16 d, so that the weights' spread matches random_q4k_blocks'."""
+    nb = n_elements // 256
+    buf = rng.integers(0, 256, (nb, 210), dtype=np.uint8)
+    buf[:, 192:208] = rng.integers(-64, 64, (nb, 16), dtype=np.int8).view(np.uint8)
+    buf[:, 208:210] = _f16_bytes(rng, nb, 2e-5, 2e-4)
+    return buf.reshape(-1)
+
+
+RANDOM_BLOCKS = {
+    GGMLType.Q4_K: random_q4k_blocks,
+    GGMLType.Q5_K: random_q5k_blocks,
+    GGMLType.Q6_K: random_q6k_blocks,
+}
+
+# llama.cpp's k-quant mixes: the base type of every other matmul weight
+MIXES = {"Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K}
+
+
+def use_more_bits(i_layer: int, n_layer: int) -> bool:
+    """use_more_bits of llama_model_quantize_internal (ggerganov/llama.cpp):
+    the layers whose attn_v and ffn_down get Q6_K in a *_K_M file."""
+    return (
+        i_layer < n_layer // 8
+        or i_layer >= 7 * n_layer // 8
+        or (i_layer - n_layer // 8) % 3 == 2
+    )
+
+
+def mix_type(mix: str, name: str, n_layer: int) -> GGMLType:
+    """The type llama.cpp gives tensor `name` in a Q4_K_M or Q5_K_M file:
+    output.weight Q6_K; attn_v and ffn_down Q6_K in use_more_bits layers;
+    token_embd and every other matmul weight the mix's base type."""
+    base = MIXES[mix]
+    if name == "output.weight":
+        return GGMLType.Q6_K
+    if name.endswith((".attn_v.weight", ".ffn_down.weight")):
+        i_layer = int(name.split(".")[1])
+        if use_more_bits(i_layer, n_layer):
+            return GGMLType.Q6_K
+    return base
 
 
 def write_llama_gguf(
@@ -69,9 +128,13 @@ def write_llama_gguf(
     embed_type: GGMLType = GGMLType.F32,
     synthesize_blocks: bool = False,
     seed: int = 0,
+    mix: Optional[str] = None,
 ) -> dict:
-    """Write a llama GGUF. Matmul weights are `wtype`: quantized from
-    N(0, 0.08^2) draws, or (synthesize_blocks, Q4_K only) random blocks
+    """Write a llama GGUF. Matmul weights are `wtype`, or with `mix`
+    ("Q4_K_M" or "Q5_K_M") the types llama.cpp gives them in such a file
+    (mix_type; the token embedding then takes the mix's base type and
+    `wtype` and `embed_type` are not read). Weights are quantized from
+    N(0, 0.08^2) draws, or (synthesize_blocks, k-quants only) random blocks
     generated one tensor at a time while the file is written."""
     rng = np.random.default_rng(seed)
     pieces, scores, types = spm_vocab(n_vocab)
@@ -102,16 +165,20 @@ def write_llama_gguf(
         w = rng.standard_normal(shape, np.float32) * scale + offset
         tensors[name] = (t, tuple(reversed(shape)), quantize(w, t))
 
-    def weight(name, n_out, n_in):
-        ne = (n_in, n_out)  # GGML order: blocks along the input dim
-        if synthesize_blocks:
-            if wtype != GGMLType.Q4_K:
-                raise ValueError("synthesized blocks are Q4_K")
-            tensors[name] = (wtype, ne, lambda: random_q4k_blocks(rng, n_in * n_out))
-        else:
-            dense(name, (n_out, n_in), wtype)
+    def type_of(name):
+        return mix_type(mix, name, n_layer) if mix else wtype
 
-    dense("token_embd.weight", (n_vocab, n_embd), embed_type, scale=0.02 if synthesize_blocks else 0.08)
+    def weight(name, n_out, n_in, t=None):
+        t = type_of(name) if t is None else t  # GGMLType.F32 is 0, so not `or`
+        ne = (n_in, n_out)  # GGML order: blocks along the input dim
+        if synthesize_blocks and t not in (GGMLType.F32, GGMLType.F16):
+            if t not in RANDOM_BLOCKS:
+                raise ValueError(f"no synthesized blocks for {t.name}")
+            tensors[name] = (t, ne, lambda: RANDOM_BLOCKS[t](rng, n_in * n_out))
+        else:
+            dense(name, (n_out, n_in), t, scale=0.02 if synthesize_blocks else 0.08)
+
+    weight("token_embd.weight", n_vocab, n_embd, type_of("token_embd.weight") if mix else embed_type)
     dense("output_norm.weight", (n_embd,), GGMLType.F32, offset=1.0)
     weight("output.weight", n_vocab, n_embd)
     for i in range(n_layer):

@@ -6,11 +6,16 @@ The counterpart of ctransformers_tpu/ops/qmatmul.py. A GGML block tensor is
 repacked at load time into planes that compute x @ W with W logically
 (in_features K, out_features N), padded to (K_pad, N_pad):
 
-    qs     (K_pad/2, N_pad) int8   4-bit grids, "adjk" layout: byte (r, n)
-                                   holds rows 2r (low nibble) and 2r+1 (high
-                                   nibble), both as two's-complement q - 8
-    scales (K_pad/32, N_pad) int8  k-quant sub-scales (or f32 group scales)
-    mins   (K_pad/32, N_pad) int8  sub-mins (None when the format has none)
+    qs     (K_pad/2, N_pad) int8   4-bit grids (Q4_K), "adjk" layout: byte
+                                   (r, n) holds rows 2r (low nibble) and
+                                   2r+1 (high nibble), both as two's-
+                                   complement q - 8
+           (K_pad, N_pad) int8     int8 grids (Q6_K: q in [-32, 31], Q5_K:
+                                   q in [0, 31]), one byte per weight
+    scales (K_pad/g, N_pad) int8   k-quant sub-scales per group of g rows
+                                   (g = 32; 16 for Q6_K)
+    mins   (K_pad/g, N_pad) int8   sub-mins (None when the format has none,
+                                   as Q6_K)
     sd, sm (K_pad/256, N_pad) f32  superblock factors: s = sd * scales,
                                    m = sm * mins
 
@@ -76,6 +81,14 @@ def _t(a: Optional[np.ndarray], dtype) -> Optional[torch.Tensor]:
     return torch.from_numpy(np.ascontiguousarray(a, dtype))
 
 
+def padded_shape(k: int, n: int) -> Tuple[int, int]:
+    """(K_pad, N_pad) of a logical (K, N) weight: big dims pad to
+    1024-multiples, as the JAX package does, so that the planes compare
+    byte for byte (llama's n_ff 11008 -> 11264)."""
+    return (_round_up(k, 1024 if k >= 1024 else 256),
+            _round_up(n, 1024 if n >= 1024 else 128))
+
+
 def make_qtensor(
     q: np.ndarray,  # (K, N) int8
     s: np.ndarray,  # (K/g, N) f32, or int8 sub-scales when sd is given
@@ -90,10 +103,7 @@ def make_qtensor(
     """Pad, pack and wrap host planes as CPU tensors (placement on the
     device is the Engine's job)."""
     k, n = q.shape
-    # big dims pad to 1024-multiples, as the JAX package does, so that the
-    # planes compare byte for byte (llama's n_ff 11008 -> 11264)
-    kp = _round_up(k, 1024 if k >= 1024 else 256)
-    npad = _round_up(n, 1024 if n >= 1024 else 128)
+    kp, npad = padded_shape(k, n)
     if (kp, npad) != (k, n):
         q = np.pad(q, ((0, kp - k), (0, npad - n)))
         s = np.pad(s, ((0, kp // group - s.shape[0]), (0, npad - n)))
@@ -141,8 +151,9 @@ def repack(data, t: GGMLType, rows: int, cols: int) -> QTensor:
     q = np.ascontiguousarray(q.reshape(rows, cols).T)  # (K=cols, N=rows)
     sq = np.ascontiguousarray(sq.reshape(rows, cols // group).T)
     sd = np.ascontiguousarray(sd.reshape(rows, cols // (group * sf)).T)
-    mq = np.ascontiguousarray(mq.reshape(rows, cols // group).T)
-    sm = np.ascontiguousarray(sm.reshape(rows, cols // (group * sf)).T)
+    if mq is not None:  # Q6_K has no mins
+        mq = np.ascontiguousarray(mq.reshape(rows, cols // group).T)
+        sm = np.ascontiguousarray(sm.reshape(rows, cols // (group * sf)).T)
     return make_qtensor(q, sq, mq, t.name, group, sd=sd, sm=sm, sfactor=sf)
 
 
@@ -186,18 +197,32 @@ def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
 # -- matmul ------------------------------------------------------------------
 
 
-def select_mode(m: int, kp: int, npad: int) -> str:
-    """Kernel for an (m, K_pad) x (K_pad, N_pad) product. A fixed rule that
-    follows the pattern of the JAX package's measured TPU choices without
-    reading them; provisional until kernel selection is ported (ROADMAP
-    Queue 1): decode takes the in-kernel activation quantization, short
-    chunks the pre-quantized form, long chunks the bf16 tensor-core GEMMs,
-    folding the bias through the group sums where N is the wider side."""
+def select_mode(m: int, qt: QTensor) -> str:
+    """Kernel for an (m, K_pad) x (K_pad, N_pad) product with weight `qt`.
+    A fixed rule that follows the JAX package's kernel candidates and the
+    pattern of its measured TPU choices without reading them; provisional
+    until kernel selection is ported (ROADMAP Queue 1).
+
+    Nibble-packed Q4_K: decode takes the in-kernel activation quantization
+    ("qx"), short chunks the pre-quantized form ("q"), long chunks the bf16
+    tensor-core GEMMs, folding the bias through the group sums where N is
+    the wider side ("si", else "i").
+
+    int8 grids (Q6_K, Q5_K): at m <= 32 the pre-quantized int8 dot ("q8",
+    the JAX package's "q" mode with packed4=False; it offers no "qx" for
+    unpacked grids). At m > 32 its candidates are only "b" and "sb", and its
+    autotuner drops the sum-fold "sb" where the weight has no mins: "b"
+    for Q6_K, "sb" for Q5_K."""
+    rows, npad = qt.qs.shape
+    if not qt.packed:
+        if m <= 32:
+            return "q8"
+        return "sb" if qt.mins is not None else "b"
     if m == 1:
         return "qx"
     if m <= 32:
         return "q"
-    return "si" if npad > kp else "i"
+    return "si" if npad > 2 * rows else "i"
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -211,20 +236,17 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     lead = x.shape[:-1]
     k, n = qt.shape
     xm = x.reshape(-1, k).float()
-    rows, npad = qt.qs.shape
-    kp = 2 * rows
+    kp = qt.qs.shape[0] * (2 if qt.packed else 1)
     if kp != k:
         xm = torch.nn.functional.pad(xm, (0, kp - k))
     xm = xm.contiguous()
-    mode = select_mode(xm.shape[0], kp, npad)
-    if mode == "qx":
-        out = kern.qmm_qx(xm, qt)
-    elif mode == "q":
-        out = kern.qmm_q(*kern.quantize_activations(xm), qt)
-    elif mode == "si":
-        out = kern.qmm_si(xm, qt)
+    mode = select_mode(xm.shape[0], qt)
+    # looked up at call time, so that a caller may wrap the module's kernels
+    fn = getattr(kern, "qmm_" + mode)
+    if mode in ("q", "q8"):
+        out = fn(*kern.quantize_activations(xm, qt.group), qt)
     else:
-        out = kern.qmm_i(xm, qt)
+        out = fn(xm, qt)
     return out[:, :n].reshape(*lead, n)
 
 

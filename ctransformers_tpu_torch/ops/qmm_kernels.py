@@ -1,22 +1,37 @@
-"""The four hand-written Hopper kernels of the Q4_K matmul, their plain
-PyTorch versions, launch counters and the nvcc/ctypes loader.
+"""The seven hand-written Hopper kernels of the quantized matmul, their
+plain PyTorch versions, launch counters and the nvcc/ctypes loader.
 
 Every wrapper takes activations already zero-padded to the weight's
-storage rows, x (m, Kp) float32, and a Q4_K QTensor in the adjk layout
-(ops/qmatmul.py), and returns the padded product (m, Np) float32:
+storage rows, x (m, Kp) float32 (or their int8 quantization), and a
+QTensor (ops/qmatmul.py), and returns the padded product (m, Np) float32.
+
+Q4_K, nibble-packed in the adjk layout (csrc/qmm_decode.cu,
+csrc/qmm_prefill.cu):
 
   qmm_qx  x quantized to int8 per (token, group) inside the kernel
           (replaces ctransformers_tpu/ops/qmatmul.py:_qmm_qx_kernel)
   qmm_q   the same function on activations quantized outside
-          (replaces _qmm_q_kernel, modes "q" and "q4")
+          (replaces _qmm_q_kernel, modes "q" and "q4", packed4=True)
   qmm_si  bf16(x) @ bf16(w4 * s) + xsum @ B   (replaces _qmm_i4_s_kernel)
   qmm_i   bf16(x) @ bf16(w4 * s + B)         (replaces _qmm_i4_kernel)
 
 with w4 = q - 8 the stored nibble, s = sd * sub_s, m = sm * sub_m and
-B = 8 * s + m per group of 32 rows. A CUDA tensor launches the kernel or
-raises; a CPU tensor takes the plain version, which computes the same
-function with torch ops (and is what chip_smoke.py holds each kernel
-against on the card). There is no fallback from one to the other.
+B = 8 * s + m per group of 32 rows.
+
+int8 grids: Q6_K (group 16, no mins) and Q5_K (group 32, with mins)
+(csrc/qmm_grid.cu):
+
+  qmm_q8  xsum @ M + sum_g int32 dot_g(xq, q) * sx * s, on activations
+          quantized outside per group of the weight's group
+          (replaces _qmm_q_kernel, mode "q", packed4=False)
+  qmm_b   bf16(x) @ bf16(q * s + m)          (replaces _qmm_kernel, mode "b")
+  qmm_sb  xsum @ M + bf16(x) @ bf16(q * s)   (replaces _qmm_s_kernel, mode "sb")
+
+with M the (Kp/g, Np) plane m = sm * sub_m (absent for Q6_K). A CUDA
+tensor launches the kernel or raises; a CPU tensor takes the plain
+version, which computes the same function with torch ops (and is what
+chip_smoke.py holds each kernel against on the card). There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -27,13 +42,13 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("qmm_decode.cu", "qmm_prefill.cu")
+SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,7 +56,9 @@ NVCC_FLAGS = (
 
 # kernel launches (incremented only where a kernel is launched) and calls
 # of the plain versions through the wrappers (CPU tensors)
-LAUNCHES: Dict[str, int] = {"qmm_qx": 0, "qmm_q": 0, "qmm_si": 0, "qmm_i": 0}
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ("qmm_qx", "qmm_q", "qmm_si", "qmm_i", "qmm_q8", "qmm_b", "qmm_sb"), 0
+)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -61,7 +78,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the Q4_K kernels need the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the qmm kernels need the CUDA toolkit")
 
 
 def _source_hash() -> str:
@@ -120,6 +137,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_q": [P] * 9 + [I, I, I, P],
         "ct_qmm_si": [P] * 7 + [I, I, I, P],
         "ct_qmm_i": [P] * 7 + [I, I, I, P],
+        "ct_qmm_q8": [P] * 9 + [I, I, I, I, P],
+        "ct_qmm_b": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_sb": [P] * 7 + [I, I, I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -136,29 +156,59 @@ def _fn(lib: str, name: str):
 # -- argument checks -----------------------------------------------------------
 
 
-def check_qtensor(qt) -> Tuple[int, int]:
-    """The kernels take exactly the Q4_K adjk layout; returns (Kp, Np)."""
-    if not (
-        qt.kind == "Q4_K" and qt.packed and qt.pack_layout == "adjk"
-        and qt.zp == 0 and qt.group == 32 and qt.sfactor == 8
-        and qt.mins is not None and qt.sd is not None and qt.sm is not None
-        and qt.perm is None
+# the layouts the kernels take: kind -> (group, groups per superblock,
+# has mins, nibble-packed). Q4_K is nibble-packed in the adjk layout; Q6_K
+# and Q5_K are int8 grids.
+LAYOUTS = {
+    "Q4_K": (32, 8, True, True),
+    "Q6_K": (16, 16, False, False),
+    "Q5_K": (32, 8, True, False),
+}
+
+
+def _check_layout(qt, packed: bool, what: str) -> None:
+    lay = LAYOUTS.get(qt.kind)
+    if lay is None or lay[3] != packed or not (
+        qt.packed == packed and qt.pack_layout == "adjk" and qt.zp == 0
+        and (qt.group, qt.sfactor) == lay[:2] and qt.perm is None
+        and qt.sd is not None and (qt.mins is not None) == (qt.sm is not None) == lay[2]
     ):
         raise NotImplementedError(
-            f"qmm kernels take Q4_K adjk QTensors, got {qt.kind} "
-            f"(layout {qt.pack_layout}); other types are not yet ported, see ROADMAP"
+            f"qmm kernels take {what}, got {qt.kind} (group {qt.group}, packed "
+            f"{qt.packed}, layout {qt.pack_layout}); other types are not yet "
+            "ported, see ROADMAP"
         )
+
+
+def check_qtensor(qt) -> Tuple[int, int]:
+    """The Q4_K kernels take exactly the Q4_K adjk layout; returns (Kp, Np)."""
+    _check_layout(qt, True, "Q4_K adjk QTensors")
     rows, np_ = qt.qs.shape
-    kp = 2 * rows
+    return _check_planes(qt, 2 * rows, np_)
+
+
+def check_grid_qtensor(qt) -> Tuple[int, int]:
+    """The grid kernels take exactly the Q6_K and Q5_K int8 grids; returns
+    (Kp, Np)."""
+    _check_layout(qt, False, "Q6_K or Q5_K int8 grids")
+    kp, np_ = qt.qs.shape
+    return _check_planes(qt, kp, np_)
+
+
+def _check_planes(qt, kp: int, np_: int) -> Tuple[int, int]:
+    g = qt.group
     want = {
-        "qs": (qt.qs, torch.int8, (rows, np_)),
-        "scales": (qt.scales, torch.int8, (kp // 32, np_)),
-        "mins": (qt.mins, torch.int8, (kp // 32, np_)),
-        "sd": (qt.sd, torch.float32, (kp // 256, np_)),
-        "sm": (qt.sm, torch.float32, (kp // 256, np_)),
+        "qs": (torch.int8, tuple(qt.qs.shape)),
+        "scales": (torch.int8, (kp // g, np_)),
+        "mins": (torch.int8, (kp // g, np_)),
+        "sd": (torch.float32, (kp // 256, np_)),
+        "sm": (torch.float32, (kp // 256, np_)),
     }
     dev = qt.qs.device
-    for name, (a, dt, shape) in want.items():
+    for name, (dt, shape) in want.items():
+        a = getattr(qt, name)
+        if a is None:  # absent mins, checked by the caller
+            continue
         if a.dtype != dt or tuple(a.shape) != shape or a.device != dev:
             raise ValueError(
                 f"QTensor.{name}: {a.dtype} {tuple(a.shape)} on {a.device}, "
@@ -184,6 +234,9 @@ def _check_act(t: torch.Tensor, dtype, shape, dev, name: str) -> None:
 def _ptrs(*ts):
     out = []
     for t in ts:
+        if t is None:  # an absent plane (Q6_K mins) is a null pointer
+            out.append(ctypes.c_void_p(None))
+            continue
         p = t.data_ptr()
         if p % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
@@ -199,12 +252,12 @@ def _planes(qt):
     return (qt.qs, qt.scales, qt.mins, qt.sd, qt.sm)
 
 
-def _launch(name: str, lib: str, dev, acts, qt, m: int, kp: int, np_: int):
+def _launch(name: str, lib: str, dev, acts, qt, m: int, kp: int, np_: int, *ints: int):
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}; the kernel runs on CUDA only")
     out = torch.empty((m, np_), dtype=torch.float32, device=dev)
     fn = _fn(lib, "ct_" + name)
-    rc = fn(*_ptrs(*acts, *_planes(qt), out), m, kp, np_, _stream(dev))
+    rc = fn(*_ptrs(*acts, *_planes(qt), out), m, kp, np_, *ints, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -229,13 +282,14 @@ def unpack_w4(qs: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape(2 * qs.shape[0], qs.shape[1])
 
 
-def quantize_activations(x: torch.Tensor):
-    """Per-(token, group of 32) symmetric int8: (xq (m, Kp) int8,
-    sx (m, Kp/32) f32, xsum (m, Kp/32) f32), the formula of the reference's
-    "q" mode: sx = absmax/127, xq = clip(round(x / max(sx, 1e-20)), +-127);
-    torch.round rounds half to even, as jnp.round does."""
+def quantize_activations(x: torch.Tensor, group: int):
+    """Per-(token, group) symmetric int8, with the weight's group (32; 16
+    for Q6_K): (xq (m, Kp) int8, sx (m, Kp/group) f32, xsum (m, Kp/group)
+    f32), the formula of the reference's "q" mode: sx = absmax/127,
+    xq = clip(round(x / max(sx, 1e-20)), +-127); torch.round rounds half
+    to even, as jnp.round does."""
     m, kp = x.shape
-    xr = x.reshape(m, kp // 32, 32)
+    xr = x.reshape(m, kp // group, group)
     sx = xr.abs().amax(-1) / 127.0
     xq = torch.clamp(torch.round(xr / torch.clamp_min(sx, 1e-20)[..., None]), -127, 127)
     return xq.to(torch.int8).reshape(m, kp), sx, xr.sum(-1)
@@ -254,7 +308,7 @@ def plain_q(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.T
 
 
 def plain_qx(x: torch.Tensor, qt) -> torch.Tensor:
-    return plain_q(*quantize_activations(x), qt)
+    return plain_q(*quantize_activations(x, 32), qt)
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -276,6 +330,44 @@ def plain_i(x: torch.Tensor, qt) -> torch.Tensor:
     w = unpack_w4(qt.qs).float() * s.repeat_interleave(32, 0)
     w = _bf16_round(w + b.repeat_interleave(32, 0))
     return _bf16_round(x) @ w
+
+
+def grid_planes(qt) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(Kp/g, Np) f32 planes of an int8 grid: s = sd * sub_s and
+    m = sm * sub_m (None for Q6_K), the f32 products of _apply_factors."""
+    s = qt.scales.float() * qt.sd.repeat_interleave(qt.sfactor, 0)
+    if qt.mins is None:
+        return s, None
+    return s, qt.mins.float() * qt.sm.repeat_interleave(qt.sfactor, 0)
+
+
+def plain_q8(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
+    """Group dots in f32, exact for integer operands (|sum| <= 32*127*32 <
+    2**24), rescaled by sx * s, plus the bias xsum @ M where there are mins."""
+    m, kp = xq.shape
+    g = qt.group
+    s, mn = grid_planes(qt)
+    w = qt.qs.float().reshape(kp // g, g, -1)
+    parts = torch.bmm(xq.float().reshape(m, kp // g, g).transpose(0, 1), w)
+    d = (parts * sx.T[:, :, None] * s[:, None, :]).sum(0)
+    return d if mn is None else xs @ mn + d
+
+
+def plain_b(x: torch.Tensor, qt) -> torch.Tensor:
+    s, mn = grid_planes(qt)
+    w = qt.qs.float() * s.repeat_interleave(qt.group, 0)
+    if mn is not None:
+        w = w + mn.repeat_interleave(qt.group, 0)
+    return _bf16_round(x) @ _bf16_round(w)
+
+
+def plain_sb(x: torch.Tensor, qt) -> torch.Tensor:
+    m, kp = x.shape
+    s, mn = grid_planes(qt)
+    out = _bf16_round(x) @ _bf16_round(qt.qs.float() * s.repeat_interleave(qt.group, 0))
+    if mn is None:
+        return out
+    return x.reshape(m, kp // qt.group, qt.group).sum(-1) @ mn + out
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -324,17 +416,62 @@ def qmm_i(x: torch.Tensor, qt) -> torch.Tensor:
     return _launch("qmm_i", "qmm_prefill", x.device, (x,), qt, m, kp, np_)
 
 
-KERNELS = {"qmm_qx": qmm_qx, "qmm_q": qmm_q, "qmm_si": qmm_si, "qmm_i": qmm_i}
-PLAIN = {"qmm_qx": plain_qx, "qmm_q": plain_q, "qmm_si": plain_si, "qmm_i": plain_i}
+def qmm_q8(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
+    kp, np_ = check_grid_qtensor(qt)
+    m = xq.shape[0]
+    dev = qt.qs.device
+    ng = kp // qt.group
+    _check_act(xq, torch.int8, (m, kp), dev, "xq")
+    _check_act(sx, torch.float32, (m, ng), dev, "sx")
+    _check_act(xs, torch.float32, (m, ng), dev, "xsum")
+    if dev.type == "cpu":
+        PLAIN_CALLS["qmm_q8"] += 1
+        return plain_q8(xq, sx, xs, qt)
+    return _launch("qmm_q8", "qmm_grid", dev, (xq, sx, xs), qt, m, kp, np_, qt.group)
+
+
+def _grid_gemm(name: str, plain, x: torch.Tensor, qt) -> torch.Tensor:
+    kp, np_ = check_grid_qtensor(qt)
+    m = x.shape[0]
+    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
+    if x.device.type == "cpu":
+        PLAIN_CALLS[name] += 1
+        return plain(x, qt)
+    return _launch(name, "qmm_grid", x.device, (x,), qt, m, kp, np_, qt.group)
+
+
+def qmm_b(x: torch.Tensor, qt) -> torch.Tensor:
+    return _grid_gemm("qmm_b", plain_b, x, qt)
+
+
+def qmm_sb(x: torch.Tensor, qt) -> torch.Tensor:
+    return _grid_gemm("qmm_sb", plain_sb, x, qt)
+
+
+KERNELS = {
+    "qmm_qx": qmm_qx, "qmm_q": qmm_q, "qmm_si": qmm_si, "qmm_i": qmm_i,
+    "qmm_q8": qmm_q8, "qmm_b": qmm_b, "qmm_sb": qmm_sb,
+}
+PLAIN = {
+    "qmm_qx": plain_qx, "qmm_q": plain_q, "qmm_si": plain_si, "qmm_i": plain_i,
+    "qmm_q8": plain_q8, "qmm_b": plain_b, "qmm_sb": plain_sb,
+}
+_CSRC = "ctransformers_tpu_torch/csrc/"
 SOURCE_OF = {
-    "qmm_qx": "ctransformers_tpu_torch/csrc/qmm_decode.cu",
-    "qmm_q": "ctransformers_tpu_torch/csrc/qmm_decode.cu",
-    "qmm_si": "ctransformers_tpu_torch/csrc/qmm_prefill.cu",
-    "qmm_i": "ctransformers_tpu_torch/csrc/qmm_prefill.cu",
+    "qmm_qx": _CSRC + "qmm_decode.cu",
+    "qmm_q": _CSRC + "qmm_decode.cu",
+    "qmm_si": _CSRC + "qmm_prefill.cu",
+    "qmm_i": _CSRC + "qmm_prefill.cu",
+    "qmm_q8": _CSRC + "qmm_grid.cu",
+    "qmm_b": _CSRC + "qmm_grid.cu",
+    "qmm_sb": _CSRC + "qmm_grid.cu",
 }
 REPLACES = {
     "qmm_qx": "ctransformers_tpu/ops/qmatmul.py:1370",
     "qmm_q": "ctransformers_tpu/ops/qmatmul.py:1288",
     "qmm_si": "ctransformers_tpu/ops/qmatmul.py:1148",
     "qmm_i": "ctransformers_tpu/ops/qmatmul.py:1090",
+    "qmm_q8": "ctransformers_tpu/ops/qmatmul.py:1288",
+    "qmm_b": "ctransformers_tpu/ops/qmatmul.py:734",
+    "qmm_sb": "ctransformers_tpu/ops/qmatmul.py:1040",
 }

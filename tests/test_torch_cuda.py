@@ -1,4 +1,5 @@
-"""The four Q4_K kernels against their plain PyTorch versions on the card.
+"""The seven qmm kernels against their plain PyTorch versions on the card:
+the four Q4_K kernels and the three int8-grid (Q6_K, Q5_K) kernels.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -38,22 +39,53 @@ def random_q4k(k: int, n: int, seed: int, device) -> QTensor:
     ).to(device)
 
 
+def random_grid(kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    """A Q6_K (group 16, no mins) or Q5_K (group 32, mins) int8-grid
+    QTensor with random planes at padded shape (k, n)."""
+    g = torch.Generator().manual_seed(seed)
+    group, sfactor, has_mins, _ = K.LAYOUTS[kind]
+    lo, hi = (-32, 32) if kind == "Q6_K" else (0, 32)
+    qs = torch.randint(lo, hi, (k, n), generator=g, dtype=torch.int8)
+    sub_s = torch.randint(-64 if kind == "Q6_K" else 0, 64, (k // group, n), generator=g,
+                          dtype=torch.int8)
+    sd = torch.rand((k // 256, n), generator=g) * 1e-3 + 1e-4
+    sub_m = sm = None
+    if has_mins:
+        sub_m = torch.randint(0, 64, (k // group, n), generator=g, dtype=torch.int8)
+        sm = -torch.rand((k // 256, n), generator=g) * 1e-3
+    return QTensor(qs, sub_s, sub_m, kind, group, (k, n), sd=sd, sm=sm,
+                   sfactor=sfactor).to(device)
+
+
+def _weight(name: str, kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    if name in GRID:
+        return random_grid(kind, k, n, seed, device)
+    return random_q4k(k, n, seed, device)
+
+
 def _rel(a, b):
     return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
 
 
-# q/qx: the integer group dots are exact, only the f32 rescale sums differ
-# in order; i/si: bf16 products summed in another order on tensor cores
-TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3}
+# q/qx/q8: the integer group dots are exact, only the f32 rescale sums
+# differ in order; i/si/b/sb: bf16 products summed in another order on
+# tensor cores
+TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3,
+       "qmm_q8": 1e-5, "qmm_b": 1e-3, "qmm_sb": 1e-3}
+GRID = ("qmm_q8", "qmm_b", "qmm_sb")
+# each Q4_K kernel once, each grid kernel on both int8-grid layouts
+CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID] + [
+    (name, kind) for name in GRID for kind in ("Q6_K", "Q5_K")
+]
 
 
-@pytest.mark.parametrize("name", sorted(TOL))
+@pytest.mark.parametrize("name,kind", CASES)
 @pytest.mark.parametrize("k,n", [(256, 384), (1024, 256), (2048, 1152)])
 @pytest.mark.parametrize("m", [1, 3, 8, 33, 64, 130])
-def test_kernel_matches_plain(dev, name, k, n, m):
-    qt = random_q4k(k, n, seed=k + n + m, device=dev)
+def test_kernel_matches_plain(dev, name, kind, k, n, m):
+    qt = _weight(name, kind, k, n, seed=k + n + m, device=dev)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
-    args = K.quantize_activations(x) if name == "qmm_q" else (x,)
+    args = K.quantize_activations(x, qt.group) if name in ("qmm_q", "qmm_q8") else (x,)
     before = K.LAUNCHES[name]
     got = K.KERNELS[name](*args, qt)
     torch.cuda.synchronize()
@@ -67,13 +99,19 @@ def test_kernel_matches_plain(dev, name, k, n, m):
 
 def test_qmatmul_routes_every_mode(dev):
     # logical (500, 1000) inside padded (512, 1024) planes
-    qt = dataclasses.replace(random_q4k(512, 1024, seed=1, device=dev), shape=(500, 1000))
+    q4k = dataclasses.replace(random_q4k(512, 1024, seed=1, device=dev), shape=(500, 1000))
+    q4k_tall = random_q4k(1024, 512, seed=2, device=dev)
+    q6k = dataclasses.replace(random_grid("Q6_K", 512, 1024, 3, dev), shape=(500, 1000))
+    q5k = random_grid("Q5_K", 512, 1024, 4, dev)
     K.reset_counts()
-    for m in (1, 8, 64):
-        out = qmatmul(torch.randn(m, 500, device=dev), qt)
-        assert out.shape == (m, 1000) and torch.isfinite(out).all()
-    assert select_mode(64, 512, 1024) == "si"
-    assert K.LAUNCHES == {"qmm_qx": 1, "qmm_q": 1, "qmm_si": 1, "qmm_i": 0}
+    for qt in (q4k, q4k_tall, q6k, q5k):
+        for m in (1, 8, 64):
+            k, n = qt.shape
+            out = qmatmul(torch.randn(m, k, device=dev), qt)
+            assert out.shape == (m, n) and torch.isfinite(out).all()
+    assert select_mode(64, q4k) == "si" and select_mode(64, q4k_tall) == "i"
+    assert K.LAUNCHES == {"qmm_qx": 2, "qmm_q": 2, "qmm_si": 1, "qmm_i": 1,
+                          "qmm_q8": 4, "qmm_b": 1, "qmm_sb": 1}
     assert sum(K.PLAIN_CALLS.values()) == 0
 
 
@@ -83,3 +121,8 @@ def test_wrapper_rejects_bad_operands(dev):
         K.qmm_qx(torch.randn(1, 256, device=dev, dtype=torch.float64), qt)
     with pytest.raises(ValueError):
         K.qmm_si(torch.randn(4, 256), qt)  # CPU activations, CUDA weight
+    q6k = random_grid("Q6_K", 256, 128, 3, dev)
+    with pytest.raises(ValueError):
+        K.qmm_b(torch.randn(64, 256), q6k)  # CPU activations, CUDA weight
+    with pytest.raises(NotImplementedError):
+        K.qmm_sb(torch.randn(64, 256, device=dev), dataclasses.replace(q6k, group=32))

@@ -239,3 +239,27 @@ def test_no_cuda_build_on_import():
 
     assert not K._LIBS
     assert os.path.isdir(K.CSRC)
+
+
+@pytest.mark.parametrize("kind", ["Q5_K", "Q6_K"])
+def test_kquant_codecs_match_jax(kind):
+    """The Q5_K and Q6_K codecs of a llama K_M mix, bit for bit: quantize,
+    dequantize, decompose and the factored scale planes."""
+    from ctransformers_tpu.formats import quants as jquants
+
+    x = _rng(12).randn(8 * 256).astype(np.float32) * 0.3
+    jt, tt = jquants.GGMLType[kind], tquants.GGMLType[kind]
+    buf = tquants.quantize(x, tt)
+    np.testing.assert_array_equal(buf, jquants.quantize(x, jt))
+    np.testing.assert_array_equal(tquants.dequantize(buf, tt, x.size),
+                                  jquants.dequantize(buf, jt, x.size))
+    pairs = list(zip(tquants.decompose(buf, tt, x.size), jquants.decompose(buf, jt, x.size)))
+    pairs += zip(tquants.decompose_factors(buf, tt, x.size),
+                 jquants.decompose_factors(buf, jt, x.size))
+    for a, b in pairs:
+        if b is None:  # Q6_K has no mins
+            assert a is None
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

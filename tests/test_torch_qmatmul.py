@@ -1,6 +1,7 @@
-"""The port's QTensor repack and Q4_K kernel plain versions against the JAX
-package: planes byte for byte, and each plain version against the Pallas
-kernel it replaces, run in interpret mode as tests/test_qmatmul.py runs it.
+"""The port's QTensor repack and the kernels' plain versions against the JAX
+package: planes byte for byte (Q4_K, Q6_K, Q5_K), and each plain version
+against the Pallas kernel it replaces, run in interpret mode as
+tests/test_qmatmul.py runs it.
 """
 
 import dataclasses
@@ -19,24 +20,29 @@ from ctransformers_tpu_torch.ops import qmm_kernels as K
 PLANES = ("qs", "scales", "mins", "sd", "sm")
 
 
-def _q4k_bytes(k, n, seed):
+def _kq_bytes(k, n, seed, kind="Q4_K"):
     rng = np.random.RandomState(seed)
     w = (rng.randn(k, n) * 0.3).astype(np.float32)
-    return quantize(np.ascontiguousarray(w.T), GGMLType.Q4_K)  # (n rows, k cols)
+    return quantize(np.ascontiguousarray(w.T), GGMLType[kind])  # (n rows, k cols)
 
 
-def _both(k, n, seed, monkeypatch, layout="adjk"):
-    """The same Q4_K bytes repacked by the JAX package and by the port."""
+def _both(k, n, seed, monkeypatch, layout="adjk", kind="Q4_K"):
+    """The same k-quant bytes repacked by the JAX package and by the port."""
     monkeypatch.setenv("CT_PACK4_LAYOUT", layout)
-    buf = _q4k_bytes(k, n, seed)
-    jq = jqm.repack(buf, GGMLType.Q4_K, n, k)
-    assert jq.pack_layout == layout
-    return jq, tqm.repack(buf, GGMLType.Q4_K, n, k)
+    buf = _kq_bytes(k, n, seed, kind)
+    jq = jqm.repack(buf, GGMLType[kind], n, k)
+    if kind == "Q4_K":
+        assert jq.pack_layout == layout
+    return jq, tqm.repack(buf, GGMLType[kind], n, k)
 
 
 def _assert_planes_equal(jq, tq):
     for f in PLANES:
-        a, b = np.asarray(getattr(jq, f)), getattr(tq, f).numpy()
+        a, b = getattr(jq, f), getattr(tq, f)
+        if a is None or b is None:  # Q6_K has no mins
+            assert a is None and b is None, f
+            continue
+        a, b = np.asarray(a), b.numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, f
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8), err_msg=f)
     assert (tq.kind, tq.group, tq.shape, tq.packed, tq.zp, tq.sfactor) == (
@@ -54,6 +60,30 @@ def test_repack_planes_and_dequantize_bit_exact(k, n, monkeypatch):
     np.testing.assert_array_equal(
         tqm.unpack_grid(tq).numpy(), np.asarray(jqm.unpack_grid(jq))
     )
+
+
+@pytest.mark.parametrize("kind", ["Q6_K", "Q5_K"])
+@pytest.mark.parametrize("k,n", [(256, 384), (512, 96), (1280, 256)])
+def test_grid_repack_planes_and_dequantize_bit_exact(kind, k, n, monkeypatch):
+    """int8-grid planes equal the JAX repack's byte for byte, with and
+    without mins (Q5_K, Q6_K), including the 1024-padding of a long K."""
+    jq, tq = _both(k, n, seed=k + n, monkeypatch=monkeypatch, kind=kind)
+    assert not tq.packed and tq.qs.shape[0] == jq.qs.shape[0]
+    _assert_planes_equal(jq, tq)
+    np.testing.assert_array_equal(
+        tqm.dequantize_qtensor(tq).numpy(), np.asarray(jqm.dequantize_qtensor(jq))
+    )
+    np.testing.assert_array_equal(tqm.unpack_grid(tq).numpy(), np.asarray(jqm.unpack_grid(jq)))
+
+
+@pytest.mark.parametrize("kind", ["Q6_K", "Q5_K"])
+def test_from_jax_params_carries_int8_grids(kind, monkeypatch):
+    jq, tq = _both(512, 384, seed=9, monkeypatch=monkeypatch, kind=kind)
+    got = from_jax_params({"lm_head": jq})["lm_head"]
+    assert (got.kind, got.group, got.sfactor, got.packed) == (tq.kind, tq.group, tq.sfactor, False)
+    for f in PLANES:
+        a, b = getattr(got, f), getattr(tq, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
 
 
 def test_from_jax_params_converts_ksplit_to_adjk(monkeypatch):
@@ -75,9 +105,10 @@ def _pallas(mode, x, jq, m):
     rows and the storage rows, with a tile of that mode's candidates."""
     rows, npad = jq.qs.shape
     tk, tn, inner, _ = next(
-        c for c in jqm._tile_candidates(rows, npad, True, "adjk") if c[3] == mode
+        c for c in jqm._tile_candidates(rows, npad, jq.packed, jq.pack_layout)
+        if c[3] == mode
     )
-    xp = np.zeros((max(8, m), 2 * rows), np.float32)
+    xp = np.zeros((max(8, m), rows * (2 if jq.packed else 1)), np.float32)
     xp[:m, : x.shape[1]] = x
     out = jqm._qmm_pallas_tiled(
         jnp.asarray(xp), jq, tk, tn, inner, interpret=True, mode=mode, rm=m
@@ -86,12 +117,13 @@ def _pallas(mode, x, jq, m):
 
 
 def _port(mode, x, tq):
-    xp = torch.zeros((x.shape[0], 2 * tq.qs.shape[0]))
+    xp = torch.zeros((x.shape[0], tq.qs.shape[0] * (2 if tq.packed else 1)))
     xp[:, : x.shape[1]] = torch.from_numpy(x)
-    if mode == "q":
-        out = K.qmm_q(*K.quantize_activations(xp), tq)
+    fn = getattr(K, f"qmm_{mode}")
+    if mode in ("q", "q8"):
+        out = fn(*K.quantize_activations(xp, tq.group), tq)
     else:
-        out = {"qx": K.qmm_qx, "si": K.qmm_si, "i": K.qmm_i}[mode](xp, tq)
+        out = fn(xp, tq)
     return out[:, : tq.shape[1]].numpy()
 
 
@@ -122,13 +154,59 @@ def test_plain_version_matches_pallas_kernel(mode, m, k, n, monkeypatch):
     assert _fro(ref, exact) < bound
 
 
+@pytest.mark.parametrize("kind", ["Q6_K", "Q5_K"])
+@pytest.mark.parametrize("m", [1, 3, 8, 64])
+@pytest.mark.parametrize("k,n", [(512, 384), (256, 256)])
+def test_grid_plain_versions_match_pallas_kernels(kind, m, k, n, monkeypatch):
+    """plain_q8, plain_b and plain_sb against _qmm_q_kernel (packed4=False),
+    _qmm_kernel and _qmm_s_kernel on the same int8-grid planes."""
+    jq, tq = _both(k, n, seed=7, monkeypatch=monkeypatch, kind=kind)
+    x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
+    exact = np.asarray(jqm._qmm_jnp(x, jq))
+    for mode, pallas_mode in (("q8", "q"), ("b", "b"), ("sb", "sb")):
+        name = f"qmm_{mode}"
+        before = dict(K.PLAIN_CALLS), dict(K.LAUNCHES)
+        got = _port(mode, x, tq)
+        assert K.PLAIN_CALLS[name] == before[0][name] + 1
+        assert K.LAUNCHES == before[1]  # no kernel launch on a CPU tensor
+        ref = _pallas(pallas_mode, x, jq, m)
+        # same algorithm, same roundings: only the f32 summation order differs
+        assert _fro(got, ref) <= 1e-4, mode
+        # error classes of tests/test_qmatmul.py against the exact f32 product
+        bound = 0.035 if mode == "q8" else 0.025
+        print(f"{kind} {mode} m={m} K={k} N={n}: vs Pallas {_fro(got, ref):.2e}, "
+              f"vs exact {_fro(got, exact):.4f}")
+        assert _fro(got, exact) < bound, mode
+        assert _fro(ref, exact) < bound, mode
+
+
+def _meta_qtensor(kind, kp, npad):
+    """A QTensor of `kind`'s layout at padded (kp, npad), planes on the meta
+    device (select_mode reads only the layout)."""
+    group, _, has_mins, packed = K.LAYOUTS[kind]
+    e = lambda *s: torch.empty(s, dtype=torch.int8, device="meta")  # noqa: E731
+    mins = e(kp // group, npad) if has_mins else None
+    return tqm.QTensor(e(kp // 2 if packed else kp, npad), e(kp // group, npad), mins,
+                       kind, group, (kp, npad), packed)
+
+
+def _case(m, kp, npad, mode, kind="Q4_K"):
+    # the Q4_K cases keep the ids they had before select_mode took the weight
+    tag = f"{m}-{kp}-{npad}-{mode}" + ("" if kind == "Q4_K" else f"-{kind}")
+    return pytest.param(m, kp, npad, mode, kind, id=tag)
+
+
 @pytest.mark.parametrize(
-    "m,kp,npad,mode",
-    [(1, 4096, 12288, "qx"), (8, 4096, 4096, "q"), (32, 11264, 4096, "q"),
-     (33, 4096, 22528, "si"), (128, 4096, 4096, "i"), (128, 11264, 4096, "i")],
+    "m,kp,npad,mode,kind",
+    [_case(1, 4096, 12288, "qx"), _case(8, 4096, 4096, "q"), _case(32, 11264, 4096, "q"),
+     _case(33, 4096, 22528, "si"), _case(128, 4096, 4096, "i"), _case(128, 11264, 4096, "i"),
+     _case(1, 4096, 32768, "q8", "Q6_K"), _case(8, 11264, 4096, "q8", "Q6_K"),
+     _case(32, 4096, 4096, "q8", "Q5_K"), _case(33, 4096, 4096, "b", "Q6_K"),
+     _case(128, 11264, 4096, "b", "Q6_K"), _case(128, 4096, 12288, "sb", "Q5_K"),
+     _case(128, 11264, 4096, "sb", "Q5_K")],
 )
-def test_select_mode(m, kp, npad, mode):
-    assert tqm.select_mode(m, kp, npad) == mode
+def test_select_mode(m, kp, npad, mode, kind):
+    assert tqm.select_mode(m, _meta_qtensor(kind, kp, npad)) == mode
 
 
 def test_qmatmul_pads_and_slices(monkeypatch):

@@ -5,19 +5,23 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. card      nvidia-smi name and power limit, versions, kernel build time
   2. bandwidth dense device-to-device copy of 2 GiB, timed with CUDA events
-  3. kernels   each of the seven qmm kernels against its plain PyTorch
+  3. kernels   each of the ten qmm kernels against its plain PyTorch
                version at the llama-2-7B matmul shapes its main path gives
-               it (Q4_K, and the Q6_K / Q5_K int8 grids of Q4_K_M / Q5_K_M
-               files), with times beside the card's bound and a bf16
+               it (Q4_K, the Q6_K / Q5_K int8 grids of Q4_K_M / Q5_K_M
+               files, and GPTQ4 planes at group 128, with groups 32 and 64
+               at one shape), with times beside the card's bound and a bf16
                torch.matmul yardstick
-  4. tiny      tiny all-Q4_K, Q4_K_M and Q5_K_M llamas served on the card and
-               on the CPU, every kernel call held against its plain version
-  5. main      llama-2-7B-width GGUFs (random weights from a seed) through
-               AutoModelForCausalLM.from_pretrained -> llm(...): text
-               prompts, a 137-token prompt (chunks 128 + 8 + 1) and decode,
-               on three paths, each with its kernels' launch counts asserted:
-               a Q4_K_M file at full depth, a Q5_K_M file at 4 layers and an
-               all-Q4_K file at 8 layers
+  4. tiny      tiny all-Q4_K, Q4_K_M and Q5_K_M llama files and tiny GPTQ
+               directories (groups 32 and 128, with and without act-order)
+               served on the card and on the CPU, every kernel call held
+               against its plain version
+  5. main      llama-2-7B-width checkpoints (random weights from a seed)
+               through AutoModelForCausalLM.from_pretrained -> llm(...):
+               text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
+               decode, on five paths, each with its kernels' launch counts
+               asserted: a Q4_K_M file at full depth, a Q5_K_M file at 4
+               layers, an all-Q4_K file at 8 layers, a GPTQ 4-bit directory
+               (group 128) at full depth and an act-order one at 4 layers
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -29,6 +33,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -54,12 +59,15 @@ SHAPES = {
     "down": (11008, 4096),
     "lm_head": (4096, 32000),
 }
-# the batch size m the main path gives each Q4_K kernel
+# the batch size m the main path gives each Q4_K kernel, and each GPTQ kernel
 M_OF = {"qmm_qx": 1, "qmm_q": 8, "qmm_si": 128, "qmm_i": 128}
+M_OF_GPTQ = {"qmm_qx_gptq": 1, "qmm_q_gptq": 8, "qmm_i_gptq": 128}
 # (weight type, shape, [(kernel, m), ...]) held against the plain versions:
 # Q4_K at five shapes; the Q6_K tensors of a Q4_K_M file (attn_v and ffn_down of
 # the more-bits layers, output) and the Q5_K tensors of a Q5_K_M file, each in
-# decode, 8-token and 128-token chunks
+# decode, 8-token and 128-token chunks; GPTQ4 planes ("GPTQ4/<group>") at
+# group 128 at the four shapes of the GPTQ path, and at groups 32 and 64 at
+# one shape, so that every instantiation meets a 7B shape
 KERNEL_CASES = [
     ("Q4_K", s, [(name, m) for name, m in M_OF.items()])
     for s in ("qkv", "o", "gate_up", "down", "lm_head")
@@ -70,27 +78,40 @@ KERNEL_CASES = [
 ] + [
     ("Q5_K", s, [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_sb", 128)])
     for s in ("qkv", "o", "gate_up", "down")
+] + [
+    (f"GPTQ4/{g}", s, list(M_OF_GPTQ.items()))
+    for g, s in ((128, "qkv"), (128, "o"), (128, "gate_up"), (128, "down"), (32, "o"), (64, "o"))
 ]
 # int8 dots for the activation-quantized kernels, bf16 for the GEMMs
 PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S, "qmm_q8": PEAK_INT8_S,
            "qmm_si": PEAK_BF16_S, "qmm_i": PEAK_BF16_S, "qmm_b": PEAK_BF16_S,
-           "qmm_sb": PEAK_BF16_S}
+           "qmm_sb": PEAK_BF16_S, "qmm_qx_gptq": PEAK_INT8_S, "qmm_q_gptq": PEAK_INT8_S,
+           "qmm_i_gptq": PEAK_BF16_S}
 # q/qx/q8: the integer group dots are exact, only f32 rescale sums differ in
 # order; i/si/b/sb: bf16 products summed in another order on tensor cores
 TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
-       "qmm_si": 1e-3, "qmm_i": 1e-3, "qmm_b": 1e-3, "qmm_sb": 1e-3}
-# main paths: (label, K_M mix or None for all-Q4_K, layers); the all-Q4_K
-# path is cut to 8 layers so that the whole run stays near two minutes
+       "qmm_si": 1e-3, "qmm_i": 1e-3, "qmm_b": 1e-3, "qmm_sb": 1e-3,
+       "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3}
+# main paths: (label, mix, layers). mix is a K_M mix, None for an all-Q4_K
+# file, or ("gptq", group, act_order) for a GPTQ 4-bit directory. The
+# all-Q4_K and Q5_K_M paths are cut in depth so that the whole run stays
+# within a few minutes; the act-order path is the second GPTQ path.
 MAIN_PATHS = [
     ("Q4_K_M", "Q4_K_M", 32),
     ("Q5_K_M", "Q5_K_M", 4),
     ("Q4_K", None, 8),
+    ("GPTQ4-g128", ("gptq", 128, False), 32),
+    ("GPTQ4-g128-actorder", ("gptq", 128, True), 4),
 ]
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
 # K_M mix (None: all-Q4_K), prompt and greedy steps
 TINY = dict(n_vocab=512, n_ctx=128, n_embd=256, n_ff=512, n_layer=2)
-TINY_MODELS = (("Q4_K", None), ("Q4_K_M", "Q4_K_M"), ("Q5_K_M", "Q5_K_M"))
+TINY_MODELS = (
+    ("Q4_K", None), ("Q4_K_M", "Q4_K_M"), ("Q5_K_M", "Q5_K_M"),
+    ("GPTQ4-g32", ("gptq", 32, False)), ("GPTQ4-g128", ("gptq", 128, False)),
+    ("GPTQ4-g32-actorder", ("gptq", 32, True)), ("GPTQ4-g128-actorder", ("gptq", 128, True)),
+)
 TINY_STEPS = 8
 # a seed serves when every greedy step on the CPU keeps its top-2 logits
 # this far apart (relative to the top one): card-vs-CPU logits differ by a
@@ -100,6 +121,44 @@ TINY_MIN_MARGIN = 0.025
 
 def log(*a):
     print(*a, flush=True)
+
+
+def is_gptq(mix) -> bool:
+    return isinstance(mix, tuple) and mix[0] == "gptq"
+
+
+def model_path(tmpdir: str, stem: str, mix) -> str:
+    """Where write_model puts a checkpoint: a GGUF file, or a directory whose
+    name routes it to the GPTQ backend."""
+    return os.path.join(tmpdir, f"{stem}-gptq" if is_gptq(mix) else f"{stem}.gguf")
+
+
+def write_model(path: str, mix, seed: int, big: bool = False, **cfg) -> None:
+    """A synthetic llama checkpoint of `mix` (see MAIN_PATHS) at `path`;
+    `big` draws the GGUF quant blocks directly instead of quantizing."""
+    from ctransformers_tpu_torch.formats.quants import GGMLType
+    from ctransformers_tpu_torch.models.synthetic import write_llama_gguf, write_llama_gptq
+
+    if is_gptq(mix):
+        write_llama_gptq(path, seed=seed, group=mix[1], act_order=mix[2], **cfg)
+    elif big:
+        write_llama_gguf(path, wtype=GGMLType.Q4_K, embed_type=GGMLType.F16,
+                         synthesize_blocks=True, seed=seed, mix=mix, **cfg)
+    else:
+        write_llama_gguf(path, seed=seed, mix=mix, **cfg)
+
+
+def remove_model(path: str) -> None:
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+def model_size(path: str) -> int:
+    if os.path.isdir(path):
+        return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return os.path.getsize(path)
 
 
 def cuda_time_ms(fn, reps: int, graph: bool = False) -> float:
@@ -153,8 +212,9 @@ def phase_bandwidth() -> float:
 
 
 def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.Generator):
-    """`kind` planes at padded shape (kp, npad): Q4_K adjk nibbles, or the
-    Q6_K / Q5_K int8 grid; padding rows and columns are zero, as
+    """`kind` planes at padded shape (kp, npad): Q4_K adjk nibbles, the
+    Q6_K / Q5_K int8 grid, or ("GPTQ4/<group>") adjk nibbles with f32 planes
+    s and m = -s * zero-point; padding rows and columns are zero, as
     make_qtensor leaves them."""
     from ctransformers_tpu_torch.ops.qmatmul import QTensor
 
@@ -164,6 +224,16 @@ def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.G
     def rand(lo, hi, shape):
         return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
 
+    if kind.startswith("GPTQ4"):
+        group = int(kind.split("/")[1])
+        qs = rnd(-128, 128, (kp // 2, npad))
+        sc = rand(1e-3, 4e-3, (kp // group, npad))
+        mn = -(sc * rnd(0, 16, (kp // group, npad)).float())
+        for a, r in ((qs, k // 2), (sc, k // group), (mn, k // group)):
+            a[r:] = 0
+            a[:, n:] = 0
+        return QTensor(qs, sc, mn, "GPTQ4", group, (kp, npad), packed=True, zp=0,
+                       sfactor=0, pack_layout="adjk")
     group, sf, has_mins, packed = K.LAYOUTS[kind]
     if packed:
         rows = kp // 2
@@ -212,7 +282,7 @@ def phase_kernels(K, copy_bw: float):
         for name, m in runs:
             x = torch.zeros((m, kp), device="cuda")
             x[:, :k] = torch.randn((m, k), generator=gen, device="cuda")
-            args = K.quantize_activations(x, base.group) if name in ("qmm_q", "qmm_q8") else (x,)
+            args = K.quantize_activations(x, base.group) if name in K.PREQUANTIZED else (x,)
             kern, plain = K.KERNELS[name], K.PLAIN[name]
             got = kern(*args, base)
             torch.cuda.synchronize()
@@ -235,7 +305,7 @@ def phase_kernels(K, copy_bw: float):
                      ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                      bound_copy_ms=bound_copy_ms, bytes=nbytes, ops=ops)
             results[name].append(r)
-            log(f"[kernels] {name:7s} {kind} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
+            log(f"[kernels] {name:11s} {kind:9s} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
                 f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
                 f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f} "
@@ -267,14 +337,14 @@ def greedy_margins(llm) -> tuple:
     return toks, logits, margins
 
 
-def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 16) -> int:
+def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 32) -> int:
     """The first seed from 1 whose tiny model keeps every greedy step's
     top-2 margin on the CPU above TINY_MIN_MARGIN; writes it to `path`."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
-    from ctransformers_tpu_torch.models.synthetic import write_llama_gguf
 
     for seed in range(1, max_seed + 1):
-        write_llama_gguf(path, seed=seed, mix=mix, **TINY)
+        remove_model(path)
+        write_model(path, mix, seed, **TINY)
         _, _, margins = greedy_margins(AutoModelForCausalLM.from_pretrained(path, device="cpu"))
         log(f"[tiny] {label} seed {seed}: CPU top-2 margins "
             f"{[round(x, 4) for x in margins]}")
@@ -287,7 +357,7 @@ def phase_tiny(K, tmpdir: str):
     """Tiny llamas (TINY_MODELS) on the card and on the CPU (prompt chunks
     64 + 8, then greedy decode). Every kernel call of the card runs is held
     against its plain version on the same operands (the kernels'
-    tolerances), each of the seven kernels must run, the greedy tokens must
+    tolerances), each of the ten kernels must run, the greedy tokens must
     be equal, and the logits must agree within the wiring class (5%): they
     cannot agree much closer, because bf16 and int8 rounding of the
     activations turn the ~1e-7 differences of the two devices' other ops
@@ -310,11 +380,11 @@ def phase_tiny(K, tmpdir: str):
         return run
 
     for label, mix in TINY_MODELS:
-        path = os.path.join(tmpdir, f"tiny_{label}.gguf")
+        path = model_path(tmpdir, f"tiny_{label}", mix)
         seed = pick_tiny_seed(path, label, mix)
         gpu = AutoModelForCausalLM.from_pretrained(path)
         cpu = AutoModelForCausalLM.from_pretrained(path, device="cpu")
-        os.remove(path)
+        remove_model(path)
         if gpu.device.type != "cuda" or cpu.device.type != "cpu":
             raise SystemExit(f"tiny: models on {gpu.device} and {cpu.device}")
         for name in originals:
@@ -341,9 +411,9 @@ def phase_tiny(K, tmpdir: str):
 
 def expected_launches(eng, chunks) -> dict:
     """Kernel launches of one forward per chunk size in `chunks`: every
-    matmul weight of the loaded engine (QKV and gate/up as the engine fused
-    them) once per chunk, lm_head once at m = 1 (the last token), each
-    through ops/qmatmul.py:select_mode."""
+    quantized matmul weight of the loaded engine (QKV and gate/up as the
+    engine fused them) once per chunk, a quantized lm_head once at m = 1
+    (the last token), each through ops/qmatmul.py:select_mode."""
     from ctransformers_tpu_torch.ops import qmm_kernels as K
     from ctransformers_tpu_torch.ops.qmatmul import QTensor, select_mode
 
@@ -351,26 +421,32 @@ def expected_launches(eng, chunks) -> dict:
                if isinstance(w, QTensor)]
     counts = collections.Counter()
     for m in chunks:
-        counts.update("qmm_" + select_mode(m, w) for w in weights)
-        counts["qmm_" + select_mode(1, eng.params["lm_head"])] += 1
+        counts.update(K.kernel_name(select_mode(m, w), w) for w in weights)
+        head = eng.params["lm_head"]
+        if isinstance(head, QTensor):  # a GPTQ directory's lm_head is dense
+            counts[K.kernel_name(select_mode(1, head), head)] += 1
     return {k: counts.get(k, 0) for k in K.LAUNCHES}
 
 
 def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int):
     from ctransformers_tpu_torch import AutoModelForCausalLM
     from ctransformers_tpu_torch.engine.engine import Engine
-    from ctransformers_tpu_torch.formats.quants import GGMLType
-    from ctransformers_tpu_torch.models.synthetic import LLAMA2_7B, write_llama_gguf
+    from ctransformers_tpu_torch.models.synthetic import LLAMA2_7B
     from ctransformers_tpu_torch.ops.qmatmul import QTensor
 
     cfg = dict(LLAMA2_7B, n_layer=n_layer, n_ctx=2048)
-    path = os.path.join(tmpdir, f"llama7b_{n_layer}l_{label}.gguf")
+    path = model_path(tmpdir, f"llama7b_{n_layer}l_{label}", mix)
+    if is_gptq(mix):
+        what = (f"GPTQ 4-bit directory, group {mix[1]}, desc_act {mix[2]}, f16 scales, "
+                "embedding and lm_head")
+    elif mix:
+        what = f"GGUF, llama.cpp {mix} types, {mix[:4]} token_embd"
+    else:
+        what = "GGUF, Q4_K matmuls, F16 embedding"
     t0 = time.perf_counter()
-    write_llama_gguf(path, wtype=GGMLType.Q4_K, embed_type=GGMLType.F16,
-                     synthesize_blocks=True, seed=7, mix=mix, **cfg)
-    log(f"[main {label}] wrote {os.path.getsize(path) / 2**30:.3f} GiB GGUF ({n_layer} layers, "
-        f"llama-2-7B width, {'llama.cpp ' + mix + ' types, ' + mix[:4] + ' token_embd' if mix else 'Q4_K matmuls, F16 embedding'}) "
-        f"in {time.perf_counter() - t0:.1f} s")
+    write_model(path, mix, seed=7, big=True, **cfg)
+    log(f"[main {label}] wrote {model_size(path) / 2**30:.3f} GiB ({n_layer} layers, "
+        f"llama-2-7B width, {what}) in {time.perf_counter() - t0:.1f} s")
     chunks = Engine._chunks(PROMPT_LEN, cfg["n_ctx"])
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -378,7 +454,7 @@ def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int):
         t0 = time.perf_counter()
         llm = AutoModelForCausalLM.from_pretrained(path)
         load_s = time.perf_counter() - t0
-        os.remove(path)
+        remove_model(path)
         eng = llm._engine
         want_prompt = expected_launches(eng, chunks)
         want_decode = expected_launches(eng, [1])
@@ -389,6 +465,11 @@ def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int):
         log(f"[main {label}] load {load_s:.2f} s ({eng.init_timings}); {len(qts)} QTensors "
             f"{dict(kinds)}, {wbytes / 1e9:.3f} GB of weight planes; token_embd "
             f"{tuple(eng.params['wte'].shape)} {eng.params['wte'].dtype}")
+        head = eng.params["lm_head"]
+        if not isinstance(head, QTensor):  # dense: a torch.matmul per forward
+            wbytes += head.numel() * head.element_size()
+            log(f"[main {label}] dense lm_head {tuple(head.shape)} {head.dtype}, "
+                f"{head.numel() * head.element_size() / 1e9:.3f} GB")
 
         for prompt in ("hello world", "the big cat is", "tell me a story once"):
             text = llm(prompt, max_new_tokens=16, seed=42)
@@ -446,8 +527,7 @@ def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int):
             raise SystemExit(f"main {label}: launch counts differ from the engine's weights'")
         return launches
     finally:
-        if os.path.exists(path):
-            os.remove(path)
+        remove_model(path)
 
 
 def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> int:
@@ -498,7 +578,7 @@ def main() -> int:
         raise SystemExit(f"main: kernels never launched on the main paths: {missing}")
 
     # one entry per kernel: times and bounds summed over its shapes and batch
-    # sizes in phase 3, launches summed over the three main paths of phase 5
+    # sizes in phase 3, launches summed over the main paths of phase 5
     kernels = []
     for name in K.KERNELS:
         rows = results[name]

@@ -11,6 +11,10 @@
 //   sm     f32  (Kp/256, Np) superblock min (-dmin)
 // so that W[k, n] = w4 * s + B with s = sd * sub_s, m = sm * sub_m and the
 // per-group bias B = 8 * s + m.
+//
+// GPTQ 4-bit weights share the qs layout; their scale planes are not
+// factored: s and m are f32 (Kp/G, Np) planes read as they are, one row per
+// group of G = 32, 64 or 128 rows, and B = 8 * s + m as above.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,7 +22,7 @@
 
 namespace ctq {
 
-constexpr int kGroup = 32;    // K rows per quant group
+constexpr int kGroup = 32;    // K rows per Q4_K quant group
 constexpr int kSfactor = 8;   // groups per Q4_K superblock
 
 // Sign-extended nibble `idx` (0..7, low nibble first) of a 32-bit word.
@@ -40,6 +44,12 @@ __device__ __forceinline__ void group_scale(float d, int sub_s, float dm,
   const float mv = __fmul_rn(dm, static_cast<float>(sub_m));
   *s = sv;
   *b = __fadd_rn(__fmul_rn(8.0f, sv), mv);
+}
+
+// The bias of an unfactored group (GPTQ): B = 8 * s + m, rounded as the
+// reference formula (no fused multiply-add).
+__device__ __forceinline__ float plain_bias(float s, float m) {
+  return __fadd_rn(__fmul_rn(8.0f, s), m);
 }
 
 }  // namespace ctq

@@ -1,4 +1,5 @@
-// Activation-quantized Q4_K matmul for small m (decode and short chunks).
+// Activation-quantized 4-bit matmul for small m (decode and short chunks),
+// on Q4_K weights and on GPTQ 4-bit weights.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_qx_kernel (mode "qx"): int8 quantization of x inside the kernel;
@@ -6,8 +7,13 @@
 //                  outside (xq, sx, xsum given).
 // Both compute, per output (t, n):
 //   out = sum_g xsum[t,g] * B[g,n] + sum_g (dot_g(xq[t], w4[:,n]) * sx[t,g]) * s[g,n]
-// with sx = absmax/127 per (token, group of 32), xq = clip(rint(x / max(sx,
+// with sx = absmax/127 per (token, group of G), xq = clip(rint(x / max(sx,
 // 1e-20)), -127, 127) and the group dot taken exactly in int32.
+//
+// Two template choices cover the reference kernels' branches: the group G
+// (32 for Q4_K; 32, 64 or 128 for GPTQ) and the scale source (Q4_K: int8
+// sub-scales times f32 superblock factors; GPTQ, the reference's
+// sfactor == 0 branch: f32 planes s and m read as they are).
 //
 // Bound on an H100: bytes. At m <= 32 every weight byte is used for at most
 // 64 multiply-adds, far below the card's ~295 operations per byte, so the
@@ -17,10 +23,17 @@
 // order (no atomics, no split-K: runs are bitwise repeatable). Its 256
 // threads lie 8 across the columns (4 columns each, one 32-bit load per
 // byte row, so a warp reads 32 contiguous bytes from each of 4 rows) and 32
-// down K (one quant group each per 1024-row chunk). The block stages the
-// chunk's quantized activations in shared memory, takes int32 group dots,
-// rescales them in f32, and reduces the 32 K-lanes in shared memory in a
-// fixed order at the end.
+// down K (32 rows each per 1024-row chunk). The block stages the chunk's
+// quantized activations in shared memory, takes int32 dots, rescales them
+// in f32, and reduces the 32 K-lanes in shared memory in a fixed order at
+// the end. A group of 64 or 128 rows spans 2 or 4 K lanes, which lie in one
+// warp: their int32 partial dots are added with shuffles BEFORE the single
+// f32 rescale, so the group dot is the reference's one exact integer (a
+// rescale per quarter would round differently), and the group's first lane
+// alone accumulates it. The in-kernel quantization reduces absmax and sum
+// over the G/4 neighbouring threads of a group with an xor butterfly: every
+// thread adds the same pairs in the same order, so runs stay bitwise
+// repeatable.
 #include "qmm_common.cuh"
 
 namespace {
@@ -28,37 +41,46 @@ namespace {
 constexpr int kTN = 32;                 // output columns per block
 constexpr int kThreads = 256;
 constexpr int kCQ = kTN / 4;            // column quads per block
-constexpr int kGL = kThreads / kCQ;     // K lanes (one group each per chunk)
-constexpr int kKC = kGL * ctq::kGroup;  // K rows staged per chunk
+constexpr int kGL = kThreads / kCQ;     // K lanes
+constexpr int kLR = 32;                 // K rows per lane and chunk
+constexpr int kKC = kGL * kLR;          // K rows staged per chunk
 
-template <int MT>
+template <int MT, int G>
 struct DecodeSmem {
   int8_t xq[MT][kKC];
-  float sx[MT][kGL];
-  float xs[MT][kGL];
+  float sx[MT][kKC / G];
+  float xs[MT][kKC / G];
   float red[kGL][MT][kTN];
 };
 
-template <int MT, bool QUANT_IN>
+// PLAIN_S: s and m are the f32 (kp/G, np) planes sd and sm themselves (GPTQ);
+// otherwise Q4_K's int8 sub-scales times f32 superblock factors.
+template <int MT, bool QUANT_IN, int G, bool PLAIN_S>
 __global__ void __launch_bounds__(kThreads)
 qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
              const int8_t* __restrict__ xq_g,   // (m, kp) int8     [!QUANT_IN]
-             const float* __restrict__ sx_g,    // (m, kp/32) f32   [!QUANT_IN]
-             const float* __restrict__ xs_g,    // (m, kp/32) f32   [!QUANT_IN]
+             const float* __restrict__ sx_g,    // (m, kp/G) f32    [!QUANT_IN]
+             const float* __restrict__ xs_g,    // (m, kp/G) f32    [!QUANT_IN]
              const int8_t* __restrict__ qs,     // (kp/2, np)
-             const int8_t* __restrict__ sub_s,  // (kp/32, np)
-             const int8_t* __restrict__ sub_m,  // (kp/32, np)
-             const float* __restrict__ sd,      // (kp/256, np)
-             const float* __restrict__ sm,      // (kp/256, np)
+             const int8_t* __restrict__ sub_s,  // (kp/32, np)      [!PLAIN_S]
+             const int8_t* __restrict__ sub_m,  // (kp/32, np)      [!PLAIN_S]
+             const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
+             const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m (kp/G, np)
              float* __restrict__ out,           // (m, np)
              int m, int kp, int np) {
-  __shared__ DecodeSmem<MT> sh;
+  static_assert(G % kLR == 0 && kLR * (32 / kCQ) % G == 0,
+                "a group is 1, 2 or 4 K lanes of one warp");
+  static_assert(PLAIN_S || G == ctq::kGroup, "Q4_K groups are 32 rows");
+  constexpr int kLPG = G / kLR;   // K lanes per group
+  constexpr int kNG = kKC / G;    // groups per chunk
+  constexpr int kQT = G / 4;      // threads holding one group while quantizing
+  __shared__ DecodeSmem<MT, G> sh;
   const int tid = threadIdx.x;
   const int cq = tid % kCQ;
   const int gl = tid / kCQ;
   const int n = blockIdx.x * kTN + 4 * cq;  // first of this thread's columns
   const int t0 = blockIdx.y * MT;
-  const int ng = kp / ctq::kGroup;
+  const int ng = kp / G;
 
   float acc[MT][4];
 #pragma unroll
@@ -69,9 +91,9 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
   for (int k0 = 0; k0 < kp; k0 += kKC) {
     // ---- stage this chunk's activations (int8) and group statistics ----
     if (QUANT_IN) {
-      // thread tid holds x[k0 + 4*tid .. +3]; 8 neighbouring lanes = 1 group
+      // thread tid holds x[k0 + 4*tid .. +3]; G/4 neighbouring threads = 1 group
       const int k = k0 + 4 * tid;
-      const int gi = tid / 8;
+      const int gi = tid / kQT;
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const int t = t0 + i;
@@ -82,7 +104,7 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
                            fmaxf(fabsf(v.z), fabsf(v.w)));
         float sum = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
 #pragma unroll
-        for (int off = 1; off < 8; off <<= 1) {
+        for (int off = 1; off < kQT; off <<= 1) {
           amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
           sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
         }
@@ -94,7 +116,7 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
         q.z = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.z, den)), -127.f), 127.f);
         q.w = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.w, den)), -127.f), 127.f);
         *reinterpret_cast<char4*>(&sh.xq[i][4 * tid]) = q;
-        if ((tid & 7) == 0) {
+        if (tid % kQT == 0) {
           sh.sx[i][gi] = sxv;
           sh.xs[i][gi] = sum;
         }
@@ -109,9 +131,9 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
           v = __ldg(reinterpret_cast<const int*>(xq_g + (size_t)t * kp + k));
         *reinterpret_cast<int*>(&sh.xq[i][4 * tid]) = v;
       }
-      for (int e = tid; e < MT * kGL; e += kThreads) {
-        const int i = e / kGL, gi = e % kGL;
-        const int t = t0 + i, g = k0 / ctq::kGroup + gi;
+      for (int e = tid; e < MT * kNG; e += kThreads) {
+        const int i = e / kNG, gi = e % kNG;
+        const int t = t0 + i, g = k0 / G + gi;
         const bool ok = t < m && g < ng;
         sh.sx[i][gi] = ok ? __ldg(sx_g + (size_t)t * ng + g) : 0.0f;
         sh.xs[i][gi] = ok ? __ldg(xs_g + (size_t)t * ng + g) : 0.0f;
@@ -119,22 +141,24 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
     }
     __syncthreads();
 
-    // ---- one quant group per K lane: int32 dots, then f32 rescale ----
-    const int g = k0 / ctq::kGroup + gl;
-    if (g < ng) {
-      int idot[MT][4];
+    // ---- 32 rows per K lane: int32 dots, summed over the group's lanes,
+    // then one f32 rescale per group ----
+    const int g = (k0 + gl * kLR) / G;
+    const bool live = k0 + gl * kLR < kp;  // whole warps: kp is a 256-multiple
+    int idot[MT][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) idot[i][c] = 0;
-      const int8_t* qrow = qs + (size_t)g * (ctq::kGroup / 2) * np + n;
-      uint32_t w[ctq::kGroup / 2];
+      for (int c = 0; c < 4; ++c) idot[i][c] = 0;
+    if (live) {
+      const int8_t* qrow = qs + (size_t)(k0 + gl * kLR) / 2 * np + n;
+      uint32_t w[kLR / 2];
 #pragma unroll
-      for (int rr = 0; rr < ctq::kGroup / 2; ++rr)
+      for (int rr = 0; rr < kLR / 2; ++rr)
         w[rr] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)rr * np));
 #pragma unroll
-      for (int rr = 0; rr < ctq::kGroup / 2; ++rr) {
-        const int kl = gl * ctq::kGroup + 2 * rr;
+      for (int rr = 0; rr < kLR / 2; ++rr) {
+        const int kl = gl * kLR + 2 * rr;
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           const int x0 = sh.xq[i][kl];
@@ -145,21 +169,43 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
                           ctq::nibble(w[rr], 2 * c + 1) * x1;
         }
       }
-      const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
-      const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
-      const size_t fo = (size_t)(g / ctq::kSfactor) * np + n;
-      const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
-      const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
-      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
-      float s[4], b[4];
+    }
+    if (kLPG > 1) {
+      // the group's lanes are threads kCQ apart in one warp; integer sums
+      // are exact in any order
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &b[c]);
+      for (int off = kCQ; off < kCQ * kLPG; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            idot[i][c] += __shfl_xor_sync(0xffffffffu, idot[i][c], off);
+    }
+    if (live && gl % kLPG == 0) {
+      float s[4], b[4];
+      if (PLAIN_S) {
+        const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + (size_t)g * np + n));
+        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + (size_t)g * np + n));
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+        s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) b[c] = ctq::plain_bias(s[c], mv[c]);
+      } else {
+        const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
+        const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
+        const size_t fo = (size_t)(g / ctq::kSfactor) * np + n;
+        const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &b[c]);
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float sxv = sh.sx[i][gl];
-        const float xsv = sh.xs[i][gl];
+        const float sxv = sh.sx[i][gl / kLPG];
+        const float xsv = sh.xs[i][gl / kLPG];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float part = __fmul_rn(__fmul_rn((float)idot[i][c], sxv), s[c]);
@@ -185,43 +231,81 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
   }
 }
 
-template <bool QUANT_IN>
+template <bool QUANT_IN, int G, bool PLAIN_S>
 int launch(const float* x, const int8_t* xq, const float* sx, const float* xs,
            const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
            const float* sd, const float* sm, float* out, int m, int kp,
            int np, cudaStream_t stream) {
   if (m == 1) {
     dim3 grid(np / kTN, 1);
-    qmm_q_kernel<1, QUANT_IN><<<grid, kThreads, 0, stream>>>(
+    qmm_q_kernel<1, QUANT_IN, G, PLAIN_S><<<grid, kThreads, 0, stream>>>(
         x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   } else {
     constexpr int MT = 8;
     dim3 grid(np / kTN, (m + MT - 1) / MT);
-    qmm_q_kernel<MT, QUANT_IN><<<grid, kThreads, 0, stream>>>(
+    qmm_q_kernel<MT, QUANT_IN, G, PLAIN_S><<<grid, kThreads, 0, stream>>>(
         x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// GPTQ: f32 planes s and m (kp/group, np), group 32, 64 or 128.
+template <bool QUANT_IN>
+int launch_gptq(const float* x, const int8_t* xq, const float* sx,
+                const float* xs, const int8_t* qs, const float* s,
+                const float* mn, float* out, int m, int kp, int np, int group,
+                cudaStream_t stream) {
+  switch (group) {
+    case 32:
+      return launch<QUANT_IN, 32, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
+                                        out, m, kp, np, stream);
+    case 64:
+      return launch<QUANT_IN, 64, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
+                                        out, m, kp, np, stream);
+    case 128:
+      return launch<QUANT_IN, 128, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
+                                         out, m, kp, np, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// mode "qx": x f32 (m, kp), quantized in the kernel.
+// mode "qx" on Q4_K: x f32 (m, kp), quantized in the kernel.
 int ct_qmm_qx(const float* x, const int8_t* qs, const int8_t* sub_s,
               const int8_t* sub_m, const float* sd, const float* sm,
               float* out, int m, int kp, int np, void* stream) {
-  return launch<true>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m, sd, sm,
-                      out, m, kp, np, static_cast<cudaStream_t>(stream));
+  return launch<true, ctq::kGroup, false>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m,
+                                          sd, sm, out, m, kp, np,
+                                          static_cast<cudaStream_t>(stream));
 }
 
-// mode "q": xq int8 (m, kp), sx and xsum f32 (m, kp/32) given.
+// mode "q" on Q4_K: xq int8 (m, kp), sx and xsum f32 (m, kp/32) given.
 int ct_qmm_q(const int8_t* xq, const float* sx, const float* xs,
              const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp,
              int np, void* stream) {
-  return launch<false>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m,
-                       kp, np, static_cast<cudaStream_t>(stream));
+  return launch<false, ctq::kGroup, false>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm,
+                                           out, m, kp, np,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// mode "qx" on GPTQ4: x f32 (m, kp); s and mn f32 (kp/group, np).
+int ct_qmm_qx_gptq(const float* x, const int8_t* qs, const float* s,
+                   const float* mn, float* out, int m, int kp, int np,
+                   int group, void* stream) {
+  return launch_gptq<true>(x, nullptr, nullptr, nullptr, qs, s, mn, out, m, kp, np,
+                           group, static_cast<cudaStream_t>(stream));
+}
+
+// mode "q" on GPTQ4: xq int8 (m, kp), sx and xsum f32 (m, kp/group) given.
+int ct_qmm_q_gptq(const int8_t* xq, const float* sx, const float* xs,
+                  const int8_t* qs, const float* s, const float* mn,
+                  float* out, int m, int kp, int np, int group, void* stream) {
+  return launch_gptq<false>(nullptr, xq, sx, xs, qs, s, mn, out, m, kp, np, group,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,16 +1,23 @@
 // Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the Q4_K
-// kernels (qmm_prefill.cu: "si", "i") and the int8-grid kernels
-// (qmm_grid.cu: "sb", "b"). Only the weight tile's decoding differs between
-// formats; it comes in as a tile type W:
+// kernels (qmm_prefill.cu: "si", "i"), the GPTQ 4-bit kernel
+// (qmm_prefill.cu: "i") and the int8-grid kernels (qmm_grid.cu: "sb", "b").
+// Only the weight tile's decoding differs between formats; it comes in as a
+// tile type W:
 //
-//   W::kGroup    K rows per quant group (32, or 16 for Q6_K)
+//   W::kGroup    K rows per quant group (32; 16 for Q6_K; 32, 64 or 128
+//                for GPTQ). A group larger than the K step is walked in
+//                several steps, each reading the group's one row of s and
+//                B; such a type cannot fold (SUMFOLD), because the fold
+//                needs whole groups inside a step.
 //   W::kHasBias  whether the format adds a per-group bias B (its mins)
 //   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s)
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
 //                kGemmLDB): W = q * s + B rounded once to bf16, or, when
 //                FOLD, q * s alone, with B of each of the step's groups
-//                written to b_s[group in step][column].
+//                written to b_s[group in step][column]. A format with
+//                unfactored planes (GPTQ) takes sub_s = sub_m = null and
+//                its f32 (kp/G, np) planes s and m as sd and sm.
 //
 // The kernel computes
 //   SUMFOLD and W has a bias:  out = bf16(x) @ bf16(q * s) + xsum @ B
@@ -51,15 +58,18 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
                 const int8_t* __restrict__ qs,     // weight grid, W's layout
                 const int8_t* __restrict__ sub_s,  // (kp/G, np)
                 const int8_t* __restrict__ sub_m,  // (kp/G, np)   [bias]
-                const float* __restrict__ sd,      // (kp/256, np)
-                const float* __restrict__ sm,      // (kp/256, np) [bias]
+                const float* __restrict__ sd,      // (kp/256, np); unfactored: s (kp/G, np)
+                const float* __restrict__ sm,      // (kp/256, np) [bias]; unfactored: m
                 float* __restrict__ out,           // (m, np)
                 int m, int kp, int np) {
   using namespace nvcuda;
   constexpr int G = W::kGroup;
-  constexpr int kNGS = kGemmBK / G;  // quant groups per K step (1 or 2)
+  // quant groups per K step (1 or 2; 1 where a step is part of one group)
+  constexpr int kNGS = G >= kGemmBK ? 1 : kGemmBK / G;
   constexpr bool kFold = SUMFOLD && W::kHasBias;
-  static_assert(kNGS * G == kGemmBK, "a K step holds whole quant groups");
+  static_assert(G >= kGemmBK ? G % kGemmBK == 0 : kNGS * G == kGemmBK,
+                "a K step holds whole quant groups, or is a whole part of one");
+  static_assert(!kFold || G <= kGemmBK, "the fold needs whole groups in a step");
   __shared__ __align__(128) __nv_bfloat16 As[kGemmBM * kGemmLDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[kGemmBK * kGemmLDB];
   __shared__ __align__(128) float Cs[kGemmBM * kGemmLDC];

@@ -1,4 +1,5 @@
-// Dequantize-then-bf16-GEMM Q4_K matmul for prompt chunks (m > 32).
+// Dequantize-then-bf16-GEMM 4-bit matmul for prompt chunks (m > 32), on Q4_K
+// weights ("si", "i") and on GPTQ 4-bit weights ("i").
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_i4_s_kernel (mode "si"): W' = w4 * s rounded to bf16, x rounded to
@@ -14,7 +15,11 @@
 // GEMM (tiles, WMMA, fixed-order sums, the bias fold) is qmm_gemm.cuh's;
 // this file decodes the Q4_K weight tile: each of the 128 threads takes one
 // byte row (two K rows, one nibble each) of 8 columns, with those columns'
-// group scale and bias, so a 32-row K step is one quant group.
+// group scale and bias, so a 32-row K step is one quant group. The GPTQ tile
+// decodes the same nibbles with the reference's sfactor == 0 branch: s and m
+// are f32 planes read as they are, one row per group of 32, 64 or 128 rows,
+// so a K step is a whole group or a whole part of one and needs only that
+// group's row; W = w4 * s + B is rounded once to bf16, as in the reference.
 #include "qmm_gemm.cuh"
 
 namespace {
@@ -74,6 +79,56 @@ struct Q4KTile {
 static_assert(ctq::kGemmBK == Q4KTile::kGroup && ctq::kGemmThreads == 16 * 8,
               "one quant group per K step; 16 byte rows x 8 column octets");
 
+// GPTQ 4-bit: adjk nibbles, f32 planes s and m (kp/G, np) passed as sd and sm.
+template <int G>
+struct GptqTile {
+  static constexpr int kGroup = G;
+  static constexpr bool kHasBias = true;
+  static_assert(G % ctq::kGemmBK == 0, "a K step lies in one quant group");
+
+  template <bool FOLD>
+  __device__ __forceinline__ static void load(
+      const int8_t* __restrict__ qs,  // (kp/2, np) adjk nibbles
+      const int8_t* __restrict__,     // no sub-scales
+      const int8_t* __restrict__,     // no sub-mins
+      const float* __restrict__ s_p,  // (kp/G, np) s
+      const float* __restrict__ m_p,  // (kp/G, np) m
+      int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
+      float (*)[ctq::kGemmBN]) {
+    static_assert(!FOLD, "mode i only: the bias is added per element");
+    // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
+    const int wr = tid / 8, wc = (tid % 8) * 8;
+    const int n = col0 + wc;
+    const size_t go = (size_t)(k0 / G) * np + n;
+    const float4 s0 = __ldg(reinterpret_cast<const float4*>(s_p + go));
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(s_p + go + 4));
+    const float4 m0 = __ldg(reinterpret_cast<const float4*>(m_p + go));
+    const float4 m1 = __ldg(reinterpret_cast<const float4*>(m_p + go + 4));
+    const uint2 wv = __ldg(reinterpret_cast<const uint2*>(
+        qs + ((size_t)(k0 / 2) + wr) * np + n));
+    const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float mv[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+    __nv_bfloat16* b0 = Bs + (2 * wr) * ctq::kGemmLDB + wc;
+    __nv_bfloat16* b1 = b0 + ctq::kGemmLDB;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t wj = j < 4 ? wv.x : wv.y;
+      const float b = ctq::plain_bias(sv[j], mv[j]);
+      const float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), sv[j]);
+      const float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]);
+      b0[j] = __float2bfloat16(__fadd_rn(w0, b));
+      b1[j] = __float2bfloat16(__fadd_rn(w1, b));
+    }
+  }
+};
+
+template <int G>
+int launch_gptq_i(const float* x, const int8_t* qs, const float* s, const float* mn,
+                  float* out, int m, int kp, int np, cudaStream_t stream) {
+  return ctq::launch_gemm<GptqTile<G>, false>(x, qs, nullptr, nullptr, s, mn, out, m,
+                                              kp, np, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -92,6 +147,20 @@ int ct_qmm_i(const float* x, const int8_t* qs, const int8_t* sub_s,
              float* out, int m, int kp, int np, void* stream) {
   return ctq::launch_gemm<Q4KTile, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                           static_cast<cudaStream_t>(stream));
+}
+
+// mode "i" on GPTQ4: bf16(x) @ bf16(w4 * s + B), B = 8 * s + mn; s and mn f32
+// (kp/group, np), group 32, 64 or 128.
+int ct_qmm_i_gptq(const float* x, const int8_t* qs, const float* s,
+                  const float* mn, float* out, int m, int kp, int np,
+                  int group, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (group) {
+    case 32: return launch_gptq_i<32>(x, qs, s, mn, out, m, kp, np, st);
+    case 64: return launch_gptq_i<64>(x, qs, s, mn, out, m, kp, np, st);
+    case 128: return launch_gptq_i<128>(x, qs, s, mn, out, m, kp, np, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

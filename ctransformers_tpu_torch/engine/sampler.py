@@ -5,7 +5,9 @@ temperature scaling, sign-dependent repetition penalty on the scaled
 logits, top-k, softmax, top-p truncation + renormalize, categorical draw.
 
 `sample_llama` is the llama.cpp chain of the GGUF path: repetition penalty
-on raw logits, top-k, top-p, temperature, draw.
+on raw logits, top-k, top-p, temperature, draw. `sample_llama_decayed` is
+the GPTQ path's: the same chain with a penalty that fades with a token's
+age (rep_penalty_mask).
 
 The RNG is numpy's MT19937 (np.random.RandomState), seeded as the JAX
 package seeds it, so the port draws the same tokens seed for seed.
@@ -81,6 +83,37 @@ def sample_gpt(
     return int(idx[_draw(probs, rng)])
 
 
+def _llama_tail(l: np.ndarray, top_k: int, top_p: float, temperature: float,
+                rng: np.random.RandomState) -> int:
+    """top_k -> top_p -> temperature -> draw on penalized f64 logits `l`:
+    the end of both llama chains."""
+    n = l.shape[0]
+    if temperature <= 0:
+        return int(np.argmax(l))  # greedy path
+
+    top_k = min(int(top_k) if top_k > 0 else n, n)
+    idx = np.argpartition(-l, top_k - 1)[:top_k] if top_k < n else np.arange(n)
+    idx = idx[np.argsort(-l[idx], kind="stable")]
+    vals = l[idx]
+
+    probs = np.exp(vals - vals.max())
+    probs /= probs.sum()
+
+    if top_p < 1.0 and len(probs) > 1:
+        cum = np.cumsum(probs)
+        # llama_sample_top_p keeps at least 1 candidate, cuts when cum >= p
+        cut = int(np.searchsorted(cum, top_p, side="left")) + 1
+        cut = min(cut, len(probs))
+        probs = probs[:cut]
+        idx = idx[:cut]
+
+    # temperature applied to remaining logits, then softmax + draw
+    vals = vals[: len(idx)] / temperature
+    probs = np.exp(vals - vals.max())
+    probs /= probs.sum()
+    return int(idx[_draw(probs, rng)])
+
+
 def sample_llama(
     logits: np.ndarray,
     *,
@@ -107,30 +140,7 @@ def sample_llama(
             else:
                 l[tok] /= repetition_penalty
 
-    if temperature <= 0:
-        return int(np.argmax(l))  # greedy path
-
-    top_k = min(int(top_k) if top_k > 0 else n, n)
-    idx = np.argpartition(-l, top_k - 1)[:top_k] if top_k < n else np.arange(n)
-    idx = idx[np.argsort(-l[idx], kind="stable")]
-    vals = l[idx]
-
-    probs = np.exp(vals - vals.max())
-    probs /= probs.sum()
-
-    if top_p < 1.0 and len(probs) > 1:
-        cum = np.cumsum(probs)
-        # llama_sample_top_p keeps at least 1 candidate, cuts when cum >= p
-        cut = int(np.searchsorted(cum, top_p, side="left")) + 1
-        cut = min(cut, len(probs))
-        probs = probs[:cut]
-        idx = idx[:cut]
-
-    # temperature applied to remaining logits, then softmax + draw
-    vals = vals[: len(idx)] / temperature
-    probs = np.exp(vals - vals.max())
-    probs /= probs.sum()
-    return int(idx[_draw(probs, rng)])
+    return _llama_tail(l, top_k, top_p, temperature, rng)
 
 
 def rep_penalty_mask(
@@ -167,3 +177,32 @@ def rep_penalty_mask(
         if 0 <= t < n_vocab and abs(v - 1.0) > abs(mask[t] - 1.0):
             mask[t] = v
     return mask
+
+
+def sample_llama_decayed(
+    logits: np.ndarray,
+    *,
+    top_k: int,
+    top_p: float,
+    temperature: float,
+    repetition_penalty: float,
+    last_tokens: Sequence[int],
+    seed: int,
+    sustain: int,
+    decay: int,
+    rng: Optional[np.random.RandomState] = None,
+) -> int:
+    """llama chain with the GPTQ backend's decaying repetition penalty
+    (see rep_penalty_mask). `last_tokens` should cover sustain+decay
+    positions of context."""
+    if rng is None:
+        rng = np.random.RandomState(_resolve_seed(seed))
+    n = logits.shape[0]
+    l = logits.astype(np.float64).copy()
+    mask = rep_penalty_mask(n, last_tokens, repetition_penalty, sustain, decay)
+    pen = mask != 1.0
+    pos = pen & (l > 0)
+    neg = pen & (l <= 0)
+    l[pos] /= mask[pos]
+    l[neg] *= mask[neg]
+    return _llama_tail(l, top_k, top_p, temperature, rng)

@@ -7,7 +7,13 @@
 * When no ``model_file`` is given, the smallest ``*.bin``/``*.gguf`` file in
   the directory wins.
 
-Hub repo ids, GPTQ and the 🤗 wrapper (``hf=True``) are not yet ported.
+* ``model_type="gptq"``, or "gptq" anywhere in the path, routes a local
+  GPTQ checkpoint directory (``*.safetensors``, ``config.json``,
+  ``tokenizer.model``) to the GPTQ backend (gptq/hub.py).
+
+Served: llama GGUF files with Q4_K, Q5_K and Q6_K matmul weights, and llama
+GPTQ 4-bit directories (groups 32, 64 and 128, with or without act-order).
+Hub repo ids and the 🤗 wrapper (``hf=True``) are not yet ported.
 """
 
 from __future__ import annotations
@@ -101,7 +107,10 @@ class AutoModelForCausalLM:
         if model_type == "gptq" or (
             model_type is None and "gptq" in str(model_path).lower()
         ):
-            raise NotImplementedError("GPTQ is not yet ported, see ROADMAP")
+            from . import gptq
+
+            return gptq.AutoModelForCausalLM.from_pretrained(
+                model_path, device=device, **kwargs)
         if config is None:
             config = AutoConfig.from_pretrained(model_path, **kwargs)
         return LLM(

@@ -2,7 +2,8 @@
 
 The `LLM` class keeps the constructor, properties and methods of the JAX
 package with the same streaming and stop-sequence semantics; the engine
-underneath runs PyTorch with the Q4_K matmuls on hand-written CUDA kernels.
+underneath runs PyTorch with the quantized matmuls on hand-written CUDA
+kernels.
 It runs on the card unless the caller passes device="cpu".
 
 This slice serves the classic sampler chains. The arguments it does not
@@ -105,6 +106,11 @@ class LLM:
             context_length=config.context_length,
             progress_callback=progress_callback,
         )
+        self._init_from_bundle(bundle, model_type, device)
+
+    def _init_from_bundle(self, bundle, model_type: str, device) -> None:
+        """Wire up the engine and the sampler from a loaded ModelBundle
+        (shared by the GGUF path and the GPTQ backend)."""
         self._bundle = bundle
         self._model_type = bundle.architecture or model_type
         self._engine = Engine(bundle.spec, bundle.params, device=device)

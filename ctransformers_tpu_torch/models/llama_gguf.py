@@ -26,7 +26,7 @@ from .spec import ArchSpec
 from .vocab import GGUFVocab
 
 # quantized matmul weight types with kernels in ops/qmm_kernels.py
-SERVED_TYPES = tuple(GGMLType[kind] for kind in LAYOUTS)
+SERVED_TYPES = tuple(GGMLType[kind] for kind in LAYOUTS if kind in GGMLType.__members__)
 
 
 def _kv(r: GGUFReader, key: str, default=None, required: bool = False):

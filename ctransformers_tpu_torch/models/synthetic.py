@@ -1,16 +1,22 @@
-"""Synthetic llama GGUF files written with the port's own GGUF writer: the
-tiny test models and the llama-2-7B-width models that chip_smoke.py serves,
-all-Q4_K or laid out tensor for tensor as llama.cpp lays out a Q4_K_M or
-Q5_K_M file. Weights are random, made from a seed; nothing is downloaded."""
+"""Synthetic llama checkpoints written with the port's own writers: the
+tiny test models and the llama-2-7B-width models that chip_smoke.py serves.
+GGUF files are all-Q4_K or laid out tensor for tensor as llama.cpp lays out
+a Q4_K_M or Q5_K_M file; GPTQ directories are laid out as a public 4-bit
+GPTQ-for-LLaMa checkpoint is. Weights are random, made from a seed; nothing
+is downloaded."""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..formats.gguf import write_gguf
 from ..formats.quants import GGMLType, quantize
+from ..formats.safetensors import write_safetensors
+from ..tokenizers.spm_model import write_spm_model
 
 LLAMA2_7B = dict(
     n_vocab=32000, n_ctx=4096, n_embd=4096, n_head=32, n_head_kv=32,
@@ -194,3 +200,95 @@ def write_llama_gguf(
         weight(f"{p}.ffn_down.weight", n_embd, n_ff)
     write_gguf(path, kv, tensors)
     return dict(n_vocab=n_vocab, n_ctx=n_ctx, n_layer=n_layer)
+
+
+def write_llama_gptq(
+    path: str,
+    n_vocab: int = 512,
+    n_ctx: int = 128,
+    n_embd: int = 256,
+    n_head: int = 4,
+    n_head_kv: Optional[int] = None,
+    n_layer: int = 2,
+    n_ff: int = 512,
+    seed: int = 0,
+    group: int = 128,
+    act_order: bool = False,
+) -> dict:
+    """Write a llama GPTQ 4-bit checkpoint directory `path` in the
+    GPTQ-for-LLaMa layout (formats/gptq.py), as the public 4-bit llama-2
+    checkpoints are laid out: config.json, quantize_config.json,
+    tokenizer.model and model.safetensors with, per projection, qweight
+    (K/8, N) int32, qzeros (K/group, N/8) int32, f16 scales (K/group, N) and
+    g_idx (K,) int32; f16 embeddings, norms and dense lm_head. The packed
+    words are drawn directly (every bit pattern is a valid grid), the scales
+    from [0.25, 1] * 0.25 / sqrt(K). With `act_order` (desc_act) g_idx is a
+    random permutation of the rows' groups, drawn per tensor. Tensors are
+    generated one at a time while the file is written. Raises ValueError
+    when a projection's K is not a multiple of `group`."""
+    n_head_kv = n_head_kv or n_head
+    dh = n_embd // n_head
+    shapes = {  # projection -> (K, N)
+        "self_attn.q_proj": (n_embd, n_head * dh),
+        "self_attn.k_proj": (n_embd, n_head_kv * dh),
+        "self_attn.v_proj": (n_embd, n_head_kv * dh),
+        "self_attn.o_proj": (n_head * dh, n_embd),
+        "mlp.gate_proj": (n_embd, n_ff),
+        "mlp.up_proj": (n_embd, n_ff),
+        "mlp.down_proj": (n_ff, n_embd),
+    }
+    for name, (k, n) in shapes.items():
+        if k % group or k % 8 or n % 8:
+            raise ValueError(
+                f"{name}: K = {k} must be a multiple of the group {group} (and "
+                f"of 8), N = {n} a multiple of 8"
+            )
+    rng = np.random.default_rng(seed)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+            "vocab_size": n_vocab, "hidden_size": n_embd,
+            "intermediate_size": n_ff, "num_hidden_layers": n_layer,
+            "num_attention_heads": n_head, "num_key_value_heads": n_head_kv,
+            "rms_norm_eps": 1e-5, "max_position_embeddings": n_ctx,
+            "rope_theta": 10000.0, "bos_token_id": 1, "eos_token_id": 2,
+        }, f)
+    with open(os.path.join(path, "quantize_config.json"), "w") as f:
+        json.dump({"bits": 4, "group_size": group, "desc_act": act_order,
+                   "sym": False, "true_sequential": True}, f)
+    write_spm_model(os.path.join(path, "tokenizer.model"), *spm_vocab(n_vocab))
+
+    tensors = {}
+
+    def f16(name, shape, scale, offset=0.0):
+        tensors[name] = (np.float16, shape, lambda: (
+            rng.standard_normal(shape, np.float32) * scale + offset).astype(np.float16))
+
+    def words(name, shape):
+        tensors[name] = (np.int32, shape, lambda: rng.integers(
+            0, 2**32, shape, dtype=np.uint32).view(np.int32))
+
+    def projection(prefix, k, n):
+        words(f"{prefix}.qweight", (k // 8, n))
+        words(f"{prefix}.qzeros", (k // group, n // 8))
+        hi = 0.25 / np.sqrt(k)
+        tensors[f"{prefix}.scales"] = (np.float16, (k // group, n), lambda: (
+            rng.random((k // group, n), np.float32) * (0.75 * hi) + 0.25 * hi
+        ).astype(np.float16))
+        g_idx = (np.arange(k) // group).astype(np.int32)
+        tensors[f"{prefix}.g_idx"] = (np.int32, (k,), lambda: (
+            rng.permutation(g_idx) if act_order else g_idx))
+
+    f16("model.embed_tokens.weight", (n_vocab, n_embd), 0.02 if n_embd >= 1024 else 0.1)
+    f16("model.norm.weight", (n_embd,), 0.08, offset=1.0)
+    f16("lm_head.weight", (n_vocab, n_embd), 0.02 if n_embd >= 1024 else 0.1)
+    for i in range(n_layer):
+        p = f"model.layers.{i}"
+        f16(f"{p}.input_layernorm.weight", (n_embd,), 0.08, offset=1.0)
+        f16(f"{p}.post_attention_layernorm.weight", (n_embd,), 0.08, offset=1.0)
+        for name, (k, n) in shapes.items():
+            projection(f"{p}.{name}", k, n)
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    return dict(n_vocab=n_vocab, n_ctx=n_ctx, n_layer=n_layer, group=group,
+                act_order=act_order)

@@ -6,9 +6,9 @@ The counterpart of ctransformers_tpu/ops/qmatmul.py. A GGML block tensor is
 repacked at load time into planes that compute x @ W with W logically
 (in_features K, out_features N), padded to (K_pad, N_pad):
 
-    qs     (K_pad/2, N_pad) int8   4-bit grids (Q4_K), "adjk" layout: byte
-                                   (r, n) holds rows 2r (low nibble) and
-                                   2r+1 (high nibble), both as two's-
+    qs     (K_pad/2, N_pad) int8   4-bit grids (Q4_K, GPTQ4), "adjk" layout:
+                                   byte (r, n) holds rows 2r (low nibble)
+                                   and 2r+1 (high nibble), both as two's-
                                    complement q - 8
            (K_pad, N_pad) int8     int8 grids (Q6_K: q in [-32, 31], Q5_K:
                                    q in [0, 31]), one byte per weight
@@ -19,11 +19,17 @@ repacked at load time into planes that compute x @ W with W logically
     sd, sm (K_pad/256, N_pad) f32  superblock factors: s = sd * scales,
                                    m = sm * mins
 
-so that W = q * s + m. The planes equal the JAX package's byte for byte in
-its adjk layout. The port always packs 4-bit grids as adjk: the JAX package
-falls back to a K-split layout where its TPU backend cannot bitcast int4
-(its _int4_ok capability probe), and on Hopper unpacking a nibble is two
-integer instructions, so that probe has no counterpart here.
+so that W = q * s + m. GPTQ 4-bit weights (formats/gptq.py) are not
+factored: scales and mins are the f32 (K_pad/g, N_pad) planes s and m
+themselves, sd and sm are absent (sfactor 0), g is the checkpoint's group
+size (128, 64 or 32), and an act-order checkpoint adds `perm`, the (K,)
+gather of input rows that makes its groups contiguous.
+
+The planes equal the JAX package's byte for byte in its adjk layout. The
+port always packs 4-bit grids as adjk: the JAX package falls back to a
+K-split layout where its TPU backend cannot bitcast int4 (its _int4_ok
+capability probe), and on Hopper unpacking a nibble is two integer
+instructions, so that probe has no counterpart here.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from . import qmm_kernels as kern
 
 # formats stored nibble-packed, with the zero point that re-biases their
 # grid into [0, 15]; the other 4-bit grids join as their slices port them
-_PACK4_ZP = {"Q4_K": 0}
+_PACK4_ZP = {"Q4_K": 0, "GPTQ4": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -208,6 +214,12 @@ def select_mode(m: int, qt: QTensor) -> str:
     tensor-core GEMMs, folding the bias through the group sums where N is
     the wider side ("si", else "i").
 
+    Nibble-packed weights with plain f32 planes (sfactor 0: GPTQ4, any
+    group) take "qx" at m = 1, "q" at 2 <= m <= 32 and "i" at m > 32 on
+    every shape: the pattern of the JAX package's measured GPTQ4 choices
+    ("qx" at m = 1 and "i" at m = 128 on every llama-7B shape), followed
+    here without reading its table; it offers no "si" pick for GPTQ4.
+
     int8 grids (Q6_K, Q5_K): at m <= 32 the pre-quantized int8 dot ("q8",
     the JAX package's "q" mode with packed4=False; it offers no "qx" for
     unpacked grids). At m > 32 its candidates are only "b" and "sb", and its
@@ -222,6 +234,8 @@ def select_mode(m: int, qt: QTensor) -> str:
         return "qx"
     if m <= 32:
         return "q"
+    if qt.sfactor == 0:
+        return "i"
     return "si" if npad > 2 * rows else "i"
 
 
@@ -236,14 +250,19 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     lead = x.shape[:-1]
     k, n = qt.shape
     xm = x.reshape(-1, k).float()
+    if qt.perm is not None:
+        # act-order row gather (GPTQ): plain tensor code in the JAX package
+        # too, outside its kernels
+        xm = xm.index_select(1, qt.perm)
     kp = qt.qs.shape[0] * (2 if qt.packed else 1)
     if kp != k:
         xm = torch.nn.functional.pad(xm, (0, kp - k))
     xm = xm.contiguous()
     mode = select_mode(xm.shape[0], qt)
     # looked up at call time, so that a caller may wrap the module's kernels
-    fn = getattr(kern, "qmm_" + mode)
-    if mode in ("q", "q8"):
+    name = kern.kernel_name(mode, qt)
+    fn = getattr(kern, name)
+    if name in kern.PREQUANTIZED:
         out = fn(*kern.quantize_activations(xm, qt.group), qt)
     else:
         out = fn(xm, qt)

@@ -1,4 +1,4 @@
-"""The seven hand-written Hopper kernels of the quantized matmul, their
+"""The ten hand-written Hopper kernels of the quantized matmul, their
 plain PyTorch versions, launch counters and the nvcc/ctypes loader.
 
 Every wrapper takes activations already zero-padded to the weight's
@@ -17,6 +17,18 @@ csrc/qmm_prefill.cu):
 
 with w4 = q - 8 the stored nibble, s = sd * sub_s, m = sm * sub_m and
 B = 8 * s + m per group of 32 rows.
+
+GPTQ4, the same nibble layout with plain f32 (Kp/G, Np) planes s and m
+(sfactor 0, no superblock factors) and a group G of 32, 64 or 128 rows;
+the reference kernels' sfactor == 0 branches (csrc/qmm_decode.cu,
+csrc/qmm_prefill.cu):
+
+  qmm_qx_gptq  the function of qmm_qx  (replaces _qmm_qx_kernel)
+  qmm_q_gptq   the function of qmm_q   (replaces _qmm_q_kernel)
+  qmm_i_gptq   the function of qmm_i   (replaces _qmm_i4_kernel)
+
+An act-order weight (QTensor.perm) reaches the wrappers with x already
+gathered (ops/qmatmul.py:qmatmul).
 
 int8 grids: Q6_K (group 16, no mins) and Q5_K (group 32, with mins)
 (csrc/qmm_grid.cu):
@@ -57,7 +69,8 @@ NVCC_FLAGS = (
 # kernel launches (incremented only where a kernel is launched) and calls
 # of the plain versions through the wrappers (CPU tensors)
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("qmm_qx", "qmm_q", "qmm_si", "qmm_i", "qmm_q8", "qmm_b", "qmm_sb"), 0
+    ("qmm_qx", "qmm_q", "qmm_si", "qmm_i", "qmm_q8", "qmm_b", "qmm_sb",
+     "qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq"), 0
 )
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -140,6 +153,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_q8": [P] * 9 + [I, I, I, I, P],
         "ct_qmm_b": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_sb": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_qx_gptq": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_q_gptq": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_i_gptq": [P] * 5 + [I, I, I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -158,31 +174,49 @@ def _fn(lib: str, name: str):
 
 # the layouts the kernels take: kind -> (group, groups per superblock,
 # has mins, nibble-packed). Q4_K is nibble-packed in the adjk layout; Q6_K
-# and Q5_K are int8 grids.
+# and Q5_K are int8 grids; GPTQ4 is nibble-packed with unfactored f32 planes
+# (0 groups per superblock: no sd, no sm) and its group is the checkpoint's,
+# one of GPTQ_GROUPS (the table names the common one).
 LAYOUTS = {
     "Q4_K": (32, 8, True, True),
     "Q6_K": (16, 16, False, False),
     "Q5_K": (32, 8, True, False),
+    "GPTQ4": (128, 0, True, True),
 }
+GPTQ_GROUPS = (32, 64, 128)
 
 
-def _check_layout(qt, packed: bool, what: str) -> None:
+def _check_layout(qt, kinds: Tuple[str, ...], what: str) -> None:
     lay = LAYOUTS.get(qt.kind)
-    if lay is None or lay[3] != packed or not (
-        qt.packed == packed and qt.pack_layout == "adjk" and qt.zp == 0
-        and (qt.group, qt.sfactor) == lay[:2] and qt.perm is None
-        and qt.sd is not None and (qt.mins is not None) == (qt.sm is not None) == lay[2]
+    groups = GPTQ_GROUPS if qt.kind == "GPTQ4" else lay and lay[:1]
+    if qt.kind not in kinds or not (
+        qt.packed == lay[3] and qt.pack_layout == "adjk" and qt.zp == 0
+        and qt.group in groups and qt.sfactor == lay[1]
+        and (qt.perm is None or qt.kind == "GPTQ4")
+        and (qt.sd is not None) == (lay[1] > 0)
+        and (qt.mins is not None) == lay[2]
+        and (qt.sm is not None) == (lay[2] and lay[1] > 0)
     ):
         raise NotImplementedError(
             f"qmm kernels take {what}, got {qt.kind} (group {qt.group}, packed "
-            f"{qt.packed}, layout {qt.pack_layout}); other types are not yet "
-            "ported, see ROADMAP"
+            f"{qt.packed}, layout {qt.pack_layout}, sfactor {qt.sfactor}); served "
+            "are Q4_K, Q5_K, Q6_K and GPTQ4 (groups 32, 64, 128) weights, other "
+            "types are not yet ported, see ROADMAP"
         )
 
 
 def check_qtensor(qt) -> Tuple[int, int]:
     """The Q4_K kernels take exactly the Q4_K adjk layout; returns (Kp, Np)."""
-    _check_layout(qt, True, "Q4_K adjk QTensors")
+    _check_layout(qt, ("Q4_K",), "Q4_K adjk QTensors")
+    rows, np_ = qt.qs.shape
+    return _check_planes(qt, 2 * rows, np_)
+
+
+def check_gptq_qtensor(qt) -> Tuple[int, int]:
+    """The GPTQ kernels take adjk nibbles with f32 (Kp/G, Np) scale and min
+    planes, G in GPTQ_GROUPS, with or without an act-order perm (x arrives
+    gathered); returns (Kp, Np)."""
+    _check_layout(qt, ("GPTQ4",), "GPTQ4 adjk QTensors")
     rows, np_ = qt.qs.shape
     return _check_planes(qt, 2 * rows, np_)
 
@@ -190,24 +224,27 @@ def check_qtensor(qt) -> Tuple[int, int]:
 def check_grid_qtensor(qt) -> Tuple[int, int]:
     """The grid kernels take exactly the Q6_K and Q5_K int8 grids; returns
     (Kp, Np)."""
-    _check_layout(qt, False, "Q6_K or Q5_K int8 grids")
+    _check_layout(qt, ("Q6_K", "Q5_K"), "Q6_K or Q5_K int8 grids")
     kp, np_ = qt.qs.shape
     return _check_planes(qt, kp, np_)
 
 
 def _check_planes(qt, kp: int, np_: int) -> Tuple[int, int]:
     g = qt.group
+    # factored k-quants: int8 sub-scales and f32 superblock factors;
+    # unfactored (GPTQ): the f32 planes themselves, no factors
+    plane = torch.int8 if qt.sfactor else torch.float32
     want = {
         "qs": (torch.int8, tuple(qt.qs.shape)),
-        "scales": (torch.int8, (kp // g, np_)),
-        "mins": (torch.int8, (kp // g, np_)),
+        "scales": (plane, (kp // g, np_)),
+        "mins": (plane, (kp // g, np_)),
         "sd": (torch.float32, (kp // 256, np_)),
         "sm": (torch.float32, (kp // 256, np_)),
     }
     dev = qt.qs.device
     for name, (dt, shape) in want.items():
         a = getattr(qt, name)
-        if a is None:  # absent mins, checked by the caller
+        if a is None:  # absent mins or factors, checked by the caller
             continue
         if a.dtype != dt or tuple(a.shape) != shape or a.device != dev:
             raise ValueError(
@@ -249,6 +286,8 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 
 
 def _planes(qt):
+    if qt.sfactor == 0:  # unfactored: no superblock planes to pass
+        return (qt.qs, qt.scales, qt.mins)
     return (qt.qs, qt.scales, qt.mins, qt.sd, qt.sm)
 
 
@@ -268,7 +307,11 @@ def _launch(name: str, lib: str, dev, acts, qt, m: int, kp: int, np_: int, *ints
 
 
 def group_planes(qt) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(Kp/32, Np) f32 planes s = sd * sub_s and B = 8 * s + sm * sub_m."""
+    """(Kp/G, Np) f32 planes s and B = 8 * s + m of a nibble-packed weight:
+    s = sd * sub_s and m = sm * sub_m where factored (Q4_K), the stored f32
+    planes themselves where not (GPTQ4)."""
+    if qt.sfactor == 0:
+        return qt.scales, 8.0 * qt.scales + qt.mins
     s = qt.scales.float() * qt.sd.repeat_interleave(qt.sfactor, 0)
     m = qt.mins.float() * qt.sm.repeat_interleave(qt.sfactor, 0)
     return s, 8.0 * s + m
@@ -284,7 +327,7 @@ def unpack_w4(qs: torch.Tensor) -> torch.Tensor:
 
 def quantize_activations(x: torch.Tensor, group: int):
     """Per-(token, group) symmetric int8, with the weight's group (32; 16
-    for Q6_K): (xq (m, Kp) int8, sx (m, Kp/group) f32, xsum (m, Kp/group)
+    for Q6_K; 32, 64 or 128 for GPTQ4): (xq (m, Kp) int8, sx (m, Kp/group) f32, xsum (m, Kp/group)
     f32), the formula of the reference's "q" mode: sx = absmax/127,
     xq = clip(round(x / max(sx, 1e-20)), +-127); torch.round rounds half
     to even, as jnp.round does."""
@@ -296,19 +339,21 @@ def quantize_activations(x: torch.Tensor, group: int):
 
 
 def plain_q(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
-    """Group dots in f32, exact for integer operands (|sum| <= 32*127*8 <
-    2**24), rescaled by sx * s, plus the bias xsum @ B."""
+    """Group dots in f32, exact for integer operands (|sum| <= 128*127*8 <
+    2**24 at the largest group), rescaled by sx * s, plus the bias
+    xsum @ B."""
     m, kp = xq.shape
-    ng = kp // 32
+    g = qt.group
+    ng = kp // g
     s, b = group_planes(qt)
-    w = unpack_w4(qt.qs).float().reshape(ng, 32, -1)
-    parts = torch.bmm(xq.float().reshape(m, ng, 32).transpose(0, 1), w)
+    w = unpack_w4(qt.qs).float().reshape(ng, g, -1)
+    parts = torch.bmm(xq.float().reshape(m, ng, g).transpose(0, 1), w)
     d = (parts * sx.T[:, :, None] * s[:, None, :]).sum(0)
     return xs @ b + d
 
 
 def plain_qx(x: torch.Tensor, qt) -> torch.Tensor:
-    return plain_q(*quantize_activations(x, 32), qt)
+    return plain_q(*quantize_activations(x, qt.group), qt)
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -320,15 +365,16 @@ def plain_si(x: torch.Tensor, qt) -> torch.Tensor:
     returns bf16, so the operands are rounded and multiplied in f32)."""
     m, kp = x.shape
     s, b = group_planes(qt)
-    w = _bf16_round(unpack_w4(qt.qs).float() * s.repeat_interleave(32, 0))
-    xs = x.reshape(m, kp // 32, 32).sum(-1)
+    g = qt.group
+    w = _bf16_round(unpack_w4(qt.qs).float() * s.repeat_interleave(g, 0))
+    xs = x.reshape(m, kp // g, g).sum(-1)
     return xs @ b + _bf16_round(x) @ w
 
 
 def plain_i(x: torch.Tensor, qt) -> torch.Tensor:
     s, b = group_planes(qt)
-    w = unpack_w4(qt.qs).float() * s.repeat_interleave(32, 0)
-    w = _bf16_round(w + b.repeat_interleave(32, 0))
+    w = unpack_w4(qt.qs).float() * s.repeat_interleave(qt.group, 0)
+    w = _bf16_round(w + b.repeat_interleave(qt.group, 0))
     return _bf16_round(x) @ w
 
 
@@ -373,105 +419,66 @@ def plain_sb(x: torch.Tensor, qt) -> torch.Tensor:
 # -- wrappers ------------------------------------------------------------------
 
 
-def qmm_qx(x: torch.Tensor, qt) -> torch.Tensor:
-    kp, np_ = check_qtensor(qt)
-    m = x.shape[0]
-    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
-    if x.device.type == "cpu":
-        PLAIN_CALLS["qmm_qx"] += 1
-        return plain_qx(x, qt)
-    return _launch("qmm_qx", "qmm_decode", x.device, (x,), qt, m, kp, np_)
+def _wrapper(name: str, lib: str, check, plain, pass_group: bool):
+    """The wrapper of kernel `name` in library `lib`: run(x, qt), or
+    run(xq, sx, xsum, qt) for a kernel on activations quantized outside
+    (PREQUANTIZED). It checks the weight with `check` and the activations
+    against it, takes `plain` for CPU tensors, and launches the kernel (with
+    the weight's group as an argument where the symbol dispatches on it) for
+    CUDA tensors."""
+
+    def run(*args) -> torch.Tensor:
+        *acts, qt = args
+        kp, np_ = check(qt)
+        m = acts[0].shape[0]
+        dev = qt.qs.device
+        if name in PREQUANTIZED:
+            ng = kp // qt.group
+            _check_act(acts[0], torch.int8, (m, kp), dev, "xq")
+            _check_act(acts[1], torch.float32, (m, ng), dev, "sx")
+            _check_act(acts[2], torch.float32, (m, ng), dev, "xsum")
+        else:
+            _check_act(acts[0], torch.float32, (m, kp), dev, "x")
+        if dev.type == "cpu":
+            PLAIN_CALLS[name] += 1
+            return plain(*acts, qt)
+        ints = (qt.group,) if pass_group else ()
+        return _launch(name, lib, dev, acts, qt, m, kp, np_, *ints)
+
+    run.__name__ = run.__qualname__ = name
+    return run
 
 
-def qmm_q(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
-    kp, np_ = check_qtensor(qt)
-    m = xq.shape[0]
-    dev = qt.qs.device
-    _check_act(xq, torch.int8, (m, kp), dev, "xq")
-    _check_act(sx, torch.float32, (m, kp // 32), dev, "sx")
-    _check_act(xs, torch.float32, (m, kp // 32), dev, "xsum")
-    if dev.type == "cpu":
-        PLAIN_CALLS["qmm_q"] += 1
-        return plain_q(xq, sx, xs, qt)
-    return _launch("qmm_q", "qmm_decode", dev, (xq, sx, xs), qt, m, kp, np_)
+# kernels whose wrappers take (xq, sx, xsum) from quantize_activations
+PREQUANTIZED = ("qmm_q", "qmm_q8", "qmm_q_gptq")
 
-
-def qmm_si(x: torch.Tensor, qt) -> torch.Tensor:
-    kp, np_ = check_qtensor(qt)
-    m = x.shape[0]
-    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
-    if x.device.type == "cpu":
-        PLAIN_CALLS["qmm_si"] += 1
-        return plain_si(x, qt)
-    return _launch("qmm_si", "qmm_prefill", x.device, (x,), qt, m, kp, np_)
-
-
-def qmm_i(x: torch.Tensor, qt) -> torch.Tensor:
-    kp, np_ = check_qtensor(qt)
-    m = x.shape[0]
-    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
-    if x.device.type == "cpu":
-        PLAIN_CALLS["qmm_i"] += 1
-        return plain_i(x, qt)
-    return _launch("qmm_i", "qmm_prefill", x.device, (x,), qt, m, kp, np_)
-
-
-def qmm_q8(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
-    kp, np_ = check_grid_qtensor(qt)
-    m = xq.shape[0]
-    dev = qt.qs.device
-    ng = kp // qt.group
-    _check_act(xq, torch.int8, (m, kp), dev, "xq")
-    _check_act(sx, torch.float32, (m, ng), dev, "sx")
-    _check_act(xs, torch.float32, (m, ng), dev, "xsum")
-    if dev.type == "cpu":
-        PLAIN_CALLS["qmm_q8"] += 1
-        return plain_q8(xq, sx, xs, qt)
-    return _launch("qmm_q8", "qmm_grid", dev, (xq, sx, xs), qt, m, kp, np_, qt.group)
-
-
-def _grid_gemm(name: str, plain, x: torch.Tensor, qt) -> torch.Tensor:
-    kp, np_ = check_grid_qtensor(qt)
-    m = x.shape[0]
-    _check_act(x, torch.float32, (m, kp), qt.qs.device, "x")
-    if x.device.type == "cpu":
-        PLAIN_CALLS[name] += 1
-        return plain(x, qt)
-    return _launch(name, "qmm_grid", x.device, (x,), qt, m, kp, np_, qt.group)
-
-
-def qmm_b(x: torch.Tensor, qt) -> torch.Tensor:
-    return _grid_gemm("qmm_b", plain_b, x, qt)
-
-
-def qmm_sb(x: torch.Tensor, qt) -> torch.Tensor:
-    return _grid_gemm("qmm_sb", plain_sb, x, qt)
-
-
-KERNELS = {
-    "qmm_qx": qmm_qx, "qmm_q": qmm_q, "qmm_si": qmm_si, "qmm_i": qmm_i,
-    "qmm_q8": qmm_q8, "qmm_b": qmm_b, "qmm_sb": qmm_sb,
+_QMATMUL_PY = "ctransformers_tpu/ops/qmatmul.py"
+# kernel -> (library and source under csrc/, layout check, plain version, the
+# symbol takes the group, line of the Pallas kernel it replaces). One plain
+# version serves a function whatever the group and the scale source.
+_SPECS = {
+    "qmm_qx": ("qmm_decode", check_qtensor, plain_qx, False, 1370),
+    "qmm_q": ("qmm_decode", check_qtensor, plain_q, False, 1288),
+    "qmm_si": ("qmm_prefill", check_qtensor, plain_si, False, 1148),
+    "qmm_i": ("qmm_prefill", check_qtensor, plain_i, False, 1090),
+    "qmm_q8": ("qmm_grid", check_grid_qtensor, plain_q8, True, 1288),
+    "qmm_b": ("qmm_grid", check_grid_qtensor, plain_b, True, 734),
+    "qmm_sb": ("qmm_grid", check_grid_qtensor, plain_sb, True, 1040),
+    "qmm_qx_gptq": ("qmm_decode", check_gptq_qtensor, plain_qx, True, 1370),
+    "qmm_q_gptq": ("qmm_decode", check_gptq_qtensor, plain_q, True, 1288),
+    "qmm_i_gptq": ("qmm_prefill", check_gptq_qtensor, plain_i, True, 1090),
 }
-PLAIN = {
-    "qmm_qx": plain_qx, "qmm_q": plain_q, "qmm_si": plain_si, "qmm_i": plain_i,
-    "qmm_q8": plain_q8, "qmm_b": plain_b, "qmm_sb": plain_sb,
-}
-_CSRC = "ctransformers_tpu_torch/csrc/"
-SOURCE_OF = {
-    "qmm_qx": _CSRC + "qmm_decode.cu",
-    "qmm_q": _CSRC + "qmm_decode.cu",
-    "qmm_si": _CSRC + "qmm_prefill.cu",
-    "qmm_i": _CSRC + "qmm_prefill.cu",
-    "qmm_q8": _CSRC + "qmm_grid.cu",
-    "qmm_b": _CSRC + "qmm_grid.cu",
-    "qmm_sb": _CSRC + "qmm_grid.cu",
-}
-REPLACES = {
-    "qmm_qx": "ctransformers_tpu/ops/qmatmul.py:1370",
-    "qmm_q": "ctransformers_tpu/ops/qmatmul.py:1288",
-    "qmm_si": "ctransformers_tpu/ops/qmatmul.py:1148",
-    "qmm_i": "ctransformers_tpu/ops/qmatmul.py:1090",
-    "qmm_q8": "ctransformers_tpu/ops/qmatmul.py:1288",
-    "qmm_b": "ctransformers_tpu/ops/qmatmul.py:734",
-    "qmm_sb": "ctransformers_tpu/ops/qmatmul.py:1040",
-}
+assert tuple(_SPECS) == tuple(LAUNCHES)
+KERNELS = {n: _wrapper(n, lib, chk, pl, grp) for n, (lib, chk, pl, grp, _) in _SPECS.items()}
+PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
+SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
+REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
+# the wrappers as module functions: qmm_qx(x, qt), qmm_q(xq, sx, xsum, qt), ...
+# (ops/qmatmul.py looks them up here by name at call time)
+globals().update(KERNELS)
+
+
+def kernel_name(mode: str, qt) -> str:
+    """The wrapper serving `mode` (ops/qmatmul.py:select_mode) on `qt`: the
+    GPTQ kernels where the nibble-packed planes are unfactored."""
+    return f"qmm_{mode}" + ("_gptq" if qt.packed and qt.sfactor == 0 else "")

@@ -1,5 +1,6 @@
-"""The seven qmm kernels against their plain PyTorch versions on the card:
-the four Q4_K kernels and the three int8-grid (Q6_K, Q5_K) kernels.
+"""The ten qmm kernels against their plain PyTorch versions on the card:
+the four Q4_K kernels, the three int8-grid (Q6_K, Q5_K) kernels and the
+three GPTQ4 kernels at groups 32, 64 and 128.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -57,7 +58,21 @@ def random_grid(kind: str, k: int, n: int, seed: int, device) -> QTensor:
                    sfactor=sfactor).to(device)
 
 
+def random_gptq(k: int, n: int, group: int, seed: int, device, act_order=False) -> QTensor:
+    """A GPTQ4 QTensor with random nibbles and f32 planes s and m = -s * z at
+    padded shape (k, n), with a random row perm when `act_order`."""
+    g = torch.Generator().manual_seed(seed)
+    qs = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8)
+    s = torch.rand((k // group, n), generator=g) * 3e-3 + 1e-3
+    z = torch.randint(0, 16, (k // group, n), generator=g).float()
+    perm = torch.randperm(k, generator=g).to(torch.int32) if act_order else None
+    return QTensor(qs, s, -(s * z), "GPTQ4", group, (k, n), packed=True, zp=0,
+                   perm=perm, sfactor=0, pack_layout="adjk").to(device)
+
+
 def _weight(name: str, kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    if kind.startswith("GPTQ4"):
+        return random_gptq(k, n, int(kind.split("/")[1]), seed, device)
     if name in GRID:
         return random_grid(kind, k, n, seed, device)
     return random_q4k(k, n, seed, device)
@@ -71,12 +86,15 @@ def _rel(a, b):
 # differ in order; i/si/b/sb: bf16 products summed in another order on
 # tensor cores
 TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3,
-       "qmm_q8": 1e-5, "qmm_b": 1e-3, "qmm_sb": 1e-3}
+       "qmm_q8": 1e-5, "qmm_b": 1e-3, "qmm_sb": 1e-3,
+       "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3}
 GRID = ("qmm_q8", "qmm_b", "qmm_sb")
-# each Q4_K kernel once, each grid kernel on both int8-grid layouts
-CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID] + [
+GPTQ = ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq")
+# each Q4_K kernel once, each grid kernel on both int8-grid layouts, each
+# GPTQ kernel at its three groups
+CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID + GPTQ] + [
     (name, kind) for name in GRID for kind in ("Q6_K", "Q5_K")
-]
+] + [(name, f"GPTQ4/{g}") for name in GPTQ for g in K.GPTQ_GROUPS]
 
 
 @pytest.mark.parametrize("name,kind", CASES)
@@ -85,7 +103,7 @@ CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID] + [
 def test_kernel_matches_plain(dev, name, kind, k, n, m):
     qt = _weight(name, kind, k, n, seed=k + n + m, device=dev)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
-    args = K.quantize_activations(x, qt.group) if name in ("qmm_q", "qmm_q8") else (x,)
+    args = K.quantize_activations(x, qt.group) if name in K.PREQUANTIZED else (x,)
     before = K.LAUNCHES[name]
     got = K.KERNELS[name](*args, qt)
     torch.cuda.synchronize()
@@ -95,6 +113,42 @@ def test_kernel_matches_plain(dev, name, kind, k, n, m):
     assert _rel(got, ref) <= TOL[name], name
     again = K.KERNELS[name](*args, qt)
     assert torch.equal(got, again), "kernel runs are not bitwise repeatable"
+
+
+@pytest.mark.parametrize("name", GPTQ)
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 12288)])
+def test_gptq_kernel_matches_plain_at_7b_shapes(dev, name, k, n):
+    """The GPTQ kernels at llama-2-7B shapes, group 128, at the batch size
+    the main path gives each; the in-kernel xsum of qx sums a group of 128
+    in another order than the plain version (within the tolerance, not bit
+    for bit), the integer group dots are exact."""
+    m = {"qmm_qx_gptq": 1, "qmm_q_gptq": 8, "qmm_i_gptq": 128}[name]
+    qt = random_gptq(k, n, 128, seed=k + n, device=dev)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    args = K.quantize_activations(x, 128) if name in K.PREQUANTIZED else (x,)
+    got = K.KERNELS[name](*args, qt)
+    torch.cuda.synchronize()
+    assert _rel(got, K.PLAIN[name](*args, qt)) <= TOL[name]
+    assert torch.equal(got, K.KERNELS[name](*args, qt))
+
+
+def test_qmatmul_gathers_act_order_rows_on_the_card(dev):
+    """qmatmul applies the act-order perm on the card: the product equals
+    the same weight without a perm on rows gathered beforehand, bit for bit,
+    and x @ the dequantized weight within the int8 / bf16 classes."""
+    from ctransformers_tpu_torch.ops.qmatmul import dequantize_qtensor
+
+    qt = random_gptq(512, 1024, 128, seed=9, device=dev, act_order=True)
+    bare = dataclasses.replace(qt, perm=None)
+    dense = dequantize_qtensor(qt)
+    K.reset_counts()
+    for m in (1, 8, 64):
+        x = torch.randn(m, 512, device=dev)
+        out = qmatmul(x, qt)
+        assert torch.equal(out, qmatmul(x[:, qt.perm.long()], bare))
+        assert _rel(out, x @ dense) < 0.035
+    assert K.LAUNCHES == dict(dict.fromkeys(K.LAUNCHES, 0), qmm_qx_gptq=2, qmm_q_gptq=2,
+                              qmm_i_gptq=2)
 
 
 def test_qmatmul_routes_every_mode(dev):
@@ -110,8 +164,8 @@ def test_qmatmul_routes_every_mode(dev):
             out = qmatmul(torch.randn(m, k, device=dev), qt)
             assert out.shape == (m, n) and torch.isfinite(out).all()
     assert select_mode(64, q4k) == "si" and select_mode(64, q4k_tall) == "i"
-    assert K.LAUNCHES == {"qmm_qx": 2, "qmm_q": 2, "qmm_si": 1, "qmm_i": 1,
-                          "qmm_q8": 4, "qmm_b": 1, "qmm_sb": 1}
+    assert K.LAUNCHES == dict(dict.fromkeys(K.LAUNCHES, 0), qmm_qx=2, qmm_q=2, qmm_si=1,
+                              qmm_i=1, qmm_q8=4, qmm_b=1, qmm_sb=1)
     assert sum(K.PLAIN_CALLS.values()) == 0
 
 
@@ -126,3 +180,8 @@ def test_wrapper_rejects_bad_operands(dev):
         K.qmm_b(torch.randn(64, 256), q6k)  # CPU activations, CUDA weight
     with pytest.raises(NotImplementedError):
         K.qmm_sb(torch.randn(64, 256, device=dev), dataclasses.replace(q6k, group=32))
+    gq = random_gptq(256, 128, 128, 4, dev)
+    with pytest.raises(ValueError):
+        K.qmm_qx_gptq(torch.randn(1, 256), gq)  # CPU activations, CUDA weight
+    with pytest.raises(NotImplementedError):
+        K.qmm_i(torch.randn(64, 256, device=dev), gq)  # the Q4_K wrapper

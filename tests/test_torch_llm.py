@@ -296,7 +296,7 @@ def test_tiny_smoke_models_pick_a_seed_without_near_ties(tmp_path, label, mix, c
     """chip_smoke.py phase 4 serves each tiny model at the first seed whose
     greedy path on the CPU keeps every top-2 margin above TINY_MIN_MARGIN;
     the rule finds such a seed, and its log lists every seed it tried."""
-    path = str(tmp_path / f"tiny_{label}.gguf")
+    path = chip_smoke.model_path(str(tmp_path), f"tiny_{label}", mix)
     seed = chip_smoke.pick_tiny_seed(path, label, mix)
     tried = [line for line in capsys.readouterr().out.splitlines() if " seed " in line]
     assert len(tried) == seed

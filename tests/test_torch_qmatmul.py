@@ -183,11 +183,11 @@ def test_grid_plain_versions_match_pallas_kernels(kind, m, k, n, monkeypatch):
 def _meta_qtensor(kind, kp, npad):
     """A QTensor of `kind`'s layout at padded (kp, npad), planes on the meta
     device (select_mode reads only the layout)."""
-    group, _, has_mins, packed = K.LAYOUTS[kind]
+    group, sfactor, has_mins, packed = K.LAYOUTS[kind]
     e = lambda *s: torch.empty(s, dtype=torch.int8, device="meta")  # noqa: E731
     mins = e(kp // group, npad) if has_mins else None
     return tqm.QTensor(e(kp // 2 if packed else kp, npad), e(kp // group, npad), mins,
-                       kind, group, (kp, npad), packed)
+                       kind, group, (kp, npad), packed, sfactor=sfactor)
 
 
 def _case(m, kp, npad, mode, kind="Q4_K"):
@@ -203,7 +203,10 @@ def _case(m, kp, npad, mode, kind="Q4_K"):
      _case(1, 4096, 32768, "q8", "Q6_K"), _case(8, 11264, 4096, "q8", "Q6_K"),
      _case(32, 4096, 4096, "q8", "Q5_K"), _case(33, 4096, 4096, "b", "Q6_K"),
      _case(128, 11264, 4096, "b", "Q6_K"), _case(128, 4096, 12288, "sb", "Q5_K"),
-     _case(128, 11264, 4096, "sb", "Q5_K")],
+     _case(128, 11264, 4096, "sb", "Q5_K"),
+     _case(1, 4096, 12288, "qx", "GPTQ4"), _case(2, 4096, 4096, "q", "GPTQ4"),
+     _case(32, 11264, 4096, "q", "GPTQ4"), _case(33, 4096, 22528, "i", "GPTQ4"),
+     _case(128, 11264, 4096, "i", "GPTQ4")],
 )
 def test_select_mode(m, kp, npad, mode, kind):
     assert tqm.select_mode(m, _meta_qtensor(kind, kp, npad)) == mode

@@ -1,34 +1,52 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--write-table PATH]
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. card      nvidia-smi name and power limit, versions, kernel build time
   2. bandwidth dense device-to-device copy of 2 GiB, timed with CUDA events
-  3. kernels   each of the ten qmm kernels against its plain PyTorch
-               version at the llama-2-7B matmul shapes its main path gives
-               it (Q4_K, the Q6_K / Q5_K int8 grids of Q4_K_M / Q5_K_M
-               files, and GPTQ4 planes at group 128, with groups 32 and 64
-               at one shape), with times beside the card's bound and a bf16
-               torch.matmul yardstick
+  3. kernels   each of the sixteen qmm kernels against its plain PyTorch
+               version at the llama-2-7B matmul shapes (Q4_K, the Q6_K /
+               Q5_K int8 grids of Q4_K_M / Q5_K_M files, and GPTQ4 planes at
+               group 128, with groups 32 and 64 at one shape), with times
+               beside the card's bound and a bf16 torch.matmul yardstick;
+               every other candidate of those keys at m = 1, 8 and 128 is
+               held against its plain version too, so that whatever a
+               table sends to a main path was held at that shape and m
+               (phase 5 fails on a launch that was not);
+     race      per layout and 7B shape at m = 1, 8 and 128 the race of
+               ops/qmatmul.py: every candidate's ms (the dense candidate
+               included), the winner and the best hand-written kernel;
+               --write-table saves these champions as a table file (how
+               the table shipped under ctransformers_tpu_torch/data/ is made)
   4. tiny      tiny all-Q4_K, Q4_K_M and Q5_K_M llama files and tiny GPTQ
                directories (groups 32 and 128, with and without act-order)
-               served on the card and on the CPU, every kernel call held
-               against its plain version
+               served on the card (kernels picked by the race) and on the
+               CPU under the card's picks, then four of them again on both
+               under a user's table file that names the modes g, "", s and
+               GPTQ4 si; every kernel call held against its plain version
   5. main      llama-2-7B-width checkpoints (random weights from a seed)
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
-               decode, on five paths, each with its kernels' launch counts
-               asserted: a Q4_K_M file at full depth, a Q5_K_M file at 4
-               layers, an all-Q4_K file at 8 layers, a GPTQ 4-bit directory
-               (group 128) at full depth and an act-order one at 4 layers
+               decode, each with its launch counts (dense calls included)
+               asserted against the table's choices: a Q4_K_M file and a
+               GPTQ 4-bit directory (group 128) at full depth, loaded cold
+               (an empty table: the load races) and again warm, served
+               under the fixed rule and under the raced table in turns; a
+               Q5_K_M file at 4 layers, an all-Q4_K file at 8 and an
+               act-order GPTQ directory at 4 without the dense candidate
+               (the best hand-written kernel of every key); and a Q4_K_M
+               file, a Q5_K_M file and a GPTQ directory at 2 layers under a
+               user's table that names the new modes for every key
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import contextlib
 import itertools
 import json
 import math
@@ -45,10 +63,12 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-# published H100 SXM peaks (dense): HBM rate, bf16 and int8 tensor-core rates
+# published H100 SXM peaks (dense): HBM rate, bf16 and int8 tensor-core
+# rates, f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_S = 989e12
 PEAK_INT8_S = 1979e12
+PEAK_F32_S = 67e12
 # llama-2-7B matmul shapes (K, N) as the engine runs them (QKV and gate/up
 # fused where their types agree)
 SHAPES = {
@@ -56,12 +76,21 @@ SHAPES = {
     "o": (4096, 4096),
     "v": (4096, 4096),
     "gate_up": (4096, 22016),
+    "up": (4096, 11008),  # unfused gate / up of an act-order GPTQ directory
     "down": (11008, 4096),
     "lm_head": (4096, 32000),
 }
-# the batch size m the main path gives each Q4_K kernel, and each GPTQ kernel
-M_OF = {"qmm_qx": 1, "qmm_q": 8, "qmm_si": 128, "qmm_i": 128}
-M_OF_GPTQ = {"qmm_qx_gptq": 1, "qmm_q_gptq": 8, "qmm_i_gptq": 128}
+# the batch sizes m each kernel is held and timed at with its plain version
+# and the library call (the decode step, the 8-token and the 128-token
+# chunk of the main path's prompt; "g" is a candidate at m <= 32). These
+# rows make the sums of the "kernels" line and stay as they are from run to
+# run; every other candidate of a case's key at RACE_M is held as well
+# (phase_kernels), its error and kernel ms logged
+RUNS_Q4K = [("qmm_qx", 1), ("qmm_q", 8), ("qmm_si", 128), ("qmm_i", 128), ("qmm_g", 1), ("qmm_g", 8)]
+RUNS_GPTQ = [("qmm_qx_gptq", 1), ("qmm_q_gptq", 8), ("qmm_i_gptq", 128), ("qmm_g_gptq", 1),
+             ("qmm_g_gptq", 8), ("qmm_si_gptq", 128)]
+RUNS_Q6K = [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_g8", 1), ("qmm_g8", 8), ("qmm_f", 1), ("qmm_f", 8)]
+RUNS_Q5K = RUNS_Q6K + [("qmm_s", 1), ("qmm_s", 8), ("qmm_sb", 128)]
 # (weight type, shape, [(kernel, m), ...]) held against the plain versions:
 # Q4_K at five shapes; the Q6_K tensors of a Q4_K_M file (attn_v and ffn_down of
 # the more-bits layers, output) and the Q5_K tensors of a Q5_K_M file, each in
@@ -69,39 +98,57 @@ M_OF_GPTQ = {"qmm_qx_gptq": 1, "qmm_q_gptq": 8, "qmm_i_gptq": 128}
 # group 128 at the four shapes of the GPTQ path, and at groups 32 and 64 at
 # one shape, so that every instantiation meets a 7B shape
 KERNEL_CASES = [
-    ("Q4_K", s, [(name, m) for name, m in M_OF.items()])
-    for s in ("qkv", "o", "gate_up", "down", "lm_head")
+    ("Q4_K", s, RUNS_Q4K) for s in ("qkv", "o", "gate_up", "down", "lm_head")
 ] + [
-    ("Q6_K", "v", [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_b", 128)]),
-    ("Q6_K", "down", [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_b", 128)]),
-    ("Q6_K", "lm_head", [("qmm_q8", 1), ("qmm_q8", 8)]),
+    ("Q6_K", "v", RUNS_Q6K + [("qmm_b", 128)]),
+    ("Q6_K", "down", RUNS_Q6K + [("qmm_b", 128)]),
+    ("Q6_K", "lm_head", RUNS_Q6K),
 ] + [
-    ("Q5_K", s, [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_sb", 128)])
-    for s in ("qkv", "o", "gate_up", "down")
+    ("Q5_K", s, RUNS_Q5K) for s in ("qkv", "o", "gate_up", "down")
 ] + [
-    (f"GPTQ4/{g}", s, list(M_OF_GPTQ.items()))
+    (f"GPTQ4/{g}", s, RUNS_GPTQ)
     for g, s in ((128, "qkv"), (128, "o"), (128, "gate_up"), (128, "down"), (32, "o"), (64, "o"))
+] + [
+    ("GPTQ4/128", "up", []),  # a key of the act-order path: every candidate held
 ]
-# int8 dots for the activation-quantized kernels, bf16 for the GEMMs
+# (kernel, table key) held against its plain version in phase 3
+HELD = set()
+# the batch sizes raced per case (the sizes the main path's prompt and decode run)
+RACE_M = (1, 8, 128)
+# int8 dots for the activation-quantized kernels, bf16 operands for the GEMMs
+# and the grouped dot "g", f32 for "" and "s"
 PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S, "qmm_q8": PEAK_INT8_S,
            "qmm_si": PEAK_BF16_S, "qmm_i": PEAK_BF16_S, "qmm_b": PEAK_BF16_S,
            "qmm_sb": PEAK_BF16_S, "qmm_qx_gptq": PEAK_INT8_S, "qmm_q_gptq": PEAK_INT8_S,
-           "qmm_i_gptq": PEAK_BF16_S}
+           "qmm_i_gptq": PEAK_BF16_S, "qmm_g": PEAK_BF16_S, "qmm_g_gptq": PEAK_BF16_S,
+           "qmm_g8": PEAK_BF16_S, "qmm_f": PEAK_F32_S, "qmm_s": PEAK_F32_S,
+           "qmm_si_gptq": PEAK_BF16_S}
 # q/qx/q8: the integer group dots are exact, only f32 rescale sums differ in
-# order; i/si/b/sb: bf16 products summed in another order on tensor cores
+# order; i/si/b/sb: bf16 products summed in another order on tensor cores;
+# g: exact products, f and s: f32 products, f32 sums in another order
 TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
        "qmm_si": 1e-3, "qmm_i": 1e-3, "qmm_b": 1e-3, "qmm_sb": 1e-3,
-       "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3}
-# main paths: (label, mix, layers). mix is a K_M mix, None for an all-Q4_K
-# file, or ("gptq", group, act_order) for a GPTQ 4-bit directory. The
+       "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3,
+       "qmm_g": 1e-5, "qmm_g_gptq": 1e-5, "qmm_g8": 1e-5, "qmm_f": 1e-5, "qmm_s": 1e-5,
+       "qmm_si_gptq": 1e-3}
+# main paths: (label, mix, layers, how). mix is a K_M mix, None for an
+# all-Q4_K file, or ("gptq", group, act_order) for a GPTQ 4-bit directory.
+# how: "race" loads with an empty table (cold, the load races), loads again
+# (warm) and serves under the fixed rule and under the raced table in turns;
+# "kernels" serves without the dense candidate (CT_QMATMUL=kernels), so the
+# best hand-written kernel of every key runs; "new" serves under a user's
+# table that names the modes g, "", s and GPTQ4 si for every key. The
 # all-Q4_K and Q5_K_M paths are cut in depth so that the whole run stays
 # within a few minutes; the act-order path is the second GPTQ path.
 MAIN_PATHS = [
-    ("Q4_K_M", "Q4_K_M", 32),
-    ("Q5_K_M", "Q5_K_M", 4),
-    ("Q4_K", None, 8),
-    ("GPTQ4-g128", ("gptq", 128, False), 32),
-    ("GPTQ4-g128-actorder", ("gptq", 128, True), 4),
+    ("Q4_K_M", "Q4_K_M", 32, "race"),
+    ("Q5_K_M", "Q5_K_M", 4, "kernels"),
+    ("Q4_K", None, 8, "kernels"),
+    ("GPTQ4-g128", ("gptq", 128, False), 32, "race"),
+    ("GPTQ4-g128-actorder", ("gptq", 128, True), 4, "kernels"),
+    ("Q4_K_M-new", "Q4_K_M", 2, "new"),
+    ("Q5_K_M-new", "Q5_K_M", 2, "new"),
+    ("GPTQ4-g128-new", ("gptq", 128, False), 2, "new"),
 ]
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
@@ -112,6 +159,8 @@ TINY_MODELS = (
     ("GPTQ4-g32", ("gptq", 32, False)), ("GPTQ4-g128", ("gptq", 128, False)),
     ("GPTQ4-g32-actorder", ("gptq", 32, True)), ("GPTQ4-g128-actorder", ("gptq", 128, True)),
 )
+# the tiny models served again under the table that names the new modes
+TINY_NEW_MODES = ("Q4_K_M", "Q5_K_M", "GPTQ4-g32", "GPTQ4-g128")
 TINY_STEPS = 8
 # a seed serves when every greedy step on the CPU keeps its top-2 logits
 # this far apart (relative to the top one): card-vs-CPU logits differ by a
@@ -261,14 +310,46 @@ def plane_bytes(qt) -> int:
                if a is not None)
 
 
+@contextlib.contextmanager
+def env(**kv):
+    """Set (or, with None, unset) environment variables for a block."""
+    old = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def no_shipped_table(qm):
+    """Tables read inside the block find no table shipped for any card."""
+    shipped, qm._SHIPPED_TABLES = qm._SHIPPED_TABLES, {}
+    try:
+        yield
+    finally:
+        qm._SHIPPED_TABLES = shipped
+
+
 def phase_kernels(K, copy_bw: float):
-    from ctransformers_tpu_torch.ops.qmatmul import dequantize_qtensor, padded_shape
+    """Phase 3 and the race: returns the per-kernel rows and the raced
+    table entries {key: {"pick", "kernel", "ms"}}."""
+    from ctransformers_tpu_torch.ops import qmatmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = collections.defaultdict(list)
+    raced = {}
     for kind, sname, runs in KERNEL_CASES:
         k, n = SHAPES[sname]
-        kp, npad = padded_shape(k, n)
+        kp, npad = qm.padded_shape(k, n)
         base = random_planes(K, kind, kp, npad, k, n, gen)
         wbytes = plane_bytes(base)
         # distinct weight copies cycled between launches: > 3x the 50 MB L2,
@@ -277,9 +358,13 @@ def phase_kernels(K, copy_bw: float):
             random_planes(K, kind, kp, npad, k, n, gen)
             for _ in range(max(0, math.ceil(150e6 / wbytes) - 1))
         ]
-        w_bf16 = dequantize_qtensor(base).to(torch.bfloat16)
+        w_bf16 = qm.dequantize_qtensor(base).to(torch.bfloat16)
         lib_copies = [w_bf16] + [w_bf16.clone() for _ in range(max(0, math.ceil(150e6 / (w_bf16.numel() * 2)) - 1))]
-        for name, m in runs:
+        others = [(K.kernel_name(mode, base), m) for m in RACE_M
+                  for mode, _ in qm.mode_candidates(base, m)]
+        others = [r for r in others if r not in runs]
+        for j, (name, m) in enumerate(runs + others):
+            timed = j < len(runs)
             x = torch.zeros((m, kp), device="cuda")
             x[:, :k] = torch.randn((m, k), generator=gen, device="cuda")
             args = K.quantize_activations(x, base.group) if name in K.PREQUANTIZED else (x,)
@@ -291,11 +376,15 @@ def phase_kernels(K, copy_bw: float):
             max_abs = (got - ref).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and err <= TOL[name]
             ms = cuda_time_ms(lambda i: kern(*args, copies[i % len(copies)]), 50, graph=True)
-            plain_ms = cuda_time_ms(lambda i: plain(*args, base), 3)
-            xb = x.to(torch.bfloat16)
-            lib_ms = cuda_time_ms(
-                lambda i: torch.matmul(xb, lib_copies[i % len(lib_copies)]), 50, graph=True
-            )
+            plain_ms = lib_ms = float("nan")
+            if timed:
+                # the least of three single calls: one call now and then reads
+                # several times the others (allocator and clock effects)
+                plain_ms = min(cuda_time_ms(lambda i: plain(*args, base), 1) for _ in range(3))
+                xb = x.to(torch.bfloat16)
+                lib_ms = cuda_time_ms(
+                    lambda i: torch.matmul(xb, lib_copies[i % len(lib_copies)]), 50, graph=True
+                )
             act = sum(a.numel() * a.element_size() for a in args)
             nbytes = wbytes + act + m * npad * 4
             ops = 2 * m * kp * npad
@@ -303,18 +392,31 @@ def phase_kernels(K, copy_bw: float):
             bound_copy_ms = nbytes / copy_bw * 1e3
             r = dict(kind=kind, shape=sname, k=k, n=n, m=m, rel_err=err, max_abs_err=max_abs,
                      ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                     bound_copy_ms=bound_copy_ms, bytes=nbytes, ops=ops)
+                     bound_copy_ms=bound_copy_ms, bytes=nbytes, ops=ops, timed=timed)
             results[name].append(r)
             log(f"[kernels] {name:11s} {kind:9s} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
                 f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
                 f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"{'ok' if ok else 'FAIL'}{'' if timed else ' (held only)'}")
             if not ok:
                 raise SystemExit(f"{name} on {kind} at {sname} m={m}: rel err {err:.3e} > {TOL[name]}")
+            HELD.add((name, qm.cache_key(m, base)))
+        for m in RACE_M:
+            res = qm.race(m, base, copies)
+            raced[qm.cache_key(m, base)] = res
+            times = " ".join(f"{c}={t:.4f}" for c, t in res["ms"].items())
+            log(f"[race] {kind:9s} {sname:8s} m={m:3d} over {len(copies)} weights: {times} ms "
+                f"-> winner {qm.label(res['pick'])}, best hand-written {qm.label(res['kernel'])}")
         del copies, base, lib_copies, w_bf16
         torch.cuda.empty_cache()
-    return results
+    return results, raced
+
+
+def empty_context(llm) -> None:
+    with warnings.catch_warnings():  # LLM.reset() is marked deprecated
+        warnings.simplefilter("ignore")
+        llm.reset()
 
 
 def tiny_prompt() -> list:
@@ -355,19 +457,28 @@ def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 32) -> int:
 
 def phase_tiny(K, tmpdir: str):
     """Tiny llamas (TINY_MODELS) on the card and on the CPU (prompt chunks
-    64 + 8, then greedy decode). Every kernel call of the card runs is held
-    against its plain version on the same operands (the kernels'
-    tolerances), each of the ten kernels must run, the greedy tokens must
-    be equal, and the logits must agree within the wiring class (5%): they
-    cannot agree much closer, because bf16 and int8 rounding of the
-    activations turn the ~1e-7 differences of the two devices' other ops
-    into whole rounding steps here and there. Each model's seed is the
-    first without a greedy near-tie on the CPU (pick_tiny_seed)."""
+    64 + 8, then greedy decode). On the card the race picks each key's
+    kernel; the CPU model is served under a table of the card's picks, so
+    both compute the same functions. Both are then served under the fixed
+    rule (CT_QMM_AUTOTUNE=0). The models of TINY_NEW_MODES are then
+    served again on both under a user's table file that names the modes g,
+    "", s and GPTQ4 si (CT_QMM_TILE_CACHE with CT_QMM_AUTOTUNE=precompiled).
+    Every kernel call of the card runs is held against its plain version on
+    the same operands (the kernels' tolerances), each of the sixteen kernels
+    must run, the greedy tokens must be equal, and the logits must agree
+    within the wiring class (5%): they cannot agree much closer, because
+    bf16 and int8 rounding of the activations turn the ~1e-7 differences of
+    the two devices' other ops into whole rounding steps here and there.
+    Each model's seed is the first without a greedy near-tie on the CPU
+    (pick_tiny_seed)."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
+    from ctransformers_tpu_torch.ops import qmatmul as qm
 
     worst_call = dict.fromkeys(K.KERNELS, 0.0)
     calls = dict.fromkeys(K.KERNELS, 0)
     originals = dict(K.KERNELS)
+    card = torch.cuda.get_device_name(0)
+    sizes = (64, 8, 1)
 
     def checked(name):
         def run(*args):
@@ -379,30 +490,75 @@ def phase_tiny(K, tmpdir: str):
             return out
         return run
 
-    for label, mix in TINY_MODELS:
-        path = model_path(tmpdir, f"tiny_{label}", mix)
-        seed = pick_tiny_seed(path, label, mix)
-        gpu = AutoModelForCausalLM.from_pretrained(path)
-        cpu = AutoModelForCausalLM.from_pretrained(path, device="cpu")
-        remove_model(path)
+    def compare(label, what, gpu, gpu_env, cpu, cpu_env):
+        """Serve both models from an empty context, each under its own table
+        file (the table in force follows CT_QMM_TILE_CACHE at call time)."""
         if gpu.device.type != "cuda" or cpu.device.type != "cpu":
             raise SystemExit(f"tiny: models on {gpu.device} and {cpu.device}")
         for name in originals:
             setattr(K, name, checked(name))
         try:
-            got = greedy_margins(gpu)
+            with env(**gpu_env):
+                races = qm.N_RACES
+                empty_context(gpu)
+                got = greedy_margins(gpu)
+                if qm.N_RACES != races:
+                    raise SystemExit(f"tiny {label} {what}: a race inside a forward")
         finally:
             for name, fn in originals.items():
                 setattr(K, name, fn)
-        want = greedy_margins(cpu)
+        with env(**cpu_env):
+            empty_context(cpu)
+            want = greedy_margins(cpu)
         if not all(np.isfinite(a).all() for a in got[1]):
             raise SystemExit(f"tiny {label}: non-finite logits on the card")
         worst = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
                     for a, b in zip(got[1], want[1]))
-        log(f"[tiny] {label} seed {seed}: card vs CPU logits rel err (worst of "
+        log(f"[tiny] {label} {what}: card vs CPU logits rel err (worst of "
             f"{TINY_STEPS} steps) {worst:.3e}; greedy card {got[0]} cpu {want[0]}")
         if worst > 0.05 or got[0] != want[0]:
-            raise SystemExit(f"tiny {label}: card and CPU disagree")
+            raise SystemExit(f"tiny {label} {what}: card and CPU disagree")
+
+    def picks(eng) -> dict:
+        """The table's choice for every key of the engine at `sizes`."""
+        table = qm.table(eng.device)
+        return {qm.cache_key(m, w): table[qm.cache_key(m, w)]
+                for w in qm.qtensors(eng.params) for m in sizes
+                if qm.cache_key(m, w) in table}
+
+    for label, mix in TINY_MODELS:
+        path = model_path(tmpdir, f"tiny_{label}", mix)
+        # a file per model and purpose: a table file is read once per card,
+        # not again when its contents change
+        card_table = os.path.join(tmpdir, f"tiny_{label}_new_card.json")
+        cpu_table = os.path.join(tmpdir, f"tiny_{label}_raced_cpu.json")
+        seed = pick_tiny_seed(path, label, mix)
+        gpu = AutoModelForCausalLM.from_pretrained(path)
+        gpu.eval(tiny_prompt())  # races the chunk sizes 64 and 8 (m = 1 raced at load)
+        chosen = picks(gpu._engine)
+        names = collections.Counter(qm.label(v["pick"]) for v in chosen.values())
+        log(f"[tiny] {label} seed {seed}: the race picked {dict(names)} over {len(chosen)} keys")
+        qm.save_table(cpu_table, "cpu", chosen)
+        cpu_env = dict(CT_QMM_TILE_CACHE=cpu_table, CT_QMM_AUTOTUNE="precompiled")
+        cpu = AutoModelForCausalLM.from_pretrained(path, device="cpu")
+        compare(label, "raced table", gpu, {}, cpu, cpu_env)
+        # the fixed rule on both (the q, q8 and GPTQ q kernels, which the
+        # race may leave without a tiny key)
+        rule = dict(CT_QMM_AUTOTUNE="0")
+        compare(label, "fixed rule", gpu, rule, cpu, rule)
+        if label in TINY_NEW_MODES:
+            entries = qm.float_mode_entries(qm.qtensors(gpu._engine.params), sizes)
+            cpu_table = os.path.join(tmpdir, f"tiny_{label}_new_cpu.json")
+            qm.save_table(card_table, card, entries)
+            qm.save_table(cpu_table, "cpu", entries)
+            cpu_env = dict(cpu_env, CT_QMM_TILE_CACHE=cpu_table)
+            gpu_env = dict(CT_QMM_TILE_CACHE=card_table, CT_QMM_AUTOTUNE="precompiled")
+            with env(**gpu_env):
+                gpu = AutoModelForCausalLM.from_pretrained(path)
+            if gpu._engine.init_timings["autotune_raced"]:
+                raise SystemExit(f"tiny {label}: a race under precompiled")
+            compare(label, "table naming g, '', s, si", gpu, gpu_env, cpu, cpu_env)
+        remove_model(path)
     log(f"[tiny] every kernel call vs its plain version on the same operands: "
         f"calls {calls}, worst rel err {worst_call}")
     if any(worst_call[k] > TOL[k] or not calls[k] for k in worst_call):
@@ -410,29 +566,108 @@ def phase_tiny(K, tmpdir: str):
 
 
 def expected_launches(eng, chunks) -> dict:
-    """Kernel launches of one forward per chunk size in `chunks`: every
-    quantized matmul weight of the loaded engine (QKV and gate/up as the
-    engine fused them) once per chunk, a quantized lm_head once at m = 1
-    (the last token), each through ops/qmatmul.py:select_mode."""
+    """Kernel launches and dense calls of one forward per chunk size in
+    `chunks`: every quantized matmul weight of the loaded engine (QKV and
+    gate/up as the engine fused them) once per chunk, a quantized lm_head
+    once at m = 1 (the last token), each by the choice in force
+    (ops/qmatmul.py:pick_mode: the table's, or the fixed rule's). Fails on
+    a kernel that phase 3 did not hold at that key."""
+    from ctransformers_tpu_torch.ops import qmatmul as qm
     from ctransformers_tpu_torch.ops import qmm_kernels as K
-    from ctransformers_tpu_torch.ops.qmatmul import QTensor, select_mode
+
+    def name(m, w):
+        choice = qm.pick_mode(m, w)
+        if choice == qm.DENSE:
+            return "dense"
+        kernel = K.kernel_name(choice[0], w)
+        if (kernel, qm.cache_key(m, w)) not in HELD:
+            raise SystemExit(f"main: {kernel} is launched at key {qm.cache_key(m, w)}, where "
+                             "phase 3 did not hold it against its plain version")
+        return kernel
 
     weights = [w for layer in eng.params["layers"] for w in layer.values()
-               if isinstance(w, QTensor)]
+               if isinstance(w, qm.QTensor)]
     counts = collections.Counter()
     for m in chunks:
-        counts.update(K.kernel_name(select_mode(m, w), w) for w in weights)
+        counts.update(name(m, w) for w in weights)
         head = eng.params["lm_head"]
-        if isinstance(head, QTensor):  # a GPTQ directory's lm_head is dense
-            counts[K.kernel_name(select_mode(1, head), head)] += 1
-    return {k: counts.get(k, 0) for k in K.LAUNCHES}
+        if isinstance(head, qm.QTensor):  # a GPTQ directory's lm_head is dense
+            counts[name(1, head)] += 1
+    return {k: counts.get(k, 0) for k in list(K.LAUNCHES) + ["dense"]}
 
 
-def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int):
+def counts_now(K) -> dict:
+    return dict(K.LAUNCHES, dense=K.DENSE_CALLS["dense"])
+
+
+def serve(K, llm, ids, chunks, label: str, what: str, copy_bw: float, wbytes: int,
+          launches: collections.Counter, full: bool) -> None:
+    """One served run of a loaded model: the 137-token prompt from an empty
+    context (TTFT), 32 decode steps, a profiled few, and with `full` a
+    seeded generation twice. The counters are set to 0 just before and read
+    just after; prompt and decode launches must equal the counts the
+    choices in force give, and no race may run inside."""
+    from ctransformers_tpu_torch.ops import qmatmul as qm
+
+    eng = llm._engine
+    tag = f"[main {label} | {what}]"
+    want_prompt = expected_launches(eng, chunks)
+    want_decode = expected_launches(eng, [1])
+    races = qm.N_RACES
+    K.reset_counts()
+    empty_context(llm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llm.eval(ids)
+    prefill_s = time.perf_counter() - t0
+    tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+    ttft_s = time.perf_counter() - t0
+    prefill_launch = counts_now(K)
+    if not np.isfinite(llm.logits).all():
+        raise SystemExit(f"{tag} non-finite logits after the prompt")
+    n_dec = 32
+    sample_s = 0.0
+    t0 = time.perf_counter()
+    for _ in range(n_dec):
+        llm.eval([tok])
+        t1 = time.perf_counter()
+        tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+        sample_s += time.perf_counter() - t1
+    dec_s = (time.perf_counter() - t0) / n_dec
+    now = counts_now(K)
+    dec_launch = {k: (now[k] - prefill_launch[k]) / n_dec for k in now}
+    busy_ms = profile_decode(llm, tok, dec_s, f"{label} | {what}")
+    if full:
+        runs = []
+        for _ in range(2):  # each from an empty context: chunks 128 + 8 + 1
+            empty_context(llm)
+            gen = llm.generate(ids, seed=5, top_k=40, temperature=0.8)
+            runs.append(list(itertools.islice(gen, 16)))
+            gen.close()
+        if runs[0] != runs[1]:
+            raise SystemExit(f"{tag} same seed, different tokens {runs}")
+        log(f"{tag} seeded generate twice -> identical {runs[0]}")
+    launches.update(counts_now(K))
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    log(f"{tag} {PROMPT_LEN}-token prompt (chunks {chunks}): launches {nz(prefill_launch)} "
+        f"(expected {nz(want_prompt)})")
+    log(f"{tag} decode launches per token {nz(dec_launch)} (expected {nz(want_decode)})")
+    log(f"{tag} ttft_ms={ttft_s * 1e3:.2f} prefill_tok_s={len(ids) / prefill_s:.1f} "
+        f"decode_ms_per_token={dec_s * 1e3:.3f} (host sampling {sample_s / n_dec * 1e3:.3f}) "
+        f"device_busy_ms_per_token={busy_ms:.3f} decode_bound_ms={wbytes / copy_bw * 1e3:.3f} "
+        f"(copy) {wbytes / PEAK_BYTES_S * 1e3:.3f} (3.35 TB/s)")
+    if prefill_launch != want_prompt or dec_launch != want_decode:
+        raise SystemExit(f"{tag} launch counts differ from the choices in force")
+    if qm.N_RACES != races:
+        raise SystemExit(f"{tag} a race ran inside a served forward")
+
+
+def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int, how: str,
+               launches: collections.Counter) -> None:
     from ctransformers_tpu_torch import AutoModelForCausalLM
     from ctransformers_tpu_torch.engine.engine import Engine
     from ctransformers_tpu_torch.models.synthetic import LLAMA2_7B
-    from ctransformers_tpu_torch.ops.qmatmul import QTensor
+    from ctransformers_tpu_torch.ops import qmatmul as qm
 
     cfg = dict(LLAMA2_7B, n_layer=n_layer, n_ctx=2048)
     path = model_path(tmpdir, f"llama7b_{n_layer}l_{label}", mix)
@@ -448,91 +683,110 @@ def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int):
     log(f"[main {label}] wrote {model_size(path) / 2**30:.3f} GiB ({n_layer} layers, "
         f"llama-2-7B width, {what}) in {time.perf_counter() - t0:.1f} s")
     chunks = Engine._chunks(PROMPT_LEN, cfg["n_ctx"])
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_counts()
+    ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, cfg["n_vocab"], PROMPT_LEN - 1)]
+    user_table = os.path.join(tmpdir, f"user_table_{label}.json")
+    # "race": an empty user table (and, below, no shipped one), so the load
+    # is cold; "kernels": the script's table without the dense candidate;
+    # "new": a user's table written below from the loaded engine's keys
+    load_env = {
+        "race": dict(CT_QMM_TILE_CACHE=user_table),
+        "kernels": dict(CT_QMATMUL="kernels"),
+        "new": dict(CT_QMM_AUTOTUNE="precompiled"),
+    }[how]
+
+    def load():
         t0 = time.perf_counter()
         llm = AutoModelForCausalLM.from_pretrained(path)
         load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        llm.eval(ids)  # a first prompt: picks the kernels of its chunk sizes
+        tuned = {m: s for m, s in llm._engine.autotuned.items() if m != 1}
+        log(f"[main {label}] load {load_s:.2f} s ({llm._engine.init_timings}); first "
+            f"{PROMPT_LEN}-token prompt {time.perf_counter() - t0:.2f} s, chunk sizes tuned: "
+            f"{ {m: (s['raced'], s['warm'], round(s['seconds'], 3)) for m, s in tuned.items()} } "
+            "(raced, warm, seconds)")
+        return llm, load_s
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        # "race" loads as on a card no table was shipped for: this path's
+        # table is read inside and holds the user's (empty) file alone
+        cold_start = no_shipped_table(qm) if how == "race" else contextlib.nullcontext()
+        with env(**load_env), cold_start:
+            llm, load_s = load()
+            eng = llm._engine
+            cold = dict(eng.init_timings)
+            if how == "race":
+                if not cold["autotune_raced"]:
+                    raise SystemExit(f"main {label}: the cold load raced nothing")
+                del llm, eng
+                torch.cuda.empty_cache()
+                # the second load reads the champions back from the user's file
+                del qm._TILE_CACHE[(torch.cuda.get_device_name(0), user_table)]
+                llm, load_s = load()
+                eng = llm._engine
+                raced_again = sum(s["raced"] for s in eng.autotuned.values())
+                if raced_again or not eng.init_timings["autotune_warm"]:
+                    raise SystemExit(f"main {label}: the second load was not warm: {eng.autotuned}")
+                log(f"[main {label}] cold load autotune_s={cold['autotune_s']} raced="
+                    f"{cold['autotune_raced']}; warm load autotune_s="
+                    f"{eng.init_timings['autotune_s']} raced=0 warm={eng.init_timings['autotune_warm']}")
+            elif how == "new":
+                # the first load told the keys; a user's table for them, and
+                # the load a user of that table would make
+                entries = qm.float_mode_entries(qm.qtensors(eng.params), sorted(set(chunks)))
+                qm.save_table(user_table, torch.cuda.get_device_name(0), entries)
+                load_env = dict(load_env, CT_QMM_TILE_CACHE=user_table)
+                del llm, eng
+                torch.cuda.empty_cache()
+                with env(**load_env):
+                    llm, load_s = load()
+                eng = llm._engine
+                if sum(s["raced"] for s in eng.autotuned.values()):
+                    raise SystemExit(f"main {label}: a race under precompiled")
         remove_model(path)
-        eng = llm._engine
-        want_prompt = expected_launches(eng, chunks)
-        want_decode = expected_launches(eng, [1])
-        qts = [v for v in [eng.params["lm_head"]] + [x for l in eng.params["layers"] for x in l.values()]
-               if isinstance(v, QTensor)]
+        qts = qm.qtensors(eng.params)
         wbytes = sum(plane_bytes(q) for q in qts)
         kinds = collections.Counter(q.kind for q in qts)
-        log(f"[main {label}] load {load_s:.2f} s ({eng.init_timings}); {len(qts)} QTensors "
-            f"{dict(kinds)}, {wbytes / 1e9:.3f} GB of weight planes; token_embd "
-            f"{tuple(eng.params['wte'].shape)} {eng.params['wte'].dtype}")
+        log(f"[main {label}] {len(qts)} QTensors {dict(kinds)}, {wbytes / 1e9:.3f} GB of weight "
+            f"planes; token_embd {tuple(eng.params['wte'].shape)} {eng.params['wte'].dtype}")
         head = eng.params["lm_head"]
-        if not isinstance(head, QTensor):  # dense: a torch.matmul per forward
+        if not isinstance(head, qm.QTensor):  # dense: a torch.matmul per forward
             wbytes += head.numel() * head.element_size()
             log(f"[main {label}] dense lm_head {tuple(head.shape)} {head.dtype}, "
                 f"{head.numel() * head.element_size() / 1e9:.3f} GB")
-
-        for prompt in ("hello world", "the big cat is", "tell me a story once"):
-            text = llm(prompt, max_new_tokens=16, seed=42)
-            log(f"[main {label}] llm({prompt!r}) -> {text!r}")
-
-        ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, cfg["n_vocab"], PROMPT_LEN - 1)]
-        before = dict(K.LAUNCHES)
-        with warnings.catch_warnings():  # LLM.reset() is marked deprecated
-            warnings.simplefilter("ignore")
-            llm.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        llm.eval(ids)
-        prefill_s = time.perf_counter() - t0
-        tok = llm.sample(seed=5, top_k=40, temperature=0.8)
-        ttft_s = time.perf_counter() - t0
-        prefill_launch = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
-        if not np.isfinite(llm.logits).all():
-            raise SystemExit(f"main {label}: non-finite logits after the prompt")
-        before = dict(K.LAUNCHES)
-        n_dec = 32
-        sample_s = 0.0
-        t0 = time.perf_counter()
-        for _ in range(n_dec):
-            llm.eval([tok])
-            t1 = time.perf_counter()
-            tok = llm.sample(seed=5, top_k=40, temperature=0.8)
-            sample_s += time.perf_counter() - t1
-        dec_s = (time.perf_counter() - t0) / n_dec
-        dec_launch = {k: (K.LAUNCHES[k] - before[k]) / n_dec for k in K.LAUNCHES}
-        tok = profile_decode(llm, tok, dec_s, label)
-        runs = []
-        for _ in range(2):  # each from an empty context: chunks 128 + 8 + 1
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                llm.reset()
-            gen = llm.generate(ids, seed=5, top_k=40, temperature=0.8)
-            runs.append(list(itertools.islice(gen, 16)))
-            gen.close()
-        if runs[0] != runs[1]:
-            raise SystemExit(f"main {label}: same seed, different tokens {runs}")
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        launches = dict(K.LAUNCHES)
-        log(f"[main {label}] {PROMPT_LEN}-token prompt (chunks {chunks}): launches {prefill_launch} "
-            f"(expected {want_prompt})")
-        log(f"[main {label}] decode launches per token {dec_launch} (expected {want_decode})")
-        log(f"[main {label}] seeded generate twice -> identical {runs[0]}")
-        log(f"[main {label}] decode step: {dec_s * 1e3:.3f} ms, of which host sampling "
-            f"{sample_s / n_dec * 1e3:.3f} ms")
-        log(f"[main {label}] load_s={load_s:.3f} ttft_ms={ttft_s * 1e3:.2f} "
-            f"prefill_tok_s={len(ids) / prefill_s:.1f} decode_ms_per_token={dec_s * 1e3:.3f} "
-            f"decode_bound_ms={wbytes / copy_bw * 1e3:.3f} (copy) "
-            f"{wbytes / PEAK_BYTES_S * 1e3:.3f} (3.35 TB/s) peak_mem_gb={peak_gb:.2f}")
-        if prefill_launch != want_prompt or dec_launch != want_decode:
-            raise SystemExit(f"main {label}: launch counts differ from the engine's weights'")
-        return launches
+        args = (K, llm, ids, chunks, label)
+        with env(**load_env):
+            table = {qm.label(c): n for c, n in collections.Counter(
+                qm.pick_mode(m, w) for w in qts for m in sorted(set(chunks))).items()}
+            log(f"[main {label}] choices over {len(qts)} weights x chunk sizes "
+                f"{sorted(set(chunks))}: {table}")
+            if how == "race":
+                # text under the raced table, then the fixed rule and the
+                # table in turns (rule, table, table, rule)
+                for prompt in ("hello world", "the big cat is", "tell me a story once"):
+                    text = llm(prompt, max_new_tokens=16, seed=42)
+                    log(f"[main {label}] llm({prompt!r}) -> {text!r}")
+                for i, rule in enumerate((True, False, False, True)):
+                    with env(CT_QMM_AUTOTUNE="0" if rule else None):
+                        serve(*args, f"{'fixed rule' if rule else 'raced table'} #{i}", copy_bw,
+                              wbytes, launches, full=i == 1)
+            else:
+                text = llm("hello world", max_new_tokens=16, seed=42)
+                log(f"[main {label}] llm('hello world') -> {text!r}")
+                serve(*args, {"kernels": "best hand-written kernels",
+                              "new": "table naming g, '', s, si"}[how], copy_bw, wbytes,
+                      launches, full=True)
+        log(f"[main {label}] load_s={load_s:.3f} peak_mem_gb="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     finally:
         remove_model(path)
 
 
-def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> int:
+def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> float:
     """torch.profiler over a few decode steps: device time by kernel and
-    the device's busy share of the unprofiled step time."""
+    the device's busy share of the unprofiled step time. Returns the busy
+    ms per token."""
     from torch.profiler import ProfilerActivity, profile
 
     with warnings.catch_warnings():  # "clears events at the end of each cycle"
@@ -554,41 +808,54 @@ def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> i
         f"(idle {100 - 100 * busy_ms / (dec_s * 1e3):.1f}%)")
     for us, count, key in rows[:8]:
         log(f"[profile {label}]   {us / 1e3:8.4f} ms/token  {count:4d} launches  {key[:90]}")
-    return tok
+    return busy_ms
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--write-table", metavar="PATH",
+                    help="save the champions of the race phase as a table file")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from ctransformers_tpu_torch.ops import qmatmul as qm
     from ctransformers_tpu_torch.ops import qmm_kernels as K
 
     t_start = time.perf_counter()
+    tmpdir = os.path.join(HERE, "build", "smoke")
+    shutil.rmtree(tmpdir, ignore_errors=True)
+    os.makedirs(tmpdir)
+    # the user's table of this run: starts empty, lives beside the models
+    os.environ["CT_QMM_TILE_CACHE"] = os.path.join(tmpdir, "user_table.json")
     smi = phase_card(K)
     copy_bw = phase_bandwidth()
-    results = phase_kernels(K, copy_bw)
-    tmpdir = os.path.join(HERE, "build", "smoke")
-    os.makedirs(tmpdir, exist_ok=True)
+    results, raced = phase_kernels(K, copy_bw)
+    if opts.write_table:
+        qm.save_table(opts.write_table, torch.cuda.get_device_name(0), raced, qm.power_limit())
+        log(f"[race] wrote {len(raced)} champions to {opts.write_table}")
     phase_tiny(K, tmpdir)
     launches = collections.Counter()
-    for label, mix, n_layer in MAIN_PATHS:
-        launches.update(phase_main(K, tmpdir, copy_bw, label, mix, n_layer))
+    for label, mix, n_layer, how in MAIN_PATHS:
+        phase_main(K, tmpdir, copy_bw, label, mix, n_layer, how, launches)
+    log(f"[main] launches over the served runs {dict(launches)}")
     missing = [k for k in K.LAUNCHES if launches[k] == 0]
     if missing:
         raise SystemExit(f"main: kernels never launched on the main paths: {missing}")
 
-    # one entry per kernel: times and bounds summed over its shapes and batch
-    # sizes in phase 3, launches summed over the main paths of phase 5
+    # one entry per kernel: times and bounds summed over its timed shapes and
+    # batch sizes in phase 3 (KERNEL_CASES), the worst error over every row
+    # it was held at, launches summed over the served runs of phase 5
     kernels = []
     for name in K.KERNELS:
-        rows = results[name]
+        rows = [r for r in results[name] if r["timed"]]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": K.SOURCE_OF[name],
             "replaces": K.REPLACES[name],
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in results[name]),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),

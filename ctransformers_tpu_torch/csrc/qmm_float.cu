@@ -1,0 +1,359 @@
+// Quantized matmuls on float activations for small m (decode and short
+// chunks): the grouped dot "g" on every served layout, and the f32
+// dequantize-and-dot modes "" and "s" on the int8 grids.
+//
+// Replaces, in ctransformers_tpu/ops/qmatmul.py:
+//   _qmm_g_kernel (mode "g")                 -> ct_qmm_g, ct_qmm_g_gptq, ct_qmm_g8
+//       out = sum_g s[g,n] * dot_g(bf16(x), w)[t,n] + xsum @ B
+//       x rounded to bf16, the grid values w (nibbles w4 = q - 8, or the
+//       int8 grid q) exact in bf16, products exact in f32 and summed in f32
+//       inside a group, the f32 scale applied to the group's partial sum.
+//       B = 8 * s + m for nibbles, m for grids, absent for Q6_K; xsum are
+//       the f32 group sums of the unrounded x.
+//   _qmm_kernel   (mode "",  f32 dots)       -> ct_qmm_f
+//       out = x @ (q * s + m), all f32 (no TF32: plain f32 multiply-adds)
+//   _qmm_s_kernel (mode "s", f32 dots)       -> ct_qmm_s
+//       out = x @ (q * s) + xsum @ M, all f32
+//
+// Bound on an H100: bytes at decode. The card does ~20 f32 operations
+// outside the tensor cores per byte it reads (67 TFLOP/s over 3.35 TB/s);
+// an int8-grid byte feeds 2 m of them, so "" and "s" are bound by bytes up
+// to m = 8 and by f32 operations above, and "g" (bf16 operands, ~295
+// operations per byte) by bytes at every m it is offered for (m <= 32).
+// This simple version multiplies on the f32 pipes for all three modes.
+// Design: that of qmm_decode.cu. A block owns 32
+// output columns and ALL of K, so every output element is summed by one
+// block in a fixed order (no atomics, no split-K: runs are bitwise
+// repeatable). Its 256 threads lie 8 across the columns (4 columns each,
+// one 32-bit load per storage row) and 32 down K; a K lane takes 32 rows
+// per chunk (a whole group of an int8 grid: 16 rows for Q6_K). The block
+// stages the chunk's activations in shared memory as f32 (rounded to bf16
+// first for "g"), with the group sums of the unrounded x, which it reduces
+// over the G/4 neighbouring threads of a group with an xor butterfly: every
+// thread adds the same pairs in the same order. A GPTQ group of 64 or 128
+// rows spans 2 or 4 K lanes of one warp: their partial sums are added with
+// shuffles BEFORE the one multiply by s, as the reference scales the whole
+// group's dot. f32 activations take four times the shared memory of the
+// int8 ones of qmm_decode.cu (8 rows x 1024 x 4 B = 32 KB), so the staging
+// buffers and the final K-lane reduction share one union, inside the 48 KB
+// static limit (static_assert below).
+#include <cuda_bf16.h>
+
+#include "qmm_common.cuh"
+
+namespace {
+
+constexpr int kTN = 32;                 // output columns per block
+constexpr int kThreads = 256;
+constexpr int kCQ = kTN / 4;            // column quads per block
+constexpr int kGL = kThreads / kCQ;     // K lanes
+
+enum Mode { kModeG, kModeF, kModeS };
+// kFmtQ4K: adjk nibbles, int8 sub-scales times f32 superblock factors;
+// kFmtGptq: adjk nibbles, f32 planes s and m (kp/G, np) passed as sd and sm;
+// kFmtGrid: int8 grid, int8 sub-scales times f32 superblock factors
+enum Fmt { kFmtQ4K, kFmtGptq, kFmtGrid };
+
+template <int MT, int KC, int NG>
+union FloatSmem {
+  struct {
+    float x[MT][KC];
+    float xs[MT][NG];
+  } in;
+  float red[kGL][MT][kTN];
+};
+
+// Two blocks per SM are asked for (128 registers at 8 rows, 2 x 33 KB of
+// shared memory): a shape of 4096 columns is only 128 blocks on 132 SMs,
+// each a chain of dependent chunk loads, and with this bound the compiler
+// schedules the chunk's loads so that the m = 1 kernels run 25-30% faster
+// there (and the grouped dot on Q6_K no longer 2.6x slower than ""; timed
+// on an H100, PERF.md).
+template <int MT, int MODE, int FMT, int G, bool HAS_MINS>
+__global__ void __launch_bounds__(kThreads, 2)
+qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
+                 const int8_t* __restrict__ qs,     // (kp/2, np) nibbles or (kp, np) grid
+                 const int8_t* __restrict__ sub_s,  // (kp/G, np)        [!kFmtGptq]
+                 const int8_t* __restrict__ sub_m,  // (kp/G, np)        [!kFmtGptq, HAS_MINS]
+                 const float* __restrict__ sd,      // (kp/256, np); kFmtGptq: s (kp/G, np)
+                 const float* __restrict__ sm,      // (kp/256, np); kFmtGptq: m (kp/G, np)
+                 float* __restrict__ out,           // (m, np)
+                 int m, int kp, int np) {
+  constexpr bool kPacked = FMT != kFmtGrid;
+  constexpr int kLR = G < 32 ? G : 32;  // K rows per lane and chunk
+  constexpr int kKC = kGL * kLR;        // K rows staged per chunk
+  constexpr int kLPG = G / kLR;         // K lanes per group
+  constexpr int kNG = kKC / G;          // groups per chunk
+  constexpr int kQT = G / 4;            // threads holding one group while staging
+  constexpr int kSF = 256 / G;          // groups per superblock (factored planes)
+  // the xsum @ B term: nibbles re-bias by 8 * s, grids only where they have mins
+  constexpr bool kBias = MODE != kModeF && (kPacked || HAS_MINS);
+  static_assert(!kPacked || (HAS_MINS && G % 32 == 0 && 32 * (32 / kCQ) % G == 0),
+                "a nibble group is 1, 2 or 4 K lanes of one warp");
+  static_assert(kPacked || kLPG == 1, "an int8-grid group is one K lane");
+  static_assert(FMT != kFmtQ4K || G == ctq::kGroup, "Q4_K groups are 32 rows");
+  static_assert(MODE == kModeG || FMT == kFmtGrid, "\"\" and \"s\" are int8-grid modes");
+  static_assert(4 * kThreads >= kKC, "one float4 per thread stages a chunk");
+  static_assert(sizeof(FloatSmem<MT, kKC, kNG>) <= 48 * 1024, "static shared memory limit");
+  __shared__ FloatSmem<MT, kKC, kNG> sh;
+  const int tid = threadIdx.x;
+  const int cq = tid % kCQ;
+  const int gl = tid / kCQ;
+  const int n = blockIdx.x * kTN + 4 * cq;  // first of this thread's columns
+  const int t0 = blockIdx.y * MT;
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  for (int k0 = 0; k0 < kp; k0 += kKC) {
+    // ---- stage this chunk's activations and the group sums of x ----
+    {
+      // thread tid holds x[k0 + 4*tid .. +3]; G/4 neighbouring threads = 1 group
+      const int kk = 4 * tid;
+      const bool mine = kk < kKC;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int t = t0 + i;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (mine && t < m && k0 + kk < kp)
+          v = __ldg(reinterpret_cast<const float4*>(x + (size_t)t * kp + k0 + kk));
+        if (kBias) {
+          float sum = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
+#pragma unroll
+          for (int off = 1; off < kQT; off <<= 1)
+            sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+          if (mine && tid % kQT == 0) sh.in.xs[i][kk / G] = sum;
+        }
+        if (MODE == kModeG) {
+          v.x = __bfloat162float(__float2bfloat16(v.x));
+          v.y = __bfloat162float(__float2bfloat16(v.y));
+          v.z = __bfloat162float(__float2bfloat16(v.z));
+          v.w = __bfloat162float(__float2bfloat16(v.w));
+        }
+        if (mine) *reinterpret_cast<float4*>(&sh.in.x[i][kk]) = v;
+      }
+    }
+    __syncthreads();
+
+    // ---- one lane of kLR rows: f32 dots against the decoded weights ----
+    const int r0 = k0 + gl * kLR;  // first K row of this lane
+    const bool live = r0 < kp;     // whole warps: kp is a 256-multiple
+    const int g = r0 / G;
+    float part[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f};
+    // the lane that folds the group's scale and bias needs them; "" and "s"
+    // need them for every weight
+    if (live && gl % kLPG == 0) {
+      if (FMT == kFmtGptq) {
+        const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + (size_t)g * np + n));
+        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + (size_t)g * np + n));
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+        s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) b[c] = ctq::plain_bias(s[c], mv[c]);
+      } else {
+        const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
+        const size_t fo = (size_t)(g / kSF) * np + n;
+        const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+        if (HAS_MINS) {
+          const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
+          const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+          const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (kPacked) {
+              ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &b[c]);
+            } else {
+              s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+              b[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+        }
+      }
+    }
+    if (live) {
+      if (kPacked) {
+        const int8_t* qrow = qs + (size_t)(r0 / 2) * np + n;
+        uint32_t w[kLR / 2];
+#pragma unroll
+        for (int rr = 0; rr < kLR / 2; ++rr)
+          w[rr] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)rr * np));
+#pragma unroll
+        for (int rr = 0; rr < kLR / 2; ++rr) {
+          float w0[4], w1[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            w0[c] = static_cast<float>(ctq::nibble(w[rr], 2 * c));
+            w1[c] = static_cast<float>(ctq::nibble(w[rr], 2 * c + 1));
+          }
+          const int kl = gl * kLR + 2 * rr;
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const float x0 = sh.in.x[i][kl];
+            const float x1 = sh.in.x[i][kl + 1];
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              part[i][c] = fmaf(x1, w1[c], fmaf(x0, w0[c], part[i][c]));
+          }
+        }
+      } else {
+        const int8_t* qrow = qs + (size_t)r0 * np + n;
+        uint32_t w[kLR];
+#pragma unroll
+        for (int r = 0; r < kLR; ++r)
+          w[r] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)r * np));
+#pragma unroll
+        for (int r = 0; r < kLR; ++r) {
+          float wv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            wv[c] = static_cast<float>(ctq::sbyte(w[r], c));
+            // "" and "s" dequantize each weight: q * s (+ m), rounded as the
+            // reference's f32 multiply and add
+            if (MODE != kModeG) wv[c] = __fmul_rn(wv[c], s[c]);
+            if (MODE == kModeF && HAS_MINS) wv[c] = __fadd_rn(wv[c], b[c]);
+          }
+          const int kl = gl * kLR + r;
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const float xv = sh.in.x[i][kl];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[i][c] = fmaf(xv, wv[c], part[i][c]);
+          }
+        }
+      }
+    }
+    if (kLPG > 1) {
+      // the group's lanes are threads kCQ apart in one warp; the butterfly
+      // adds the same pairs in every lane, so the group's first lane holds
+      // a sum taken in a fixed order
+#pragma unroll
+      for (int off = kCQ; off < kCQ * kLPG; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            part[i][c] = __fadd_rn(part[i][c], __shfl_xor_sync(0xffffffffu, part[i][c], off));
+    }
+    if (live && gl % kLPG == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float xsv = kBias ? sh.in.xs[i][gl / kLPG] : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v = MODE == kModeG ? __fmul_rn(part[i][c], s[c]) : part[i][c];
+          if (kBias) v = __fadd_rn(v, __fmul_rn(xsv, b[c]));
+          acc[i][c] = __fadd_rn(acc[i][c], v);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- fixed-order reduction of the K lanes (the staging buffers are dead) ----
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sh.red[gl][i][4 * cq + c] = acc[i][c];
+  __syncthreads();
+  for (int e = tid; e < MT * kTN; e += kThreads) {
+    const int i = e / kTN, col = e % kTN;
+    const int t = t0 + i;
+    float v = 0.0f;
+    for (int l = 0; l < kGL; ++l) v = __fadd_rn(v, sh.red[l][i][col]);
+    if (t < m) out[(size_t)t * np + blockIdx.x * kTN + col] = v;
+  }
+}
+
+template <int MODE, int FMT, int G, bool HAS_MINS>
+int launch(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+           const float* sd, const float* sm, float* out, int m, int kp, int np,
+           cudaStream_t stream) {
+  if (m == 1) {
+    dim3 grid(np / kTN, 1);
+    qmm_float_kernel<1, MODE, FMT, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+        x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+  } else {
+    constexpr int MT = 8;
+    dim3 grid(np / kTN, (m + MT - 1) / MT);
+    qmm_float_kernel<MT, MODE, FMT, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+        x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K).
+template <int MODE>
+int launch_grid(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                const float* sd, const float* sm, float* out, int m, int kp, int np,
+                int group, cudaStream_t stream) {
+  if (group == 16 && sub_m == nullptr)
+    return launch<MODE, kFmtGrid, 16, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+  if (group == 32 && sub_m != nullptr)
+    return launch<MODE, kFmtGrid, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode "g" on Q4_K: x f32 (m, kp).
+int ct_qmm_g(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+             const float* sd, const float* sm, float* out, int m, int kp, int np,
+             void* stream) {
+  return launch<kModeG, kFmtQ4K, ctq::kGroup, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                                                   static_cast<cudaStream_t>(stream));
+}
+
+// mode "g" on GPTQ4: s and mn f32 (kp/group, np), group 32, 64 or 128.
+int ct_qmm_g_gptq(const float* x, const int8_t* qs, const float* s, const float* mn,
+                  float* out, int m, int kp, int np, int group, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (group) {
+    case 32:
+      return launch<kModeG, kFmtGptq, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
+    case 64:
+      return launch<kModeG, kFmtGptq, 64, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
+    case 128:
+      return launch<kModeG, kFmtGptq, 128, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// mode "g" on an int8 grid (Q6_K, Q5_K).
+int ct_qmm_g8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+              const float* sd, const float* sm, float* out, int m, int kp, int np,
+              int group, void* stream) {
+  return launch_grid<kModeG>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// mode "": x @ (q * s + m) in f32 on an int8 grid.
+int ct_qmm_f(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+             const float* sd, const float* sm, float* out, int m, int kp, int np,
+             int group, void* stream) {
+  return launch_grid<kModeF>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// mode "s": x @ (q * s) + xsum @ M in f32 on an int8 grid.
+int ct_qmm_s(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+             const float* sd, const float* sm, float* out, int m, int kp, int np,
+             int group, void* stream) {
+  return launch_grid<kModeS>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                             static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -1,14 +1,15 @@
 // Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the Q4_K
-// kernels (qmm_prefill.cu: "si", "i"), the GPTQ 4-bit kernel
-// (qmm_prefill.cu: "i") and the int8-grid kernels (qmm_grid.cu: "sb", "b").
+// kernels (qmm_prefill.cu: "si", "i"), the GPTQ 4-bit kernels
+// (qmm_prefill.cu: "si", "i") and the int8-grid kernels (qmm_grid.cu: "sb",
+// "b").
 // Only the weight tile's decoding differs between formats; it comes in as a
 // tile type W:
 //
 //   W::kGroup    K rows per quant group (32; 16 for Q6_K; 32, 64 or 128
 //                for GPTQ). A group larger than the K step is walked in
 //                several steps, each reading the group's one row of s and
-//                B; such a type cannot fold (SUMFOLD), because the fold
-//                needs whole groups inside a step.
+//                B; the fold (SUMFOLD) then carries the group's xsum across
+//                its steps and applies B once, at the group's last step.
 //   W::kHasBias  whether the format adds a per-group bias B (its mins)
 //   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s)
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
@@ -32,7 +33,8 @@
 // multiply 32 x 32 sub-tiles on the tensor cores with WMMA bf16 16x16x16
 // fragments and f32 accumulators. For the fold each thread also keeps the
 // bias sums of 32 of the tile's outputs, from the group sums of the f32
-// activations it loaded. Later work: a TMA + wgmma pipeline with several
+// activations it loaded; a group of 2 or 4 steps adds its steps' sums in
+// step order before the one multiply by B. Later work: a TMA + wgmma pipeline with several
 // stages in flight.
 #pragma once
 
@@ -69,7 +71,10 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
   constexpr bool kFold = SUMFOLD && W::kHasBias;
   static_assert(G >= kGemmBK ? G % kGemmBK == 0 : kNGS * G == kGemmBK,
                 "a K step holds whole quant groups, or is a whole part of one");
-  static_assert(!kFold || G <= kGemmBK, "the fold needs whole groups in a step");
+  // K steps per quant group, and the activation columns of a step that lie
+  // in one group
+  constexpr int kSPG = G > kGemmBK ? G / kGemmBK : 1;
+  constexpr int kGW = G > kGemmBK ? kGemmBK : G;
   __shared__ __align__(128) __nv_bfloat16 As[kGemmBM * kGemmLDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[kGemmBK * kGemmLDB];
   __shared__ __align__(128) float Cs[kGemmBM * kGemmLDC];
@@ -107,12 +112,17 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
       if (grow < m)
         v = __ldg(reinterpret_cast<const float4*>(x + (size_t)grow * kp + k0 + ac));
       if (kFold) {
-        // G/4 neighbouring lanes hold one group of this row
+        // kGW/4 neighbouring lanes hold this row's part of one group
         float s = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
 #pragma unroll
-        for (int off = 1; off < G / 4; off <<= 1)
+        for (int off = 1; off < kGW / 4; off <<= 1)
           s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-        if (tid % (G / 4) == 0) xs_s[r][ac / G] = s;
+        if (tid % (kGW / 4) == 0) {
+          // a group of several steps: the same thread adds its steps' sums
+          // in step order (the fold below reads them between two barriers)
+          const bool first = kSPG == 1 || (k0 / kGemmBK) % kSPG == 0;
+          xs_s[r][ac / kGW] = first ? s : __fadd_rn(xs_s[r][ac / kGW], s);
+        }
       }
       __nv_bfloat16* a = As + r * kGemmLDA + ac;
       a[0] = __float2bfloat16(v.x);
@@ -138,7 +148,7 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
     }
-    if (kFold) {
+    if (kFold && (kSPG == 1 || (k0 / kGemmBK) % kSPG == kSPG - 1)) {
 #pragma unroll
       for (int gi = 0; gi < kNGS; ++gi) {
         const float bv = b_s[gi][bn];

@@ -1,5 +1,5 @@
 // Dequantize-then-bf16-GEMM 4-bit matmul for prompt chunks (m > 32), on Q4_K
-// weights ("si", "i") and on GPTQ 4-bit weights ("i").
+// weights ("si", "i") and on GPTQ 4-bit weights ("si", "i").
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_i4_s_kernel (mode "si"): W' = w4 * s rounded to bf16, x rounded to
@@ -19,7 +19,8 @@
 // decodes the same nibbles with the reference's sfactor == 0 branch: s and m
 // are f32 planes read as they are, one row per group of 32, 64 or 128 rows,
 // so a K step is a whole group or a whole part of one and needs only that
-// group's row; W = w4 * s + B is rounded once to bf16, as in the reference.
+// group's row; W = w4 * s + B ("i") or w4 * s ("si", with B handed to the
+// GEMM's fold) is rounded once to bf16, as in the reference.
 #include "qmm_gemm.cuh"
 
 namespace {
@@ -94,8 +95,7 @@ struct GptqTile {
       const float* __restrict__ s_p,  // (kp/G, np) s
       const float* __restrict__ m_p,  // (kp/G, np) m
       int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
-      float (*)[ctq::kGemmBN]) {
-    static_assert(!FOLD, "mode i only: the bias is added per element");
+      float (*b_s)[ctq::kGemmBN]) {
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
     const int n = col0 + wc;
@@ -114,19 +114,35 @@ struct GptqTile {
     for (int j = 0; j < 8; ++j) {
       const uint32_t wj = j < 4 ? wv.x : wv.y;
       const float b = ctq::plain_bias(sv[j], mv[j]);
-      const float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), sv[j]);
-      const float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]);
-      b0[j] = __float2bfloat16(__fadd_rn(w0, b));
-      b1[j] = __float2bfloat16(__fadd_rn(w1, b));
+      float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), sv[j]);
+      float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]);
+      if (!FOLD) {
+        w0 = __fadd_rn(w0, b);
+        w1 = __fadd_rn(w1, b);
+      } else if (wr == 0) {
+        b_s[0][wc + j] = b;  // the group's one row of B, the same in each of its steps
+      }
+      b0[j] = __float2bfloat16(w0);
+      b1[j] = __float2bfloat16(w1);
     }
   }
 };
 
-template <int G>
-int launch_gptq_i(const float* x, const int8_t* qs, const float* s, const float* mn,
-                  float* out, int m, int kp, int np, cudaStream_t stream) {
-  return ctq::launch_gemm<GptqTile<G>, false>(x, qs, nullptr, nullptr, s, mn, out, m,
-                                              kp, np, stream);
+template <bool SUMFOLD>
+int launch_gptq(const float* x, const int8_t* qs, const float* s, const float* mn,
+                float* out, int m, int kp, int np, int group, cudaStream_t st) {
+  switch (group) {
+    case 32:
+      return ctq::launch_gemm<GptqTile<32>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out, m,
+                                                     kp, np, st);
+    case 64:
+      return ctq::launch_gemm<GptqTile<64>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out, m,
+                                                     kp, np, st);
+    case 128:
+      return ctq::launch_gemm<GptqTile<128>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out, m,
+                                                      kp, np, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -154,13 +170,17 @@ int ct_qmm_i(const float* x, const int8_t* qs, const int8_t* sub_s,
 int ct_qmm_i_gptq(const float* x, const int8_t* qs, const float* s,
                   const float* mn, float* out, int m, int kp, int np,
                   int group, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (group) {
-    case 32: return launch_gptq_i<32>(x, qs, s, mn, out, m, kp, np, st);
-    case 64: return launch_gptq_i<64>(x, qs, s, mn, out, m, kp, np, st);
-    case 128: return launch_gptq_i<128>(x, qs, s, mn, out, m, kp, np, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gptq<false>(x, qs, s, mn, out, m, kp, np, group,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// mode "si" on GPTQ4: bf16(x) @ bf16(w4 * s) + xsum @ B, B = 8 * s + mn, xsum
+// the f32 sums of x over each group of 32, 64 or 128 rows.
+int ct_qmm_si_gptq(const float* x, const int8_t* qs, const float* s,
+                   const float* mn, float* out, int m, int kp, int np,
+                   int group, void* stream) {
+  return launch_gptq<true>(x, qs, s, mn, out, m, kp, np, group,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Quantized weights as torch tensors: the QTensor container, load-time
-repacking, QKV / gate-up fusion and the matmul dispatch onto the Hopper
-kernels of ops/qmm_kernels.py.
+repacking, QKV / gate-up fusion, and the matmul dispatch onto the Hopper
+kernels of ops/qmm_kernels.py with the kernel of each (weight shape, m)
+chosen by a race on the card (autotune) and kept in a table.
 
 The counterpart of ctransformers_tpu/ops/qmatmul.py. A GGML block tensor is
 repacked at load time into planes that compute x @ W with W logically
@@ -35,12 +36,18 @@ instructions, so that probe has no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+import json
+import os
+import subprocess
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..formats.quants import GGMLType, decompose, decompose_factors
+from ..logger import logger
 from . import qmm_kernels as kern
 
 # formats stored nibble-packed, with the zero point that re-biases their
@@ -73,6 +80,10 @@ class QTensor:
     sm: Optional[torch.Tensor] = None
     sfactor: int = 0  # groups per superblock (0 = unfactored f32 planes)
     pack_layout: str = "adjk"
+    # m -> (environment, choice): pick_mode's settled choices for this weight
+    # (not carried to a copy: to() and dataclasses.replace start empty)
+    picks: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def to(self, device) -> "QTensor":
         planes = ("qs", "scales", "mins", "perm", "sd", "sm")
@@ -204,10 +215,11 @@ def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
 
 
 def select_mode(m: int, qt: QTensor) -> str:
-    """Kernel for an (m, K_pad) x (K_pad, N_pad) product with weight `qt`.
-    A fixed rule that follows the JAX package's kernel candidates and the
-    pattern of its measured TPU choices without reading them; provisional
-    until kernel selection is ported (ROADMAP Queue 1).
+    """The kernel mode taken without a measurement for an (m, K_pad) x
+    (K_pad, N_pad) product with weight `qt`: on the CPU, under
+    CT_QMM_AUTOTUNE=0, and for a key the table does not hold under
+    CT_QMM_AUTOTUNE=precompiled (the counterpart of the JAX package's
+    heuristic pick). On the card the race of pick_mode decides instead.
 
     Nibble-packed Q4_K: decode takes the in-kernel activation quantization
     ("qx"), short chunks the pre-quantized form ("q"), long chunks the bf16
@@ -216,15 +228,12 @@ def select_mode(m: int, qt: QTensor) -> str:
 
     Nibble-packed weights with plain f32 planes (sfactor 0: GPTQ4, any
     group) take "qx" at m = 1, "q" at 2 <= m <= 32 and "i" at m > 32 on
-    every shape: the pattern of the JAX package's measured GPTQ4 choices
-    ("qx" at m = 1 and "i" at m = 128 on every llama-7B shape), followed
-    here without reading its table; it offers no "si" pick for GPTQ4.
+    every shape.
 
     int8 grids (Q6_K, Q5_K): at m <= 32 the pre-quantized int8 dot ("q8",
-    the JAX package's "q" mode with packed4=False; it offers no "qx" for
-    unpacked grids). At m > 32 its candidates are only "b" and "sb", and its
-    autotuner drops the sum-fold "sb" where the weight has no mins: "b"
-    for Q6_K, "sb" for Q5_K."""
+    the JAX package's "q" mode with packed4=False). At m > 32 the
+    candidates are only "b" and "sb", and the sum-fold "sb" is dropped
+    where the weight has no mins: "b" for Q6_K, "sb" for Q5_K."""
     rows, npad = qt.qs.shape
     if not qt.packed:
         if m <= 32:
@@ -237,6 +246,410 @@ def select_mode(m: int, qt: QTensor) -> str:
     if qt.sfactor == 0:
         return "i"
     return "si" if npad > 2 * rows else "i"
+
+
+# -- kernel selection ----------------------------------------------------------
+#
+# The counterpart of the JAX package's _tile_candidates / _pick_tiles /
+# autotune. A choice is ("dense",) or (mode, config): `mode` names the
+# kernel (qmm_kernels.kernel_name), `config` its launch configuration
+# (qmm_kernels.CONFIG_OF; the TPU tile numbers of the JAX lists are Mosaic
+# block sizes and have no meaning here). Environment, read at call time:
+#
+#   CT_QMM_AUTOTUNE    "1" (default) race a key's candidates on the card at
+#                      first use; "0" no table and no race, select_mode
+#                      decides; "precompiled" trust the tables, select_mode
+#                      for a key they do not hold, never race
+#   CT_QMM_TILE_CACHE  the user's table file
+#   CT_QMATMUL         "kernels": no dense candidate, a key takes its best
+#                      hand-written kernel; "dense": never a kernel
+
+DENSE = ("dense",)
+# adjk nibbles (Q4_K, GPTQ4) and int8 grids (Q6_K, Q5_K), in the order of
+# the JAX package's candidate lists ("q8" is its "q" with packed4=False)
+_NIBBLE_MODES = ("i", "si", "g", "q", "qx")
+_GRID_MODES = ("", "s", "b", "sb", "g", "q8")
+TABLE_FORMAT = "ctransformers_tpu_torch qmm modes v1"
+# torch.cuda.get_device_name -> the table shipped under data/
+_SHIPPED_TABLES = {"NVIDIA H100 80GB HBM3": "h100"}
+
+# (card, user's table path) -> {key: {"pick": choice, "kernel": best
+# hand-written choice or None, "ms": {candidate: ms}}}: one table per card
+# and user file, filled at first use from that file and the table shipped
+# for the card (table) and by races, so that a CPU engine beside a CUDA one
+# neither re-reads a file nor loses a raced entry
+_TILE_CACHE: Dict[tuple, Dict[tuple, dict]] = {}
+# (card, user's table path, key) of entries that are not the champion of a
+# full race (a race without the dense candidate): kept in memory, never
+# written to the user's table
+_TAINTED_KEYS: set = set()
+N_RACES = 0  # races run by this process
+
+
+def _autotune_mode() -> str:
+    return os.environ.get("CT_QMM_AUTOTUNE", "1")
+
+
+def _force() -> Optional[str]:
+    return os.environ.get("CT_QMATMUL")
+
+
+@functools.lru_cache(maxsize=None)
+def _default_table_path() -> str:
+    return os.path.expanduser("~/.cache/ctransformers_tpu_torch/qmm_modes_v1.json")
+
+
+def table_path() -> str:
+    return os.environ.get("CT_QMM_TILE_CACHE") or _default_table_path()
+
+
+@functools.lru_cache(maxsize=None)
+def card_name(device: torch.device) -> str:
+    """The name a table must carry to serve `device`."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def cache_key(m: int, qt: QTensor) -> tuple:
+    """The JAX package's key: storage rows (byte rows of a nibble-packed
+    weight), padded N, group, has mins, the real m, packed, sfactor, layout.
+    Q4_K and GPTQ4 at group 32 differ in sfactor, fused and unfused QKV in
+    N."""
+    rows, npad = qt.qs.shape
+    return (int(rows), int(npad), qt.group, qt.mins is not None, int(m), qt.packed,
+            qt.sfactor, qt.pack_layout)
+
+
+def mode_candidates(qt: QTensor, m: int) -> List[tuple]:
+    """The (mode, config) candidates raced for `qt` at batch size m: the
+    mode axis of the JAX package's candidate lists in their order, pruned at
+    m > 32 to the bf16 tensor-core modes (those ending in "b", and "i" and
+    "si"), without the sum-fold modes where the weight has neither mins
+    nor a nibble re-bias to fold."""
+    modes = _NIBBLE_MODES if qt.packed else _GRID_MODES
+    if m > 32:
+        modes = tuple(x for x in modes if x.endswith("b") or x in ("i", "si"))
+    if not (qt.packed or qt.mins is not None):
+        modes = tuple(x for x in modes if "s" not in x)
+    return [(x, kern.CONFIG_OF[kern.kernel_name(x, qt)]) for x in modes]
+
+
+def _heuristic(m: int, qt: QTensor) -> tuple:
+    mode = select_mode(m, qt)
+    return (mode, kern.CONFIG_OF[kern.kernel_name(mode, qt)])
+
+
+def _parse_cache_file(path: str, card: str) -> Dict[tuple, dict]:
+    """The entries of a table file, or none when it was written for another
+    card or from other kernel sources (a rewritten kernel must not be
+    served a stale champion)."""
+    with open(path) as f:
+        doc = json.load(f)
+    if (not isinstance(doc, dict) or doc.get("format") != TABLE_FORMAT
+            or doc.get("card") != card or doc.get("source_hash") != kern._source_hash()):
+        return {}
+    out = {}
+    for k, v in doc.get("modes", {}).items():
+        rows, npad, g, has_m, m, packed, sf, layout = k.split(",")
+        key = (int(rows), int(npad), int(g), has_m == "True", int(m), packed == "True",
+               int(sf), layout)
+        kernel = v.get("kernel")
+        out[key] = {"pick": tuple(v["pick"]), "kernel": kernel and tuple(kernel),
+                    "ms": dict(v.get("ms", {}))}
+    return out
+
+
+def shipped_table_path(card: str) -> Optional[str]:
+    slug = _SHIPPED_TABLES.get(card)
+    if slug is None:
+        return None
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "data", f"qmm_modes_{slug}.json")
+
+
+def _load_shipped_cache(card: str, entries: Dict[tuple, dict]) -> None:
+    """Merge the packaged table of this card; the user's entries win."""
+    path = shipped_table_path(card)
+    if path is not None and os.path.exists(path):
+        for k, v in _parse_cache_file(path, card).items():
+            entries.setdefault(k, v)
+
+
+def _load_disk_cache(card: str, path: str, entries: Dict[tuple, dict]) -> None:
+    if os.path.exists(path):
+        try:
+            entries.update(_parse_cache_file(path, card))
+        except (ValueError, KeyError, TypeError) as e:
+            logger.warning("qmm table %s is unreadable and ignored: %r", path, e)
+
+
+def table(device: torch.device) -> Dict[tuple, dict]:
+    """The entries in force for `device` under the user's table file named
+    now: read from that file and the shipped table the first time this
+    (card, file) is asked for, then kept (with what was raced since)."""
+    ident = (card_name(device), table_path())
+    entries = _TILE_CACHE.get(ident)
+    if entries is None:
+        entries = _TILE_CACHE[ident] = {}
+        _load_disk_cache(*ident, entries)
+        _load_shipped_cache(ident[0], entries)
+    return entries
+
+
+@functools.lru_cache(maxsize=None)
+def power_limit() -> Optional[str]:
+    """The card's power limit as nvidia-smi prints it (None without one)."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        )
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = r.stdout.strip().splitlines() if r.returncode == 0 else []
+    return lines[0].strip() if lines else None
+
+
+def save_table(path: str, card: str, entries: Dict[tuple, dict],
+               limit: Optional[str] = None) -> None:
+    """Write `entries` as a table file for `card` and this checkout's kernel
+    sources."""
+    doc = {
+        "format": TABLE_FORMAT, "card": card, "power_limit": limit,
+        "source_hash": kern._source_hash(),
+        "modes": {
+            ",".join(map(str, k)): {
+                "pick": list(v["pick"]),
+                "kernel": None if v.get("kernel") is None else list(v["kernel"]),
+                "ms": v.get("ms", {}),
+            }
+            for k, v in sorted(entries.items())
+        },
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=1)
+    os.replace(tmp, path)
+
+
+def _save_disk_cache(card: str) -> None:
+    path = table_path()
+    entries = {k: v for k, v in _TILE_CACHE.get((card, path), {}).items()
+               if (card, path, k) not in _TAINTED_KEYS}
+    try:
+        save_table(path, card, entries, power_limit())
+    except OSError as e:  # a read-only home: the champions stay in memory
+        logger.warning("qmm table %s not written: %r", path, e)
+
+
+def _qmm_dense(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """The dense candidate, the counterpart of the JAX package's XLA
+    dequantize-and-matmul: the whole grid times its scales rounded to bf16,
+    a bf16 x bf16 -> f32 torch.matmul, and the mins through the f32 group
+    sums of x. Plain tensor code in the JAX package too (outside every
+    Pallas kernel); x is (m, K_pad), the result the padded (m, N_pad)."""
+    sp, mp_ = scale_planes(qt)
+    w = (unpack_grid(qt).float() * sp.repeat_interleave(qt.group, 0)).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    if x.is_cuda:
+        out = torch.mm(xb, w, out_dtype=torch.float32)
+    else:  # a CPU bf16 matmul returns bf16: multiply the rounded operands in f32
+        out = xb.float() @ w.float()
+    if mp_ is not None:
+        out = out + x.reshape(x.shape[0], -1, qt.group).sum(-1) @ mp_
+    return out
+
+
+def _apply(choice: tuple, xm: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """The padded product (m, N_pad) by `choice`; xm is (m, K_pad) f32."""
+    if choice == DENSE:
+        kern.DENSE_CALLS["dense"] += 1
+        return _qmm_dense(xm, qt)
+    # looked up at call time, so that a caller may wrap the module's kernels
+    name = kern.kernel_name(choice[0], qt)
+    fn = getattr(kern, name)
+    if name in kern.PREQUANTIZED:
+        return fn(*kern.quantize_activations(xm, qt.group), qt)
+    return fn(xm, qt)
+
+
+def label(choice: tuple) -> str:
+    """A choice's name in logs and in a table's "ms": its mode ("f" for the
+    empty mode), or "dense"."""
+    return choice[0] or "f"
+
+
+def race(m: int, qt: QTensor, peers: Optional[Sequence[QTensor]] = None,
+         dense: bool = True) -> dict:
+    """Time every candidate of `qt` at batch size m on the card and return
+    {"pick": fastest, "kernel": fastest hand-written, "ms": {label: ms}}.
+
+    Each candidate is timed as qmatmul would run it (activation
+    quantization included) from a replayed CUDA graph between two CUDA
+    events, so the host's launch cost does not rank candidates. The graph's
+    calls rotate over `peers`, the weights of the same key (an engine's 32
+    layers: more than the card's 50 MB L2, so the planes stream from device
+    memory as they do in decode); a key with one weight replays that one.
+    Two passes over the candidates, three timed replays a visit, the least
+    time kept. A candidate that fails to build or launch raises: it is not
+    dropped from the race."""
+    global N_RACES
+    peers = list(peers or [qt])
+    dev = qt.qs.device
+    if dev.type != "cuda":
+        raise ValueError(f"race: weights on {dev}; candidates are timed on CUDA only")
+    cands = mode_candidates(qt, m) + ([DENSE] if dense else [])
+    kp = qt.qs.shape[0] * (2 if qt.packed else 1)
+    x = torch.randn((m, kp), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    reps = max(len(peers), 8)
+    runs = []
+    with torch.inference_mode():
+        for cand in cands:
+            _apply(cand, x, qt)  # builds, warms, and raises what does not launch
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for i in range(reps):
+                    _apply(cand, x, peers[i % len(peers)])
+            runs.append(graph)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        best = [float("inf")] * len(cands)
+        for _ in range(2):
+            for i, graph in enumerate(runs):
+                graph.replay()  # warm
+                for _ in range(3):
+                    e0.record()
+                    graph.replay()
+                    e1.record()
+                    torch.cuda.synchronize(dev)
+                    best[i] = min(best[i], e0.elapsed_time(e1) / reps)
+    del runs
+    N_RACES += 1
+    ms = {label(c): t for c, t in zip(cands, best)}
+    order = sorted(range(len(cands)), key=best.__getitem__)
+    kernel = next(cands[i] for i in order if cands[i] != DENSE)
+    res = {"pick": cands[order[0]], "kernel": kernel, "ms": ms}
+    logger.info("qmm race %s: %s -> %s", cache_key(m, qt),
+                " ".join(f"{k}={v:.4f}" for k, v in ms.items()), label(res["pick"]))
+    return res
+
+
+def pick_mode(m: int, qt: QTensor, peers: Optional[Sequence[QTensor]] = None) -> tuple:
+    """The choice for x (m, K) @ qt: the table's, or on a miss a race on the
+    card (CT_QMM_AUTOTUNE=1), else select_mode's. See the section comment
+    for the environment. A settled choice is kept on the weight per m and
+    environment, so that a served forward pays three environment reads and
+    a dictionary lookup per matmul; only a miss inside a CUDA graph capture
+    is not kept (a later call, free to race, finds the key open)."""
+    env = os.environ
+    stamp = (env.get("CT_QMM_AUTOTUNE"), env.get("CT_QMATMUL"), env.get("CT_QMM_TILE_CACHE"))
+    kept = qt.picks.get(m)
+    if kept is not None and kept[0] == stamp:
+        return kept[1]
+    choice = _resolve(m, qt, peers)
+    if choice is not None:
+        qt.picks[m] = (stamp, choice)
+        return choice
+    return _heuristic(m, qt)
+
+
+def _resolve(m: int, qt: QTensor, peers: Optional[Sequence[QTensor]]) -> Optional[tuple]:
+    """pick_mode's choice, or None for a key the tables do not hold while a
+    CUDA graph is captured (no race may run there)."""
+    force = _force()
+    if force == "dense":
+        return DENSE
+    auto = _autotune_mode()
+    if auto == "0":
+        return _heuristic(m, qt)
+    dev = qt.qs.device
+    entries = table(dev)
+    key = cache_key(m, qt)
+    hit = entries.get(key)
+    if hit is not None:
+        if force != "kernels" or hit["pick"] != DENSE:
+            return hit["pick"]
+        if hit["kernel"] is not None:
+            return hit["kernel"]
+    if dev.type != "cuda" or auto == "precompiled":
+        # never stored in the table: a later run that may race finds the key open
+        return _heuristic(m, qt)
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    res = race(m, qt, peers, dense=force != "kernels")
+    entries[key] = res
+    tainted = (card_name(dev), table_path(), key)
+    if force == "kernels":
+        _TAINTED_KEYS.add(tainted)  # no dense candidate was timed: not a champion
+    else:
+        _TAINTED_KEYS.discard(tainted)
+        _save_disk_cache(card_name(dev))
+    return res["pick"]
+
+
+def qtensors(params) -> List[QTensor]:
+    """Every QTensor of an engine's params (layers first, then the rest)."""
+    out = [w for layer in params.get("layers", []) for w in layer.values()
+           if isinstance(w, QTensor)]
+    return out + [w for w in params.values() if isinstance(w, QTensor)]
+
+
+def float_mode_entries(qts: Sequence[QTensor], sizes: Sequence[int]) -> Dict[tuple, dict]:
+    """Table entries that steer every key of the weights `qts` at the batch
+    sizes `sizes` to the float-activation kernels and the sum-fold GEMMs,
+    whatever a race would pick: a table under which a model runs those
+    kernels (save_table, then CT_QMM_TILE_CACHE with
+    CT_QMM_AUTOTUNE=precompiled). Nibble-packed weights: g at m <= 32, si
+    above. int8 grids at m <= 32: "", g and (with mins) s in turn over the
+    keys and sizes; above 32 sb where there are mins, else no entry (the
+    rule's b)."""
+    entries = {}
+    grids = sorted({cache_key(0, w) for w in qts if not w.packed})
+    for w in qts:
+        for j, m in enumerate(sizes):
+            if w.packed:
+                mode = "g" if m <= 32 else "si"
+            elif m <= 32:
+                modes = ["", "g"] + (["s"] if w.mins is not None else [])
+                mode = modes[(grids.index(cache_key(0, w)) + j) % len(modes)]
+            elif w.mins is not None:
+                mode = "sb"
+            else:
+                continue
+            choice = (mode, kern.CONFIG_OF[kern.kernel_name(mode, w)])
+            entries[cache_key(m, w)] = {"pick": choice, "kernel": choice, "ms": {}}
+    return entries
+
+
+def autotune(params, batch_sizes: Sequence[int] = (1,)) -> dict:
+    """Pick the kernel of every QTensor of `params` at each batch size
+    before it is served (the engine calls this at load for m = 1 and
+    before the first prompt chunk of each size), so that no race runs
+    inside a timed or captured forward. Weights that share a key are raced
+    together, the timed calls rotating over them. Returns {"raced": keys
+    raced now, "warm": keys the tables held, "seconds"}; off the card, under
+    CT_QMM_AUTOTUNE=0 and under CT_QMATMUL=dense it does nothing."""
+    t0 = time.perf_counter()
+    stats = {"raced": 0, "warm": 0, "seconds": 0.0}
+    qts = qtensors(params)
+    if (not qts or qts[0].qs.device.type != "cuda" or _autotune_mode() == "0"
+            or _force() == "dense"):
+        return stats
+    groups: Dict[tuple, List[QTensor]] = {}
+    for qt in qts:
+        groups.setdefault(cache_key(0, qt), []).append(qt)
+    entries = table(qts[0].qs.device)
+    for m in batch_sizes:
+        for peers in groups.values():
+            before = N_RACES
+            known = cache_key(m, peers[0]) in entries
+            pick_mode(m, peers[0], peers)
+            if N_RACES > before:
+                stats["raced"] += 1
+            elif known:
+                stats["warm"] += 1
+    stats["seconds"] = time.perf_counter() - t0
+    return stats
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -258,14 +671,7 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     if kp != k:
         xm = torch.nn.functional.pad(xm, (0, kp - k))
     xm = xm.contiguous()
-    mode = select_mode(xm.shape[0], qt)
-    # looked up at call time, so that a caller may wrap the module's kernels
-    name = kern.kernel_name(mode, qt)
-    fn = getattr(kern, name)
-    if name in kern.PREQUANTIZED:
-        out = fn(*kern.quantize_activations(xm, qt.group), qt)
-    else:
-        out = fn(xm, qt)
+    out = _apply(pick_mode(xm.shape[0], qt), xm, qt)
     return out[:, :n].reshape(*lead, n)
 
 

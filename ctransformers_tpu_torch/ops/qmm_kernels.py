@@ -1,4 +1,4 @@
-"""The ten hand-written Hopper kernels of the quantized matmul, their
+"""The sixteen hand-written Hopper kernels of the quantized matmul, their
 plain PyTorch versions, launch counters and the nvcc/ctypes loader.
 
 Every wrapper takes activations already zero-padded to the weight's
@@ -14,6 +14,8 @@ csrc/qmm_prefill.cu):
           (replaces _qmm_q_kernel, modes "q" and "q4", packed4=True)
   qmm_si  bf16(x) @ bf16(w4 * s) + xsum @ B   (replaces _qmm_i4_s_kernel)
   qmm_i   bf16(x) @ bf16(w4 * s + B)         (replaces _qmm_i4_kernel)
+  qmm_g   sum_g s[g] * dot_g(bf16(x), w4) + xsum @ B   (replaces
+          _qmm_g_kernel; csrc/qmm_float.cu)
 
 with w4 = q - 8 the stored nibble, s = sd * sub_s, m = sm * sub_m and
 B = 8 * s + m per group of 32 rows.
@@ -26,18 +28,23 @@ csrc/qmm_prefill.cu):
   qmm_qx_gptq  the function of qmm_qx  (replaces _qmm_qx_kernel)
   qmm_q_gptq   the function of qmm_q   (replaces _qmm_q_kernel)
   qmm_i_gptq   the function of qmm_i   (replaces _qmm_i4_kernel)
+  qmm_si_gptq  the function of qmm_si  (replaces _qmm_i4_s_kernel)
+  qmm_g_gptq   the function of qmm_g   (replaces _qmm_g_kernel)
 
 An act-order weight (QTensor.perm) reaches the wrappers with x already
 gathered (ops/qmatmul.py:qmatmul).
 
 int8 grids: Q6_K (group 16, no mins) and Q5_K (group 32, with mins)
-(csrc/qmm_grid.cu):
+(csrc/qmm_grid.cu; qmm_g8, qmm_f and qmm_s in csrc/qmm_float.cu):
 
   qmm_q8  xsum @ M + sum_g int32 dot_g(xq, q) * sx * s, on activations
           quantized outside per group of the weight's group
           (replaces _qmm_q_kernel, mode "q", packed4=False)
   qmm_b   bf16(x) @ bf16(q * s + m)          (replaces _qmm_kernel, mode "b")
   qmm_sb  xsum @ M + bf16(x) @ bf16(q * s)   (replaces _qmm_s_kernel, mode "sb")
+  qmm_g8  xsum @ M + sum_g s[g] * dot_g(bf16(x), q)    (replaces _qmm_g_kernel)
+  qmm_f   x @ (q * s + m), all f32           (replaces _qmm_kernel, mode "")
+  qmm_s   xsum @ M + x @ (q * s), all f32    (replaces _qmm_s_kernel, mode "s")
 
 with M the (Kp/g, Np) plane m = sm * sub_m (absent for Q6_K). A CUDA
 tensor launches the kernel or raises; a CPU tensor takes the plain
@@ -60,7 +67,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu")
+SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,16 +77,20 @@ NVCC_FLAGS = (
 # of the plain versions through the wrappers (CPU tensors)
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("qmm_qx", "qmm_q", "qmm_si", "qmm_i", "qmm_q8", "qmm_b", "qmm_sb",
-     "qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq"), 0
+     "qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq", "qmm_g", "qmm_g_gptq", "qmm_g8",
+     "qmm_f", "qmm_s", "qmm_si_gptq"), 0
 )
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+# calls of the dense candidate (ops/qmatmul.py: dequantize, then a bf16
+# torch.matmul), a counted choice of the race beside the kernels
+DENSE_CALLS: Dict[str, int] = {"dense": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_INFO: Dict[str, object] = {}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, DENSE_CALLS):
         for k in d:
             d[k] = 0
 
@@ -156,6 +167,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_qx_gptq": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_q_gptq": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_i_gptq": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_g": [P] * 7 + [I, I, I, P],
+        "ct_qmm_g_gptq": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_g8": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_f": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_s": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_si_gptq": [P] * 5 + [I, I, I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -371,6 +388,27 @@ def plain_si(x: torch.Tensor, qt) -> torch.Tensor:
     return xs @ b + _bf16_round(x) @ w
 
 
+def plain_g(x: torch.Tensor, qt) -> torch.Tensor:
+    """Grouped dot: x rounded to bf16 against the raw grid (stored nibbles
+    w4, or the int8 grid), exact products summed in f32 inside a group, the
+    f32 scale applied to each group's partial sum, plus the bias through
+    the group sums of the unrounded x (B = 8 * s + m for nibbles, m for
+    grids, none for Q6_K)."""
+    m, kp = x.shape
+    g = qt.group
+    ng = kp // g
+    if qt.packed:
+        s, b = group_planes(qt)
+        w = unpack_w4(qt.qs)
+    else:
+        s, b = grid_planes(qt)
+        w = qt.qs
+    parts = torch.bmm(_bf16_round(x).reshape(m, ng, g).transpose(0, 1),
+                      w.float().reshape(ng, g, -1))
+    d = (parts * s[:, None, :]).sum(0)
+    return d if b is None else x.reshape(m, ng, g).sum(-1) @ b + d
+
+
 def plain_i(x: torch.Tensor, qt) -> torch.Tensor:
     s, b = group_planes(qt)
     w = unpack_w4(qt.qs).float() * s.repeat_interleave(qt.group, 0)
@@ -411,6 +449,25 @@ def plain_sb(x: torch.Tensor, qt) -> torch.Tensor:
     m, kp = x.shape
     s, mn = grid_planes(qt)
     out = _bf16_round(x) @ _bf16_round(qt.qs.float() * s.repeat_interleave(qt.group, 0))
+    if mn is None:
+        return out
+    return x.reshape(m, kp // qt.group, qt.group).sum(-1) @ mn + out
+
+
+def plain_f(x: torch.Tensor, qt) -> torch.Tensor:
+    """Mode "": the dequantized weight q * s + m and the product, all f32."""
+    s, mn = grid_planes(qt)
+    w = qt.qs.float() * s.repeat_interleave(qt.group, 0)
+    if mn is not None:
+        w = w + mn.repeat_interleave(qt.group, 0)
+    return x @ w
+
+
+def plain_s(x: torch.Tensor, qt) -> torch.Tensor:
+    """Mode "s": x @ (q * s) in f32, the mins folded through the group sums."""
+    m, kp = x.shape
+    s, mn = grid_planes(qt)
+    out = x @ (qt.qs.float() * s.repeat_interleave(qt.group, 0))
     if mn is None:
         return out
     return x.reshape(m, kp // qt.group, qt.group).sum(-1) @ mn + out
@@ -467,6 +524,12 @@ _SPECS = {
     "qmm_qx_gptq": ("qmm_decode", check_gptq_qtensor, plain_qx, True, 1370),
     "qmm_q_gptq": ("qmm_decode", check_gptq_qtensor, plain_q, True, 1288),
     "qmm_i_gptq": ("qmm_prefill", check_gptq_qtensor, plain_i, True, 1090),
+    "qmm_g": ("qmm_float", check_qtensor, plain_g, False, 1206),
+    "qmm_g_gptq": ("qmm_float", check_gptq_qtensor, plain_g, True, 1206),
+    "qmm_g8": ("qmm_float", check_grid_qtensor, plain_g, True, 1206),
+    "qmm_f": ("qmm_float", check_grid_qtensor, plain_f, True, 734),
+    "qmm_s": ("qmm_float", check_grid_qtensor, plain_s, True, 1040),
+    "qmm_si_gptq": ("qmm_prefill", check_gptq_qtensor, plain_si, True, 1148),
 }
 assert tuple(_SPECS) == tuple(LAUNCHES)
 KERNELS = {n: _wrapper(n, lib, chk, pl, grp) for n, (lib, chk, pl, grp, _) in _SPECS.items()}
@@ -478,7 +541,24 @@ REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
 globals().update(KERNELS)
 
 
+# the launch configuration of each kernel family, the second field of a
+# candidate (ops/qmatmul.py:mode_candidates): output tile and K chunk of a
+# block. One per kernel so far; a tuned variant of a kernel joins as another
+# configuration of the same mode.
+DECODE_CONFIG = "n32k1024"  # 32 columns and all of K per block, 1024-row chunks
+GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps
+GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_b", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq")
+CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SPECS}
+# the modes of an int8 grid by the JAX package's names ("q8" is the port's
+# name for its "q" with packed4=False)
+_GRID_KERNELS = {"": "qmm_f", "s": "qmm_s", "b": "qmm_b", "sb": "qmm_sb", "g": "qmm_g8",
+                 "q": "qmm_q8", "q8": "qmm_q8"}
+
+
 def kernel_name(mode: str, qt) -> str:
-    """The wrapper serving `mode` (ops/qmatmul.py:select_mode) on `qt`: the
-    GPTQ kernels where the nibble-packed planes are unfactored."""
-    return f"qmm_{mode}" + ("_gptq" if qt.packed and qt.sfactor == 0 else "")
+    """The wrapper serving `mode` (ops/qmatmul.py:mode_candidates) on `qt`:
+    the int8-grid kernels for an unpacked weight, the GPTQ kernels where the
+    nibble-packed planes are unfactored."""
+    if not qt.packed:
+        return _GRID_KERNELS[mode]
+    return f"qmm_{mode}" + ("_gptq" if qt.sfactor == 0 else "")

@@ -9,9 +9,13 @@ unpacked into a directory, or "." for the working tree). For each, in the
 order given (name a root twice to see the spread: parent change change
 parent), a fresh Python process builds that checkout's kernels and runs
 phase 3 of its chip_smoke.py (every kernel against its plain version at the
-llama-2-7B shapes, timed from a replayed CUDA graph) on the weight kinds
-named by --kinds. Prints one line per (root, kernel, kind, shape, m) and,
-last, a JSON object {root label: {case: kernel ms}}.
+llama-2-7B shapes, timed from a replayed CUDA graph, and the race of every
+key's candidates at m = 1, 8 and 128) on the weight kinds named by --kinds.
+Prints one line per (root, kernel, kind, shape, m), one per raced key with
+its winner ("race <key>": the winner's ms), and, last, a JSON object
+{root label: {case: ms}}. A checkout from before the race phase reports
+its kernels only. The table shipped under ctransformers_tpu_torch/data/ is
+written by `python3 chip_smoke.py --write-table PATH`, not by this script.
 """
 
 from __future__ import annotations
@@ -32,8 +36,13 @@ kinds = {kinds!r}
 C.KERNEL_CASES = [c for c in C.KERNEL_CASES if c[0].split("/")[0] in kinds]
 smi = C.phase_card(K)
 results = C.phase_kernels(K, C.phase_bandwidth())
+raced = {{}}
+if isinstance(results, tuple):  # (kernel rows, raced table entries)
+    results, raced = results
 out = {{f"{{name}} {{r['kind']}} {{r['shape']}} m={{r['m']}}": r["ms"]
        for name, rows in results.items() for r in rows}}
+for key, v in raced.items():
+    out["race " + ",".join(map(str, key)) + " -> " + (v["pick"][0] or "f")] = min(v["ms"].values())
 print("AB_RESULT " + json.dumps({{"card": smi, "ms": out}}))
 """
 

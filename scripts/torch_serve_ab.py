@@ -1,0 +1,149 @@
+"""Serve the same full-width llama checkpoints from several checkouts of the
+port on one card, one fresh process per run, so that two versions of the
+engine's host path (not only of a kernel) are compared under the same card,
+power limit and host.
+
+    python3 scripts/torch_serve_ab.py [--layers 32] [--steps 64] RUN [RUN ...]
+
+Each RUN is ROOT or ROOT:NAME=VALUE[,NAME=VALUE...]: a checkout of this
+repository (a `git archive` of a commit unpacked into a directory, or "."
+for the working tree) and environment variables for that run, for example
+
+    build/parent . .:CT_QMM_AUTOTUNE=0 .:CT_QMM_AUTOTUNE=0 . build/parent
+
+(parent, the table's choices, the fixed rule twice, the table, parent). The
+checkpoints, a Q4_K_M GGUF file and a GPTQ 4-bit directory of group 128 at
+llama-2-7B width with random weights from seed 7, are written once by this
+checkout's writer under build/serve_ab/ and removed at the end. Each run
+loads a checkpoint through AutoModelForCausalLM.from_pretrained, evaluates
+the 137-token prompt once untimed (a checkout with kernel selection picks
+its kernels there; each run has a user table of its own, which starts
+empty), then from an empty context times the prompt plus the first sample
+(TTFT), `--steps` decode steps (eval + sample on the host clock: mean,
+median and least), the device's busy time over four more steps under
+torch.profiler, and, where the checkout has kernel selection, the host's
+cost of one settled `pick_mode` call (the mean over 20 passes over the
+engine's weights at m = 1). Prints one line per run and model and, last, a JSON list of
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = (("Q4_K_M", "Q4_K_M"), ("GPTQ4-g128", ("gptq", 128, False)))
+
+CHILD = """
+import json, statistics, sys, time, warnings
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from ctransformers_tpu_torch import AutoModelForCausalLM
+
+def step(llm, tok):
+    llm.eval([tok])
+    return llm.sample(seed=5, top_k=40, temperature=0.8)
+
+out = []
+ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, 32000, 136)]
+for label, path in {models!r}:
+    t0 = time.perf_counter()
+    llm = AutoModelForCausalLM.from_pretrained(path)
+    load_s = time.perf_counter() - t0
+    llm.eval(ids)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        llm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm.eval(ids)
+        tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+        ttft_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range({steps}):
+            t0 = time.perf_counter()
+            tok = step(llm, tok)
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                tok = step(llm, tok)
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    pick_us = None
+    from ctransformers_tpu_torch.ops import qmatmul as qm
+    if hasattr(qm, "pick_mode"):
+        qts = qm.qtensors(llm._engine.params)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            for w in qts:
+                qm.pick_mode(1, w)
+        pick_us = (time.perf_counter() - t0) * 1e6 / (20 * len(qts))
+    out.append(dict(model=label, load_s=load_s, ttft_ms=ttft_ms,
+                    decode_ms_mean=statistics.fmean(times),
+                    decode_ms_median=statistics.median(times),
+                    decode_ms_min=min(times),
+                    device_busy_ms=busy_us / 4e3, pick_mode_us=pick_us))
+    del llm
+    torch.cuda.empty_cache()
+print("AB_RESULT " + json.dumps(out))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("runs", nargs="+")
+    args = ap.parse_args()
+
+    sys.path.insert(0, HERE)
+    import chip_smoke as C
+    from ctransformers_tpu_torch.models.synthetic import LLAMA2_7B
+
+    tmp = os.path.join(HERE, "build", "serve_ab")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(f"card {smi}", flush=True)
+    models = []
+    for label, mix in MODELS:
+        path = C.model_path(tmp, f"llama7b_{args.layers}l_{label}", mix)
+        C.write_model(path, mix, seed=7, big=True, **dict(LLAMA2_7B, n_layer=args.layers, n_ctx=2048))
+        models.append((label, path))
+    rows = []
+    try:
+        for i, run in enumerate(args.runs):
+            root, _, settings = run.partition(":")
+            env = dict(os.environ, CT_QMM_TILE_CACHE=os.path.join(tmp, f"table_{i}.json"))
+            env.update(kv.split("=", 1) for kv in settings.split(",") if kv)
+            r = subprocess.run(
+                [sys.executable, "-c",
+                 CHILD.format(root=os.path.abspath(root), models=models, steps=args.steps)],
+                capture_output=True, text=True, cwd=os.path.abspath(root), env=env)
+            if r.returncode != 0:
+                print(r.stdout[-2000:], r.stderr[-4000:], file=sys.stderr)
+                return r.returncode
+            line = next(l for l in r.stdout.splitlines() if l.startswith("AB_RESULT "))
+            for row in json.loads(line[len("AB_RESULT "):]):
+                row = dict(run=f"{i}:{run}", **row)
+                rows.append(row)
+                print(" ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+                               for k, v in row.items()), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps(rows))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

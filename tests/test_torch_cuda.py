@@ -1,6 +1,7 @@
-"""The ten qmm kernels against their plain PyTorch versions on the card:
-the four Q4_K kernels, the three int8-grid (Q6_K, Q5_K) kernels and the
-three GPTQ4 kernels at groups 32, 64 and 128.
+"""The sixteen qmm kernels against their plain PyTorch versions on the
+card: the five Q4_K kernels, the six int8-grid (Q6_K, Q5_K) kernels and the
+five GPTQ4 kernels at groups 32, 64 and 128; and the race that picks among
+them.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -12,6 +13,7 @@ import dataclasses
 import pytest
 import torch
 
+from ctransformers_tpu_torch.ops import qmatmul as qm
 from ctransformers_tpu_torch.ops import qmm_kernels as K
 from ctransformers_tpu_torch.ops.qmatmul import QTensor, qmatmul, select_mode
 
@@ -24,6 +26,12 @@ def dev():
         pytest.skip("needs an NVIDIA GPU")
     K.build()
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_autotune(monkeypatch):
+    """select_mode decides, as before kernel selection raced on the card."""
+    monkeypatch.setenv("CT_QMM_AUTOTUNE", "0")
 
 
 def random_q4k(k: int, n: int, seed: int, device) -> QTensor:
@@ -84,12 +92,14 @@ def _rel(a, b):
 
 # q/qx/q8: the integer group dots are exact, only the f32 rescale sums
 # differ in order; i/si/b/sb: bf16 products summed in another order on
-# tensor cores
+# tensor cores; g/f/s: exact or f32 products, f32 sums in another order
 TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3,
        "qmm_q8": 1e-5, "qmm_b": 1e-3, "qmm_sb": 1e-3,
-       "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3}
-GRID = ("qmm_q8", "qmm_b", "qmm_sb")
-GPTQ = ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq")
+       "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3,
+       "qmm_g": 1e-5, "qmm_g_gptq": 1e-5, "qmm_g8": 1e-5, "qmm_f": 1e-5, "qmm_s": 1e-5,
+       "qmm_si_gptq": 1e-3}
+GRID = ("qmm_q8", "qmm_b", "qmm_sb", "qmm_g8", "qmm_f", "qmm_s")
+GPTQ = ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq", "qmm_g_gptq", "qmm_si_gptq")
 # each Q4_K kernel once, each grid kernel on both int8-grid layouts, each
 # GPTQ kernel at its three groups
 CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID + GPTQ] + [
@@ -122,7 +132,8 @@ def test_gptq_kernel_matches_plain_at_7b_shapes(dev, name, k, n):
     the main path gives each; the in-kernel xsum of qx sums a group of 128
     in another order than the plain version (within the tolerance, not bit
     for bit), the integer group dots are exact."""
-    m = {"qmm_qx_gptq": 1, "qmm_q_gptq": 8, "qmm_i_gptq": 128}[name]
+    m = {"qmm_qx_gptq": 1, "qmm_q_gptq": 8, "qmm_i_gptq": 128, "qmm_g_gptq": 8,
+         "qmm_si_gptq": 128}[name]
     qt = random_gptq(k, n, 128, seed=k + n, device=dev)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
     args = K.quantize_activations(x, 128) if name in K.PREQUANTIZED else (x,)
@@ -132,7 +143,7 @@ def test_gptq_kernel_matches_plain_at_7b_shapes(dev, name, k, n):
     assert torch.equal(got, K.KERNELS[name](*args, qt))
 
 
-def test_qmatmul_gathers_act_order_rows_on_the_card(dev):
+def test_qmatmul_gathers_act_order_rows_on_the_card(dev, no_autotune):
     """qmatmul applies the act-order perm on the card: the product equals
     the same weight without a perm on rows gathered beforehand, bit for bit,
     and x @ the dequantized weight within the int8 / bf16 classes."""
@@ -151,7 +162,7 @@ def test_qmatmul_gathers_act_order_rows_on_the_card(dev):
                               qmm_i_gptq=2)
 
 
-def test_qmatmul_routes_every_mode(dev):
+def test_qmatmul_routes_every_mode(dev, no_autotune):
     # logical (500, 1000) inside padded (512, 1024) planes
     q4k = dataclasses.replace(random_q4k(512, 1024, seed=1, device=dev), shape=(500, 1000))
     q4k_tall = random_q4k(1024, 512, seed=2, device=dev)
@@ -167,6 +178,51 @@ def test_qmatmul_routes_every_mode(dev):
     assert K.LAUNCHES == dict(dict.fromkeys(K.LAUNCHES, 0), qmm_qx=2, qmm_q=2, qmm_si=1,
                               qmm_i=1, qmm_q8=4, qmm_b=1, qmm_sb=1)
     assert sum(K.PLAIN_CALLS.values()) == 0
+
+
+@pytest.mark.parametrize("kind,m", [("Q4_K", 1), ("Q4_K", 64), ("Q6_K", 8), ("Q5_K", 1),
+                                    ("Q5_K", 64), ("GPTQ4/128", 8), ("GPTQ4/64", 64)])
+def test_race_picks_a_candidate_and_the_table_serves_it(dev, kind, m, tmp_path, monkeypatch):
+    """A miss races on the card: the pick is a member of the candidate list
+    or the dense candidate, the best hand-written one is a member, every
+    candidate has a time, the champion is written to the user's table, and
+    the next call is served from it (no second race)."""
+    monkeypatch.setenv("CT_QMM_TILE_CACHE", str(tmp_path / "modes.json"))
+    monkeypatch.delenv("CT_QMM_AUTOTUNE", raising=False)
+    monkeypatch.delenv("CT_QMATMUL", raising=False)
+    name = {"Q4_K": "qmm_qx", "Q6_K": "qmm_q8", "Q5_K": "qmm_q8"}.get(kind, "qmm_qx_gptq")
+    peers = [_weight(name, kind, 512, 1024, seed=s, device=dev) for s in (1, 2, 3)]
+    qt = peers[0]
+    cands = qm.mode_candidates(qt, m)
+    res = qm.race(m, qt, peers)
+    assert res["pick"] in cands + [qm.DENSE] and res["kernel"] in cands
+    assert set(res["ms"]) == {qm.label(c) for c in cands} | {"dense"}
+    assert all(0 < t < 1e3 for t in res["ms"].values())
+    races = qm.N_RACES
+    x = torch.randn(m, 512, device=dev)
+    out = qmatmul(x, qt)
+    assert qm.N_RACES == races + 1  # the miss raced
+    key = qm.cache_key(m, qt)
+    saved = qm._parse_cache_file(str(tmp_path / "modes.json"), torch.cuda.get_device_name(0))
+    assert saved[key]["pick"] == qm.table(qt.qs.device)[key]["pick"]
+    assert torch.equal(out, qmatmul(x, qt)) and qm.N_RACES == races + 1
+    assert _rel(out, x @ qm.dequantize_qtensor(qt)) < 0.035
+    # without the dense candidate the key takes its best hand-written kernel
+    monkeypatch.setenv("CT_QMATMUL", "kernels")
+    K.reset_counts()
+    qmatmul(x, qt)
+    assert sum(K.LAUNCHES.values()) >= 1 and K.DENSE_CALLS["dense"] == 0
+
+
+def test_a_candidate_that_cannot_launch_fails_the_race(dev, monkeypatch):
+    qt = random_q4k(512, 1024, seed=1, device=dev)
+
+    def broken(x, w):
+        raise RuntimeError("qmm_g: kernel launch failed")
+
+    monkeypatch.setattr(K, "qmm_g", broken)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qm.race(8, qt)
 
 
 def test_wrapper_rejects_bad_operands(dev):

@@ -236,13 +236,14 @@ def _port(mode, x, tq):
     return out[:, : tq.shape[1]].numpy()
 
 
-@pytest.mark.parametrize("mode", ["qx", "q", "i"])
+@pytest.mark.parametrize("mode", ["qx", "q", "i", "g", "si"])
 @pytest.mark.parametrize("group", [32, 64, 128])
 @pytest.mark.parametrize("m", [1, 3, 8, 64])
 @pytest.mark.parametrize("k,n", [(512, 384), (256, 256)])
 def test_gptq_plain_version_matches_pallas_kernel(mode, group, m, k, n):
-    """plain_qx, plain_q and plain_i on GPTQ4 planes against the sfactor ==
-    0 branches of _qmm_qx_kernel, _qmm_q_kernel and _qmm_i4_kernel."""
+    """plain_qx, plain_q, plain_i, plain_g and plain_si on GPTQ4 planes
+    against the sfactor == 0 branches of _qmm_qx_kernel, _qmm_q_kernel,
+    _qmm_i4_kernel, _qmm_g_kernel and _qmm_i4_s_kernel."""
     jq, tq = _both(7, k, n, group, False)
     x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
     name = f"qmm_{mode}_gptq"
@@ -252,14 +253,14 @@ def test_gptq_plain_version_matches_pallas_kernel(mode, group, m, k, n):
     assert K.LAUNCHES == before[1]  # no kernel launch on a CPU tensor
     ref = np.asarray(_pallas(mode, x, jq, m))
     # same algorithm, same roundings: only the f32 summation order differs.
-    # qx/q: the class of tests/test_gptq.py (2e-4), measured ~1e-7; i: bf16
-    # operands, 2.5% class, measured ~1e-5 or below
+    # qx/q: the class of tests/test_gptq.py (2e-4), measured ~1e-7; i, si and
+    # g: bf16 operands, 2.5% class, measured ~1e-5 or below
     err = _fro(got, ref)
     print(f"GPTQ4 g{group} {mode} m={m} K={k} N={n}: vs Pallas {err:.2e}")
     assert err <= (2e-4 if "q" in mode else 0.025)
     assert err <= CALL_TOL
     # error classes of tests/test_qmatmul.py against the exact f32 product:
-    # int8 activations (q, qx) 3.5%, bf16 operands (i) 2.5%
+    # int8 activations (q, qx) 3.5%, bf16 operands (i, si, g) 2.5%
     exact = np.asarray(jqm._qmm_jnp(x, jq))
     bound = 0.035 if "q" in mode else 0.025
     assert _fro(got, exact) < bound
@@ -308,7 +309,7 @@ def test_gptq_wrappers_check_operands():
         K.qmm_qx_gptq(torch.zeros(1, 256), dataclasses.replace(tq, group=256))
     with pytest.raises(NotImplementedError):  # the Q4_K wrapper refuses GPTQ planes
         K.qmm_qx(torch.zeros(1, 256), tq)
-    with pytest.raises(NotImplementedError):  # and there is no "si" for GPTQ4
+    with pytest.raises(NotImplementedError):  # GPTQ4's "si" is qmm_si_gptq
         K.qmm_si(torch.zeros(64, 256), tq)
 
 
@@ -358,11 +359,12 @@ def _as_jax(qt):
                        pack_layout=qt.pack_layout)
 
 
-def _pallas_as_port(x, qt, compute_dtype=None):
-    """x @ qt through the Pallas kernel (interpret mode) of the mode the
-    port's select_mode picks, x already gathered; has the signature of the
-    JAX package's exact _qmm_jnp, which it replaces in the test below."""
-    return _pallas(tqm.select_mode(x.shape[0], qt), x, qt, x.shape[0])
+def _pallas_as_port(x, qt, compute_dtype=None, mode=None):
+    """x @ qt through the Pallas kernel (interpret mode) of `mode`, by
+    default the mode the port's select_mode picks, x already gathered; has
+    the signature of the JAX package's exact _qmm_jnp, which it replaces in
+    the tests below."""
+    return _pallas(mode or tqm.select_mode(x.shape[0], qt), x, qt, x.shape[0])
 
 
 @pytest.mark.parametrize("act_order", [False, True], ids=["plain", "actorder"])

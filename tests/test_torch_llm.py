@@ -142,18 +142,18 @@ def _mix_file(tmp_path, mix, seed):
     return path
 
 
-def _pallas_as_port(x, qt, compute_dtype=None):
+def _pallas_as_port(x, qt, compute_dtype=None, mode=None):
     """The JAX package's product x @ qt through the Pallas kernel (interpret
-    mode) of the mode the port's select_mode picks for this m and weight.
-    Has the signature of the JAX package's exact _qmm_jnp, which it
-    replaces in the test below."""
+    mode) of `mode`, by default the mode the port's select_mode picks for
+    this m and weight. Has the signature of the JAX package's exact
+    _qmm_jnp, which it replaces in the tests below."""
     import jax.numpy as jnp
 
     from ctransformers_tpu.ops import qmatmul as jqm
     from ctransformers_tpu_torch.ops.qmatmul import select_mode
 
     m = x.shape[0]
-    mode = select_mode(m, qt)
+    mode = select_mode(m, qt) if mode is None else mode
     mode = "q" if mode == "q8" else mode  # one Pallas kernel, packed4=False
     rows, npad = qt.qs.shape
     tk, tn, inner, _ = next(

@@ -119,7 +119,7 @@ def _pallas(mode, x, jq, m):
 def _port(mode, x, tq):
     xp = torch.zeros((x.shape[0], tq.qs.shape[0] * (2 if tq.packed else 1)))
     xp[:, : x.shape[1]] = torch.from_numpy(x)
-    fn = getattr(K, f"qmm_{mode}")
+    fn = getattr(K, K.kernel_name(mode, tq))
     if mode in ("q", "q8"):
         out = fn(*K.quantize_activations(xp, tq.group), tq)
     else:
@@ -178,6 +178,36 @@ def test_grid_plain_versions_match_pallas_kernels(kind, m, k, n, monkeypatch):
               f"vs exact {_fro(got, exact):.4f}")
         assert _fro(got, exact) < bound, mode
         assert _fro(ref, exact) < bound, mode
+
+
+@pytest.mark.parametrize("kind,mode", [("Q4_K", "g"), ("Q6_K", "g"), ("Q5_K", "g"),
+                                       ("Q6_K", ""), ("Q5_K", ""), ("Q5_K", "s")])
+@pytest.mark.parametrize("m", [1, 3, 8, 32])
+@pytest.mark.parametrize("k,n", [(512, 384), (256, 256)])
+def test_raced_modes_plain_versions_match_pallas_kernels(kind, mode, m, k, n, monkeypatch):
+    """plain_g, plain_f and plain_s (the candidates the race adds at m <=
+    32) against _qmm_g_kernel, _qmm_kernel and _qmm_s_kernel with f32 dots,
+    in interpret mode on the same planes."""
+    jq, tq = _both(k, n, seed=7, monkeypatch=monkeypatch, kind=kind)
+    x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
+    name = K.kernel_name(mode, tq)
+    assert name == {"g": "qmm_g" if tq.packed else "qmm_g8", "": "qmm_f", "s": "qmm_s"}[mode]
+    before = dict(K.PLAIN_CALLS), dict(K.LAUNCHES)
+    got = _port(mode, x, tq)
+    assert K.PLAIN_CALLS[name] == before[0][name] + 1
+    assert K.LAUNCHES == before[1]  # no kernel launch on a CPU tensor
+    ref = _pallas(mode, x, jq, m)
+    exact = np.asarray(jqm._qmm_jnp(x, jq))
+    print(f"{kind} {mode!r} m={m} K={k} N={n}: vs Pallas {_fro(got, ref):.2e}, "
+          f"vs exact {_fro(got, exact):.2e}")
+    # the classes of tests/test_qmatmul.py: 2e-4 for the f32-dequant modes,
+    # the bf16 class for the grouped dot (x rounded to bf16); the same
+    # algorithm and roundings, so far inside both (only f32 sums reorder)
+    assert _fro(got, ref) <= (0.025 if mode == "g" else 2e-4)
+    assert _fro(got, ref) <= 1e-4
+    bound = 0.025 if mode == "g" else 2e-4
+    assert _fro(got, exact) < bound
+    assert _fro(ref, exact) < bound
 
 
 def _meta_qtensor(kind, kp, npad):

@@ -30,6 +30,10 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    scripts = os.path.join(ROOT, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
@@ -47,6 +51,17 @@ def test_sources_import_neither_jax_nor_the_jax_package():
                 if name.split(".")[0] in FORBIDDEN:
                     bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {name}")
     assert not bad, bad
+
+
+def test_shipped_data_files_belong_to_the_port():
+    """The package's data files are the port's own: no file of the JAX
+    package (its TPU tile tables) is shipped or named in them."""
+    data = os.path.join(ROOT, "ctransformers_tpu_torch", "data")
+    names = sorted(os.listdir(data))
+    assert names and all(n.startswith("qmm_modes_") and n.endswith(".json") for n in names)
+    for n in names:
+        text = open(os.path.join(data, n)).read().lower()
+        assert not [w for w in ("jax", "qmm_tiles", "v5e", "xla") if w in text], n
 
 
 def test_fresh_process_loads_without_jax(tmp_path):

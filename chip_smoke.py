@@ -5,11 +5,13 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. card      nvidia-smi name and power limit, versions, kernel build time
   2. bandwidth dense device-to-device copy of 2 GiB, timed with CUDA events
-  3. kernels   each of the sixteen qmm kernels against its plain PyTorch
-               version at the llama-2-7B matmul shapes (Q4_K, the Q6_K /
-               Q5_K int8 grids of Q4_K_M / Q5_K_M files, and GPTQ4 planes at
-               group 128, with groups 32 and 64 at one shape), with times
-               beside the card's bound and a bf16 torch.matmul yardstick;
+  3. kernels   each of the qmm kernels against its plain PyTorch version at
+               the llama-2-7B matmul shapes (Q4_K, the Q6_K / Q5_K int8
+               grids of Q4_K_M / Q5_K_M files, GPTQ4 planes at group 128,
+               with groups 32 and 64 at one shape, Q4_0 nibbles, the Q8_0
+               grid and the Q5_1 grid at the o shape; Q4_1's and Q5_1's
+               other keys held only), with times beside the card's bound
+               and a bf16 torch.matmul yardstick;
                every other candidate of those keys at m = 1, 8 and 128 is
                held against its plain version too, so that whatever a
                table sends to a main path was held at that shape and m
@@ -19,25 +21,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                included), the winner and the best hand-written kernel;
                --write-table saves these champions as a table file (how
                the table shipped under ctransformers_tpu_torch/data/ is made)
-  4. tiny      tiny all-Q4_K, Q4_K_M and Q5_K_M llama files and tiny GPTQ
-               directories (groups 32 and 128, with and without act-order)
-               served on the card (kernels picked by the race) and on the
-               CPU under the card's picks, then four of them again on both
-               under a user's table file that names the modes g, "", s and
-               GPTQ4 si; every kernel call held against its plain version
+  4. tiny      tiny all-Q4_K, Q4_K_M, Q5_K_M, Q4_0, Q8_0 and Q5_1 llama
+               files and tiny GPTQ directories (groups 32 and 128, with and
+               without act-order) served on the card (kernels picked by the
+               race) and on the CPU under the card's picks, then seven of
+               them again on both under a user's table file that names the
+               modes g, "", s, si and sb; every kernel call held against its
+               plain version
   5. main      llama-2-7B-width checkpoints (random weights from a seed)
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
                decode, each with its launch counts (dense calls included)
-               asserted against the table's choices: a Q4_K_M file and a
-               GPTQ 4-bit directory (group 128) at full depth, loaded cold
-               (an empty table: the load races) and again warm, served
-               under the fixed rule and under the raced table in turns; a
-               Q5_K_M file at 4 layers, an all-Q4_K file at 8 and an
-               act-order GPTQ directory at 4 without the dense candidate
-               (the best hand-written kernel of every key); and a Q4_K_M
-               file, a Q5_K_M file and a GPTQ directory at 2 layers under a
-               user's table that names the new modes for every key
+               asserted against the table's choices: a Q4_K_M file, a GPTQ
+               4-bit directory (group 128), a Q4_0 file and a Q8_0 file at
+               full depth, loaded cold (an empty table: the load races) and
+               again warm, served under the fixed rule and under the raced
+               table in turns; a Q5_K_M file at 4 layers, an all-Q4_K file
+               at 8, an act-order GPTQ directory and Q4_1, Q5_0 and Q5_1
+               files at 4 without the dense candidate (the best
+               hand-written kernel of every key); and Q4_K_M, Q5_K_M, Q4_0
+               and Q5_1 files and a GPTQ directory at 2 layers under a
+               user's table that names the float-activation and sum-fold
+               modes for every key
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -91,12 +96,21 @@ RUNS_GPTQ = [("qmm_qx_gptq", 1), ("qmm_q_gptq", 8), ("qmm_i_gptq", 128), ("qmm_g
              ("qmm_g_gptq", 8), ("qmm_si_gptq", 128)]
 RUNS_Q6K = [("qmm_q8", 1), ("qmm_q8", 8), ("qmm_g8", 1), ("qmm_g8", 8), ("qmm_f", 1), ("qmm_f", 8)]
 RUNS_Q5K = RUNS_Q6K + [("qmm_s", 1), ("qmm_s", 8), ("qmm_sb", 128)]
+RUNS_Q40 = [("qmm_qx_q4_0", 1), ("qmm_q_q4_0", 8), ("qmm_i_q4_0", 128), ("qmm_si_q4_0", 128),
+            ("qmm_g_q4_0", 1), ("qmm_g_q4_0", 8)]
+RUNS_Q80 = [(f"{name}_legacy", m) for name, m in RUNS_Q6K]
+RUNS_Q51 = RUNS_Q80 + [("qmm_s_legacy", 1), ("qmm_s_legacy", 8), ("qmm_b_legacy", 128),
+                       ("qmm_sb_legacy", 128)]
 # (weight type, shape, [(kernel, m), ...]) held against the plain versions:
 # Q4_K at five shapes; the Q6_K tensors of a Q4_K_M file (attn_v and ffn_down of
 # the more-bits layers, output) and the Q5_K tensors of a Q5_K_M file, each in
 # decode, 8-token and 128-token chunks; GPTQ4 planes ("GPTQ4/<group>") at
 # group 128 at the four shapes of the GPTQ path, and at groups 32 and 64 at
-# one shape, so that every instantiation meets a 7B shape
+# one shape, so that every instantiation meets a 7B shape; the legacy types'
+# keys: Q4_0 at the four shapes of its path (its output is Q6_K), Q8_0 at
+# five (its output stays Q8_0; Q5_0 has Q8_0's keys), Q5_1 timed at o, and
+# every candidate of Q5_1's and Q4_1's other keys held (Q4_1 has GPTQ4/32's
+# keys and kernels)
 KERNEL_CASES = [
     ("Q4_K", s, RUNS_Q4K) for s in ("qkv", "o", "gate_up", "down", "lm_head")
 ] + [
@@ -110,6 +124,14 @@ KERNEL_CASES = [
     for g, s in ((128, "qkv"), (128, "o"), (128, "gate_up"), (128, "down"), (32, "o"), (64, "o"))
 ] + [
     ("GPTQ4/128", "up", []),  # a key of the act-order path: every candidate held
+] + [
+    ("Q4_0", s, RUNS_Q40) for s in ("qkv", "o", "gate_up", "down")
+] + [
+    ("Q8_0", s, RUNS_Q80 + [("qmm_b_legacy", 128)]) for s in ("qkv", "o", "gate_up", "down")
+] + [
+    ("Q8_0", "lm_head", RUNS_Q80), ("Q5_1", "o", RUNS_Q51),
+] + [
+    (kind, s, []) for kind in ("Q5_1", "Q4_1") for s in ("qkv", "gate_up", "down")
 ]
 # (kernel, table key) held against its plain version in phase 3
 HELD = set()
@@ -122,7 +144,11 @@ PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S, "qmm_q8": PEAK_INT8_S,
            "qmm_sb": PEAK_BF16_S, "qmm_qx_gptq": PEAK_INT8_S, "qmm_q_gptq": PEAK_INT8_S,
            "qmm_i_gptq": PEAK_BF16_S, "qmm_g": PEAK_BF16_S, "qmm_g_gptq": PEAK_BF16_S,
            "qmm_g8": PEAK_BF16_S, "qmm_f": PEAK_F32_S, "qmm_s": PEAK_F32_S,
-           "qmm_si_gptq": PEAK_BF16_S}
+           "qmm_si_gptq": PEAK_BF16_S, "qmm_qx_q4_0": PEAK_INT8_S, "qmm_q_q4_0": PEAK_INT8_S,
+           "qmm_i_q4_0": PEAK_BF16_S, "qmm_si_q4_0": PEAK_BF16_S, "qmm_g_q4_0": PEAK_BF16_S,
+           "qmm_q8_legacy": PEAK_INT8_S, "qmm_b_legacy": PEAK_BF16_S,
+           "qmm_sb_legacy": PEAK_BF16_S, "qmm_g8_legacy": PEAK_BF16_S,
+           "qmm_f_legacy": PEAK_F32_S, "qmm_s_legacy": PEAK_F32_S}
 # q/qx/q8: the integer group dots are exact, only f32 rescale sums differ in
 # order; i/si/b/sb: bf16 products summed in another order on tensor cores;
 # g: exact products, f and s: f32 products, f32 sums in another order
@@ -130,16 +156,23 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
        "qmm_si": 1e-3, "qmm_i": 1e-3, "qmm_b": 1e-3, "qmm_sb": 1e-3,
        "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3,
        "qmm_g": 1e-5, "qmm_g_gptq": 1e-5, "qmm_g8": 1e-5, "qmm_f": 1e-5, "qmm_s": 1e-5,
-       "qmm_si_gptq": 1e-3}
-# main paths: (label, mix, layers, how). mix is a K_M mix, None for an
-# all-Q4_K file, or ("gptq", group, act_order) for a GPTQ 4-bit directory.
+       "qmm_si_gptq": 1e-3, "qmm_qx_q4_0": 1e-5, "qmm_q_q4_0": 1e-5, "qmm_i_q4_0": 1e-3,
+       "qmm_si_q4_0": 1e-3, "qmm_g_q4_0": 1e-5, "qmm_q8_legacy": 1e-5, "qmm_b_legacy": 1e-3,
+       "qmm_sb_legacy": 1e-3, "qmm_g8_legacy": 1e-5, "qmm_f_legacy": 1e-5,
+       "qmm_s_legacy": 1e-5}
+# main paths: (label, mix, layers, how). mix is a llama.cpp mix (K_M or a
+# legacy ftype, models/synthetic.py:MIXES), None for an all-Q4_K file, or
+# ("gptq", group, act_order) for a GPTQ 4-bit directory.
 # how: "race" loads with an empty table (cold, the load races), loads again
 # (warm) and serves under the fixed rule and under the raced table in turns;
 # "kernels" serves without the dense candidate (CT_QMATMUL=kernels), so the
 # best hand-written kernel of every key runs; "new" serves under a user's
-# table that names the modes g, "", s and GPTQ4 si for every key. The
+# table that names the float-activation modes (g, "", s) and the sum-fold
+# GEMMs (si, sb) for every key (ops/qmatmul.py:float_mode_entries). The
 # all-Q4_K and Q5_K_M paths are cut in depth so that the whole run stays
-# within a few minutes; the act-order path is the second GPTQ path.
+# within a few minutes; the act-order path is the second GPTQ path; the
+# Q4_1, Q5_0 and Q5_1 paths are the legacy types that no full-depth path
+# serves.
 MAIN_PATHS = [
     ("Q4_K_M", "Q4_K_M", 32, "race"),
     ("Q5_K_M", "Q5_K_M", 4, "kernels"),
@@ -149,6 +182,13 @@ MAIN_PATHS = [
     ("Q4_K_M-new", "Q4_K_M", 2, "new"),
     ("Q5_K_M-new", "Q5_K_M", 2, "new"),
     ("GPTQ4-g128-new", ("gptq", 128, False), 2, "new"),
+    ("Q4_0", "Q4_0", 32, "race"),
+    ("Q8_0", "Q8_0", 32, "race"),
+    ("Q4_1", "Q4_1", 4, "kernels"),
+    ("Q5_0", "Q5_0", 4, "kernels"),
+    ("Q5_1", "Q5_1", 4, "kernels"),
+    ("Q4_0-new", "Q4_0", 2, "new"),
+    ("Q5_1-new", "Q5_1", 2, "new"),
 ]
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
@@ -158,10 +198,16 @@ TINY_MODELS = (
     ("Q4_K", None), ("Q4_K_M", "Q4_K_M"), ("Q5_K_M", "Q5_K_M"),
     ("GPTQ4-g32", ("gptq", 32, False)), ("GPTQ4-g128", ("gptq", 128, False)),
     ("GPTQ4-g32-actorder", ("gptq", 32, True)), ("GPTQ4-g128-actorder", ("gptq", 128, True)),
+    ("Q4_0", "Q4_0"), ("Q8_0", "Q8_0"), ("Q5_1", "Q5_1"),
 )
 # the tiny models served again under the table that names the new modes
-TINY_NEW_MODES = ("Q4_K_M", "Q5_K_M", "GPTQ4-g32", "GPTQ4-g128")
+TINY_NEW_MODES = ("Q4_K_M", "Q5_K_M", "GPTQ4-g32", "GPTQ4-g128", "Q4_0", "Q8_0", "Q5_1")
 TINY_STEPS = 8
+# card-vs-CPU logits: the wiring class (a wrong bias fold or split reads
+# 10-100%), 10% for Q5_1, whose int8 grid is stored uncentred (q in [0, 31],
+# the mins folded apart) so that int8 activation rounding amplifies more, as
+# tests/test_torch_legacy.py holds it against the JAX package
+TINY_LOGIT_CLASS = {"Q5_1": 0.10}
 # a seed serves when every greedy step on the CPU keeps its top-2 logits
 # this far apart (relative to the top one): card-vs-CPU logits differ by a
 # few percent (rounding amplification), which may rightly flip a near-tie
@@ -262,9 +308,10 @@ def phase_bandwidth() -> float:
 
 def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.Generator):
     """`kind` planes at padded shape (kp, npad): Q4_K adjk nibbles, the
-    Q6_K / Q5_K int8 grid, or ("GPTQ4/<group>") adjk nibbles with f32 planes
-    s and m = -s * zero-point; padding rows and columns are zero, as
-    make_qtensor leaves them."""
+    Q6_K / Q5_K int8 grid, or unfactored planes: adjk nibbles of GPTQ4
+    ("GPTQ4/<group>"), Q4_1 or Q4_0, or the Q8_0, Q5_0 or Q5_1 int8 grid,
+    with f32 planes s and (where the type has mins) m = -s * zero-point;
+    padding rows and columns are zero, as make_qtensor leaves them."""
     from ctransformers_tpu_torch.ops.qmatmul import QTensor
 
     def rnd(lo, hi, shape):
@@ -273,17 +320,22 @@ def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.G
     def rand(lo, hi, shape):
         return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
 
-    if kind.startswith("GPTQ4"):
-        group = int(kind.split("/")[1])
-        qs = rnd(-128, 128, (kp // 2, npad))
+    layout = kind.split("/")[0]
+    group, sf, has_mins, packed = K.LAYOUTS[layout]
+    if sf == 0:
+        group = int(kind.split("/")[1]) if "/" in kind else group
+        rows = kp // 2 if packed else kp
+        lo, hi = {"Q8_0": (-128, 128), "Q5_0": (-16, 16), "Q5_1": (0, 32)}.get(layout, (-128, 128))
+        qs = rnd(lo, hi, (rows, npad))
         sc = rand(1e-3, 4e-3, (kp // group, npad))
-        mn = -(sc * rnd(0, 16, (kp // group, npad)).float())
-        for a, r in ((qs, k // 2), (sc, k // group), (mn, k // group)):
-            a[r:] = 0
-            a[:, n:] = 0
-        return QTensor(qs, sc, mn, "GPTQ4", group, (kp, npad), packed=True, zp=0,
-                       sfactor=0, pack_layout="adjk")
-    group, sf, has_mins, packed = K.LAYOUTS[kind]
+        mn = -(sc * rnd(0, 32 if layout == "Q5_1" else 16, (kp // group, npad)).float()) \
+            if has_mins else None
+        for a, r in ((qs, k * rows // kp), (sc, k // group), (mn, k // group)):
+            if a is not None:
+                a[r:] = 0
+                a[:, n:] = 0
+        return QTensor(qs, sc, mn, layout, group, (kp, npad), packed=packed,
+                       zp=K.zero_point(layout), sfactor=0, pack_layout="adjk")
     if packed:
         rows = kp // 2
         qs, sub_s, sub_m = rnd(-128, 128, (rows, npad)), rnd(0, 64, (kp // 32, npad)), rnd(0, 64, (kp // 32, npad))
@@ -464,9 +516,10 @@ def phase_tiny(K, tmpdir: str):
     served again on both under a user's table file that names the modes g,
     "", s and GPTQ4 si (CT_QMM_TILE_CACHE with CT_QMM_AUTOTUNE=precompiled).
     Every kernel call of the card runs is held against its plain version on
-    the same operands (the kernels' tolerances), each of the sixteen kernels
-    must run, the greedy tokens must be equal, and the logits must agree
-    within the wiring class (5%): they cannot agree much closer, because
+    the same operands (the kernels' tolerances), each of the kernels must
+    run, the greedy tokens must be equal, and the logits must agree
+    within the wiring class (5%; TINY_LOGIT_CLASS): they cannot agree much
+    closer, because
     bf16 and int8 rounding of the activations turn the ~1e-7 differences of
     the two devices' other ops into whole rounding steps here and there.
     Each model's seed is the first without a greedy near-tie on the CPU
@@ -516,7 +569,7 @@ def phase_tiny(K, tmpdir: str):
                     for a, b in zip(got[1], want[1]))
         log(f"[tiny] {label} {what}: card vs CPU logits rel err (worst of "
             f"{TINY_STEPS} steps) {worst:.3e}; greedy card {got[0]} cpu {want[0]}")
-        if worst > 0.05 or got[0] != want[0]:
+        if worst > TINY_LOGIT_CLASS.get(label, 0.05) or got[0] != want[0]:
             raise SystemExit(f"tiny {label} {what}: card and CPU disagree")
 
     def picks(eng) -> dict:
@@ -543,7 +596,7 @@ def phase_tiny(K, tmpdir: str):
         cpu = AutoModelForCausalLM.from_pretrained(path, device="cpu")
         compare(label, "raced table", gpu, {}, cpu, cpu_env)
         # the fixed rule on both (the q, q8 and GPTQ q kernels, which the
-        # race may leave without a tiny key)
+        # race may leave without a tiny key, and the grids' b)
         rule = dict(CT_QMM_AUTOTUNE="0")
         compare(label, "fixed rule", gpu, rule, cpu, rule)
         if label in TINY_NEW_MODES:
@@ -557,7 +610,7 @@ def phase_tiny(K, tmpdir: str):
                 gpu = AutoModelForCausalLM.from_pretrained(path)
             if gpu._engine.init_timings["autotune_raced"]:
                 raise SystemExit(f"tiny {label}: a race under precompiled")
-            compare(label, "table naming g, '', s, si", gpu, gpu_env, cpu, cpu_env)
+            compare(label, "table naming g, '', s, si, sb", gpu, gpu_env, cpu, cpu_env)
         remove_model(path)
     log(f"[tiny] every kernel call vs its plain version on the same operands: "
         f"calls {calls}, worst rel err {worst_call}")
@@ -775,7 +828,7 @@ def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int, ho
                 text = llm("hello world", max_new_tokens=16, seed=42)
                 log(f"[main {label}] llm('hello world') -> {text!r}")
                 serve(*args, {"kernels": "best hand-written kernels",
-                              "new": "table naming g, '', s, si"}[how], copy_bw, wbytes,
+                              "new": "table naming g, '', s, si, sb"}[how], copy_bw, wbytes,
                       launches, full=True)
         log(f"[main {label}] load_s={load_s:.3f} peak_mem_gb="
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
@@ -828,16 +881,29 @@ def main() -> int:
     os.makedirs(tmpdir)
     # the user's table of this run: starts empty, lives beside the models
     os.environ["CT_QMM_TILE_CACHE"] = os.path.join(tmpdir, "user_table.json")
+    seconds = {}  # host seconds per phase and main path, for the log
+
+    def lap(name, t0):
+        seconds[name] = round(time.perf_counter() - t0, 1)
+
+    t0 = time.perf_counter()
     smi = phase_card(K)
     copy_bw = phase_bandwidth()
+    lap("card, build, bandwidth", t0)
+    t0 = time.perf_counter()
     results, raced = phase_kernels(K, copy_bw)
     if opts.write_table:
         qm.save_table(opts.write_table, torch.cuda.get_device_name(0), raced, qm.power_limit())
         log(f"[race] wrote {len(raced)} champions to {opts.write_table}")
+    lap("kernels and race", t0)
+    t0 = time.perf_counter()
     phase_tiny(K, tmpdir)
+    lap("tiny", t0)
     launches = collections.Counter()
     for label, mix, n_layer, how in MAIN_PATHS:
+        t0 = time.perf_counter()
         phase_main(K, tmpdir, copy_bw, label, mix, n_layer, how, launches)
+        lap(f"main {label}", t0)
     log(f"[main] launches over the served runs {dict(launches)}")
     missing = [k for k in K.LAUNCHES if launches[k] == 0]
     if missing:
@@ -863,7 +929,7 @@ def main() -> int:
             > sum(r["bytes"] / PEAK_BYTES_S for r in rows) else "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
         })
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; seconds by phase {seconds}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

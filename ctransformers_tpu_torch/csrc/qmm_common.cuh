@@ -1,4 +1,4 @@
-// Shared helpers for the Q4_K quantized-matmul kernels.
+// Shared helpers for the quantized-matmul kernels.
 //
 // Weight layout (ctransformers_tpu_torch/ops/qmatmul.py, QTensor in the
 // "adjk" layout): for a logical (K, N) weight padded to (Kp, Np),
@@ -12,9 +12,11 @@
 // so that W[k, n] = w4 * s + B with s = sd * sub_s, m = sm * sub_m and the
 // per-group bias B = 8 * s + m.
 //
-// GPTQ 4-bit weights share the qs layout; their scale planes are not
-// factored: s and m are f32 (Kp/G, Np) planes read as they are, one row per
-// group of G = 32, 64 or 128 rows, and B = 8 * s + m as above.
+// GPTQ 4-bit and Q4_1 weights share the qs layout; their scale planes are
+// not factored: s and m are f32 (Kp/G, Np) planes read as they are, one row
+// per group of G = 32, 64 or 128 rows (Q4_1: 32), and B = 8 * s + m as
+// above. Q4_0 stores its signed grid q in [-8, 7] as the nibble itself (zero
+// point 8) with one f32 (Kp/32, Np) plane s and no mins: W = w4 * s, no bias.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,8 +48,8 @@ __device__ __forceinline__ void group_scale(float d, int sub_s, float dm,
   *b = __fadd_rn(__fmul_rn(8.0f, sv), mv);
 }
 
-// The bias of an unfactored group (GPTQ): B = 8 * s + m, rounded as the
-// reference formula (no fused multiply-add).
+// The bias of an unfactored nibble group with mins (GPTQ4, Q4_1):
+// B = 8 * s + m, rounded as the reference formula (no fused multiply-add).
 __device__ __forceinline__ float plain_bias(float s, float m) {
   return __fadd_rn(__fmul_rn(8.0f, s), m);
 }

@@ -1,5 +1,5 @@
 // Activation-quantized 4-bit matmul for small m (decode and short chunks),
-// on Q4_K weights and on GPTQ 4-bit weights.
+// on Q4_K weights, on GPTQ 4-bit and Q4_1 weights and on Q4_0 weights.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_qx_kernel (mode "qx"): int8 quantization of x inside the kernel;
@@ -10,10 +10,13 @@
 // with sx = absmax/127 per (token, group of G), xq = clip(rint(x / max(sx,
 // 1e-20)), -127, 127) and the group dot taken exactly in int32.
 //
-// Two template choices cover the reference kernels' branches: the group G
-// (32 for Q4_K; 32, 64 or 128 for GPTQ) and the scale source (Q4_K: int8
-// sub-scales times f32 superblock factors; GPTQ, the reference's
-// sfactor == 0 branch: f32 planes s and m read as they are).
+// Three template choices cover the reference kernels' branches: the group G
+// (32 for Q4_K and Q4_0; 32, 64 or 128 for GPTQ), the scale source (Q4_K:
+// int8 sub-scales times f32 superblock factors; GPTQ and Q4_0, the
+// reference's sfactor == 0 branch: f32 planes read as they are) and the
+// bias (Q4_0, zero point 8 and no mins, has none: the reference's branch
+// with qx_bias / g_bias False, where the kernel reads no min plane and
+// carries no group sums).
 //
 // Bound on an H100: bytes. At m <= 32 every weight byte is used for at most
 // 64 multiply-adds, far below the card's ~295 operations per byte, so the
@@ -53,24 +56,26 @@ struct DecodeSmem {
   float red[kGL][MT][kTN];
 };
 
-// PLAIN_S: s and m are the f32 (kp/G, np) planes sd and sm themselves (GPTQ);
-// otherwise Q4_K's int8 sub-scales times f32 superblock factors.
-template <int MT, bool QUANT_IN, int G, bool PLAIN_S>
+// PLAIN_S: s and m are the f32 (kp/G, np) planes sd and sm themselves (GPTQ,
+// Q4_0); otherwise Q4_K's int8 sub-scales times f32 superblock factors.
+// HAS_BIAS: out adds xsum @ B (false for Q4_0: sm and xs_g are not read).
+template <int MT, bool QUANT_IN, int G, bool PLAIN_S, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
              const int8_t* __restrict__ xq_g,   // (m, kp) int8     [!QUANT_IN]
              const float* __restrict__ sx_g,    // (m, kp/G) f32    [!QUANT_IN]
-             const float* __restrict__ xs_g,    // (m, kp/G) f32    [!QUANT_IN]
+             const float* __restrict__ xs_g,    // (m, kp/G) f32    [!QUANT_IN, HAS_BIAS]
              const int8_t* __restrict__ qs,     // (kp/2, np)
              const int8_t* __restrict__ sub_s,  // (kp/32, np)      [!PLAIN_S]
              const int8_t* __restrict__ sub_m,  // (kp/32, np)      [!PLAIN_S]
              const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
-             const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m (kp/G, np)
+             const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m (kp/G, np) [HAS_BIAS]
              float* __restrict__ out,           // (m, np)
              int m, int kp, int np) {
   static_assert(G % kLR == 0 && kLR * (32 / kCQ) % G == 0,
                 "a group is 1, 2 or 4 K lanes of one warp");
   static_assert(PLAIN_S || G == ctq::kGroup, "Q4_K groups are 32 rows");
+  static_assert(PLAIN_S || HAS_BIAS, "Q4_K has a bias");
   constexpr int kLPG = G / kLR;   // K lanes per group
   constexpr int kNG = kKC / G;    // groups per chunk
   constexpr int kQT = G / 4;      // threads holding one group while quantizing
@@ -102,11 +107,11 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
           v = __ldg(reinterpret_cast<const float4*>(x + (size_t)t * kp + k));
         float amax = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
                            fmaxf(fabsf(v.z), fabsf(v.w)));
-        float sum = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
+        float sum = HAS_BIAS ? __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w)) : 0.0f;
 #pragma unroll
         for (int off = 1; off < kQT; off <<= 1) {
           amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-          sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+          if (HAS_BIAS) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
         }
         const float sxv = __fdiv_rn(amax, 127.0f);
         const float den = fmaxf(sxv, 1e-20f);
@@ -118,7 +123,7 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
         *reinterpret_cast<char4*>(&sh.xq[i][4 * tid]) = q;
         if (tid % kQT == 0) {
           sh.sx[i][gi] = sxv;
-          sh.xs[i][gi] = sum;
+          if (HAS_BIAS) sh.xs[i][gi] = sum;
         }
       }
     } else {
@@ -136,7 +141,7 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
         const int t = t0 + i, g = k0 / G + gi;
         const bool ok = t < m && g < ng;
         sh.sx[i][gi] = ok ? __ldg(sx_g + (size_t)t * ng + g) : 0.0f;
-        sh.xs[i][gi] = ok ? __ldg(xs_g + (size_t)t * ng + g) : 0.0f;
+        if (HAS_BIAS) sh.xs[i][gi] = ok ? __ldg(xs_g + (size_t)t * ng + g) : 0.0f;
       }
     }
     __syncthreads();
@@ -182,14 +187,16 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
             idot[i][c] += __shfl_xor_sync(0xffffffffu, idot[i][c], off);
     }
     if (live && gl % kLPG == 0) {
-      float s[4], b[4];
+      float s[4], b[4] = {0.f, 0.f, 0.f, 0.f};
       if (PLAIN_S) {
         const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + (size_t)g * np + n));
-        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + (size_t)g * np + n));
-        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
         s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+        if (HAS_BIAS) {
+          const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + (size_t)g * np + n));
+          const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = ctq::plain_bias(s[c], mv[c]);
+          for (int c = 0; c < 4; ++c) b[c] = ctq::plain_bias(s[c], mv[c]);
+        }
       } else {
         const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
         const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
@@ -205,11 +212,11 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const float sxv = sh.sx[i][gl / kLPG];
-        const float xsv = sh.xs[i][gl / kLPG];
+        const float xsv = HAS_BIAS ? sh.xs[i][gl / kLPG] : 0.0f;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float part = __fmul_rn(__fmul_rn((float)idot[i][c], sxv), s[c]);
-          acc[i][c] = __fadd_rn(acc[i][c], __fadd_rn(part, __fmul_rn(xsv, b[c])));
+          acc[i][c] = __fadd_rn(acc[i][c], HAS_BIAS ? __fadd_rn(part, __fmul_rn(xsv, b[c])) : part);
         }
       }
     }
@@ -231,25 +238,25 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
   }
 }
 
-template <bool QUANT_IN, int G, bool PLAIN_S>
+template <bool QUANT_IN, int G, bool PLAIN_S, bool HAS_BIAS>
 int launch(const float* x, const int8_t* xq, const float* sx, const float* xs,
            const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
            const float* sd, const float* sm, float* out, int m, int kp,
            int np, cudaStream_t stream) {
   if (m == 1) {
     dim3 grid(np / kTN, 1);
-    qmm_q_kernel<1, QUANT_IN, G, PLAIN_S><<<grid, kThreads, 0, stream>>>(
+    qmm_q_kernel<1, QUANT_IN, G, PLAIN_S, HAS_BIAS><<<grid, kThreads, 0, stream>>>(
         x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   } else {
     constexpr int MT = 8;
     dim3 grid(np / kTN, (m + MT - 1) / MT);
-    qmm_q_kernel<MT, QUANT_IN, G, PLAIN_S><<<grid, kThreads, 0, stream>>>(
+    qmm_q_kernel<MT, QUANT_IN, G, PLAIN_S, HAS_BIAS><<<grid, kThreads, 0, stream>>>(
         x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// GPTQ: f32 planes s and m (kp/group, np), group 32, 64 or 128.
+// GPTQ4 and Q4_1: f32 planes s and m (kp/group, np), group 32, 64 or 128.
 template <bool QUANT_IN>
 int launch_gptq(const float* x, const int8_t* xq, const float* sx,
                 const float* xs, const int8_t* qs, const float* s,
@@ -257,14 +264,14 @@ int launch_gptq(const float* x, const int8_t* xq, const float* sx,
                 cudaStream_t stream) {
   switch (group) {
     case 32:
-      return launch<QUANT_IN, 32, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
-                                        out, m, kp, np, stream);
+      return launch<QUANT_IN, 32, true, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
+                                              out, m, kp, np, stream);
     case 64:
-      return launch<QUANT_IN, 64, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
-                                        out, m, kp, np, stream);
+      return launch<QUANT_IN, 64, true, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
+                                              out, m, kp, np, stream);
     case 128:
-      return launch<QUANT_IN, 128, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
-                                         out, m, kp, np, stream);
+      return launch<QUANT_IN, 128, true, true>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn,
+                                               out, m, kp, np, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -277,9 +284,9 @@ extern "C" {
 int ct_qmm_qx(const float* x, const int8_t* qs, const int8_t* sub_s,
               const int8_t* sub_m, const float* sd, const float* sm,
               float* out, int m, int kp, int np, void* stream) {
-  return launch<true, ctq::kGroup, false>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m,
-                                          sd, sm, out, m, kp, np,
-                                          static_cast<cudaStream_t>(stream));
+  return launch<true, ctq::kGroup, false, true>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m,
+                                                sd, sm, out, m, kp, np,
+                                                static_cast<cudaStream_t>(stream));
 }
 
 // mode "q" on Q4_K: xq int8 (m, kp), sx and xsum f32 (m, kp/32) given.
@@ -287,12 +294,12 @@ int ct_qmm_q(const int8_t* xq, const float* sx, const float* xs,
              const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp,
              int np, void* stream) {
-  return launch<false, ctq::kGroup, false>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm,
-                                           out, m, kp, np,
-                                           static_cast<cudaStream_t>(stream));
+  return launch<false, ctq::kGroup, false, true>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm,
+                                                 out, m, kp, np,
+                                                 static_cast<cudaStream_t>(stream));
 }
 
-// mode "qx" on GPTQ4: x f32 (m, kp); s and mn f32 (kp/group, np).
+// mode "qx" on GPTQ4 and Q4_1: x f32 (m, kp); s and mn f32 (kp/group, np).
 int ct_qmm_qx_gptq(const float* x, const int8_t* qs, const float* s,
                    const float* mn, float* out, int m, int kp, int np,
                    int group, void* stream) {
@@ -300,12 +307,31 @@ int ct_qmm_qx_gptq(const float* x, const int8_t* qs, const float* s,
                            group, static_cast<cudaStream_t>(stream));
 }
 
-// mode "q" on GPTQ4: xq int8 (m, kp), sx and xsum f32 (m, kp/group) given.
+// mode "q" on GPTQ4 and Q4_1: xq int8 (m, kp), sx and xsum f32 (m, kp/group)
+// given.
 int ct_qmm_q_gptq(const int8_t* xq, const float* sx, const float* xs,
                   const int8_t* qs, const float* s, const float* mn,
                   float* out, int m, int kp, int np, int group, void* stream) {
   return launch_gptq<false>(nullptr, xq, sx, xs, qs, s, mn, out, m, kp, np, group,
                             static_cast<cudaStream_t>(stream));
+}
+
+// mode "qx" on Q4_0: x f32 (m, kp); s f32 (kp/32, np); no mins (null), no
+// bias.
+int ct_qmm_qx_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
+                   float* out, int m, int kp, int np, void* stream) {
+  return launch<true, 32, true, false>(x, nullptr, nullptr, nullptr, qs, nullptr, nullptr, s,
+                                       nullptr, out, m, kp, np,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// mode "q" on Q4_0: xq int8 (m, kp) and sx f32 (m, kp/32) given (xsum is not
+// read); s f32 (kp/32, np); no mins (null), no bias.
+int ct_qmm_q_q4_0(const int8_t* xq, const float* sx, const float* xs, const int8_t* qs,
+                  const float* s, const float*, float* out, int m, int kp, int np,
+                  void* stream) {
+  return launch<false, 32, true, false>(nullptr, xq, sx, xs, qs, nullptr, nullptr, s, nullptr,
+                                        out, m, kp, np, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

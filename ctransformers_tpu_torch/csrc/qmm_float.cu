@@ -3,17 +3,23 @@
 // dequantize-and-dot modes "" and "s" on the int8 grids.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
-//   _qmm_g_kernel (mode "g")                 -> ct_qmm_g, ct_qmm_g_gptq, ct_qmm_g8
+//   _qmm_g_kernel (mode "g")  -> ct_qmm_g, ct_qmm_g_gptq, ct_qmm_g_q4_0,
+//                                ct_qmm_g8, ct_qmm_g8_legacy
 //       out = sum_g s[g,n] * dot_g(bf16(x), w)[t,n] + xsum @ B
-//       x rounded to bf16, the grid values w (nibbles w4 = q - 8, or the
-//       int8 grid q) exact in bf16, products exact in f32 and summed in f32
-//       inside a group, the f32 scale applied to the group's partial sum.
-//       B = 8 * s + m for nibbles, m for grids, absent for Q6_K; xsum are
-//       the f32 group sums of the unrounded x.
-//   _qmm_kernel   (mode "",  f32 dots)       -> ct_qmm_f
+//       x rounded to bf16, the grid values w (nibbles w4 = q + zp - 8, or
+//       the int8 grid q) exact in bf16, products exact in f32 and summed in
+//       f32 inside a group, the f32 scale applied to the group's partial
+//       sum. B = 8 * s + m for nibbles with mins, m for grids with mins,
+//       absent for Q4_0 (zero point 8, the reference's g_bias False), Q6_K,
+//       Q8_0 and Q5_0; xsum are the f32 group sums of the unrounded x.
+//   _qmm_kernel   (mode "",  f32 dots)  -> ct_qmm_f, ct_qmm_f_legacy
 //       out = x @ (q * s + m), all f32 (no TF32: plain f32 multiply-adds)
-//   _qmm_s_kernel (mode "s", f32 dots)       -> ct_qmm_s
+//   _qmm_s_kernel (mode "s", f32 dots)  -> ct_qmm_s, ct_qmm_s_legacy
 //       out = x @ (q * s) + xsum @ M, all f32
+// The scale planes are Q4_K's and the k-quant grids' int8 sub-scales times
+// f32 superblock factors, or (PLAIN_S: GPTQ4, Q4_1, Q4_0 and the legacy
+// grids Q8_0, Q5_0, Q5_1, the reference's sfactor == 0 branches) f32
+// (kp/G, np) planes s and m read as they are.
 //
 // Bound on an H100: bytes at decode. The card does ~20 f32 operations
 // outside the tensor cores per byte it reads (67 TFLOP/s over 3.35 TB/s);
@@ -49,10 +55,6 @@ constexpr int kCQ = kTN / 4;            // column quads per block
 constexpr int kGL = kThreads / kCQ;     // K lanes
 
 enum Mode { kModeG, kModeF, kModeS };
-// kFmtQ4K: adjk nibbles, int8 sub-scales times f32 superblock factors;
-// kFmtGptq: adjk nibbles, f32 planes s and m (kp/G, np) passed as sd and sm;
-// kFmtGrid: int8 grid, int8 sub-scales times f32 superblock factors
-enum Fmt { kFmtQ4K, kFmtGptq, kFmtGrid };
 
 template <int MT, int KC, int NG>
 union FloatSmem {
@@ -69,30 +71,38 @@ union FloatSmem {
 // schedules the chunk's loads so that the m = 1 kernels run 25-30% faster
 // there (and the grouped dot on Q6_K no longer 2.6x slower than ""; timed
 // on an H100, PERF.md).
-template <int MT, int MODE, int FMT, int G, bool HAS_MINS>
+// PACKED: adjk nibbles (kp/2, np), else an int8 grid (kp, np). PLAIN_S: s
+// and m are the f32 (kp/G, np) planes sd and sm themselves, else int8
+// sub-scales times f32 superblock factors. HAS_MINS: a min plane; a nibble
+// weight without one is Q4_0's (zero point 8: no bias).
+template <int MT, int MODE, bool PACKED, bool PLAIN_S, int G, bool HAS_MINS>
 __global__ void __launch_bounds__(kThreads, 2)
 qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
                  const int8_t* __restrict__ qs,     // (kp/2, np) nibbles or (kp, np) grid
-                 const int8_t* __restrict__ sub_s,  // (kp/G, np)        [!kFmtGptq]
-                 const int8_t* __restrict__ sub_m,  // (kp/G, np)        [!kFmtGptq, HAS_MINS]
-                 const float* __restrict__ sd,      // (kp/256, np); kFmtGptq: s (kp/G, np)
-                 const float* __restrict__ sm,      // (kp/256, np); kFmtGptq: m (kp/G, np)
+                 const int8_t* __restrict__ sub_s,  // (kp/G, np)        [!PLAIN_S]
+                 const int8_t* __restrict__ sub_m,  // (kp/G, np)        [!PLAIN_S, HAS_MINS]
+                 const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
+                 const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m [HAS_MINS]
                  float* __restrict__ out,           // (m, np)
                  int m, int kp, int np) {
-  constexpr bool kPacked = FMT != kFmtGrid;
+  constexpr bool kPacked = PACKED;
   constexpr int kLR = G < 32 ? G : 32;  // K rows per lane and chunk
   constexpr int kKC = kGL * kLR;        // K rows staged per chunk
   constexpr int kLPG = G / kLR;         // K lanes per group
   constexpr int kNG = kKC / G;          // groups per chunk
   constexpr int kQT = G / 4;            // threads holding one group while staging
   constexpr int kSF = 256 / G;          // groups per superblock (factored planes)
-  // the xsum @ B term: nibbles re-bias by 8 * s, grids only where they have mins
-  constexpr bool kBias = MODE != kModeF && (kPacked || HAS_MINS);
-  static_assert(!kPacked || (HAS_MINS && G % 32 == 0 && 32 * (32 / kCQ) % G == 0),
+  // the xsum @ B term: nibbles with mins re-bias by 8 * s + m, grids add m;
+  // Q4_0's nibbles and the grids without mins have no bias
+  constexpr bool kBias = MODE != kModeF && HAS_MINS;
+  static_assert(!kPacked || (G % 32 == 0 && 32 * (32 / kCQ) % G == 0),
                 "a nibble group is 1, 2 or 4 K lanes of one warp");
+  static_assert(!kPacked || HAS_MINS || (PLAIN_S && G == 32),
+                "a nibble weight without mins is Q4_0: plain planes, group 32");
   static_assert(kPacked || kLPG == 1, "an int8-grid group is one K lane");
-  static_assert(FMT != kFmtQ4K || G == ctq::kGroup, "Q4_K groups are 32 rows");
-  static_assert(MODE == kModeG || FMT == kFmtGrid, "\"\" and \"s\" are int8-grid modes");
+  static_assert(PLAIN_S || !kPacked || G == ctq::kGroup, "Q4_K groups are 32 rows");
+  static_assert(!PLAIN_S || kPacked || G == 32, "the legacy grids' groups are 32 rows");
+  static_assert(MODE == kModeG || !kPacked, "\"\" and \"s\" are int8-grid modes");
   static_assert(4 * kThreads >= kKC, "one float4 per thread stages a chunk");
   static_assert(sizeof(FloatSmem<MT, kKC, kNG>) <= 48 * 1024, "static shared memory limit");
   __shared__ FloatSmem<MT, kKC, kNG> sh;
@@ -151,13 +161,15 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
     // the lane that folds the group's scale and bias needs them; "" and "s"
     // need them for every weight
     if (live && gl % kLPG == 0) {
-      if (FMT == kFmtGptq) {
+      if (PLAIN_S) {
         const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + (size_t)g * np + n));
-        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + (size_t)g * np + n));
-        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
         s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+        if (HAS_MINS) {
+          const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + (size_t)g * np + n));
+          const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = ctq::plain_bias(s[c], mv[c]);
+          for (int c = 0; c < 4; ++c) b[c] = kPacked ? ctq::plain_bias(s[c], mv[c]) : mv[c];
+        }
       } else {
         const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
         const size_t fo = (size_t)(g / kSF) * np + n;
@@ -276,33 +288,48 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
   }
 }
 
-template <int MODE, int FMT, int G, bool HAS_MINS>
+template <int MODE, bool PACKED, bool PLAIN_S, int G, bool HAS_MINS>
 int launch(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
            const float* sd, const float* sm, float* out, int m, int kp, int np,
            cudaStream_t stream) {
   if (m == 1) {
     dim3 grid(np / kTN, 1);
-    qmm_float_kernel<1, MODE, FMT, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+    qmm_float_kernel<1, MODE, PACKED, PLAIN_S, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
         x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   } else {
     constexpr int MT = 8;
     dim3 grid(np / kTN, (m + MT - 1) / MT);
-    qmm_float_kernel<MT, MODE, FMT, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+    qmm_float_kernel<MT, MODE, PACKED, PLAIN_S, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
         x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K).
+// factored int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K).
 template <int MODE>
 int launch_grid(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
                 const float* sd, const float* sm, float* out, int m, int kp, int np,
                 int group, cudaStream_t stream) {
   if (group == 16 && sub_m == nullptr)
-    return launch<MODE, kFmtGrid, 16, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+    return launch<MODE, false, false, 16, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                                                 stream);
   if (group == 32 && sub_m != nullptr)
-    return launch<MODE, kFmtGrid, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+    return launch<MODE, false, false, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                                                stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the legacy int8 grids: group 32, f32 planes s and mn, mn null exactly when
+// has_mins is 0 (Q8_0, Q5_0; Q5_1 has mins).
+template <int MODE>
+int launch_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                  float* out, int m, int kp, int np, int has_mins, cudaStream_t stream) {
+  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return launch<MODE, false, true, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+                                               stream);
+  return launch<MODE, false, true, 32, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp,
+                                              np, stream);
 }
 
 }  // namespace
@@ -313,26 +340,29 @@ extern "C" {
 int ct_qmm_g(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp, int np,
              void* stream) {
-  return launch<kModeG, kFmtQ4K, ctq::kGroup, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
-                                                   static_cast<cudaStream_t>(stream));
+  return launch<kModeG, true, false, ctq::kGroup, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
+                                                       np, static_cast<cudaStream_t>(stream));
 }
 
-// mode "g" on GPTQ4: s and mn f32 (kp/group, np), group 32, 64 or 128.
+// mode "g" on GPTQ4 and Q4_1: s and mn f32 (kp/group, np), group 32, 64 or 128.
 int ct_qmm_g_gptq(const float* x, const int8_t* qs, const float* s, const float* mn,
                   float* out, int m, int kp, int np, int group, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (group) {
     case 32:
-      return launch<kModeG, kFmtGptq, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
+      return launch<kModeG, true, true, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+                                                  st);
     case 64:
-      return launch<kModeG, kFmtGptq, 64, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
+      return launch<kModeG, true, true, 64, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+                                                  st);
     case 128:
-      return launch<kModeG, kFmtGptq, 128, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
+      return launch<kModeG, true, true, 128, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+                                                   st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// mode "g" on an int8 grid (Q6_K, Q5_K).
+// mode "g" on a factored int8 grid (Q6_K, Q5_K).
 int ct_qmm_g8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp, int np,
               int group, void* stream) {
@@ -340,7 +370,7 @@ int ct_qmm_g8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_
                              static_cast<cudaStream_t>(stream));
 }
 
-// mode "": x @ (q * s + m) in f32 on an int8 grid.
+// mode "": x @ (q * s + m) in f32 on a factored int8 grid.
 int ct_qmm_f(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp, int np,
              int group, void* stream) {
@@ -348,12 +378,39 @@ int ct_qmm_f(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t
                              static_cast<cudaStream_t>(stream));
 }
 
-// mode "s": x @ (q * s) + xsum @ M in f32 on an int8 grid.
+// mode "s": x @ (q * s) + xsum @ M in f32 on a factored int8 grid.
 int ct_qmm_s(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp, int np,
              int group, void* stream) {
   return launch_grid<kModeS>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
                              static_cast<cudaStream_t>(stream));
+}
+
+// mode "g" on Q4_0: s f32 (kp/32, np); no mins (null), no bias.
+int ct_qmm_g_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
+                  float* out, int m, int kp, int np, void* stream) {
+  return launch<kModeG, true, true, 32, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp,
+                                               np, static_cast<cudaStream_t>(stream));
+}
+
+// modes "g", "" and "s" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): s and mn
+// f32 (kp/32, np), mn null exactly when has_mins is 0.
+int ct_qmm_g8_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                     float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_legacy<kModeG>(x, qs, s, mn, out, m, kp, np, has_mins,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int ct_qmm_f_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                    float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_legacy<kModeF>(x, qs, s, mn, out, m, kp, np, has_mins,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int ct_qmm_s_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                    float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_legacy<kModeS>(x, qs, s, mn, out, m, kp, np, has_mins,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the Q4_K
-// kernels (qmm_prefill.cu: "si", "i"), the GPTQ 4-bit kernels
-// (qmm_prefill.cu: "si", "i") and the int8-grid kernels (qmm_grid.cu: "sb",
-// "b").
+// kernels (qmm_prefill.cu: "si", "i"), the GPTQ 4-bit, Q4_1 and Q4_0
+// kernels (qmm_prefill.cu: "si", "i") and the int8-grid kernels
+// (qmm_grid.cu: "sb", "b", factored and legacy).
 // Only the weight tile's decoding differs between formats; it comes in as a
 // tile type W:
 //
@@ -10,15 +10,17 @@
 //                several steps, each reading the group's one row of s and
 //                B; the fold (SUMFOLD) then carries the group's xsum across
 //                its steps and applies B once, at the group's last step.
-//   W::kHasBias  whether the format adds a per-group bias B (its mins)
+//   W::kHasBias  whether the format adds a per-group bias B (its mins, or
+//                a nibble's re-bias; not Q4_0, Q6_K, Q8_0, Q5_0)
 //   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s)
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
 //                kGemmLDB): W = q * s + B rounded once to bf16, or, when
 //                FOLD, q * s alone, with B of each of the step's groups
 //                written to b_s[group in step][column]. A format with
-//                unfactored planes (GPTQ) takes sub_s = sub_m = null and
-//                its f32 (kp/G, np) planes s and m as sd and sm.
+//                unfactored planes (GPTQ4 and the legacy types) takes
+//                sub_s = sub_m = null and its f32 (kp/G, np) planes s and
+//                m as sd and sm (m null where it has none).
 //
 // The kernel computes
 //   SUMFOLD and W has a bias:  out = bf16(x) @ bf16(q * s) + xsum @ B

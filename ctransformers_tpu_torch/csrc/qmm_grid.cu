@@ -1,10 +1,13 @@
 // Quantized matmuls on int8 grids: the Q6_K and Q5_K tensors of llama
-// Q4_K_M / Q5_K_M files, for decode and for prompt chunks.
+// Q4_K_M / Q5_K_M files and the Q8_0, Q5_0 and Q5_1 tensors of the legacy
+// llama files, for decode and for prompt chunks.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_q_kernel with packed4=False (mode "q" on an int8 grid) -> ct_qmm_q8
 //   _qmm_kernel,   mode "b"  (bf16 dots)                         -> ct_qmm_b
 //   _qmm_s_kernel, mode "sb" (sum-fold mins, bf16 dots)          -> ct_qmm_sb
+// and, on the legacy types' unfactored planes (the reference's sfactor == 0
+// branches), ct_qmm_q8_legacy, ct_qmm_b_legacy and ct_qmm_sb_legacy.
 //
 // Weight layout (ctransformers_tpu_torch/ops/qmatmul.py, an unpacked
 // QTensor) for a logical (K, N) weight padded to (Kp, Np):
@@ -15,13 +18,18 @@
 //   sd     f32  (Kp/256, Np)  superblock scale
 //   sm     f32  (Kp/256, Np)  superblock min (Q5_K; null for Q6_K)
 // so that W[k, n] = q * s + m with s = sd * sub_s and m = sm * sub_m, each
-// an f32 product rounded once, as the reference's _apply_factors.
+// an f32 product rounded once, as the reference's _apply_factors. The
+// legacy types are not factored (PLAIN_S): qs int8 (Kp, Np) (Q8_0: q in
+// [-128, 127]; Q5_0: [-16, 15]; Q5_1: [0, 31]) with f32 (Kp/32, Np) planes
+// s and m (Q5_1 only) read as they are, passed as sd and sm with sub_s and
+// sub_m null; the _legacy symbols say so, and whether there are mins,
+// explicitly (a null pointer selects nothing).
 //
-// The kernels are templated on G and on HAS_MINS (the two layouts), and the
-// GEMM on SUMFOLD ("b" adds m per element before the bf16 cast; "sb" folds
-// it through the group sums of x). Every block owns one output tile and
-// all of K and sums in a fixed order (no atomics, no split-K), so runs are
-// bitwise repeatable.
+// The kernels are templated on G, HAS_MINS and PLAIN_S (the layouts), and
+// the GEMM on SUMFOLD ("b" adds m per element before the bf16 cast; "sb"
+// folds it through the group sums of x). Every block owns one output tile
+// and all of K and sums in a fixed order (no atomics, no split-K), so runs
+// are bitwise repeatable.
 //
 // ct_qmm_q8, decode and short chunks (m <= 32):
 //   out = xsum @ M + sum_g (int32 dot_g(xq, q[:, n]) * sx[t, g]) * s[g, n]
@@ -29,7 +37,8 @@
 //   quantize_activations. Bound: bytes. One weight byte feeds at most 32
 //   multiply-adds at m = 8, far below the ~295 operations per byte at which
 //   the card turns compute-bound, so the kernel is as fast as it streams
-//   the grid (1 B/weight) and its scale planes (~0.08 B/weight). Design: as
+//   the grid (1 B/weight) and its scale planes (~0.08 B/weight factored,
+//   0.125 or 0.25 B/weight for the legacy types' f32 planes). Design: as
 //   ct_qmm_q in qmm_decode.cu. A block owns 32 output columns; its 256
 //   threads lie 8 across the columns (4 columns each, one 32-bit load per
 //   row, so a warp reads 32 contiguous bytes from each of 4 rows) and 32
@@ -68,20 +77,20 @@ struct Q8Smem {
   float red[kGL][MT][kTN];
 };
 
-template <int MT, int G, bool HAS_MINS>
+template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
 __global__ void __launch_bounds__(kThreads)
 qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
               const float* __restrict__ sx_g,    // (m, kp/G) f32
               const float* __restrict__ xs_g,    // (m, kp/G) f32   [HAS_MINS]
               const int8_t* __restrict__ qs,     // (kp, np)
-              const int8_t* __restrict__ sub_s,  // (kp/G, np)
-              const int8_t* __restrict__ sub_m,  // (kp/G, np)      [HAS_MINS]
-              const float* __restrict__ sd,      // (kp/256, np)
-              const float* __restrict__ sm,      // (kp/256, np)    [HAS_MINS]
+              const int8_t* __restrict__ sub_s,  // (kp/G, np)      [!PLAIN_S]
+              const int8_t* __restrict__ sub_m,  // (kp/G, np)      [!PLAIN_S, HAS_MINS]
+              const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
+              const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m [HAS_MINS]
               float* __restrict__ out,           // (m, np)
               int m, int kp, int np) {
   constexpr int kKC = kGL * G;  // K rows staged per chunk
-  constexpr int kSF = 256 / G;  // groups per superblock
+  constexpr int kSF = 256 / G;  // groups per superblock (factored planes)
   __shared__ Q8Smem<MT, G> sh;
   const int tid = threadIdx.x;
   const int cq = tid % kCQ;
@@ -140,19 +149,28 @@ qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
           for (int c = 0; c < 4; ++c) idot[i][c] += ctq::sbyte(w[r], c) * xv;
         }
       }
-      const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
-      const size_t fo = (size_t)(g / kSF) * np + n;
-      const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
-      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
       float s[4], b[4];
+      if (PLAIN_S) {
+        const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + (size_t)g * np + n));
+        s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+        if (HAS_MINS) {
+          const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + (size_t)g * np + n));
+          b[0] = m4.x, b[1] = m4.y, b[2] = m4.z, b[3] = m4.w;
+        }
+      } else {
+        const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
+        const size_t fo = (size_t)(g / kSF) * np + n;
+        const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
-      if (HAS_MINS) {
-        const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
-        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
-        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+        for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+        if (HAS_MINS) {
+          const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
+          const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+          const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
+          for (int c = 0; c < 4; ++c) b[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
+        }
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -183,19 +201,19 @@ qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
   }
 }
 
-template <int G, bool HAS_MINS>
+template <int G, bool HAS_MINS, bool PLAIN_S>
 int launch_q8(const int8_t* xq, const float* sx, const float* xs,
               const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp,
               int np, cudaStream_t stream) {
   if (m == 1) {
     dim3 grid(np / kTN, 1);
-    qmm_q8_kernel<1, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+    qmm_q8_kernel<1, G, HAS_MINS, PLAIN_S><<<grid, kThreads, 0, stream>>>(
         xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   } else {
     constexpr int MT = 8;
     dim3 grid(np / kTN, (m + MT - 1) / MT);
-    qmm_q8_kernel<MT, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+    qmm_q8_kernel<MT, G, HAS_MINS, PLAIN_S><<<grid, kThreads, 0, stream>>>(
         xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   }
   return static_cast<int>(cudaGetLastError());
@@ -203,7 +221,7 @@ int launch_q8(const int8_t* xq, const float* sx, const float* xs,
 
 // ---- ct_qmm_b / ct_qmm_sb: the int8-grid tile of qmm_gemm.cuh ----------
 
-template <int G, bool HAS_MINS>
+template <int G, bool HAS_MINS, bool PLAIN_S>
 struct GridTile {
   static constexpr int kGroup = G;
   static constexpr bool kHasBias = HAS_MINS;
@@ -216,10 +234,10 @@ struct GridTile {
   template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs,     // (kp, np)
-      const int8_t* __restrict__ sub_s,  // (kp/G, np)
-      const int8_t* __restrict__ sub_m,  // (kp/G, np)   [HAS_MINS]
-      const float* __restrict__ sd,      // (kp/256, np)
-      const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]
+      const int8_t* __restrict__ sub_s,  // (kp/G, np)   [!PLAIN_S]
+      const int8_t* __restrict__ sub_m,  // (kp/G, np)   [!PLAIN_S, HAS_MINS]
+      const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
+      const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m [HAS_MINS]
       int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*b_s)[ctq::kGemmBN]) {
     constexpr int kSF = 256 / G;
@@ -228,27 +246,40 @@ struct GridTile {
     const int wr = (tid / 16) * kWRows, wc = (tid % 16) * 4;
     const int n = col0 + wc;
     const int g = (k0 + wr) / G;
+    const size_t go = (size_t)g * np + n;
     const size_t fo = (size_t)(g / kSF) * np + n;
-    const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
-    const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
-    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
     float s[4], mv[4];
+    if (PLAIN_S) {
+      const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + go));
+      s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+      if (HAS_MINS && !FOLD) {
+        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + go));
+        mv[0] = m4.x, mv[1] = m4.y, mv[2] = m4.z, mv[3] = m4.w;
+      }
+    } else {
+      const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + go));
+      const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
-    if (HAS_MINS && !FOLD) {
-      const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
-      const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
-      const float mm[4] = {m4.x, m4.y, m4.z, m4.w};
+      for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
+      if (HAS_MINS && !FOLD) {
+        const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + go));
+        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+        const float mm[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mv[j] = __fmul_rn(mm[j], static_cast<float>(ctq::sbyte(mw, j)));
+        for (int j = 0; j < 4; ++j) mv[j] = __fmul_rn(mm[j], static_cast<float>(ctq::sbyte(mw, j)));
+      }
     }
     if (FOLD) {
-      // the step's rows of the min plane M = sm * sub_m, one per group
+      // the step's rows of the min plane M (= sm * sub_m where factored), one
+      // per group
       for (int e = tid; e < kNGS * ctq::kGemmBN; e += ctq::kGemmThreads) {
         const int gi = e / ctq::kGemmBN, col = e % ctq::kGemmBN;
         const int gg = k0 / G + gi;
-        b_s[gi][col] = __fmul_rn(__ldg(sm + (size_t)(gg / kSF) * np + col0 + col),
-                                 static_cast<float>(__ldg(sub_m + (size_t)gg * np + col0 + col)));
+        b_s[gi][col] = PLAIN_S
+            ? __ldg(sm + (size_t)gg * np + col0 + col)
+            : __fmul_rn(__ldg(sm + (size_t)(gg / kSF) * np + col0 + col),
+                        static_cast<float>(__ldg(sub_m + (size_t)gg * np + col0 + col)));
       }
     }
     uint32_t w[kWRows];
@@ -274,12 +305,26 @@ int launch_grid_gemm(const float* x, const int8_t* qs, const int8_t* sub_s,
                 float* out, int m, int kp, int np, int group,
                 cudaStream_t stream) {
   if (group == 16 && sub_m == nullptr)
-    return ctq::launch_gemm<GridTile<16, false>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm, out,
-                                                          m, kp, np, stream);
+    return ctq::launch_gemm<GridTile<16, false, false>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm,
+                                                                 out, m, kp, np, stream);
   if (group == 32 && sub_m != nullptr)
-    return ctq::launch_gemm<GridTile<32, true>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm, out,
-                                                         m, kp, np, stream);
+    return ctq::launch_gemm<GridTile<32, true, false>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm,
+                                                                out, m, kp, np, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The legacy types: group 32, f32 planes s and mn (null exactly when
+// has_mins is 0: Q8_0 and Q5_0; Q5_1 has mins).
+template <bool SUMFOLD>
+int launch_legacy_gemm(const float* x, const int8_t* qs, const float* s, const float* mn,
+                       float* out, int m, int kp, int np, int has_mins,
+                       cudaStream_t stream) {
+  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return ctq::launch_gemm<GridTile<32, true, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn,
+                                                               out, m, kp, np, stream);
+  return ctq::launch_gemm<GridTile<32, false, true>, SUMFOLD>(x, qs, nullptr, nullptr, s,
+                                                              nullptr, out, m, kp, np, stream);
 }
 
 }  // namespace
@@ -294,9 +339,9 @@ int ct_qmm_q8(const int8_t* xq, const float* sx, const float* xs,
               int np, int group, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (group == 16 && sub_m == nullptr)
-    return launch_q8<16, false>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
+    return launch_q8<16, false, false>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
   if (group == 32 && sub_m != nullptr)
-    return launch_q8<32, true>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
+    return launch_q8<32, true, false>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -314,6 +359,34 @@ int ct_qmm_sb(const float* x, const int8_t* qs, const int8_t* sub_s,
               float* out, int m, int kp, int np, int group, void* stream) {
   return launch_grid_gemm<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
                            static_cast<cudaStream_t>(stream));
+}
+
+// mode "q" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): xq int8 (m, kp), sx and
+// xsum f32 (m, kp/32); s and mn f32 (kp/32, np), mn null exactly when
+// has_mins is 0.
+int ct_qmm_q8_legacy(const int8_t* xq, const float* sx, const float* xs,
+                     const int8_t* qs, const float* s, const float* mn, float* out,
+                     int m, int kp, int np, int has_mins, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return launch_q8<32, true, true>(xq, sx, xs, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
+  return launch_q8<32, false, true>(xq, sx, xs, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
+                                    st);
+}
+
+// mode "b" on a legacy int8 grid: bf16(x) @ bf16(q * s + mn)
+int ct_qmm_b_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                    float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_legacy_gemm<false>(x, qs, s, mn, out, m, kp, np, has_mins,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// mode "sb" on a legacy int8 grid: xsum @ mn + bf16(x) @ bf16(q * s)
+int ct_qmm_sb_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                     float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_legacy_gemm<true>(x, qs, s, mn, out, m, kp, np, has_mins,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Dequantize-then-bf16-GEMM 4-bit matmul for prompt chunks (m > 32), on Q4_K
-// weights ("si", "i") and on GPTQ 4-bit weights ("si", "i").
+// weights ("si", "i"), on GPTQ 4-bit and Q4_1 weights ("si", "i") and on
+// Q4_0 weights ("si", "i", without a bias).
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_i4_s_kernel (mode "si"): W' = w4 * s rounded to bf16, x rounded to
@@ -20,7 +21,10 @@
 // are f32 planes read as they are, one row per group of 32, 64 or 128 rows,
 // so a K step is a whole group or a whole part of one and needs only that
 // group's row; W = w4 * s + B ("i") or w4 * s ("si", with B handed to the
-// GEMM's fold) is rounded once to bf16, as in the reference.
+// GEMM's fold) is rounded once to bf16, as in the reference. Q4_0 takes the
+// same tile without a bias (the reference's `b is None` branch): it reads
+// no min plane, W = w4 * s, and "si" then computes what "i" does (the GEMM
+// folds nothing).
 #include "qmm_gemm.cuh"
 
 namespace {
@@ -80,11 +84,13 @@ struct Q4KTile {
 static_assert(ctq::kGemmBK == Q4KTile::kGroup && ctq::kGemmThreads == 16 * 8,
               "one quant group per K step; 16 byte rows x 8 column octets");
 
-// GPTQ 4-bit: adjk nibbles, f32 planes s and m (kp/G, np) passed as sd and sm.
-template <int G>
+// GPTQ 4-bit and Q4_1 (HAS_BIAS, B = 8 * s + m) and Q4_0 (no bias): adjk
+// nibbles, f32 planes s and m (kp/G, np) passed as sd and sm (m null for
+// Q4_0).
+template <int G, bool HAS_BIAS>
 struct GptqTile {
   static constexpr int kGroup = G;
-  static constexpr bool kHasBias = true;
+  static constexpr bool kHasBias = HAS_BIAS;
   static_assert(G % ctq::kGemmBK == 0, "a K step lies in one quant group");
 
   template <bool FOLD>
@@ -93,7 +99,7 @@ struct GptqTile {
       const int8_t* __restrict__,     // no sub-scales
       const int8_t* __restrict__,     // no sub-mins
       const float* __restrict__ s_p,  // (kp/G, np) s
-      const float* __restrict__ m_p,  // (kp/G, np) m
+      const float* __restrict__ m_p,  // (kp/G, np) m   [HAS_BIAS]
       int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*b_s)[ctq::kGemmBN]) {
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
@@ -102,25 +108,31 @@ struct GptqTile {
     const size_t go = (size_t)(k0 / G) * np + n;
     const float4 s0 = __ldg(reinterpret_cast<const float4*>(s_p + go));
     const float4 s1 = __ldg(reinterpret_cast<const float4*>(s_p + go + 4));
-    const float4 m0 = __ldg(reinterpret_cast<const float4*>(m_p + go));
-    const float4 m1 = __ldg(reinterpret_cast<const float4*>(m_p + go + 4));
+    float mv[8] = {};
+    if (HAS_BIAS) {
+      const float4 m0 = __ldg(reinterpret_cast<const float4*>(m_p + go));
+      const float4 m1 = __ldg(reinterpret_cast<const float4*>(m_p + go + 4));
+      mv[0] = m0.x, mv[1] = m0.y, mv[2] = m0.z, mv[3] = m0.w;
+      mv[4] = m1.x, mv[5] = m1.y, mv[6] = m1.z, mv[7] = m1.w;
+    }
     const uint2 wv = __ldg(reinterpret_cast<const uint2*>(
         qs + ((size_t)(k0 / 2) + wr) * np + n));
     const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-    const float mv[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
     __nv_bfloat16* b0 = Bs + (2 * wr) * ctq::kGemmLDB + wc;
     __nv_bfloat16* b1 = b0 + ctq::kGemmLDB;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint32_t wj = j < 4 ? wv.x : wv.y;
-      const float b = ctq::plain_bias(sv[j], mv[j]);
       float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), sv[j]);
       float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]);
-      if (!FOLD) {
-        w0 = __fadd_rn(w0, b);
-        w1 = __fadd_rn(w1, b);
-      } else if (wr == 0) {
-        b_s[0][wc + j] = b;  // the group's one row of B, the same in each of its steps
+      if (HAS_BIAS) {
+        const float b = ctq::plain_bias(sv[j], mv[j]);
+        if (!FOLD) {
+          w0 = __fadd_rn(w0, b);
+          w1 = __fadd_rn(w1, b);
+        } else if (wr == 0) {
+          b_s[0][wc + j] = b;  // the group's one row of B, the same in each of its steps
+        }
       }
       b0[j] = __float2bfloat16(w0);
       b1[j] = __float2bfloat16(w1);
@@ -133,14 +145,14 @@ int launch_gptq(const float* x, const int8_t* qs, const float* s, const float* m
                 float* out, int m, int kp, int np, int group, cudaStream_t st) {
   switch (group) {
     case 32:
-      return ctq::launch_gemm<GptqTile<32>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out, m,
-                                                     kp, np, st);
+      return ctq::launch_gemm<GptqTile<32, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out,
+                                                           m, kp, np, st);
     case 64:
-      return ctq::launch_gemm<GptqTile<64>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out, m,
-                                                     kp, np, st);
+      return ctq::launch_gemm<GptqTile<64, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out,
+                                                           m, kp, np, st);
     case 128:
-      return ctq::launch_gemm<GptqTile<128>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out, m,
-                                                      kp, np, st);
+      return ctq::launch_gemm<GptqTile<128, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out,
+                                                            m, kp, np, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -165,8 +177,8 @@ int ct_qmm_i(const float* x, const int8_t* qs, const int8_t* sub_s,
                                           static_cast<cudaStream_t>(stream));
 }
 
-// mode "i" on GPTQ4: bf16(x) @ bf16(w4 * s + B), B = 8 * s + mn; s and mn f32
-// (kp/group, np), group 32, 64 or 128.
+// mode "i" on GPTQ4 and Q4_1: bf16(x) @ bf16(w4 * s + B), B = 8 * s + mn; s
+// and mn f32 (kp/group, np), group 32, 64 or 128.
 int ct_qmm_i_gptq(const float* x, const int8_t* qs, const float* s,
                   const float* mn, float* out, int m, int kp, int np,
                   int group, void* stream) {
@@ -174,13 +186,31 @@ int ct_qmm_i_gptq(const float* x, const int8_t* qs, const float* s,
                             static_cast<cudaStream_t>(stream));
 }
 
-// mode "si" on GPTQ4: bf16(x) @ bf16(w4 * s) + xsum @ B, B = 8 * s + mn, xsum
-// the f32 sums of x over each group of 32, 64 or 128 rows.
+// mode "si" on GPTQ4 and Q4_1: bf16(x) @ bf16(w4 * s) + xsum @ B,
+// B = 8 * s + mn, xsum the f32 sums of x over each group of 32, 64 or 128
+// rows.
 int ct_qmm_si_gptq(const float* x, const int8_t* qs, const float* s,
                    const float* mn, float* out, int m, int kp, int np,
                    int group, void* stream) {
   return launch_gptq<true>(x, qs, s, mn, out, m, kp, np, group,
                            static_cast<cudaStream_t>(stream));
+}
+
+// mode "i" on Q4_0: bf16(x) @ bf16(w4 * s); s f32 (kp/32, np), no mins (null).
+int ct_qmm_i_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
+                  float* out, int m, int kp, int np, void* stream) {
+  return ctq::launch_gemm<GptqTile<32, false>, false>(x, qs, nullptr, nullptr, s, nullptr, out,
+                                                      m, kp, np,
+                                                      static_cast<cudaStream_t>(stream));
+}
+
+// mode "si" on Q4_0: the reference's sum-fold kernel with no bias to fold,
+// bf16(x) @ bf16(w4 * s), as "i".
+int ct_qmm_si_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
+                   float* out, int m, int kp, int np, void* stream) {
+  return ctq::launch_gemm<GptqTile<32, false>, true>(x, qs, nullptr, nullptr, s, nullptr, out,
+                                                     m, kp, np,
+                                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

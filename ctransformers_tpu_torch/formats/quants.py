@@ -1,8 +1,10 @@
 """GGML block quantization, numpy, limited to the types the port serves.
 
-A copy of ctransformers_tpu/formats/quants.py for F32, F16, Q4_K, Q5_K and
-Q6_K: the types of llama Q4_K_M and Q5_K_M files (block layouts: the
-reference's k_quants.h; decode: dequantize_row_q{4,5,6}_K; encode:
+A copy of ctransformers_tpu/formats/quants.py for F32, F16, the legacy
+block types Q4_0, Q4_1, Q5_0, Q5_1 and Q8_0 (block layouts: the
+reference's ggml.c; decode: dequantize_row_q*; encode:
+quantize_row_q*_reference) and the k-quants Q4_K, Q5_K and Q6_K of llama
+Q4_K_M and Q5_K_M files (k_quants.h; dequantize_row_q{4,5,6}_K;
 quantize_row_q{4,5,6}_K_reference). Every other block type has its size
 here, so a GGUF holding it can be parsed, but decoding it raises
 NotImplementedError until a later slice ports it (see ROADMAP).
@@ -136,8 +138,9 @@ def dequantize(data, t: GGMLType, n: int) -> np.ndarray:
 
 
 def _dq_from_dc(dc):
-    """dequantize_row_q*_K as q * s + m from the format's decomposition:
-    the same f32 products and sums as the reference (dl * q - ml)."""
+    """dequantize_row_q* as q * s + m from the format's decomposition: the
+    same f32 products and sums as the reference (d * q + m for the legacy
+    types, dl * q - ml for the k-quants)."""
     def dq(b):
         q, s, m, group = dc(b)
         nb = b.shape[0]
@@ -148,7 +151,89 @@ def _dq_from_dc(dc):
     return dq
 
 
-# -- quantization (quantize_row_q{4,5,6}_K_reference) ----------------------------
+# -- quantization (quantize_row_q*_reference) ------------------------------------
+
+
+def _signed_absmax(xb):
+    """Value with the largest |x| per block, keeping its sign."""
+    idx = np.argmax(np.abs(xb), axis=1)
+    return xb[np.arange(xb.shape[0]), idx]
+
+
+def _inverse(d):
+    return np.where(d != 0, np.divide(1.0, d, where=d != 0), 0.0)
+
+
+def _q5_high_word(lo, hi):
+    """The 32 fifth bits of a Q5 block as one little-endian u32 (bit j:
+    element j, bit j + 16: element j + 16)."""
+    qh = np.zeros(lo.shape[0], np.uint32)
+    for j in range(16):
+        qh |= ((lo[:, j].astype(np.uint32) & 0x10) >> 4) << j
+        qh |= ((hi[:, j].astype(np.uint32) & 0x10) >> 4) << (j + 16)
+    return qh.astype("<u4").view(np.uint8).reshape(-1, 4)
+
+
+def _f16_head(x):
+    return x.astype("<f2").view(np.uint8).reshape(-1, 2)
+
+
+def _q_q4_0(xb):
+    d = _signed_absmax(xb) / -8.0
+    q = np.minimum(15, np.floor(xb * _inverse(d)[:, None] + 8.5).astype(np.int32))
+    q = np.maximum(q, 0).astype(np.uint8)
+    out = np.empty((xb.shape[0], 18), np.uint8)
+    out[:, 0:2] = _f16_head(d)
+    out[:, 2:18] = q[:, :16] | (q[:, 16:] << 4)
+    return out
+
+
+def _q_q4_1(xb):
+    mn = xb.min(axis=1)
+    d = (xb.max(axis=1) - mn) / 15.0
+    q = np.minimum(
+        15, np.floor((xb - mn[:, None]) * _inverse(d)[:, None] + 0.5).astype(np.int32)
+    ).astype(np.uint8)
+    out = np.empty((xb.shape[0], 20), np.uint8)
+    out[:, 0:2] = _f16_head(d)
+    out[:, 2:4] = _f16_head(mn)
+    out[:, 4:20] = q[:, :16] | (q[:, 16:] << 4)
+    return out
+
+
+def _q_q5_0(xb):
+    d = _signed_absmax(xb) / -16.0
+    q = np.minimum(31, np.floor(xb * _inverse(d)[:, None] + 16.5).astype(np.int32))
+    q = np.maximum(q, 0).astype(np.uint8)
+    lo, hi = q[:, :16], q[:, 16:]
+    out = np.empty((xb.shape[0], 22), np.uint8)
+    out[:, 0:2] = _f16_head(d)
+    out[:, 2:6] = _q5_high_word(lo, hi)
+    out[:, 6:22] = (lo & 0xF) | ((hi & 0xF) << 4)
+    return out
+
+
+def _q_q5_1(xb):
+    mn = xb.min(axis=1)
+    d = (xb.max(axis=1) - mn) / 31.0
+    q = np.floor((xb - mn[:, None]) * _inverse(d)[:, None] + 0.5).astype(np.int32)
+    q = np.clip(q, 0, 31).astype(np.uint8)
+    lo, hi = q[:, :16], q[:, 16:]
+    out = np.empty((xb.shape[0], 24), np.uint8)
+    out[:, 0:2] = _f16_head(d)
+    out[:, 2:4] = _f16_head(mn)
+    out[:, 4:8] = _q5_high_word(lo, hi)
+    out[:, 8:24] = (lo & 0xF) | ((hi & 0xF) << 4)
+    return out
+
+
+def _q_q8_0(xb):
+    d = np.abs(xb).max(axis=1) / 127.0
+    q = _round_half_away(xb * _inverse(d)[:, None]).astype(np.int8)
+    out = np.empty((xb.shape[0], 34), np.uint8)
+    out[:, 0:2] = _f16_head(d)
+    out[:, 2:34] = q.view(np.uint8)
+    return out
 
 
 def _round_half_away(x):
@@ -330,7 +415,16 @@ def _q_q6_K(xb):
     return out
 
 
-_QUANT = {GGMLType.Q4_K: _q_q4_K, GGMLType.Q5_K: _q_q5_K, GGMLType.Q6_K: _q_q6_K}
+_QUANT = {
+    GGMLType.Q4_0: _q_q4_0,
+    GGMLType.Q4_1: _q_q4_1,
+    GGMLType.Q5_0: _q_q5_0,
+    GGMLType.Q5_1: _q_q5_1,
+    GGMLType.Q8_0: _q_q8_0,
+    GGMLType.Q4_K: _q_q4_K,
+    GGMLType.Q5_K: _q_q5_K,
+    GGMLType.Q6_K: _q_q6_K,
+}
 
 
 def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
@@ -343,12 +437,47 @@ def quantize(x: np.ndarray, t: GGMLType) -> np.ndarray:
         return x.astype("<f2").view(np.uint8).copy()
     if t not in _QUANT:
         raise _not_ported(t)
-    if x.size % QK_K:
-        raise ValueError(f"{x.size} not a multiple of block size {QK_K}")
-    return _QUANT[t](x.reshape(-1, QK_K)).reshape(-1)
+    bs, _ = _TRAITS[t]
+    if x.size % bs:
+        raise ValueError(f"{x.size} not a multiple of block size {bs}")
+    return _QUANT[t](x.reshape(-1, bs)).reshape(-1)
 
 
 # -- structured decomposition: x[i] = q[i] * s[i // g] + m[i // g] ---------------
+
+
+def _q5_highbits(qh_bytes):
+    """(nb, 4) uint8 -> (nb, 32) uint8 fifth bit of each element (0 or 16):
+    bit e of the little-endian u32 belongs to element e."""
+    return np.unpackbits(qh_bytes, axis=1, bitorder="little") << np.uint8(4)
+
+
+def _nibbles(qs):
+    """The 16 bytes of a legacy block -> its 32 elements as uint8 (low
+    nibbles are elements 0-15, high nibbles 16-31)."""
+    return np.concatenate([qs & 0xF, qs >> 4], axis=1)
+
+
+def _dc_q4_0(b):
+    return _nibbles(b[:, 2:18]).view(np.int8) - np.int8(8), _f16(b[:, 0:2]), None, QK
+
+
+def _dc_q4_1(b):
+    return _nibbles(b[:, 4:20]).view(np.int8), _f16(b[:, 0:2]), _f16(b[:, 2:4]), QK
+
+
+def _dc_q5_0(b):
+    q = (_nibbles(b[:, 6:22]) | _q5_highbits(b[:, 2:6])).view(np.int8) - np.int8(16)
+    return q, _f16(b[:, 0:2]), None, QK
+
+
+def _dc_q5_1(b):
+    q = (_nibbles(b[:, 8:24]) | _q5_highbits(b[:, 4:8])).view(np.int8)
+    return q, _f16(b[:, 0:2]), _f16(b[:, 2:4]), QK
+
+
+def _dc_q8_0(b):
+    return b[:, 2:34].view(np.int8).copy(), _f16(b[:, 0:2]), None, QK
 
 
 def _dc_q4_K(b):
@@ -395,7 +524,16 @@ def _dc_q6_K(b):
     return q, s, None, 16
 
 
-_DECOMP = {GGMLType.Q4_K: _dc_q4_K, GGMLType.Q5_K: _dc_q5_K, GGMLType.Q6_K: _dc_q6_K}
+_DECOMP = {
+    GGMLType.Q4_0: _dc_q4_0,
+    GGMLType.Q4_1: _dc_q4_1,
+    GGMLType.Q5_0: _dc_q5_0,
+    GGMLType.Q5_1: _dc_q5_1,
+    GGMLType.Q8_0: _dc_q8_0,
+    GGMLType.Q4_K: _dc_q4_K,
+    GGMLType.Q5_K: _dc_q5_K,
+    GGMLType.Q6_K: _dc_q6_K,
+}
 _DEQUANT = {t: _dq_from_dc(dc) for t, dc in _DECOMP.items()}
 
 
@@ -417,10 +555,13 @@ def decompose_factors(data, t: GGMLType, n: int):
     """Factored scale planes of a k-quant: (sd (nb, 1) f32, sub-scales
     (nb, 256/group) int8, sm = -dmin (nb, 1) f32 or None, sub-mins int8 or
     None, group). s = sd * sub and m = sm * sub reproduce decompose's planes
-    bit for bit. Q6_K has no mins."""
+    bit for bit. Q6_K has no mins. None for a type without superblocks (the
+    legacy types: their f32 planes are decompose's own)."""
     t = GGMLType(t)
     if t not in _DECOMP:
         raise _not_ported(t)
+    if _TRAITS[t][0] != QK_K:
+        return None
     b = _blocks(data, t, n)
     if t == GGMLType.Q6_K:
         return _f16(b[:, 208:210]), b[:, 192:208].view(np.int8).copy(), None, None, 16

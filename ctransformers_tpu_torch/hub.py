@@ -11,8 +11,9 @@
   GPTQ checkpoint directory (``*.safetensors``, ``config.json``,
   ``tokenizer.model``) to the GPTQ backend (gptq/hub.py).
 
-Served: llama GGUF files with Q4_K, Q5_K and Q6_K matmul weights, and llama
-GPTQ 4-bit directories (groups 32, 64 and 128, with or without act-order).
+Served: llama GGUF files with Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K, Q5_K and
+Q6_K matmul weights, and llama GPTQ 4-bit directories (groups 32, 64 and
+128, with or without act-order).
 Hub repo ids and the 🤗 wrapper (``hf=True``) are not yet ported.
 """
 

@@ -1,8 +1,8 @@
 """Transformer forward pass in PyTorch (ctransformers_tpu/models/forward.py).
 
 Parameters are a dict of tensors with weights pre-transposed to (in, out)
-so activations multiply as x @ W (QTensor leaves go through the Q4_K
-kernels):
+so activations multiply as x @ W (QTensor leaves go through the
+quantized-matmul kernels of ops/qmm_kernels.py):
 
   wte (V, D), ln_f_g (D,), lm_head (D, V)
   layers: list of dicts with ln1_g, ln2_g, w_qkv or wq/wk/wv, wo,

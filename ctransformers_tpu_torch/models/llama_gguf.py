@@ -5,10 +5,12 @@ weights for x @ W are transposed at load, and the token embedding stays at
 file precision (the engine upcasts it on the device). Llama GGUF q/k
 weights are stored pre-permuted for interleaved (mode 0) rope.
 
-Matmul weights load as F32, F16, Q4_K, Q5_K or Q6_K: the types of llama
+Matmul weights load as F32, F16, the legacy block types Q4_0, Q4_1, Q5_0,
+Q5_1 and Q8_0 (the llama files of those ftypes, whose output tensor is
+Q6_K except in a Q8_0 file), or Q4_K, Q5_K and Q6_K (the types of llama
 Q4_K_M and Q5_K_M files, whose output, attn_v and ffn_down tensors are
-partly Q6_K. The token embedding loads in any type the port's codecs
-decode (F32 and F16 stay at file precision, Q4_K / Q5_K / Q6_K become f32
+partly Q6_K). The token embedding loads in any type the port's codecs
+decode (F32 and F16 stay at file precision, a quantized table becomes f32
 on the host). Any other quantized type raises NotImplementedError.
 """
 
@@ -77,8 +79,9 @@ def _dense(r: GGUFReader, name: str):
 
 def _embed(r: GGUFReader, name: str):
     """Embedding table at file precision (f16 stays f16); a quantized table
-    is dequantized to f32 on the host, as the JAX loader does (the codecs
-    raise NotImplementedError on a type not yet ported)."""
+    (Q4_0 or Q8_0 in a legacy file, Q4_K or Q5_K in a K_M file) is
+    dequantized to f32 on the host, as the JAX loader does (the codecs raise
+    NotImplementedError on a type not yet ported)."""
     return r.tensor_storage(name)
 
 

@@ -1,9 +1,9 @@
 """Synthetic llama checkpoints written with the port's own writers: the
 tiny test models and the llama-2-7B-width models that chip_smoke.py serves.
 GGUF files are all-Q4_K or laid out tensor for tensor as llama.cpp lays out
-a Q4_K_M or Q5_K_M file; GPTQ directories are laid out as a public 4-bit
-GPTQ-for-LLaMa checkpoint is. Weights are random, made from a seed; nothing
-is downloaded."""
+a Q4_K_M, Q5_K_M, Q4_0, Q4_1, Q5_0, Q5_1 or Q8_0 file; GPTQ directories are
+laid out as a public 4-bit GPTQ-for-LLaMa checkpoint is. Weights are
+random, made from a seed; nothing is downloaded."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..formats.gguf import write_gguf
-from ..formats.quants import GGMLType, quantize
+from ..formats.quants import _TRAITS, GGMLType, quantize
 from ..formats.safetensors import write_safetensors
 from ..tokenizers.spm_model import write_spm_model
 
@@ -87,14 +87,51 @@ def random_q6k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
     return buf.reshape(-1)
 
 
+def _random_legacy(t: GGMLType, d_range: Tuple[float, float]):
+    """A drawer of valid blocks of legacy type `t` (32 weights each), drawn
+    directly as random_q4k_blocks draws Q4_K's: random grid bytes, a small
+    positive f16 d from `d_range` and, for the types with a min (Q4_1, Q5_1,
+    grid [0, nmax]), an f16 min m in [-nmax d, 0], where a real block's
+    m = min(x) lies when the block spans 0."""
+    bs, ts = _TRAITS[t]
+    nmax = {GGMLType.Q4_1: 15.0, GGMLType.Q5_1: 31.0}.get(t)
+
+    def draw(rng: np.random.Generator, n_elements: int) -> np.ndarray:
+        nb = n_elements // bs
+        buf = rng.integers(0, 256, (nb, ts), dtype=np.uint8)
+        d = rng.random(nb, np.float32) * (d_range[1] - d_range[0]) + d_range[0]
+        buf[:, 0:2] = d.astype("<f2").view(np.uint8).reshape(nb, 2)
+        if nmax is not None:
+            m = -rng.random(nb, np.float32) * nmax * d
+            buf[:, 2:4] = m.astype("<f2").view(np.uint8).reshape(nb, 2)
+        return buf.reshape(-1)
+
+    return draw
+
+
 RANDOM_BLOCKS = {
     GGMLType.Q4_K: random_q4k_blocks,
     GGMLType.Q5_K: random_q5k_blocks,
     GGMLType.Q6_K: random_q6k_blocks,
+    # d scaled to each grid's spread (4-bit 4.6, 5-bit 9.2, 8-bit 74 steps),
+    # so that a block's weights spread as random_q4k_blocks' and
+    # random_q6k_blocks' do (std within a block 0.088 against their 0.10
+    # and 0.082)
+    GGMLType.Q4_0: _random_legacy(GGMLType.Q4_0, (6e-3, 3e-2)),
+    GGMLType.Q4_1: _random_legacy(GGMLType.Q4_1, (6e-3, 3e-2)),
+    GGMLType.Q5_0: _random_legacy(GGMLType.Q5_0, (3e-3, 1.5e-2)),
+    GGMLType.Q5_1: _random_legacy(GGMLType.Q5_1, (3e-3, 1.5e-2)),
+    GGMLType.Q8_0: _random_legacy(GGMLType.Q8_0, (3.75e-4, 1.875e-3)),
 }
 
-# llama.cpp's k-quant mixes: the base type of every other matmul weight
-MIXES = {"Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K}
+# llama.cpp's mixes: the base type of every other matmul weight (the
+# k-quant mixes and the legacy ftypes, named as llama.cpp's quantize names
+# them)
+MIXES = {
+    "Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K,
+    "Q4_0": GGMLType.Q4_0, "Q4_1": GGMLType.Q4_1, "Q5_0": GGMLType.Q5_0,
+    "Q5_1": GGMLType.Q5_1, "Q8_0": GGMLType.Q8_0,
+}
 
 
 def use_more_bits(i_layer: int, n_layer: int) -> bool:
@@ -107,14 +144,19 @@ def use_more_bits(i_layer: int, n_layer: int) -> bool:
     )
 
 
-def mix_type(mix: str, name: str, n_layer: int) -> GGMLType:
-    """The type llama.cpp gives tensor `name` in a Q4_K_M or Q5_K_M file:
-    output.weight Q6_K; attn_v and ffn_down Q6_K in use_more_bits layers;
-    token_embd and every other matmul weight the mix's base type."""
+def mix_type(mix: str, name: str, n_layer: int, row_len: int) -> GGMLType:
+    """The type llama.cpp's llama_model_quantize_internal gives tensor
+    `name`, whose rows are `row_len` long, in a file of `mix`: in a K_M
+    file output.weight Q6_K, attn_v and ffn_down Q6_K in use_more_bits
+    layers; in a legacy file output.weight Q6_K where its rows are a
+    256-multiple, except in a Q8_0 file, which keeps it Q8_0. token_embd and
+    every other matmul weight take the mix's base type."""
     base = MIXES[mix]
     if name == "output.weight":
-        return GGMLType.Q6_K
-    if name.endswith((".attn_v.weight", ".ffn_down.weight")):
+        if mix.endswith("_K_M") or (base != GGMLType.Q8_0 and row_len % 256 == 0):
+            return GGMLType.Q6_K
+        return base
+    if mix.endswith("_K_M") and name.endswith((".attn_v.weight", ".ffn_down.weight")):
         i_layer = int(name.split(".")[1])
         if use_more_bits(i_layer, n_layer):
             return GGMLType.Q6_K
@@ -136,12 +178,13 @@ def write_llama_gguf(
     seed: int = 0,
     mix: Optional[str] = None,
 ) -> dict:
-    """Write a llama GGUF. Matmul weights are `wtype`, or with `mix`
-    ("Q4_K_M" or "Q5_K_M") the types llama.cpp gives them in such a file
-    (mix_type; the token embedding then takes the mix's base type and
-    `wtype` and `embed_type` are not read). Weights are quantized from
-    N(0, 0.08^2) draws, or (synthesize_blocks, k-quants only) random blocks
-    generated one tensor at a time while the file is written."""
+    """Write a llama GGUF. Matmul weights are `wtype`, or with `mix` (a key
+    of MIXES: "Q4_K_M", "Q5_K_M", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0")
+    the types llama.cpp gives them in such a file (mix_type; the token
+    embedding then takes the mix's base type and `wtype` and `embed_type`
+    are not read). Weights are quantized from N(0, 0.08^2) draws, or
+    (synthesize_blocks, the types of RANDOM_BLOCKS) random blocks generated
+    one tensor at a time while the file is written."""
     rng = np.random.default_rng(seed)
     pieces, scores, types = spm_vocab(n_vocab)
     dh = n_embd // n_head
@@ -171,11 +214,9 @@ def write_llama_gguf(
         w = rng.standard_normal(shape, np.float32) * scale + offset
         tensors[name] = (t, tuple(reversed(shape)), quantize(w, t))
 
-    def type_of(name):
-        return mix_type(mix, name, n_layer) if mix else wtype
-
     def weight(name, n_out, n_in, t=None):
-        t = type_of(name) if t is None else t  # GGMLType.F32 is 0, so not `or`
+        if t is None:  # GGMLType.F32 is 0, so not `or`
+            t = mix_type(mix, name, n_layer, n_in) if mix else wtype
         ne = (n_in, n_out)  # GGML order: blocks along the input dim
         if synthesize_blocks and t not in (GGMLType.F32, GGMLType.F16):
             if t not in RANDOM_BLOCKS:
@@ -184,7 +225,7 @@ def write_llama_gguf(
         else:
             dense(name, (n_out, n_in), t, scale=0.02 if synthesize_blocks else 0.08)
 
-    weight("token_embd.weight", n_vocab, n_embd, type_of("token_embd.weight") if mix else embed_type)
+    weight("token_embd.weight", n_vocab, n_embd, None if mix else embed_type)
     dense("output_norm.weight", (n_embd,), GGMLType.F32, offset=1.0)
     weight("output.weight", n_vocab, n_embd)
     for i in range(n_layer):

@@ -7,12 +7,13 @@ The counterpart of ctransformers_tpu/ops/qmatmul.py. A GGML block tensor is
 repacked at load time into planes that compute x @ W with W logically
 (in_features K, out_features N), padded to (K_pad, N_pad):
 
-    qs     (K_pad/2, N_pad) int8   4-bit grids (Q4_K, GPTQ4), "adjk" layout:
-                                   byte (r, n) holds rows 2r (low nibble)
-                                   and 2r+1 (high nibble), both as two's-
-                                   complement q - 8
-           (K_pad, N_pad) int8     int8 grids (Q6_K: q in [-32, 31], Q5_K:
-                                   q in [0, 31]), one byte per weight
+    qs     (K_pad/2, N_pad) int8   4-bit grids (Q4_K, GPTQ4, Q4_0, Q4_1),
+                                   "adjk" layout: byte (r, n) holds rows 2r
+                                   (low nibble) and 2r+1 (high nibble),
+                                   both as two's-complement q + zp - 8
+           (K_pad, N_pad) int8     int8 grids (Q6_K: q in [-32, 31], Q5_K
+                                   and Q5_1: [0, 31], Q5_0: [-16, 15], Q8_0:
+                                   [-128, 127]), one byte per weight
     scales (K_pad/g, N_pad) int8   k-quant sub-scales per group of g rows
                                    (g = 32; 16 for Q6_K)
     mins   (K_pad/g, N_pad) int8   sub-mins (None when the format has none,
@@ -20,11 +21,17 @@ repacked at load time into planes that compute x @ W with W logically
     sd, sm (K_pad/256, N_pad) f32  superblock factors: s = sd * scales,
                                    m = sm * mins
 
-so that W = q * s + m. GPTQ 4-bit weights (formats/gptq.py) are not
-factored: scales and mins are the f32 (K_pad/g, N_pad) planes s and m
-themselves, sd and sm are absent (sfactor 0), g is the checkpoint's group
-size (128, 64 or 32), and an act-order checkpoint adds `perm`, the (K,)
-gather of input rows that makes its groups contiguous.
+so that W = q * s + m. The zero point zp is 8 for Q4_0, whose grid is
+signed ([-8, 7], stored as it is, no bias), and 0 for the other nibble
+grids ([0, 15], stored as q - 8, so W = w4 * s + 8 * s + m).
+
+Weights without superblocks are not factored: scales and mins are the f32
+(K_pad/g, N_pad) planes s and m themselves, sd and sm are absent (sfactor
+0). These are GPTQ 4-bit weights (formats/gptq.py; g is the checkpoint's
+group size, 128, 64 or 32, and an act-order checkpoint adds `perm`, the
+(K,) gather of input rows that makes its groups contiguous) and the legacy
+GGML types Q4_0, Q4_1 (nibbles), Q5_0, Q5_1 and Q8_0 (int8 grids), all at
+g = 32.
 
 The planes equal the JAX package's byte for byte in its adjk layout. The
 port always packs 4-bit grids as adjk: the JAX package falls back to a
@@ -51,8 +58,9 @@ from ..logger import logger
 from . import qmm_kernels as kern
 
 # formats stored nibble-packed, with the zero point that re-biases their
-# grid into [0, 15]; the other 4-bit grids join as their slices port them
-_PACK4_ZP = {"Q4_K": 0, "GPTQ4": 0}
+# grid into [0, 15] (Q4_0's is signed); the other 4-bit grids (Q2_K, Q3_K)
+# join as their slices port them
+_PACK4_ZP = {"Q4_0": 8, "Q4_1": 0, "Q4_K": 0, "GPTQ4": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -157,15 +165,22 @@ def make_qtensor(
 def repack(data, t: GGMLType, rows: int, cols: int) -> QTensor:
     """Repack a GGML tensor (file layout: `rows` x `cols`, quant blocks along
     cols) into a QTensor computing x @ W with W logically (cols, rows): the
-    load-time transpose, with the k-quant scale factors kept factored."""
+    load-time transpose, with the k-quant scale factors kept factored and
+    the f32 planes of a type without superblocks as they are."""
     t = GGMLType(t)
     n = rows * cols
-    q, _, _, group = decompose(data, t, n)
-    sd, sq, sm, mq, group = decompose_factors(data, t, n)
+    q, s, m, group = decompose(data, t, n)
+    q = np.ascontiguousarray(q.reshape(rows, cols).T)  # (K=cols, N=rows)
+    fac = decompose_factors(data, t, n)
+    if fac is None:  # the legacy types: f32 (K/g, N) planes, sfactor 0
+        s = np.ascontiguousarray(s.reshape(rows, cols // group).T)
+        if m is not None:
+            m = np.ascontiguousarray(m.reshape(rows, cols // group).T)
+        return make_qtensor(q, s, m, t.name, group)
+    sd, sq, sm, mq, group = fac
     sf = sq.shape[1]  # groups per superblock
     if cols % (group * sf):
         raise ValueError(f"{t.name}: row length {cols} is not a superblock multiple")
-    q = np.ascontiguousarray(q.reshape(rows, cols).T)  # (K=cols, N=rows)
     sq = np.ascontiguousarray(sq.reshape(rows, cols // group).T)
     sd = np.ascontiguousarray(sd.reshape(rows, cols // (group * sf)).T)
     if mq is not None:  # Q6_K has no mins
@@ -226,14 +241,15 @@ def select_mode(m: int, qt: QTensor) -> str:
     tensor-core GEMMs, folding the bias through the group sums where N is
     the wider side ("si", else "i").
 
-    Nibble-packed weights with plain f32 planes (sfactor 0: GPTQ4, any
-    group) take "qx" at m = 1, "q" at 2 <= m <= 32 and "i" at m > 32 on
-    every shape.
+    Nibble-packed weights with plain f32 planes (sfactor 0: GPTQ4 at any
+    group, Q4_0, Q4_1) take "qx" at m = 1, "q" at 2 <= m <= 32 and "i" at
+    m > 32 on every shape.
 
-    int8 grids (Q6_K, Q5_K): at m <= 32 the pre-quantized int8 dot ("q8",
-    the JAX package's "q" mode with packed4=False). At m > 32 the
-    candidates are only "b" and "sb", and the sum-fold "sb" is dropped
-    where the weight has no mins: "b" for Q6_K, "sb" for Q5_K."""
+    int8 grids (Q6_K, Q5_K, Q8_0, Q5_0, Q5_1): at m <= 32 the
+    pre-quantized int8 dot ("q8", the JAX package's "q" mode with
+    packed4=False). At m > 32 the candidates are only "b" and "sb", and the
+    sum-fold "sb" is dropped where the weight has no mins: "b" for Q6_K,
+    Q8_0 and Q5_0, "sb" for Q5_K and Q5_1."""
     rows, npad = qt.qs.shape
     if not qt.packed:
         if m <= 32:
@@ -265,8 +281,9 @@ def select_mode(m: int, qt: QTensor) -> str:
 #                      hand-written kernel; "dense": never a kernel
 
 DENSE = ("dense",)
-# adjk nibbles (Q4_K, GPTQ4) and int8 grids (Q6_K, Q5_K), in the order of
-# the JAX package's candidate lists ("q8" is its "q" with packed4=False)
+# adjk nibbles (Q4_K, GPTQ4, Q4_0, Q4_1) and int8 grids (Q6_K, Q5_K, Q8_0,
+# Q5_0, Q5_1), in the order of the JAX package's candidate lists ("q8" is
+# its "q" with packed4=False)
 _NIBBLE_MODES = ("i", "si", "g", "q", "qx")
 _GRID_MODES = ("", "s", "b", "sb", "g", "q8")
 TABLE_FORMAT = "ctransformers_tpu_torch qmm modes v1"
@@ -313,7 +330,8 @@ def cache_key(m: int, qt: QTensor) -> tuple:
     """The JAX package's key: storage rows (byte rows of a nibble-packed
     weight), padded N, group, has mins, the real m, packed, sfactor, layout.
     Q4_K and GPTQ4 at group 32 differ in sfactor, fused and unfused QKV in
-    N."""
+    N. Q4_1 shares GPTQ4 group 32's keys and Q5_0 shares Q8_0's: the same
+    layout runs the same kernels."""
     rows, npad = qt.qs.shape
     return (int(rows), int(npad), qt.group, qt.mins is not None, int(m), qt.packed,
             qt.sfactor, qt.pack_layout)
@@ -323,8 +341,10 @@ def mode_candidates(qt: QTensor, m: int) -> List[tuple]:
     """The (mode, config) candidates raced for `qt` at batch size m: the
     mode axis of the JAX package's candidate lists in their order, pruned at
     m > 32 to the bf16 tensor-core modes (those ending in "b", and "i" and
-    "si"), without the sum-fold modes where the weight has neither mins
-    nor a nibble re-bias to fold."""
+    "si"), without the sum-fold modes on an int8 grid without mins. A
+    nibble-packed weight keeps "si" whatever its bias, as the JAX package's
+    list does (ctransformers_tpu/ops/qmatmul.py:_pick_tiles): on Q4_0, whose
+    bias is 0, "si" computes what "i" does."""
     modes = _NIBBLE_MODES if qt.packed else _GRID_MODES
     if m > 32:
         modes = tuple(x for x in modes if x.endswith("b") or x in ("i", "si"))

@@ -1,5 +1,5 @@
-"""The sixteen hand-written Hopper kernels of the quantized matmul, their
-plain PyTorch versions, launch counters and the nvcc/ctypes loader.
+"""The hand-written Hopper kernels of the quantized matmul, their plain
+PyTorch versions, launch counters and the nvcc/ctypes loader.
 
 Every wrapper takes activations already zero-padded to the weight's
 storage rows, x (m, Kp) float32 (or their int8 quantization), and a
@@ -17,13 +17,14 @@ csrc/qmm_prefill.cu):
   qmm_g   sum_g s[g] * dot_g(bf16(x), w4) + xsum @ B   (replaces
           _qmm_g_kernel; csrc/qmm_float.cu)
 
-with w4 = q - 8 the stored nibble, s = sd * sub_s, m = sm * sub_m and
-B = 8 * s + m per group of 32 rows.
+with w4 = q + zp - 8 the stored nibble, s = sd * sub_s, m = sm * sub_m and
+B = (8 - zp) * s + m per group of 32 rows (zp = 0: B = 8 * s + m).
 
-GPTQ4, the same nibble layout with plain f32 (Kp/G, Np) planes s and m
-(sfactor 0, no superblock factors) and a group G of 32, 64 or 128 rows;
-the reference kernels' sfactor == 0 branches (csrc/qmm_decode.cu,
-csrc/qmm_prefill.cu):
+GPTQ4 and Q4_1, the same nibble layout with plain f32 (Kp/G, Np) planes s
+and m (sfactor 0, no superblock factors) and a group G of 32, 64 or 128
+rows (Q4_1: 32, the layout of GPTQ4 at group 32, so it runs the group-32
+instantiations); the reference kernels' sfactor == 0 branches
+(csrc/qmm_decode.cu, csrc/qmm_prefill.cu):
 
   qmm_qx_gptq  the function of qmm_qx  (replaces _qmm_qx_kernel)
   qmm_q_gptq   the function of qmm_q   (replaces _qmm_q_kernel)
@@ -31,11 +32,19 @@ csrc/qmm_prefill.cu):
   qmm_si_gptq  the function of qmm_si  (replaces _qmm_i4_s_kernel)
   qmm_g_gptq   the function of qmm_g   (replaces _qmm_g_kernel)
 
+Q4_0, the same nibbles at zero point 8 (w4 = q in [-8, 7]) with a plain
+f32 (Kp/32, Np) plane s and no mins, so B = 0: the reference kernels'
+branches without a bias term (qx_bias and g_bias False, b is None):
+
+  qmm_qx_q4_0, qmm_q_q4_0, qmm_i_q4_0, qmm_si_q4_0, qmm_g_q4_0
+      the functions above without the bias (si then computes what i does)
+
 An act-order weight (QTensor.perm) reaches the wrappers with x already
 gathered (ops/qmatmul.py:qmatmul).
 
-int8 grids: Q6_K (group 16, no mins) and Q5_K (group 32, with mins)
-(csrc/qmm_grid.cu; qmm_g8, qmm_f and qmm_s in csrc/qmm_float.cu):
+int8 grids with factored scales: Q6_K (group 16, no mins) and Q5_K (group
+32, with mins) (csrc/qmm_grid.cu; qmm_g8, qmm_f and qmm_s in
+csrc/qmm_float.cu):
 
   qmm_q8  xsum @ M + sum_g int32 dot_g(xq, q) * sx * s, on activations
           quantized outside per group of the weight's group
@@ -46,8 +55,16 @@ int8 grids: Q6_K (group 16, no mins) and Q5_K (group 32, with mins)
   qmm_f   x @ (q * s + m), all f32           (replaces _qmm_kernel, mode "")
   qmm_s   xsum @ M + x @ (q * s), all f32    (replaces _qmm_s_kernel, mode "s")
 
-with M the (Kp/g, Np) plane m = sm * sub_m (absent for Q6_K). A CUDA
-tensor launches the kernel or raises; a CPU tensor takes the plain
+with M the (Kp/g, Np) plane m = sm * sub_m (absent for Q6_K).
+
+int8 grids with plain f32 (Kp/32, Np) planes s and m (sfactor 0): the
+legacy types Q8_0 and Q5_0 (no mins) and Q5_1 (with mins), the reference
+kernels' sfactor == 0 branches:
+
+  qmm_q8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy, qmm_f_legacy,
+  qmm_s_legacy   the functions of the six grid kernels above
+
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, which computes the same function with torch ops (and is what
 chip_smoke.py holds each kernel against on the card). There is no
 fallback from one to the other.
@@ -72,18 +89,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-# kernel launches (incremented only where a kernel is launched) and calls
-# of the plain versions through the wrappers (CPU tensors)
-LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("qmm_qx", "qmm_q", "qmm_si", "qmm_i", "qmm_q8", "qmm_b", "qmm_sb",
-     "qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq", "qmm_g", "qmm_g_gptq", "qmm_g8",
-     "qmm_f", "qmm_s", "qmm_si_gptq"), 0
-)
-PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
-# calls of the dense candidate (ops/qmatmul.py: dequantize, then a bf16
-# torch.matmul), a counted choice of the race beside the kernels
-DENSE_CALLS: Dict[str, int] = {"dense": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_INFO: Dict[str, object] = {}
@@ -156,6 +161,8 @@ def build() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
+    # pointers, then m, kp, np, the symbol's own ints (group, has mins) and
+    # the stream
     sigs = {
         "ct_qmm_qx": [P] * 7 + [I, I, I, P],
         "ct_qmm_q": [P] * 9 + [I, I, I, P],
@@ -173,6 +180,17 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_f": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_s": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_si_gptq": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_qx_q4_0": [P] * 5 + [I, I, I, P],
+        "ct_qmm_q_q4_0": [P] * 7 + [I, I, I, P],
+        "ct_qmm_i_q4_0": [P] * 5 + [I, I, I, P],
+        "ct_qmm_si_q4_0": [P] * 5 + [I, I, I, P],
+        "ct_qmm_g_q4_0": [P] * 5 + [I, I, I, P],
+        "ct_qmm_q8_legacy": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_b_legacy": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_sb_legacy": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_g8_legacy": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_f_legacy": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_s_legacy": [P] * 5 + [I, I, I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -193,21 +211,35 @@ def _fn(lib: str, name: str):
 # has mins, nibble-packed). Q4_K is nibble-packed in the adjk layout; Q6_K
 # and Q5_K are int8 grids; GPTQ4 is nibble-packed with unfactored f32 planes
 # (0 groups per superblock: no sd, no sm) and its group is the checkpoint's,
-# one of GPTQ_GROUPS (the table names the common one).
+# one of GPTQ_GROUPS (the table names the common one). The legacy GGML
+# types are unfactored at group 32: Q4_1 is GPTQ4's layout at that group,
+# Q4_0 nibbles without mins, Q8_0, Q5_0 and Q5_1 int8 grids.
 LAYOUTS = {
     "Q4_K": (32, 8, True, True),
     "Q6_K": (16, 16, False, False),
     "Q5_K": (32, 8, True, False),
     "GPTQ4": (128, 0, True, True),
+    "Q4_0": (32, 0, False, True),
+    "Q4_1": (32, 0, True, True),
+    "Q8_0": (32, 0, False, False),
+    "Q5_0": (32, 0, False, False),
+    "Q5_1": (32, 0, True, False),
 }
 GPTQ_GROUPS = (32, 64, 128)
+
+
+def zero_point(kind: str) -> int:
+    """The nibble zero point of a layout: 8 where nibbles have no mins
+    (Q4_0's signed grid, no bias), else 0 (B = 8 * s + m)."""
+    _, _, has_mins, packed = LAYOUTS[kind]
+    return 8 if packed and not has_mins else 0
 
 
 def _check_layout(qt, kinds: Tuple[str, ...], what: str) -> None:
     lay = LAYOUTS.get(qt.kind)
     groups = GPTQ_GROUPS if qt.kind == "GPTQ4" else lay and lay[:1]
     if qt.kind not in kinds or not (
-        qt.packed == lay[3] and qt.pack_layout == "adjk" and qt.zp == 0
+        qt.packed == lay[3] and qt.pack_layout == "adjk" and qt.zp == zero_point(qt.kind)
         and qt.group in groups and qt.sfactor == lay[1]
         and (qt.perm is None or qt.kind == "GPTQ4")
         and (qt.sd is not None) == (lay[1] > 0)
@@ -216,9 +248,9 @@ def _check_layout(qt, kinds: Tuple[str, ...], what: str) -> None:
     ):
         raise NotImplementedError(
             f"qmm kernels take {what}, got {qt.kind} (group {qt.group}, packed "
-            f"{qt.packed}, layout {qt.pack_layout}, sfactor {qt.sfactor}); served "
-            "are Q4_K, Q5_K, Q6_K and GPTQ4 (groups 32, 64, 128) weights, other "
-            "types are not yet ported, see ROADMAP"
+            f"{qt.packed}, zero point {qt.zp}, layout {qt.pack_layout}, sfactor "
+            f"{qt.sfactor}); served are {', '.join(LAYOUTS)} weights (GPTQ4 at "
+            "groups 32, 64, 128), other types are not yet ported, see ROADMAP"
         )
 
 
@@ -232,16 +264,32 @@ def check_qtensor(qt) -> Tuple[int, int]:
 def check_gptq_qtensor(qt) -> Tuple[int, int]:
     """The GPTQ kernels take adjk nibbles with f32 (Kp/G, Np) scale and min
     planes, G in GPTQ_GROUPS, with or without an act-order perm (x arrives
-    gathered); returns (Kp, Np)."""
-    _check_layout(qt, ("GPTQ4",), "GPTQ4 adjk QTensors")
+    gathered), and Q4_1, that layout at group 32; returns (Kp, Np)."""
+    _check_layout(qt, ("GPTQ4", "Q4_1"), "GPTQ4 or Q4_1 adjk QTensors")
+    rows, np_ = qt.qs.shape
+    return _check_planes(qt, 2 * rows, np_)
+
+
+def check_q40_qtensor(qt) -> Tuple[int, int]:
+    """The bias-free nibble kernels take Q4_0: adjk nibbles at zero point 8
+    with one f32 (Kp/32, Np) scale plane; returns (Kp, Np)."""
+    _check_layout(qt, ("Q4_0",), "Q4_0 adjk QTensors")
     rows, np_ = qt.qs.shape
     return _check_planes(qt, 2 * rows, np_)
 
 
 def check_grid_qtensor(qt) -> Tuple[int, int]:
-    """The grid kernels take exactly the Q6_K and Q5_K int8 grids; returns
-    (Kp, Np)."""
+    """The factored grid kernels take exactly the Q6_K and Q5_K int8 grids;
+    returns (Kp, Np)."""
     _check_layout(qt, ("Q6_K", "Q5_K"), "Q6_K or Q5_K int8 grids")
+    kp, np_ = qt.qs.shape
+    return _check_planes(qt, kp, np_)
+
+
+def check_legacy_grid_qtensor(qt) -> Tuple[int, int]:
+    """The unfactored grid kernels take the Q8_0, Q5_0 and Q5_1 int8 grids
+    with f32 (Kp/32, Np) planes s (and m for Q5_1); returns (Kp, Np)."""
+    _check_layout(qt, ("Q8_0", "Q5_0", "Q5_1"), "Q8_0, Q5_0 or Q5_1 int8 grids")
     kp, np_ = qt.qs.shape
     return _check_planes(qt, kp, np_)
 
@@ -249,7 +297,7 @@ def check_grid_qtensor(qt) -> Tuple[int, int]:
 def _check_planes(qt, kp: int, np_: int) -> Tuple[int, int]:
     g = qt.group
     # factored k-quants: int8 sub-scales and f32 superblock factors;
-    # unfactored (GPTQ): the f32 planes themselves, no factors
+    # unfactored (GPTQ4, the legacy types): the f32 planes themselves
     plane = torch.int8 if qt.sfactor else torch.float32
     want = {
         "qs": (torch.int8, tuple(qt.qs.shape)),
@@ -288,7 +336,7 @@ def _check_act(t: torch.Tensor, dtype, shape, dev, name: str) -> None:
 def _ptrs(*ts):
     out = []
     for t in ts:
-        if t is None:  # an absent plane (Q6_K mins) is a null pointer
+        if t is None:  # an absent plane (Q6_K's, Q4_0's mins) is a null pointer
             out.append(ctypes.c_void_p(None))
             continue
         p = t.data_ptr()
@@ -323,15 +371,21 @@ def _launch(name: str, lib: str, dev, acts, qt, m: int, kp: int, np_: int, *ints
 # -- plain versions ------------------------------------------------------------
 
 
-def group_planes(qt) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(Kp/G, Np) f32 planes s and B = 8 * s + m of a nibble-packed weight:
-    s = sd * sub_s and m = sm * sub_m where factored (Q4_K), the stored f32
-    planes themselves where not (GPTQ4)."""
+def group_planes(qt) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(Kp/G, Np) f32 planes s and B = (8 - zp) * s + m of a nibble-packed
+    weight: s = sd * sub_s and m = sm * sub_m where factored (Q4_K), the
+    stored f32 planes themselves where not (GPTQ4, Q4_1, Q4_0). B is None
+    where the reference kernels have no bias term (zp 8 and no mins: Q4_0),
+    rounded as theirs: (8 - zp) * s, then + m."""
     if qt.sfactor == 0:
-        return qt.scales, 8.0 * qt.scales + qt.mins
-    s = qt.scales.float() * qt.sd.repeat_interleave(qt.sfactor, 0)
-    m = qt.mins.float() * qt.sm.repeat_interleave(qt.sfactor, 0)
-    return s, 8.0 * s + m
+        s, m = qt.scales, qt.mins
+    else:
+        s = qt.scales.float() * qt.sd.repeat_interleave(qt.sfactor, 0)
+        m = qt.mins.float() * qt.sm.repeat_interleave(qt.sfactor, 0)
+    b = None if qt.zp == 8 else float(8 - qt.zp) * s
+    if m is not None:
+        b = m if b is None else b + m
+    return s, b
 
 
 def unpack_w4(qs: torch.Tensor) -> torch.Tensor:
@@ -358,7 +412,7 @@ def quantize_activations(x: torch.Tensor, group: int):
 def plain_q(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
     """Group dots in f32, exact for integer operands (|sum| <= 128*127*8 <
     2**24 at the largest group), rescaled by sx * s, plus the bias
-    xsum @ B."""
+    xsum @ B where there is one."""
     m, kp = xq.shape
     g = qt.group
     ng = kp // g
@@ -366,7 +420,7 @@ def plain_q(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.T
     w = unpack_w4(qt.qs).float().reshape(ng, g, -1)
     parts = torch.bmm(xq.float().reshape(m, ng, g).transpose(0, 1), w)
     d = (parts * sx.T[:, :, None] * s[:, None, :]).sum(0)
-    return xs @ b + d
+    return d if b is None else xs @ b + d
 
 
 def plain_qx(x: torch.Tensor, qt) -> torch.Tensor:
@@ -384,6 +438,8 @@ def plain_si(x: torch.Tensor, qt) -> torch.Tensor:
     s, b = group_planes(qt)
     g = qt.group
     w = _bf16_round(unpack_w4(qt.qs).float() * s.repeat_interleave(g, 0))
+    if b is None:
+        return _bf16_round(x) @ w
     xs = x.reshape(m, kp // g, g).sum(-1)
     return xs @ b + _bf16_round(x) @ w
 
@@ -392,8 +448,8 @@ def plain_g(x: torch.Tensor, qt) -> torch.Tensor:
     """Grouped dot: x rounded to bf16 against the raw grid (stored nibbles
     w4, or the int8 grid), exact products summed in f32 inside a group, the
     f32 scale applied to each group's partial sum, plus the bias through
-    the group sums of the unrounded x (B = 8 * s + m for nibbles, m for
-    grids, none for Q6_K)."""
+    the group sums of the unrounded x (B = (8 - zp) * s + m for nibbles, m
+    for grids, none for Q4_0, Q6_K, Q8_0 and Q5_0)."""
     m, kp = x.shape
     g = qt.group
     ng = kp // g
@@ -412,13 +468,18 @@ def plain_g(x: torch.Tensor, qt) -> torch.Tensor:
 def plain_i(x: torch.Tensor, qt) -> torch.Tensor:
     s, b = group_planes(qt)
     w = unpack_w4(qt.qs).float() * s.repeat_interleave(qt.group, 0)
-    w = _bf16_round(w + b.repeat_interleave(qt.group, 0))
-    return _bf16_round(x) @ w
+    if b is not None:
+        w = w + b.repeat_interleave(qt.group, 0)
+    return _bf16_round(x) @ _bf16_round(w)
 
 
 def grid_planes(qt) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(Kp/g, Np) f32 planes of an int8 grid: s = sd * sub_s and
-    m = sm * sub_m (None for Q6_K), the f32 products of _apply_factors."""
+    m = sm * sub_m (None without mins), the f32 products of _apply_factors,
+    or the stored f32 planes themselves where not factored (sfactor 0: Q8_0,
+    Q5_0, Q5_1)."""
+    if qt.sfactor == 0:
+        return qt.scales, qt.mins
     s = qt.scales.float() * qt.sd.repeat_interleave(qt.sfactor, 0)
     if qt.mins is None:
         return s, None
@@ -426,7 +487,7 @@ def grid_planes(qt) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
 
 
 def plain_q8(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.Tensor:
-    """Group dots in f32, exact for integer operands (|sum| <= 32*127*32 <
+    """Group dots in f32, exact for integer operands (|sum| <= 32*127*128 <
     2**24), rescaled by sx * s, plus the bias xsum @ M where there are mins."""
     m, kp = xq.shape
     g = qt.group
@@ -476,13 +537,13 @@ def plain_s(x: torch.Tensor, qt) -> torch.Tensor:
 # -- wrappers ------------------------------------------------------------------
 
 
-def _wrapper(name: str, lib: str, check, plain, pass_group: bool):
+def _wrapper(name: str, lib: str, check, plain, ints):
     """The wrapper of kernel `name` in library `lib`: run(x, qt), or
     run(xq, sx, xsum, qt) for a kernel on activations quantized outside
     (PREQUANTIZED). It checks the weight with `check` and the activations
-    against it, takes `plain` for CPU tensors, and launches the kernel (with
-    the weight's group as an argument where the symbol dispatches on it) for
-    CUDA tensors."""
+    against it, takes `plain` for CPU tensors, and launches the kernel for
+    CUDA tensors, with the ints `ints(qt)` that the symbol takes after the
+    shape (its group, or whether the weight has mins)."""
 
     def run(*args) -> torch.Tensor:
         *acts, qt = args
@@ -499,46 +560,76 @@ def _wrapper(name: str, lib: str, check, plain, pass_group: bool):
         if dev.type == "cpu":
             PLAIN_CALLS[name] += 1
             return plain(*acts, qt)
-        ints = (qt.group,) if pass_group else ()
-        return _launch(name, lib, dev, acts, qt, m, kp, np_, *ints)
+        return _launch(name, lib, dev, acts, qt, m, kp, np_, *ints(qt))
 
     run.__name__ = run.__qualname__ = name
     return run
 
 
 # kernels whose wrappers take (xq, sx, xsum) from quantize_activations
-PREQUANTIZED = ("qmm_q", "qmm_q8", "qmm_q_gptq")
+PREQUANTIZED = ("qmm_q", "qmm_q8", "qmm_q_gptq", "qmm_q_q4_0", "qmm_q8_legacy")
+
+
+def _no_ints(qt) -> tuple:
+    return ()
+
+
+def _group(qt) -> tuple:  # the symbol dispatches on the group
+    return (qt.group,)
+
+
+def _has_mins(qt) -> tuple:  # the symbol is told whether the weight has mins
+    return (int(qt.mins is not None),)
+
 
 _QMATMUL_PY = "ctransformers_tpu/ops/qmatmul.py"
 # kernel -> (library and source under csrc/, layout check, plain version, the
-# symbol takes the group, line of the Pallas kernel it replaces). One plain
-# version serves a function whatever the group and the scale source.
+# ints the symbol takes, line of the Pallas kernel it replaces). One plain
+# version serves a function whatever the group, the scale source and the bias.
 _SPECS = {
-    "qmm_qx": ("qmm_decode", check_qtensor, plain_qx, False, 1370),
-    "qmm_q": ("qmm_decode", check_qtensor, plain_q, False, 1288),
-    "qmm_si": ("qmm_prefill", check_qtensor, plain_si, False, 1148),
-    "qmm_i": ("qmm_prefill", check_qtensor, plain_i, False, 1090),
-    "qmm_q8": ("qmm_grid", check_grid_qtensor, plain_q8, True, 1288),
-    "qmm_b": ("qmm_grid", check_grid_qtensor, plain_b, True, 734),
-    "qmm_sb": ("qmm_grid", check_grid_qtensor, plain_sb, True, 1040),
-    "qmm_qx_gptq": ("qmm_decode", check_gptq_qtensor, plain_qx, True, 1370),
-    "qmm_q_gptq": ("qmm_decode", check_gptq_qtensor, plain_q, True, 1288),
-    "qmm_i_gptq": ("qmm_prefill", check_gptq_qtensor, plain_i, True, 1090),
-    "qmm_g": ("qmm_float", check_qtensor, plain_g, False, 1206),
-    "qmm_g_gptq": ("qmm_float", check_gptq_qtensor, plain_g, True, 1206),
-    "qmm_g8": ("qmm_float", check_grid_qtensor, plain_g, True, 1206),
-    "qmm_f": ("qmm_float", check_grid_qtensor, plain_f, True, 734),
-    "qmm_s": ("qmm_float", check_grid_qtensor, plain_s, True, 1040),
-    "qmm_si_gptq": ("qmm_prefill", check_gptq_qtensor, plain_si, True, 1148),
+    "qmm_qx": ("qmm_decode", check_qtensor, plain_qx, _no_ints, 1370),
+    "qmm_q": ("qmm_decode", check_qtensor, plain_q, _no_ints, 1288),
+    "qmm_si": ("qmm_prefill", check_qtensor, plain_si, _no_ints, 1148),
+    "qmm_i": ("qmm_prefill", check_qtensor, plain_i, _no_ints, 1090),
+    "qmm_q8": ("qmm_grid", check_grid_qtensor, plain_q8, _group, 1288),
+    "qmm_b": ("qmm_grid", check_grid_qtensor, plain_b, _group, 734),
+    "qmm_sb": ("qmm_grid", check_grid_qtensor, plain_sb, _group, 1040),
+    "qmm_qx_gptq": ("qmm_decode", check_gptq_qtensor, plain_qx, _group, 1370),
+    "qmm_q_gptq": ("qmm_decode", check_gptq_qtensor, plain_q, _group, 1288),
+    "qmm_i_gptq": ("qmm_prefill", check_gptq_qtensor, plain_i, _group, 1090),
+    "qmm_g": ("qmm_float", check_qtensor, plain_g, _no_ints, 1206),
+    "qmm_g_gptq": ("qmm_float", check_gptq_qtensor, plain_g, _group, 1206),
+    "qmm_g8": ("qmm_float", check_grid_qtensor, plain_g, _group, 1206),
+    "qmm_f": ("qmm_float", check_grid_qtensor, plain_f, _group, 734),
+    "qmm_s": ("qmm_float", check_grid_qtensor, plain_s, _group, 1040),
+    "qmm_si_gptq": ("qmm_prefill", check_gptq_qtensor, plain_si, _group, 1148),
+    "qmm_qx_q4_0": ("qmm_decode", check_q40_qtensor, plain_qx, _no_ints, 1370),
+    "qmm_q_q4_0": ("qmm_decode", check_q40_qtensor, plain_q, _no_ints, 1288),
+    "qmm_i_q4_0": ("qmm_prefill", check_q40_qtensor, plain_i, _no_ints, 1090),
+    "qmm_si_q4_0": ("qmm_prefill", check_q40_qtensor, plain_si, _no_ints, 1148),
+    "qmm_g_q4_0": ("qmm_float", check_q40_qtensor, plain_g, _no_ints, 1206),
+    "qmm_q8_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_q8, _has_mins, 1288),
+    "qmm_b_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_b, _has_mins, 734),
+    "qmm_sb_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_sb, _has_mins, 1040),
+    "qmm_g8_legacy": ("qmm_float", check_legacy_grid_qtensor, plain_g, _has_mins, 1206),
+    "qmm_f_legacy": ("qmm_float", check_legacy_grid_qtensor, plain_f, _has_mins, 734),
+    "qmm_s_legacy": ("qmm_float", check_legacy_grid_qtensor, plain_s, _has_mins, 1040),
 }
-assert tuple(_SPECS) == tuple(LAUNCHES)
-KERNELS = {n: _wrapper(n, lib, chk, pl, grp) for n, (lib, chk, pl, grp, _) in _SPECS.items()}
+KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
 REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
 # the wrappers as module functions: qmm_qx(x, qt), qmm_q(xq, sx, xsum, qt), ...
 # (ops/qmatmul.py looks them up here by name at call time)
 globals().update(KERNELS)
+
+# kernel launches (incremented only where a kernel is launched) and calls
+# of the plain versions through the wrappers (CPU tensors)
+LAUNCHES: Dict[str, int] = dict.fromkeys(_SPECS, 0)
+PLAIN_CALLS: Dict[str, int] = dict.fromkeys(_SPECS, 0)
+# calls of the dense candidate (ops/qmatmul.py: dequantize, then a bf16
+# torch.matmul), a counted choice of the race beside the kernels
+DENSE_CALLS: Dict[str, int] = {"dense": 0}
 
 
 # the launch configuration of each kernel family, the second field of a
@@ -547,7 +638,8 @@ globals().update(KERNELS)
 # configuration of the same mode.
 DECODE_CONFIG = "n32k1024"  # 32 columns and all of K per block, 1024-row chunks
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps
-GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_b", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq")
+GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_b", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq",
+                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_b_legacy", "qmm_sb_legacy")
 CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SPECS}
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
 # name for its "q" with packed4=False)
@@ -557,8 +649,12 @@ _GRID_KERNELS = {"": "qmm_f", "s": "qmm_s", "b": "qmm_b", "sb": "qmm_sb", "g": "
 
 def kernel_name(mode: str, qt) -> str:
     """The wrapper serving `mode` (ops/qmatmul.py:mode_candidates) on `qt`:
-    the int8-grid kernels for an unpacked weight, the GPTQ kernels where the
-    nibble-packed planes are unfactored."""
+    the int8-grid kernels for an unpacked weight (their "_legacy" forms
+    where the planes are unfactored), and for nibble-packed planes the Q4_K
+    kernels where factored, else the GPTQ kernels where there are mins
+    (GPTQ4, Q4_1) and the bias-free Q4_0 kernels where there are none."""
     if not qt.packed:
-        return _GRID_KERNELS[mode]
-    return f"qmm_{mode}" + ("_gptq" if qt.sfactor == 0 else "")
+        return _GRID_KERNELS[mode] + ("_legacy" if qt.sfactor == 0 else "")
+    if qt.sfactor:
+        return f"qmm_{mode}"
+    return f"qmm_{mode}" + ("_gptq" if qt.mins is not None else "_q4_0")

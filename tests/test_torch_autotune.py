@@ -266,8 +266,10 @@ def test_shipped_table_serves_this_checkout():
     assert {k[4] for k in entries} == {1, 8, 128}
     for key, v in entries.items():
         rows, npad, group, has_mins, m, packed, sfactor, layout = key
-        kind = {(True, 8): "Q4_K", (True, 0): "GPTQ4", (False, 16): "Q6_K",
-                (False, 8): "Q5_K"}[(packed, sfactor)]
+        # the layout of each key (Q4_1 has GPTQ4 group 32's keys, Q5_0 Q8_0's)
+        kind = {(True, 8, True): "Q4_K", (True, 0, True): "GPTQ4", (False, 16, False): "Q6_K",
+                (False, 8, True): "Q5_K", (True, 0, False): "Q4_0", (False, 0, False): "Q8_0",
+                (False, 0, True): "Q5_1"}[(packed, sfactor, has_mins)]
         qt = _meta_qtensor(kind, rows * (2 if packed else 1), npad, group)
         cands = qm.mode_candidates(qt, m)
         assert v["pick"] in cands + [qm.DENSE] and v["kernel"] in cands

@@ -1,7 +1,8 @@
-"""The sixteen qmm kernels against their plain PyTorch versions on the
-card: the five Q4_K kernels, the six int8-grid (Q6_K, Q5_K) kernels and the
-five GPTQ4 kernels at groups 32, 64 and 128; and the race that picks among
-them.
+"""The qmm kernels against their plain PyTorch versions on the card: the
+five Q4_K kernels, the six int8-grid (Q6_K, Q5_K) kernels, the five GPTQ4
+kernels at groups 32, 64 and 128 (Q4_1 at 32), the five bias-free Q4_0
+kernels and the six kernels on the legacy grids' plain planes (Q8_0, Q5_0,
+Q5_1); and the race that picks among them.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -78,9 +79,25 @@ def random_gptq(k: int, n: int, group: int, seed: int, device, act_order=False) 
                    perm=perm, sfactor=0, pack_layout="adjk").to(device)
 
 
+def random_legacy(kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    """A QTensor of a legacy type (Q4_0, Q4_1 nibbles; Q8_0, Q5_0, Q5_1 int8
+    grids) with random grids and f32 (k/32, n) planes at padded shape (k, n):
+    s > 0 and, where the type has mins, m = -s * z."""
+    g = torch.Generator().manual_seed(seed)
+    group, _, has_mins, packed = K.LAYOUTS[kind]
+    lo, hi = {"Q8_0": (-128, 128), "Q5_0": (-16, 16), "Q5_1": (0, 32)}.get(kind, (-128, 128))
+    qs = torch.randint(lo, hi, (k // 2 if packed else k, n), generator=g, dtype=torch.int8)
+    s = torch.rand((k // group, n), generator=g) * 3e-3 + 1e-3
+    mn = -(s * torch.randint(0, 32, (k // group, n), generator=g).float()) if has_mins else None
+    return QTensor(qs, s, mn, kind, group, (k, n), packed=packed, zp=K.zero_point(kind),
+                   sfactor=0, pack_layout="adjk").to(device)
+
+
 def _weight(name: str, kind: str, k: int, n: int, seed: int, device) -> QTensor:
     if kind.startswith("GPTQ4"):
         return random_gptq(k, n, int(kind.split("/")[1]), seed, device)
+    if kind in LEGACY:
+        return random_legacy(kind, k, n, seed, device)
     if name in GRID:
         return random_grid(kind, k, n, seed, device)
     return random_q4k(k, n, seed, device)
@@ -97,14 +114,29 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3,
        "qmm_q8": 1e-5, "qmm_b": 1e-3, "qmm_sb": 1e-3,
        "qmm_qx_gptq": 1e-5, "qmm_q_gptq": 1e-5, "qmm_i_gptq": 1e-3,
        "qmm_g": 1e-5, "qmm_g_gptq": 1e-5, "qmm_g8": 1e-5, "qmm_f": 1e-5, "qmm_s": 1e-5,
-       "qmm_si_gptq": 1e-3}
+       "qmm_si_gptq": 1e-3,
+       "qmm_qx_q4_0": 1e-5, "qmm_q_q4_0": 1e-5, "qmm_i_q4_0": 1e-3, "qmm_si_q4_0": 1e-3,
+       "qmm_g_q4_0": 1e-5, "qmm_q8_legacy": 1e-5, "qmm_b_legacy": 1e-3,
+       "qmm_sb_legacy": 1e-3, "qmm_g8_legacy": 1e-5, "qmm_f_legacy": 1e-5,
+       "qmm_s_legacy": 1e-5}
+assert set(TOL) == set(K.KERNELS)
 GRID = ("qmm_q8", "qmm_b", "qmm_sb", "qmm_g8", "qmm_f", "qmm_s")
 GPTQ = ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq", "qmm_g_gptq", "qmm_si_gptq")
+Q4_0 = ("qmm_qx_q4_0", "qmm_q_q4_0", "qmm_i_q4_0", "qmm_si_q4_0", "qmm_g_q4_0")
+LEGACY_GRID = tuple(name + "_legacy" for name in GRID)
+LEGACY = ("Q4_0", "Q4_1", "Q8_0", "Q5_0", "Q5_1")
 # each Q4_K kernel once, each grid kernel on both int8-grid layouts, each
-# GPTQ kernel at its three groups
-CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID + GPTQ] + [
+# GPTQ kernel at its three groups and on Q4_1, each Q4_0 kernel once, each
+# legacy-grid kernel on the three legacy grids (s and sb where there are
+# mins to fold: Q5_1)
+CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID + GPTQ + Q4_0 + LEGACY_GRID] + [
     (name, kind) for name in GRID for kind in ("Q6_K", "Q5_K")
-] + [(name, f"GPTQ4/{g}") for name in GPTQ for g in K.GPTQ_GROUPS]
+] + [(name, f"GPTQ4/{g}") for name in GPTQ for g in K.GPTQ_GROUPS] + [
+    (name, "Q4_1") for name in GPTQ
+] + [(name, "Q4_0") for name in Q4_0] + [
+    (name, kind) for name in LEGACY_GRID for kind in ("Q8_0", "Q5_0", "Q5_1")
+    if kind == "Q5_1" or "s" not in name.split("_")[1]
+]
 
 
 @pytest.mark.parametrize("name,kind", CASES)
@@ -123,6 +155,37 @@ def test_kernel_matches_plain(dev, name, kind, k, n, m):
     assert _rel(got, ref) <= TOL[name], name
     again = K.KERNELS[name](*args, qt)
     assert torch.equal(got, again), "kernel runs are not bitwise repeatable"
+
+
+@pytest.mark.parametrize("name,kind", [(name, "Q4_0") for name in Q4_0] + [
+    (name, kind) for name in LEGACY_GRID for kind in ("Q8_0", "Q5_1")
+    if kind == "Q5_1" or "s" not in name.split("_")[1]])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 12288)])
+def test_legacy_kernel_matches_plain_at_7b_shapes(dev, name, kind, k, n):
+    """The bias-free Q4_0 kernels and the legacy-grid kernels at llama-2-7B
+    shapes, at the batch size the main path gives each."""
+    m = 128 if name.split("_")[1] in ("i", "si", "b", "sb") else 8
+    qt = random_legacy(kind, k, n, seed=k + n, device=dev)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    args = K.quantize_activations(x, 32) if name in K.PREQUANTIZED else (x,)
+    got = K.KERNELS[name](*args, qt)
+    torch.cuda.synchronize()
+    assert _rel(got, K.PLAIN[name](*args, qt)) <= TOL[name]
+    assert torch.equal(got, K.KERNELS[name](*args, qt))
+
+
+def test_legacy_symbols_refuse_a_mins_flag_that_disagrees(dev):
+    """The legacy-grid symbols are told whether the weight has mins; a flag
+    that disagrees with the min plane's pointer is refused at launch, not
+    guessed from it."""
+    q51 = random_legacy("Q5_1", 256, 128, 1, dev)
+    x = torch.randn(64, 256, device=dev)
+    lib = K._fn("qmm_grid", "ct_qmm_b_legacy")
+    out = torch.empty(64, 128, device=dev)
+    rc = lib(*K._ptrs(x, q51.qs, q51.scales, None, out), 64, 256, 128, 1, K._stream(dev))
+    assert rc != 0
+    rc = lib(*K._ptrs(x, q51.qs, q51.scales, q51.mins, out), 64, 256, 128, 0, K._stream(dev))
+    assert rc != 0
 
 
 @pytest.mark.parametrize("name", GPTQ)
@@ -180,8 +243,32 @@ def test_qmatmul_routes_every_mode(dev, no_autotune):
     assert sum(K.PLAIN_CALLS.values()) == 0
 
 
+def test_qmatmul_routes_the_legacy_layouts(dev, no_autotune):
+    """Under the fixed rule each legacy layout reaches its own kernels: Q4_0
+    the bias-free nibble kernels, Q4_1 the GPTQ group-32 ones, the grids the
+    kernels on plain planes (sb where there are mins)."""
+    want = {"Q4_0": ("qmm_qx_q4_0", "qmm_q_q4_0", "qmm_i_q4_0"),
+            "Q4_1": ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq"),
+            "Q8_0": ("qmm_q8_legacy", "qmm_q8_legacy", "qmm_b_legacy"),
+            "Q5_0": ("qmm_q8_legacy", "qmm_q8_legacy", "qmm_b_legacy"),
+            "Q5_1": ("qmm_q8_legacy", "qmm_q8_legacy", "qmm_sb_legacy")}
+    for kind, names in want.items():
+        qt = dataclasses.replace(random_legacy(kind, 512, 1024, seed=5, device=dev),
+                                 shape=(500, 1000))
+        dense = qm.dequantize_qtensor(qt)
+        K.reset_counts()
+        for m in (1, 8, 64):
+            x = torch.randn(m, 500, device=dev)
+            out = qmatmul(x, qt)
+            assert out.shape == (m, 1000) and _rel(out, x @ dense) < 0.035, (kind, m)
+        expect = {n: names.count(n) for n in names}
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == expect, kind
+        assert sum(K.PLAIN_CALLS.values()) == 0
+
+
 @pytest.mark.parametrize("kind,m", [("Q4_K", 1), ("Q4_K", 64), ("Q6_K", 8), ("Q5_K", 1),
-                                    ("Q5_K", 64), ("GPTQ4/128", 8), ("GPTQ4/64", 64)])
+                                    ("Q5_K", 64), ("GPTQ4/128", 8), ("GPTQ4/64", 64),
+                                    ("Q4_0", 1), ("Q4_0", 64), ("Q8_0", 8), ("Q5_1", 64)])
 def test_race_picks_a_candidate_and_the_table_serves_it(dev, kind, m, tmp_path, monkeypatch):
     """A miss races on the card: the pick is a member of the candidate list
     or the dense candidate, the best hand-written one is a member, every

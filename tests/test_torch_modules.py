@@ -191,8 +191,8 @@ def test_q4k_codec_matches_jax():
     for a, b in zip(tquants.decompose(buf, tquants.GGMLType.Q4_K, x.size),
                     jquants.decompose(buf, jquants.GGMLType.Q4_K, x.size)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tquants.dequantize(bytes(18 * 8), tquants.GGMLType.Q4_0, 256)
+    with pytest.raises(NotImplementedError):  # a type not yet ported
+        tquants.dequantize(bytes(84), tquants.GGMLType.Q2_K, 256)
 
 
 def test_loader_and_tokenizer_match_jax(tmp_path):

@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                the llama-2-7B matmul shapes (Q4_K, the Q6_K / Q5_K int8
                grids of Q4_K_M / Q5_K_M files, GPTQ4 planes at group 128,
                with groups 32 and 64 at one shape, Q4_0 nibbles, the Q8_0
-               grid and the Q5_1 grid at the o shape; Q4_1's and Q5_1's
-               other keys held only), with times beside the card's bound
-               and a bf16 torch.matmul yardstick;
+               grid and the Q5_1 grid at the o shape, the group-16 Q2_K and
+               Q3_K nibbles; Q4_1's and Q5_1's other keys held only), with
+               times beside the card's bound and a bf16 torch.matmul
+               yardstick;
                every other candidate of those keys at m = 1, 8 and 128 is
                held against its plain version too, so that whatever a
                table sends to a main path was held at that shape and m
@@ -21,10 +22,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                included), the winner and the best hand-written kernel;
                --write-table saves these champions as a table file (how
                the table shipped under ctransformers_tpu_torch/data/ is made)
-  4. tiny      tiny all-Q4_K, Q4_K_M, Q5_K_M, Q4_0, Q8_0 and Q5_1 llama
-               files and tiny GPTQ directories (groups 32 and 128, with and
+  4. tiny      tiny all-Q4_K, Q4_K_M, Q5_K_M, Q4_0, Q8_0, Q5_1, Q2_K,
+               Q3_K_M and Q3_K_S llama files and tiny GPTQ directories (groups 32 and 128, with and
                without act-order) served on the card (kernels picked by the
-               race) and on the CPU under the card's picks, then seven of
+               race) and on the CPU under the card's picks, then nine of
                them again on both under a user's table file that names the
                modes g, "", s, si and sb; every kernel call held against its
                plain version
@@ -32,17 +33,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
                decode, each with its launch counts (dense calls included)
-               asserted against the table's choices: a Q4_K_M file, a GPTQ
-               4-bit directory (group 128), a Q4_0 file and a Q8_0 file at
-               full depth, loaded cold (an empty table: the load races) and
-               again warm, served under the fixed rule and under the raced
-               table in turns; a Q5_K_M file at 4 layers, an all-Q4_K file
-               at 8, an act-order GPTQ directory and Q4_1, Q5_0 and Q5_1
-               files at 4 without the dense candidate (the best
-               hand-written kernel of every key); and Q4_K_M, Q5_K_M, Q4_0
-               and Q5_1 files and a GPTQ directory at 2 layers under a
-               user's table that names the float-activation and sum-fold
-               modes for every key
+               asserted against the table's choices: Q4_K_M, Q2_K and
+               Q3_K_M files and a GPTQ 4-bit directory (group 128) at full
+               depth and Q4_0 and Q8_0 files at 8 layers, loaded cold (an
+               empty table: the load races) and again warm, served under
+               the fixed rule and under the raced table in turns; a Q5_K_M
+               file at 4 layers, an all-Q4_K file at 8, an act-order GPTQ
+               directory and Q4_1, Q5_0, Q5_1, Q3_K_S and Q3_K_L files at 4
+               without the dense candidate (the best hand-written kernel of
+               every key); and Q4_K_M, Q5_K_M, Q4_0, Q5_1, Q2_K and Q3_K_M
+               files and a GPTQ directory at 2 layers under a user's table
+               that names the float-activation and sum-fold modes for every
+               key
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -99,6 +101,7 @@ RUNS_Q5K = RUNS_Q6K + [("qmm_s", 1), ("qmm_s", 8), ("qmm_sb", 128)]
 RUNS_Q40 = [("qmm_qx_q4_0", 1), ("qmm_q_q4_0", 8), ("qmm_i_q4_0", 128), ("qmm_si_q4_0", 128),
             ("qmm_g_q4_0", 1), ("qmm_g_q4_0", 8)]
 RUNS_Q80 = [(f"{name}_legacy", m) for name, m in RUNS_Q6K]
+RUNS_K16 = [(f"{name}_k16", m) for name, m in RUNS_Q4K]
 RUNS_Q51 = RUNS_Q80 + [("qmm_s_legacy", 1), ("qmm_s_legacy", 8), ("qmm_b_legacy", 128),
                        ("qmm_sb_legacy", 128)]
 # (weight type, shape, [(kernel, m), ...]) held against the plain versions:
@@ -110,7 +113,9 @@ RUNS_Q51 = RUNS_Q80 + [("qmm_s_legacy", 1), ("qmm_s_legacy", 8), ("qmm_b_legacy"
 # keys: Q4_0 at the four shapes of its path (its output is Q6_K), Q8_0 at
 # five (its output stays Q8_0; Q5_0 has Q8_0's keys), Q5_1 timed at o, and
 # every candidate of Q5_1's and Q4_1's other keys held (Q4_1 has GPTQ4/32's
-# keys and kernels)
+# keys and kernels); the group-16 nibbles Q2_K (with mins) and Q3_K
+# (without) at the four shapes of the Q2_K, Q3_K_S/M/L paths (q, k and o
+# have the o shape; QKV fuses in Q3_K_S only)
 KERNEL_CASES = [
     ("Q4_K", s, RUNS_Q4K) for s in ("qkv", "o", "gate_up", "down", "lm_head")
 ] + [
@@ -132,6 +137,8 @@ KERNEL_CASES = [
     ("Q8_0", "lm_head", RUNS_Q80), ("Q5_1", "o", RUNS_Q51),
 ] + [
     (kind, s, []) for kind in ("Q5_1", "Q4_1") for s in ("qkv", "gate_up", "down")
+] + [
+    (kind, s, RUNS_K16) for kind in ("Q2_K", "Q3_K") for s in ("o", "qkv", "gate_up", "down")
 ]
 # (kernel, table key) held against its plain version in phase 3
 HELD = set()
@@ -148,7 +155,9 @@ PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S, "qmm_q8": PEAK_INT8_S,
            "qmm_i_q4_0": PEAK_BF16_S, "qmm_si_q4_0": PEAK_BF16_S, "qmm_g_q4_0": PEAK_BF16_S,
            "qmm_q8_legacy": PEAK_INT8_S, "qmm_b_legacy": PEAK_BF16_S,
            "qmm_sb_legacy": PEAK_BF16_S, "qmm_g8_legacy": PEAK_BF16_S,
-           "qmm_f_legacy": PEAK_F32_S, "qmm_s_legacy": PEAK_F32_S}
+           "qmm_f_legacy": PEAK_F32_S, "qmm_s_legacy": PEAK_F32_S,
+           "qmm_qx_k16": PEAK_INT8_S, "qmm_q_k16": PEAK_INT8_S, "qmm_i_k16": PEAK_BF16_S,
+           "qmm_si_k16": PEAK_BF16_S, "qmm_g_k16": PEAK_BF16_S}
 # q/qx/q8: the integer group dots are exact, only f32 rescale sums differ in
 # order; i/si/b/sb: bf16 products summed in another order on tensor cores;
 # g: exact products, f and s: f32 products, f32 sums in another order
@@ -159,7 +168,8 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
        "qmm_si_gptq": 1e-3, "qmm_qx_q4_0": 1e-5, "qmm_q_q4_0": 1e-5, "qmm_i_q4_0": 1e-3,
        "qmm_si_q4_0": 1e-3, "qmm_g_q4_0": 1e-5, "qmm_q8_legacy": 1e-5, "qmm_b_legacy": 1e-3,
        "qmm_sb_legacy": 1e-3, "qmm_g8_legacy": 1e-5, "qmm_f_legacy": 1e-5,
-       "qmm_s_legacy": 1e-5}
+       "qmm_s_legacy": 1e-5, "qmm_qx_k16": 1e-5, "qmm_q_k16": 1e-5, "qmm_i_k16": 1e-3,
+       "qmm_si_k16": 1e-3, "qmm_g_k16": 1e-5}
 # main paths: (label, mix, layers, how). mix is a llama.cpp mix (K_M or a
 # legacy ftype, models/synthetic.py:MIXES), None for an all-Q4_K file, or
 # ("gptq", group, act_order) for a GPTQ 4-bit directory.
@@ -172,7 +182,10 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
 # all-Q4_K and Q5_K_M paths are cut in depth so that the whole run stays
 # within a few minutes; the act-order path is the second GPTQ path; the
 # Q4_1, Q5_0 and Q5_1 paths are the legacy types that no full-depth path
-# serves.
+# serves; Q4_0 and Q8_0 are cut from 32 to 8 layers to make room for the
+# two full-depth group-16 paths (Q2_K runs Q2_K and Q3_K nibbles, Q3_K_M
+# Q3_K beside Q4_K); Q3_K_S (fused Q3_K QKV) and Q3_K_L (Q5_K beside Q3_K)
+# are the other mixes of the card.
 MAIN_PATHS = [
     ("Q4_K_M", "Q4_K_M", 32, "race"),
     ("Q5_K_M", "Q5_K_M", 4, "kernels"),
@@ -182,13 +195,19 @@ MAIN_PATHS = [
     ("Q4_K_M-new", "Q4_K_M", 2, "new"),
     ("Q5_K_M-new", "Q5_K_M", 2, "new"),
     ("GPTQ4-g128-new", ("gptq", 128, False), 2, "new"),
-    ("Q4_0", "Q4_0", 32, "race"),
-    ("Q8_0", "Q8_0", 32, "race"),
+    ("Q4_0", "Q4_0", 8, "race"),
+    ("Q8_0", "Q8_0", 8, "race"),
     ("Q4_1", "Q4_1", 4, "kernels"),
     ("Q5_0", "Q5_0", 4, "kernels"),
     ("Q5_1", "Q5_1", 4, "kernels"),
     ("Q4_0-new", "Q4_0", 2, "new"),
     ("Q5_1-new", "Q5_1", 2, "new"),
+    ("Q2_K", "Q2_K", 32, "race"),
+    ("Q3_K_M", "Q3_K_M", 32, "race"),
+    ("Q3_K_S", "Q3_K_S", 4, "kernels"),
+    ("Q3_K_L", "Q3_K_L", 4, "kernels"),
+    ("Q2_K-new", "Q2_K", 2, "new"),
+    ("Q3_K_M-new", "Q3_K_M", 2, "new"),
 ]
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
@@ -199,19 +218,31 @@ TINY_MODELS = (
     ("GPTQ4-g32", ("gptq", 32, False)), ("GPTQ4-g128", ("gptq", 128, False)),
     ("GPTQ4-g32-actorder", ("gptq", 32, True)), ("GPTQ4-g128-actorder", ("gptq", 128, True)),
     ("Q4_0", "Q4_0"), ("Q8_0", "Q8_0"), ("Q5_1", "Q5_1"),
+    ("Q2_K", "Q2_K"), ("Q3_K_M", "Q3_K_M"), ("Q3_K_S", "Q3_K_S"),
 )
 # the tiny models served again under the table that names the new modes
-TINY_NEW_MODES = ("Q4_K_M", "Q5_K_M", "GPTQ4-g32", "GPTQ4-g128", "Q4_0", "Q8_0", "Q5_1")
+TINY_NEW_MODES = ("Q4_K_M", "Q5_K_M", "GPTQ4-g32", "GPTQ4-g128", "Q4_0", "Q8_0", "Q5_1",
+                  "Q2_K", "Q3_K_M")
 TINY_STEPS = 8
 # card-vs-CPU logits: the wiring class (a wrong bias fold or split reads
 # 10-100%), 10% for Q5_1, whose int8 grid is stored uncentred (q in [0, 31],
 # the mins folded apart) so that int8 activation rounding amplifies more, as
-# tests/test_torch_legacy.py holds it against the JAX package
-TINY_LOGIT_CLASS = {"Q5_1": 0.10}
+# tests/test_torch_legacy.py holds it against the JAX package; 20% for Q2_K,
+# whose 2-bit grid is stored as nibbles q - 8 in [-8, -5] (the bias folded
+# apart): the JAX package's own q/qx kernels sit 7.4-16.2% from its exact
+# path on the tiny Q2_K model (tests/test_torch_kquant_low.py, its 20%
+# class), and card against CPU under the fixed rule read 10.87% (equal
+# greedy tokens; raced table 2.27%); across seeds 1-8 an H100 against CPU
+# reads 2.6-8.6%, while a Q2_K bias with its mins dropped or its sub-mins
+# one group off reads 140-161% (scripts/torch_tiny_spread.py)
+TINY_LOGIT_CLASS = {"Q5_1": 0.10, "Q2_K": 0.20}
 # a seed serves when every greedy step on the CPU keeps its top-2 logits
 # this far apart (relative to the top one): card-vs-CPU logits differ by a
-# few percent (rounding amplification), which may rightly flip a near-tie
+# few percent (rounding amplification), which may rightly flip a near-tie;
+# Q2_K's differ by up to twice as much as the others', so its steps keep
+# twice the margin
 TINY_MIN_MARGIN = 0.025
+TINY_MIN_MARGIN_OF = {"Q2_K": 0.05}
 
 
 def log(*a):
@@ -307,11 +338,14 @@ def phase_bandwidth() -> float:
 
 
 def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.Generator):
-    """`kind` planes at padded shape (kp, npad): Q4_K adjk nibbles, the
-    Q6_K / Q5_K int8 grid, or unfactored planes: adjk nibbles of GPTQ4
+    """`kind` planes at padded shape (kp, npad): Q4_K adjk nibbles, Q2_K
+    and Q3_K adjk nibbles at group 16 (Q2_K's sub-scales and sub-mins in
+    [0, 16), Q3_K's sub-scales in [-32, 32), no mins), the Q6_K / Q5_K int8
+    grid, or unfactored planes: adjk nibbles of GPTQ4
     ("GPTQ4/<group>"), Q4_1 or Q4_0, or the Q8_0, Q5_0 or Q5_1 int8 grid,
     with f32 planes s and (where the type has mins) m = -s * zero-point;
     padding rows and columns are zero, as make_qtensor leaves them."""
+    from ctransformers_tpu_torch.models.synthetic import K16_PLANE_RANGES
     from ctransformers_tpu_torch.ops.qmatmul import QTensor
 
     def rnd(lo, hi, shape):
@@ -338,8 +372,13 @@ def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.G
                        zp=K.zero_point(layout), sfactor=0, pack_layout="adjk")
     if packed:
         rows = kp // 2
-        qs, sub_s, sub_m = rnd(-128, 128, (rows, npad)), rnd(0, 64, (kp // 32, npad)), rnd(0, 64, (kp // 32, npad))
-        sd, sm = rand(1e-4, 1e-3, (kp // 256, npad)), -rand(0.0, 1e-3, (kp // 256, npad))
+        # sub-scale range, d range and dmin bound of the layout (Q4_K's, or
+        # those of models/synthetic.py's random group-16 blocks)
+        r = K16_PLANE_RANGES.get(kind, dict(sub=(0, 64), d=(1e-4, 1e-3), dmin=1e-3))
+        qs, sub_s = rnd(-128, 128, (rows, npad)), rnd(*r["sub"], (kp // group, npad))
+        sub_m = rnd(0, r["sub"][1], (kp // group, npad)) if has_mins else None
+        sd = rand(*r["d"], (kp // 256, npad))
+        sm = -rand(0.0, r["dmin"], (kp // 256, npad)) if has_mins else None
     else:
         rows = kp
         q6 = kind == "Q6_K"
@@ -353,8 +392,8 @@ def random_planes(K, kind: str, kp: int, npad: int, k: int, n: int, gen: torch.G
         if a is not None:
             a[r:] = 0
             a[:, n:] = 0
-    return QTensor(qs, sub_s, sub_m, kind, group, (kp, npad), packed=packed, zp=0,
-                   sd=sd, sm=sm, sfactor=sf, pack_layout="adjk")
+    return QTensor(qs, sub_s, sub_m, kind, group, (kp, npad), packed=packed,
+                   zp=K.zero_point(kind), sd=sd, sm=sm, sfactor=sf, pack_layout="adjk")
 
 
 def plane_bytes(qt) -> int:
@@ -493,7 +532,8 @@ def greedy_margins(llm) -> tuple:
 
 def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 32) -> int:
     """The first seed from 1 whose tiny model keeps every greedy step's
-    top-2 margin on the CPU above TINY_MIN_MARGIN; writes it to `path`."""
+    top-2 margin on the CPU above the label's minimum (TINY_MIN_MARGIN_OF,
+    else TINY_MIN_MARGIN); writes it to `path`."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
 
     for seed in range(1, max_seed + 1):
@@ -502,7 +542,7 @@ def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 32) -> int:
         _, _, margins = greedy_margins(AutoModelForCausalLM.from_pretrained(path, device="cpu"))
         log(f"[tiny] {label} seed {seed}: CPU top-2 margins "
             f"{[round(x, 4) for x in margins]}")
-        if min(margins) > TINY_MIN_MARGIN:
+        if min(margins) > TINY_MIN_MARGIN_OF.get(label, TINY_MIN_MARGIN):
             return seed
     raise SystemExit(f"tiny {label}: no seed up to {max_seed} without a greedy near-tie")
 

@@ -1,5 +1,6 @@
 // Activation-quantized 4-bit matmul for small m (decode and short chunks),
-// on Q4_K weights, on GPTQ 4-bit and Q4_1 weights and on Q4_0 weights.
+// on Q4_K, Q2_K and Q3_K weights, on GPTQ 4-bit and Q4_1 weights and on Q4_0
+// weights.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_qx_kernel (mode "qx"): int8 quantization of x inside the kernel;
@@ -11,12 +12,13 @@
 // 1e-20)), -127, 127) and the group dot taken exactly in int32.
 //
 // Three template choices cover the reference kernels' branches: the group G
-// (32 for Q4_K and Q4_0; 32, 64 or 128 for GPTQ), the scale source (Q4_K:
-// int8 sub-scales times f32 superblock factors; GPTQ and Q4_0, the
-// reference's sfactor == 0 branch: f32 planes read as they are) and the
-// bias (Q4_0, zero point 8 and no mins, has none: the reference's branch
-// with qx_bias / g_bias False, where the kernel reads no min plane and
-// carries no group sums).
+// (32 for Q4_K and Q4_0; 16 for Q2_K and Q3_K; 32, 64 or 128 for GPTQ), the
+// scale source (the k-quants: int8 sub-scales times f32 superblock factors,
+// 256 / G groups a superblock; GPTQ and Q4_0, the reference's sfactor == 0
+// branch: f32 planes read as they are) and the bias (Q4_0 and Q3_K, zero
+// point 8 and no mins, have none: the reference's branch with qx_bias /
+// g_bias False, where the kernel reads no min plane and carries no group
+// sums).
 //
 // Bound on an H100: bytes. At m <= 32 every weight byte is used for at most
 // 64 multiply-adds, far below the card's ~295 operations per byte, so the
@@ -33,7 +35,10 @@
 // warp: their int32 partial dots are added with shuffles BEFORE the single
 // f32 rescale, so the group dot is the reference's one exact integer (a
 // rescale per quarter would round differently), and the group's first lane
-// alone accumulates it. The in-kernel quantization reduces absmax and sum
+// alone accumulates it. A group of 16 rows is half a lane: the lane loads
+// its 32 rows at once, then takes the two groups' exact int32 dots one after
+// the other, each rescaled once and added in K order. The in-kernel
+// quantization reduces absmax and sum
 // over the G/4 neighbouring threads of a group with an xor butterfly: every
 // thread adds the same pairs in the same order, so runs stay bitwise
 // repeatable.
@@ -57,28 +62,35 @@ struct DecodeSmem {
 };
 
 // PLAIN_S: s and m are the f32 (kp/G, np) planes sd and sm themselves (GPTQ,
-// Q4_0); otherwise Q4_K's int8 sub-scales times f32 superblock factors.
-// HAS_BIAS: out adds xsum @ B (false for Q4_0: sm and xs_g are not read).
+// Q4_0); otherwise the k-quants' int8 sub-scales times f32 superblock
+// factors. HAS_BIAS: out adds xsum @ B (false for Q4_0 and Q3_K: sub_m, sm
+// and xs_g are not read). Two blocks per SM are asked for at group 16 only:
+// its lanes hold their 32 weight rows across two group dots.
 template <int MT, bool QUANT_IN, int G, bool PLAIN_S, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, G < kLR ? 2 : 1)
 qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
              const int8_t* __restrict__ xq_g,   // (m, kp) int8     [!QUANT_IN]
              const float* __restrict__ sx_g,    // (m, kp/G) f32    [!QUANT_IN]
              const float* __restrict__ xs_g,    // (m, kp/G) f32    [!QUANT_IN, HAS_BIAS]
              const int8_t* __restrict__ qs,     // (kp/2, np)
-             const int8_t* __restrict__ sub_s,  // (kp/32, np)      [!PLAIN_S]
-             const int8_t* __restrict__ sub_m,  // (kp/32, np)      [!PLAIN_S]
+             const int8_t* __restrict__ sub_s,  // (kp/G, np)       [!PLAIN_S]
+             const int8_t* __restrict__ sub_m,  // (kp/G, np)       [!PLAIN_S, HAS_BIAS]
              const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
              const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m (kp/G, np) [HAS_BIAS]
              float* __restrict__ out,           // (m, np)
              int m, int kp, int np) {
-  static_assert(G % kLR == 0 && kLR * (32 / kCQ) % G == 0,
-                "a group is 1, 2 or 4 K lanes of one warp");
-  static_assert(PLAIN_S || G == ctq::kGroup, "Q4_K groups are 32 rows");
-  static_assert(PLAIN_S || HAS_BIAS, "Q4_K has a bias");
-  constexpr int kLPG = G / kLR;   // K lanes per group
-  constexpr int kNG = kKC / G;    // groups per chunk
-  constexpr int kQT = G / 4;      // threads holding one group while quantizing
+  static_assert((G % kLR == 0 && kLR * (32 / kCQ) % G == 0) || (G < kLR && kLR % G == 0),
+                "a group is 1, 2 or 4 K lanes of one warp, or a part of one lane");
+  static_assert(PLAIN_S || G == ctq::kGroup || G == 16,
+                "factored groups are 32 rows (Q4_K) or 16 (Q2_K, Q3_K)");
+  static_assert(PLAIN_S || HAS_BIAS || G == 16, "Q4_K has a bias");
+  static_assert(sizeof(DecodeSmem<MT, G>) <= 48 * 1024, "static shared memory limit");
+  constexpr int kLPG = G > kLR ? G / kLR : 1;  // K lanes per group
+  constexpr int kGPL = G < kLR ? kLR / G : 1;  // groups per K lane
+  constexpr int kRG = kLR / kGPL;              // rows of one group in one lane
+  constexpr int kNG = kKC / G;                 // groups per chunk
+  constexpr int kQT = G / 4;                   // threads holding one group while quantizing
+  constexpr int kSF = ctq::kSuperblock / G;    // groups per superblock (factored planes)
   __shared__ DecodeSmem<MT, G> sh;
   const int tid = threadIdx.x;
   const int cq = tid % kCQ;
@@ -146,23 +158,17 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
     }
     __syncthreads();
 
-    // ---- 32 rows per K lane: int32 dots, summed over the group's lanes,
-    // then one f32 rescale per group ----
-    const int g = (k0 + gl * kLR) / G;
-    const bool live = k0 + gl * kLR < kp;  // whole warps: kp is a 256-multiple
-    int idot[MT][4];
+    // ---- 32 rows per K lane: int32 dots per group (a group's lanes summed,
+    // or a lane's groups in turn), then one f32 rescale per group ----
+    const int r0 = k0 + gl * kLR;  // first K row of this lane
+    const bool live = r0 < kp;     // whole warps: kp is a 256-multiple
+    const int8_t* qrow = qs + (size_t)(r0 / 2) * np + n;
+    // exact int32 dots of one group's kRG / 2 byte rows of w, from row rr0,
+    // with the staged xq (a fixed trip count: w stays in registers)
+    auto dot = [&](const uint32_t (&w)[kLR / 2], int rr0, int (&idot)[MT][4]) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) idot[i][c] = 0;
-    if (live) {
-      const int8_t* qrow = qs + (size_t)(k0 + gl * kLR) / 2 * np + n;
-      uint32_t w[kLR / 2];
-#pragma unroll
-      for (int rr = 0; rr < kLR / 2; ++rr)
-        w[rr] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)rr * np));
-#pragma unroll
-      for (int rr = 0; rr < kLR / 2; ++rr) {
+      for (int r = 0; r < kRG / 2; ++r) {
+        const int rr = rr0 + r;
         const int kl = gl * kLR + 2 * rr;
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
@@ -174,19 +180,10 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
                           ctq::nibble(w[rr], 2 * c + 1) * x1;
         }
       }
-    }
-    if (kLPG > 1) {
-      // the group's lanes are threads kCQ apart in one warp; integer sums
-      // are exact in any order
-#pragma unroll
-      for (int off = kCQ; off < kCQ * kLPG; off <<= 1)
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            idot[i][c] += __shfl_xor_sync(0xffffffffu, idot[i][c], off);
-    }
-    if (live && gl % kLPG == 0) {
+    };
+    // one f32 rescale of a group's dots into acc: g the group in the
+    // weight, gi in this chunk
+    auto rescale = [&](int g, int gi, const int (&idot)[MT][4]) {
       float s[4], b[4] = {0.f, 0.f, 0.f, 0.f};
       if (PLAIN_S) {
         const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + (size_t)g * np + n));
@@ -198,26 +195,79 @@ qmm_q_kernel(const float* __restrict__ x,       // (m, kp) f32      [QUANT_IN]
           for (int c = 0; c < 4; ++c) b[c] = ctq::plain_bias(s[c], mv[c]);
         }
       } else {
+        // the four planes' loads issued together, before any use
         const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + (size_t)g * np + n));
-        const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n));
-        const size_t fo = (size_t)(g / ctq::kSfactor) * np + n;
+        const uint32_t mw =
+            HAS_BIAS ? __ldg(reinterpret_cast<const unsigned int*>(sub_m + (size_t)g * np + n)) : 0u;
+        const size_t fo = (size_t)(g / kSF) * np + n;
         const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
-        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+        const float4 m4 =
+            HAS_BIAS ? __ldg(reinterpret_cast<const float4*>(sm + fo)) : make_float4(0.f, 0.f, 0.f, 0.f);
         const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+        if (HAS_BIAS) {
+          const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &b[c]);
+          for (int c = 0; c < 4; ++c)
+            ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &b[c]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+        }
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float sxv = sh.sx[i][gl / kLPG];
-        const float xsv = HAS_BIAS ? sh.xs[i][gl / kLPG] : 0.0f;
+        const float sxv = sh.sx[i][gi];
+        const float xsv = HAS_BIAS ? sh.xs[i][gi] : 0.0f;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float part = __fmul_rn(__fmul_rn((float)idot[i][c], sxv), s[c]);
           acc[i][c] = __fadd_rn(acc[i][c], HAS_BIAS ? __fadd_rn(part, __fmul_rn(xsv, b[c])) : part);
         }
+      }
+    };
+    if constexpr (kGPL == 1) {
+      // a group is 1, 2 or 4 whole lanes: one dot over the lane's 32 rows
+      int idot[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) idot[i][c] = 0;
+      if (live) {
+        uint32_t w[kLR / 2];
+#pragma unroll
+        for (int rr = 0; rr < kLR / 2; ++rr)
+          w[rr] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)rr * np));
+        dot(w, 0, idot);
+      }
+      if (kLPG > 1) {
+        // the group's lanes are threads kCQ apart in one warp; integer sums
+        // are exact in any order
+#pragma unroll
+        for (int off = kCQ; off < kCQ * kLPG; off <<= 1)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              idot[i][c] += __shfl_xor_sync(0xffffffffu, idot[i][c], off);
+      }
+      if (live && gl % kLPG == 0) rescale(r0 / G, gl / kLPG, idot);
+    } else if (live) {
+      // a lane holds kGPL groups: its rows loaded at once, then each group's
+      // dot and rescale in K order
+      uint32_t w[kLR / 2];
+#pragma unroll
+      for (int rr = 0; rr < kLR / 2; ++rr)
+        w[rr] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)rr * np));
+#pragma unroll
+      for (int j = 0; j < kGPL; ++j) {
+        int idot[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) idot[i][c] = 0;
+        dot(w, j * kRG / 2, idot);
+        rescale(r0 / G + j, gl * kLR / G + j, idot);
       }
     }
     __syncthreads();
@@ -276,6 +326,23 @@ int launch_gptq(const float* x, const int8_t* xq, const float* sx,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Q2_K (has_mins 1: sub_m and sm given, B = 8 * s + m) and Q3_K (has_mins 0:
+// sub_m and sm null, no bias): int8 (kp/16, np) sub-scales over f32 (kp/256,
+// np) factors. A flag that disagrees with the pointers is refused.
+template <bool QUANT_IN>
+int launch_k16(const float* x, const int8_t* xq, const float* sx, const float* xs,
+               const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m, const float* sd,
+               const float* sm, float* out, int m, int kp, int np, int has_mins,
+               cudaStream_t stream) {
+  if (has_mins != (sub_m != nullptr) || has_mins != (sm != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return launch<QUANT_IN, 16, false, true>(x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m,
+                                             kp, np, stream);
+  return launch<QUANT_IN, 16, false, false>(x, xq, sx, xs, qs, sub_s, nullptr, sd, nullptr, out,
+                                            m, kp, np, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -332,6 +399,24 @@ int ct_qmm_q_q4_0(const int8_t* xq, const float* sx, const float* xs, const int8
                   void* stream) {
   return launch<false, 32, true, false>(nullptr, xq, sx, xs, qs, nullptr, nullptr, s, nullptr,
                                         out, m, kp, np, static_cast<cudaStream_t>(stream));
+}
+
+// mode "qx" on Q2_K and Q3_K: x f32 (m, kp), quantized per group of 16 in
+// the kernel.
+int ct_qmm_qx_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                  const float* sd, const float* sm, float* out, int m, int kp, int np,
+                  int has_mins, void* stream) {
+  return launch_k16<true>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m, sd, sm, out, m, kp,
+                          np, has_mins, static_cast<cudaStream_t>(stream));
+}
+
+// mode "q" on Q2_K and Q3_K: xq int8 (m, kp), sx and xsum f32 (m, kp/16)
+// given (xsum is not read for Q3_K).
+int ct_qmm_q_k16(const int8_t* xq, const float* sx, const float* xs, const int8_t* qs,
+                 const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm,
+                 float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_k16<false>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                           has_mins, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -4,20 +4,21 @@
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_g_kernel (mode "g")  -> ct_qmm_g, ct_qmm_g_gptq, ct_qmm_g_q4_0,
-//                                ct_qmm_g8, ct_qmm_g8_legacy
+//                                ct_qmm_g_k16, ct_qmm_g8, ct_qmm_g8_legacy
 //       out = sum_g s[g,n] * dot_g(bf16(x), w)[t,n] + xsum @ B
 //       x rounded to bf16, the grid values w (nibbles w4 = q + zp - 8, or
 //       the int8 grid q) exact in bf16, products exact in f32 and summed in
 //       f32 inside a group, the f32 scale applied to the group's partial
-//       sum. B = 8 * s + m for nibbles with mins, m for grids with mins,
-//       absent for Q4_0 (zero point 8, the reference's g_bias False), Q6_K,
-//       Q8_0 and Q5_0; xsum are the f32 group sums of the unrounded x.
+//       sum. B = 8 * s + m for nibbles with mins (Q4_K, Q2_K, GPTQ4, Q4_1),
+//       m for grids with mins, absent for Q4_0 and Q3_K (zero point 8, the
+//       reference's g_bias False), Q6_K, Q8_0 and Q5_0; xsum are the f32
+//       group sums of the unrounded x.
 //   _qmm_kernel   (mode "",  f32 dots)  -> ct_qmm_f, ct_qmm_f_legacy
 //       out = x @ (q * s + m), all f32 (no TF32: plain f32 multiply-adds)
 //   _qmm_s_kernel (mode "s", f32 dots)  -> ct_qmm_s, ct_qmm_s_legacy
 //       out = x @ (q * s) + xsum @ M, all f32
-// The scale planes are Q4_K's and the k-quant grids' int8 sub-scales times
-// f32 superblock factors, or (PLAIN_S: GPTQ4, Q4_1, Q4_0 and the legacy
+// The scale planes are the k-quants' int8 sub-scales times f32 superblock
+// factors (Q4_K at group 32, Q2_K and Q3_K at 16, the grids), or (PLAIN_S: GPTQ4, Q4_1, Q4_0 and the legacy
 // grids Q8_0, Q5_0, Q5_1, the reference's sfactor == 0 branches) f32
 // (kp/G, np) planes s and m read as they are.
 //
@@ -32,7 +33,8 @@
 // block in a fixed order (no atomics, no split-K: runs are bitwise
 // repeatable). Its 256 threads lie 8 across the columns (4 columns each,
 // one 32-bit load per storage row) and 32 down K; a K lane takes 32 rows
-// per chunk (a whole group of an int8 grid: 16 rows for Q6_K). The block
+// per chunk, or a whole group of 16 rows (Q6_K's grid, Q2_K's and Q3_K's
+// nibbles). The block
 // stages the chunk's activations in shared memory as f32 (rounded to bf16
 // first for "g"), with the group sums of the unrounded x, which it reduces
 // over the G/4 neighbouring threads of a group with an xor butterfly: every
@@ -74,7 +76,7 @@ union FloatSmem {
 // PACKED: adjk nibbles (kp/2, np), else an int8 grid (kp, np). PLAIN_S: s
 // and m are the f32 (kp/G, np) planes sd and sm themselves, else int8
 // sub-scales times f32 superblock factors. HAS_MINS: a min plane; a nibble
-// weight without one is Q4_0's (zero point 8: no bias).
+// weight without one is Q4_0's or Q3_K's (zero point 8: no bias).
 template <int MT, int MODE, bool PACKED, bool PLAIN_S, int G, bool HAS_MINS>
 __global__ void __launch_bounds__(kThreads, 2)
 qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
@@ -91,16 +93,18 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
   constexpr int kLPG = G / kLR;         // K lanes per group
   constexpr int kNG = kKC / G;          // groups per chunk
   constexpr int kQT = G / 4;            // threads holding one group while staging
-  constexpr int kSF = 256 / G;          // groups per superblock (factored planes)
+  constexpr int kSF = ctq::kSuperblock / G;  // groups per superblock (factored planes)
   // the xsum @ B term: nibbles with mins re-bias by 8 * s + m, grids add m;
   // Q4_0's nibbles and the grids without mins have no bias
   constexpr bool kBias = MODE != kModeF && HAS_MINS;
-  static_assert(!kPacked || (G % 32 == 0 && 32 * (32 / kCQ) % G == 0),
-                "a nibble group is 1, 2 or 4 K lanes of one warp");
-  static_assert(!kPacked || HAS_MINS || (PLAIN_S && G == 32),
-                "a nibble weight without mins is Q4_0: plain planes, group 32");
+  static_assert(!kPacked || (G % 32 == 0 && 32 * (32 / kCQ) % G == 0) || (!PLAIN_S && G == 16),
+                "a nibble group is 1, 2 or 4 K lanes of one warp, or one lane (group 16)");
+  static_assert(!kPacked || HAS_MINS || (PLAIN_S && G == 32) || (!PLAIN_S && G == 16),
+                "a nibble weight without mins is Q4_0 (plain planes, group 32) or Q3_K "
+                "(factored, group 16)");
   static_assert(kPacked || kLPG == 1, "an int8-grid group is one K lane");
-  static_assert(PLAIN_S || !kPacked || G == ctq::kGroup, "Q4_K groups are 32 rows");
+  static_assert(PLAIN_S || !kPacked || G == ctq::kGroup || G == 16,
+                "factored nibble groups are 32 rows (Q4_K) or 16 (Q2_K, Q3_K)");
   static_assert(!PLAIN_S || kPacked || G == 32, "the legacy grids' groups are 32 rows");
   static_assert(MODE == kModeG || !kPacked, "\"\" and \"s\" are int8-grid modes");
   static_assert(4 * kThreads >= kKC, "one float4 per thread stages a chunk");
@@ -332,6 +336,22 @@ int launch_legacy(const float* x, const int8_t* qs, const float* s, const float*
                                               np, stream);
 }
 
+// Q2_K (has_mins 1: sub_m and sm given) and Q3_K (has_mins 0: both null):
+// factored nibbles at group 16; a flag that disagrees with the pointers is
+// refused.
+template <int MODE>
+int launch_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np,
+               int has_mins, cudaStream_t stream) {
+  if (has_mins != (sub_m != nullptr) || has_mins != (sm != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return launch<MODE, true, false, 16, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                                               stream);
+  return launch<MODE, true, false, 16, false>(x, qs, sub_s, nullptr, sd, nullptr, out, m, kp,
+                                              np, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -342,6 +362,15 @@ int ct_qmm_g(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t
              void* stream) {
   return launch<kModeG, true, false, ctq::kGroup, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
                                                        np, static_cast<cudaStream_t>(stream));
+}
+
+// mode "g" on Q2_K and Q3_K: sub-scales (and Q2_K's sub-mins) int8
+// (kp/16, np), sd (and sm) f32 (kp/256, np).
+int ct_qmm_g_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                 const float* sd, const float* sm, float* out, int m, int kp, int np,
+                 int has_mins, void* stream) {
+  return launch_k16<kModeG>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, has_mins,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // mode "g" on GPTQ4 and Q4_1: s and mn f32 (kp/group, np), group 32, 64 or 128.

@@ -1,17 +1,17 @@
-// Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the Q4_K
-// kernels (qmm_prefill.cu: "si", "i"), the GPTQ 4-bit, Q4_1 and Q4_0
+// Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the
+// k-quant nibble kernels (qmm_prefill.cu: "si", "i" on Q4_K, Q2_K, Q3_K), the GPTQ 4-bit, Q4_1 and Q4_0
 // kernels (qmm_prefill.cu: "si", "i") and the int8-grid kernels
 // (qmm_grid.cu: "sb", "b", factored and legacy).
 // Only the weight tile's decoding differs between formats; it comes in as a
 // tile type W:
 //
-//   W::kGroup    K rows per quant group (32; 16 for Q6_K; 32, 64 or 128
-//                for GPTQ). A group larger than the K step is walked in
+//   W::kGroup    K rows per quant group (32; 16 for Q6_K, Q2_K and Q3_K;
+//                32, 64 or 128 for GPTQ). A group larger than the K step is walked in
 //                several steps, each reading the group's one row of s and
 //                B; the fold (SUMFOLD) then carries the group's xsum across
 //                its steps and applies B once, at the group's last step.
 //   W::kHasBias  whether the format adds a per-group bias B (its mins, or
-//                a nibble's re-bias; not Q4_0, Q6_K, Q8_0, Q5_0)
+//                a nibble's re-bias; not Q4_0, Q3_K, Q6_K, Q8_0, Q5_0)
 //   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s)
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride

@@ -1,6 +1,7 @@
 // Dequantize-then-bf16-GEMM 4-bit matmul for prompt chunks (m > 32), on Q4_K
-// weights ("si", "i"), on GPTQ 4-bit and Q4_1 weights ("si", "i") and on
-// Q4_0 weights ("si", "i", without a bias).
+// and Q2_K weights ("si", "i"), on Q3_K weights ("si", "i", without a bias),
+// on GPTQ 4-bit and Q4_1 weights ("si", "i") and on Q4_0 weights ("si", "i",
+// without a bias).
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_i4_s_kernel (mode "si"): W' = w4 * s rounded to bf16, x rounded to
@@ -14,9 +15,11 @@
 // operation-bound once the tensor cores are kept busy; the dequantization
 // (unpack, scale, round to bf16) is per weight and independent of m. The
 // GEMM (tiles, WMMA, fixed-order sums, the bias fold) is qmm_gemm.cuh's;
-// this file decodes the Q4_K weight tile: each of the 128 threads takes one
-// byte row (two K rows, one nibble each) of 8 columns, with those columns'
-// group scale and bias, so a 32-row K step is one quant group. The GPTQ tile
+// this file decodes the k-quant weight tile: each of the 128 threads takes
+// one byte row (two K rows, one nibble each) of 8 columns, with those
+// columns' group scale and bias, so a 32-row K step is one Q4_K quant group
+// or two Q2_K / Q3_K groups of 16 (the GEMM folds each group's bias with its
+// own group sums; Q3_K has none, so its "si" computes what "i" does). The GPTQ tile
 // decodes the same nibbles with the reference's sfactor == 0 branch: s and m
 // are f32 planes read as they are, one row per group of 32, 64 or 128 rows,
 // so a K step is a whole group or a whole part of one and needs only that
@@ -29,51 +32,71 @@
 
 namespace {
 
-struct Q4KTile {
-  static constexpr int kGroup = ctq::kGroup;
-  static constexpr bool kHasBias = true;
+// The k-quant nibbles: Q4_K (group 32, with a bias), Q2_K (group 16, with a
+// bias) and Q3_K (group 16, without): int8 (kp/G, np) sub-scales (and
+// sub-mins) over f32 (kp/256, np) factors. A 32-row K step is one group, or
+// two at group 16: a thread's byte row lies in group (k0 + 2 wr) / G, and
+// for the fold the first byte row of each group writes that group's B.
+template <int G, bool HAS_BIAS>
+struct KQuantTile {
+  static constexpr int kGroup = G;
+  static constexpr bool kHasBias = HAS_BIAS;
+  static constexpr int kSF = ctq::kSuperblock / G;  // groups per superblock
+  static_assert(ctq::kGemmBK % G == 0 && ctq::kGemmThreads == 16 * 8,
+                "whole quant groups per K step; 16 byte rows x 8 column octets");
 
   template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs,     // (kp/2, np) adjk nibbles
-      const int8_t* __restrict__ sub_s,  // (kp/32, np)
-      const int8_t* __restrict__ sub_m,  // (kp/32, np)
+      const int8_t* __restrict__ sub_s,  // (kp/G, np)
+      const int8_t* __restrict__ sub_m,  // (kp/G, np)     [HAS_BIAS]
       const float* __restrict__ sd,      // (kp/256, np)
-      const float* __restrict__ sm,      // (kp/256, np)
+      const float* __restrict__ sm,      // (kp/256, np)   [HAS_BIAS]
       int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*b_s)[ctq::kGemmBN]) {
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
-    const int g = k0 / kGroup;
+    const int g = (k0 + 2 * wr) / G;
     const int n = col0 + wc;
     const size_t go = (size_t)g * np + n;
-    const size_t fo = (size_t)(g / ctq::kSfactor) * np + n;
+    const size_t fo = (size_t)(g / kSF) * np + n;
     const uint2 sw = __ldg(reinterpret_cast<const uint2*>(sub_s + go));
-    const uint2 mw = __ldg(reinterpret_cast<const uint2*>(sub_m + go));
     const float4 d0 = __ldg(reinterpret_cast<const float4*>(sd + fo));
     const float4 d1 = __ldg(reinterpret_cast<const float4*>(sd + fo + 4));
-    const float4 m0 = __ldg(reinterpret_cast<const float4*>(sm + fo));
-    const float4 m1 = __ldg(reinterpret_cast<const float4*>(sm + fo + 4));
+    uint2 mw = make_uint2(0u, 0u);
+    float mv[8] = {};
+    if (HAS_BIAS) {
+      mw = __ldg(reinterpret_cast<const uint2*>(sub_m + go));
+      const float4 m0 = __ldg(reinterpret_cast<const float4*>(sm + fo));
+      const float4 m1 = __ldg(reinterpret_cast<const float4*>(sm + fo + 4));
+      mv[0] = m0.x, mv[1] = m0.y, mv[2] = m0.z, mv[3] = m0.w;
+      mv[4] = m1.x, mv[5] = m1.y, mv[6] = m1.z, mv[7] = m1.w;
+    }
     const uint2 wv = __ldg(reinterpret_cast<const uint2*>(
-        qs + ((size_t)g * (kGroup / 2) + wr) * np + n));
+        qs + ((size_t)(k0 / 2) + wr) * np + n));
     const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-    const float mv[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
     __nv_bfloat16* b0 = Bs + (2 * wr) * ctq::kGemmLDB + wc;
     __nv_bfloat16* b1 = b0 + ctq::kGemmLDB;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint32_t swj = j < 4 ? sw.x : sw.y;
-      const uint32_t mwj = j < 4 ? mw.x : mw.y;
       const uint32_t wj = j < 4 ? wv.x : wv.y;
-      float s, b;
-      ctq::group_scale(dv[j], ctq::sbyte(swj, j % 4), mv[j], ctq::sbyte(mwj, j % 4), &s, &b);
+      float s, b = 0.0f;
+      if (HAS_BIAS) {
+        const uint32_t mwj = j < 4 ? mw.x : mw.y;
+        ctq::group_scale(dv[j], ctq::sbyte(swj, j % 4), mv[j], ctq::sbyte(mwj, j % 4), &s, &b);
+      } else {
+        s = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(swj, j % 4)));
+      }
       float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), s);
       float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), s);
-      if (!FOLD) {
-        w0 = __fadd_rn(w0, b);
-        w1 = __fadd_rn(w1, b);
-      } else if (wr == 0) {
-        b_s[0][wc + j] = b;
+      if (HAS_BIAS) {
+        if (!FOLD) {
+          w0 = __fadd_rn(w0, b);
+          w1 = __fadd_rn(w1, b);
+        } else if ((2 * wr) % G == 0) {
+          b_s[2 * wr / G][wc + j] = b;
+        }
       }
       b0[j] = __float2bfloat16(w0);
       b1[j] = __float2bfloat16(w1);
@@ -81,8 +104,7 @@ struct Q4KTile {
   }
 };
 
-static_assert(ctq::kGemmBK == Q4KTile::kGroup && ctq::kGemmThreads == 16 * 8,
-              "one quant group per K step; 16 byte rows x 8 column octets");
+using Q4KTile = KQuantTile<ctq::kGroup, true>;
 
 // GPTQ 4-bit and Q4_1 (HAS_BIAS, B = 8 * s + m) and Q4_0 (no bias): adjk
 // nibbles, f32 planes s and m (kp/G, np) passed as sd and sm (m null for
@@ -157,6 +179,21 @@ int launch_gptq(const float* x, const int8_t* qs, const float* s, const float* m
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Q2_K (has_mins 1: sub_m and sm given, B = 8 * s + m) and Q3_K (has_mins 0:
+// both null, no bias); a flag that disagrees with the pointers is refused.
+template <bool SUMFOLD>
+int launch_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np,
+               int has_mins, cudaStream_t st) {
+  if (has_mins != (sub_m != nullptr) || has_mins != (sm != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return ctq::launch_gemm<KQuantTile<16, true>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm, out, m,
+                                                           kp, np, st);
+  return ctq::launch_gemm<KQuantTile<16, false>, SUMFOLD>(x, qs, sub_s, nullptr, sd, nullptr,
+                                                          out, m, kp, np, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -211,6 +248,23 @@ int ct_qmm_si_q4_0(const float* x, const int8_t* qs, const float* s, const float
   return ctq::launch_gemm<GptqTile<32, false>, true>(x, qs, nullptr, nullptr, s, nullptr, out,
                                                      m, kp, np,
                                                      static_cast<cudaStream_t>(stream));
+}
+
+// mode "i" on Q2_K and Q3_K: bf16(x) @ bf16(w4 * s + B) (B absent for Q3_K).
+int ct_qmm_i_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                 const float* sd, const float* sm, float* out, int m, int kp, int np,
+                 int has_mins, void* stream) {
+  return launch_k16<false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, has_mins,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// mode "si" on Q2_K and Q3_K: bf16(x) @ bf16(w4 * s) + xsum @ B, xsum the f32
+// sums of x over each group of 16 rows (Q3_K: no bias to fold, as "i").
+int ct_qmm_si_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                  const float* sd, const float* sm, float* out, int m, int kp, int np,
+                  int has_mins, void* stream) {
+  return launch_k16<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, has_mins,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

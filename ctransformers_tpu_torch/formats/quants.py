@@ -3,11 +3,12 @@
 A copy of ctransformers_tpu/formats/quants.py for F32, F16, the legacy
 block types Q4_0, Q4_1, Q5_0, Q5_1 and Q8_0 (block layouts: the
 reference's ggml.c; decode: dequantize_row_q*; encode:
-quantize_row_q*_reference) and the k-quants Q4_K, Q5_K and Q6_K of llama
-Q4_K_M and Q5_K_M files (k_quants.h; dequantize_row_q{4,5,6}_K;
-quantize_row_q{4,5,6}_K_reference). Every other block type has its size
-here, so a GGUF holding it can be parsed, but decoding it raises
-NotImplementedError until a later slice ports it (see ROADMAP).
+quantize_row_q*_reference) and the k-quants Q2_K, Q3_K, Q4_K, Q5_K and
+Q6_K of llama Q2_K, Q3_K_S/M/L, Q4_K_M and Q5_K_M files (k_quants.h;
+dequantize_row_q{2,3,4,5,6}_K; quantize_row_q{2,3,4,5,6}_K_reference).
+Every other block type has its size here, so a GGUF holding it can be
+parsed, but decoding it raises NotImplementedError until a later slice
+ports it (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -116,6 +117,32 @@ def _pack_scale_min_k4(sc: np.ndarray, m: np.ndarray) -> np.ndarray:
     out[..., 0:4] = (sc[..., :4] & 63) | ((sc[..., 4:] >> 4) << 6)
     out[..., 4:8] = (m[..., :4] & 63) | ((m[..., 4:] >> 4) << 6)
     out[..., 8:12] = (sc[..., 4:] & 0xF) | ((m[..., 4:] & 0xF) << 4)
+    return out
+
+
+def _unpack_q3k_scales(sc_bytes: np.ndarray) -> np.ndarray:
+    """q3_K's 12-byte packed 6-bit scales -> (nb, 16) int32 in [-32, 31]."""
+    a = sc_bytes.view("<u4")  # (nb, 3)
+    a0, a1, tmp = a[..., 0], a[..., 1], a[..., 2]
+    k1, k2 = np.uint32(0x03030303), np.uint32(0x0F0F0F0F)
+    n0 = (a0 & k2) | (((tmp >> 0) & k1) << 4)
+    n1 = (a1 & k2) | (((tmp >> 2) & k1) << 4)
+    n2 = ((a0 >> 4) & k2) | (((tmp >> 4) & k1) << 4)
+    n3 = ((a1 >> 4) & k2) | (((tmp >> 6) & k1) << 4)
+    words = np.stack([n0, n1, n2, n3], axis=-1).astype("<u4")
+    return words.view(np.int8).astype(np.int32) - 32
+
+
+def _pack_q3k_scales(scales: np.ndarray) -> np.ndarray:
+    """Inverse of _unpack_q3k_scales; scales (nb, 16) in [-32, 31]."""
+    s = (scales + 32).astype(np.uint8)  # 6-bit
+    lo = s & 0xF
+    hi = s >> 4  # 2 bits
+    out = np.zeros(s.shape[:-1] + (12,), np.uint8)
+    out[..., 0:8] = lo[..., 0:8] | (lo[..., 8:16] << 4)
+    # byte b of [8:12] packs the high bits of scales b, b+4, b+8, b+12
+    for k in range(4):
+        out[..., 8:12] |= hi[..., 4 * k : 4 * k + 4] << (2 * k)
     return out
 
 
@@ -245,9 +272,11 @@ def _nearest_int(x):
     return _round_half_away(x).astype(np.int32)
 
 
-def _make_qkx2_quants(xs, nmax, weights, rmin, rdelta, nstep):
+def _make_qkx2_quants(xs, nmax, weights, rmin, rdelta, nstep, use_mad=False):
     """Vectorized make_qkx2_quants: the weighted grid-search min/scale fit;
-    x ~= scale*L - the_min with L in [0, nmax]."""
+    x ~= scale*L - the_min with L in [0, nmax]. The fit's error is the
+    weighted squared difference, or with `use_mad` (Q2_K) the weighted
+    absolute one."""
     mn = xs.min(axis=-1)
     mx = xs.max(axis=-1)
     sum_w = weights.sum(axis=-1)
@@ -259,7 +288,7 @@ def _make_qkx2_quants(xs, nmax, weights, rmin, rdelta, nstep):
     scale = 1.0 / iscale
     L = np.clip(_nearest_int(iscale[..., None] * (xs - mn[..., None])), 0, nmax)
     diff = scale[..., None] * L + mn[..., None] - xs
-    diff = diff * diff
+    diff = np.abs(diff) if use_mad else diff * diff
     best_mad = (weights * diff).sum(axis=-1)
     cur_min = mn.copy()
     for step in range(nstep + 1):
@@ -280,7 +309,7 @@ def _make_qkx2_quants(xs, nmax, weights, rmin, rdelta, nstep):
         )
         this_min = np.where(pos, 0.0, this_min)
         diff = this_scale[..., None] * l + this_min[..., None] - xs
-        diff = diff * diff
+        diff = np.abs(diff) if use_mad else diff * diff
         mad = (weights * diff).sum(axis=-1)
         better = ok & (mad < best_mad)
         best_mad = np.where(better, mad, best_mad)
@@ -323,6 +352,71 @@ def _make_qx_quants(xs, nmax):
     best_scale = np.where(zero, 0.0, best_scale)
     best_q = np.where(zero[..., None], 0, best_q)
     return best_scale, best_q
+
+
+def _q_q2_K(xb):
+    """4-bit sub-scales and sub-mins per group of 16 (|x|-weighted fit with
+    absolute error), f16 d and dmin per superblock, 2-bit grid."""
+    nb = xb.shape[0]
+    groups = xb.reshape(nb, 16, 16)
+    scales, _, mins = _make_qkx2_quants(
+        groups, 3, np.abs(groups), rmin=-0.5, rdelta=0.1, nstep=15, use_mad=True
+    )
+    max_scale = scales.max(axis=1)
+    max_min = mins.max(axis=1)
+    inv_scale = np.where(max_scale > 0, 15.0 / np.where(max_scale > 0, max_scale, 1), 0.0)
+    inv_min = np.where(max_min > 0, 15.0 / np.where(max_min > 0, max_min, 1), 0.0)
+    ls = _nearest_int(inv_scale[:, None] * scales).astype(np.uint8)
+    lm = _nearest_int(inv_min[:, None] * mins).astype(np.uint8)
+    packed_sc = (ls & 0xF) | (lm << 4)
+    d = np.where(max_scale > 0, max_scale / 15.0, 0.0).astype(np.float16)
+    dmin = np.where(max_min > 0, max_min / 15.0, 0.0).astype(np.float16)
+    # the second pass: each group quantized again with its quantized scale
+    dl = d.astype(np.float32)[:, None] * (packed_sc & 0xF)
+    ml = dmin.astype(np.float32)[:, None] * (packed_sc >> 4)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        Lq = _nearest_int((groups + ml[..., None]) / np.where(dl == 0, 1, dl)[..., None])
+    Lq = np.clip(Lq, 0, 3).astype(np.uint8)
+    Lq = np.where((dl == 0)[..., None], 0, Lq)
+    # element 128*half + 32*j + pos: bits 2j of byte 32*half + pos
+    shifted = Lq.reshape(nb, 2, 4, 32) << (2 * np.arange(4, dtype=np.uint8)).reshape(4, 1)
+    out = np.empty((nb, 84), np.uint8)
+    out[:, 0:16] = packed_sc
+    out[:, 16:80] = np.bitwise_or.reduce(shifted, axis=2).reshape(nb, 64)
+    out[:, 80:82] = _f16_head(d)
+    out[:, 82:84] = _f16_head(dmin)
+    return out
+
+
+def _q_q3_K(xb):
+    """Signed 6-bit sub-scales per group of 16 (the rmse_type 1 fit), an
+    f16 d per superblock, and the grid q in [-4, 3] stored as q + 4: two
+    bits in qs, the third in hmask."""
+    nb = xb.shape[0]
+    groups = xb.reshape(nb, 16, 16)
+    scales, _ = _make_qx_quants(groups, 4)
+    amax_idx = np.abs(scales).argmax(axis=1)
+    max_scale = np.take_along_axis(scales, amax_idx[:, None], axis=1)[:, 0]
+    nz = max_scale != 0
+    iscale = np.where(nz, -32.0 / np.where(nz, max_scale, 1.0), 0.0)
+    l6 = np.clip(_nearest_int(iscale[:, None] * scales), -32, 31)
+    d = np.where(nz, 1.0 / np.where(iscale == 0, 1.0, iscale), 0.0).astype(np.float16)
+    dl = d.astype(np.float32)[:, None] * l6.astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        L = _nearest_int(groups / np.where(dl == 0, 1, dl)[..., None])
+    L = np.clip(L, -4, 3)
+    L = (np.where((dl == 0)[..., None], 0, L) + 4).astype(np.uint8)
+    # element 128*half + 32*j + pos: bits 2j of qs byte 32*half + pos, the
+    # high bit at bit 4*half + j of hmask byte pos
+    L = L.reshape(nb, 2, 4, 32)
+    lo = (L & 3) << (2 * np.arange(4, dtype=np.uint8)).reshape(4, 1)
+    hi = ((L >> 2) & 1) << np.arange(8, dtype=np.uint8).reshape(2, 4, 1)
+    out = np.empty((nb, 110), np.uint8)
+    out[:, 0:32] = np.bitwise_or.reduce(hi.reshape(nb, 8, 32), axis=1)
+    out[:, 32:96] = np.bitwise_or.reduce(lo, axis=2).reshape(nb, 64)
+    out[:, 96:108] = _pack_q3k_scales(l6)
+    out[:, 108:110] = _f16_head(d)
+    return out
 
 
 def _qkx_45(xb, nmax):
@@ -416,6 +510,8 @@ def _q_q6_K(xb):
 
 
 _QUANT = {
+    GGMLType.Q2_K: _q_q2_K,
+    GGMLType.Q3_K: _q_q3_K,
     GGMLType.Q4_0: _q_q4_0,
     GGMLType.Q4_1: _q_q4_1,
     GGMLType.Q5_0: _q_q5_0,
@@ -480,6 +576,33 @@ def _dc_q8_0(b):
     return b[:, 2:34].view(np.int8).copy(), _f16(b[:, 0:2]), None, QK
 
 
+def _dc_q2_K(b):
+    nb = b.shape[0]
+    sc = b[:, 0:16]
+    d = _f16(b[:, 80:82])
+    dmin = _f16(b[:, 82:84])
+    # element 128*half + 32*j + pos: bits 2j of qs byte 32*half + pos
+    qs = b[:, 16:80].reshape(nb, 2, 1, 32)
+    q = ((qs >> (2 * np.arange(4, dtype=np.uint8)).reshape(4, 1)) & 3).view(np.int8)
+    # group l // 16 = 8*half + 2*j + pos//16 is the scales' own order
+    s = d * (sc & 0xF).astype(np.float32)
+    m = -(dmin * (sc >> 4).astype(np.float32))
+    return q, s, m, 16
+
+
+def _dc_q3_K(b):
+    nb = b.shape[0]
+    hmask = b[:, 0:32].reshape(nb, 1, 1, 32)
+    qs = b[:, 32:96].reshape(nb, 2, 1, 32)
+    d = _f16(b[:, 108:110])
+    # as Q2_K, less 4 where bit 4*half + j of hmask byte pos is clear
+    lo = (qs >> (2 * np.arange(4, dtype=np.uint8)).reshape(4, 1)) & 3
+    hb = (hmask >> np.arange(8, dtype=np.uint8).reshape(2, 4, 1)) & 1
+    q = lo.view(np.int8) - ((hb ^ 1) << 2).view(np.int8)
+    s = d * _unpack_q3k_scales(np.ascontiguousarray(b[:, 96:108])).astype(np.float32)
+    return q, s, None, 16
+
+
 def _dc_q4_K(b):
     nb = b.shape[0]
     d = _f16(b[:, 0:2])
@@ -525,6 +648,8 @@ def _dc_q6_K(b):
 
 
 _DECOMP = {
+    GGMLType.Q2_K: _dc_q2_K,
+    GGMLType.Q3_K: _dc_q3_K,
     GGMLType.Q4_0: _dc_q4_0,
     GGMLType.Q4_1: _dc_q4_1,
     GGMLType.Q5_0: _dc_q5_0,
@@ -555,14 +680,21 @@ def decompose_factors(data, t: GGMLType, n: int):
     """Factored scale planes of a k-quant: (sd (nb, 1) f32, sub-scales
     (nb, 256/group) int8, sm = -dmin (nb, 1) f32 or None, sub-mins int8 or
     None, group). s = sd * sub and m = sm * sub reproduce decompose's planes
-    bit for bit. Q6_K has no mins. None for a type without superblocks (the
-    legacy types: their f32 planes are decompose's own)."""
+    bit for bit. Q3_K and Q6_K have no mins. None for a type without
+    superblocks (the legacy types: their f32 planes are decompose's own)."""
     t = GGMLType(t)
     if t not in _DECOMP:
         raise _not_ported(t)
     if _TRAITS[t][0] != QK_K:
         return None
     b = _blocks(data, t, n)
+    if t == GGMLType.Q2_K:
+        sc = b[:, 0:16]
+        return (_f16(b[:, 80:82]), (sc & 0xF).astype(np.int8), -_f16(b[:, 82:84]),
+                (sc >> 4).astype(np.int8), 16)
+    if t == GGMLType.Q3_K:
+        scales = _unpack_q3k_scales(np.ascontiguousarray(b[:, 96:108]))
+        return _f16(b[:, 108:110]), scales.astype(np.int8), None, None, 16
     if t == GGMLType.Q6_K:
         return _f16(b[:, 208:210]), b[:, 192:208].view(np.int8).copy(), None, None, 16
     d = _f16(b[:, 0:2])

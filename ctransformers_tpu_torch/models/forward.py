@@ -16,6 +16,7 @@ round_window buckets as the JAX package. Layers run as a Python loop.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -120,13 +121,19 @@ def _full_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int):
 ATTN_CHUNK = 512
 
 
+def attn_chunk() -> int:
+    """KV positions per chunk of the chunked attention: CT_ATTN_CHUNK, read
+    at call time, else ATTN_CHUNK."""
+    return int(os.environ.get("CT_ATTN_CHUNK", ATTN_CHUNK))
+
+
 def _chunked_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int):
-    """Online-softmax attention over KV chunks of ATTN_CHUNK positions: peak
-    memory O(T * chunk) instead of O(T * n_ctx)."""
+    """Online-softmax attention over KV chunks of attn_chunk() positions:
+    peak memory O(T * chunk) instead of O(T * n_ctx)."""
     b, t = q.shape[:2]
     h, dh = spec.n_head, spec.head_dim
     rep = h // spec.kv_heads
-    c = ATTN_CHUNK
+    c = attn_chunk()
     scale = _score_scale(dh)
     qpos = n_past + torch.arange(t, device=q.device)[:, None]
     m = torch.full((b, h, t), float("-inf"), device=q.device)
@@ -155,8 +162,12 @@ def _chunked_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int):
 
 def _use_chunked_attention(spec: ArchSpec, t: int) -> bool:
     """Long prefill chunks over long contexts stream the cache in chunks
-    rather than materialize the (T, S) score tensor."""
-    return t >= 256 and spec.n_ctx >= 1024 and spec.n_ctx % ATTN_CHUNK == 0
+    rather than materialize the (T, S) score tensor. CT_ATTN=full or
+    CT_ATTN=chunked, read at call time, forces one path for every chunk."""
+    mode = os.environ.get("CT_ATTN")
+    if mode in ("full", "chunked"):
+        return mode == "chunked"
+    return t >= 256 and spec.n_ctx >= 1024 and spec.n_ctx % attn_chunk() == 0
 
 
 ATTN_WINDOW_STEP = 256
@@ -191,7 +202,8 @@ def _attention(
     if window is not None and window < s:
         s = window
         if chunked:  # the chunked path reads whole chunks
-            s = min(math.ceil(window / ATTN_CHUNK) * ATTN_CHUNK, kv.k.shape[2])
+            c = attn_chunk()
+            s = min(math.ceil(window / c) * c, kv.k.shape[2])
     k_cache, v_cache = kv.k[il, :, :s], kv.v[il, :, :s]
     scores = _chunked_scores if chunked else _full_scores
     ctx = scores(spec, q, k_cache, v_cache, n_past)

@@ -9,7 +9,9 @@ Matmul weights load as F32, F16, the legacy block types Q4_0, Q4_1, Q5_0,
 Q5_1 and Q8_0 (the llama files of those ftypes, whose output tensor is
 Q6_K except in a Q8_0 file), or Q4_K, Q5_K and Q6_K (the types of llama
 Q4_K_M and Q5_K_M files, whose output, attn_v and ffn_down tensors are
-partly Q6_K). The token embedding loads in any type the port's codecs
+partly Q6_K), or Q2_K and Q3_K (llama Q2_K and Q3_K_S/M/L files, whose
+attn_v, attn_output and ffn_down tensors may be Q3_K, Q4_K or Q5_K and
+whose output tensor is Q6_K). The token embedding loads in any type the port's codecs
 decode (F32 and F16 stay at file precision, a quantized table becomes f32
 on the host). Any other quantized type raises NotImplementedError.
 """
@@ -126,13 +128,15 @@ def load_bundle(path: str, context_length: int = -1, progress_callback=None):
     )
 
     # the per-tensor decode + repack is numpy work that releases the GIL:
-    # a thread pool spreads it over the host's cores
+    # a thread pool spreads it over the host's cores (CT_LOAD_THREADS of
+    # them, else up to 8; one: no pool, each tensor loads where it is named)
     from concurrent.futures import ThreadPoolExecutor
 
-    pool = ThreadPoolExecutor(min(8, os.cpu_count() or 1))
+    threads = int(os.environ.get("CT_LOAD_THREADS", "0")) or min(8, os.cpu_count() or 1)
+    pool = ThreadPoolExecutor(threads) if threads > 1 else None
 
     def W(name):
-        return pool.submit(_weight, r, name)
+        return pool.submit(_weight, r, name) if pool else _weight(r, name)
 
     params = {
         "wte": _embed(r, "token_embd.weight"),
@@ -171,7 +175,8 @@ def load_bundle(path: str, context_length: int = -1, progress_callback=None):
             if progress_callback:
                 progress_callback((i + 1) / max(1, n_layer))
     finally:
-        pool.shutdown(cancel_futures=True)
+        if pool:
+            pool.shutdown(cancel_futures=True)
     return ModelBundle(
         spec, params, vocab, tokenizer, architecture=arch, sampler="llama",
         supports_embeddings=True,

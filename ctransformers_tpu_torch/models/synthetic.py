@@ -1,7 +1,8 @@
 """Synthetic llama checkpoints written with the port's own writers: the
 tiny test models and the llama-2-7B-width models that chip_smoke.py serves.
 GGUF files are all-Q4_K or laid out tensor for tensor as llama.cpp lays out
-a Q4_K_M, Q5_K_M, Q4_0, Q4_1, Q5_0, Q5_1 or Q8_0 file; GPTQ directories are
+a Q2_K, Q3_K_S, Q3_K_M, Q3_K_L, Q4_K_M, Q5_K_M, Q4_0, Q4_1, Q5_0, Q5_1 or
+Q8_0 file; GPTQ directories are
 laid out as a public 4-bit GPTQ-for-LLaMa checkpoint is. Weights are
 random, made from a seed; nothing is downloaded."""
 
@@ -14,7 +15,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..formats.gguf import write_gguf
-from ..formats.quants import _TRAITS, GGMLType, quantize
+from ..formats.quants import _TRAITS, GGMLType, quantize, row_nbytes
 from ..formats.safetensors import write_safetensors
 from ..tokenizers.spm_model import write_spm_model
 
@@ -87,6 +88,41 @@ def random_q6k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
     return buf.reshape(-1)
 
 
+# the planes of the group-16 k-quants as their random blocks decode: sub-scale
+# range [lo, hi) (what any scale bytes decode to; Q2_K's sub-mins share it),
+# the f16 d range drawn and dmin's upper bound (None: no mins). The card
+# tests and chip_smoke.py draw their random QTensors of these kinds from here.
+K16_PLANE_RANGES = {
+    "Q2_K": dict(sub=(0, 16), d=(1.73e-3, 1.73e-2), dmin=3.5e-3),
+    "Q3_K": dict(sub=(-32, 32), d=(4e-4, 4e-3), dmin=None),
+}
+
+
+def random_q2k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
+    """Valid Q2_K blocks (84 bytes per 256 weights): random 2-bit grids and
+    4-bit sub-scales and sub-mins (each in [0, 16)), f16 d and dmin scaled
+    from random_q4k_blocks' by the grids' spread (a group's weights spread
+    as a Q4_K group's: d * E[sub] * std(q) of 7.5 * 1.12 against 31.5 *
+    4.6)."""
+    r = K16_PLANE_RANGES["Q2_K"]
+    nb = n_elements // 256
+    buf = rng.integers(0, 256, (nb, 84), dtype=np.uint8)
+    buf[:, 80:82] = _f16_bytes(rng, nb, *r["d"])
+    buf[:, 82:84] = _f16_bytes(rng, nb, 0.0, r["dmin"])
+    return buf.reshape(-1)
+
+
+def random_q3k_blocks(rng: np.random.Generator, n_elements: int) -> np.ndarray:
+    """Valid Q3_K blocks (110 bytes per 256 weights): random 3-bit grids
+    (q in [-4, 3]), 6-bit sub-scales in [-32, 32) (any 12 bytes decode to
+    such) and a small positive f16 d, scaled as random_q2k_blocks' (E|sub|
+    16, std(q) 2.3)."""
+    nb = n_elements // 256
+    buf = rng.integers(0, 256, (nb, 110), dtype=np.uint8)
+    buf[:, 108:110] = _f16_bytes(rng, nb, *K16_PLANE_RANGES["Q3_K"]["d"])
+    return buf.reshape(-1)
+
+
 def _random_legacy(t: GGMLType, d_range: Tuple[float, float]):
     """A drawer of valid blocks of legacy type `t` (32 weights each), drawn
     directly as random_q4k_blocks draws Q4_K's: random grid bytes, a small
@@ -110,6 +146,8 @@ def _random_legacy(t: GGMLType, d_range: Tuple[float, float]):
 
 
 RANDOM_BLOCKS = {
+    GGMLType.Q2_K: random_q2k_blocks,
+    GGMLType.Q3_K: random_q3k_blocks,
     GGMLType.Q4_K: random_q4k_blocks,
     GGMLType.Q5_K: random_q5k_blocks,
     GGMLType.Q6_K: random_q6k_blocks,
@@ -128,9 +166,21 @@ RANDOM_BLOCKS = {
 # k-quant mixes and the legacy ftypes, named as llama.cpp's quantize names
 # them)
 MIXES = {
-    "Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K,
+    "Q2_K": GGMLType.Q2_K, "Q3_K_S": GGMLType.Q3_K, "Q3_K_M": GGMLType.Q3_K,
+    "Q3_K_L": GGMLType.Q3_K, "Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K,
     "Q4_0": GGMLType.Q4_0, "Q4_1": GGMLType.Q4_1, "Q5_0": GGMLType.Q5_0,
     "Q5_1": GGMLType.Q5_1, "Q8_0": GGMLType.Q8_0,
+}
+# the k-quant mixes below Q4_K_M: the types of attn_v, attn_output and
+# ffn_down in every layer, as llama.cpp's llama_model_quantize_internal of
+# the GGUF era gives them and TheBloke/Llama-2-7B-GGUF's model card lists
+# them (Q2_K: "GGML_TYPE_Q4_K for the attention.vw and feed_forward.w2
+# tensors, GGML_TYPE_Q2_K for the other tensors"; attention.wo Q3_K)
+LOW_K_MIXES = {
+    "Q2_K": (GGMLType.Q4_K, GGMLType.Q3_K, GGMLType.Q4_K),
+    "Q3_K_S": (GGMLType.Q3_K, GGMLType.Q3_K, GGMLType.Q3_K),
+    "Q3_K_M": (GGMLType.Q4_K, GGMLType.Q4_K, GGMLType.Q4_K),
+    "Q3_K_L": (GGMLType.Q5_K, GGMLType.Q5_K, GGMLType.Q5_K),
 }
 
 
@@ -146,15 +196,24 @@ def use_more_bits(i_layer: int, n_layer: int) -> bool:
 
 def mix_type(mix: str, name: str, n_layer: int, row_len: int) -> GGMLType:
     """The type llama.cpp's llama_model_quantize_internal gives tensor
-    `name`, whose rows are `row_len` long, in a file of `mix`: in a K_M
-    file output.weight Q6_K, attn_v and ffn_down Q6_K in use_more_bits
-    layers; in a legacy file output.weight Q6_K where its rows are a
-    256-multiple, except in a Q8_0 file, which keeps it Q8_0. token_embd and
-    every other matmul weight take the mix's base type."""
+    `name`, whose rows are `row_len` long, in a file of `mix`: in a k-quant
+    file output.weight Q6_K; in a K_M file attn_v and ffn_down Q6_K in
+    use_more_bits layers; in the mixes below Q4_K_M attn_v, attn_output and
+    ffn_down as LOW_K_MIXES gives them; in a legacy file output.weight Q6_K
+    where its rows are a 256-multiple, except in a Q8_0 file, which keeps it
+    Q8_0. token_embd and every other matmul weight take the mix's base
+    type."""
     base = MIXES[mix]
     if name == "output.weight":
-        if mix.endswith("_K_M") or (base != GGMLType.Q8_0 and row_len % 256 == 0):
+        if (mix.endswith("_K_M") or mix in LOW_K_MIXES
+                or (base != GGMLType.Q8_0 and row_len % 256 == 0)):
             return GGMLType.Q6_K
+        return base
+    if mix in LOW_K_MIXES:
+        for suffix, t in zip((".attn_v.weight", ".attn_output.weight", ".ffn_down.weight"),
+                             LOW_K_MIXES[mix]):
+            if name.endswith(suffix):
+                return t
         return base
     if mix.endswith("_K_M") and name.endswith((".attn_v.weight", ".ffn_down.weight")):
         i_layer = int(name.split(".")[1])
@@ -179,7 +238,8 @@ def write_llama_gguf(
     mix: Optional[str] = None,
 ) -> dict:
     """Write a llama GGUF. Matmul weights are `wtype`, or with `mix` (a key
-    of MIXES: "Q4_K_M", "Q5_K_M", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0")
+    of MIXES: "Q2_K", "Q3_K_S", "Q3_K_M", "Q3_K_L", "Q4_K_M", "Q5_K_M",
+    "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0")
     the types llama.cpp gives them in such a file (mix_type; the token
     embedding then takes the mix's base type and `wtype` and `embed_type`
     are not read). Weights are quantized from N(0, 0.08^2) draws, or
@@ -225,22 +285,52 @@ def write_llama_gguf(
         else:
             dense(name, (n_out, n_in), t, scale=0.02 if synthesize_blocks else 0.08)
 
-    weight("token_embd.weight", n_vocab, n_embd, None if mix else embed_type)
-    dense("output_norm.weight", (n_embd,), GGMLType.F32, offset=1.0)
-    weight("output.weight", n_vocab, n_embd)
-    for i in range(n_layer):
-        p = f"blk.{i}"
-        dense(f"{p}.attn_norm.weight", (n_embd,), GGMLType.F32, offset=1.0)
-        weight(f"{p}.attn_q.weight", n_head * dh, n_embd)
-        weight(f"{p}.attn_k.weight", n_head_kv * dh, n_embd)
-        weight(f"{p}.attn_v.weight", n_head_kv * dh, n_embd)
-        weight(f"{p}.attn_output.weight", n_embd, n_head * dh)
-        dense(f"{p}.ffn_norm.weight", (n_embd,), GGMLType.F32, offset=1.0)
-        weight(f"{p}.ffn_gate.weight", n_ff, n_embd)
-        weight(f"{p}.ffn_up.weight", n_ff, n_embd)
-        weight(f"{p}.ffn_down.weight", n_embd, n_ff)
+    for name, n_out, n_in in llama_tensors(n_vocab, n_embd, n_head, n_head_kv, n_layer, n_ff):
+        if n_in is None:
+            dense(name, (n_out,), GGMLType.F32, offset=1.0)
+        elif name == "token_embd.weight":
+            weight(name, n_out, n_in, None if mix else embed_type)
+        else:
+            weight(name, n_out, n_in)
     write_gguf(path, kv, tensors)
     return dict(n_vocab=n_vocab, n_ctx=n_ctx, n_layer=n_layer)
+
+
+def llama_tensors(n_vocab: int, n_embd: int, n_head: int, n_head_kv: int, n_layer: int,
+                  n_ff: int) -> List[Tuple[str, int, Optional[int]]]:
+    """(name, rows, row length) of every tensor of a llama GGUF in the
+    order write_llama_gguf writes them; a norm vector has row length None."""
+    dh = n_embd // n_head
+    out = [("token_embd.weight", n_vocab, n_embd), ("output_norm.weight", n_embd, None),
+           ("output.weight", n_vocab, n_embd)]
+    for i in range(n_layer):
+        p = f"blk.{i}"
+        out += [
+            (f"{p}.attn_norm.weight", n_embd, None),
+            (f"{p}.attn_q.weight", n_head * dh, n_embd),
+            (f"{p}.attn_k.weight", n_head_kv * dh, n_embd),
+            (f"{p}.attn_v.weight", n_head_kv * dh, n_embd),
+            (f"{p}.attn_output.weight", n_embd, n_head * dh),
+            (f"{p}.ffn_norm.weight", n_embd, None),
+            (f"{p}.ffn_gate.weight", n_ff, n_embd),
+            (f"{p}.ffn_up.weight", n_ff, n_embd),
+            (f"{p}.ffn_down.weight", n_embd, n_ff),
+        ]
+    return out
+
+
+def mix_nbytes(mix: str, n_vocab: int, n_ctx: int, n_embd: int, n_head: int, n_head_kv: int,
+               n_layer: int, n_ff: int) -> int:
+    """The tensor bytes of a llama GGUF file of `mix` (norms f32), as
+    write_llama_gguf would write it, without writing it (the GGUF header
+    and vocab add well under a megabyte). With **LLAMA2_7B it is the size
+    of a llama-2-7B file of that mix."""
+    del n_ctx  # a key of LLAMA2_7B that sizes no tensor
+    total = 0
+    for name, n_out, n_in in llama_tensors(n_vocab, n_embd, n_head, n_head_kv, n_layer, n_ff):
+        t = GGMLType.F32 if n_in is None else mix_type(mix, name, n_layer, n_in)
+        total += row_nbytes(t, n_out * (n_in or 1))
+    return total
 
 
 def write_llama_gptq(

@@ -7,23 +7,25 @@ The counterpart of ctransformers_tpu/ops/qmatmul.py. A GGML block tensor is
 repacked at load time into planes that compute x @ W with W logically
 (in_features K, out_features N), padded to (K_pad, N_pad):
 
-    qs     (K_pad/2, N_pad) int8   4-bit grids (Q4_K, GPTQ4, Q4_0, Q4_1),
-                                   "adjk" layout: byte (r, n) holds rows 2r
-                                   (low nibble) and 2r+1 (high nibble),
-                                   both as two's-complement q + zp - 8
+    qs     (K_pad/2, N_pad) int8   4-bit grids (Q4_K, Q2_K, Q3_K, GPTQ4,
+                                   Q4_0, Q4_1), "adjk" layout: byte (r, n)
+                                   holds rows 2r (low nibble) and 2r+1
+                                   (high nibble), both as two's-complement
+                                   q + zp - 8
            (K_pad, N_pad) int8     int8 grids (Q6_K: q in [-32, 31], Q5_K
                                    and Q5_1: [0, 31], Q5_0: [-16, 15], Q8_0:
                                    [-128, 127]), one byte per weight
     scales (K_pad/g, N_pad) int8   k-quant sub-scales per group of g rows
-                                   (g = 32; 16 for Q6_K)
+                                   (g = 32; 16 for Q6_K, Q2_K and Q3_K)
     mins   (K_pad/g, N_pad) int8   sub-mins (None when the format has none,
-                                   as Q6_K)
+                                   as Q6_K and Q3_K)
     sd, sm (K_pad/256, N_pad) f32  superblock factors: s = sd * scales,
                                    m = sm * mins
 
-so that W = q * s + m. The zero point zp is 8 for Q4_0, whose grid is
-signed ([-8, 7], stored as it is, no bias), and 0 for the other nibble
-grids ([0, 15], stored as q - 8, so W = w4 * s + 8 * s + m).
+so that W = q * s + m. The zero point zp is 8 for Q4_0 and Q3_K, whose
+grids are signed ([-8, 7] and [-4, 3], stored as they are, no bias), and 0
+for the other nibble grids (Q4_K's and Q4_1's [0, 15], Q2_K's [0, 3],
+stored as q - 8, so W = w4 * s + 8 * s + m).
 
 Weights without superblocks are not factored: scales and mins are the f32
 (K_pad/g, N_pad) planes s and m themselves, sd and sm are absent (sfactor
@@ -58,9 +60,8 @@ from ..logger import logger
 from . import qmm_kernels as kern
 
 # formats stored nibble-packed, with the zero point that re-biases their
-# grid into [0, 15] (Q4_0's is signed); the other 4-bit grids (Q2_K, Q3_K)
-# join as their slices port them
-_PACK4_ZP = {"Q4_0": 8, "Q4_1": 0, "Q4_K": 0, "GPTQ4": 0}
+# grid into [0, 15] (Q4_0's and Q3_K's are signed)
+_PACK4_ZP = {"Q4_0": 8, "Q3_K": 8, "Q4_1": 0, "Q2_K": 0, "Q4_K": 0, "GPTQ4": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -166,12 +167,22 @@ def repack(data, t: GGMLType, rows: int, cols: int) -> QTensor:
     """Repack a GGML tensor (file layout: `rows` x `cols`, quant blocks along
     cols) into a QTensor computing x @ W with W logically (cols, rows): the
     load-time transpose, with the k-quant scale factors kept factored and
-    the f32 planes of a type without superblocks as they are."""
+    the f32 planes of a type without superblocks as they are.
+
+    CT_NO_SFAC (the JAX package's knob for unfactored k-quant planes)
+    raises NotImplementedError on a k-quant: the port's k-quant kernels read
+    factored planes only. The legacy types, unfactored anyway, load as
+    without it, as in the JAX package."""
     t = GGMLType(t)
     n = rows * cols
     q, s, m, group = decompose(data, t, n)
     q = np.ascontiguousarray(q.reshape(rows, cols).T)  # (K=cols, N=rows)
     fac = decompose_factors(data, t, n)
+    if fac is not None and os.environ.get("CT_NO_SFAC"):
+        raise NotImplementedError(
+            f"CT_NO_SFAC: unfactored {t.name} planes are not ported (the k-quant kernels "
+            "read int8 sub-scales times f32 superblock factors); unset it"
+        )
     if fac is None:  # the legacy types: f32 (K/g, N) planes, sfactor 0
         s = np.ascontiguousarray(s.reshape(rows, cols // group).T)
         if m is not None:
@@ -183,7 +194,7 @@ def repack(data, t: GGMLType, rows: int, cols: int) -> QTensor:
         raise ValueError(f"{t.name}: row length {cols} is not a superblock multiple")
     sq = np.ascontiguousarray(sq.reshape(rows, cols // group).T)
     sd = np.ascontiguousarray(sd.reshape(rows, cols // (group * sf)).T)
-    if mq is not None:  # Q6_K has no mins
+    if mq is not None:  # Q6_K and Q3_K have no mins
         mq = np.ascontiguousarray(mq.reshape(rows, cols // group).T)
         sm = np.ascontiguousarray(sm.reshape(rows, cols // (group * sf)).T)
     return make_qtensor(q, sq, mq, t.name, group, sd=sd, sm=sm, sfactor=sf)
@@ -236,10 +247,11 @@ def select_mode(m: int, qt: QTensor) -> str:
     CT_QMM_AUTOTUNE=precompiled (the counterpart of the JAX package's
     heuristic pick). On the card the race of pick_mode decides instead.
 
-    Nibble-packed Q4_K: decode takes the in-kernel activation quantization
-    ("qx"), short chunks the pre-quantized form ("q"), long chunks the bf16
-    tensor-core GEMMs, folding the bias through the group sums where N is
-    the wider side ("si", else "i").
+    Nibble-packed k-quants (Q4_K; Q2_K and Q3_K at group 16): decode takes
+    the in-kernel activation quantization ("qx"), short chunks the
+    pre-quantized form ("q"), long chunks the bf16 tensor-core GEMMs,
+    folding the bias through the group sums where N is the wider side
+    ("si", else "i").
 
     Nibble-packed weights with plain f32 planes (sfactor 0: GPTQ4 at any
     group, Q4_0, Q4_1) take "qx" at m = 1, "q" at 2 <= m <= 32 and "i" at
@@ -281,7 +293,7 @@ def select_mode(m: int, qt: QTensor) -> str:
 #                      hand-written kernel; "dense": never a kernel
 
 DENSE = ("dense",)
-# adjk nibbles (Q4_K, GPTQ4, Q4_0, Q4_1) and int8 grids (Q6_K, Q5_K, Q8_0,
+# adjk nibbles (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_0, Q4_1) and int8 grids (Q6_K, Q5_K, Q8_0,
 # Q5_0, Q5_1), in the order of the JAX package's candidate lists ("q8" is
 # its "q" with packed4=False)
 _NIBBLE_MODES = ("i", "si", "g", "q", "qx")
@@ -329,7 +341,8 @@ def card_name(device: torch.device) -> str:
 def cache_key(m: int, qt: QTensor) -> tuple:
     """The JAX package's key: storage rows (byte rows of a nibble-packed
     weight), padded N, group, has mins, the real m, packed, sfactor, layout.
-    Q4_K and GPTQ4 at group 32 differ in sfactor, fused and unfused QKV in
+    Q4_K and GPTQ4 at group 32 differ in sfactor, Q2_K and Q3_K (group 16,
+    sfactor 16) in mins and from Q6_K in packing, fused and unfused QKV in
     N. Q4_1 shares GPTQ4 group 32's keys and Q5_0 shares Q8_0's: the same
     layout runs the same kernels."""
     rows, npad = qt.qs.shape

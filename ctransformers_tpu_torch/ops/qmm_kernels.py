@@ -39,6 +39,17 @@ branches without a bias term (qx_bias and g_bias False, b is None):
   qmm_qx_q4_0, qmm_q_q4_0, qmm_i_q4_0, qmm_si_q4_0, qmm_g_q4_0
       the functions above without the bias (si then computes what i does)
 
+Q2_K and Q3_K, the same nibbles at group 16 with factored scales (16
+groups a superblock): int8 sub-scales over f32 sd, and for Q2_K int8
+sub-mins over f32 sm = -dmin. Q2_K (zero point 0, q in [0, 3] stored as
+q - 8) has the bias B = 8 * s + m; Q3_K (zero point 8, q in [-4, 3] stored
+as it is, no mins) has none (the reference's qx_bias / g_bias False, b is
+None). The symbols are told whether the weight has mins and refuse a flag
+that disagrees with the sub-min and sm pointers:
+
+  qmm_qx_k16, qmm_q_k16, qmm_i_k16, qmm_si_k16, qmm_g_k16
+      the functions of qmm_qx, qmm_q, qmm_i, qmm_si and qmm_g at group 16
+
 An act-order weight (QTensor.perm) reaches the wrappers with x already
 gathered (ops/qmatmul.py:qmatmul).
 
@@ -191,6 +202,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_g8_legacy": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_f_legacy": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_s_legacy": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_qx_k16": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_q_k16": [P] * 9 + [I, I, I, I, P],
+        "ct_qmm_i_k16": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_si_k16": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_g_k16": [P] * 7 + [I, I, I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -208,14 +224,17 @@ def _fn(lib: str, name: str):
 
 
 # the layouts the kernels take: kind -> (group, groups per superblock,
-# has mins, nibble-packed). Q4_K is nibble-packed in the adjk layout; Q6_K
-# and Q5_K are int8 grids; GPTQ4 is nibble-packed with unfactored f32 planes
+# has mins, nibble-packed). Q4_K is nibble-packed in the adjk layout, Q2_K
+# (with mins) and Q3_K (without) too at group 16; Q6_K and Q5_K are int8
+# grids; GPTQ4 is nibble-packed with unfactored f32 planes
 # (0 groups per superblock: no sd, no sm) and its group is the checkpoint's,
 # one of GPTQ_GROUPS (the table names the common one). The legacy GGML
 # types are unfactored at group 32: Q4_1 is GPTQ4's layout at that group,
 # Q4_0 nibbles without mins, Q8_0, Q5_0 and Q5_1 int8 grids.
 LAYOUTS = {
     "Q4_K": (32, 8, True, True),
+    "Q2_K": (16, 16, True, True),
+    "Q3_K": (16, 16, False, True),
     "Q6_K": (16, 16, False, False),
     "Q5_K": (32, 8, True, False),
     "GPTQ4": (128, 0, True, True),
@@ -230,7 +249,7 @@ GPTQ_GROUPS = (32, 64, 128)
 
 def zero_point(kind: str) -> int:
     """The nibble zero point of a layout: 8 where nibbles have no mins
-    (Q4_0's signed grid, no bias), else 0 (B = 8 * s + m)."""
+    (Q4_0's and Q3_K's signed grids, no bias), else 0 (B = 8 * s + m)."""
     _, _, has_mins, packed = LAYOUTS[kind]
     return 8 if packed and not has_mins else 0
 
@@ -257,6 +276,15 @@ def _check_layout(qt, kinds: Tuple[str, ...], what: str) -> None:
 def check_qtensor(qt) -> Tuple[int, int]:
     """The Q4_K kernels take exactly the Q4_K adjk layout; returns (Kp, Np)."""
     _check_layout(qt, ("Q4_K",), "Q4_K adjk QTensors")
+    rows, np_ = qt.qs.shape
+    return _check_planes(qt, 2 * rows, np_)
+
+
+def check_k16_qtensor(qt) -> Tuple[int, int]:
+    """The group-16 nibble kernels take Q2_K and Q3_K: adjk nibbles with
+    int8 (Kp/16, Np) sub-scales (and Q2_K's sub-mins) over f32 (Kp/256, Np)
+    superblock factors; returns (Kp, Np)."""
+    _check_layout(qt, ("Q2_K", "Q3_K"), "Q2_K or Q3_K adjk QTensors")
     rows, np_ = qt.qs.shape
     return _check_planes(qt, 2 * rows, np_)
 
@@ -373,15 +401,15 @@ def _launch(name: str, lib: str, dev, acts, qt, m: int, kp: int, np_: int, *ints
 
 def group_planes(qt) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(Kp/G, Np) f32 planes s and B = (8 - zp) * s + m of a nibble-packed
-    weight: s = sd * sub_s and m = sm * sub_m where factored (Q4_K), the
-    stored f32 planes themselves where not (GPTQ4, Q4_1, Q4_0). B is None
-    where the reference kernels have no bias term (zp 8 and no mins: Q4_0),
-    rounded as theirs: (8 - zp) * s, then + m."""
+    weight: s = sd * sub_s and m = sm * sub_m where factored (Q4_K, Q2_K,
+    Q3_K), the stored f32 planes themselves where not (GPTQ4, Q4_1, Q4_0).
+    B is None where the reference kernels have no bias term (zp 8 and no
+    mins: Q4_0, Q3_K), rounded as theirs: (8 - zp) * s, then + m."""
     if qt.sfactor == 0:
         s, m = qt.scales, qt.mins
     else:
         s = qt.scales.float() * qt.sd.repeat_interleave(qt.sfactor, 0)
-        m = qt.mins.float() * qt.sm.repeat_interleave(qt.sfactor, 0)
+        m = None if qt.mins is None else qt.mins.float() * qt.sm.repeat_interleave(qt.sfactor, 0)
     b = None if qt.zp == 8 else float(8 - qt.zp) * s
     if m is not None:
         b = m if b is None else b + m
@@ -398,10 +426,10 @@ def unpack_w4(qs: torch.Tensor) -> torch.Tensor:
 
 def quantize_activations(x: torch.Tensor, group: int):
     """Per-(token, group) symmetric int8, with the weight's group (32; 16
-    for Q6_K; 32, 64 or 128 for GPTQ4): (xq (m, Kp) int8, sx (m, Kp/group) f32, xsum (m, Kp/group)
-    f32), the formula of the reference's "q" mode: sx = absmax/127,
-    xq = clip(round(x / max(sx, 1e-20)), +-127); torch.round rounds half
-    to even, as jnp.round does."""
+    for Q6_K, Q2_K and Q3_K; 32, 64 or 128 for GPTQ4): (xq (m, Kp) int8,
+    sx (m, Kp/group) f32, xsum (m, Kp/group) f32), the formula of the
+    reference's "q" mode: sx = absmax/127, xq = clip(round(x / max(sx,
+    1e-20)), +-127); torch.round rounds half to even, as jnp.round does."""
     m, kp = x.shape
     xr = x.reshape(m, kp // group, group)
     sx = xr.abs().amax(-1) / 127.0
@@ -449,7 +477,7 @@ def plain_g(x: torch.Tensor, qt) -> torch.Tensor:
     w4, or the int8 grid), exact products summed in f32 inside a group, the
     f32 scale applied to each group's partial sum, plus the bias through
     the group sums of the unrounded x (B = (8 - zp) * s + m for nibbles, m
-    for grids, none for Q4_0, Q6_K, Q8_0 and Q5_0)."""
+    for grids, none for Q4_0, Q3_K, Q6_K, Q8_0 and Q5_0)."""
     m, kp = x.shape
     g = qt.group
     ng = kp // g
@@ -567,7 +595,7 @@ def _wrapper(name: str, lib: str, check, plain, ints):
 
 
 # kernels whose wrappers take (xq, sx, xsum) from quantize_activations
-PREQUANTIZED = ("qmm_q", "qmm_q8", "qmm_q_gptq", "qmm_q_q4_0", "qmm_q8_legacy")
+PREQUANTIZED = ("qmm_q", "qmm_q8", "qmm_q_gptq", "qmm_q_q4_0", "qmm_q8_legacy", "qmm_q_k16")
 
 
 def _no_ints(qt) -> tuple:
@@ -614,6 +642,11 @@ _SPECS = {
     "qmm_g8_legacy": ("qmm_float", check_legacy_grid_qtensor, plain_g, _has_mins, 1206),
     "qmm_f_legacy": ("qmm_float", check_legacy_grid_qtensor, plain_f, _has_mins, 734),
     "qmm_s_legacy": ("qmm_float", check_legacy_grid_qtensor, plain_s, _has_mins, 1040),
+    "qmm_qx_k16": ("qmm_decode", check_k16_qtensor, plain_qx, _has_mins, 1370),
+    "qmm_q_k16": ("qmm_decode", check_k16_qtensor, plain_q, _has_mins, 1288),
+    "qmm_i_k16": ("qmm_prefill", check_k16_qtensor, plain_i, _has_mins, 1090),
+    "qmm_si_k16": ("qmm_prefill", check_k16_qtensor, plain_si, _has_mins, 1148),
+    "qmm_g_k16": ("qmm_float", check_k16_qtensor, plain_g, _has_mins, 1206),
 }
 KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
@@ -639,7 +672,8 @@ DENSE_CALLS: Dict[str, int] = {"dense": 0}
 DECODE_CONFIG = "n32k1024"  # 32 columns and all of K per block, 1024-row chunks
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps
 GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_b", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq",
-                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_b_legacy", "qmm_sb_legacy")
+                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_b_legacy", "qmm_sb_legacy", "qmm_i_k16",
+                "qmm_si_k16")
 CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SPECS}
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
 # name for its "q" with packed4=False)
@@ -651,10 +685,11 @@ def kernel_name(mode: str, qt) -> str:
     """The wrapper serving `mode` (ops/qmatmul.py:mode_candidates) on `qt`:
     the int8-grid kernels for an unpacked weight (their "_legacy" forms
     where the planes are unfactored), and for nibble-packed planes the Q4_K
-    kernels where factored, else the GPTQ kernels where there are mins
-    (GPTQ4, Q4_1) and the bias-free Q4_0 kernels where there are none."""
+    kernels where factored at group 32 and the "_k16" kernels at group 16
+    (Q2_K, Q3_K), else the GPTQ kernels where there are mins (GPTQ4, Q4_1)
+    and the bias-free Q4_0 kernels where there are none."""
     if not qt.packed:
         return _GRID_KERNELS[mode] + ("_legacy" if qt.sfactor == 0 else "")
     if qt.sfactor:
-        return f"qmm_{mode}"
+        return f"qmm_{mode}" + ("_k16" if qt.group == 16 else "")
     return f"qmm_{mode}" + ("_gptq" if qt.mins is not None else "_q4_0")

@@ -262,14 +262,15 @@ def test_shipped_table_serves_this_checkout():
     text = open(path).read().lower()
     assert "tpu" not in text.replace("ctransformers_tpu_torch", "") and "v5e" not in text
     entries = qm._parse_cache_file(path, H100)
-    assert len(entries) == len(doc["modes"]) >= 57
+    assert len(entries) == len(doc["modes"]) >= 129
     assert {k[4] for k in entries} == {1, 8, 128}
     for key, v in entries.items():
         rows, npad, group, has_mins, m, packed, sfactor, layout = key
         # the layout of each key (Q4_1 has GPTQ4 group 32's keys, Q5_0 Q8_0's)
         kind = {(True, 8, True): "Q4_K", (True, 0, True): "GPTQ4", (False, 16, False): "Q6_K",
                 (False, 8, True): "Q5_K", (True, 0, False): "Q4_0", (False, 0, False): "Q8_0",
-                (False, 0, True): "Q5_1"}[(packed, sfactor, has_mins)]
+                (False, 0, True): "Q5_1", (True, 16, True): "Q2_K",
+                (True, 16, False): "Q3_K"}[(packed, sfactor, has_mins)]
         qt = _meta_qtensor(kind, rows * (2 if packed else 1), npad, group)
         cands = qm.mode_candidates(qt, m)
         assert v["pick"] in cands + [qm.DENSE] and v["kernel"] in cands

@@ -1,8 +1,9 @@
 """The qmm kernels against their plain PyTorch versions on the card: the
 five Q4_K kernels, the six int8-grid (Q6_K, Q5_K) kernels, the five GPTQ4
 kernels at groups 32, 64 and 128 (Q4_1 at 32), the five bias-free Q4_0
-kernels and the six kernels on the legacy grids' plain planes (Q8_0, Q5_0,
-Q5_1); and the race that picks among them.
+kernels, the six kernels on the legacy grids' plain planes (Q8_0, Q5_0,
+Q5_1) and the five group-16 nibble kernels (Q2_K, Q3_K); and the race that
+picks among them.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -14,6 +15,7 @@ import dataclasses
 import pytest
 import torch
 
+from ctransformers_tpu_torch.models.synthetic import K16_PLANE_RANGES
 from ctransformers_tpu_torch.ops import qmatmul as qm
 from ctransformers_tpu_torch.ops import qmm_kernels as K
 from ctransformers_tpu_torch.ops.qmatmul import QTensor, qmatmul, select_mode
@@ -93,7 +95,26 @@ def random_legacy(kind: str, k: int, n: int, seed: int, device) -> QTensor:
                    sfactor=0, pack_layout="adjk").to(device)
 
 
+def random_k16(kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    """A Q2_K (sub-mins and sm = -dmin) or Q3_K (no mins, zero point 8)
+    QTensor with random nibbles and factors at padded shape (k, n), in the
+    ranges of synthetic.K16_PLANE_RANGES."""
+    r = K16_PLANE_RANGES[kind]
+    g = torch.Generator().manual_seed(seed)
+    qs = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8)
+    sub_s = torch.randint(*r["sub"], (k // 16, n), generator=g, dtype=torch.int8)
+    sd = torch.rand((k // 256, n), generator=g) * (r["d"][1] - r["d"][0]) + r["d"][0]
+    sub_m = sm = None
+    if r["dmin"] is not None:
+        sub_m = torch.randint(0, r["sub"][1], (k // 16, n), generator=g, dtype=torch.int8)
+        sm = -torch.rand((k // 256, n), generator=g) * r["dmin"]
+    return QTensor(qs, sub_s, sub_m, kind, 16, (k, n), packed=True, zp=K.zero_point(kind),
+                   sd=sd, sm=sm, sfactor=16, pack_layout="adjk").to(device)
+
+
 def _weight(name: str, kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    if kind in ("Q2_K", "Q3_K"):
+        return random_k16(kind, k, n, seed, device)
     if kind.startswith("GPTQ4"):
         return random_gptq(k, n, int(kind.split("/")[1]), seed, device)
     if kind in LEGACY:
@@ -118,25 +139,28 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3,
        "qmm_qx_q4_0": 1e-5, "qmm_q_q4_0": 1e-5, "qmm_i_q4_0": 1e-3, "qmm_si_q4_0": 1e-3,
        "qmm_g_q4_0": 1e-5, "qmm_q8_legacy": 1e-5, "qmm_b_legacy": 1e-3,
        "qmm_sb_legacy": 1e-3, "qmm_g8_legacy": 1e-5, "qmm_f_legacy": 1e-5,
-       "qmm_s_legacy": 1e-5}
+       "qmm_s_legacy": 1e-5, "qmm_qx_k16": 1e-5, "qmm_q_k16": 1e-5, "qmm_i_k16": 1e-3,
+       "qmm_si_k16": 1e-3, "qmm_g_k16": 1e-5}
 assert set(TOL) == set(K.KERNELS)
 GRID = ("qmm_q8", "qmm_b", "qmm_sb", "qmm_g8", "qmm_f", "qmm_s")
 GPTQ = ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq", "qmm_g_gptq", "qmm_si_gptq")
 Q4_0 = ("qmm_qx_q4_0", "qmm_q_q4_0", "qmm_i_q4_0", "qmm_si_q4_0", "qmm_g_q4_0")
 LEGACY_GRID = tuple(name + "_legacy" for name in GRID)
 LEGACY = ("Q4_0", "Q4_1", "Q8_0", "Q5_0", "Q5_1")
+K16 = ("qmm_qx_k16", "qmm_q_k16", "qmm_i_k16", "qmm_si_k16", "qmm_g_k16")
 # each Q4_K kernel once, each grid kernel on both int8-grid layouts, each
 # GPTQ kernel at its three groups and on Q4_1, each Q4_0 kernel once, each
 # legacy-grid kernel on the three legacy grids (s and sb where there are
-# mins to fold: Q5_1)
-CASES = [(name, "Q4_K") for name in sorted(TOL) if name not in GRID + GPTQ + Q4_0 + LEGACY_GRID] + [
+# mins to fold: Q5_1), each group-16 kernel on Q2_K and Q3_K
+CASES = [(name, "Q4_K") for name in sorted(TOL)
+         if name not in GRID + GPTQ + Q4_0 + LEGACY_GRID + K16] + [
     (name, kind) for name in GRID for kind in ("Q6_K", "Q5_K")
 ] + [(name, f"GPTQ4/{g}") for name in GPTQ for g in K.GPTQ_GROUPS] + [
     (name, "Q4_1") for name in GPTQ
 ] + [(name, "Q4_0") for name in Q4_0] + [
     (name, kind) for name in LEGACY_GRID for kind in ("Q8_0", "Q5_0", "Q5_1")
     if kind == "Q5_1" or "s" not in name.split("_")[1]
-]
+] + [(name, kind) for name in K16 for kind in ("Q2_K", "Q3_K")]
 
 
 @pytest.mark.parametrize("name,kind", CASES)
@@ -186,6 +210,68 @@ def test_legacy_symbols_refuse_a_mins_flag_that_disagrees(dev):
     assert rc != 0
     rc = lib(*K._ptrs(x, q51.qs, q51.scales, q51.mins, out), 64, 256, 128, 0, K._stream(dev))
     assert rc != 0
+
+
+@pytest.mark.parametrize("name", K16)
+@pytest.mark.parametrize("kind", ["Q2_K", "Q3_K"])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 12288), (4096, 22528)])
+def test_k16_kernel_matches_plain_at_7b_shapes(dev, name, kind, k, n):
+    """The group-16 nibble kernels at llama-2-7B shapes (o, down, the fused
+    QKV and gate/up), at the batch sizes the main path gives each; a lane's
+    two groups are rescaled one after the other, bitwise repeatably."""
+    for m in {"qmm_qx_k16": (1,), "qmm_q_k16": (8,), "qmm_i_k16": (128,),
+              "qmm_si_k16": (128,), "qmm_g_k16": (1, 8)}[name]:
+        qt = random_k16(kind, k, n, seed=k + n, device=dev)
+        x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+        args = K.quantize_activations(x, 16) if name in K.PREQUANTIZED else (x,)
+        got = K.KERNELS[name](*args, qt)
+        torch.cuda.synchronize()
+        assert _rel(got, K.PLAIN[name](*args, qt)) <= TOL[name], m
+        assert torch.equal(got, K.KERNELS[name](*args, qt))
+
+
+@pytest.mark.parametrize("lib,name", [
+    ("qmm_decode", "ct_qmm_qx_k16"), ("qmm_prefill", "ct_qmm_i_k16"),
+    ("qmm_prefill", "ct_qmm_si_k16"), ("qmm_float", "ct_qmm_g_k16"),
+])
+def test_k16_symbols_refuse_a_mins_flag_that_disagrees(dev, lib, name):
+    """The group-16 symbols are told whether the weight has mins (Q2_K) or
+    not (Q3_K); a flag that disagrees with the sub-min and sm pointers is
+    refused at launch, not guessed from them."""
+    q2 = random_k16("Q2_K", 256, 128, 1, dev)
+    q3 = random_k16("Q3_K", 256, 128, 2, dev)
+    x = torch.randn(64, 256, device=dev)
+    out = torch.empty(64, 128, device=dev)
+    fn = K._fn(lib, name)
+    for qt, flag in ((q2, 0), (q3, 1)):
+        rc = fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 256, 128, flag,
+                K._stream(dev))
+        assert rc != 0
+    rc = fn(*K._ptrs(x, q2.qs, q2.scales, q2.mins, q2.sd, None, out), 64, 256, 128, 1,
+            K._stream(dev))
+    assert rc != 0
+    rc = fn(*K._ptrs(x, q3.qs, q3.scales, None, q3.sd, None, out), 64, 256, 128, 0,
+            K._stream(dev))
+    assert rc == 0
+
+
+def test_qmatmul_routes_the_k16_layouts(dev, no_autotune):
+    """Under the fixed rule Q2_K and Q3_K reach the group-16 kernels: qx at
+    m = 1, q at 8, si on a wide weight and i on a tall one at 64."""
+    for kind in ("Q2_K", "Q3_K"):
+        wide = dataclasses.replace(random_k16(kind, 512, 1280, seed=5, device=dev),
+                                   shape=(500, 1200))
+        tall = random_k16(kind, 1024, 512, seed=6, device=dev)
+        K.reset_counts()
+        for qt in (wide, tall):
+            dense = qm.dequantize_qtensor(qt)
+            for m in (1, 8, 64):
+                x = torch.randn(m, qt.shape[0], device=dev)
+                out = qmatmul(x, qt)
+                assert out.shape == (m, qt.shape[1]) and _rel(out, x @ dense) < 0.035, (kind, m)
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+            "qmm_qx_k16": 2, "qmm_q_k16": 2, "qmm_si_k16": 1, "qmm_i_k16": 1}, kind
+        assert sum(K.PLAIN_CALLS.values()) == 0
 
 
 @pytest.mark.parametrize("name", GPTQ)
@@ -268,7 +354,8 @@ def test_qmatmul_routes_the_legacy_layouts(dev, no_autotune):
 
 @pytest.mark.parametrize("kind,m", [("Q4_K", 1), ("Q4_K", 64), ("Q6_K", 8), ("Q5_K", 1),
                                     ("Q5_K", 64), ("GPTQ4/128", 8), ("GPTQ4/64", 64),
-                                    ("Q4_0", 1), ("Q4_0", 64), ("Q8_0", 8), ("Q5_1", 64)])
+                                    ("Q4_0", 1), ("Q4_0", 64), ("Q8_0", 8), ("Q5_1", 64),
+                                    ("Q2_K", 1), ("Q2_K", 8), ("Q3_K", 64)])
 def test_race_picks_a_candidate_and_the_table_serves_it(dev, kind, m, tmp_path, monkeypatch):
     """A miss races on the card: the pick is a member of the candidate list
     or the dense candidate, the best hand-written one is a member, every
@@ -277,7 +364,8 @@ def test_race_picks_a_candidate_and_the_table_serves_it(dev, kind, m, tmp_path, 
     monkeypatch.setenv("CT_QMM_TILE_CACHE", str(tmp_path / "modes.json"))
     monkeypatch.delenv("CT_QMM_AUTOTUNE", raising=False)
     monkeypatch.delenv("CT_QMATMUL", raising=False)
-    name = {"Q4_K": "qmm_qx", "Q6_K": "qmm_q8", "Q5_K": "qmm_q8"}.get(kind, "qmm_qx_gptq")
+    name = {"Q4_K": "qmm_qx", "Q6_K": "qmm_q8", "Q5_K": "qmm_q8",
+            "Q2_K": "qmm_qx_k16", "Q3_K": "qmm_qx_k16"}.get(kind, "qmm_qx_gptq")
     peers = [_weight(name, kind, 512, 1024, seed=s, device=dev) for s in (1, 2, 3)]
     qt = peers[0]
     cands = qm.mode_candidates(qt, m)

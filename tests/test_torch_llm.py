@@ -294,13 +294,14 @@ def test_from_jax_params_serves_the_mixes(tmp_path, monkeypatch, mix):
 @pytest.mark.parametrize("label,mix", chip_smoke.TINY_MODELS)
 def test_tiny_smoke_models_pick_a_seed_without_near_ties(tmp_path, label, mix, capsys):
     """chip_smoke.py phase 4 serves each tiny model at the first seed whose
-    greedy path on the CPU keeps every top-2 margin above TINY_MIN_MARGIN;
-    the rule finds such a seed, and its log lists every seed it tried."""
+    greedy path on the CPU keeps every top-2 margin above its minimum
+    (TINY_MIN_MARGIN_OF, else TINY_MIN_MARGIN); the rule finds such a seed,
+    and its log lists every seed it tried."""
     path = chip_smoke.model_path(str(tmp_path), f"tiny_{label}", mix)
     seed = chip_smoke.pick_tiny_seed(path, label, mix)
     tried = [line for line in capsys.readouterr().out.splitlines() if " seed " in line]
     assert len(tried) == seed
     _, _, margins = chip_smoke.greedy_margins(T.AutoModelForCausalLM.from_pretrained(path, device="cpu"))
-    assert min(margins) > chip_smoke.TINY_MIN_MARGIN
+    assert min(margins) > chip_smoke.TINY_MIN_MARGIN_OF.get(label, chip_smoke.TINY_MIN_MARGIN)
     with capsys.disabled():
         print("\n" + "\n".join(tried))

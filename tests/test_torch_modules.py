@@ -192,7 +192,7 @@ def test_q4k_codec_matches_jax():
                     jquants.decompose(buf, jquants.GGMLType.Q4_K, x.size)):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError):  # a type not yet ported
-        tquants.dequantize(bytes(84), tquants.GGMLType.Q2_K, 256)
+        tquants.dequantize(bytes(292), tquants.GGMLType.Q8_K, 256)
 
 
 def test_loader_and_tokenizer_match_jax(tmp_path):

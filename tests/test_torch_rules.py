@@ -13,11 +13,10 @@ import pytest
 import torch
 
 import ctransformers_tpu_torch as T
-from ctransformers_tpu.formats.quants import GGMLType
 from ctransformers_tpu_torch.engine.engine import Engine
 from ctransformers_tpu_torch.models.llama_gguf import load_bundle
 
-from .fixtures import build_llama_gguf
+from .fixtures import build_llama_ggjt, build_llama_gguf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "ctransformers_tpu")
@@ -133,7 +132,7 @@ def test_unserved_arguments_raise(tmp_path):
         llm.save_session(str(tmp_path / "s.bin"))
     with pytest.raises(NotImplementedError):
         T.AutoModelForCausalLM.from_pretrained(path, device="cpu", lora="x.bin")
-    q2k = str(tmp_path / "q2k.gguf")  # a weight type not yet ported
-    build_llama_gguf(q2k, n_embd=256, n_ff=512, wtype=GGMLType.Q2_K)
+    ggjt = str(tmp_path / "llama.bin")  # a file format not yet ported
+    build_llama_ggjt(ggjt)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        T.AutoModelForCausalLM.from_pretrained(q2k, device="cpu")
+        T.AutoModelForCausalLM.from_pretrained(ggjt, model_type="llama", device="cpu")

@@ -17,6 +17,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                held against its plain version too, so that whatever a
                table sends to a main path was held at that shape and m
                (phase 5 fails on a launch that was not);
+     attention the decode attention kernel (csrc/attn_decode.cu) against its
+               plain version at llama-2-7B heads (32 of width 128, n_ctx
+               2048): f32, bf16, IEEE f16 and int8 caches at n_past 200 and
+               2000, head-major at 2000, GQA (32 heads over 8), ALiBi, and
+               4 slots at n_past (5, 300, 1000, 2000); times beside the
+               bound and scaled_dot_product_attention as the yardstick
      race      per layout and 7B shape at m = 1, 8 and 128 the race of
                ops/qmatmul.py: every candidate's ms (the dense candidate
                included), the winner and the best hand-written kernel;
@@ -28,7 +34,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                race) and on the CPU under the card's picks, then nine of
                them again on both under a user's table file that names the
                modes g, "", s, si and sb; every kernel call held against its
-               plain version
+               plain version; a tiny Q4_K_M llama with bf16 and int8 KV
+               caches and head-major caches (CT_KV_LAYOUT=hm) on both, every
+               decode attention call held against its plain version
   5. main      llama-2-7B-width checkpoints (random weights from a seed)
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
@@ -44,7 +52,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                every key); and Q4_K_M, Q5_K_M, Q4_0, Q5_1, Q2_K and Q3_K_M
                files and a GPTQ directory at 2 layers under a user's table
                that names the float-activation and sum-fold modes for every
-               key
+               key; the 32-layer Q4_K_M file again with bf16 and int8 KV
+               caches, and a long-context decode (a 1920-token prompt, then
+               32 steps at window 2048) with f32, bf16 and int8 caches
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -54,6 +64,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -243,6 +254,32 @@ TINY_LOGIT_CLASS = {"Q5_1": 0.10, "Q2_K": 0.20}
 # twice the margin
 TINY_MIN_MARGIN = 0.025
 TINY_MIN_MARGIN_OF = {"Q2_K": 0.05}
+# decode attention at llama-2-7B heads (32 of width 128, n_ctx 2048): (cache
+# dtype, head-major, kv heads, n_past of each slot, window, ALiBi). Every
+# dtype at n_past 200 and 2000 sequence-major and at 2000 head-major; GQA
+# with Mistral-7B's and Llama-3-8B's 8 kv heads; random ALiBi slopes; four
+# slots. "ieee_f16" is the kernel's f16 (kv_dtype "f16" names bf16, as in
+# the JAX package)
+ATTN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "ieee_f16": torch.float16,
+               "int8": torch.int8}
+ATTN_CASES = (
+    [(d, False, 32, (200,), 256, False) for d in ATTN_DTYPES]
+    + [(d, False, 32, (2000,), 2048, False) for d in ATTN_DTYPES]
+    + [(d, True, 32, (2000,), 2048, False) for d in ATTN_DTYPES]
+    + [("bf16", False, 8, (2000,), 2048, False), ("f32", False, 32, (2000,), 2048, True),
+       ("bf16", False, 32, (5, 300, 1000, 2000), 2048, False)]
+)
+ATTN_HEADS, ATTN_DH, ATTN_CTX = 32, 128, 2048
+# f32: the same sums in another order; bf16, f16, int8: q and p rounded at
+# the same places as the plain version, which a rounding flip changes only
+# where the f32 sums land within an ulp of a boundary
+ATTN_TOL = {"f32": 1e-5, "bf16": 1e-4, "ieee_f16": 1e-4, "int8": 1e-4}
+# tiny Q4_K_M llama served with these (kv_dtype, CT_KV_LAYOUT) on both devices
+TINY_KV = (("bf16", "sm"), ("int8", "sm"), ("f32", "hm"), ("bf16", "hm"), ("int8", "hm"))
+# the long-context decode of the 32-layer Q4_K_M file: the prompt as 15
+# chunks of 128 tokens (the chunk size phase 3 holds the kernels at), then
+# decode steps at window 2048
+LONG_PROMPT, LONG_CHUNK, LONG_STEPS = 1920, 128, 32
 
 
 def log(*a):
@@ -504,6 +541,128 @@ def phase_kernels(K, copy_bw: float):
     return results, raced
 
 
+def phase_attention(A) -> list:
+    """Phase 3's decode attention cases (ATTN_CASES): the kernel against its
+    plain version on the same cache, its ms replayed in a CUDA graph that
+    cycles over the layers of a cache larger than three L2s, the plain
+    version's ms, scaled_dot_product_attention's (a boolean mask; a float
+    one with ALiBi; none for int8, whose scales no single call takes) and
+    the bound of this run's live rows."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, hm, hkv, n_past, window, alibi in ATTN_CASES:
+        dt = ATTN_DTYPES[name]
+        quant = dt == torch.int8
+        b, h, dh = len(n_past), ATTN_HEADS, ATTN_DH
+        live = sum(n + 1 for n in n_past)  # the K/V rows the slots attend over
+        elem = torch.empty(0, dtype=dt).element_size()
+        kv_bytes = 2 * live * hkv * (dh * elem + (4 if quant else 0))
+        n_layer = min(64, max(2, math.ceil(150e6 / kv_bytes)))
+        shape = (n_layer, b, hkv, ATTN_CTX, dh) if hm else (n_layer, b, ATTN_CTX, hkv, dh)
+        if quant:
+            k, v = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                  dtype=torch.int8) for _ in "kv")
+            ks, vs = (torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 1e-3
+                      for _ in "kv")
+        else:
+            k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in "kv")
+            ks = vs = None
+        q = torch.randn((b, h, dh), generator=gen, device="cuda")
+        npt = torch.tensor(n_past, dtype=torch.int32, device="cuda")
+        slopes = torch.rand(h, generator=gen, device="cuda") * 0.1 if alibi else None
+        kw = dict(window=window, k_scale=ks, v_scale=vs, alibi_slopes=slopes, head_major=hm)
+        got = A.decode_attention(q, k, v, 0, npt, **kw)
+        torch.cuda.synchronize()
+        ref = A.plain_decode_attention(q, k, v, 0, npt, **kw)
+        err = (torch.linalg.norm(got - ref) / torch.linalg.norm(ref)).item()
+        max_abs = (got - ref).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= ATTN_TOL[name]
+        ms = cuda_time_ms(lambda i: A.decode_attention(q, k, v, i % n_layer, npt, **kw), 50,
+                          graph=True)
+        plain_ms = min(cuda_time_ms(lambda i: A.plain_decode_attention(q, k, v, 0, npt, **kw), 1)
+                       for _ in range(3))
+        lib_ms = float("nan")
+        if not quant:
+            kpos = torch.arange(window, device="cuda")
+            mask = (kpos[None, :] <= npt[:, None])[:, None, None, :]
+            if alibi:
+                mask = torch.where(mask, slopes[None, :, None, None] * kpos.float(),
+                                   float("-inf")).to(dt)
+            qd = q.to(dt)[:, :, None, :]
+
+            def library(il):
+                kl, vl = (a[il] if hm else a[il].transpose(1, 2) for a in (k, v))
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qd, kl[:, :, :window], vl[:, :, :window], attn_mask=mask,
+                    enable_gqa=hkv != h)
+
+            lib_ms = cuda_time_ms(lambda i: library(i % n_layer), 50, graph=True)
+        nbytes = kv_bytes + 2 * b * h * dh * 4 + b * 4 + (h * 4 if alibi else 0)
+        ops = 4 * live * h * dh
+        peak = PEAK_F32_S if dt == torch.float32 else PEAK_BF16_S
+        bound_ms = max(nbytes / PEAK_BYTES_S, ops / peak) * 1e3
+        what = (f"{name} {'hm' if hm else 'sm'} H={h} Hkv={hkv} n_past={list(n_past)} "
+                f"window={window}{' alibi' if alibi else ''}")
+        log(f"[attention] decode_attn {what}: rel_err={err:.3e} max_abs_err={max_abs:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} GB/s={nbytes / ms / 1e6:.0f} over {n_layer} layers "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"decode_attn {what}: rel err {err:.3e} > {ATTN_TOL[name]}")
+        rows.append(dict(case=what, rel_err=err, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bytes=nbytes, ops=ops, peak=peak))
+        del k, v, ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tiny_kv(A, tmpdir: str) -> None:
+    """A tiny Q4_K_M llama with the caches of TINY_KV on the card and on the
+    CPU, both under the fixed rule (the same matmul functions): equal greedy
+    tokens, logits within the wiring class (5%), and every decode attention
+    call of the card held against its plain version on the same operands."""
+    from ctransformers_tpu_torch import AutoModelForCausalLM
+    from ctransformers_tpu_torch.models import forward as F
+
+    path = model_path(tmpdir, "tiny_kv_Q4_K_M", "Q4_K_M")
+    seed = pick_tiny_seed(path, "Q4_K_M", "Q4_K_M")
+    kernel = F.decode_attention
+    worst, calls = 0.0, 0
+
+    def checked(*args, **kw):
+        nonlocal worst, calls
+        out = kernel(*args, **kw)
+        ref = A.plain_decode_attention(*args, **kw)
+        worst = max(worst, (torch.linalg.norm(out - ref) / torch.linalg.norm(ref)).item())
+        calls += 1
+        return out
+
+    for kv_dtype, layout in TINY_KV:
+        with env(CT_KV_LAYOUT=layout, CT_QMM_AUTOTUNE="0"):
+            gpu = AutoModelForCausalLM.from_pretrained(path, kv_dtype=kv_dtype)
+            cpu = AutoModelForCausalLM.from_pretrained(path, kv_dtype=kv_dtype, device="cpu")
+            if gpu._engine.kv.k.device.type != "cuda" or cpu._engine.kv.k.dtype != gpu._engine.kv.k.dtype:
+                raise SystemExit(f"tiny kv {kv_dtype} {layout}: caches {gpu._engine.kv.k.dtype} "
+                                 f"on {gpu._engine.kv.k.device}, {cpu._engine.kv.k.dtype}")
+            F.decode_attention = checked
+            try:
+                got = greedy_margins(gpu)
+            finally:
+                F.decode_attention = kernel
+            want = greedy_margins(cpu)
+        rel = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(got[1], want[1]))
+        log(f"[tiny] Q4_K_M seed {seed} kv_dtype {kv_dtype} CT_KV_LAYOUT={layout}: card vs CPU "
+            f"logits rel err (worst of {TINY_STEPS} steps) {rel:.3e}; greedy card {got[0]} "
+            f"cpu {want[0]}")
+        if rel > 0.05 or got[0] != want[0] or not all(np.isfinite(a).all() for a in got[1]):
+            raise SystemExit(f"tiny kv {kv_dtype} {layout}: card and CPU disagree")
+    log(f"[tiny] decode_attn calls held against the plain version: {calls}, worst rel err "
+        f"{worst:.3e}")
+    remove_model(path)
+    if not calls or worst > max(ATTN_TOL.values()):
+        raise SystemExit("tiny kv: decode_attn disagrees with its plain version (or never ran)")
+
+
 def empty_context(llm) -> None:
     with warnings.catch_warnings():  # LLM.reset() is marked deprecated
         warnings.simplefilter("ignore")
@@ -686,11 +845,22 @@ def expected_launches(eng, chunks) -> dict:
         head = eng.params["lm_head"]
         if isinstance(head, qm.QTensor):  # a GPTQ directory's lm_head is dense
             counts[name(1, head)] += 1
-    return {k: counts.get(k, 0) for k in list(K.LAUNCHES) + ["dense"]}
+    # decode attention: once a layer in every one-token chunk, never in a longer one
+    counts["decode_attn"] = eng.spec.n_layer * list(chunks).count(1)
+    return {k: counts.get(k, 0) for k in list(K.LAUNCHES) + ["decode_attn", "dense"]}
 
 
 def counts_now(K) -> dict:
-    return dict(K.LAUNCHES, dense=K.DENSE_CALLS["dense"])
+    from ctransformers_tpu_torch.ops import attention as A
+
+    return dict(K.LAUNCHES, decode_attn=A.LAUNCHES["decode_attn"], dense=K.DENSE_CALLS["dense"])
+
+
+def reset_counts(K) -> None:
+    from ctransformers_tpu_torch.ops import attention as A
+
+    K.reset_counts()
+    A.reset_counts()
 
 
 def serve(K, llm, ids, chunks, label: str, what: str, copy_bw: float, wbytes: int,
@@ -707,7 +877,7 @@ def serve(K, llm, ids, chunks, label: str, what: str, copy_bw: float, wbytes: in
     want_prompt = expected_launches(eng, chunks)
     want_decode = expected_launches(eng, [1])
     races = qm.N_RACES
-    K.reset_counts()
+    reset_counts(K)
     empty_context(llm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -729,7 +899,7 @@ def serve(K, llm, ids, chunks, label: str, what: str, copy_bw: float, wbytes: in
     dec_s = (time.perf_counter() - t0) / n_dec
     now = counts_now(K)
     dec_launch = {k: (now[k] - prefill_launch[k]) / n_dec for k in now}
-    busy_ms = profile_decode(llm, tok, dec_s, f"{label} | {what}")
+    busy_ms, _ = profile_decode(llm, tok, dec_s, f"{label} | {what}")
     if full:
         runs = []
         for _ in range(2):  # each from an empty context: chunks 128 + 8 + 1
@@ -756,7 +926,10 @@ def serve(K, llm, ids, chunks, label: str, what: str, copy_bw: float, wbytes: in
 
 
 def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int, how: str,
-               launches: collections.Counter) -> None:
+               launches: collections.Counter, after=None) -> None:
+    """One main path (MAIN_PATHS). `after(llm, path, ids, chunks, wbytes)`,
+    where given, runs last with the model file still on disk and the path's
+    table in force."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
     from ctransformers_tpu_torch.engine.engine import Engine
     from ctransformers_tpu_torch.models.synthetic import LLAMA2_7B
@@ -837,7 +1010,8 @@ def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int, ho
                 eng = llm._engine
                 if sum(s["raced"] for s in eng.autotuned.values()):
                     raise SystemExit(f"main {label}: a race under precompiled")
-        remove_model(path)
+        if after is None:
+            remove_model(path)
         qts = qm.qtensors(eng.params)
         wbytes = sum(plane_bytes(q) for q in qts)
         kinds = collections.Counter(q.kind for q in qts)
@@ -872,14 +1046,135 @@ def phase_main(K, tmpdir: str, copy_bw: float, label: str, mix, n_layer: int, ho
                       launches, full=True)
         log(f"[main {label}] load_s={load_s:.3f} peak_mem_gb="
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        if after is not None:
+            with env(**load_env):
+                after(llm, path, ids, chunks, wbytes)
     finally:
         remove_model(path)
 
 
-def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> float:
+def kv_paths(K, copy_bw: float, launches: collections.Counter, llm, path: str, ids, chunks,
+             wbytes: int) -> None:
+    """The 32-layer Q4_K_M file (the after-hook of its main path, so its
+    table is warm): the long-context decode with the path's f32 cache, then
+    the file loaded again with bf16 and with int8 caches, each served as the
+    main path is (137-token prompt and decode) and with the long-context
+    decode; and the cost of one layer's cache write per dtype."""
+    from ctransformers_tpu_torch import AutoModelForCausalLM
+
+    serve_long(K, llm, "Q4_K_M kv f32", launches)
+    for name in ("bf16", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()  # the f32 path's model, still loaded
+        t0 = time.perf_counter()
+        kl = AutoModelForCausalLM.from_pretrained(path, kv_dtype=name)
+        kv = kl._engine.kv
+        log(f"[main Q4_K_M kv {name}] load {time.perf_counter() - t0:.2f} s "
+            f"({kl._engine.init_timings}); cache {kv.k.dtype} {tuple(kv.k.shape)}, "
+            f"{sum(a.numel() * a.element_size() for a in kv if a is not None) / 1e9:.3f} GB")
+        serve(K, kl, ids, chunks, f"Q4_K_M kv {name}", "raced table", copy_bw, wbytes, launches,
+              full=False)
+        log(f"[main Q4_K_M kv {name}] peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}, "
+            f"of which this model {(torch.cuda.max_memory_allocated() - resident) / 1e9:.2f}")
+        serve_long(K, kl, f"Q4_K_M kv {name}", launches, resident)
+        del kl, kv
+        torch.cuda.empty_cache()
+    write_cost(llm._bundle.spec)
+
+
+def serve_long(K, llm, label: str, launches: collections.Counter, resident: int = 0) -> None:
+    """The long-context decode: LONG_PROMPT tokens from an empty context in
+    chunks of LONG_CHUNK, then LONG_STEPS decode steps at window 2048 and a
+    profiled few. Prompt and decode launches must equal the choices in
+    force: decode_attn once a layer a decode token, never in a prompt chunk.
+    Peak memory is logged beside the part of it above `resident` (another
+    model still loaded)."""
+    from ctransformers_tpu_torch.models.forward import round_window
+    from ctransformers_tpu_torch.ops import qmatmul as qm
+
+    eng = llm._engine
+    spec = eng.spec
+    tag = f"[long {label}]"
+    ids = [1] + [int(t) for t in np.random.default_rng(13).integers(3, spec.n_vocab,
+                                                                    LONG_PROMPT - 1)]
+    want_prompt = expected_launches(eng, [LONG_CHUNK] * (LONG_PROMPT // LONG_CHUNK))
+    want_decode = expected_launches(eng, [1])
+    races = qm.N_RACES
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K)
+    empty_context(llm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, LONG_PROMPT, LONG_CHUNK):
+        llm.eval(ids[i:i + LONG_CHUNK])
+    prefill_s = time.perf_counter() - t0
+    prompt_launch = counts_now(K)
+    tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+    t0 = time.perf_counter()
+    for _ in range(LONG_STEPS):
+        llm.eval([tok])
+        tok = llm.sample(seed=5, top_k=40, temperature=0.8)
+    dec_s = (time.perf_counter() - t0) / LONG_STEPS
+    now = counts_now(K)
+    dec_launch = {k: (now[k] - prompt_launch[k]) / LONG_STEPS for k in now}
+    if not np.isfinite(llm.logits).all():
+        raise SystemExit(f"{tag} non-finite logits")
+    busy_ms, rows = profile_decode(llm, tok, dec_s, label)
+    attn_ms = sum(us for us, _, key in rows if "decode_attn" in key) / 1e3
+    launches.update(counts_now(K))
+    n_past = eng.n_past
+    kv = eng.kv
+    per_pos = sum(a.numel() // spec.n_ctx * a.element_size() for a in kv if a is not None)
+    log(f"{tag} prompt {LONG_PROMPT} tokens in {LONG_PROMPT // LONG_CHUNK} chunks of {LONG_CHUNK}: "
+        f"{prefill_s:.2f} s; decode at n_past {n_past - LONG_STEPS - 4}..{n_past - 1}, window "
+        f"{round_window(n_past, spec.n_ctx)}: decode_ms_per_token={dec_s * 1e3:.3f} "
+        f"device_busy_ms_per_token={busy_ms:.3f} decode_attn_ms_per_token={attn_ms:.3f} "
+        f"({100 * attn_ms / busy_ms:.1f}% of busy) cache read per token "
+        f"{per_pos * n_past / 1e9:.3f} GB, peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"(this model {(torch.cuda.max_memory_allocated() - resident) / 1e9:.2f})")
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    log(f"{tag} launches: prompt {nz(prompt_launch)} (expected {nz(want_prompt)}); per decode "
+        f"token {nz(dec_launch)} (expected {nz(want_decode)})")
+    if prompt_launch != want_prompt or dec_launch != want_decode:
+        raise SystemExit(f"{tag} launch counts differ from the choices in force")
+    if dec_launch["decode_attn"] != spec.n_layer or qm.N_RACES != races:
+        raise SystemExit(f"{tag} decode_attn ran {dec_launch['decode_attn']} times a token, or a "
+                         "race ran inside")
+
+
+def write_cost(spec, steps: int = 16, device: str = "cuda") -> None:
+    """One layer's cache write (models/forward.py:write_kv) of a decode token
+    at the spec's KV heads, per cache dtype: device kernels and ms by
+    torch.profiler, and both times the layer count for a token."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctransformers_tpu_torch.models import forward as F
+
+    for name in ("f32", "bf16", "int8"):
+        kv = F.KVCache.create(spec.replace(n_layer=1), 1, device, F.resolve_kv_dtype(name))
+        k, v = (torch.randn((1, 1, spec.kv_heads, spec.head_dim), device=device) for _ in "kv")
+        F.write_kv(kv, 0, 1000, k, v, F.kv_head_major())
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(steps):
+                    F.write_kv(kv, 0, 1000 + i, k, v, F.kv_head_major())
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+        dev = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        n = sum(e.count for e in dev) / steps
+        ms = sum(e.self_device_time_total for e in dev) / steps / 1e3
+        log(f"[write {name}] one layer's cache write: {n:.1f} kernels, {ms:.4f} ms on the device; "
+            f"a {spec.n_layer}-layer token: {n * spec.n_layer:.0f} kernels, "
+            f"{ms * spec.n_layer:.3f} ms")
+
+
+def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> tuple:
     """torch.profiler over a few decode steps: device time by kernel and
     the device's busy share of the unprofiled step time. Returns the busy
-    ms per token."""
+    ms per token and the (us per token, launches per token, name) rows."""
     from torch.profiler import ProfilerActivity, profile
 
     with warnings.catch_warnings():  # "clears events at the end of each cycle"
@@ -901,7 +1196,7 @@ def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> f
         f"(idle {100 - 100 * busy_ms / (dec_s * 1e3):.1f}%)")
     for us, count, key in rows[:8]:
         log(f"[profile {label}]   {us / 1e3:8.4f} ms/token  {count:4d} launches  {key[:90]}")
-    return busy_ms
+    return busy_ms, rows
 
 
 def main() -> int:
@@ -912,6 +1207,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from ctransformers_tpu_torch.ops import attention as A
     from ctransformers_tpu_torch.ops import qmatmul as qm
     from ctransformers_tpu_torch.ops import qmm_kernels as K
 
@@ -937,15 +1233,22 @@ def main() -> int:
         log(f"[race] wrote {len(raced)} champions to {opts.write_table}")
     lap("kernels and race", t0)
     t0 = time.perf_counter()
+    attn_rows = phase_attention(A)
+    lap("attention", t0)
+    t0 = time.perf_counter()
     phase_tiny(K, tmpdir)
+    phase_tiny_kv(A, tmpdir)
     lap("tiny", t0)
     launches = collections.Counter()
     for label, mix, n_layer, how in MAIN_PATHS:
         t0 = time.perf_counter()
-        phase_main(K, tmpdir, copy_bw, label, mix, n_layer, how, launches)
+        # the 32-layer Q4_K_M file also serves the KV dtypes and the long context
+        after = (functools.partial(kv_paths, K, copy_bw, launches) if label == "Q4_K_M"
+                 else None)
+        phase_main(K, tmpdir, copy_bw, label, mix, n_layer, how, launches, after)
         lap(f"main {label}", t0)
     log(f"[main] launches over the served runs {dict(launches)}")
-    missing = [k for k in K.LAUNCHES if launches[k] == 0]
+    missing = [k for k in list(K.LAUNCHES) + list(A.LAUNCHES) if launches[k] == 0]
     if missing:
         raise SystemExit(f"main: kernels never launched on the main paths: {missing}")
 
@@ -969,6 +1272,23 @@ def main() -> int:
             > sum(r["bytes"] / PEAK_BYTES_S for r in rows) else "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
         })
+    # decode attention: sums over the phase-3 cases that have a library call
+    # (the int8 ones have none), the worst error over every case
+    timed = [r for r in attn_rows if r["library_ms"] == r["library_ms"]]
+    kernels.append({
+        "name": "decode_attn",
+        "route": "cuda",
+        "source": A.SOURCE,
+        "replaces": A.REPLACES,
+        "launches": launches["decode_attn"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+        "ms": sum(r["ms"] for r in timed),
+        "plain_ms": sum(r["plain_ms"] for r in timed),
+        "bound_ms": sum(r["bound_ms"] for r in timed),
+        "bound_by": "operations" if sum(r["ops"] / r["peak"] for r in timed)
+        > sum(r["bytes"] / PEAK_BYTES_S for r in timed) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in timed),
+    })
     log(f"[done] {time.perf_counter() - t_start:.1f} s; seconds by phase {seconds}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

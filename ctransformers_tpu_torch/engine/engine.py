@@ -47,6 +47,7 @@ class Engine:
         spec: ArchSpec,
         params,
         device="cuda",
+        kv_dtype: torch.dtype = torch.float32,
     ):
         self.spec = spec
         self.device = resolve_device(device)
@@ -78,7 +79,8 @@ class Engine:
             "autotune_raced": tune["raced"],
             "autotune_warm": tune["warm"],
         }
-        self.kv = KVCache.create(spec, 1, self.device)
+        self.kv_dtype = kv_dtype  # reset and rewind keep it (and the cache)
+        self.kv = KVCache.create(spec, 1, self.device, kv_dtype)
         self.n_past = 0
         self._logits_host: Optional[np.ndarray] = None  # (V,) host copy
         self._logits_dev: Optional[torch.Tensor] = None  # (V,) device copy

@@ -9,8 +9,7 @@ It runs on the card unless the caller passes device="cpu".
 This slice serves the classic sampler chains. The arguments it does not
 serve yet raise NotImplementedError: grammar, guidance_scale and
 negative_prompt, the extended sampler (tfs_z, typical_p, frequency and
-presence penalties, mirostat), sessions, embed, lora and a KV dtype other
-than f32 (see ROADMAP).
+presence penalties, mirostat), sessions, embed and lora (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ import numpy as np
 from .engine import sampler as samplers
 from .engine.engine import Engine
 from .logger import logger
+from .models.forward import resolve_kv_dtype
 from .models.registry import load_model
 from .utils import TextStreamer, is_gguf
 
@@ -77,15 +77,18 @@ class LLM:
     ):
         """Load a model file and build the engine for it on `device`
         ("cuda" by default; raises when CUDA is absent unless the caller
-        asks for "cpu")."""
+        asks for "cpu"). `kv_dtype` is the KV cache's storage: "f32"
+        (default), "bf16" (also "f16", an alias of bf16 as in the JAX
+        package), "ieee_f16" or "int8" (per-token-head quantized rows);
+        CT_KV_DTYPE sets it when no name is given, CT_KV_LAYOUT=hm makes the
+        cache head-major."""
         del lib  # accepted for API compatibility
         if lora:
             raise _not_served("lora")
-        if kv_dtype not in (None, "", "f32"):
-            raise _not_served(f"kv_dtype {kv_dtype!r}")
         config = config or Config()
         self._model_path = model_path
         self._config = config
+        self._kv_dtype = kv_dtype
         self._context: List[int] = []
 
         if not Path(model_path).is_file():
@@ -113,7 +116,9 @@ class LLM:
         (shared by the GGUF path and the GPTQ backend)."""
         self._bundle = bundle
         self._model_type = bundle.architecture or model_type
-        self._engine = Engine(bundle.spec, bundle.params, device=device)
+        # the GPTQ backend sets no name: CT_KV_DTYPE, else f32
+        kv_dtype = resolve_kv_dtype(getattr(self, "_kv_dtype", None))
+        self._engine = Engine(bundle.spec, bundle.params, device=device, kv_dtype=kv_dtype)
         self._sample_fn = (
             samplers.sample_llama if bundle.sampler == "llama" else samplers.sample_gpt
         )

@@ -7,7 +7,9 @@ leaves are recognized by their field names, so this module imports nothing
 of the JAX package. Planes packed in the JAX package's "ksplit" nibble
 layout (byte r holds rows r and r + K_pad/2, the high nibble sign-biased;
 what it packs on a host without the TPU int4 bitcast) are unpacked and
-re-packed as adjk, the only layout of the port.
+re-packed as adjk, the only layout of the port. A KV cache (the JAX
+package's KVCache: k, v and the int8 scale planes ks, vs, in either
+layout) becomes the port's KVCache with the same arrays.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.qmatmul import QTensor
+from .forward import KVCache
 
 _QT_FIELDS = ("qs", "scales", "mins", "kind", "group", "shape", "pack_layout")
 
@@ -41,7 +44,10 @@ def _ksplit_to_adjk(qs: np.ndarray, zp: int) -> np.ndarray:
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":  # numpy knows bf16 only through ml_dtypes
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def convert_qtensor(v: Any, device="cpu") -> QTensor:
@@ -78,13 +84,19 @@ def convert_qtensor(v: Any, device="cpu") -> QTensor:
 
 
 def from_jax_params(params: Any, device="cpu") -> Any:
-    """Recursively convert dicts, lists and tuples of arrays and QTensors."""
+    """Recursively convert dicts, lists, tuples and NamedTuples of arrays
+    and QTensors."""
     if _is_qtensor(params):
         return convert_qtensor(params, device)
     if isinstance(params, dict):
         return {k: from_jax_params(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return type(params)(from_jax_params(v, device) for v in params)
+        items = [from_jax_params(v, device) for v in params]
+        fields = getattr(params, "_fields", None)
+        if fields == KVCache._fields:
+            return KVCache(*items)
+        # a NamedTuple takes its fields as arguments, a list or tuple an iterable
+        return type(params)(*items) if fields is not None else type(params)(items)
     if params is None:
         return None
     return _tensor(params, device)

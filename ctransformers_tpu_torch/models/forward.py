@@ -9,8 +9,18 @@ quantized-matmul kernels of ops/qmm_kernels.py):
           w_gateup or w_gate/w_up, w_down
 
 The KV cache is a fixed (n_ctx)-capacity buffer written in place at
-n_past; attention reads the cache prefix [0, attn_window) only, in the same
-round_window buckets as the JAX package. Layers run as a Python loop.
+n_past, in f32, bf16, IEEE f16 or int8 with per-(token, head) scales
+(resolve_kv_dtype), sequence-major or head-major (kv_head_major); attention
+reads the cache prefix [0, attn_window) only, in the same round_window
+buckets as the JAX package. Layers run as a Python loop.
+
+Attention follows the JAX package's compute-dtype rules: the compute dtype
+cdt is bf16 for an int8 cache and the cache dtype otherwise; q and the
+probabilities are rounded to cdt where the JAX package casts them, and the
+dots are taken in f32 over the (exactly) upcast operands, since a torch
+bf16 matmul rounds its output to bf16 where JAX keeps the f32 result
+(preferred_element_type). f32 matmuls on the card run in full f32:
+engine/engine.py sets torch.backends.cuda.matmul.allow_tf32 = False.
 """
 
 from __future__ import annotations
@@ -19,9 +29,9 @@ import math
 import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
+from ..ops.attention import decode_attention, score_scale
 from ..ops.norm import rms_norm
 from ..ops.qmatmul import matmul as mm
 from ..ops.qmatmul import split_fused
@@ -30,20 +40,73 @@ from .spec import ArchSpec
 
 Params = Dict[str, Any]
 
+# user-facing KV dtype names (the JAX package's, forward.py:resolve_kv_dtype):
+# "f16" aliases bf16 as there; "ieee_f16" is IEEE half
+KV_DTYPES = {
+    None: torch.float32, "f32": torch.float32,
+    "bf16": torch.bfloat16, "f16": torch.bfloat16,
+    "int8": torch.int8,
+    "ieee_f16": torch.float16,
+}
+
+
+def resolve_kv_dtype(name) -> torch.dtype:
+    """Map a KV dtype name (or None/'' = CT_KV_DTYPE, else f32) to a torch
+    dtype; an unknown name raises ValueError."""
+    if not name:
+        name = os.environ.get("CT_KV_DTYPE") or None
+    if isinstance(name, str):
+        name = name.strip().lower() or None
+    if name not in KV_DTYPES:
+        raise ValueError(
+            f"unknown kv_dtype {name!r}; expected one of "
+            "'f32', 'bf16', 'f16' (alias of bf16 on TPU), 'int8'"
+        )
+    return KV_DTYPES[name]
+
+
+def kv_head_major() -> bool:
+    """KV cache layout, read when a cache is created and at every call that
+    reads it, from CT_KV_LAYOUT: "sm" (default) keeps the projection order
+    (L, B, n_ctx, Hkv, dh); "hm" stores (L, B, Hkv, n_ctx, dh)."""
+    return os.environ.get("CT_KV_LAYOUT", "sm") == "hm"
+
 
 class KVCache(NamedTuple):
-    """Per-layer cache, k/v (L, B, n_ctx, Hkv, dh) float32, sequence-major."""
+    """Per-layer cache: k/v (L, B, n_ctx, Hkv, dh) sequence-major or
+    (L, B, Hkv, n_ctx, dh) head-major (kv_head_major). An int8 cache holds
+    symmetric per-(token, head) rows (kv_quantize) with f32 scale planes
+    ks/vs over the same axes minus dh; float caches have none."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
 
     @staticmethod
-    def create(spec: ArchSpec, batch: int, device) -> "KVCache":
-        shape = (spec.n_layer, batch, spec.n_ctx, spec.kv_heads, spec.head_dim)
-        return KVCache(
-            torch.zeros(shape, dtype=torch.float32, device=device),
-            torch.zeros(shape, dtype=torch.float32, device=device),
-        )
+    def create(spec: ArchSpec, batch: int, device, dtype=torch.float32) -> "KVCache":
+        if kv_head_major():
+            shape = (spec.n_layer, batch, spec.kv_heads, spec.n_ctx, spec.head_dim)
+        else:
+            shape = (spec.n_layer, batch, spec.n_ctx, spec.kv_heads, spec.head_dim)
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        if dtype == torch.int8:
+            return KVCache(zeros(shape, dtype), zeros(shape, dtype),
+                           zeros(shape[:-1], torch.float32), zeros(shape[:-1], torch.float32))
+        return KVCache(zeros(shape, dtype), zeros(shape, dtype))
+
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 row quantization over the last axis: (int8 values,
+    f32 scale over the leading axes), x ~= q * scale. The scale is
+    max(amax, 1e-8) / 127 by IEEE division; torch.round rounds half to
+    even, as jnp.round does."""
+    amax = x.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-8).float() / 127.0
+    return torch.round(x / scale[..., None]).to(torch.int8), scale
 
 
 def _norm(spec: ArchSpec, x, g):
@@ -95,27 +158,54 @@ def block_ffn(spec: ArchSpec, layer: Params, x, attn_out):
     return x + mm(_act(layer, ln2), layer["w_down"])
 
 
-def _score_scale(dh: int) -> float:
-    # 1 / sqrt(dh) rounded to f32 the way the JAX package computes it
-    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+def _repeat_kv(a: Optional[torch.Tensor], rep: int, head_axis: int):
+    return a if a is None or rep == 1 else a.repeat_interleave(rep, dim=head_axis)
 
 
-def _repeat_kv(a: torch.Tensor, rep: int) -> torch.Tensor:
-    return a if rep == 1 else a.repeat_interleave(rep, dim=2)
+def _compute_dtype(cache_dtype: torch.dtype) -> torch.dtype:
+    return torch.bfloat16 if cache_dtype == torch.int8 else cache_dtype
 
 
-def _full_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int):
-    """Materialized (B, H, T, S) attention over a (B, S, Hkv, dh) window."""
+def _seq_slice(hm: bool, upto: int, start: int = 0):
+    """Index tuple bounding a per-layer cache slab (or its scale plane) to
+    the sequence positions [start, upto) under either layout."""
+    if hm:
+        return (slice(None), slice(None), slice(start, upto))
+    return (slice(None), slice(start, upto))
+
+
+def _scale_bcast(hm: bool, sc: torch.Tensor) -> torch.Tensor:
+    """Scale plane -> (B, H, 1, S) broadcast against (B, H, T, S) scores."""
+    return (sc if hm else sc.transpose(1, 2))[:, :, None, :]
+
+
+def _full_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int, k_scale=None,
+                 v_scale=None, hm: bool = False):
+    """Materialized (B, H, T, S) attention over a (B, S, Hkv, dh) window
+    ((B, Hkv, S, dh) head-major). With an int8 cache the scales factor out
+    of both dots: scores are multiplied by k_scale[s] after the QK dot, and
+    the probabilities by v_scale[s] before they are rounded for the PV dot."""
     t = q.shape[1]
     rep = spec.n_head // spec.kv_heads
-    kf, vf = _repeat_kv(k_cache, rep), _repeat_kv(v_cache, rep)
-    s = k_cache.shape[1]
-    scores = torch.einsum("bthd,bshd->bhts", q, kf) * _score_scale(spec.head_dim)
+    head_axis = 1 if hm else 2
+    cdt = _compute_dtype(k_cache.dtype)
+    kf = _repeat_kv(k_cache, rep, head_axis).float()
+    vf = _repeat_kv(v_cache, rep, head_axis).float()
+    k_scale = _repeat_kv(k_scale, rep, head_axis)
+    v_scale = _repeat_kv(v_scale, rep, head_axis)
+    s = k_cache.shape[2 if hm else 1]
+    scores = torch.einsum("bthd,bhsd->bhts" if hm else "bthd,bshd->bhts",
+                          q.to(cdt).float(), kf) * score_scale(spec.head_dim)
+    if k_scale is not None:
+        scores = scores * _scale_bcast(hm, k_scale)
     qpos = n_past + torch.arange(t, device=q.device)[:, None]
     kpos = torch.arange(s, device=q.device)[None, :]
     scores = scores.masked_fill(~(kpos <= qpos)[None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhts,bshd->bthd", probs, vf)
+    if v_scale is not None:
+        probs = probs * _scale_bcast(hm, v_scale)
+    return torch.einsum("bhts,bhsd->bthd" if hm else "bhts,bshd->bthd",
+                        probs.to(cdt).float(), vf)
 
 
 ATTN_CHUNK = 512
@@ -127,22 +217,33 @@ def attn_chunk() -> int:
     return int(os.environ.get("CT_ATTN_CHUNK", ATTN_CHUNK))
 
 
-def _chunked_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int):
+def _chunked_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int, k_scale=None,
+                    v_scale=None, hm: bool = False):
     """Online-softmax attention over KV chunks of attn_chunk() positions:
-    peak memory O(T * chunk) instead of O(T * n_ctx)."""
+    peak memory O(T * chunk) instead of O(T * n_ctx). Int8 scales factor as
+    in _full_scores, per chunk: the softmax denominator sums the UNSCALED
+    probabilities, v_scale folds into the PV term only."""
     b, t = q.shape[:2]
     h, dh = spec.n_head, spec.head_dim
     rep = h // spec.kv_heads
+    head_axis = 1 if hm else 2
+    cdt = _compute_dtype(k_cache.dtype)
     c = attn_chunk()
-    scale = _score_scale(dh)
+    scale = score_scale(dh)
+    qf = q.to(cdt).float()
     qpos = n_past + torch.arange(t, device=q.device)[:, None]
     m = torch.full((b, h, t), float("-inf"), device=q.device)
     l = torch.zeros((b, h, t), device=q.device)
     acc = torch.zeros((b, t, h, dh), device=q.device)
-    for idx in range(k_cache.shape[1] // c):
-        k_c = _repeat_kv(k_cache[:, idx * c : (idx + 1) * c], rep)
-        v_c = _repeat_kv(v_cache[:, idx * c : (idx + 1) * c], rep)
-        s_c = torch.einsum("bthd,bshd->bhts", q, k_c) * scale
+    qk, pv_eq = ("bthd,bhsd->bhts", "bhts,bhsd->bthd") if hm else (
+        "bthd,bshd->bhts", "bhts,bshd->bthd")
+    for idx in range(k_cache.shape[2 if hm else 1] // c):
+        sl = _seq_slice(hm, (idx + 1) * c, idx * c)
+        k_c = _repeat_kv(k_cache[sl], rep, head_axis).float()
+        v_c = _repeat_kv(v_cache[sl], rep, head_axis).float()
+        s_c = torch.einsum(qk, qf, k_c) * scale
+        if k_scale is not None:
+            s_c = s_c * _scale_bcast(hm, _repeat_kv(k_scale[sl], rep, head_axis))
         kpos = idx * c + torch.arange(c, device=q.device)[None, :]
         s_c = s_c.masked_fill(~(kpos <= qpos)[None, None], float("-inf"))
         m_new = torch.maximum(m, s_c.amax(dim=-1))
@@ -153,7 +254,9 @@ def _chunked_scores(spec: ArchSpec, q, k_cache, v_cache, n_past: int):
         )
         p = torch.exp(s_c - m_safe[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhts,bshd->bthd", p, v_c)
+        if v_scale is not None:
+            p = p * _scale_bcast(hm, _repeat_kv(v_scale[sl], rep, head_axis))
+        pv = torch.einsum(pv_eq, p.to(cdt).float(), v_c)
         acc = acc * alpha.transpose(1, 2)[..., None] + pv
         m = m_new
     l = torch.clamp_min(l, 1e-30)
@@ -180,6 +283,26 @@ def round_window(pos: int, n_ctx: int) -> int:
     return min(w * ATTN_WINDOW_STEP, n_ctx)
 
 
+def write_kv(kv: KVCache, il: int, n_past: int, k: torch.Tensor, v: torch.Tensor,
+             hm: bool) -> None:
+    """Write a chunk's k/v (B, T, Hkv, dh) into layer `il` of the cache IN
+    PLACE at n_past (the JAX package returns an updated cache instead):
+    cast to a float cache's dtype (round to nearest even), or quantized by
+    kv_quantize into an int8 cache's four planes."""
+    t = k.shape[1]
+    if hm:  # (B, Hkv, T, dh) slabs for a head-major cache
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    at = (il,) + _seq_slice(hm, n_past + t, n_past)
+    if kv.ks is None:
+        kv.k[at] = k
+        kv.v[at] = v
+        return
+    kq, ksc = kv_quantize(k)
+    vq, vsc = kv_quantize(v)
+    kv.k[at], kv.ks[at] = kq, ksc
+    kv.v[at], kv.vs[at] = vq, vsc
+
+
 def _attention(
     spec: ArchSpec,
     layer: Params,
@@ -189,24 +312,39 @@ def _attention(
     il: int,
     angles: Optional[torch.Tensor],
     window: Optional[int] = None,
+    n_past_slots: Optional[torch.Tensor] = None,  # (B,) int32; forward builds it once
 ) -> torch.Tensor:
-    """One layer's attention. Writes this chunk's k/v into the cache IN
-    PLACE at (il, n_past) (the JAX package returns an updated cache
-    instead), then attends over the window."""
+    """One layer's attention. Writes this chunk's k/v into the cache in
+    place (write_kv), then attends over the window. A decode step (T = 1)
+    always goes through ops/attention.py:decode_attention, whatever
+    CT_ATTN says: the hand-written kernel on the card, its plain version on
+    the CPU. CT_ATTN chooses between the full and the chunked scores for
+    prompt chunks (T > 1) only."""
     b, t, _ = x.shape
     q, k, v = project_qkv(spec, layer, x, angles)
-    kv.k[il, :, n_past : n_past + t] = k
-    kv.v[il, :, n_past : n_past + t] = v
-    chunked = _use_chunked_attention(spec, t)
-    s = kv.k.shape[2]
-    if window is not None and window < s:
-        s = window
-        if chunked:  # the chunked path reads whole chunks
-            c = attn_chunk()
-            s = min(math.ceil(window / c) * c, kv.k.shape[2])
-    k_cache, v_cache = kv.k[il, :, :s], kv.v[il, :, :s]
-    scores = _chunked_scores if chunked else _full_scores
-    ctx = scores(spec, q, k_cache, v_cache, n_past)
+    hm = kv_head_major()
+    write_kv(kv, il, n_past, k, v, hm)
+    s_full = kv.k.shape[3 if hm else 2]
+    if t == 1:
+        if n_past_slots is None:
+            n_past_slots = torch.full((b,), n_past, dtype=torch.int32, device=x.device)
+        ctx = decode_attention(
+            q[:, 0], kv.k, kv.v, il, n_past_slots,
+            window=window if window is not None and window < s_full else None,
+            k_scale=kv.ks, v_scale=kv.vs, head_major=hm,
+        )
+    else:
+        chunked = _use_chunked_attention(spec, t)
+        s = s_full
+        if window is not None and window < s:
+            s = window
+            if chunked:  # the chunked path reads whole chunks
+                c = attn_chunk()
+                s = min(math.ceil(window / c) * c, s_full)
+        sl = _seq_slice(hm, s)
+        planes = [None if a is None else a[il][sl] for a in kv]
+        scores = _chunked_scores if chunked else _full_scores
+        ctx = scores(spec, q, *planes[:2], n_past, *planes[2:], hm=hm)
     return mm(ctx.reshape(b, t, spec.n_head * spec.head_dim), layer["wo"])
 
 
@@ -222,7 +360,7 @@ def forward(
     cache `kv` is updated in place. `attn_window` bounds attention reads to
     the cache prefix [0, attn_window), which must cover every live
     position."""
-    t = tokens.shape[1]
+    b, t = tokens.shape
     x = params["wte"][tokens]  # (B, T, D) f32
     angles = None
     if spec.rope_mode != "none":
@@ -231,9 +369,12 @@ def forward(
             positions, spec.head_dim, spec.n_rot or spec.head_dim,
             spec.rope_base, spec.rope_scale,
         )
+    # a decode step's per-slot positions, built once for every layer
+    slots = (torch.full((b,), n_past, dtype=torch.int32, device=tokens.device)
+             if t == 1 else None)
     for il, layer in enumerate(params["layers"]):
         ln1 = _norm(spec, x, layer["ln1_g"])
-        attn_out = _attention(spec, layer, ln1, n_past, kv, il, angles, attn_window)
+        attn_out = _attention(spec, layer, ln1, n_past, kv, il, angles, attn_window, slots)
         x = block_ffn(spec, layer, x, attn_out)
     if spec.final_norm:
         x = _norm(spec, x, params["ln_f_g"])

@@ -95,7 +95,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu")
+# every kernel source of the port; attn_decode.cu is ops/attention.py's
+SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu", "attn_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,10 +122,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the qmm kernels need the CUDA toolkit")
 
 
-def _source_hash() -> str:
+def _source_hash(prefix: str = "qmm_") -> str:
+    """Hash of the nvcc flags and the sources under csrc/ whose names start
+    with `prefix`: by default the qmm kernels' sources, which the kernel
+    tables are tied to (ops/qmatmul.py); with "" every source, which names
+    the build directory."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(os.listdir(CSRC)):
-        if name.endswith((".cu", ".cuh")):
+        if name.startswith(prefix) and name.endswith((".cu", ".cuh")):
             h.update(name.encode())
             with open(os.path.join(CSRC, name), "rb") as f:
                 h.update(f.read())
@@ -137,7 +142,7 @@ def build() -> Dict[str, object]:
     and load the libraries. Returns BUILD_INFO: seconds and ptxas output."""
     if len(_LIBS) == len(SOURCES):
         return BUILD_INFO
-    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+    out_dir = os.path.join(BUILD_ROOT, _source_hash(""))
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -171,10 +176,13 @@ def build() -> Dict[str, object]:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # pointers, then m, kp, np, the symbol's own ints (group, has mins) and
-    # the stream
+    # the stream; the decode attention of ops/attention.py: pointers, dtype,
+    # batch, heads, kv heads, head width, window, chunk, layer, the score
+    # scale, the cache's and the scale planes' strides, the stream
     sigs = {
+        "ct_decode_attn": [P] * 8 + [I] * 8 + [ctypes.c_float] + [LL] * 8 + [P],
         "ct_qmm_qx": [P] * 7 + [I, I, I, P],
         "ct_qmm_q": [P] * 9 + [I, I, I, P],
         "ct_qmm_si": [P] * 7 + [I, I, I, P],
@@ -212,7 +220,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = args
-            fn.restype = ctypes.c_int
+            fn.restype = I
 
 
 def _fn(lib: str, name: str):

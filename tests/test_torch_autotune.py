@@ -248,6 +248,26 @@ def test_the_port_never_reads_the_jax_packages_table(tmp_path, monkeypatch):
     assert opened and not [p for p in opened if "qmm_tiles" in p or "v5e" in p]
 
 
+def test_a_non_qmm_source_moves_the_build_hash_not_the_table_hash(tmp_path, monkeypatch):
+    """The tables are tied to the qmm kernels' sources only: an edit to the
+    decode attention source rebuilds the kernels (a new build directory)
+    but leaves every table in force; an edit to a qmm source does both."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(K.CSRC, csrc)
+    monkeypatch.setattr(K, "CSRC", str(csrc))
+    table, build = K._source_hash(), K._source_hash("")
+    assert "attn_decode.cu" in K.SOURCES and (csrc / "attn_decode.cu").exists()
+    with open(csrc / "attn_decode.cu", "a") as f:
+        f.write("// an edit\n")
+    assert K._source_hash() == table and K._source_hash("") != build
+    build = K._source_hash("")
+    with open(csrc / "qmm_common.cuh", "a") as f:
+        f.write("// an edit\n")
+    assert K._source_hash() != table and K._source_hash("") != build
+
+
 def test_shipped_table_serves_this_checkout():
     """The table under data/ was raced on an H100 from these kernel sources:
     its header names the card, its power limit and the source hash, so it

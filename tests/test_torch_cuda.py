@@ -2,8 +2,9 @@
 five Q4_K kernels, the six int8-grid (Q6_K, Q5_K) kernels, the five GPTQ4
 kernels at groups 32, 64 and 128 (Q4_1 at 32), the five bias-free Q4_0
 kernels, the six kernels on the legacy grids' plain planes (Q8_0, Q5_0,
-Q5_1) and the five group-16 nibble kernels (Q2_K, Q3_K); and the race that
-picks among them.
+Q5_1) and the five group-16 nibble kernels (Q2_K, Q3_K); the race that
+picks among them; and the decode attention kernel (ops/attention.py) over
+f32, bf16, f16 and int8 caches in both layouts.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from ctransformers_tpu_torch.models.synthetic import K16_PLANE_RANGES
+from ctransformers_tpu_torch.ops import attention as A
 from ctransformers_tpu_torch.ops import qmatmul as qm
 from ctransformers_tpu_torch.ops import qmm_kernels as K
 from ctransformers_tpu_torch.ops.qmatmul import QTensor, qmatmul, select_mode
@@ -416,3 +418,97 @@ def test_wrapper_rejects_bad_operands(dev):
         K.qmm_qx_gptq(torch.randn(1, 256), gq)  # CPU activations, CUDA weight
     with pytest.raises(NotImplementedError):
         K.qmm_i(torch.randn(64, 256, device=dev), gq)  # the Q4_K wrapper
+
+
+def random_cache(dtype, hm: bool, shape, seed: int, device):
+    """A random stacked KV cache (k, v, ks, vs) of `shape` (L, B, S, Hkv,
+    dh), head-major (L, B, Hkv, S, dh) with `hm`; int8 with scale planes."""
+    g = torch.Generator().manual_seed(seed)
+    n_layer, b, s, hkv, dh = shape
+    shape = (n_layer, b, hkv, s, dh) if hm else shape
+    if dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, dtype=torch.int8) for _ in "kv")
+        ks, vs = (torch.rand(shape[:-1], generator=g) * 0.02 + 1e-3 for _ in "kv")
+        return tuple(a.to(device) for a in (k, v, ks, vs))
+    k, v = (torch.randn(shape, generator=g).to(dtype).to(device) for _ in "kv")
+    return k, v, None, None
+
+
+# cdt f32: f32 sums in another order; bf16, f16 and int8: p rounded to cdt
+# as the plain version rounds it (a rounding flips only where expf and the
+# f32 sums land within an ulp of a rounding boundary)
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4, torch.float16: 1e-4, torch.int8: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("hm", [False, True])
+@pytest.mark.parametrize("h,hkv,dh", [(4, 4, 128), (8, 4, 128), (32, 8, 128), (8, 2, 64),
+                                     (24, 8, 256), (16, 2, 64)])
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_decode_attn_matches_plain(dev, dtype, hm, h, hkv, dh, window, alibi):
+    s, b = 768, 3
+    k, v, ks, vs = random_cache(dtype, hm, (2, b, s, hkv, dh), seed=h + dh, device=dev)
+    g = torch.Generator().manual_seed(dh)
+    q = torch.randn((b, h, dh), generator=g).to(dev)
+    top = (window or s) - 1
+    n_past = torch.tensor([0, top // 2 + 7, top], dtype=torch.int32, device=dev)
+    slopes = (torch.rand(h, generator=g) * 0.1).to(dev) if alibi else None
+    kw = dict(window=window, k_scale=ks, v_scale=vs, alibi_slopes=slopes, head_major=hm)
+    launches, plain = A.LAUNCHES["decode_attn"], A.PLAIN_CALLS["decode_attn"]
+    got = A.decode_attention(q, k, v, 1, n_past, **kw)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["decode_attn"] == launches + 1
+    assert A.PLAIN_CALLS["decode_attn"] == plain  # never the plain version on the card
+    ref = A.plain_decode_attention(q, k, v, 1, n_past, **kw)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) < ATTN_TOL[dtype], _rel(got, ref)
+
+
+def test_decode_attn_refuses_what_it_does_not_take(dev):
+    k, v, _, _ = random_cache(torch.float32, False, (1, 1, 256, 2, 64), 0, dev)
+    ki, vi, ks, vs = random_cache(torch.int8, False, (1, 1, 256, 2, 64), 1, dev)
+    q = torch.randn(1, 4, 64, device=dev)
+    n_past = torch.tensor([10], dtype=torch.int32, device=dev)
+    run = A.decode_attention
+    bad = {
+        "f64 q": lambda: run(q.double(), k, v, 0, n_past),
+        "f64 cache": lambda: run(q, k.double(), v.double(), 0, n_past),
+        "strided cache": lambda: run(q, k.transpose(2, 3), v.transpose(2, 3), 0, n_past,
+                                     head_major=True),
+        "strided q": lambda: run(torch.randn(1, 4, 128, device=dev)[..., ::2], k, v, 0, n_past),
+        "3 heads over 2": lambda: run(q[:, :3].contiguous(), k, v, 0, n_past),
+        "9 heads a kv head": lambda: run(torch.randn(1, 18, 64, device=dev), k, v, 0, n_past),
+        "width 48": lambda: run(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                v[..., :48].contiguous(), 0, n_past),
+        "width 16": lambda: run(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                                v[..., :16].contiguous(), 0, n_past),
+        "int64 n_past": lambda: run(q, k, v, 0, n_past.long()),
+        "n_past on the CPU": lambda: run(q, k, v, 0, n_past.cpu()),
+        "int8 without scales": lambda: run(q, ki, vi, 0, n_past),
+        "f32 with scales": lambda: run(q, k, v, 0, n_past, k_scale=ks, v_scale=vs),
+        "strided scales": lambda: run(q, ki, vi, 0, n_past, k_scale=ks.transpose(2, 3),
+                                      v_scale=vs.transpose(2, 3)),
+        "layer 1 of 1": lambda: run(q, k, v, 1, n_past),
+    }
+    launches = A.LAUNCHES["decode_attn"]
+    for what, call in bad.items():
+        with pytest.raises(ValueError):
+            call()
+            pytest.fail(what)
+    assert A.LAUNCHES["decode_attn"] == launches
+
+
+def test_decode_attn_raises_on_a_launch_error(dev, monkeypatch):
+    """A launch the kernel refuses (here: one chunk's scores above the
+    card's shared memory, past the wrapper's own check) raises and counts
+    nothing."""
+    monkeypatch.setattr(A, "MAX_CHUNK_SCORE_BYTES", 1 << 40)
+    k, v, _, _ = random_cache(torch.float32, False, (1, 1, 8000, 1, 64), 0, dev)
+    q = torch.randn(1, 8, 64, device=dev)
+    n_past = torch.tensor([7999], dtype=torch.int32, device=dev)
+    assert A.decode_chunk(8000) == 8000  # 8 heads x 8000 scores = 256 KB
+    launches = A.LAUNCHES["decode_attn"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        A.decode_attention(q, k, v, 0, n_past)
+    assert A.LAUNCHES["decode_attn"] == launches

@@ -17,6 +17,13 @@
 //       out = x @ (q * s + m), all f32 (no TF32: plain f32 multiply-adds)
 //   _qmm_s_kernel (mode "s", f32 dots)  -> ct_qmm_s, ct_qmm_s_legacy
 //       out = x @ (q * s) + xsum @ M, all f32
+//   _qmm_pack4_kernel   (mode "",  f32 dots) -> ct_qmm_f_ks
+//       out = x_lo @ (l * s + B_lo) + x_hi @ (f * s + B_hi), all f32
+//   _qmm_pack4_s_kernel (mode "s", f32 dots) -> ct_qmm_s_ks
+//       out = xs_lo @ B_lo + xs_hi @ B_hi + x_lo @ (l * s) + x_hi @ (f * s)
+//       on the ksplit nibbles of every kind (qmm_common.cuh): x_lo, x_hi the
+//       two halves of x's columns, xs their f32 group sums; one symbol per
+//       mode reads the layout from its ints (ctq::dispatch_ksplit)
 // The scale planes are the k-quants' int8 sub-scales times f32 superblock
 // factors (Q4_K at group 32, Q2_K and Q3_K at 16, the grids), or (PLAIN_S: GPTQ4, Q4_1, Q4_0 and the legacy
 // grids Q8_0, Q5_0, Q5_1, the reference's sfactor == 0 branches) f32
@@ -44,7 +51,13 @@
 // group's dot. f32 activations take four times the shared memory of the
 // int8 ones of qmm_decode.cu (8 rows x 1024 x 4 B = 32 KB), so the staging
 // buffers and the final K-lane reduction share one union, inside the 48 KB
-// static limit (static_assert below).
+// static limit (static_assert below). A ksplit lane takes 16 byte rows a
+// chunk: it reads each byte once and uses both nibbles, the low one against
+// x[:, r] and the high one against x[:, r + kp/2], so a chunk stages 512
+// columns of each half (the same 32 KB at 8 rows), and each of its rows
+// needs the scale and bias of its group in both halves (read per column;
+// a group of 32 to 128 rows is 2 to 8 lanes, whose first adds the "s"
+// mode's xs @ B term once).
 #include <cuda_bf16.h>
 
 #include "qmm_common.cuh"
@@ -57,6 +70,8 @@ constexpr int kCQ = kTN / 4;            // column quads per block
 constexpr int kGL = kThreads / kCQ;     // K lanes
 
 enum Mode { kModeG, kModeF, kModeS };
+// the weight's layout: an int8 grid (kp, np), or adjk or ksplit nibbles (kp/2, np)
+enum Layout { kGrid, kAdjk, kKsplit };
 
 template <int MT, int KC, int NG>
 union FloatSmem {
@@ -73,11 +88,12 @@ union FloatSmem {
 // schedules the chunk's loads so that the m = 1 kernels run 25-30% faster
 // there (and the grouped dot on Q6_K no longer 2.6x slower than ""; timed
 // on an H100, PERF.md).
-// PACKED: adjk nibbles (kp/2, np), else an int8 grid (kp, np). PLAIN_S: s
-// and m are the f32 (kp/G, np) planes sd and sm themselves, else int8
-// sub-scales times f32 superblock factors. HAS_MINS: a min plane; a nibble
-// weight without one is Q4_0's or Q3_K's (zero point 8: no bias).
-template <int MT, int MODE, bool PACKED, bool PLAIN_S, int G, bool HAS_MINS>
+// LAYOUT: an int8 grid (kp, np), or adjk or ksplit nibbles (kp/2, np).
+// PLAIN_S: s and m are the f32 (kp/G, np) planes sd and sm themselves, else
+// int8 sub-scales times f32 superblock factors. HAS_MINS: a min plane; a
+// nibble weight without one is Q4_0's or Q3_K's (zero point 8: no bias in
+// adjk, -8 s in the low half of ksplit).
+template <int MT, int MODE, int LAYOUT, bool PLAIN_S, int G, bool HAS_MINS>
 __global__ void __launch_bounds__(kThreads, 2)
 qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
                  const int8_t* __restrict__ qs,     // (kp/2, np) nibbles or (kp, np) grid
@@ -87,29 +103,35 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
                  const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m [HAS_MINS]
                  float* __restrict__ out,           // (m, np)
                  int m, int kp, int np) {
-  constexpr bool kPacked = PACKED;
-  constexpr int kLR = G < 32 ? G : 32;  // K rows per lane and chunk
-  constexpr int kKC = kGL * kLR;        // K rows staged per chunk
+  constexpr bool kPacked = LAYOUT == kAdjk;
+  constexpr bool kKs = LAYOUT == kKsplit;
+  constexpr int kLR = kKs ? 16 : (G < 32 ? G : 32);  // K (ksplit: byte) rows per lane and chunk
+  constexpr int kKC = kGL * kLR;        // K (ksplit: byte) rows per chunk
   constexpr int kLPG = G / kLR;         // K lanes per group
-  constexpr int kNG = kKC / G;          // groups per chunk
+  constexpr int kNG = kKC / G;          // groups per chunk (ksplit: of each half)
+  constexpr int kXC = kKs ? 2 * kKC : kKC;  // activation columns staged per chunk
+  constexpr int kXG = kKs ? 2 * kNG : kNG;  // their groups
   constexpr int kQT = G / 4;            // threads holding one group while staging
   constexpr int kSF = ctq::kSuperblock / G;  // groups per superblock (factored planes)
-  // the xsum @ B term: nibbles with mins re-bias by 8 * s + m, grids add m;
-  // Q4_0's nibbles and the grids without mins have no bias
-  constexpr bool kBias = MODE != kModeF && HAS_MINS;
+  // the xsum @ B term: adjk nibbles with mins re-bias by 8 * s + m, grids
+  // add m, ksplit adds each half's bias (the low half's on every kind);
+  // Q4_0's adjk nibbles and the grids without mins have no bias
+  constexpr bool kBias = MODE != kModeF && (HAS_MINS || kKs);
   static_assert(!kPacked || (G % 32 == 0 && 32 * (32 / kCQ) % G == 0) || (!PLAIN_S && G == 16),
                 "a nibble group is 1, 2 or 4 K lanes of one warp, or one lane (group 16)");
-  static_assert(!kPacked || HAS_MINS || (PLAIN_S && G == 32) || (!PLAIN_S && G == 16),
+  static_assert(LAYOUT == kGrid || HAS_MINS || (PLAIN_S && G == 32) || (!PLAIN_S && G == 16),
                 "a nibble weight without mins is Q4_0 (plain planes, group 32) or Q3_K "
                 "(factored, group 16)");
-  static_assert(kPacked || kLPG == 1, "an int8-grid group is one K lane");
-  static_assert(PLAIN_S || !kPacked || G == ctq::kGroup || G == 16,
+  static_assert(LAYOUT != kGrid || kLPG == 1, "an int8-grid group is one K lane");
+  static_assert(PLAIN_S || LAYOUT == kGrid || G == ctq::kGroup || G == 16,
                 "factored nibble groups are 32 rows (Q4_K) or 16 (Q2_K, Q3_K)");
-  static_assert(!PLAIN_S || kPacked || G == 32, "the legacy grids' groups are 32 rows");
-  static_assert(MODE == kModeG || !kPacked, "\"\" and \"s\" are int8-grid modes");
-  static_assert(4 * kThreads >= kKC, "one float4 per thread stages a chunk");
-  static_assert(sizeof(FloatSmem<MT, kKC, kNG>) <= 48 * 1024, "static shared memory limit");
-  __shared__ FloatSmem<MT, kKC, kNG> sh;
+  static_assert(!PLAIN_S || LAYOUT != kGrid || G == 32, "the legacy grids' groups are 32 rows");
+  static_assert(MODE == kModeG || !kPacked, "\"\" and \"s\" are int8-grid and ksplit modes");
+  static_assert(MODE != kModeG || !kKs, "ksplit takes the modes \"\" and \"s\"");
+  static_assert(!kKs || (kKC % G == 0 && G % kLR == 0), "a ksplit group is 1 to 8 whole lanes");
+  static_assert(4 * kThreads >= kXC, "one float4 per thread stages a chunk");
+  static_assert(sizeof(FloatSmem<MT, kXC, kXG>) <= 48 * 1024, "static shared memory limit");
+  __shared__ FloatSmem<MT, kXC, kXG> sh;
   const int tid = threadIdx.x;
   const int cq = tid % kCQ;
   const int gl = tid / kCQ;
@@ -122,18 +144,25 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
 
-  for (int k0 = 0; k0 < kp; k0 += kKC) {
+  const int rows = kKs ? kp / 2 : kp;  // storage rows the chunks walk
+  for (int k0 = 0; k0 < rows; k0 += kKC) {
     // ---- stage this chunk's activations and the group sums of x ----
     {
-      // thread tid holds x[k0 + 4*tid .. +3]; G/4 neighbouring threads = 1 group
+      // thread tid holds x[k0 + 4*tid .. +3] (ksplit: the low half's columns,
+      // then from kKC on the high half's, x[kp/2 + k0 + ..]); G/4
+      // neighbouring threads = 1 group (512 is a multiple of G, so a group
+      // never straddles the two halves)
       const int kk = 4 * tid;
-      const bool mine = kk < kKC;
+      const bool mine = kk < kXC;
+      const bool second = kKs && kk >= kKC;
+      const int kr = k0 + kk - (second ? kKC : 0);  // storage row of the column
+      const int col = kr + (second ? kp / 2 : 0);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const int t = t0 + i;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (mine && t < m && k0 + kk < kp)
-          v = __ldg(reinterpret_cast<const float4*>(x + (size_t)t * kp + k0 + kk));
+        if (mine && t < m && kr < rows)
+          v = __ldg(reinterpret_cast<const float4*>(x + (size_t)t * kp + col));
         if (kBias) {
           float sum = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
 #pragma unroll
@@ -152,6 +181,66 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
     }
     __syncthreads();
 
+    if constexpr (kKs) {
+      // ---- one lane of kLR byte rows: both nibbles of each byte, f32 dots ----
+      const int half = kp / 2;
+      const int r0 = k0 + gl * kLR;  // first byte row of this lane
+      if (r0 < half) {
+        const int gi = gl * kLR / G;  // the lane's group in the chunk (each half)
+        float s_lo[4], b_lo[4], s_hi[4], b_hi[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float mv;
+          ctq::group_sm<PLAIN_S ? 0 : kSF, HAS_MINS>(sub_s, sub_m, sd, sm, np, r0 / G, n + c,
+                                                     &s_lo[c], &mv);
+          b_lo[c] = ctq::ksplit_bias<HAS_MINS>(s_lo[c], mv, false);
+          ctq::group_sm<PLAIN_S ? 0 : kSF, HAS_MINS>(sub_s, sub_m, sd, sm, np, (r0 + half) / G,
+                                                     n + c, &s_hi[c], &mv);
+          b_hi[c] = ctq::ksplit_bias<HAS_MINS>(s_hi[c], mv, true);
+        }
+        const int8_t* qrow = qs + (size_t)r0 * np + n;
+        uint32_t w[kLR];
+#pragma unroll
+        for (int r = 0; r < kLR; ++r)
+          w[r] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)r * np));
+        // the lane sums into acc directly: a chunk's partial sums would hold
+        // 32 more registers at 8 rows (the f32 sums' order is the kernel's own)
+#pragma unroll
+        for (int r = 0; r < kLR; ++r) {
+          float wl[4], wh[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int b = ctq::sbyte(w[r], c);
+            // l * s (+ B_lo), f * s (+ B_hi), rounded as the reference's
+            wl[c] = __fmul_rn(static_cast<float>(ctq::ksplit_value(b, false)), s_lo[c]);
+            wh[c] = __fmul_rn(static_cast<float>(ctq::ksplit_value(b, true)), s_hi[c]);
+            if (MODE == kModeF) {
+              wl[c] = __fadd_rn(wl[c], b_lo[c]);
+              wh[c] = __fadd_rn(wh[c], b_hi[c]);
+            }
+          }
+          const int kl = gl * kLR + r;
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const float xl = sh.in.x[i][kl];
+            const float xh = sh.in.x[i][kKC + kl];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xh, wh[c], fmaf(xl, wl[c], acc[i][c]));
+          }
+        }
+        // "s": the group's first lane adds each half's xs @ B once
+        if (kBias && (gl * kLR) % G == 0) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(sh.in.xs[i][gi], b_lo[c]));
+              acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(sh.in.xs[i][kNG + gi], b_hi[c]));
+            }
+          }
+        }
+      }
+    } else {
     // ---- one lane of kLR rows: f32 dots against the decoded weights ----
     const int r0 = k0 + gl * kLR;  // first K row of this lane
     const bool live = r0 < kp;     // whole warps: kp is a 256-multiple
@@ -274,6 +363,7 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
         }
       }
     }
+    }  // adjk nibbles and int8 grids
     __syncthreads();
   }
 
@@ -292,22 +382,37 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
   }
 }
 
-template <int MODE, bool PACKED, bool PLAIN_S, int G, bool HAS_MINS>
+template <int MODE, int LAYOUT, bool PLAIN_S, int G, bool HAS_MINS>
 int launch(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
            const float* sd, const float* sm, float* out, int m, int kp, int np,
            cudaStream_t stream) {
   if (m == 1) {
     dim3 grid(np / kTN, 1);
-    qmm_float_kernel<1, MODE, PACKED, PLAIN_S, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+    qmm_float_kernel<1, MODE, LAYOUT, PLAIN_S, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
         x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   } else {
     constexpr int MT = 8;
     dim3 grid(np / kTN, (m + MT - 1) / MT);
-    qmm_float_kernel<MT, MODE, PACKED, PLAIN_S, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
+    qmm_float_kernel<MT, MODE, LAYOUT, PLAIN_S, G, HAS_MINS><<<grid, kThreads, 0, stream>>>(
         x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The ksplit kernel of a layout dispatch_ksplit names.
+template <int MODE>
+struct KsplitFloat {
+  const float* x;
+  const int8_t* qs;
+  float* out;
+  int m, kp, np;
+  cudaStream_t st;
+  template <int G, int SF, bool HAS_MINS>
+  int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
+    return launch<MODE, kKsplit, SF == 0, G, HAS_MINS>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
+                                                       np, st);
+  }
+};
 
 // factored int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K).
 template <int MODE>
@@ -315,10 +420,10 @@ int launch_grid(const float* x, const int8_t* qs, const int8_t* sub_s, const int
                 const float* sd, const float* sm, float* out, int m, int kp, int np,
                 int group, cudaStream_t stream) {
   if (group == 16 && sub_m == nullptr)
-    return launch<MODE, false, false, 16, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+    return launch<MODE, kGrid, false, 16, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                                  stream);
   if (group == 32 && sub_m != nullptr)
-    return launch<MODE, false, false, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+    return launch<MODE, kGrid, false, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                                 stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -330,9 +435,9 @@ int launch_legacy(const float* x, const int8_t* qs, const float* s, const float*
                   float* out, int m, int kp, int np, int has_mins, cudaStream_t stream) {
   if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (has_mins)
-    return launch<MODE, false, true, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+    return launch<MODE, kGrid, true, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
                                                stream);
-  return launch<MODE, false, true, 32, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp,
+  return launch<MODE, kGrid, true, 32, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp,
                                               np, stream);
 }
 
@@ -346,9 +451,9 @@ int launch_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8
   if (has_mins != (sub_m != nullptr) || has_mins != (sm != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (has_mins)
-    return launch<MODE, true, false, 16, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+    return launch<MODE, kAdjk, false, 16, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                                stream);
-  return launch<MODE, true, false, 16, false>(x, qs, sub_s, nullptr, sd, nullptr, out, m, kp,
+  return launch<MODE, kAdjk, false, 16, false>(x, qs, sub_s, nullptr, sd, nullptr, out, m, kp,
                                               np, stream);
 }
 
@@ -360,7 +465,7 @@ extern "C" {
 int ct_qmm_g(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp, int np,
              void* stream) {
-  return launch<kModeG, true, false, ctq::kGroup, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
+  return launch<kModeG, kAdjk, false, ctq::kGroup, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
                                                        np, static_cast<cudaStream_t>(stream));
 }
 
@@ -379,13 +484,13 @@ int ct_qmm_g_gptq(const float* x, const int8_t* qs, const float* s, const float*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (group) {
     case 32:
-      return launch<kModeG, true, true, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+      return launch<kModeG, kAdjk, true, 32, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
                                                   st);
     case 64:
-      return launch<kModeG, true, true, 64, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+      return launch<kModeG, kAdjk, true, 64, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
                                                   st);
     case 128:
-      return launch<kModeG, true, true, 128, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
+      return launch<kModeG, kAdjk, true, 128, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp, np,
                                                    st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -418,7 +523,7 @@ int ct_qmm_s(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t
 // mode "g" on Q4_0: s f32 (kp/32, np); no mins (null), no bias.
 int ct_qmm_g_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
                   float* out, int m, int kp, int np, void* stream) {
-  return launch<kModeG, true, true, 32, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp,
+  return launch<kModeG, kAdjk, true, 32, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp,
                                                np, static_cast<cudaStream_t>(stream));
 }
 
@@ -440,6 +545,26 @@ int ct_qmm_s_legacy(const float* x, const int8_t* qs, const float* s, const floa
                     float* out, int m, int kp, int np, int has_mins, void* stream) {
   return launch_legacy<kModeS>(x, qs, s, mn, out, m, kp, np, has_mins,
                                static_cast<cudaStream_t>(stream));
+}
+
+// modes "" and "s" on ksplit nibbles: scales and mins the QTensor's planes
+// (int8 sub-planes where sfactor > 0, else f32 s and m), sd and sm its
+// factors (null where sfactor is 0); group, has_mins, zp and sfactor name
+// the layout (ctq::dispatch_ksplit refuses one there is not).
+int ct_qmm_f_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
+                const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
+                int has_mins, int zp, int sfactor, void* stream) {
+  return ctq::dispatch_ksplit(
+      KsplitFloat<kModeF>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales,
+      mins, sd, sm, group, has_mins, zp, sfactor);
+}
+
+int ct_qmm_s_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
+                const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
+                int has_mins, int zp, int sfactor, void* stream) {
+  return ctq::dispatch_ksplit(
+      KsplitFloat<kModeS>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales,
+      mins, sd, sm, group, has_mins, zp, sfactor);
 }
 
 }  // extern "C"

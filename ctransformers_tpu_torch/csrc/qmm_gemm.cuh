@@ -1,7 +1,9 @@
 // Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the
 // k-quant nibble kernels (qmm_prefill.cu: "si", "i" on Q4_K, Q2_K, Q3_K), the GPTQ 4-bit, Q4_1 and Q4_0
-// kernels (qmm_prefill.cu: "si", "i") and the int8-grid kernels
-// (qmm_grid.cu: "sb", "b", factored and legacy).
+// kernels (qmm_prefill.cu: "si", "i"), the ksplit nibble kernels
+// (qmm_prefill.cu: "sb", "b"), the int8-grid kernels (qmm_grid.cu: "sb",
+// "b", factored and legacy) and the reshape-broadcast "rb" kernels
+// (qmm_rb.cu).
 // Only the weight tile's decoding differs between formats; it comes in as a
 // tile type W:
 //
@@ -12,7 +14,7 @@
 //                its steps and applies B once, at the group's last step.
 //   W::kHasBias  whether the format adds a per-group bias B (its mins, or
 //                a nibble's re-bias; not Q4_0, Q3_K, Q6_K, Q8_0, Q5_0)
-//   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s)
+//   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, kp, k0, col0, tid, Bs, b_s)
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
 //                kGemmLDB): W = q * s + B rounded once to bf16, or, when
@@ -20,7 +22,8 @@
 //                written to b_s[group in step][column]. A format with
 //                unfactored planes (GPTQ4 and the legacy types) takes
 //                sub_s = sub_m = null and its f32 (kp/G, np) planes s and
-//                m as sd and sm (m null where it has none).
+//                m as sd and sm (m null where it has none). kp tells a
+//                ksplit tile which half, and so which nibble, row k0 is in.
 //
 // The kernel computes
 //   SUMFOLD and W has a bias:  out = bf16(x) @ bf16(q * s) + xsum @ B
@@ -132,7 +135,7 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
       a[2] = __float2bfloat16(v.z);
       a[3] = __float2bfloat16(v.w);
     }
-    W::template load<kFold>(qs, sub_s, sub_m, sd, sm, np, k0, col0, tid, Bs, b_s);
+    W::template load<kFold>(qs, sub_s, sub_m, sd, sm, np, kp, k0, col0, tid, Bs, b_s);
     __syncthreads();
 
 #pragma unroll

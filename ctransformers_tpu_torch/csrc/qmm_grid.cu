@@ -238,7 +238,7 @@ struct GridTile {
       const int8_t* __restrict__ sub_m,  // (kp/G, np)   [!PLAIN_S, HAS_MINS]
       const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
       const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m [HAS_MINS]
-      int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
+      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*b_s)[ctq::kGemmBN]) {
     constexpr int kSF = 256 / G;
     constexpr int kNGS = ctq::kGemmBK / G;

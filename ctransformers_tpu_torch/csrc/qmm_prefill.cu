@@ -28,6 +28,23 @@
 // same tile without a bias (the reference's `b is None` branch): it reads
 // no min plane, W = w4 * s, and "si" then computes what "i" does (the GEMM
 // folds nothing).
+//
+// The ksplit nibbles of every kind (ops/qmatmul.py; qmm_common.cuh) take the
+// same GEMM through their own tile:
+//   _qmm_pack4_kernel,   mode "b":  out = bf16(x) @ bf16(v * s + B)
+//                                    -> ct_qmm_b_ks
+//   _qmm_pack4_s_kernel, mode "sb": out = xsum @ B + bf16(x) @ bf16(v * s)
+//                                    -> ct_qmm_sb_ks
+// with v = l in the low half of K and f in the high half and B that half's
+// bias. A byte row holds one row of each half; a 32-row K step lies wholly
+// in one half (kp/2 is a multiple of 128), so the tile knows its nibble and
+// its half's bias, reads only the byte rows of its step (one nibble of each
+// byte: ksplit streams the weight twice over a prompt chunk, once per half)
+// and, for the fold, writes B of each of its groups (the high half of Q4_0
+// and Q3_K has none: 0). A group of 128 rows spans 4 steps of one half (the
+// halves meet at a group boundary), so the fold's per-group carry never
+// crosses them. One symbol per mode serves every kind; it reads the layout
+// from its ints (ctq::dispatch_ksplit).
 #include "qmm_gemm.cuh"
 
 namespace {
@@ -52,7 +69,7 @@ struct KQuantTile {
       const int8_t* __restrict__ sub_m,  // (kp/G, np)     [HAS_BIAS]
       const float* __restrict__ sd,      // (kp/256, np)
       const float* __restrict__ sm,      // (kp/256, np)   [HAS_BIAS]
-      int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
+      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*b_s)[ctq::kGemmBN]) {
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
@@ -122,7 +139,7 @@ struct GptqTile {
       const int8_t* __restrict__,     // no sub-mins
       const float* __restrict__ s_p,  // (kp/G, np) s
       const float* __restrict__ m_p,  // (kp/G, np) m   [HAS_BIAS]
-      int np, int k0, int col0, int tid, __nv_bfloat16* Bs,
+      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*b_s)[ctq::kGemmBN]) {
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
@@ -159,6 +176,84 @@ struct GptqTile {
       b0[j] = __float2bfloat16(w0);
       b1[j] = __float2bfloat16(w1);
     }
+  }
+};
+
+// ksplit nibbles (kp/2, np) of any kind: G, SF groups a superblock (0:
+// the f32 planes s and m come as sd and sm) and whether there are mins. Each
+// of the 128 threads takes 4 byte rows x 4 columns of the step (one 32-bit
+// load per row), which lie in one group.
+template <int G, int SF, bool HAS_MINS>
+struct KsplitTile {
+  static constexpr int kGroup = G;
+  static constexpr bool kHasBias = true;  // the low half has one on every kind
+  static constexpr int kWRows = ctq::kGemmBK * ctq::kGemmBN / 4 / ctq::kGemmThreads;
+  static_assert(kWRows * ctq::kGemmThreads * 4 == ctq::kGemmBK * ctq::kGemmBN,
+                "threads must tile the weight step");
+  static_assert(G % kWRows == 0, "a thread's rows lie in one quant group");
+
+  template <bool FOLD>
+  __device__ __forceinline__ static void load(
+      const int8_t* __restrict__ qs,     // (kp/2, np) ksplit bytes
+      const int8_t* __restrict__ sub_s,  // (kp/G, np)     [SF]
+      const int8_t* __restrict__ sub_m,  // (kp/G, np)     [SF, HAS_MINS]
+      const float* __restrict__ sd,      // (kp/256, np); SF 0: s (kp/G, np)
+      const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]; SF 0: m
+      int np, int kp, int k0, int col0, int tid, __nv_bfloat16* Bs,
+      float (*b_s)[ctq::kGemmBN]) {
+    constexpr int kNGS = G >= ctq::kGemmBK ? 1 : ctq::kGemmBK / G;
+    const int half = kp / 2;
+    const bool hi = k0 >= half;  // the step's half: its nibble and its bias
+    // logical rows wr .. wr+kWRows-1 of the step, columns wc .. wc+3
+    const int wr = (tid / 16) * kWRows, wc = (tid % 16) * 4;
+    const int n = col0 + wc;
+    const int g = (k0 + wr) / G;
+    float s[4], b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float mv;
+      ctq::group_sm<SF, HAS_MINS>(sub_s, sub_m, sd, sm, np, g, n + j, &s[j], &mv);
+      b[j] = ctq::ksplit_bias<HAS_MINS>(s[j], mv, hi);
+    }
+    if (FOLD) {
+      for (int e = tid; e < kNGS * ctq::kGemmBN; e += ctq::kGemmThreads) {
+        const int gi = e / ctq::kGemmBN, col = e % ctq::kGemmBN;
+        float sv, mv;
+        ctq::group_sm<SF, HAS_MINS>(sub_s, sub_m, sd, sm, np, k0 / G + gi, col0 + col, &sv, &mv);
+        b_s[gi][col] = ctq::ksplit_bias<HAS_MINS>(sv, mv, hi);
+      }
+    }
+    const int8_t* qrow = qs + (size_t)(k0 - (hi ? half : 0) + wr) * np + n;
+    uint32_t w[kWRows];
+#pragma unroll
+    for (int r = 0; r < kWRows; ++r)
+      w[r] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)r * np));
+#pragma unroll
+    for (int r = 0; r < kWRows; ++r) {
+      __nv_bfloat16* dst = Bs + (wr + r) * ctq::kGemmLDB + wc;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int v = ctq::ksplit_value(ctq::sbyte(w[r], j), hi);
+        float val = __fmul_rn(static_cast<float>(v), s[j]);
+        if (!FOLD) val = __fadd_rn(val, b[j]);
+        dst[j] = __float2bfloat16(val);
+      }
+    }
+  }
+};
+
+// The ksplit GEMM of a layout dispatch_ksplit names.
+template <bool SUMFOLD>
+struct KsplitGemm {
+  const float* x;
+  const int8_t* qs;
+  float* out;
+  int m, kp, np;
+  cudaStream_t st;
+  template <int G, int SF, bool HAS_MINS>
+  int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
+    return ctq::launch_gemm<KsplitTile<G, SF, HAS_MINS>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm,
+                                                                  out, m, kp, np, st);
   }
 };
 
@@ -265,6 +360,26 @@ int ct_qmm_si_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const i
                   int has_mins, void* stream) {
   return launch_k16<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, has_mins,
                           static_cast<cudaStream_t>(stream));
+}
+
+// modes "b" and "sb" on ksplit nibbles: scales and mins the QTensor's planes
+// (int8 sub-planes where sfactor > 0, else f32 s and m), sd and sm its
+// factors (null where sfactor is 0); group, has_mins, zp and sfactor name
+// the layout (ctq::dispatch_ksplit refuses one there is not).
+int ct_qmm_b_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
+                const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
+                int has_mins, int zp, int sfactor, void* stream) {
+  return ctq::dispatch_ksplit(
+      KsplitGemm<false>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins,
+      sd, sm, group, has_mins, zp, sfactor);
+}
+
+int ct_qmm_sb_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
+                 const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
+                 int has_mins, int zp, int sfactor, void* stream) {
+  return ctq::dispatch_ksplit(
+      KsplitGemm<true>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins,
+      sd, sm, group, has_mins, zp, sfactor);
 }
 
 }  // extern "C"

@@ -4,22 +4,24 @@
 `load_bundle` or `random_params` return, with every array given as (or
 convertible to) a numpy array, and returns the port's params. QTensor
 leaves are recognized by their field names, so this module imports nothing
-of the JAX package. Planes packed in the JAX package's "ksplit" nibble
-layout (byte r holds rows r and r + K_pad/2, the high nibble sign-biased;
-what it packs on a host without the TPU int4 bitcast) are unpacked and
-re-packed as adjk, the only layout of the port. A KV cache (the JAX
+of the JAX package. Nibble planes come out in the layout the port packs
+now (`pack_layout`, by default ops/qmatmul.py's rule: CT_PACK4_LAYOUT,
+else adjk): planes already in it are carried across byte for byte, planes
+in the other layout (the JAX package packs "ksplit" on a host without the
+TPU int4 bitcast: byte r holds rows r and r + K_pad/2, the high nibble
+sign-biased) are unpacked and re-packed. A KV cache (the JAX
 package's KVCache: k, v and the int8 scale planes ks, vs, in either
 layout) becomes the port's KVCache with the same arrays.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from ..ops.qmatmul import QTensor
+from ..ops.qmatmul import QTensor, _pack4_layout, pack4
 from .forward import KVCache
 
 _QT_FIELDS = ("qs", "scales", "mins", "kind", "group", "shape", "pack_layout")
@@ -33,14 +35,18 @@ def _np(a):
     return None if a is None else np.asarray(a)
 
 
-def _ksplit_to_adjk(qs: np.ndarray, zp: int) -> np.ndarray:
-    """ksplit bytes (K_pad/2, N_pad) -> adjk bytes of the same grid."""
+def _unpack4(qs: np.ndarray, zp: int, layout: str) -> np.ndarray:
+    """(K_pad/2, N_pad) nibble bytes in `layout` -> the (K_pad, N_pad) int8
+    grid q."""
     u = np.asarray(qs).view(np.uint8)
-    lo = (u & 0xF).astype(np.int16) - zp  # rows 0 .. K_pad/2 - 1
-    hi = ((u >> 4) ^ 8).astype(np.int16) - zp  # rows K_pad/2 .. K_pad - 1
-    q = np.concatenate([lo, hi], axis=0).astype(np.int8)
-    nib = (q + np.int8(zp - 8)).view(np.uint8) & np.uint8(0xF)
-    return (nib[0::2] | (nib[1::2] << np.uint8(4))).view(np.int8)
+    if layout == "ksplit":
+        lo = (u & 0xF).astype(np.int16) - zp  # rows 0 .. K_pad/2 - 1
+        hi = ((u >> 4) ^ 8).astype(np.int16) - zp  # rows K_pad/2 .. K_pad - 1
+        return np.concatenate([lo, hi], axis=0).astype(np.int8)
+    q = np.empty((2 * u.shape[0], u.shape[1]), np.int16)
+    q[0::2] = ((u & 0xF) ^ 8).astype(np.int16) - zp  # nibbles hold q + zp - 8
+    q[1::2] = ((u >> 4) ^ 8).astype(np.int16) - zp
+    return q.astype(np.int8)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -50,17 +56,21 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def convert_qtensor(v: Any, device="cpu") -> QTensor:
+def convert_qtensor(v: Any, device="cpu", pack_layout: Optional[str] = None) -> QTensor:
+    """The port's QTensor of a JAX QTensor; nibbles in `pack_layout` ("adjk"
+    or "ksplit"; None: the port's rule, ops/qmatmul.py:_pack4_layout)."""
     if getattr(v, "n_stack", 1) != 1:
         raise NotImplementedError("layer-stacked QTensors: unstack them first")
     qs = _np(v.qs)
-    layout = v.pack_layout if v.packed else "adjk"
-    if v.packed and layout == "ksplit":
-        qs = _ksplit_to_adjk(qs, int(v.zp))
-    elif v.packed and layout != "adjk":
-        raise ValueError(f"unknown pack layout {layout!r}")
+    layout = "adjk"
     if v.packed:
-        qs = qs.view(np.int8)
+        layout = pack_layout or _pack4_layout()
+        for name in (v.pack_layout, layout):
+            if name not in ("adjk", "ksplit"):
+                raise ValueError(f"unknown pack layout {name!r}")
+        if v.pack_layout != layout:
+            qs = pack4(_unpack4(qs, int(v.zp), v.pack_layout), int(v.zp), layout)
+        qs = qs.view(np.uint8 if layout == "ksplit" else np.int8)
 
     def opt(a):
         return None if a is None else _tensor(a, device)
@@ -79,19 +89,19 @@ def convert_qtensor(v: Any, device="cpu") -> QTensor:
         sd=opt(_np(getattr(v, "sd", None))),
         sm=opt(_np(getattr(v, "sm", None))),
         sfactor=int(getattr(v, "sfactor", 0)),
-        pack_layout="adjk",
+        pack_layout=layout,
     )
 
 
-def from_jax_params(params: Any, device="cpu") -> Any:
+def from_jax_params(params: Any, device="cpu", pack_layout: Optional[str] = None) -> Any:
     """Recursively convert dicts, lists, tuples and NamedTuples of arrays
-    and QTensors."""
+    and QTensors (nibbles in `pack_layout`, see convert_qtensor)."""
     if _is_qtensor(params):
-        return convert_qtensor(params, device)
+        return convert_qtensor(params, device, pack_layout)
     if isinstance(params, dict):
-        return {k: from_jax_params(v, device) for k, v in params.items()}
+        return {k: from_jax_params(v, device, pack_layout) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        items = [from_jax_params(v, device) for v in params]
+        items = [from_jax_params(v, device, pack_layout) for v in params]
         fields = getattr(params, "_fields", None)
         if fields == KVCache._fields:
             return KVCache(*items)

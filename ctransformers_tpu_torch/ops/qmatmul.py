@@ -35,11 +35,22 @@ group size, 128, 64 or 32, and an act-order checkpoint adds `perm`, the
 GGML types Q4_0, Q4_1 (nibbles), Q5_0, Q5_1 and Q8_0 (int8 grids), all at
 g = 32.
 
-The planes equal the JAX package's byte for byte in its adjk layout. The
-port always packs 4-bit grids as adjk: the JAX package falls back to a
-K-split layout where its TPU backend cannot bitcast int4 (its _int4_ok
-capability probe), and on Hopper unpacking a nibble is two integer
-instructions, so that probe has no counterpart here.
+4-bit grids come in two layouts, as in the JAX package, chosen when the
+weight is packed (_pack4_layout):
+
+    adjk   (K_pad/2, N_pad) int8, as above: rows 2r and 2r+1 in byte r
+    ksplit (K_pad/2, N_pad) uint8: byte r holds row r in the low nibble as
+           q + zp, and row r + K_pad/2 in the high nibble, sign-biased (the
+           byte XOR 0x80), so that the byte read as int8 is
+           16 * (hi - 8) + lo: floor(b / 16) = hi - 8, b - 16 floor(b / 16)
+           = lo
+
+CT_PACK4_LAYOUT="ksplit" or "adjk" picks one; anything else gives adjk.
+The JAX package falls back to ksplit where its TPU backend cannot bitcast
+int4 (its _int4_ok capability probe, so a CPU host packs ksplit); on
+Hopper unpacking a nibble is two integer instructions in either layout, so
+that probe has no counterpart here and adjk is the port's default. The
+planes equal the JAX package's byte for byte in both layouts.
 """
 
 from __future__ import annotations
@@ -115,6 +126,28 @@ def padded_shape(k: int, n: int) -> Tuple[int, int]:
             _round_up(n, 1024 if n >= 1024 else 128))
 
 
+def _pack4_layout() -> str:
+    """The nibble layout of weights packed now: CT_PACK4_LAYOUT when it
+    names one, else adjk (see the module docstring)."""
+    env = os.environ.get("CT_PACK4_LAYOUT")
+    return env if env in ("ksplit", "adjk") else "adjk"
+
+
+def pack4(q: np.ndarray, zp: int, layout: str) -> np.ndarray:
+    """(K_pad, N_pad) int8 grid q of a nibble weight -> its (K_pad/2, N_pad)
+    bytes in `layout`: int8 for adjk, uint8 for ksplit (the JAX package's
+    dtypes)."""
+    if layout == "adjk":
+        # adjacent rows per byte, both nibbles two's-complement (q + zp - 8)
+        nib = (q + np.int8(zp - 8)).view(np.uint8) & np.uint8(0xF)
+        return (nib[0::2] | (nib[1::2] << np.uint8(4))).view(np.int8)
+    if layout != "ksplit":
+        raise ValueError(f"unknown pack layout {layout!r}")
+    half = q.shape[0] // 2  # rows pair on the padded K
+    nib = (q.astype(np.int16) + zp).astype(np.uint8)
+    return (nib[:half] | (nib[half:] << np.uint8(4))) ^ np.uint8(0x80)
+
+
 def make_qtensor(
     q: np.ndarray,  # (K, N) int8
     s: np.ndarray,  # (K/g, N) f32, or int8 sub-scales when sd is given
@@ -125,6 +158,7 @@ def make_qtensor(
     sd: Optional[np.ndarray] = None,  # (K/(g*sf), N) f32 superblock scales
     sm: Optional[np.ndarray] = None,
     sfactor: int = 0,
+    pack_layout: Optional[str] = None,  # None: _pack4_layout()
 ) -> QTensor:
     """Pad, pack and wrap host planes as CPU tensors (placement on the
     device is the Engine's job)."""
@@ -142,13 +176,12 @@ def make_qtensor(
                 sm = np.pad(sm, ((0, kp // sb - sm.shape[0]), (0, npad - n)))
     packed = kind in _PACK4_ZP
     zp = _PACK4_ZP.get(kind, 0)
+    layout = (pack_layout or _pack4_layout()) if packed else "adjk"
     if packed:
-        # adjacent rows per byte, both nibbles two's-complement (q + zp - 8)
-        nib = (q + np.int8(zp - 8)).view(np.uint8) & np.uint8(0xF)
-        q = (nib[0::2] | (nib[1::2] << np.uint8(4))).view(np.int8)
+        q = pack4(q, zp, layout)
     sdtype = np.int8 if sd is not None else np.float32
     return QTensor(
-        _t(q, np.int8),
+        _t(q, q.dtype),
         _t(s, sdtype),
         _t(m, sdtype),
         kind,
@@ -160,6 +193,7 @@ def make_qtensor(
         sd=_t(sd, np.float32),
         sm=_t(sm, np.float32),
         sfactor=sfactor if sd is not None else 0,
+        pack_layout=layout,
     )
 
 
@@ -205,6 +239,10 @@ def unpack_grid(qt: QTensor) -> torch.Tensor:
     if not qt.packed:
         return qt.qs
     u = qt.qs.to(torch.int32) & 0xFF
+    if qt.pack_layout == "ksplit":
+        lo = (u & 0xF) - qt.zp  # rows 0 .. K_pad/2 - 1
+        hi = ((u >> 4) ^ 8) - qt.zp  # rows K_pad/2 .., the high nibble sign-biased
+        return torch.cat([lo, hi], 0).to(torch.int8)
     # stored nibbles are two's-complement (nib - 8); nib = s4u ^ 8
     lo = ((u & 0xF) ^ 8) - qt.zp  # rows 0, 2, 4, ...
     hi = (((u >> 4) & 0xF) ^ 8) - qt.zp  # rows 1, 3, 5, ...
@@ -261,8 +299,13 @@ def select_mode(m: int, qt: QTensor) -> str:
     pre-quantized int8 dot ("q8", the JAX package's "q" mode with
     packed4=False). At m > 32 the candidates are only "b" and "sb", and the
     sum-fold "sb" is dropped where the weight has no mins: "b" for Q6_K,
-    Q8_0 and Q5_0, "sb" for Q5_K and Q5_1."""
+    Q8_0 and Q5_0, "sb" for Q5_K and Q5_1.
+
+    ksplit nibbles: "sb" at every m, the last of the JAX package's ksplit
+    candidates, which its heuristic takes."""
     rows, npad = qt.qs.shape
+    if qt.packed and qt.pack_layout == "ksplit":
+        return "sb"
     if not qt.packed:
         if m <= 32:
             return "q8"
@@ -293,10 +336,13 @@ def select_mode(m: int, qt: QTensor) -> str:
 #                      hand-written kernel; "dense": never a kernel
 
 DENSE = ("dense",)
-# adjk nibbles (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_0, Q4_1) and int8 grids (Q6_K, Q5_K, Q8_0,
-# Q5_0, Q5_1), in the order of the JAX package's candidate lists ("q8" is
-# its "q" with packed4=False)
+# adjk nibbles (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_0, Q4_1), ksplit nibbles (the
+# same kinds) and int8 grids (Q6_K, Q5_K, Q8_0, Q5_0, Q5_1), in the order of
+# the JAX package's candidate lists ("q8" is its "q" with packed4=False).
+# The reshape-broadcast modes "r" and "rb" are in no list, as in the JAX
+# package; a table may name them (rb_mode_entries)
 _NIBBLE_MODES = ("i", "si", "g", "q", "qx")
+_KSPLIT_MODES = ("", "s", "b", "sb")
 _GRID_MODES = ("", "s", "b", "sb", "g", "q8")
 TABLE_FORMAT = "ctransformers_tpu_torch qmm modes v1"
 # torch.cuda.get_device_name -> the table shipped under data/
@@ -357,8 +403,14 @@ def mode_candidates(qt: QTensor, m: int) -> List[tuple]:
     "si"), without the sum-fold modes on an int8 grid without mins. A
     nibble-packed weight keeps "si" whatever its bias, as the JAX package's
     list does (ctransformers_tpu/ops/qmatmul.py:_pick_tiles): on Q4_0, whose
-    bias is 0, "si" computes what "i" does."""
-    modes = _NIBBLE_MODES if qt.packed else _GRID_MODES
+    bias is 0, "si" computes what "i" does. A ksplit weight keeps "s" and
+    "sb" too: its low half has a bias on every kind (-8 s on Q4_0 and
+    Q3_K), and it never takes the grouped modes, which the JAX package
+    refuses on that layout."""
+    if qt.packed:
+        modes = _KSPLIT_MODES if qt.pack_layout == "ksplit" else _NIBBLE_MODES
+    else:
+        modes = _GRID_MODES
     if m > 32:
         modes = tuple(x for x in modes if x.endswith("b") or x in ("i", "si"))
     if not (qt.packed or qt.mins is not None):
@@ -632,15 +684,20 @@ def float_mode_entries(qts: Sequence[QTensor], sizes: Sequence[int]) -> Dict[tup
     sizes `sizes` to the float-activation kernels and the sum-fold GEMMs,
     whatever a race would pick: a table under which a model runs those
     kernels (save_table, then CT_QMM_TILE_CACHE with
-    CT_QMM_AUTOTUNE=precompiled). Nibble-packed weights: g at m <= 32, si
-    above. int8 grids at m <= 32: "", g and (with mins) s in turn over the
-    keys and sizes; above 32 sb where there are mins, else no entry (the
-    rule's b)."""
+    CT_QMM_AUTOTUNE=precompiled). adjk nibbles: g at m <= 32, si above.
+    ksplit nibbles (no grouped dot): "" and s in turn over the keys and
+    sizes at m <= 32, b and sb in turn above. int8 grids at m <= 32: "", g
+    and (with mins) s in turn over the keys and sizes; above 32 sb where
+    there are mins, else no entry (the rule's b)."""
     entries = {}
     grids = sorted({cache_key(0, w) for w in qts if not w.packed})
+    ksplit = sorted({cache_key(0, w) for w in qts if w.packed and w.pack_layout == "ksplit"})
     for w in qts:
         for j, m in enumerate(sizes):
-            if w.packed:
+            if w.packed and w.pack_layout == "ksplit":
+                modes = ["", "s"] if m <= 32 else ["b", "sb"]
+                mode = modes[(ksplit.index(cache_key(0, w)) + j) % 2]
+            elif w.packed:
                 mode = "g" if m <= 32 else "si"
             elif m <= 32:
                 modes = ["", "g"] + (["s"] if w.mins is not None else [])
@@ -649,6 +706,23 @@ def float_mode_entries(qts: Sequence[QTensor], sizes: Sequence[int]) -> Dict[tup
                 mode = "sb"
             else:
                 continue
+            choice = (mode, kern.CONFIG_OF[kern.kernel_name(mode, w)])
+            entries[cache_key(m, w)] = {"pick": choice, "kernel": choice, "ms": {}}
+    return entries
+
+
+def rb_mode_entries(qts: Sequence[QTensor], sizes: Sequence[int]) -> Dict[tuple, dict]:
+    """Table entries that steer every ksplit key and every int8-grid key of
+    the weights `qts` at the batch sizes `sizes` to the reshape-broadcast
+    kernels, which no race picks (they are no candidate, as in the JAX
+    package): "r" (f32 dots) at m <= 32, "rb" (bf16 operands) above. adjk
+    nibble keys get no entry (the rule's choice)."""
+    entries = {}
+    for w in qts:
+        if w.packed and w.pack_layout != "ksplit":
+            continue
+        for m in sizes:
+            mode = "r" if m <= 32 else "rb"
             choice = (mode, kern.CONFIG_OF[kern.kernel_name(mode, w)])
             entries[cache_key(m, w)] = {"pick": choice, "kernel": choice, "ms": {}}
     return entries

@@ -75,6 +75,36 @@ kernels' sfactor == 0 branches:
   qmm_q8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy, qmm_f_legacy,
   qmm_s_legacy   the functions of the six grid kernels above
 
+The same six nibble layouts (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_1, Q4_0) packed
+"ksplit" (ops/qmatmul.py: byte r holds row r in the low nibble, lo = q + zp,
+and row r + Kp/2 in the high nibble, sign-biased, so that the byte b read
+as int8 gives f = floor(b / 16) = hi - 8 and l = b - 16 f = lo), one symbol
+per mode for every layout, told the group, whether there are mins, the
+zero point and the superblock factor count:
+
+  qmm_f_ks   x_lo @ (l * s + B_lo) + x_hi @ (f * s + B_hi), all f32
+             (replaces _qmm_pack4_kernel, mode ""; csrc/qmm_float.cu)
+  qmm_s_ks   xs_lo @ B_lo + xs_hi @ B_hi + x_lo @ (l * s) + x_hi @ (f * s),
+             all f32 (replaces _qmm_pack4_s_kernel, mode "s")
+  qmm_b_ks   the function of qmm_f_ks on bf16 operands, f32 sums
+             (replaces _qmm_pack4_kernel, mode "b"; csrc/qmm_prefill.cu)
+  qmm_sb_ks  the function of qmm_s_ks with the two dots on bf16 operands
+             (replaces _qmm_pack4_s_kernel, mode "sb")
+  qmm_r_ks, qmm_rb_ks  the functions of qmm_f_ks and qmm_b_ks, dequantized
+             per (group, column) pair (replaces _qmm_pack4_rb_kernel, modes
+             "r" and "rb"; csrc/qmm_rb.cu)
+
+with x_lo, x_hi the two halves of x's columns, xs their f32 sums over each
+group, B_lo = -zp * s + m and B_hi = (8 - zp) * s + m (zp = 8, no mins:
+B_lo = -8 s, no B_hi; zp = 0: B_lo = m, B_hi = 8 s + m), each product and
+sum rounded once in f32 as the reference's.
+
+The reshape-broadcast form of the int8-grid dequantize-and-dot (csrc/qmm_rb.cu):
+
+  qmm_r8, qmm_rb8  the functions of qmm_f and qmm_b (replaces _qmm_rb_kernel,
+                   modes "r" and "rb"), with their "_legacy" forms on the
+                   unfactored grids
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, which computes the same function with torch ops (and is what
 chip_smoke.py holds each kernel against on the card). There is no
@@ -96,7 +126,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
 # every kernel source of the port; attn_decode.cu is ops/attention.py's
-SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu", "attn_decode.cu")
+SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu", "qmm_rb.cu",
+           "attn_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -177,8 +208,9 @@ def build() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # pointers, then m, kp, np, the symbol's own ints (group, has mins) and
-    # the stream; the decode attention of ops/attention.py: pointers, dtype,
+    # pointers, then m, kp, np, the symbol's own ints (group, has mins; the
+    # ksplit symbols: group, has mins, zero point, superblock factor count)
+    # and the stream; the decode attention of ops/attention.py: pointers, dtype,
     # batch, heads, kv heads, head width, window, chunk, layer, the score
     # scale, the cache's and the scale planes' strides, the stream
     sigs = {
@@ -215,6 +247,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_i_k16": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_si_k16": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_g_k16": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_r8": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_rb8": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_r8_legacy": [P] * 5 + [I, I, I, I, P],
+        "ct_qmm_rb8_legacy": [P] * 5 + [I, I, I, I, P],
+        **{f"ct_qmm_{mode}_ks": [P] * 7 + [I] * 7 + [P]
+           for mode in ("f", "s", "b", "sb", "r", "rb")},
     }
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
@@ -262,11 +300,11 @@ def zero_point(kind: str) -> int:
     return 8 if packed and not has_mins else 0
 
 
-def _check_layout(qt, kinds: Tuple[str, ...], what: str) -> None:
+def _check_layout(qt, kinds: Tuple[str, ...], what: str, layout: str = "adjk") -> None:
     lay = LAYOUTS.get(qt.kind)
     groups = GPTQ_GROUPS if qt.kind == "GPTQ4" else lay and lay[:1]
     if qt.kind not in kinds or not (
-        qt.packed == lay[3] and qt.pack_layout == "adjk" and qt.zp == zero_point(qt.kind)
+        qt.packed == lay[3] and qt.pack_layout == layout and qt.zp == zero_point(qt.kind)
         and qt.group in groups and qt.sfactor == lay[1]
         and (qt.perm is None or qt.kind == "GPTQ4")
         and (qt.sd is not None) == (lay[1] > 0)
@@ -314,6 +352,18 @@ def check_q40_qtensor(qt) -> Tuple[int, int]:
     return _check_planes(qt, 2 * rows, np_)
 
 
+NIBBLE_KINDS = tuple(k for k, lay in LAYOUTS.items() if lay[3])
+
+
+def check_ksplit_qtensor(qt) -> Tuple[int, int]:
+    """The ksplit kernels take the six nibble layouts of LAYOUTS (Q4_K,
+    Q2_K, Q3_K, GPTQ4, Q4_0, Q4_1) packed ksplit: uint8 (Kp/2, Np) bytes
+    with each kind's planes, group, zero point and mins; returns (Kp, Np)."""
+    _check_layout(qt, NIBBLE_KINDS, "ksplit nibble QTensors", "ksplit")
+    rows, np_ = qt.qs.shape
+    return _check_planes(qt, 2 * rows, np_)
+
+
 def check_grid_qtensor(qt) -> Tuple[int, int]:
     """The factored grid kernels take exactly the Q6_K and Q5_K int8 grids;
     returns (Kp, Np)."""
@@ -336,7 +386,7 @@ def _check_planes(qt, kp: int, np_: int) -> Tuple[int, int]:
     # unfactored (GPTQ4, the legacy types): the f32 planes themselves
     plane = torch.int8 if qt.sfactor else torch.float32
     want = {
-        "qs": (torch.int8, tuple(qt.qs.shape)),
+        "qs": (torch.uint8 if qt.pack_layout == "ksplit" else torch.int8, tuple(qt.qs.shape)),
         "scales": (plane, (kp // g, np_)),
         "mins": (plane, (kp // g, np_)),
         "sd": (torch.float32, (kp // 256, np_)),
@@ -387,7 +437,9 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 
 
 def _planes(qt):
-    if qt.sfactor == 0:  # unfactored: no superblock planes to pass
+    # unfactored: no superblock planes to pass, except to the ksplit symbols,
+    # which take all five for every layout (absent ones null)
+    if qt.sfactor == 0 and qt.pack_layout != "ksplit":
         return (qt.qs, qt.scales, qt.mins)
     return (qt.qs, qt.scales, qt.mins, qt.sd, qt.sm)
 
@@ -570,6 +622,58 @@ def plain_s(x: torch.Tensor, qt) -> torch.Tensor:
     return x.reshape(m, kp // qt.group, qt.group).sum(-1) @ mn + out
 
 
+def ksplit_planes(qt) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(Kp, Np) f32 grid values v = [l; f] of a ksplit weight (rows in
+    logical order: the low nibbles, then the high ones) and its (Kp/G, Np)
+    f32 planes s and B, B_lo = -zp * s + m and B_hi = (8 - zp) * s + m
+    rounded as the reference's (the product, then + m; 0 where it has no
+    term: the high half without mins)."""
+    s, m = grid_planes(qt)  # s = sd * sub_s, m = sm * sub_m where factored
+    half = s.shape[0] // 2
+    s_lo, s_hi = s[:half], s[half:]
+    b_lo = -float(qt.zp) * s_lo if qt.zp else None
+    b_hi = float(8 - qt.zp) * s_hi if qt.zp != 8 else None
+    if m is not None:
+        b_lo = m[:half] if b_lo is None else b_lo + m[:half]
+        b_hi = m[half:] if b_hi is None else b_hi + m[half:]
+    bias = torch.cat([torch.zeros_like(s_lo) if b_lo is None else b_lo,
+                      torch.zeros_like(s_hi) if b_hi is None else b_hi])
+    b = qt.qs.view(torch.int8).to(torch.int32)  # 16 (hi - 8) + lo
+    f = b >> 4  # floor(b / 16) = hi - 8
+    return torch.cat([b - 16 * f, f]).float(), s, bias
+
+
+def plain_f_ks(x: torch.Tensor, qt) -> torch.Tensor:
+    """Modes "" and "r" on ksplit: w = v * s + B per element, all f32."""
+    v, s, b = ksplit_planes(qt)
+    g = qt.group
+    return x @ (v * s.repeat_interleave(g, 0) + b.repeat_interleave(g, 0))
+
+
+def plain_s_ks(x: torch.Tensor, qt) -> torch.Tensor:
+    """Mode "s" on ksplit: xs @ B + x @ (v * s), all f32."""
+    m, kp = x.shape
+    v, s, b = ksplit_planes(qt)
+    g = qt.group
+    return x.reshape(m, kp // g, g).sum(-1) @ b + x @ (v * s.repeat_interleave(g, 0))
+
+
+def plain_b_ks(x: torch.Tensor, qt) -> torch.Tensor:
+    """Modes "b" and "rb" on ksplit: bf16(x) @ bf16(v * s + B)."""
+    v, s, b = ksplit_planes(qt)
+    g = qt.group
+    return _bf16_round(x) @ _bf16_round(v * s.repeat_interleave(g, 0) + b.repeat_interleave(g, 0))
+
+
+def plain_sb_ks(x: torch.Tensor, qt) -> torch.Tensor:
+    """Mode "sb" on ksplit: xs @ B in f32 + bf16(x) @ bf16(v * s)."""
+    m, kp = x.shape
+    v, s, b = ksplit_planes(qt)
+    g = qt.group
+    out = _bf16_round(x) @ _bf16_round(v * s.repeat_interleave(g, 0))
+    return x.reshape(m, kp // g, g).sum(-1) @ b + out
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -618,6 +722,10 @@ def _has_mins(qt) -> tuple:  # the symbol is told whether the weight has mins
     return (int(qt.mins is not None),)
 
 
+def _ksplit_ints(qt) -> tuple:  # the ksplit symbols read the layout from these
+    return (qt.group, int(qt.mins is not None), qt.zp, qt.sfactor)
+
+
 _QMATMUL_PY = "ctransformers_tpu/ops/qmatmul.py"
 # kernel -> (library and source under csrc/, layout check, plain version, the
 # ints the symbol takes, line of the Pallas kernel it replaces). One plain
@@ -655,6 +763,16 @@ _SPECS = {
     "qmm_i_k16": ("qmm_prefill", check_k16_qtensor, plain_i, _has_mins, 1090),
     "qmm_si_k16": ("qmm_prefill", check_k16_qtensor, plain_si, _has_mins, 1148),
     "qmm_g_k16": ("qmm_float", check_k16_qtensor, plain_g, _has_mins, 1206),
+    "qmm_f_ks": ("qmm_float", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 783),
+    "qmm_s_ks": ("qmm_float", check_ksplit_qtensor, plain_s_ks, _ksplit_ints, 957),
+    "qmm_b_ks": ("qmm_prefill", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 783),
+    "qmm_sb_ks": ("qmm_prefill", check_ksplit_qtensor, plain_sb_ks, _ksplit_ints, 957),
+    "qmm_r_ks": ("qmm_rb", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 872),
+    "qmm_rb_ks": ("qmm_rb", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 872),
+    "qmm_r8": ("qmm_rb", check_grid_qtensor, plain_f, _group, 1459),
+    "qmm_rb8": ("qmm_rb", check_grid_qtensor, plain_b, _group, 1459),
+    "qmm_r8_legacy": ("qmm_rb", check_legacy_grid_qtensor, plain_f, _has_mins, 1459),
+    "qmm_rb8_legacy": ("qmm_rb", check_legacy_grid_qtensor, plain_b, _has_mins, 1459),
 }
 KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
@@ -678,15 +796,23 @@ DENSE_CALLS: Dict[str, int] = {"dense": 0}
 # block. One per kernel so far; a tuned variant of a kernel joins as another
 # configuration of the same mode.
 DECODE_CONFIG = "n32k1024"  # 32 columns and all of K per block, 1024-row chunks
+KSPLIT_FLOAT_CONFIG = "n32k512"  # the same, 512 byte rows (both halves) a chunk
+R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps
 GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_b", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq",
                 "qmm_i_q4_0", "qmm_si_q4_0", "qmm_b_legacy", "qmm_sb_legacy", "qmm_i_k16",
-                "qmm_si_k16")
+                "qmm_si_k16", "qmm_b_ks", "qmm_sb_ks", "qmm_rb_ks", "qmm_rb8",
+                "qmm_rb8_legacy")
 CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SPECS}
+CONFIG_OF.update(qmm_f_ks=KSPLIT_FLOAT_CONFIG, qmm_s_ks=KSPLIT_FLOAT_CONFIG,
+                 qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
 # name for its "q" with packed4=False)
 _GRID_KERNELS = {"": "qmm_f", "s": "qmm_s", "b": "qmm_b", "sb": "qmm_sb", "g": "qmm_g8",
-                 "q": "qmm_q8", "q8": "qmm_q8"}
+                 "q": "qmm_q8", "q8": "qmm_q8", "r": "qmm_r8", "rb": "qmm_rb8"}
+# the modes a ksplit weight takes ("" is the f32 dequantize-and-dot "f")
+_KSPLIT_KERNELS = {"": "qmm_f_ks", "s": "qmm_s_ks", "b": "qmm_b_ks", "sb": "qmm_sb_ks",
+                   "r": "qmm_r_ks", "rb": "qmm_rb_ks"}
 
 
 def kernel_name(mode: str, qt) -> str:
@@ -695,9 +821,15 @@ def kernel_name(mode: str, qt) -> str:
     where the planes are unfactored), and for nibble-packed planes the Q4_K
     kernels where factored at group 32 and the "_k16" kernels at group 16
     (Q2_K, Q3_K), else the GPTQ kernels where there are mins (GPTQ4, Q4_1)
-    and the bias-free Q4_0 kernels where there are none."""
+    and the bias-free Q4_0 kernels where there are none; a ksplit weight's
+    "_ks" kernels, one per mode for every kind."""
     if not qt.packed:
         return _GRID_KERNELS[mode] + ("_legacy" if qt.sfactor == 0 else "")
+    if qt.pack_layout == "ksplit":
+        if mode not in _KSPLIT_KERNELS:
+            raise ValueError(f"mode {mode!r} needs the adjk layout; ksplit weights take "
+                             f"{sorted(_KSPLIT_KERNELS)}")
+        return _KSPLIT_KERNELS[mode]
     if qt.sfactor:
         return f"qmm_{mode}" + ("_k16" if qt.group == 16 else "")
     return f"qmm_{mode}" + ("_gptq" if qt.mins is not None else "_q4_0")

@@ -3,6 +3,7 @@ lists against the JAX package's, the table files, and the dispatch they
 steer. Races run on the card only (tests/test_torch_cuda.py)."""
 
 import builtins
+import dataclasses
 import json
 import os
 
@@ -291,7 +292,8 @@ def test_shipped_table_serves_this_checkout():
                 (False, 8, True): "Q5_K", (True, 0, False): "Q4_0", (False, 0, False): "Q8_0",
                 (False, 0, True): "Q5_1", (True, 16, True): "Q2_K",
                 (True, 16, False): "Q3_K"}[(packed, sfactor, has_mins)]
-        qt = _meta_qtensor(kind, rows * (2 if packed else 1), npad, group)
+        qt = dataclasses.replace(_meta_qtensor(kind, rows * (2 if packed else 1), npad, group),
+                                 pack_layout=layout)
         cands = qm.mode_candidates(qt, m)
         assert v["pick"] in cands + [qm.DENSE] and v["kernel"] in cands
         assert set(v["ms"]) == {qm.label(c) for c in cands} | {"dense"}

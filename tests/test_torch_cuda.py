@@ -2,9 +2,10 @@
 five Q4_K kernels, the six int8-grid (Q6_K, Q5_K) kernels, the five GPTQ4
 kernels at groups 32, 64 and 128 (Q4_1 at 32), the five bias-free Q4_0
 kernels, the six kernels on the legacy grids' plain planes (Q8_0, Q5_0,
-Q5_1) and the five group-16 nibble kernels (Q2_K, Q3_K); the race that
-picks among them; and the decode attention kernel (ops/attention.py) over
-f32, bf16, f16 and int8 caches in both layouts.
+Q5_1), the five group-16 nibble kernels (Q2_K, Q3_K), the six ksplit
+kernels on every nibble kind and the four reshape-broadcast int8-grid
+kernels; the race that picks among them; and the decode attention kernel
+(ops/attention.py) over f32, bf16, f16 and int8 caches in both layouts.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -114,14 +115,24 @@ def random_k16(kind: str, k: int, n: int, seed: int, device) -> QTensor:
                    sd=sd, sm=sm, sfactor=16, pack_layout="adjk").to(device)
 
 
+def random_ksplit(kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    """A nibble weight of `kind` (as _weight makes it) packed ksplit: random
+    uint8 bytes, any of which is a valid pair of nibbles, over its planes."""
+    g = torch.Generator().manual_seed(seed + 1)
+    qs = torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8).to(device)
+    return dataclasses.replace(_weight("", kind, k, n, seed, device), qs=qs, pack_layout="ksplit")
+
+
 def _weight(name: str, kind: str, k: int, n: int, seed: int, device) -> QTensor:
+    if kind.startswith("ks:"):
+        return random_ksplit(kind[3:], k, n, seed, device)
     if kind in ("Q2_K", "Q3_K"):
         return random_k16(kind, k, n, seed, device)
     if kind.startswith("GPTQ4"):
         return random_gptq(k, n, int(kind.split("/")[1]), seed, device)
     if kind in LEGACY:
         return random_legacy(kind, k, n, seed, device)
-    if name in GRID:
+    if name in GRID + R8:
         return random_grid(kind, k, n, seed, device)
     return random_q4k(k, n, seed, device)
 
@@ -142,7 +153,10 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3,
        "qmm_g_q4_0": 1e-5, "qmm_q8_legacy": 1e-5, "qmm_b_legacy": 1e-3,
        "qmm_sb_legacy": 1e-3, "qmm_g8_legacy": 1e-5, "qmm_f_legacy": 1e-5,
        "qmm_s_legacy": 1e-5, "qmm_qx_k16": 1e-5, "qmm_q_k16": 1e-5, "qmm_i_k16": 1e-3,
-       "qmm_si_k16": 1e-3, "qmm_g_k16": 1e-5}
+       "qmm_si_k16": 1e-3, "qmm_g_k16": 1e-5,
+       "qmm_f_ks": 1e-5, "qmm_s_ks": 1e-5, "qmm_b_ks": 1e-3, "qmm_sb_ks": 1e-3,
+       "qmm_r_ks": 1e-5, "qmm_rb_ks": 1e-3, "qmm_r8": 1e-5, "qmm_rb8": 1e-3,
+       "qmm_r8_legacy": 1e-5, "qmm_rb8_legacy": 1e-3}
 assert set(TOL) == set(K.KERNELS)
 GRID = ("qmm_q8", "qmm_b", "qmm_sb", "qmm_g8", "qmm_f", "qmm_s")
 GPTQ = ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq", "qmm_g_gptq", "qmm_si_gptq")
@@ -150,19 +164,27 @@ Q4_0 = ("qmm_qx_q4_0", "qmm_q_q4_0", "qmm_i_q4_0", "qmm_si_q4_0", "qmm_g_q4_0")
 LEGACY_GRID = tuple(name + "_legacy" for name in GRID)
 LEGACY = ("Q4_0", "Q4_1", "Q8_0", "Q5_0", "Q5_1")
 K16 = ("qmm_qx_k16", "qmm_q_k16", "qmm_i_k16", "qmm_si_k16", "qmm_g_k16")
+KSPLIT = ("qmm_f_ks", "qmm_s_ks", "qmm_b_ks", "qmm_sb_ks", "qmm_r_ks", "qmm_rb_ks")
+# every nibble layout the ksplit kernels take
+KSPLIT_KINDS = ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/32", "GPTQ4/64", "GPTQ4/128", "Q4_1", "Q4_0")
+R8 = ("qmm_r8", "qmm_rb8")
+R8_LEGACY = ("qmm_r8_legacy", "qmm_rb8_legacy")
 # each Q4_K kernel once, each grid kernel on both int8-grid layouts, each
 # GPTQ kernel at its three groups and on Q4_1, each Q4_0 kernel once, each
 # legacy-grid kernel on the three legacy grids (s and sb where there are
 # mins to fold: Q5_1), each group-16 kernel on Q2_K and Q3_K
 CASES = [(name, "Q4_K") for name in sorted(TOL)
-         if name not in GRID + GPTQ + Q4_0 + LEGACY_GRID + K16] + [
+         if name not in GRID + GPTQ + Q4_0 + LEGACY_GRID + K16 + KSPLIT + R8 + R8_LEGACY] + [
     (name, kind) for name in GRID for kind in ("Q6_K", "Q5_K")
 ] + [(name, f"GPTQ4/{g}") for name in GPTQ for g in K.GPTQ_GROUPS] + [
     (name, "Q4_1") for name in GPTQ
 ] + [(name, "Q4_0") for name in Q4_0] + [
     (name, kind) for name in LEGACY_GRID for kind in ("Q8_0", "Q5_0", "Q5_1")
     if kind == "Q5_1" or "s" not in name.split("_")[1]
-] + [(name, kind) for name in K16 for kind in ("Q2_K", "Q3_K")]
+] + [(name, kind) for name in K16 for kind in ("Q2_K", "Q3_K")] + [
+    (name, "ks:" + kind) for name in KSPLIT for kind in KSPLIT_KINDS
+] + [(name, kind) for name in R8 for kind in ("Q6_K", "Q5_K")] + [
+    (name, kind) for name in R8_LEGACY for kind in ("Q8_0", "Q5_0", "Q5_1")]
 
 
 @pytest.mark.parametrize("name,kind", CASES)
@@ -276,6 +298,71 @@ def test_qmatmul_routes_the_k16_layouts(dev, no_autotune):
         assert sum(K.PLAIN_CALLS.values()) == 0
 
 
+@pytest.mark.parametrize("name", KSPLIT)
+@pytest.mark.parametrize("kind", ["Q4_K", "Q3_K", "GPTQ4/128", "Q4_0"])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 12288)])
+def test_ksplit_kernel_matches_plain_at_7b_shapes(dev, name, kind, k, n):
+    """The ksplit kernels at llama-2-7B shapes (the halves meet at 2048 and
+    5632 byte rows), at the batch sizes the main path gives each."""
+    for m in (1, 8, 128) if name in ("qmm_b_ks", "qmm_sb_ks", "qmm_rb_ks") else (1, 8):
+        qt = random_ksplit(kind, k, n, seed=k + n, device=dev)
+        x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+        got = K.KERNELS[name](x, qt)
+        torch.cuda.synchronize()
+        assert _rel(got, K.PLAIN[name](x, qt)) <= TOL[name], m
+        assert torch.equal(got, K.KERNELS[name](x, qt))
+
+
+@pytest.mark.parametrize("name", KSPLIT)
+def test_ksplit_symbols_read_the_layout_from_their_ints(dev, name):
+    """One ksplit symbol serves every nibble layout, named by its ints
+    (group, has mins, zero point, superblock factor count); a combination
+    no layout has, or pointers that disagree with the ints, is refused at
+    launch."""
+    lib = K._SPECS[name][0]
+    fn = K._fn(lib, "ct_" + name)
+    x = torch.randn(64, 256, device=dev)
+    out = torch.empty(64, 128, device=dev)
+    q4k = random_ksplit("Q4_K", 256, 128, 1, dev)
+    q40 = random_ksplit("Q4_0", 256, 128, 2, dev)
+
+    def call(qt, *ints):
+        return fn(*K._ptrs(x, *K._planes(qt), out), 64, 256, 128, *ints, K._stream(dev))
+
+    assert call(q4k, 32, 1, 0, 8) == 0 and call(q40, 32, 0, 8, 0) == 0
+    for bad in ((32, 1, 8, 8), (16, 1, 0, 8), (32, 0, 0, 8), (32, 1, 0, 0), (64, 0, 8, 0),
+                (32, 1, 0, 16)):
+        assert call(q4k, *bad) != 0, bad
+    for bad in ((32, 1, 0, 0), (32, 0, 0, 0), (64, 0, 8, 0), (32, 0, 8, 8)):
+        assert call(q40, *bad) != 0, bad
+    torch.cuda.synchronize()
+
+
+def test_qmatmul_routes_ksplit(dev, no_autotune, tmp_path, monkeypatch):
+    """Under the fixed rule a ksplit weight of each kind takes "sb" at every
+    m, and under a table of rb_mode_entries "r" at m <= 32 and "rb" above;
+    both within the bf16 class of x @ the dequantized weight."""
+    for i, kind in enumerate(KSPLIT_KINDS):
+        qt = dataclasses.replace(_weight("", "ks:" + kind, 512, 1024, seed=5, device=dev),
+                                 shape=(500, 1000))
+        dense = qm.dequantize_qtensor(qt)
+        table = str(tmp_path / f"modes{i}.json")
+        qm.save_table(table, torch.cuda.get_device_name(0), qm.rb_mode_entries([qt], (1, 8, 64)))
+        for env, want in (({}, {"qmm_sb_ks": 3}),
+                          ({"CT_QMM_AUTOTUNE": "precompiled", "CT_QMM_TILE_CACHE": table},
+                           {"qmm_r_ks": 2, "qmm_rb_ks": 1})):
+            with monkeypatch.context() as mp:
+                for k, v in env.items():
+                    mp.setenv(k, v)
+                K.reset_counts()
+                for m in (1, 8, 64):
+                    x = torch.randn(m, 500, device=dev)
+                    out = qmatmul(x, qt)
+                    assert out.shape == (m, 1000) and _rel(out, x @ dense) < 0.035, (kind, m)
+                assert {k: v for k, v in K.LAUNCHES.items() if v} == want, kind
+                assert sum(K.PLAIN_CALLS.values()) == 0
+
+
 @pytest.mark.parametrize("name", GPTQ)
 @pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 12288)])
 def test_gptq_kernel_matches_plain_at_7b_shapes(dev, name, k, n):
@@ -357,7 +444,8 @@ def test_qmatmul_routes_the_legacy_layouts(dev, no_autotune):
 @pytest.mark.parametrize("kind,m", [("Q4_K", 1), ("Q4_K", 64), ("Q6_K", 8), ("Q5_K", 1),
                                     ("Q5_K", 64), ("GPTQ4/128", 8), ("GPTQ4/64", 64),
                                     ("Q4_0", 1), ("Q4_0", 64), ("Q8_0", 8), ("Q5_1", 64),
-                                    ("Q2_K", 1), ("Q2_K", 8), ("Q3_K", 64)])
+                                    ("Q2_K", 1), ("Q2_K", 8), ("Q3_K", 64), ("ks:Q4_K", 1),
+                                    ("ks:Q4_K", 64), ("ks:GPTQ4/128", 8), ("ks:Q3_K", 1)])
 def test_race_picks_a_candidate_and_the_table_serves_it(dev, kind, m, tmp_path, monkeypatch):
     """A miss races on the card: the pick is a member of the candidate list
     or the dense candidate, the best hand-written one is a member, every

@@ -193,17 +193,18 @@ def test_gptq_rejects_ragged_groups():
 @pytest.mark.parametrize("act_order", [False, True])
 def test_convert_qtensor_carries_gptq(layout, act_order, monkeypatch):
     """A JAX GPTQ4 QTensor (either nibble layout) converts to the planes the
-    port's own gptq_to_qtensor makes, perm and sfactor = 0 included."""
+    port's own gptq_to_qtensor makes under the same CT_PACK4_LAYOUT, perm
+    and sfactor = 0 included, which its layout's kernels take."""
     monkeypatch.setenv("CT_PACK4_LAYOUT", layout)
     jq, tq = _both(5, 512, 256, 128, act_order)
     assert jq.pack_layout == layout
     got = convert_qtensor(jq)
     assert (got.kind, got.group, got.sfactor, got.packed, got.pack_layout, got.shape) == (
-        "GPTQ4", 128, 0, True, "adjk", (512, 256))
+        "GPTQ4", 128, 0, True, layout, (512, 256))
     for f in PLANES + ("sd", "sm"):
         a, b = getattr(got, f), getattr(tq, f)
         assert (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b)), f
-    K.check_gptq_qtensor(got)
+    (K.check_ksplit_qtensor if layout == "ksplit" else K.check_gptq_qtensor)(got)
 
 
 # -- plain versions against the Pallas kernels ---------------------------------

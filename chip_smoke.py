@@ -12,10 +12,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                grid and the Q5_1 grid at the o shape, the group-16 Q2_K and
                Q3_K nibbles; Q4_1's and Q5_1's other keys held only; the
                ksplit nibbles of Q4_K, GPTQ4, Q4_0, Q2_K and Q3_K with the
-               six ksplit kernels, and the reshape-broadcast r8 / rb8
-               kernels on the Q6_K, Q5_K, Q8_0 and Q5_1 grids), with
-               times beside the card's bound and a bf16 torch.matmul
-               yardstick;
+               six ksplit kernels, the reshape-broadcast r8 / rb8 kernels
+               and the qx8 kernels, which quantize x inside, on the Q6_K,
+               Q5_K, Q8_0 and Q5_1 grids), with times beside the card's
+               bound and a bf16 torch.matmul yardstick;
                every other candidate of those keys at m = 1, 8 and 128 is
                held against its plain version too, so that whatever a
                table sends to a main path was held at that shape and m
@@ -39,18 +39,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                card's picks, then twelve of them again on both under a
                user's table file that names the modes g, "", s, si and sb
                ("", s, b and sb on ksplit nibbles), and four under one that
-               names r and rb; every kernel call held against its plain
-               version; a tiny Q4_K_M llama with bf16 and int8 KV
+               names r and rb, and two (Q4_K_M, Q8_0) under one that names
+               qx, where greedy generate_fast (captured CUDA graphs) must
+               equal the eager loop's tokens and bitwise logits; every
+               kernel call held against its plain version; a tiny Q4_K_M
+               llama with bf16 and int8 KV
                caches and head-major caches (CT_KV_LAYOUT=hm) on both, every
                decode attention call held against its plain version
   5. main      llama-2-7B-width checkpoints (random weights from a seed)
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
                decode, each with its launch counts (dense calls included)
-               asserted against the table's choices: Q4_K_M and Q2_K
-               files, a GPTQ 4-bit directory (group 128) and the Q4_K_M
-               file packed ksplit at full depth and Q3_K_M, Q4_0 and Q8_0
-               files at 8 layers, loaded cold (an
+               asserted against the table's choices: the Q4_K_M file, a
+               GPTQ 4-bit directory (group 128) and the Q4_K_M file packed
+               ksplit at full depth and Q2_K, Q3_K_M, Q4_0 and Q8_0 files
+               at 8 layers, loaded cold (an
                empty table: the load races) and again warm, served under
                the fixed rule and under the raced table in turns; a Q5_K_M
                file at 4 layers, an all-Q4_K file at 8, an act-order GPTQ
@@ -62,9 +65,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                file packed ksplit at 2 layers under a user's table that
                names the float-activation and sum-fold modes for every key;
                the ksplit Q4_K_M and the Q8_0 file at 2 layers under one
-               that names r and rb; the 32-layer Q4_K_M file again with bf16 and int8 KV
-               caches, and a long-context decode (a 1920-token prompt, then
-               32 steps at window 2048) with f32, bf16 and int8 caches
+               that names r and rb; the Q4_K_M file at 2 layers and the
+               Q8_0 file at 8 under one that names qx, also through
+               generate_fast; the 32-layer Q4_K_M file through
+               generate_fast (the fused decode: a CUDA graph a key, replayed
+               a token; tokens and segment-end logits against the eager
+               loop, fused and eager ms per token, busy ms, capture ms,
+               launches of the replays), again with bf16 and int8 KV
+               caches (through generate_fast too), and a long-context
+               decode (a 1920-token prompt, then 32 steps at window 2048)
+               with f32, bf16 and int8 caches
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -133,6 +143,9 @@ RUNS_KS = [(f"qmm_{mode}_ks", m) for mode in ("f", "s", "r") for m in (1, 8)] + 
     (f"qmm_{mode}_ks", m) for mode in ("b", "sb", "rb") for m in (1, 8, 128)]
 RUNS_R8 = [("qmm_r8", 1), ("qmm_r8", 8), ("qmm_rb8", 1), ("qmm_rb8", 8), ("qmm_rb8", 128)]
 RUNS_R8_LEGACY = [(f"{name}_legacy", m) for name, m in RUNS_R8]
+# the int8-grid kernels that quantize x inside (mode "qx", served by a table)
+RUNS_QX8 = [("qmm_qx8", 1), ("qmm_qx8", 8)]
+RUNS_QX8_LEGACY = [("qmm_qx8_legacy", 1), ("qmm_qx8_legacy", 8)]
 # (weight type, shape, [(kernel, m), ...]) held against the plain versions:
 # Q4_K at five shapes; the Q6_K tensors of a Q4_K_M file (attn_v and ffn_down of
 # the more-bits layers, output) and the Q5_K tensors of a Q5_K_M file, each in
@@ -150,15 +163,16 @@ RUNS_R8_LEGACY = [(f"{name}_legacy", m) for name, m in RUNS_R8]
 # candidate held at the other keys of the ksplit paths (Q4_0's fused QKV
 # and gate/up, Q2_K's and Q3_K's gate/up); the reshape-broadcast kernels
 # of the int8 grids on Q6_K v, down and lm_head, Q5_K o, Q8_0 o and down
-# and Q5_1 o
+# and Q5_1 o, and the kernels that quantize x inside on the same keys
 KERNEL_CASES = [
     ("Q4_K", s, RUNS_Q4K) for s in ("qkv", "o", "gate_up", "down", "lm_head")
 ] + [
-    ("Q6_K", "v", RUNS_Q6K + [("qmm_b", 128)] + RUNS_R8),
-    ("Q6_K", "down", RUNS_Q6K + [("qmm_b", 128)] + RUNS_R8),
-    ("Q6_K", "lm_head", RUNS_Q6K + RUNS_R8),
+    ("Q6_K", "v", RUNS_Q6K + [("qmm_b", 128)] + RUNS_R8 + RUNS_QX8),
+    ("Q6_K", "down", RUNS_Q6K + [("qmm_b", 128)] + RUNS_R8 + RUNS_QX8),
+    ("Q6_K", "lm_head", RUNS_Q6K + RUNS_R8 + RUNS_QX8),
 ] + [
-    ("Q5_K", s, RUNS_Q5K + (RUNS_R8 if s == "o" else [])) for s in ("qkv", "o", "gate_up", "down")
+    ("Q5_K", s, RUNS_Q5K + (RUNS_R8 + RUNS_QX8 if s == "o" else []))
+    for s in ("qkv", "o", "gate_up", "down")
 ] + [
     (f"GPTQ4/{g}", s, RUNS_GPTQ)
     for g, s in ((128, "qkv"), (128, "o"), (128, "gate_up"), (128, "down"), (32, "o"), (64, "o"))
@@ -167,10 +181,11 @@ KERNEL_CASES = [
 ] + [
     ("Q4_0", s, RUNS_Q40) for s in ("qkv", "o", "gate_up", "down")
 ] + [
-    ("Q8_0", s, RUNS_Q80 + [("qmm_b_legacy", 128)] + (RUNS_R8_LEGACY if s in ("o", "down") else []))
+    ("Q8_0", s, RUNS_Q80 + [("qmm_b_legacy", 128)]
+     + (RUNS_R8_LEGACY + RUNS_QX8_LEGACY if s in ("o", "down") else []))
     for s in ("qkv", "o", "gate_up", "down")
 ] + [
-    ("Q8_0", "lm_head", RUNS_Q80), ("Q5_1", "o", RUNS_Q51 + RUNS_R8_LEGACY),
+    ("Q8_0", "lm_head", RUNS_Q80), ("Q5_1", "o", RUNS_Q51 + RUNS_R8_LEGACY + RUNS_QX8_LEGACY),
 ] + [
     (kind, s, []) for kind in ("Q5_1", "Q4_1") for s in ("qkv", "gate_up", "down")
 ] + [
@@ -207,7 +222,7 @@ PEAK_OF = {"qmm_qx": PEAK_INT8_S, "qmm_q": PEAK_INT8_S, "qmm_q8": PEAK_INT8_S,
            **{f"qmm_{mode}_ks": PEAK_F32_S for mode in ("f", "s", "r")},
            **{f"qmm_{mode}_ks": PEAK_BF16_S for mode in ("b", "sb", "rb")},
            "qmm_r8": PEAK_F32_S, "qmm_rb8": PEAK_BF16_S, "qmm_r8_legacy": PEAK_F32_S,
-           "qmm_rb8_legacy": PEAK_BF16_S}
+           "qmm_rb8_legacy": PEAK_BF16_S, "qmm_qx8": PEAK_INT8_S, "qmm_qx8_legacy": PEAK_INT8_S}
 # q/qx/q8: the integer group dots are exact, only f32 rescale sums differ in
 # order; i/si/b/sb: bf16 products summed in another order on tensor cores;
 # g: exact products, f and s: f32 products, f32 sums in another order
@@ -222,7 +237,8 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
        "qmm_si_k16": 1e-3, "qmm_g_k16": 1e-5,
        **{f"qmm_{mode}_ks": 1e-5 for mode in ("f", "s", "r")},
        **{f"qmm_{mode}_ks": 1e-3 for mode in ("b", "sb", "rb")},
-       "qmm_r8": 1e-5, "qmm_rb8": 1e-3, "qmm_r8_legacy": 1e-5, "qmm_rb8_legacy": 1e-3}
+       "qmm_r8": 1e-5, "qmm_rb8": 1e-3, "qmm_r8_legacy": 1e-5, "qmm_rb8_legacy": 1e-3,
+       "qmm_qx8": 1e-5, "qmm_qx8_legacy": 1e-5}
 # main paths: (label, mix, layers, how). mix is a llama.cpp mix (K_M or a
 # legacy ftype, models/synthetic.py:MIXES), None for an all-Q4_K file, or
 # ("gptq", group, act_order) for a GPTQ 4-bit directory.
@@ -243,7 +259,13 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
 # ksplit (CT_PACK4_LAYOUT): the GPTQ, Q4_0, Q2_K and Q3_K_M ksplit paths
 # run every nibble kind's ksplit kernels; "rb" serves under a user's table
 # that names the reshape-broadcast modes r and rb for every ksplit and
-# int8-grid key (ops/qmatmul.py:rb_mode_entries), which no race picks.
+# int8-grid key (ops/qmatmul.py:rb_mode_entries), which no race picks;
+# "qx" under one that names qx (the activations quantized inside the
+# kernel) for every int8-grid key at m <= 32 (ops/qmatmul.py:qx_mode_entries),
+# and serves generate_fast too (serve_fast), so that qmm_qx8 and its legacy
+# form run inside captured decode graphs. Q2_K is cut from 32 to 8 layers
+# to make room for the fused decode (serve_fast) of the 32-layer Q4_K_M file
+# and the two qx paths.
 MAIN_PATHS = [
     ("Q4_K_M", "Q4_K_M", 32, "race"),
     ("Q5_K_M", "Q5_K_M", 4, "kernels"),
@@ -260,7 +282,7 @@ MAIN_PATHS = [
     ("Q5_1", "Q5_1", 4, "kernels"),
     ("Q4_0-new", "Q4_0", 2, "new"),
     ("Q5_1-new", "Q5_1", 2, "new"),
-    ("Q2_K", "Q2_K", 32, "race"),
+    ("Q2_K", "Q2_K", 8, "race"),
     ("Q3_K_M", "Q3_K_M", 8, "race"),
     ("Q3_K_S", "Q3_K_S", 4, "kernels"),
     ("Q3_K_L", "Q3_K_L", 4, "kernels"),
@@ -274,6 +296,8 @@ MAIN_PATHS = [
     ("Q4_K_M-ksplit-new", "Q4_K_M", 2, "new"),
     ("Q4_K_M-ksplit-rb", "Q4_K_M", 2, "rb"),
     ("Q8_0-rb", "Q8_0", 2, "rb"),
+    ("Q4_K_M-qx", "Q4_K_M", 2, "qx"),
+    ("Q8_0-qx", "Q8_0", 8, "qx"),
 ]
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
@@ -298,6 +322,9 @@ TINY_NEW_MODES = ("Q4_K_M", "Q5_K_M", "GPTQ4-g32", "GPTQ4-g128", "Q4_0", "Q8_0",
                   "Q2_K", "Q3_K_M", "Q4_K_M-ksplit", "GPTQ4-g32-ksplit", "Q2_K-ksplit")
 # and under the table that names the reshape-broadcast modes r and rb
 TINY_RB_MODES = ("Q4_K_M-ksplit", "Q4_0-ksplit", "GPTQ4-g128-ksplit", "Q8_0")
+# and under the table that names qx on the int8 grids, where greedy
+# generate_fast (captured decode graphs) must also equal the eager loop
+TINY_QX_MODES = ("Q4_K_M", "Q8_0")
 TINY_STEPS = 8
 # card-vs-CPU logits: the wiring class (a wrong bias fold or split reads
 # 10-100%), 10% for Q5_1, whose int8 grid is stored uncentred (q in [0, 31],
@@ -351,6 +378,11 @@ TINY_KV = (("bf16", "sm"), ("int8", "sm"), ("f32", "hm"), ("bf16", "hm"), ("int8
 # chunks of 128 tokens (the chunk size phase 3 holds the kernels at), then
 # decode steps at window 2048
 LONG_PROMPT, LONG_CHUNK, LONG_STEPS = 1920, 128, 32
+# the fused decode (LLM.generate_fast): greedy tokens in segments of
+# FAST_CHUNK after a FAST_PROMPT-token text prompt (chunks 8 + 1, sizes
+# phase 3 holds every kernel at); the tiny models' run
+FAST_TOKENS, FAST_CHUNK, FAST_PROMPT = 64, 32, 9
+TINY_FAST_TOKENS, TINY_FAST_CHUNK = 24, 8
 
 
 def log(*a):
@@ -577,6 +609,8 @@ def phase_kernels(K, copy_bw: float):
         if not base.packed or base.pack_layout == "ksplit":
             # where a table of rb_mode_entries sends these keys
             others += [(K.kernel_name("r" if m <= 32 else "rb", base), m) for m in RACE_M]
+        if not base.packed:  # and where one of qx_mode_entries sends the grids
+            others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
         others = [r for r in others if r not in runs]
         for j, (name, m) in enumerate(runs + others):
             timed = j < len(runs)
@@ -609,10 +643,17 @@ def phase_kernels(K, copy_bw: float):
                      ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                      bound_copy_ms=bound_copy_ms, bytes=nbytes, ops=ops, timed=timed)
             results[name].append(r)
+            q8 = ""
+            if timed and name in ("qmm_qx8", "qmm_qx8_legacy"):
+                # the q8 kernel with the quantization it needs outside, as qmatmul runs it
+                fn, g = K.KERNELS[name.replace("qx8", "q8")], base.group
+                q8_ms = cuda_time_ms(lambda i: fn(*K.quantize_activations(x, g),
+                                                  copies[i % len(copies)]), 50, graph=True)
+                q8 = f" q8_with_quantization_ms={q8_ms:.4f}"
             log(f"[kernels] {name:11s} {kind:9s} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
                 f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f} "
+                f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f}{q8} "
                 f"{'ok' if ok else 'FAIL'}{'' if timed else ' (held only)'}")
             if not ok:
                 raise SystemExit(f"{name} on {kind} at {sname} m={m}: rel err {err:.3e} > {TOL[name]}")
@@ -793,6 +834,87 @@ def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 32) -> int:
     raise SystemExit(f"tiny {label}: no seed up to {max_seed} without a greedy near-tie")
 
 
+def eager_greedy(llm, ids, n: int, every: int) -> tuple:
+    """The eager eval/argmax loop from an empty context over `ids`: n greedy
+    tokens, the logits after every `every` tokens (and after the last), and
+    the loop's ms per token on the host clock."""
+    empty_context(llm)
+    llm.eval(ids)
+    toks, logits = [], {}
+    t0 = time.perf_counter()
+    for i in range(n):
+        toks.append(int(np.argmax(llm.logits)))
+        llm.eval([toks[-1]])
+        if (i + 1) % every == 0 or i + 1 == n:
+            logits[i + 1] = np.array(llm.logits, copy=True)
+    return toks, logits, (time.perf_counter() - t0) / n * 1e3
+
+
+def fused_greedy(llm, prompt: str, n: int, chunk: int) -> tuple:
+    """llm.generate_fast greedy (repetition_penalty 1.0) from an empty
+    context in segments of `chunk`: its tokens, and the logits at the end of
+    each segment by the tokens decoded so far (a tail dropped at EOS
+    included)."""
+    eng = llm._engine
+    seen = {}
+    decode = eng.decode
+
+    def recording(*args, **kw):
+        out = decode(*args, **kw)
+        seen[eng.n_past] = np.array(eng.logits, copy=True)
+        return out
+
+    eng.decode = recording
+    try:
+        empty_context(llm)
+        n_prompt = len(llm.tokenize(prompt))
+        llm.generate_fast(prompt, max_new_tokens=n, temperature=0.0, repetition_penalty=1.0,
+                          chunk=chunk)
+    finally:
+        del eng.decode
+    return llm._context[n_prompt:], {k - n_prompt: v for k, v in seen.items()}
+
+
+def fused_equals_eager(llm, n: int, fused: tuple, eager: tuple, tag: str) -> list:
+    """Hold a fused run (fused_greedy's tokens and segment-end logits)
+    against the eager loop's (eager_greedy's): equal tokens (the fused run
+    stops at EOS) and bitwise equal, finite logits at every segment end.
+    Returns the segment ends."""
+    (got, got_logits), (want, want_logits) = fused, eager[:2]
+    ends = sorted(got_logits)
+    same = [c in want_logits and np.array_equal(got_logits[c], want_logits[c]) for c in ends]
+    ok = (got == want[:len(got)] and (len(got) == n or llm.is_eos_token(want[len(got)]))
+          and ends and all(same) and all(np.isfinite(v).all() for v in got_logits.values()))
+    log(f"{tag} generate_fast greedy {len(got)} tokens: "
+        f"{'equal to' if got == want[:len(got)] else 'DIFFERENT from'} the eager loop's; "
+        f"logits at segment ends {ends} bitwise equal: {same}")
+    if not ok:
+        raise SystemExit(f"{tag} fused decode differs from the eager loop: {got} / {want}")
+    return ends
+
+
+def check_fused(llm, prompt: str, n: int, chunk: int, tag: str) -> None:
+    """Greedy generate_fast against the eager loop on the same prompt."""
+    eager = eager_greedy(llm, llm.tokenize(prompt), n, chunk)
+    fused = fused_greedy(llm, prompt, n, chunk)
+    fused_equals_eager(llm, n, fused, eager, f"{tag} {chunk}-token segments")
+
+
+def prompt_of_len(llm, n: int) -> str:
+    """A text prompt that tokenizes to n tokens (BOS included)."""
+    words = ("the", "big", "cat", "is", "on", "a", "mat", "and", "tells", "me", "story", "once")
+    text = ""
+    for _ in range(4):
+        for w in words:
+            cand = f"{text} {w}".strip()
+            size = len(llm.tokenize(cand))
+            if size == n:
+                return cand
+            if size < n:
+                text = cand
+    raise SystemExit(f"no prompt of {n} tokens from {words}")
+
+
 def phase_tiny(K, tmpdir: str):
     """Tiny llamas (TINY_MODELS) on the card and on the CPU (prompt chunks
     64 + 8, then greedy decode). On the card the race picks each key's
@@ -869,7 +991,8 @@ def phase_tiny(K, tmpdir: str):
                 if qm.cache_key(m, w) in table}
 
     tables = {"new": (TINY_NEW_MODES, qm.float_mode_entries, "table naming g, '', s, si, sb"),
-              "rb": (TINY_RB_MODES, qm.rb_mode_entries, "table naming r, rb")}
+              "rb": (TINY_RB_MODES, qm.rb_mode_entries, "table naming r, rb"),
+              "qx": (TINY_QX_MODES, qm.qx_mode_entries, "table naming qx")}
 
     def one(label, mix):
         path = model_path(tmpdir, f"tiny_{label}", mix)
@@ -906,6 +1029,13 @@ def phase_tiny(K, tmpdir: str):
             if gpu._engine.init_timings["autotune_raced"]:
                 raise SystemExit(f"tiny {label}: a race under precompiled")
             compare(label, what, gpu, gpu_env, cpu, cpu_env)
+            if tag == "qx":  # the captured decode serves the qx kernels too
+                with env(**gpu_env):
+                    check_fused(gpu, "the big cat", TINY_FAST_TOKENS, TINY_FAST_CHUNK,
+                                f"[tiny] {label} {what}")
+                rec = gpu._engine.graph_launches()["recorded"]
+                if not rec["qmm_qx8"] + rec["qmm_qx8_legacy"]:
+                    raise SystemExit(f"tiny {label}: no qx8 kernel in the captured decode step")
         remove_model(path)
 
     for label, mix in TINY_MODELS + TINY_KSPLIT_MODELS:
@@ -1067,6 +1197,7 @@ def _main_path(K, tmpdir, copy_bw, label, mix, n_layer, how, launches, after) ->
         "kernels": dict(CT_QMATMUL="kernels"),
         "new": dict(CT_QMM_AUTOTUNE="precompiled"),
         "rb": dict(CT_QMM_AUTOTUNE="precompiled"),
+        "qx": dict(CT_QMM_AUTOTUNE="precompiled"),
     }[how]
 
     def load():
@@ -1106,10 +1237,11 @@ def _main_path(K, tmpdir, copy_bw, label, mix, n_layer, how, launches, after) ->
                 log(f"[main {label}] cold load autotune_s={cold['autotune_s']} raced="
                     f"{cold['autotune_raced']}; warm load autotune_s="
                     f"{eng.init_timings['autotune_s']} raced=0 warm={eng.init_timings['autotune_warm']}")
-            elif how in ("new", "rb"):
+            elif how in ("new", "rb", "qx"):
                 # the first load told the keys; a user's table for them, and
                 # the load a user of that table would make
-                make_entries = qm.float_mode_entries if how == "new" else qm.rb_mode_entries
+                make_entries = {"new": qm.float_mode_entries, "rb": qm.rb_mode_entries,
+                                "qx": qm.qx_mode_entries}[how]
                 entries = make_entries(qm.qtensors(eng.params), sorted(set(chunks)))
                 qm.save_table(user_table, torch.cuda.get_device_name(0), entries)
                 load_env = dict(load_env, CT_QMM_TILE_CACHE=user_table)
@@ -1153,8 +1285,11 @@ def _main_path(K, tmpdir, copy_bw, label, mix, n_layer, how, launches, after) ->
                 log(f"[main {label}] llm('hello world') -> {text!r}")
                 serve(*args, {"kernels": "best hand-written kernels",
                               "new": "table naming g, '', s, si, sb",
-                              "rb": "table naming r, rb"}[how], copy_bw, wbytes,
+                              "rb": "table naming r, rb",
+                              "qx": "table naming qx"}[how], copy_bw, wbytes,
                       launches, full=True)
+                if how == "qx":
+                    serve_fast(K, llm, f"{label} | table naming qx", launches, wbytes)
         log(f"[main {label}] load_s={load_s:.3f} peak_mem_gb="
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
         if after is not None:
@@ -1164,13 +1299,117 @@ def _main_path(K, tmpdir, copy_bw, label, mix, n_layer, how, launches, after) ->
         remove_model(path)
 
 
+def serve_fast(K, llm, label: str, launches: collections.Counter, wbytes: int) -> None:
+    """The fused decode through llm.generate_fast (one captured CUDA graph a
+    key, replayed a token): greedy FAST_TOKENS tokens in segments of
+    FAST_CHUNK against the eager loop (equal tokens, bitwise segment-end
+    logits; the eager loop's ms per token beside the fused), with the
+    counters set to 0 just before the fused run and read just after: the
+    wrappers count the prompt and each capture's warm-up step and recorded
+    step, the replays launch the recorded step once a token, both against
+    the choices in force. Then a second fused run for its ms per token (no
+    capture), the device's busy ms per token over one replayed segment
+    (torch.profiler), the capture ms, and a seeded sampled run twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctransformers_tpu_torch.engine.engine import Engine
+    from ctransformers_tpu_torch.ops import qmatmul as qm
+
+    eng = llm._engine
+    tag = f"[fast {label}]"
+    prompt = prompt_of_len(llm, FAST_PROMPT)
+    ids = llm.tokenize(prompt)
+    races = qm.N_RACES
+    # the eager reference first (its prompt settles the chunk sizes)
+    eager = eager_greedy(llm, ids, FAST_TOKENS, FAST_CHUNK)
+    c0, t0_us, g0 = eng.n_compile, eng.t_compile_us, eng.graph_launches()
+    reset_counts(K)
+    fused = fused_greedy(llm, prompt, FAST_TOKENS, FAST_CHUNK)
+    wrapped = counts_now(K)
+    g1 = eng.graph_launches()
+    ends = fused_equals_eager(llm, FAST_TOKENS, fused, eager, tag)
+    captures = eng.n_compile - c0
+    capture_ms = (eng.t_compile_us - t0_us) / 1e3 / max(captures, 1)
+    recorded = g1["recorded"] - g0["recorded"]
+    replayed = g1["replayed"] - g0["replayed"]
+    steps = ends[-1]  # tokens the replays decoded (a tail dropped at EOS included)
+    executed = {k: v - recorded[k] + replayed[k] for k, v in wrapped.items()}
+    want_prompt = expected_launches(eng, Engine._chunks(len(ids), eng.spec.n_ctx))
+    want_step = expected_launches(eng, [1])
+    want_wrapped = {k: want_prompt[k] + 2 * captures * want_step[k] for k in want_step}
+    want_exec = {k: want_prompt[k] + (captures + steps) * want_step[k] for k in want_step}
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    log(f"{tag} {len(ids)}-token prompt, segments of {FAST_CHUNK}: "
+        f"{captures} capture(s), {steps} replays; launches counted by the wrappers "
+        f"{nz(wrapped)} (expected {nz(want_wrapped)}), run on the card {nz(executed)} "
+        f"(expected {nz(want_exec)})")
+    if wrapped != want_wrapped or executed != want_exec or captures != 1:
+        raise SystemExit(f"{tag} launch counts differ from the choices in force")
+    launches.update(executed)
+    t = eng.timings()
+    fused_greedy(llm, prompt, FAST_TOKENS, FAST_CHUNK)  # replays only: the decode's time
+    t2 = eng.timings()
+    if eng.n_compile != c0 + captures:
+        raise SystemExit(f"{tag} the second run captured again")
+    fused_ms = (t2["t_eval_ms"] - t["t_eval_ms"]) / (t2["n_eval"] - t["n_eval"])
+    # the device's busy time over one replayed segment
+    empty_context(llm)
+    llm.eval(ids)
+    cfg = llm.config
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            e0.record()
+            eng.decode(FAST_CHUNK, top_k=cfg.top_k, top_p=cfg.top_p, temperature=0.0,
+                       repetition_penalty=1.0, last_tokens=ids, last_n=cfg.last_n_tokens)
+            e1.record()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    if eng.n_compile != c0 + captures:
+        raise SystemExit(f"{tag} the profiled segment captured again")
+    rows = sorted(((e.self_device_time_total / FAST_CHUNK, e.count // FAST_CHUNK, e.key)
+                   for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    span_ms = e0.elapsed_time(e1) / FAST_CHUNK
+    for us, count, key in rows[:6]:
+        log(f"{tag}   {us / 1e3:8.4f} ms/token  {count:4d} launches  {key[:90]}")
+    # a seeded sampled run twice
+    runs = []
+    for _ in range(2):
+        empty_context(llm)
+        text = llm.generate_fast(prompt, max_new_tokens=FAST_TOKENS, seed=5, top_k=40,
+                                 temperature=0.8, chunk=FAST_CHUNK)
+        runs.append((text, llm._context[len(ids):]))
+    if runs[0] != runs[1] or not runs[0][1]:
+        raise SystemExit(f"{tag} same seed, different tokens {runs}")
+    if qm.N_RACES != races:
+        raise SystemExit(f"{tag} a race ran inside a served forward")
+    log(f"{tag} fused_decode_ms_per_token={fused_ms:.3f} eager_decode_ms_per_token="
+        f"{eager[2]:.3f} capture_ms={capture_ms:.1f} device_busy_ms_per_token={busy_ms:.3f} "
+        f"(idle {100 - 100 * busy_ms / fused_ms:.1f}% of the fused token) "
+        f"device_span_ms_per_token={span_ms:.3f} decode_bound_ms={wbytes / PEAK_BYTES_S * 1e3:.3f} "
+        f"(3.35 TB/s); seeded sampled generate_fast twice -> identical {runs[0][1][:16]}")
+
+
+def q4km_paths(K, copy_bw: float, launches: collections.Counter, llm, path: str, ids, chunks,
+               wbytes: int) -> None:
+    """The after-hook of the 32-layer Q4_K_M path (its raced table warm):
+    the fused decode (serve_fast), then the KV dtypes and long context."""
+    serve_fast(K, llm, "Q4_K_M | raced table", launches, wbytes)
+    kv_paths(K, copy_bw, launches, llm, path, ids, chunks, wbytes)
+
+
 def kv_paths(K, copy_bw: float, launches: collections.Counter, llm, path: str, ids, chunks,
              wbytes: int) -> None:
     """The 32-layer Q4_K_M file (the after-hook of its main path, so its
     table is warm): the long-context decode with the path's f32 cache, then
     the file loaded again with bf16 and with int8 caches, each served as the
-    main path is (137-token prompt and decode) and with the long-context
-    decode; and the cost of one layer's cache write per dtype."""
+    main path is (137-token prompt and decode), through generate_fast
+    (serve_fast) and with the long-context decode; and the cost of one
+    layer's cache write per dtype."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
 
     serve_long(K, llm, "Q4_K_M kv f32", launches)
@@ -1185,6 +1424,7 @@ def kv_paths(K, copy_bw: float, launches: collections.Counter, llm, path: str, i
             f"{sum(a.numel() * a.element_size() for a in kv if a is not None) / 1e9:.3f} GB")
         serve(K, kl, ids, chunks, f"Q4_K_M kv {name}", "raced table", copy_bw, wbytes, launches,
               full=False)
+        serve_fast(K, kl, f"Q4_K_M kv {name} | raced table", launches, wbytes)
         log(f"[main Q4_K_M kv {name}] peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}, "
             f"of which this model {(torch.cuda.max_memory_allocated() - resident) / 1e9:.2f}")
         serve_long(K, kl, f"Q4_K_M kv {name}", launches, resident)
@@ -1353,8 +1593,9 @@ def main() -> int:
     launches = collections.Counter()
     for label, mix, n_layer, how in MAIN_PATHS:
         t0 = time.perf_counter()
-        # the 32-layer Q4_K_M file also serves the KV dtypes and the long context
-        after = (functools.partial(kv_paths, K, copy_bw, launches) if label == "Q4_K_M"
+        # the 32-layer Q4_K_M file also serves the fused decode, the KV dtypes
+        # and the long context
+        after = (functools.partial(q4km_paths, K, copy_bw, launches) if label == "Q4_K_M"
                  else None)
         phase_main(K, tmpdir, copy_bw, label, mix, n_layer, how, launches, after)
         lap(f"main {label}", t0)

@@ -4,10 +4,13 @@
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_q_kernel with packed4=False (mode "q" on an int8 grid) -> ct_qmm_q8
+//   _qmm_qx_kernel with packed4=False (mode "qx", x quantized in
+//                  the kernel)                                  -> ct_qmm_qx8
 //   _qmm_kernel,   mode "b"  (bf16 dots)                         -> ct_qmm_b
 //   _qmm_s_kernel, mode "sb" (sum-fold mins, bf16 dots)          -> ct_qmm_sb
 // and, on the legacy types' unfactored planes (the reference's sfactor == 0
-// branches), ct_qmm_q8_legacy, ct_qmm_b_legacy and ct_qmm_sb_legacy.
+// branches), ct_qmm_q8_legacy, ct_qmm_qx8_legacy, ct_qmm_b_legacy and
+// ct_qmm_sb_legacy.
 //
 // Weight layout (ctransformers_tpu_torch/ops/qmatmul.py, an unpacked
 // QTensor) for a logical (K, N) weight padded to (Kp, Np):
@@ -47,6 +50,18 @@
 //   activations staged in shared memory, rescales in f32, and the 32
 //   K-lanes are reduced in shared memory in a fixed order at the end.
 //
+// ct_qmm_qx8, the same function on raw f32 activations (QUANT_IN): each
+//   block quantizes x chunk by chunk as it stages it, as ct_qmm_qx does
+//   (qmm_decode.cu): thread tid holds x[k0 + 4 tid .. + 3], the G / 4
+//   threads of a group reduce absmax and sum with an xor butterfly, then
+//   sx = absmax / 127 (IEEE division), xq = clip(rint(x / max(sx, 1e-20)),
+//   +-127) and, with mins, xsum = the group's f32 sum. A chunk is at most
+//   8 x 1024 int8 in shared memory whatever K is (at m = 8 the down shape's
+//   x is 8 x 11008 f32 = 352 KB, more than a block holds), and groups never
+//   cross a chunk. Every column block quantizes x again, as the reference
+//   does per column tile: np / 32 blocks each read all of x (4 B/value
+//   against q8's 1 B/value of xq), from L2.
+//
 // ct_qmm_b / ct_qmm_sb, prompt chunks (m > 32):
 //   b:  out = bf16(x) @ bf16(q * s + m)            f32 accumulation
 //   sb: out = xsum @ M + bf16(x) @ bf16(q * s)
@@ -77,11 +92,12 @@ struct Q8Smem {
   float red[kGL][MT][kTN];
 };
 
-template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
+template <int MT, int G, bool HAS_MINS, bool PLAIN_S, bool QUANT_IN>
 __global__ void __launch_bounds__(kThreads)
-qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
-              const float* __restrict__ sx_g,    // (m, kp/G) f32
-              const float* __restrict__ xs_g,    // (m, kp/G) f32   [HAS_MINS]
+qmm_q8_kernel(const float* __restrict__ x,       // (m, kp) f32     [QUANT_IN]
+              const int8_t* __restrict__ xq_g,   // (m, kp) int8    [!QUANT_IN]
+              const float* __restrict__ sx_g,    // (m, kp/G) f32   [!QUANT_IN]
+              const float* __restrict__ xs_g,    // (m, kp/G) f32   [!QUANT_IN, HAS_MINS]
               const int8_t* __restrict__ qs,     // (kp, np)
               const int8_t* __restrict__ sub_s,  // (kp/G, np)      [!PLAIN_S]
               const int8_t* __restrict__ sub_m,  // (kp/G, np)      [!PLAIN_S, HAS_MINS]
@@ -91,6 +107,10 @@ qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
               int m, int kp, int np) {
   constexpr int kKC = kGL * G;  // K rows staged per chunk
   constexpr int kSF = 256 / G;  // groups per superblock (factored planes)
+  constexpr int kQT = G / 4;    // threads holding one group while quantizing
+  static_assert(sizeof(Q8Smem<MT, G>) <= 48 * 1024, "static shared memory limit");
+  static_assert(kKC % 128 == 0 && kKC <= 4 * kThreads && 32 % kQT == 0,
+                "whole warps stage a chunk, a group's threads lie in one warp");
   __shared__ Q8Smem<MT, G> sh;
   const int tid = threadIdx.x;
   const int cq = tid % kCQ;
@@ -107,23 +127,58 @@ qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
 
   for (int k0 = 0; k0 < kp; k0 += kKC) {
     // ---- stage this chunk's int8 activations and group statistics ----
+    if constexpr (QUANT_IN) {
+      // thread tid holds x[k0 + 4*tid .. +3]; G/4 neighbouring threads = 1
+      // group (whole warps: the condition is uniform across a warp)
+      if (4 * tid < kKC) {
+        const int k = k0 + 4 * tid;
+        const int gi = tid / kQT;
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int t = t0 + i;
-      for (int kk = 4 * tid; kk < kKC; kk += 4 * kThreads) {
-        const int k = k0 + kk;
-        int v = 0;
-        if (t < m && k < kp)
-          v = __ldg(reinterpret_cast<const int*>(xq_g + (size_t)t * kp + k));
-        *reinterpret_cast<int*>(&sh.xq[i][kk]) = v;
+        for (int i = 0; i < MT; ++i) {
+          const int t = t0 + i;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < m && k < kp)
+            v = __ldg(reinterpret_cast<const float4*>(x + (size_t)t * kp + k));
+          float amax = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+          float sum = HAS_MINS ? __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w)) : 0.0f;
+#pragma unroll
+          for (int off = 1; off < kQT; off <<= 1) {
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+            if (HAS_MINS) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+          }
+          const float sxv = __fdiv_rn(amax, 127.0f);
+          const float den = fmaxf(sxv, 1e-20f);
+          char4 q;
+          q.x = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.x, den)), -127.f), 127.f);
+          q.y = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.y, den)), -127.f), 127.f);
+          q.z = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.z, den)), -127.f), 127.f);
+          q.w = (signed char)fminf(fmaxf(rintf(__fdiv_rn(v.w, den)), -127.f), 127.f);
+          *reinterpret_cast<char4*>(&sh.xq[i][4 * tid]) = q;
+          if (tid % kQT == 0) {
+            sh.sx[i][gi] = sxv;
+            if (HAS_MINS) sh.xs[i][gi] = sum;
+          }
+        }
       }
-    }
-    for (int e = tid; e < MT * kGL; e += kThreads) {
-      const int i = e / kGL, gi = e % kGL;
-      const int t = t0 + i, g = k0 / G + gi;
-      const bool ok = t < m && g < ng;
-      sh.sx[i][gi] = ok ? __ldg(sx_g + (size_t)t * ng + g) : 0.0f;
-      if (HAS_MINS) sh.xs[i][gi] = ok ? __ldg(xs_g + (size_t)t * ng + g) : 0.0f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int t = t0 + i;
+        for (int kk = 4 * tid; kk < kKC; kk += 4 * kThreads) {
+          const int k = k0 + kk;
+          int v = 0;
+          if (t < m && k < kp)
+            v = __ldg(reinterpret_cast<const int*>(xq_g + (size_t)t * kp + k));
+          *reinterpret_cast<int*>(&sh.xq[i][kk]) = v;
+        }
+      }
+      for (int e = tid; e < MT * kGL; e += kThreads) {
+        const int i = e / kGL, gi = e % kGL;
+        const int t = t0 + i, g = k0 / G + gi;
+        const bool ok = t < m && g < ng;
+        sh.sx[i][gi] = ok ? __ldg(sx_g + (size_t)t * ng + g) : 0.0f;
+        if (HAS_MINS) sh.xs[i][gi] = ok ? __ldg(xs_g + (size_t)t * ng + g) : 0.0f;
+      }
     }
     __syncthreads();
 
@@ -201,22 +256,51 @@ qmm_q8_kernel(const int8_t* __restrict__ xq_g,   // (m, kp) int8
   }
 }
 
-template <int G, bool HAS_MINS, bool PLAIN_S>
-int launch_q8(const int8_t* xq, const float* sx, const float* xs,
+template <int G, bool HAS_MINS, bool PLAIN_S, bool QUANT_IN>
+int launch_q8(const float* x, const int8_t* xq, const float* sx, const float* xs,
               const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp,
               int np, cudaStream_t stream) {
   if (m == 1) {
     dim3 grid(np / kTN, 1);
-    qmm_q8_kernel<1, G, HAS_MINS, PLAIN_S><<<grid, kThreads, 0, stream>>>(
-        xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+    qmm_q8_kernel<1, G, HAS_MINS, PLAIN_S, QUANT_IN><<<grid, kThreads, 0, stream>>>(
+        x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   } else {
     constexpr int MT = 8;
     dim3 grid(np / kTN, (m + MT - 1) / MT);
-    qmm_q8_kernel<MT, G, HAS_MINS, PLAIN_S><<<grid, kThreads, 0, stream>>>(
-        xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
+    qmm_q8_kernel<MT, G, HAS_MINS, PLAIN_S, QUANT_IN><<<grid, kThreads, 0, stream>>>(
+        x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The factored grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K).
+template <bool QUANT_IN>
+int launch_q8_grid(const float* x, const int8_t* xq, const float* sx, const float* xs,
+                   const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                   const float* sd, const float* sm, float* out, int m, int kp, int np,
+                   int group, cudaStream_t st) {
+  if (group == 16 && sub_m == nullptr)
+    return launch_q8<16, false, false, QUANT_IN>(x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out,
+                                                 m, kp, np, st);
+  if (group == 32 && sub_m != nullptr)
+    return launch_q8<32, true, false, QUANT_IN>(x, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out,
+                                                m, kp, np, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The legacy grids: group 32, f32 planes s and mn (null exactly when
+// has_mins is 0: Q8_0 and Q5_0; Q5_1 has mins).
+template <bool QUANT_IN>
+int launch_q8_legacy(const float* x, const int8_t* xq, const float* sx, const float* xs,
+                     const int8_t* qs, const float* s, const float* mn, float* out, int m,
+                     int kp, int np, int has_mins, cudaStream_t st) {
+  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return launch_q8<32, true, true, QUANT_IN>(x, xq, sx, xs, qs, nullptr, nullptr, s, mn, out,
+                                               m, kp, np, st);
+  return launch_q8<32, false, true, QUANT_IN>(x, xq, sx, xs, qs, nullptr, nullptr, s, nullptr,
+                                              out, m, kp, np, st);
 }
 
 // ---- ct_qmm_b / ct_qmm_sb: the int8-grid tile of qmm_gemm.cuh ----------
@@ -337,12 +421,17 @@ int ct_qmm_q8(const int8_t* xq, const float* sx, const float* xs,
               const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp,
               int np, int group, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (group == 16 && sub_m == nullptr)
-    return launch_q8<16, false, false>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
-  if (group == 32 && sub_m != nullptr)
-    return launch_q8<32, true, false>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_q8_grid<false>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                               group, static_cast<cudaStream_t>(stream));
+}
+
+// mode "qx" on an int8 grid: x f32 (m, kp), quantized per group in the
+// kernel. group 16 without mins (Q6_K) or 32 with mins (Q5_K).
+int ct_qmm_qx8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np,
+               int group, void* stream) {
+  return launch_q8_grid<true>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m, sd, sm, out, m,
+                              kp, np, group, static_cast<cudaStream_t>(stream));
 }
 
 // mode "b": bf16(x) @ bf16(q * s + m)
@@ -367,12 +456,17 @@ int ct_qmm_sb(const float* x, const int8_t* qs, const int8_t* sub_s,
 int ct_qmm_q8_legacy(const int8_t* xq, const float* sx, const float* xs,
                      const int8_t* qs, const float* s, const float* mn, float* out,
                      int m, int kp, int np, int has_mins, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (has_mins)
-    return launch_q8<32, true, true>(xq, sx, xs, qs, nullptr, nullptr, s, mn, out, m, kp, np, st);
-  return launch_q8<32, false, true>(xq, sx, xs, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
-                                    st);
+  return launch_q8_legacy<false>(nullptr, xq, sx, xs, qs, s, mn, out, m, kp, np, has_mins,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// mode "qx" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): x f32 (m, kp),
+// quantized per group of 32 in the kernel; s and mn f32 (kp/32, np), mn
+// null exactly when has_mins is 0.
+int ct_qmm_qx8_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                      float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_q8_legacy<true>(x, nullptr, nullptr, nullptr, qs, s, mn, out, m, kp, np,
+                                has_mins, static_cast<cudaStream_t>(stream));
 }
 
 // mode "b" on a legacy int8 grid: bf16(x) @ bf16(q * s + mn)

@@ -11,6 +11,15 @@ age (rep_penalty_mask).
 
 The RNG is numpy's MT19937 (np.random.RandomState), seeded as the JAX
 package seeds it, so the port draws the same tokens seed for seed.
+
+`sample_device` is the chain of the fused decode loop (engine/engine.py:
+Engine.decode) in torch ops on device tensors, the counterpart of the JAX
+package's sample_device: temperature, repetition penalty, top-k, top-p,
+then a Gumbel-max draw, argmax(l + G), which is how jax.random.categorical
+draws. The noise G comes from `gumbel_noise`, a whole segment at a time
+from a torch.Generator seeded by (seed, segment index), as the JAX package
+folds the segment index into its key: deterministic per seed, but not the
+JAX PRNG's stream, so the two agree in distribution, not draw for draw.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def _resolve_seed(seed: int) -> int:
@@ -206,3 +216,69 @@ def sample_llama_decayed(
     l[pos] /= mask[pos]
     l[neg] *= mask[neg]
     return _llama_tail(l, top_k, top_p, temperature, rng)
+
+
+# -- the on-device chain of the fused decode loop ----------------------------
+
+
+def sample_device(
+    logits: torch.Tensor,  # (V,) f32
+    noise: torch.Tensor,  # (V,) f32 Gumbel noise (gumbel_noise), read when temperature > 0
+    last_tokens: torch.Tensor,  # (L,) int32, -1 = empty slot
+    *,
+    top_k: int,
+    top_p: float,
+    temperature: float,
+    repetition_penalty: float,
+) -> torch.Tensor:
+    """One token id as a (1,) int32 tensor on the logits' device: argmax at
+    temperature <= 0; otherwise logits / temperature, the sign-dependent
+    repetition penalty on the ids in `last_tokens`, top-k (ties at the k-th
+    value kept), top-p (a sorted token stays while the mass before it is
+    below top_p), then argmax(l + noise). Only device ops with no host
+    synchronisation, so a CUDA graph can capture it."""
+    v = logits.shape[0]
+    if temperature <= 0.0:
+        return torch.argmax(logits).to(torch.int32).view(1)
+    inf = float("inf")
+    l = logits.float() / temperature
+    if repetition_penalty != 1.0:
+        ids = torch.where(last_tokens >= 0, last_tokens, v).to(torch.int64)
+        seen = torch.zeros(v + 1, dtype=torch.bool, device=l.device).index_fill_(0, ids, True)
+        pen = torch.where(l > 0, l / repetition_penalty, l * repetition_penalty)
+        l = torch.where(seen[:v], pen, l)
+    k = min(int(top_k) if top_k > 0 else v, v)
+    if k < v:
+        kth = torch.topk(l, k).values[-1]
+        l = torch.where(l < kth, -inf, l)
+    if top_p < 1.0:
+        vals = torch.sort(l, descending=True).values
+        probs = torch.softmax(vals, 0)
+        cum = torch.cumsum(probs, 0)
+        keep = (cum - probs) < top_p
+        thr = torch.where(keep, vals, inf).amin()
+        l = torch.where(l < thr, -inf, l)
+    return torch.argmax(l + noise).to(torch.int32).view(1)
+
+
+def segment_seed(seed: int, segment: int) -> int:
+    """The generator seed of segment `segment` of a decode seeded `seed`:
+    the pair packed into 64 bits and mixed by splitmix64's finalizer (a
+    bijection), so distinct pairs get distinct seeds whose low 32 bits, all
+    that the CPU generator reads, differ too."""
+    mask = (1 << 64) - 1
+    z = ((((int(seed) & 0x7FFFFFFF) << 32) | (int(segment) & 0xFFFFFFFF))
+         + 0x9E3779B97F4A7C15) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return (z ^ (z >> 31)) >> 1
+
+
+def gumbel_noise(out: torch.Tensor, seed: int, segment: int) -> torch.Tensor:
+    """Fill `out` (k, V) f32 with Gumbel noise -log(-log(u)), u uniform from
+    a generator on out's device seeded by segment_seed: row i serves the
+    segment's i-th draw."""
+    gen = torch.Generator(device=out.device).manual_seed(segment_seed(seed, segment))
+    torch.rand(out.shape, generator=gen, out=out)
+    tiny = torch.finfo(torch.float32).tiny
+    return out.clamp_min_(tiny).log_().neg_().log_().neg_()

@@ -6,14 +6,18 @@ underneath runs PyTorch with the quantized matmuls on hand-written CUDA
 kernels.
 It runs on the card unless the caller passes device="cpu".
 
-This slice serves the classic sampler chains. The arguments it does not
-serve yet raise NotImplementedError: grammar, guidance_scale and
-negative_prompt, the extended sampler (tfs_z, typical_p, frequency and
+It serves the classic sampler chains through the per-token host loop
+(`__call__`, `generate`) and `generate_fast`, the fused device loop (CUDA
+graphs on the card, engine/engine.py:Engine.decode_chunked). The arguments
+it does not serve yet raise NotImplementedError: grammar, guidance_scale
+and negative_prompt, the extended sampler (tfs_z, typical_p, frequency and
 presence penalties, mirostat), sessions, embed and lora (see ROADMAP).
 """
 
 from __future__ import annotations
 
+import os
+import time
 import warnings
 from dataclasses import dataclass
 from pathlib import Path
@@ -337,6 +341,87 @@ class LLM:
         if get(stream, self.config.stream):
             return text
         return "".join(text)
+
+    def generate_fast(
+        self, prompt: str, *,
+        max_new_tokens: Optional[int] = None,
+        top_k: Optional[int] = None, top_p: Optional[float] = None,
+        temperature: Optional[float] = None,
+        repetition_penalty: Optional[float] = None,
+        last_n_tokens: Optional[int] = None, seed: Optional[int] = None,
+        stop: Optional[Sequence[str]] = None, reset: Optional[bool] = None,
+        grammar=None, abort_callback=None, chunk: Optional[int] = None,
+    ) -> str:
+        """Text in, completion out, with the sample -> eval loop on the
+        device in `chunk`-token segments (Engine.decode_chunked: a captured
+        CUDA graph replayed per token on the card) instead of the per-token
+        host loop of `__call__`. The draw is the device sampler's (the same
+        chain; deterministic per seed, not draw-identical to the host
+        samplers).
+
+        Between segments the host applies EOS and stop strings (TextStreamer,
+        as `__call__`) and checks `abort_callback()`, so generation ends
+        within `chunk` tokens of a stop. `chunk` defaults to CT_DECODE_CHUNK
+        or 32; 0 takes the whole budget in one segment. `grammar` goes to
+        `__call__`, which raises NotImplementedError in this port."""
+        if grammar is not None:
+            return self(
+                prompt, max_new_tokens=max_new_tokens, top_k=top_k, top_p=top_p,
+                temperature=temperature, repetition_penalty=repetition_penalty,
+                last_n_tokens=last_n_tokens, seed=seed, stop=stop, reset=reset,
+                grammar=grammar,
+            )
+        config = self.config
+        max_new_tokens = get(max_new_tokens, config.max_new_tokens)
+        stop = get(stop, config.stop) or []
+        if isinstance(stop, str):
+            stop = [stop]
+        seed = get(seed, config.seed)
+        if seed is not None and seed < 0:
+            seed = int(time.time())  # a fresh seed per call, as the host samplers
+        last_n = get(last_n_tokens, config.last_n_tokens)
+        if last_n < 0:
+            last_n = self.context_length
+        if chunk is None:
+            chunk = int(os.environ.get("CT_DECODE_CHUNK", "32"))
+        if chunk <= 0:
+            chunk = max_new_tokens
+
+        tokens = self.tokenize(prompt)
+        tokens = self.prepare_inputs_for_generation(tokens, reset=reset)
+        self.eval(tokens)
+
+        streamer = TextStreamer(stop)
+        pieces: List[str] = []
+
+        def should_stop(segment):
+            for i, t in enumerate(segment):
+                if self.is_eos_token(t):
+                    return i  # the EOS token and everything after it go
+                piece = streamer.feed(self.detokenize([t], decode=False))
+                if piece:
+                    pieces.append(piece)
+                if streamer.stopped:
+                    return i + 1  # the token completing the stop string stays
+            return None
+
+        toks = self._engine.decode_chunked(
+            max_new_tokens,
+            chunk=chunk,
+            should_stop=should_stop,
+            abort_callback=abort_callback,
+            top_k=get(top_k, config.top_k),
+            top_p=get(top_p, config.top_p),
+            temperature=get(temperature, config.temperature),
+            repetition_penalty=get(repetition_penalty, config.repetition_penalty),
+            last_tokens=self._context[-last_n:] if last_n > 0 else [],
+            last_n=last_n,
+            seed=seed,
+        )
+        self._context.extend(int(t) for t in toks)
+        if not streamer.stopped:
+            pieces.append(streamer.flush())
+        return "".join(pieces)
 
     def embed(self, input, *, batch_size=None, threads=None) -> List[float]:
         raise _not_served("embed")

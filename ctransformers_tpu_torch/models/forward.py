@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -39,6 +39,9 @@ from ..ops.rope import apply_rope_interleaved, apply_rope_neox, rope_angles
 from .spec import ArchSpec
 
 Params = Dict[str, Any]
+# a chunk's first position: an int, or for a one-token chunk a (1,) int32
+# device tensor, which a captured CUDA graph advances without the host
+Position = Union[int, torch.Tensor]
 
 # user-facing KV dtype names (the JAX package's, forward.py:resolve_kv_dtype):
 # "f16" aliases bf16 as there; "ieee_f16" is IEEE half
@@ -283,31 +286,39 @@ def round_window(pos: int, n_ctx: int) -> int:
     return min(w * ATTN_WINDOW_STEP, n_ctx)
 
 
-def write_kv(kv: KVCache, il: int, n_past: int, k: torch.Tensor, v: torch.Tensor,
+def write_kv(kv: KVCache, il: int, n_past: Position, k: torch.Tensor, v: torch.Tensor,
              hm: bool) -> None:
     """Write a chunk's k/v (B, T, Hkv, dh) into layer `il` of the cache IN
     PLACE at n_past (the JAX package returns an updated cache instead):
     cast to a float cache's dtype (round to nearest even), or quantized by
-    kv_quantize into an int8 cache's four planes."""
+    kv_quantize into an int8 cache's four planes. A tensor n_past (a
+    one-token chunk) is a device index: the rows go in by index_copy_ along
+    the sequence axis, the same values the int path's slice assignment
+    writes."""
     t = k.shape[1]
     if hm:  # (B, Hkv, T, dh) slabs for a head-major cache
         k, v = k.transpose(1, 2), v.transpose(1, 2)
-    at = (il,) + _seq_slice(hm, n_past + t, n_past)
     if kv.ks is None:
-        kv.k[at] = k
-        kv.v[at] = v
+        pairs = ((kv.k, k), (kv.v, v))
+    else:
+        kq, ksc = kv_quantize(k)
+        vq, vsc = kv_quantize(v)
+        pairs = ((kv.k, kq), (kv.ks, ksc), (kv.v, vq), (kv.vs, vsc))
+    if torch.is_tensor(n_past):
+        idx = n_past.to(torch.int64)
+        for plane, rows in pairs:
+            plane[il].index_copy_(2 if hm else 1, idx, rows.to(plane.dtype))
         return
-    kq, ksc = kv_quantize(k)
-    vq, vsc = kv_quantize(v)
-    kv.k[at], kv.ks[at] = kq, ksc
-    kv.v[at], kv.vs[at] = vq, vsc
+    at = (il,) + _seq_slice(hm, n_past + t, n_past)
+    for plane, rows in pairs:
+        plane[at] = rows
 
 
 def _attention(
     spec: ArchSpec,
     layer: Params,
     x: torch.Tensor,  # (B, T, D) normed input
-    n_past: int,
+    n_past: Position,
     kv: KVCache,
     il: int,
     angles: Optional[torch.Tensor],
@@ -352,26 +363,37 @@ def forward(
     spec: ArchSpec,
     params: Params,
     tokens: torch.Tensor,  # (B, T) int64
-    n_past: int,
+    n_past: Position,
     kv: KVCache,
     attn_window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (last-token logits (B, V), last hidden state (B, D)); the
     cache `kv` is updated in place. `attn_window` bounds attention reads to
     the cache prefix [0, attn_window), which must cover every live
-    position."""
+    position. A one-token chunk may take n_past as a (1,) int32 device
+    tensor (the decode step a CUDA graph replays): positions, the cache
+    write and the attention's per-slot positions read it there, and the
+    logits are bitwise those of the same int."""
     b, t = tokens.shape
+    dev = tokens.device
+    on_device = torch.is_tensor(n_past)
+    if on_device and (t != 1 or tuple(n_past.shape) != (1,) or n_past.dtype != torch.int32):
+        raise ValueError("a device n_past is a (1,) int32 tensor and serves one-token chunks "
+                         f"only, got {n_past.dtype} {tuple(n_past.shape)} for {t} tokens")
     x = params["wte"][tokens]  # (B, T, D) f32
     angles = None
     if spec.rope_mode != "none":
-        positions = n_past + torch.arange(t, device=tokens.device)
+        first = n_past.to(torch.int64) if on_device else n_past
+        positions = first + torch.arange(t, device=dev)
         angles = rope_angles(
             positions, spec.head_dim, spec.n_rot or spec.head_dim,
             spec.rope_base, spec.rope_scale,
         )
     # a decode step's per-slot positions, built once for every layer
-    slots = (torch.full((b,), n_past, dtype=torch.int32, device=tokens.device)
-             if t == 1 else None)
+    slots = None
+    if t == 1:
+        slots = (n_past.expand(b).contiguous() if on_device
+                 else torch.full((b,), n_past, dtype=torch.int32, device=dev))
     for il, layer in enumerate(params["layers"]):
         ln1 = _norm(spec, x, layer["ln1_g"])
         attn_out = _attention(spec, layer, ln1, n_past, kv, il, angles, attn_window, slots)

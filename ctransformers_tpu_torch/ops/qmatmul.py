@@ -340,7 +340,8 @@ DENSE = ("dense",)
 # same kinds) and int8 grids (Q6_K, Q5_K, Q8_0, Q5_0, Q5_1), in the order of
 # the JAX package's candidate lists ("q8" is its "q" with packed4=False).
 # The reshape-broadcast modes "r" and "rb" are in no list, as in the JAX
-# package; a table may name them (rb_mode_entries)
+# package, nor is "qx" on an int8 grid; a table may name them
+# (rb_mode_entries, qx_mode_entries)
 _NIBBLE_MODES = ("i", "si", "g", "q", "qx")
 _KSPLIT_MODES = ("", "s", "b", "sb")
 _GRID_MODES = ("", "s", "b", "sb", "g", "q8")
@@ -623,19 +624,31 @@ def pick_mode(m: int, qt: QTensor, peers: Optional[Sequence[QTensor]] = None) ->
     """The choice for x (m, K) @ qt: the table's, or on a miss a race on the
     card (CT_QMM_AUTOTUNE=1), else select_mode's. See the section comment
     for the environment. A settled choice is kept on the weight per m and
-    environment, so that a served forward pays three environment reads and
-    a dictionary lookup per matmul; only a miss inside a CUDA graph capture
-    is not kept (a later call, free to race, finds the key open)."""
-    env = os.environ
-    stamp = (env.get("CT_QMM_AUTOTUNE"), env.get("CT_QMATMUL"), env.get("CT_QMM_TILE_CACHE"))
+    environment (pick_stamp), so that a served forward pays three
+    environment reads and a dictionary lookup per matmul. A key that would
+    race while a CUDA graph is captured raises: the race cannot run there,
+    and the fixed rule's choice would be baked into the graph."""
+    stamp = pick_stamp()
     kept = qt.picks.get(m)
     if kept is not None and kept[0] == stamp:
         return kept[1]
     choice = _resolve(m, qt, peers)
-    if choice is not None:
-        qt.picks[m] = (stamp, choice)
-        return choice
-    return _heuristic(m, qt)
+    if choice is None:
+        raise RuntimeError(
+            f"pick_mode: key {cache_key(m, qt)} is not settled under {stamp} while a CUDA "
+            "graph is captured; settle it first (autotune, or one eager call)")
+    qt.picks[m] = (stamp, choice)
+    return choice
+
+
+# the environment pick_mode reads: a settled choice holds under these values
+PICK_SETTINGS = ("CT_QMM_AUTOTUNE", "CT_QMATMUL", "CT_QMM_TILE_CACHE")
+
+
+def pick_stamp() -> tuple:
+    """The values of PICK_SETTINGS now (None where unset)."""
+    env = os.environ
+    return tuple(env.get(k) for k in PICK_SETTINGS)
 
 
 def _resolve(m: int, qt: QTensor, peers: Optional[Sequence[QTensor]]) -> Optional[tuple]:
@@ -725,6 +738,23 @@ def rb_mode_entries(qts: Sequence[QTensor], sizes: Sequence[int]) -> Dict[tuple,
             mode = "r" if m <= 32 else "rb"
             choice = (mode, kern.CONFIG_OF[kern.kernel_name(mode, w)])
             entries[cache_key(m, w)] = {"pick": choice, "kernel": choice, "ms": {}}
+    return entries
+
+
+def qx_mode_entries(qts: Sequence[QTensor], sizes: Sequence[int]) -> Dict[tuple, dict]:
+    """Table entries that steer every int8-grid key (Q6_K, Q5_K, Q8_0, Q5_0,
+    Q5_1) of the weights `qts` at the batch sizes `sizes` up to 32 to "qx",
+    the activations quantized inside the kernel (qmm_qx8, qmm_qx8_legacy),
+    which no race picks (no JAX candidate list offers it on an unpacked
+    grid). Nibble keys, ksplit keys and sizes above 32 get no entry."""
+    entries = {}
+    for w in qts:
+        if w.packed:
+            continue
+        for m in sizes:
+            if m <= 32:
+                choice = ("qx", kern.CONFIG_OF[kern.kernel_name("qx", w)])
+                entries[cache_key(m, w)] = {"pick": choice, "kernel": choice, "ms": {}}
     return entries
 
 

@@ -60,6 +60,8 @@ csrc/qmm_float.cu):
   qmm_q8  xsum @ M + sum_g int32 dot_g(xq, q) * sx * s, on activations
           quantized outside per group of the weight's group
           (replaces _qmm_q_kernel, mode "q", packed4=False)
+  qmm_qx8 the same function on raw f32 x, quantized inside the kernel
+          (replaces _qmm_qx_kernel, mode "qx", packed4=False)
   qmm_b   bf16(x) @ bf16(q * s + m)          (replaces _qmm_kernel, mode "b")
   qmm_sb  xsum @ M + bf16(x) @ bf16(q * s)   (replaces _qmm_s_kernel, mode "sb")
   qmm_g8  xsum @ M + sum_g s[g] * dot_g(bf16(x), q)    (replaces _qmm_g_kernel)
@@ -72,8 +74,8 @@ int8 grids with plain f32 (Kp/32, Np) planes s and m (sfactor 0): the
 legacy types Q8_0 and Q5_0 (no mins) and Q5_1 (with mins), the reference
 kernels' sfactor == 0 branches:
 
-  qmm_q8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy, qmm_f_legacy,
-  qmm_s_legacy   the functions of the six grid kernels above
+  qmm_q8_legacy, qmm_qx8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy,
+  qmm_f_legacy, qmm_s_legacy   the functions of the seven grid kernels above
 
 The same six nibble layouts (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_1, Q4_0) packed
 "ksplit" (ops/qmatmul.py: byte r holds row r in the low nibble, lo = q + zp,
@@ -220,6 +222,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_si": [P] * 7 + [I, I, I, P],
         "ct_qmm_i": [P] * 7 + [I, I, I, P],
         "ct_qmm_q8": [P] * 9 + [I, I, I, I, P],
+        "ct_qmm_qx8": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_b": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_sb": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_qx_gptq": [P] * 5 + [I, I, I, I, P],
@@ -237,6 +240,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_si_q4_0": [P] * 5 + [I, I, I, P],
         "ct_qmm_g_q4_0": [P] * 5 + [I, I, I, P],
         "ct_qmm_q8_legacy": [P] * 7 + [I, I, I, I, P],
+        "ct_qmm_qx8_legacy": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_b_legacy": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_sb_legacy": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_g8_legacy": [P] * 5 + [I, I, I, I, P],
@@ -586,6 +590,12 @@ def plain_q8(xq: torch.Tensor, sx: torch.Tensor, xs: torch.Tensor, qt) -> torch.
     return d if mn is None else xs @ mn + d
 
 
+def plain_qx8(x: torch.Tensor, qt) -> torch.Tensor:
+    """Mode "qx" on an int8 grid: plain_q8 on x quantized per group of the
+    weight's group, the quantization the kernel does in place."""
+    return plain_q8(*quantize_activations(x, qt.group), qt)
+
+
 def plain_b(x: torch.Tensor, qt) -> torch.Tensor:
     s, mn = grid_planes(qt)
     w = qt.qs.float() * s.repeat_interleave(qt.group, 0)
@@ -736,6 +746,7 @@ _SPECS = {
     "qmm_si": ("qmm_prefill", check_qtensor, plain_si, _no_ints, 1148),
     "qmm_i": ("qmm_prefill", check_qtensor, plain_i, _no_ints, 1090),
     "qmm_q8": ("qmm_grid", check_grid_qtensor, plain_q8, _group, 1288),
+    "qmm_qx8": ("qmm_grid", check_grid_qtensor, plain_qx8, _group, 1370),
     "qmm_b": ("qmm_grid", check_grid_qtensor, plain_b, _group, 734),
     "qmm_sb": ("qmm_grid", check_grid_qtensor, plain_sb, _group, 1040),
     "qmm_qx_gptq": ("qmm_decode", check_gptq_qtensor, plain_qx, _group, 1370),
@@ -753,6 +764,7 @@ _SPECS = {
     "qmm_si_q4_0": ("qmm_prefill", check_q40_qtensor, plain_si, _no_ints, 1148),
     "qmm_g_q4_0": ("qmm_float", check_q40_qtensor, plain_g, _no_ints, 1206),
     "qmm_q8_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_q8, _has_mins, 1288),
+    "qmm_qx8_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_qx8, _has_mins, 1370),
     "qmm_b_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_b, _has_mins, 734),
     "qmm_sb_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_sb, _has_mins, 1040),
     "qmm_g8_legacy": ("qmm_float", check_legacy_grid_qtensor, plain_g, _has_mins, 1206),
@@ -807,9 +819,11 @@ CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SP
 CONFIG_OF.update(qmm_f_ks=KSPLIT_FLOAT_CONFIG, qmm_s_ks=KSPLIT_FLOAT_CONFIG,
                  qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
-# name for its "q" with packed4=False)
+# name for its "q" with packed4=False; "qx" is in no candidate list, as in
+# the JAX package: a table sends keys there, ops/qmatmul.py:qx_mode_entries)
 _GRID_KERNELS = {"": "qmm_f", "s": "qmm_s", "b": "qmm_b", "sb": "qmm_sb", "g": "qmm_g8",
-                 "q": "qmm_q8", "q8": "qmm_q8", "r": "qmm_r8", "rb": "qmm_rb8"}
+                 "q": "qmm_q8", "q8": "qmm_q8", "qx": "qmm_qx8", "r": "qmm_r8",
+                 "rb": "qmm_rb8"}
 # the modes a ksplit weight takes ("" is the f32 dequantize-and-dot "f")
 _KSPLIT_KERNELS = {"": "qmm_f_ks", "s": "qmm_s_ks", "b": "qmm_b_ks", "sb": "qmm_sb_ks",
                    "r": "qmm_r_ks", "rb": "qmm_rb_ks"}

@@ -13,19 +13,34 @@ n_dims < head_dim:
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
+
+# (device, head_dim, n_dims, base) -> (head_dim//2,) f32 frequencies on that
+# device: copied to the device once, so that a forward makes no
+# host-to-device copy (which a CUDA graph capture refuses)
+_FREQS: Dict[Tuple[torch.device, int, int, float], torch.Tensor] = {}
+
+
+def rope_freqs(device: torch.device, head_dim: int, n_dims: int, base: float) -> torch.Tensor:
+    """The rotation frequencies base**(-2 i / n_dims), computed in numpy
+    float32 exactly as the JAX package computes them, kept per device."""
+    key = (torch.device(device), int(head_dim), int(n_dims), float(base))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        steps = np.arange(head_dim // 2, dtype=np.float32)
+        theta_scale = float(base) ** (-2.0 / n_dims)
+        freqs = torch.from_numpy(np.asarray(theta_scale**steps, np.float32)).to(key[0])
+        _FREQS[key] = freqs
+    return freqs
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, n_dims: int,
                 base: float, scale: float) -> torch.Tensor:
-    """(T,) positions -> (T, head_dim//2) angles, one per rotation step.
-    The frequencies are computed in numpy float32 exactly as the JAX
-    package computes them."""
-    steps = np.arange(head_dim // 2, dtype=np.float32)
-    theta_scale = float(base) ** (-2.0 / n_dims)
-    freqs = torch.from_numpy(np.asarray(theta_scale**steps, np.float32))
-    freqs = freqs.to(positions.device)
+    """(T,) positions -> (T, head_dim//2) angles, one per rotation step."""
+    freqs = rope_freqs(positions.device, head_dim, n_dims, base)
     return (positions.to(torch.float32) * scale)[:, None] * freqs[None, :]
 
 

@@ -3,9 +3,12 @@ five Q4_K kernels, the six int8-grid (Q6_K, Q5_K) kernels, the five GPTQ4
 kernels at groups 32, 64 and 128 (Q4_1 at 32), the five bias-free Q4_0
 kernels, the six kernels on the legacy grids' plain planes (Q8_0, Q5_0,
 Q5_1), the five group-16 nibble kernels (Q2_K, Q3_K), the six ksplit
-kernels on every nibble kind and the four reshape-broadcast int8-grid
-kernels; the race that picks among them; and the decode attention kernel
-(ops/attention.py) over f32, bf16, f16 and int8 caches in both layouts.
+kernels on every nibble kind, the four reshape-broadcast int8-grid
+kernels and the two int8-grid kernels that quantize x inside (qmm_qx8 and
+its legacy form); the race that picks among them; the decode attention
+kernel (ops/attention.py) over f32, bf16, f16 and int8 caches in both
+layouts; and the fused decode loop of engine/engine.py (a captured CUDA
+graph per key) against the eager loop on a tiny model.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -13,7 +16,9 @@ JAX: python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
 import dataclasses
+import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -132,7 +137,7 @@ def _weight(name: str, kind: str, k: int, n: int, seed: int, device) -> QTensor:
         return random_gptq(k, n, int(kind.split("/")[1]), seed, device)
     if kind in LEGACY:
         return random_legacy(kind, k, n, seed, device)
-    if name in GRID + R8:
+    if name in GRID + R8 + QX8:
         return random_grid(kind, k, n, seed, device)
     return random_q4k(k, n, seed, device)
 
@@ -156,7 +161,8 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_si": 1e-3, "qmm_i": 1e-3,
        "qmm_si_k16": 1e-3, "qmm_g_k16": 1e-5,
        "qmm_f_ks": 1e-5, "qmm_s_ks": 1e-5, "qmm_b_ks": 1e-3, "qmm_sb_ks": 1e-3,
        "qmm_r_ks": 1e-5, "qmm_rb_ks": 1e-3, "qmm_r8": 1e-5, "qmm_rb8": 1e-3,
-       "qmm_r8_legacy": 1e-5, "qmm_rb8_legacy": 1e-3}
+       "qmm_r8_legacy": 1e-5, "qmm_rb8_legacy": 1e-3, "qmm_qx8": 1e-5,
+       "qmm_qx8_legacy": 1e-5}
 assert set(TOL) == set(K.KERNELS)
 GRID = ("qmm_q8", "qmm_b", "qmm_sb", "qmm_g8", "qmm_f", "qmm_s")
 GPTQ = ("qmm_qx_gptq", "qmm_q_gptq", "qmm_i_gptq", "qmm_g_gptq", "qmm_si_gptq")
@@ -169,12 +175,13 @@ KSPLIT = ("qmm_f_ks", "qmm_s_ks", "qmm_b_ks", "qmm_sb_ks", "qmm_r_ks", "qmm_rb_k
 KSPLIT_KINDS = ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/32", "GPTQ4/64", "GPTQ4/128", "Q4_1", "Q4_0")
 R8 = ("qmm_r8", "qmm_rb8")
 R8_LEGACY = ("qmm_r8_legacy", "qmm_rb8_legacy")
+QX8 = ("qmm_qx8", "qmm_qx8_legacy")
 # each Q4_K kernel once, each grid kernel on both int8-grid layouts, each
 # GPTQ kernel at its three groups and on Q4_1, each Q4_0 kernel once, each
 # legacy-grid kernel on the three legacy grids (s and sb where there are
 # mins to fold: Q5_1), each group-16 kernel on Q2_K and Q3_K
 CASES = [(name, "Q4_K") for name in sorted(TOL)
-         if name not in GRID + GPTQ + Q4_0 + LEGACY_GRID + K16 + KSPLIT + R8 + R8_LEGACY] + [
+         if name not in GRID + GPTQ + Q4_0 + LEGACY_GRID + K16 + KSPLIT + R8 + R8_LEGACY + QX8] + [
     (name, kind) for name in GRID for kind in ("Q6_K", "Q5_K")
 ] + [(name, f"GPTQ4/{g}") for name in GPTQ for g in K.GPTQ_GROUPS] + [
     (name, "Q4_1") for name in GPTQ
@@ -184,7 +191,9 @@ CASES = [(name, "Q4_K") for name in sorted(TOL)
 ] + [(name, kind) for name in K16 for kind in ("Q2_K", "Q3_K")] + [
     (name, "ks:" + kind) for name in KSPLIT for kind in KSPLIT_KINDS
 ] + [(name, kind) for name in R8 for kind in ("Q6_K", "Q5_K")] + [
-    (name, kind) for name in R8_LEGACY for kind in ("Q8_0", "Q5_0", "Q5_1")]
+    (name, kind) for name in R8_LEGACY for kind in ("Q8_0", "Q5_0", "Q5_1")] + [
+    ("qmm_qx8", kind) for kind in ("Q6_K", "Q5_K")] + [
+    ("qmm_qx8_legacy", kind) for kind in ("Q8_0", "Q5_0", "Q5_1")]
 
 
 @pytest.mark.parametrize("name,kind", CASES)
@@ -220,6 +229,42 @@ def test_legacy_kernel_matches_plain_at_7b_shapes(dev, name, kind, k, n):
     torch.cuda.synchronize()
     assert _rel(got, K.PLAIN[name](*args, qt)) <= TOL[name]
     assert torch.equal(got, K.KERNELS[name](*args, qt))
+
+
+@pytest.mark.parametrize("name,kind,k,n", [
+    ("qmm_qx8", "Q6_K", 4096, 4096), ("qmm_qx8", "Q6_K", 11264, 4096),
+    ("qmm_qx8", "Q6_K", 4096, 32000), ("qmm_qx8", "Q5_K", 4096, 4096),
+    ("qmm_qx8_legacy", "Q8_0", 4096, 4096), ("qmm_qx8_legacy", "Q8_0", 11264, 4096),
+    ("qmm_qx8_legacy", "Q5_1", 4096, 4096)])
+@pytest.mark.parametrize("m", [1, 8])
+def test_qx8_matches_plain_and_q8_at_7b_shapes(dev, name, kind, k, n, m):
+    """The int8-grid kernels that quantize x inside against plain_qx8 at
+    llama-2-7B shapes (the down shape's x at m = 8 is larger than a block's
+    shared memory: it is quantized chunk by chunk), and against q8 on the
+    activations quantize_activations makes outside: the same integer dots
+    and roundings, so equal up to the order of f32 sums."""
+    qt = (random_legacy if kind in LEGACY else random_grid)(kind, k, n, k + n, dev)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    got = K.KERNELS[name](x, qt)
+    torch.cuda.synchronize()
+    assert _rel(got, K.PLAIN[name](x, qt)) <= TOL[name]
+    q8 = K.KERNELS[name.replace("qx8", "q8")](*K.quantize_activations(x, qt.group), qt)
+    assert _rel(got, q8) <= TOL[name]
+    assert torch.equal(got, K.KERNELS[name](x, qt))
+
+
+def test_qx8_symbols_refuse_a_layout_they_do_not_take(dev):
+    """ct_qmm_qx8 takes group 16 without mins or 32 with them, and the
+    legacy symbol a has-mins flag that agrees with the min plane."""
+    q6k = random_grid("Q6_K", 256, 128, 1, dev)
+    x = torch.randn(1, 256, device=dev)
+    out = torch.empty(1, 128, device=dev)
+    fn = K._fn("qmm_grid", "ct_qmm_qx8")
+    assert fn(*K._ptrs(x, q6k.qs, q6k.scales, q6k.mins, q6k.sd, q6k.sm, out), 1, 256, 128, 32,
+              K._stream(dev)) != 0
+    q51 = random_legacy("Q5_1", 256, 128, 2, dev)
+    fn = K._fn("qmm_grid", "ct_qmm_qx8_legacy")
+    assert fn(*K._ptrs(x, q51.qs, q51.scales, None, out), 1, 256, 128, 1, K._stream(dev)) != 0
 
 
 def test_legacy_symbols_refuse_a_mins_flag_that_disagrees(dev):
@@ -600,3 +645,124 @@ def test_decode_attn_raises_on_a_launch_error(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         A.decode_attention(q, k, v, 0, n_past)
     assert A.LAUNCHES["decode_attn"] == launches
+
+
+# -- the fused decode loop -------------------------------------------------------
+
+
+TINY = dict(n_vocab=512, n_ctx=128, n_embd=256, n_ff=512, n_layer=2)
+
+
+@pytest.fixture(scope="module")
+def tiny_q4km(dev, tmp_path_factory):
+    """A tiny Q4_K_M llama (Q6_K v, down and output) written from a seed."""
+    from ctransformers_tpu_torch.models.synthetic import write_llama_gguf
+
+    path = str(tmp_path_factory.mktemp("fused") / "tiny_q4km.gguf")
+    write_llama_gguf(path, mix="Q4_K_M", seed=1, **TINY)
+    return path
+
+
+def _eager_greedy(llm, prompt: str, n: int, every: int):
+    """The eval/argmax loop from an empty context: n tokens and the logits
+    after every `every` tokens."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        llm.reset()
+    llm.eval(llm.tokenize(prompt))
+    toks, logits = [], {}
+    for i in range(n):
+        toks.append(int(np.argmax(llm.logits)))
+        llm.eval([toks[-1]])
+        if (i + 1) % every == 0:
+            logits[i + 1] = llm.logits.copy()
+    return toks, logits
+
+
+def _fused_greedy(llm, prompt: str, n: int, chunk: int):
+    """generate_fast greedy in segments of `chunk`: its tokens and the logits
+    after each segment."""
+    eng = llm._engine
+    seen = {}
+    decode = eng.decode
+
+    def recording(*args, **kw):
+        out = decode(*args, **kw)
+        seen[eng.n_past] = eng.logits.copy()
+        return out
+
+    eng.decode = recording
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            llm.reset()
+        ids = llm.tokenize(prompt)
+        llm.generate_fast(prompt, max_new_tokens=n, temperature=0.0, repetition_penalty=1.0,
+                          chunk=chunk)
+    finally:
+        del eng.decode
+    return llm._context[len(ids):], {k - len(ids): v for k, v in seen.items()}
+
+
+@pytest.mark.parametrize("kv_dtype,layout", [("f32", "sm"), ("bf16", "sm"), ("int8", "hm")])
+def test_graph_decode_equals_the_eager_loop(dev, tiny_q4km, kv_dtype, layout, monkeypatch):
+    """Greedy generate_fast replays one captured step per token: its tokens
+    equal the eager loop's and the logits at each segment's end are bitwise
+    the eager ones; a second call replays the same graph (no capture), and
+    the replays launched what the capture recorded, once per token."""
+    import ctransformers_tpu_torch as T
+
+    monkeypatch.setenv("CT_QMM_AUTOTUNE", "0")
+    monkeypatch.setenv("CT_KV_LAYOUT", layout)
+    llm = T.AutoModelForCausalLM.from_pretrained(tiny_q4km, kv_dtype=kv_dtype)
+    want, want_logits = _eager_greedy(llm, "the big cat", 24, 8)
+    eng = llm._engine
+    got, got_logits = _fused_greedy(llm, "the big cat", 24, 8)
+    assert eng.n_compile == 1 and eng.timings()["t_compile_ms"] > 0
+    assert got == want[:len(got)] and (len(got) == 24 or llm.is_eos_token(want[len(got)]))
+    assert got_logits and all(np.array_equal(got_logits[c], want_logits[c]) for c in got_logits)
+    again, _ = _fused_greedy(llm, "the big cat", 24, 8)
+    assert again == got and eng.n_compile == 1
+    stats = eng.graph_launches()
+    (graph,) = eng._graphs.values()
+    assert graph.replays == 2 * max(got_logits)  # every decoded token, a dropped tail too
+    assert stats["recorded"]["decode_attn"] == TINY["n_layer"]
+    assert stats["replayed"]["decode_attn"] == TINY["n_layer"] * graph.replays
+
+
+def test_a_changed_key_setting_captures_again(dev, tiny_q4km, tmp_path, monkeypatch):
+    """A setting the step reads at capture (pick_mode's environment) is in
+    the graph key: changing it captures a new graph, which computes the
+    same tokens; the sampler settings are in the key too."""
+    import ctransformers_tpu_torch as T
+
+    monkeypatch.setenv("CT_QMM_AUTOTUNE", "0")
+    llm = T.AutoModelForCausalLM.from_pretrained(tiny_q4km)
+    eng = llm._engine
+    first = llm.generate_fast("hello", max_new_tokens=8, temperature=0.0, chunk=8)
+    assert eng.n_compile == 1
+    monkeypatch.setenv("CT_QMM_AUTOTUNE", "precompiled")
+    monkeypatch.setenv("CT_QMM_TILE_CACHE", str(tmp_path / "empty.json"))
+    assert llm.generate_fast("hello", max_new_tokens=8, temperature=0.0, chunk=8) == first
+    assert eng.n_compile == 2
+    a = llm.generate_fast("hello", max_new_tokens=8, seed=3, top_k=20, chunk=8)
+    assert eng.n_compile == 3
+    assert llm.generate_fast("hello", max_new_tokens=8, seed=3, top_k=20, chunk=8) == a
+    assert eng.n_compile == 3
+
+
+def test_a_capture_raises_on_an_unsettled_key(dev, tmp_path, monkeypatch):
+    """A key the tables do not hold would race; inside a capture pick_mode
+    raises instead of baking the fixed rule's kernel into the graph."""
+    monkeypatch.setenv("CT_QMM_AUTOTUNE", "1")
+    monkeypatch.setenv("CT_QMM_TILE_CACHE", str(tmp_path / "empty.json"))
+    monkeypatch.delenv("CT_QMATMUL", raising=False)
+    qt = random_q4k(256, 384, seed=9, device=dev)
+    x = torch.randn(1, 256, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="not settled"):
+        with torch.cuda.graph(graph):
+            qmatmul(x, qt)
+    assert 1 not in qt.picks
+    qmatmul(x, qt)  # outside a capture the key races and settles
+    assert 1 in qt.picks

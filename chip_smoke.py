@@ -26,6 +26,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                2000, head-major at 2000, GQA (32 heads over 8), ALiBi, and
                4 slots at n_past (5, 300, 1000, 2000); times beside the
                bound and scaled_dot_product_attention as the yardstick
+     probes    the probe kernels (ops/probes.py: csrc/probe_{dot,nibble,
+               stream}.cu, the ports of scripts/probe_*.py): every probe of
+               scripts/torch_probe_*.py (torch_probe_q5b.py is
+               torch_probe_q5.py's timing part: run once) held against its plain
+               version at the JAX scripts' shapes (llama-7B tiles), then the
+               scripts' timed runs, the probe path of this phase, with the
+               probe counts set to 0 before and read after: each row's ms,
+               bound, plain and library ms and launches
      race      per layout and 7B shape at m = 1, 8 and 128 the race of
                ops/qmatmul.py: every candidate's ms (the dense candidate
                included), the winner and the best hand-written kernel;
@@ -742,6 +750,61 @@ def phase_attention(A) -> list:
         del k, v, ks, vs
         torch.cuda.empty_cache()
     return rows
+
+
+# the probe scripts (scripts/torch_probe_<name>.py) and the PERF.md row of
+# each: torch_probe_q5.py's SWAR planes and int16 dots are row 14c, its
+# grouped dots row 14g (torch_probe_q5b.py is its timing part alone, the
+# same probes: left out here so that no probe is counted twice)
+PROBE_ROWS = {"int8_dot": "14a", "bf16_dot": "14b", "int4": "14d", "mmvq": "14e", "q3": "14f",
+              "q5": "14g", "dma": "14h"}
+
+
+def probe_row(script: str, label: str) -> str:
+    return "14c" if script == "q5" and label.startswith(("swar", "int16")) else PROBE_ROWS[script]
+
+
+def phase_probes(PR) -> tuple:
+    """The probes phase: each script's probes held against their plain
+    versions at the JAX scripts' shapes (those launches do not count), then
+    the scripts' timed runs with the probe counts set to 0 just before and
+    read just after: the probe path. Fails on a kernel that disagrees or
+    was never launched. Returns (held rows, timed rows, launches by symbol)."""
+    import importlib.util
+
+    mods = {}
+    for name in PROBE_ROWS:
+        path = os.path.join(HERE, "scripts", f"torch_probe_{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_probe_{name}", path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    held, timed = [], []
+    for name, mod in mods.items():
+        r = PR.Runner("cuda", check=True, time=False,
+                      out=lambda line, name=name: log(f"[probes] held {name}: {line}"))
+        mod.run(r)
+        held += [dict(row, script=name) for row in r.rows]
+    PR.reset_counts()
+    for name, mod in mods.items():
+        r = PR.Runner("cuda", check=False, time=True,
+                      out=lambda line, name=name: log(f"[probes] timed {name}: {line}"))
+        mod.run(r)
+        timed += [dict(row, script=name) for row in r.rows]
+    launches = dict(PR.LAUNCHES)
+    log(f"[probes] launches over the scripts' timed runs {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise SystemExit(f"probes: kernels never launched on the probe path: {missing}")
+    for row_id in sorted(set(PROBE_ROWS.values()) | {"14c"}):
+        rows = [r for r in timed if r["symbol"] and probe_row(r["script"], r["label"]) == row_id]
+        lib = [r for r in rows if r["library_ms"] is not None]
+        log(f"[probes] row {row_id}: kernel_ms={sum(r['ms'] for r in rows):.4f} "
+            f"bound_ms={sum(r['bound_ms'] for r in rows):.4f} "
+            f"plain_ms={sum(r['plain_ms'] for r in rows):.3f} "
+            f"library_ms={sum(r['library_ms'] for r in lib):.4f} against kernel_ms="
+            f"{sum(r['ms'] for r in lib):.4f} over {len(lib)} of {len(rows)} probes "
+            f"launches={sum(r['launches'] for r in rows)}")
+    return held, timed, launches
 
 
 def phase_tiny_kv(A, tmpdir: str) -> None:
@@ -1559,6 +1622,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from ctransformers_tpu_torch.ops import attention as A
+    from ctransformers_tpu_torch.ops import probes as PR
     from ctransformers_tpu_torch.ops import qmatmul as qm
     from ctransformers_tpu_torch.ops import qmm_kernels as K
 
@@ -1586,6 +1650,9 @@ def main() -> int:
     t0 = time.perf_counter()
     attn_rows = phase_attention(A)
     lap("attention", t0)
+    t0 = time.perf_counter()
+    probe_held, probe_timed, probe_launches = phase_probes(PR)
+    lap("probes", t0)
     t0 = time.perf_counter()
     phase_tiny(K, tmpdir)
     phase_tiny_kv(A, tmpdir)
@@ -1641,6 +1708,30 @@ def main() -> int:
         > sum(r["bytes"] / PEAK_BYTES_S for r in timed) else "bytes",
         "library_ms": sum(r["library_ms"] for r in timed),
     })
+    # the probes: sums over each symbol's timed probes, the worst error over
+    # every probe it was held at, launches over the scripts' timed runs; the
+    # library ms summed over the probes that have one torch call computing
+    # their function (null where none has), beside the kernel ms over those
+    # same probes (ms_with_library) and their count (library_of)
+    for sym in PR.LAUNCHES:
+        rows = [r for r in probe_timed if r["symbol"] == sym]
+        lib = [r for r in rows if r["library_ms"] is not None]
+        kernels.append({
+            "name": sym,
+            "route": "cuda",
+            "source": PR.SOURCE_OF[sym],
+            "replaces": PR.REPLACES[sym],
+            "launches": probe_launches[sym],
+            "max_abs_err": max(r["max_abs_err"] for r in probe_held if r["symbol"] == sym),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "operations" if sum(r["ops"] / r["peak"] for r in rows)
+            > sum(r["bytes"] / PEAK_BYTES_S for r in rows) else "bytes",
+            "library_ms": sum(r["library_ms"] for r in lib) if lib else None,
+            "library_of": f"{len(lib)} of {len(rows)} probes",
+            "ms_with_library": sum(r["ms"] for r in lib),
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s; seconds by phase {seconds}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

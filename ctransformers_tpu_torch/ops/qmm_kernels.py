@@ -127,9 +127,10 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
-# every kernel source of the port; attn_decode.cu is ops/attention.py's
+# every kernel source of the port; attn_decode.cu is ops/attention.py's, the
+# probe_*.cu sources ops/probes.py's
 SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu", "qmm_rb.cu",
-           "attn_decode.cu")
+           "attn_decode.cu", "probe_dot.cu", "probe_nibble.cu", "probe_stream.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -214,9 +215,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     # ksplit symbols: group, has mins, zero point, superblock factor count)
     # and the stream; the decode attention of ops/attention.py: pointers, dtype,
     # batch, heads, kv heads, head width, window, chunk, layer, the score
-    # scale, the cache's and the scale planes' strides, the stream
+    # scale, the cache's and the scale planes' strides, the stream; the probes
+    # of ops/probes.py: pointers, their ints (and strides), the stream
     sigs = {
         "ct_decode_attn": [P] * 8 + [I] * 8 + [ctypes.c_float] + [LL] * 8 + [P],
+        "ct_probe_dot": [P] * 3 + [I] * 14 + [P],
+        "ct_probe_rescale": [P] * 3 + [I] * 3 + [P],
+        "ct_probe_nibble": [P] * 6 + [I] * 9 + [P],
+        "ct_probe_stream": [P] * 2 + [I] * 4 + [LL] * 3 + [I, P],
         "ct_qmm_qx": [P] * 7 + [I, I, I, P],
         "ct_qmm_q": [P] * 9 + [I, I, I, P],
         "ct_qmm_si": [P] * 7 + [I, I, I, P],

@@ -766,3 +766,169 @@ def test_a_capture_raises_on_an_unsettled_key(dev, tmp_path, monkeypatch):
     assert 1 not in qt.picks
     qmatmul(x, qt)  # outside a capture the key races and settles
     assert 1 in qt.picks
+
+
+# -- the probe kernels (ops/probes.py, csrc/probe_*.cu) ------------------------
+
+from ctransformers_tpu_torch.ops import probes as PR  # noqa: E402
+
+
+def _probe_close(got, ref, tol):
+    if tol == 0:
+        assert got.dtype == ref.dtype and torch.equal(got, ref), PR.max_err(got, ref)
+    else:
+        assert PR.max_err(got, ref)[1] <= tol, PR.max_err(got, ref)
+
+
+def _seeded(shape, lo, hi, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g, dtype=dtype).to(dev)
+
+
+def _randn(shape, seed, dev):
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 256), (16, 1024, 1024), (3, 64, 128)])
+def test_probe_dot_matches_plain(dev, m, k, n):
+    xi = _seeded((m, k), -128, 128, torch.int8, 1, dev)
+    wi = _seeded((k, n), -128, 128, torch.int8, 2, dev)
+    xf, wf = _randn((m, k), 3, dev), _randn((k, n), 4, dev)
+    # the FFMA dots on random-normal f32 x: f32 sums of k products in another
+    # order than the library's, ~sqrt(k) roundings of the sum's size (k 1024
+    # read 1.07e-6 of the largest output): 1e-5; on the probes' own operands
+    # (integer-valued x, test_probe_script_checks_pass_at_its_shapes) 1e-6
+    cases = [((xi, wi, "s8"), {}, 0), ((xi, wi, "s8"), dict(out_dtype=torch.float32), 0),
+             ((xf, wi, "f32"), {}, 1e-5), ((xf, wf, "f32"), {}, 1e-5),
+             ((xf.bfloat16(), wf.bfloat16(), "bf16"), {}, 1e-5), ((xf, wf, "bf16"), {}, 1e-5),
+             ((xf, wi, "bf16"), dict(floor=True), 1e-5)]
+    for args, kw, tol in cases:
+        _probe_close(PR.probe_dot(*args, **kw), PR.plain_probe_dot(*args, **kw), tol)
+    g = 32
+    xg, wg = xf.reshape(m, k // g, g).transpose(0, 1).contiguous(), wf.reshape(k // g, g, n)
+    _probe_close(PR.probe_dot(xg, wg, "f32"), PR.plain_probe_dot(xg, wg, "f32"), 1e-5)
+    a = _seeded((m, k), -32768, 32768, torch.int16, 5, dev)
+    for b in (_seeded((k, n), -128, 128, torch.int8, 6, dev),
+              _seeded((k, n), -255 if k <= 256 else -63, 64 if k > 256 else 256, torch.int16, 7, dev)):
+        _probe_close(PR.probe_dot(a, b, "s16"), PR.plain_probe_dot(a, b, "s16"), 0)
+    parts, s = _randn((k // g, m, n), 8, dev), _randn((k // g, n), 9, dev)
+    _probe_close(PR.probe_rescale(parts, s), PR.plain_probe_rescale(parts, s), 1e-6)
+
+
+@pytest.mark.parametrize("variant", ["B", "D", "E", "C"])
+def test_probe_dot_bf16_steps_match_plain(dev, variant):
+    tk = 1024
+    x, w = _randn((8, 2 * tk), 10, dev), _randn((tk, 1024), 11, dev)
+    kw = {"B": dict(steps=2, k_step=tk // 2, x_step=tk // 2, w_step=tk // 2),
+          "D": dict(steps=2, k_step=tk, x_step=tk, w_step=tk),
+          "E": dict(steps=2, k_step=tk, x_step=tk, twice=True),
+          "C": dict(k_step=tk, floor=True)}[variant]
+    if variant == "D":
+        w = torch.cat([w, w])
+    _probe_close(PR.probe_dot(x, w, "bf16", **kw), PR.plain_probe_dot(x, w, "bf16", **kw), 1e-5)
+
+
+NIBBLE_CASES = [("i4", "planes", None), ("swar", "planes", None), ("i4", "colsum", None),
+                ("i4", "gcolsum", None), ("i4", "dot_bf16", "bf16"), ("floor", "dot_bf16", "bf16"),
+                ("i4", "dot_s8", "nat"), ("i4", "gdot_s8", "grp")]
+
+
+@pytest.mark.parametrize("unpack,consumer,act", NIBBLE_CASES)
+@pytest.mark.parametrize("m,k,n", [(8, 512, 256), (1, 4096, 1024), (5, 1024, 128)])
+def test_probe_nibble_matches_plain(dev, unpack, consumer, act, m, k, n):
+    qs = _seeded((k // 2, n), -128, 128, torch.int8, 12, dev)
+    x = None
+    if act == "bf16":
+        x = _randn((m, k), 13, dev).bfloat16()
+    elif act:
+        x = _seeded((m, k), -127, 128, torch.int8, 14, dev)
+        x = PR.group_x(x) if act == "grp" else x
+    tol = 1e-5 if consumer == "dot_bf16" else 0
+    _probe_close(PR.probe_nibble(qs, unpack, consumer, x),
+                 PR.plain_probe_nibble(qs, unpack, consumer, x), tol)
+
+
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("stage", ["full", "nodot", "norescale", "nocast"])
+def test_probe_nibble_stages_match_plain(dev, m, stage):
+    k, n = 4096, 2048
+    qt, sp = PR.q4k_weight(k, n, 0, "cuda")
+    xg, sx = PR.quant_q3(_randn((m, k), 15, dev))
+    w, unpack = (PR.unpack_s8_grid(qt.qs), "s8") if stage == "nocast" else (qt.qs, "i4")
+    kst = "full" if stage == "nocast" else stage
+    kw = dict(sx=None if stage == "norescale" else sx, s=None if stage == "norescale" else sp,
+              stage=kst)
+    x = None if stage == "nodot" else xg
+    _probe_close(PR.probe_nibble(w, unpack, "gdot", x, **kw),
+                 PR.plain_probe_nibble(w, unpack, "gdot", x, **kw), 0 if stage == "norescale" else 1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 8, 128])
+def test_probe_qp_forms_equal_the_q_form_bitwise(dev, m):
+    k, n = 4096, 11264
+    qt, sp = PR.q4k_weight(k, n, 0, "cuda")
+    xg, xe, xo, xp, sx, sx16 = PR.quant_q5(_randn((m, k), 16, dev) * 0.5)
+    q = PR.probe_nibble(qt.qs, "i4", "gdot", xg, sx=sx, s=sp)
+    _probe_close(q, PR.plain_probe_nibble(qt.qs, "i4", "gdot", xg, sx=sx, s=sp), 1e-6)
+    for form, x, xb in (("A", xe, xo), ("B", xp, None), ("C", xp, None)):
+        got = PR.probe_nibble(qt.qs, "swar", "gdot", x, xb, sx=sx16, s=sp, form=form)
+        _probe_close(got, q, 0)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_probe_full_stage_is_qmm_q_q4_0(dev, m):
+    """The i4 / full instantiation computes what ct_qmm_q_q4_0 does on the
+    same operands (the Q4_K nibbles with the f32 scale plane, no bias)."""
+    k, n = 4096, 11264
+    qt, sp = PR.q4k_weight(k, n, 0, "cuda")
+    xg, sx = PR.quant_q3(_randn((m, k), 17, dev))
+    full = PR.probe_nibble(qt.qs, "i4", "gdot", xg, sx=sx, s=sp)
+    q40 = QTensor(qt.qs, sp, None, "Q4_0", 32, qt.shape, packed=True, zp=8, sfactor=0,
+                  pack_layout="adjk")
+    xq = xg.transpose(0, 1).reshape(m, k).contiguous()
+    ref = K.qmm_q_q4_0(xq, sx.T.contiguous(), sx.T.contiguous(), q40)
+    _probe_close(full, ref, 1e-6)
+
+
+@pytest.mark.parametrize("layout,shape,tile", [
+    ("strided", (4096, 22528), (2048, 1024)), ("strided", (4096, 22528), (512, 1024)),
+    ("full", (4096, 22528), (256, None)), ("tiled3d", (22, 4096, 1024), (2048, 1024)),
+    ("strided", (64, 512), (32, 256))])
+@pytest.mark.parametrize("bands", [1, 6])
+def test_probe_stream_matches_plain(dev, layout, shape, tile, bands):
+    a = _seeded(shape, 0, 256, torch.uint8, 18, dev)
+    t = PR.stream_tiling(layout, shape, tile)
+    got = PR.probe_stream(a, t, bands)
+    ref = PR.plain_probe_stream(a, t, bands)
+    assert got.dtype == torch.int32 and torch.equal(got.double(), ref)
+
+
+def test_probe_wrappers_raise_on_refused_arguments(dev):
+    qs = torch.zeros((16, 40), dtype=torch.int8, device=dev)  # N not a multiple of 32
+    with pytest.raises(RuntimeError, match="probe_nibble"):
+        PR.probe_nibble(qs, "i4", "colsum")
+    with pytest.raises(RuntimeError, match="probe_dot"):  # N not a multiple of 64
+        PR.probe_dot(torch.zeros((8, 16), dtype=torch.int8, device=dev),
+                     torch.zeros((16, 32), dtype=torch.int8, device=dev), "s8")
+    with pytest.raises(ValueError, match="CUDA only"):
+        PR.probe_dot(torch.zeros((8, 16), dtype=torch.int8, device=dev),
+                     torch.zeros((16, 64), dtype=torch.int8), "s8")
+
+
+@pytest.mark.parametrize("script", ["int8_dot", "bf16_dot", "int4", "mmvq", "q3", "q5", "q5b", "dma"])
+def test_probe_script_checks_pass_at_its_shapes(dev, script):
+    """Each scripts/torch_probe_*.py holds its kernels against their plain
+    versions at the JAX script's own shapes (no timing)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "scripts", f"torch_probe_{script}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_probe_{script}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lines = []
+    before = dict(PR.LAUNCHES)
+    mod.run(PR.Runner("cuda", check=True, time=False, out=lines.append))
+    assert lines and not [ln for ln in lines if "FAIL" in ln]
+    assert sum(PR.LAUNCHES.values()) > sum(before.values())

@@ -19,7 +19,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                every other candidate of those keys at m = 1, 8 and 128 is
                held against its plain version too, so that whatever a
                table sends to a main path was held at that shape and m
-               (phase 5 fails on a launch that was not);
+               (phase 5 fails on a launch that was not); the two symbols of
+               the Hopper GEMM core (csrc/qmm_wgmma.cuh: qmm_b on the Q6_K
+               and Q5_K grids, qmm_sb_legacy on Q5_1 and on Q8_0 without
+               mins) held at m = 33, 64, 256 and 2048 as well, and every
+               call of theirs checked bitwise against a second call;
      attention the decode attention kernel (csrc/attn_decode.cu) against its
                plain version at llama-2-7B heads (32 of width 128, n_ctx
                2048): f32, bf16, IEEE f16 and int8 caches at n_past 200 and
@@ -52,15 +56,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                equal the eager loop's tokens and bitwise logits; every
                kernel call held against its plain version; a tiny Q4_K_M
                llama with bf16 and int8 KV
-               caches and head-major caches (CT_KV_LAYOUT=hm) on both, every
-               decode attention call held against its plain version
+               caches and head-major caches (CT_KV_LAYOUT=hm) on both, and
+               tiny llamas of head width 80 with 16 query heads over one kv
+               head and of width 48, every decode attention call held
+               against its plain version
   5. main      llama-2-7B-width checkpoints (random weights from a seed)
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
                decode, each with its launch counts (dense calls included)
-               asserted against the table's choices: the Q4_K_M file, a
+               asserted against the table's choices: the Q4_K_M file at
+               full depth (with the device time of one 128-token chunk), a
                GPTQ 4-bit directory (group 128) and the Q4_K_M file packed
-               ksplit at full depth and Q2_K, Q3_K_M, Q4_0 and Q8_0 files
+               ksplit at 16 layers and Q2_K, Q3_K_M, Q4_0 and Q8_0 files
                at 8 layers, loaded cold (an
                empty table: the load races) and again warm, served under
                the fixed rule and under the raced table in turns; a Q5_K_M
@@ -209,6 +216,14 @@ KERNEL_CASES = [
     ("ks:Q4_0", "qkv", []), ("ks:Q4_0", "gate_up", []), ("ks:Q2_K", "gate_up", []),
     ("ks:Q3_K", "gate_up", []),
 ]
+# the symbols of the Hopper GEMM core (csrc/qmm_wgmma.cuh), held at every
+# instantiation at CORE_HELD_M beside phase 3's timed m = 128 on these
+# cases (Q6_K's and Q5_K's grids for qmm_b; Q5_1 with mins and Q8_0 without
+# for qmm_sb_legacy), each call checked bitwise against a second one
+CORE_KERNELS = ("qmm_b", "qmm_sb_legacy")
+CORE_HELD_M = (33, 64, 256, 2048)
+CORE_HELD_CASES = {("Q6_K", "v"), ("Q6_K", "down"), ("Q5_K", "o"), ("Q5_K", "down"),
+                   ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o")}
 # (kernel, table key) held against its plain version in phase 3
 HELD = set()
 # the batch sizes raced per case (the sizes the main path's prompt and decode run)
@@ -273,12 +288,14 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
 # and serves generate_fast too (serve_fast), so that qmm_qx8 and its legacy
 # form run inside captured decode graphs. Q2_K is cut from 32 to 8 layers
 # to make room for the fused decode (serve_fast) of the 32-layer Q4_K_M file
-# and the two qx paths.
+# and the two qx paths; GPTQ4 g128 and the ksplit Q4_K_M from 32 to 16 to
+# make room for the tiny head-shape llamas of phase 4 and the GEMM core's
+# rows of phase 3.
 MAIN_PATHS = [
     ("Q4_K_M", "Q4_K_M", 32, "race"),
     ("Q5_K_M", "Q5_K_M", 4, "kernels"),
     ("Q4_K", None, 8, "kernels"),
-    ("GPTQ4-g128", ("gptq", 128, False), 32, "race"),
+    ("GPTQ4-g128", ("gptq", 128, False), 16, "race"),
     ("GPTQ4-g128-actorder", ("gptq", 128, True), 4, "kernels"),
     ("Q4_K_M-new", "Q4_K_M", 2, "new"),
     ("Q5_K_M-new", "Q5_K_M", 2, "new"),
@@ -296,7 +313,7 @@ MAIN_PATHS = [
     ("Q3_K_L", "Q3_K_L", 4, "kernels"),
     ("Q2_K-new", "Q2_K", 2, "new"),
     ("Q3_K_M-new", "Q3_K_M", 2, "new"),
-    ("Q4_K_M-ksplit", "Q4_K_M", 32, "race"),
+    ("Q4_K_M-ksplit", "Q4_K_M", 16, "race"),
     ("GPTQ4-g128-ksplit", ("gptq", 128, False), 4, "kernels"),
     ("Q4_0-ksplit", "Q4_0", 4, "kernels"),
     ("Q2_K-ksplit", "Q2_K", 4, "kernels"),
@@ -382,6 +399,16 @@ ATTN_HEADS, ATTN_DH, ATTN_CTX = 32, 128, 2048
 ATTN_TOL = {"f32": 1e-5, "bf16": 1e-4, "ieee_f16": 1e-4, "int8": 1e-4}
 # tiny Q4_K_M llama served with these (kv_dtype, CT_KV_LAYOUT) on both devices
 TINY_KV = (("bf16", "sm"), ("int8", "sm"), ("f32", "hm"), ("bf16", "hm"), ("int8", "hm"))
+# tiny Q4_K_M llamas of the head shapes the decode attention kernel takes past
+# its first widths (64, 128, 256) and 8 heads a kv head: (label, n_embd,
+# n_head, n_head_kv, first seed), served with TINY_HEADS_KV: width 80 with
+# 16 query heads over one kv head, width 48 with 4 query heads over each of
+# 4 kv
+# heads over 4; each with the first seed tried (the first without a greedy
+# near-tie on a CPU with any of its caches, so that the search seldom writes
+# a model twice)
+TINY_HEADS = (("dh80-gqa16", 1280, 16, 1, 29), ("dh48", 768, 16, 4, 59))
+TINY_HEADS_KV = (("f32", "sm"), ("bf16", "hm"), ("int8", "sm"))
 # the long-context decode of the 32-layer Q4_K_M file: the prompt as 15
 # chunks of 128 tokens (the chunk size phase 3 holds the kernels at), then
 # decode steps at window 2048
@@ -619,7 +646,10 @@ def phase_kernels(K, copy_bw: float):
             others += [(K.kernel_name("r" if m <= 32 else "rb", base), m) for m in RACE_M]
         if not base.packed:  # and where one of qx_mode_entries sends the grids
             others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
-        others = [r for r in others if r not in runs]
+        if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
+            core = K.kernel_name("b" if base.sfactor else "sb", base)
+            others += [(core, m) for m in CORE_HELD_M]
+        others = [r for r in dict.fromkeys(others) if r not in runs]
         for j, (name, m) in enumerate(runs + others):
             timed = j < len(runs)
             x = torch.zeros((m, kp), device="cuda")
@@ -632,6 +662,11 @@ def phase_kernels(K, copy_bw: float):
             err = (torch.linalg.norm(got - ref) / torch.linalg.norm(ref)).item()
             max_abs = (got - ref).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and err <= TOL[name]
+            repeat = ""
+            if name in CORE_KERNELS:  # one writer per output, sums in a fixed order
+                same = torch.equal(got, kern(*args, base))
+                ok = ok and same
+                repeat = " second call bitwise " + ("equal" if same else "DIFFERENT")
             ms = cuda_time_ms(lambda i: kern(*args, copies[i % len(copies)]), 50, graph=True)
             plain_ms = lib_ms = float("nan")
             if timed:
@@ -661,10 +696,11 @@ def phase_kernels(K, copy_bw: float):
             log(f"[kernels] {name:11s} {kind:9s} {sname:8s} K={k:5d} N={n:5d} m={m:3d} "
                 f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f}{q8} "
+                f"bound_copy_ms={bound_copy_ms:.4f} GB/s={nbytes / ms / 1e6:.0f}{q8}{repeat} "
                 f"{'ok' if ok else 'FAIL'}{'' if timed else ' (held only)'}")
             if not ok:
-                raise SystemExit(f"{name} on {kind} at {sname} m={m}: rel err {err:.3e} > {TOL[name]}")
+                raise SystemExit(f"{name} on {kind} at {sname} m={m}: rel err {err:.3e} (tolerance "
+                                 f"{TOL[name]}){repeat}")
             HELD.add((name, qm.cache_key(m, base)))
         for m in RACE_M:
             res = qm.race(m, base, copies)
@@ -808,17 +844,30 @@ def phase_probes(PR) -> tuple:
 
 
 def phase_tiny_kv(A, tmpdir: str) -> None:
-    """A tiny Q4_K_M llama with the caches of TINY_KV on the card and on the
-    CPU, both under the fixed rule (the same matmul functions): equal greedy
+    """A tiny Q4_K_M llama with the caches of TINY_KV, and the tiny llamas
+    of TINY_HEADS with those of TINY_HEADS_KV, on the card and on the CPU,
+    both under the fixed rule (the same matmul functions): equal greedy
     tokens, logits within the wiring class (5%), and every decode attention
     call of the card held against its plain version on the same operands."""
+    for label, n_embd, n_head, n_head_kv, first in TINY_HEADS:
+        tiny_kv_model(A, tmpdir, label, dict(TINY, n_embd=n_embd, n_head=n_head,
+                                             n_head_kv=n_head_kv), TINY_HEADS_KV, first)
+    tiny_kv_model(A, tmpdir, "Q4_K_M", TINY, TINY_KV)
+
+
+def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1) -> None:
+    """phase_tiny_kv for one tiny Q4_K_M llama of config `cfg`."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
     from ctransformers_tpu_torch.models import forward as F
 
-    path = model_path(tmpdir, "tiny_kv_Q4_K_M", "Q4_K_M")
-    seed = pick_tiny_seed(path, "Q4_K_M", "Q4_K_M")
+    path = model_path(tmpdir, f"tiny_kv_{label}", "Q4_K_M")
+    # the head-shape models keep their margins with every cache they serve
+    kv_dtypes = (None,) if label == "Q4_K_M" else tuple(dict.fromkeys(d for d, _ in caches))
+    seed = pick_tiny_seed(path, label, "Q4_K_M", cfg=cfg, first=first, kv_dtypes=kv_dtypes,
+                          max_seed=max(32, first + 32))
     kernel = F.decode_attention
     worst, calls = 0.0, 0
+    launches = A.LAUNCHES["decode_attn"]
 
     def checked(*args, **kw):
         nonlocal worst, calls
@@ -828,7 +877,7 @@ def phase_tiny_kv(A, tmpdir: str) -> None:
         calls += 1
         return out
 
-    for kv_dtype, layout in TINY_KV:
+    for kv_dtype, layout in caches:
         with env(CT_KV_LAYOUT=layout, CT_QMM_AUTOTUNE="0"):
             gpu = AutoModelForCausalLM.from_pretrained(path, kv_dtype=kv_dtype)
             cpu = AutoModelForCausalLM.from_pretrained(path, kv_dtype=kv_dtype, device="cpu")
@@ -842,16 +891,20 @@ def phase_tiny_kv(A, tmpdir: str) -> None:
                 F.decode_attention = kernel
             want = greedy_margins(cpu)
         rel = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(got[1], want[1]))
-        log(f"[tiny] Q4_K_M seed {seed} kv_dtype {kv_dtype} CT_KV_LAYOUT={layout}: card vs CPU "
-            f"logits rel err (worst of {TINY_STEPS} steps) {rel:.3e}; greedy card {got[0]} "
-            f"cpu {want[0]}")
+        spec = gpu._bundle.spec
+        log(f"[tiny] {label} ({spec.n_head} heads over {spec.n_head_kv}, width "
+            f"{spec.n_embd // spec.n_head}) seed {seed} kv_dtype {kv_dtype} "
+            f"CT_KV_LAYOUT={layout}: card vs CPU logits rel err (worst of {TINY_STEPS} steps) "
+            f"{rel:.3e}; greedy card {got[0]} cpu {want[0]}")
         if rel > 0.05 or got[0] != want[0] or not all(np.isfinite(a).all() for a in got[1]):
-            raise SystemExit(f"tiny kv {kv_dtype} {layout}: card and CPU disagree")
-    log(f"[tiny] decode_attn calls held against the plain version: {calls}, worst rel err "
-        f"{worst:.3e}")
+            raise SystemExit(f"tiny kv {label} {kv_dtype} {layout}: card and CPU disagree")
+    launched = A.LAUNCHES["decode_attn"] - launches
+    log(f"[tiny] {label}: decode_attn calls held against the plain version: {calls}, worst rel "
+        f"err {worst:.3e}, kernel launches {launched}")
     remove_model(path)
-    if not calls or worst > max(ATTN_TOL.values()):
-        raise SystemExit("tiny kv: decode_attn disagrees with its plain version (or never ran)")
+    if not calls or launched < calls or worst > max(ATTN_TOL.values()):
+        raise SystemExit(f"tiny kv {label}: decode_attn disagrees with its plain version (or "
+                         "never ran)")
 
 
 def empty_context(llm) -> None:
@@ -880,19 +933,28 @@ def greedy_margins(llm) -> tuple:
     return toks, logits, margins
 
 
-def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 32) -> int:
-    """The first seed from 1 whose tiny model keeps every greedy step's
-    top-2 margin on the CPU above the label's minimum (TINY_MIN_MARGIN_OF,
-    else TINY_MIN_MARGIN); writes it to `path`."""
+def pick_tiny_seed(path: str, label: str, mix, max_seed: int = 32, cfg=None,
+                   first: int = 1, kv_dtypes=(None,)) -> int:
+    """The first seed from `first` whose tiny model (TINY, or `cfg`) keeps
+    every greedy step's top-2 margin on the CPU above the label's minimum
+    (TINY_MIN_MARGIN_OF, else TINY_MIN_MARGIN), with each cache dtype of
+    `kv_dtypes` (None: the default f32; an int8 cache may take another
+    greedy path than f32); writes it to `path`."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
 
-    for seed in range(1, max_seed + 1):
+    for seed in range(first, max_seed + 1):
         remove_model(path)
-        write_model(path, mix, seed, **TINY)
-        _, _, margins = greedy_margins(AutoModelForCausalLM.from_pretrained(path, device="cpu"))
-        log(f"[tiny] {label} seed {seed}: CPU top-2 margins "
-            f"{[round(x, 4) for x in margins]}")
-        if min(margins) > TINY_MIN_MARGIN_OF.get(label, TINY_MIN_MARGIN):
+        write_model(path, mix, seed, **(cfg or TINY))
+        ok = True
+        for kv_dtype in kv_dtypes:
+            _, _, margins = greedy_margins(
+                AutoModelForCausalLM.from_pretrained(path, device="cpu", kv_dtype=kv_dtype))
+            log(f"[tiny] {label} seed {seed}{'' if kv_dtype is None else ' kv ' + kv_dtype}: "
+                f"CPU top-2 margins {[round(x, 4) for x in margins]}")
+            ok = ok and min(margins) > TINY_MIN_MARGIN_OF.get(label, TINY_MIN_MARGIN)
+            if not ok:
+                break
+        if ok:
             return seed
     raise SystemExit(f"tiny {label}: no seed up to {max_seed} without a greedy near-tie")
 
@@ -1193,6 +1255,8 @@ def serve(K, llm, ids, chunks, label: str, what: str, copy_bw: float, wbytes: in
     now = counts_now(K)
     dec_launch = {k: (now[k] - prefill_launch[k]) / n_dec for k in now}
     busy_ms, _ = profile_decode(llm, tok, dec_s, f"{label} | {what}")
+    if label == "Q4_K_M":  # the 32-layer file: device time of one 128-token chunk
+        profile_chunk(llm, ids[:128], f"{label} | {what}")
     if full:
         runs = []
         for _ in range(2):  # each from an empty context: chunks 128 + 8 + 1
@@ -1611,6 +1675,29 @@ def profile_decode(llm, tok: int, dec_s: float, label: str, steps: int = 4) -> t
     for us, count, key in rows[:8]:
         log(f"[profile {label}]   {us / 1e3:8.4f} ms/token  {count:4d} launches  {key[:90]}")
     return busy_ms, rows
+
+
+def profile_chunk(llm, ids, label: str) -> float:
+    """torch.profiler over one prompt chunk from an empty context: the
+    device's busy ms for it, and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    empty_context(llm)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            llm.eval(ids)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"[profile {label}] {len(ids)}-token chunk: device busy {busy_ms:.3f} ms")
+    for us, count, key in rows[:6]:
+        log(f"[profile {label}]   {us / 1e3:8.4f} ms  {count:4d} launches  {key[:90]}")
+    return busy_ms
 
 
 def main() -> int:

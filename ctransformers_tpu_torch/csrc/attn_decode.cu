@@ -21,17 +21,23 @@
 // Bound: bytes. A decode step reads each live K/V row of the layer once
 // (2 * n_past * Hkv * dh * sizeof(cache) per slot, plus the int8 scales)
 // and does 4 * H * dh operations a row, far below the card's ridge.
-// Design: one block per (slot, kv head) holds that kv head's rep = H / Hkv
-// query heads (a template bucket of 1, 2, 4 or 8), so each K/V row is read
-// once from device memory. A loop over the chunks takes the place of the
-// Pallas grid's sequential axis and stops after the chunk that holds
-// n_past (later chunks are fully masked and add nothing). The scores of a
-// span of chunks stay in shared memory, never in device memory. Each score
+// Design: one block per (slot, kv head, group of at most 8 of that kv
+// head's rep = H / Hkv query heads; a template bucket of 1, 2, 4 or 8), so
+// each K/V row is read from device memory once per group (once in all
+// where rep <= 8; twice for a 16-over-1 GQA). A loop over the chunks takes
+// the place of the Pallas grid's sequential axis and stops after the chunk
+// that holds n_past (later chunks are fully masked and add nothing). The
+// scores of a span of chunks stay in shared memory, never in device
+// memory. Each score
 // row is taken by kTpr lanes with 4-element vector loads, several rows in
 // flight a lane, and the rows' lane sums (shuffles) interleaved: a warp's
 // work per row is a chain of dependent steps, and with only B * Hkv blocks
 // (32 at llama-2-7B, B = 1) those chains, not the bytes, set the time. The
-// PV pass reads V rows the same way. Head widths 64, 128 and 256. Splitting
+// PV pass reads V rows the same way. A head of width dh <= 256 runs in a
+// template padded to DHP = 64, 128 or 256 lanes' worth of elements, the
+// lanes past dh loading zeros (so q . k and p . v are unchanged); rows
+// whose element offsets are not all multiples of 4 (dh % 4 != 0, or odd
+// strides) take element-wise loads in the DHP = 256 template. Splitting
 // the sequence across blocks, with a combine pass that keeps the running
 // max's rounding of p, is the next step for speed.
 
@@ -52,6 +58,8 @@ constexpr int kMaxRep = 8;           // query heads a kv head
 constexpr int kVec = 4;              // cache elements a lane loads at once
 constexpr int kScoreBudget = 64 * 1024;  // shared bytes for a span's scores
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kMaxDh = 256;          // widest head (padded width of the
+                                     // element-wise template)
 
 enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
@@ -75,6 +83,27 @@ constexpr int kRowsInFlight = sizeof(T) == 4 ? 8 : 16;
 template <typename T>
 __device__ __forceinline__ typename Raw<T>::type load_raw(const T* p) {
   return *reinterpret_cast<const typename Raw<T>::type*>(p);
+}
+
+// the kVec elements at p of which the first `valid` lie in the head (none
+// where valid <= 0), zeros past them: one vector load where the offsets are
+// multiples of kVec, else (kScalar) one load per element
+template <typename T, bool kScalar>
+__device__ __forceinline__ typename Raw<T>::type load_part(const T* p, int valid) {
+  typename Raw<T>::type r{};
+  if constexpr (!kScalar) {
+    if (valid > 0) r = load_raw(p);
+  } else {
+    using E = typename std::conditional<
+        sizeof(T) == 4, uint32_t,
+        typename std::conditional<sizeof(T) == 2, uint16_t, uint8_t>::type>::type;
+    E* e = reinterpret_cast<E*>(&r);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      if (i < valid) e[i] = reinterpret_cast<const E*>(p)[i];
+    }
+  }
+  return r;
 }
 
 template <typename T>
@@ -108,23 +137,25 @@ __device__ __forceinline__ float to_cdt(float x) {
 }
 
 struct Args {
-  const float* q;        // (B, H, DH)
+  const float* q;        // (B, H, dh)
   const void* k;         // the full stacked cache, either layout
   const void* v;
   const float* ks;       // int8 scale planes, or null
   const float* vs;
   const float* slopes;   // (H,) ALiBi slopes, or null
   const int* n_past;     // (B,)
-  float* out;            // (B, H, DH)
-  int h, hkv, win, chunk, span;  // span: chunks whose scores share memory at once
+  float* out;            // (B, H, dh)
+  int h, hkv, dh, win, chunk, span;  // span: chunks whose scores share memory at once
+  int rep, ngrp;         // query heads a kv head; groups of kMaxRep of them
   float scale;
   long long k_l, k_b, k_s, k_h;  // cache: layer il's offset, slot, position, kv head strides
   long long s_l, s_b, s_s, s_h;  // scale planes, the same
 };
 
-// kRep: the query heads a kv head serves, rounded up to 1, 2, 4 or 8 (the
-// heads past a.h / a.hkv are skipped)
-template <typename T, int DH, int kRep>
+// kRep: the query heads of a group, min(rep, 8) rounded up to 1, 2, 4 or 8
+// (the heads past the group's own are skipped); DH: the head width a.dh
+// padded to 64, 128 or 256; kScalar: element-wise loads
+template <typename T, int DH, int kRep, bool kScalar>
 __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
   // score pass: kTpr lanes a row, kNv vectors a lane, kRpw rows a warp
@@ -143,7 +174,10 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
 
   extern __shared__ float smem[];
   __shared__ float m_run[kMaxRep], l_run[kMaxRep];
-  const int rep = a.h / a.hkv;
+  // this block's kv head g and its group of rep query heads from head0
+  const int g = blockIdx.x / a.ngrp, grp = blockIdx.x % a.ngrp, b = blockIdx.y;
+  const int head0 = g * a.rep + grp * kMaxRep;
+  const int rep = min(kMaxRep, a.rep - grp * kMaxRep);
   const int span_len = a.span * a.chunk;
   float* q_s = smem;                  // rep x DH: q * scale rounded to cdt
   float* sc = q_s + rep * DH;         // rep x span_len: scores, then p * vs rounded
@@ -154,7 +188,6 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   float* psum = alpha + rep * a.span;   // rep x span: each chunk's sum of p
   float* vsc = psum + rep * a.span;     // int8: span_len V scales, loaded beside K
 
-  const int g = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long off = a.k_l + b * a.k_b + g * a.k_h;
   const T* kb = static_cast<const T*>(a.k) + off;
@@ -164,8 +197,11 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   const float* vsb = kQuant ? a.vs + soff : nullptr;
 
   for (int i = tid; i < rep * DH; i += kThreads) {
-    q_s[i] = to_cdt<T>(__fmul_rn(a.q[(static_cast<long long>(b) * a.h + g * rep) * DH + i],
-                                 a.scale));
+    const int r = i / DH, d = i % DH;
+    q_s[i] = d < a.dh
+        ? to_cdt<T>(__fmul_rn(a.q[(static_cast<long long>(b) * a.h + head0 + r) * a.dh + d],
+                              a.scale))
+        : 0.f;
   }
   if (tid < kMaxRep) {
     m_run[tid] = -INFINITY;
@@ -196,9 +232,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
         const int row = base + u * kWarps * kRpw + krow;
 #pragma unroll
         for (int n = 0; n < kNv; ++n) {
-          kr[u][n] = row < rows
-              ? load_raw(kb + static_cast<long long>(s0 + row) * a.k_s + (n * kTpr + ksub) * kVec)
-              : typename Raw<T>::type{};
+          const int e0 = (n * kTpr + ksub) * kVec;
+          kr[u][n] = load_part<T, kScalar>(kb + static_cast<long long>(s0 + row) * a.k_s + e0,
+                                           row < rows ? a.dh - e0 : 0);
         }
         if constexpr (kQuant) {
           const long long so = static_cast<long long>(s0 + row) * a.s_s;
@@ -246,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
             if (r < rep) {
               float x = part[u][r];
               if constexpr (kQuant) x = __fmul_rn(x, ksr[u]);
-              if (a.slopes) x = __fadd_rn(x, __fmul_rn(a.slopes[g * rep + r], static_cast<float>(s)));
+              if (a.slopes) x = __fadd_rn(x, __fmul_rn(a.slopes[head0 + r], static_cast<float>(s)));
               sc[r * span_len + row] = s <= np ? x : -INFINITY;
             }
           }
@@ -321,9 +357,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
 #pragma unroll
         for (int u = 0; u < kUnrollV; ++u) {
           const int row = base + u * kVrows;
-          vr[u] = row < a.chunk
-              ? load_raw(vb + static_cast<long long>(s0 + r0 + row) * a.k_s + vsub * kVec)
-              : typename Raw<T>::type{};
+          vr[u] = load_part<T, kScalar>(
+              vb + static_cast<long long>(s0 + r0 + row) * a.k_s + vsub * kVec,
+              row < a.chunk ? a.dh - vsub * kVec : 0);
         }
 #pragma unroll
         for (int u = 0; u < kUnrollV; ++u) {
@@ -352,10 +388,10 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) red[tid * kVec + e] = acc[r][e];
       __syncthreads();
-      for (int d = tid; d < DH; d += kThreads) {
+      for (int d = tid; d < a.dh; d += kThreads) {
         float s = 0.f;
         for (int gi = 0; gi < kVrows; ++gi) s += red[gi * DH + d];
-        a.out[(static_cast<long long>(b) * a.h + g * rep + r) * DH + d] =
+        a.out[(static_cast<long long>(b) * a.h + head0 + r) * a.dh + d] =
             __fdiv_rn(s, fmaxf(l_run[r], 1e-30f));
       }
       __syncthreads();
@@ -363,40 +399,39 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   }
 }
 
-template <typename T, int DH, int kRep>
+template <typename T, int DH, int kRep, bool kScalar>
 cudaError_t launch(const Args& a, int batch, size_t smem, cudaStream_t stream) {
-  auto kern = decode_attn_kernel<T, DH, kRep>;
+  auto kern = decode_attn_kernel<T, DH, kRep, kScalar>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(a.hkv, batch), kThreads, smem, stream>>>(a);
+  kern<<<dim3(a.hkv * a.ngrp, batch), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kScalar>
 cudaError_t by_rep(const Args& a, int batch, size_t smem, cudaStream_t st) {
-  const int rep = a.h / a.hkv;
-  if (rep == 1) return launch<T, DH, 1>(a, batch, smem, st);
-  if (rep == 2) return launch<T, DH, 2>(a, batch, smem, st);
-  if (rep <= 4) return launch<T, DH, 4>(a, batch, smem, st);
-  return launch<T, DH, 8>(a, batch, smem, st);
+  const int rep = std::min(a.rep, kMaxRep);
+  if (rep == 1) return launch<T, DH, 1, kScalar>(a, batch, smem, st);
+  if (rep == 2) return launch<T, DH, 2, kScalar>(a, batch, smem, st);
+  if (rep <= 4) return launch<T, DH, 4, kScalar>(a, batch, smem, st);
+  return launch<T, DH, 8, kScalar>(a, batch, smem, st);
 }
 
 template <typename T>
-cudaError_t by_head_dim(const Args& a, int dh, int batch, size_t smem, cudaStream_t st) {
-  switch (dh) {
-    case 64: return by_rep<T, 64>(a, batch, smem, st);
-    case 128: return by_rep<T, 128>(a, batch, smem, st);
-    case 256: return by_rep<T, 256>(a, batch, smem, st);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t by_head_dim(const Args& a, bool scalar, int batch, size_t smem, cudaStream_t st) {
+  if (scalar) return by_rep<T, kMaxDh, true>(a, batch, smem, st);
+  if (a.dh <= 64) return by_rep<T, 64, false>(a, batch, smem, st);
+  if (a.dh <= 128) return by_rep<T, 128, false>(a, batch, smem, st);
+  return by_rep<T, 256, false>(a, batch, smem, st);
 }
 
 }  // namespace
 
 // dtype: 0 f32, 1 bf16, 2 f16, 3 int8 (ks and vs given exactly for int8);
+// dh: any head width up to 256; h / hkv query heads a kv head, any number;
 // strides in elements of the cache's (layer, slot, position, kv head) axes
 // and of the scale planes' (zero without them). Returns a CUDA error code.
 extern "C" int ct_decode_attn(const void* q, const void* k, const void* v, const void* ks,
@@ -407,28 +442,35 @@ extern "C" int ct_decode_attn(const void* q, const void* k, const void* v, const
                               long long s_ss, long long s_sh, void* stream) {
   const bool quant = dtype == kI8;
   if ((ks != nullptr) != quant || (vs != nullptr) != quant || batch <= 0 || hkv <= 0 ||
-      h % hkv || h / hkv > kMaxRep || chunk <= 0 || win % chunk || il < 0) {
+      h % hkv || dh <= 0 || dh > kMaxDh || chunk <= 0 || win % chunk || il < 0) {
     return cudaErrorInvalidValue;
   }
   const int rep = h / hkv;
-  const long long chunk_bytes = 4LL * rep * chunk;
+  const int grp_rep = std::min(rep, kMaxRep);  // query heads of a block
+  const long long chunk_bytes = 4LL * grp_rep * chunk;
   const int span = static_cast<int>(
       std::min(static_cast<long long>(win / chunk), std::max(1LL, kScoreBudget / chunk_bytes)));
+  const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : kMaxDh;
+  // vector loads need every row's elements at multiples of kVec (the cache
+  // pointer itself is 16-byte aligned)
+  const bool scalar = dh % kVec || k_sl % kVec || k_sb % kVec || k_ss % kVec || k_sh % kVec;
   const size_t smem =
-      4 * (static_cast<size_t>(rep) * dh + static_cast<size_t>(rep) * span * chunk +
-           kThreads * kVec + 4 * static_cast<size_t>(rep) * span +
+      4 * (static_cast<size_t>(grp_rep) * (scalar ? kMaxDh : dhp) +
+           static_cast<size_t>(grp_rep) * span * chunk + kThreads * kVec +
+           4 * static_cast<size_t>(grp_rep) * span +
            (quant ? static_cast<size_t>(span) * chunk : 0));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   Args a{static_cast<const float*>(q), k, v, static_cast<const float*>(ks),
          static_cast<const float*>(vs), static_cast<const float*>(slopes),
-         static_cast<const int*>(n_past), static_cast<float*>(out), h, hkv, win, chunk, span,
-         scale, il * k_sl, k_sb, k_ss, k_sh, il * s_sl, s_sb, s_ss, s_sh};
+         static_cast<const int*>(n_past), static_cast<float*>(out), h, hkv, dh, win, chunk,
+         span, rep, (rep + kMaxRep - 1) / kMaxRep, scale, il * k_sl, k_sb, k_ss, k_sh,
+         il * s_sl, s_sb, s_ss, s_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return by_head_dim<float>(a, dh, batch, smem, st);
-    case kBF16: return by_head_dim<__nv_bfloat16>(a, dh, batch, smem, st);
-    case kF16: return by_head_dim<__half>(a, dh, batch, smem, st);
-    case kI8: return by_head_dim<int8_t>(a, dh, batch, smem, st);
+    case kF32: return by_head_dim<float>(a, scalar, batch, smem, st);
+    case kBF16: return by_head_dim<__nv_bfloat16>(a, scalar, batch, smem, st);
+    case kF16: return by_head_dim<__half>(a, scalar, batch, smem, st);
+    case kI8: return by_head_dim<int8_t>(a, scalar, batch, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -67,13 +67,16 @@
 //   sb: out = xsum @ M + bf16(x) @ bf16(q * s)
 //   Bound: at m = 128 a weight byte (1.08 B/weight) feeds ~237 operations,
 //   just under the bf16 ridge, so bytes and tensor-core operations bound it
-//   about equally; chip_smoke.py reports the larger. The GEMM (64 x 64
-//   tiles, WMMA bf16, fixed-order sums, the bias fold) is qmm_gemm.cuh's,
-//   shared with the Q4_K kernels; this file decodes the int8-grid weight
-//   tile: each of the 128 threads takes 4 rows x 4 columns of a 32-row K
-//   step (one 32-bit load per row, its group's scales once), and for "sb"
-//   the step's rows of the min plane M.
+//   about equally; chip_smoke.py reports the larger. ct_qmm_b and
+//   ct_qmm_sb_legacy run the Hopper core of qmm_wgmma.cuh (TMA ring,
+//   wgmma, K split over a cluster of 4). ct_qmm_sb and ct_qmm_b_legacy keep
+//   qmm_gemm.cuh's GEMM (64 x 64 tiles, WMMA bf16, fixed-order sums, the
+//   bias fold), shared with the Q4_K kernels, with this file's int8-grid
+//   weight tile: each of the 128 threads takes 4 rows x 4 columns of a
+//   32-row K step (one 32-bit load per row, its group's scales once), and
+//   for "sb" the step's rows of the min plane M.
 #include "qmm_gemm.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -383,6 +386,31 @@ struct GridTile {
   }
 };
 
+// ct_qmm_b on the Hopper core: Q6_K (group 16, no mins) or Q5_K (group 32,
+// mins added per weight)
+int launch_b_core(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                  const float* sd, const float* sm, float* out, int m, int kp, int np,
+                  int group, cudaStream_t stream) {
+  const ctw::Params p{sub_s, sub_m, sd, sm, out, m, kp, np};
+  if (group == 16 && sub_m == nullptr && sm == nullptr)
+    return ctw::launch_core<16, false, false, false>(x, qs, p, stream);
+  if (group == 32 && sub_m != nullptr && sm != nullptr)
+    return ctw::launch_core<32, true, false, false>(x, qs, p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ct_qmm_sb_legacy on the Hopper core: plain f32 planes at group 32, the
+// mins (Q5_1) folded through the group sums of x; without mins (Q8_0, Q5_0)
+// the product alone
+int launch_sb_legacy_core(const float* x, const int8_t* qs, const float* s, const float* mn,
+                          float* out, int m, int kp, int np, int has_mins,
+                          cudaStream_t stream) {
+  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const ctw::Params p{nullptr, nullptr, s, mn, out, m, kp, np};
+  if (has_mins) return ctw::launch_core<32, true, true, true>(x, qs, p, stream);
+  return ctw::launch_core<32, false, true, false>(x, qs, p, stream);
+}
+
 template <bool SUMFOLD>
 int launch_grid_gemm(const float* x, const int8_t* qs, const int8_t* sub_s,
                 const int8_t* sub_m, const float* sd, const float* sm,
@@ -438,8 +466,8 @@ int ct_qmm_qx8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8
 int ct_qmm_b(const float* x, const int8_t* qs, const int8_t* sub_s,
              const int8_t* sub_m, const float* sd, const float* sm,
              float* out, int m, int kp, int np, int group, void* stream) {
-  return launch_grid_gemm<false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
-                            static_cast<cudaStream_t>(stream));
+  return launch_b_core(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // mode "sb": xsum @ M + bf16(x) @ bf16(q * s)
@@ -479,8 +507,8 @@ int ct_qmm_b_legacy(const float* x, const int8_t* qs, const float* s, const floa
 // mode "sb" on a legacy int8 grid: xsum @ mn + bf16(x) @ bf16(q * s)
 int ct_qmm_sb_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
                      float* out, int m, int kp, int np, int has_mins, void* stream) {
-  return launch_legacy_gemm<true>(x, qs, s, mn, out, m, kp, np, has_mins,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_sb_legacy_core(x, qs, s, mn, out, m, kp, np, has_mins,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,0 +1,630 @@
+// The Hopper GEMM core of the int8-grid prompt GEMMs: ct_qmm_b (Q6_K and
+// Q5_K, factored scales) and ct_qmm_sb_legacy (Q5_1 with mins, Q8_0 and Q5_0
+// without; plain f32 planes), routed here by qmm_grid.cu. It replaces, for
+// those two symbols, the 64 x 64 WMMA tiles of qmm_gemm.cuh, which the
+// other prompt GEMMs keep.
+//
+// Function (the JAX package's _qmm_kernel mode "b" and _qmm_s_kernel mode
+// "sb", ctransformers_tpu/ops/qmatmul.py:734 and :1040):
+//   b:   out = bf16(x) @ bf16(q * s + m)         (m only with mins)
+//   sb:  out = xsum @ M + bf16(x) @ bf16(q * s)  (the fold only with mins)
+// with f32 accumulation; s = sd * sub_s (factored) or the f32 plane s, each
+// weight's q * s (+ m) in f32 rounded once to bf16, x rounded to nearest
+// even, xsum the f32 sums of x over each group of 32 K rows.
+//
+// Bound: at m = 128 a weight byte (about 1.08 B/weight with its scales)
+// feeds ~237 operations, just under the bf16 ridge, so the weight's bytes
+// and the tensor-core operations bound it about equally. On one H100 at
+// m = 128 the core runs at about 4x that bound, and the consumer
+// warpgroups' work per stage, not the copies, sets its time: a build that
+// issues no copy at all takes as long (PERF.md, the GEMM core's findings).
+//
+// Design. A block owns a 128-token x 128-column output tile and a third
+// of K; the three thirds of a tile are the three blocks of a thread-block
+// cluster (a K split: N = 4096 gives 96 blocks in one wave; at this shared
+// memory only 30 clusters of 4 fit on the card at once, so a split in four
+// would run its 32 clusters in two waves):
+//   * one producer warp keeps a ring of 4 stages of 64 K rows in flight with
+//     the Tensor Memory Accelerator: the f32 x tile (two 128-byte-swizzled
+//     boxes of 32 columns, rows past m filled with zeros), the int8 weight
+//     tile (64 x 128 bytes) and the stage's scale rows (bulk copies), each
+//     stage completing one mbarrier; 32 KB of weight in flight per SM;
+//   * two consumer warpgroups (tokens 0-63 and 64-127) dequantize the
+//     stage's weight tile once for both: each thread takes 8 K rows x 4
+//     columns (one 32-bit load per row, its group's scales once), rounds
+//     q * s (+ m) to bf16 and writes it into a tile of 3 in a 128-byte
+//     swizzled, N-major layout that wgmma reads as its B operand;
+//   * each warpgroup rounds its 64 x 64 x tile to bf16 straight into the
+//     register fragments of wgmma's A operand, one 16-byte load per row and
+//     step (x goes through no shared bf16 copy; the rounding happens once
+//     per block, in the core; the fragment's K slots and rows are permuted
+//     so that those loads are free of bank conflicts), then issues
+//     wgmma.mma_async m64n128k16 (bf16 in, f32 accumulators) over the
+//     stage, keeping one stage's products in flight while it dequantizes
+//     the next (the sum-fold form waits for each stage, then adds its
+//     xsum @ M in f32 FFMA to the accumulators);
+//   * at the end each block stores its partial tile in shared memory; after
+//     a cluster barrier block r adds the three blocks' partial sums of its
+//     third of the rows in rank order through distributed shared memory and
+//     alone writes them.
+// Every output is written once, by one thread, after sums in a fixed
+// order: runs are bitwise repeatable. Any m runs: rows past m are zeros in
+// the x tile and never written; m > 128 takes more blocks along m, each
+// dequantizing the weight again.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "qmm_common.cuh"
+
+namespace ctw {
+
+constexpr int kBM = 128;           // token rows of a block
+constexpr int kBN = 128;           // weight columns of a block
+constexpr int kBK = 64;            // K rows of a stage
+constexpr int kStages = 4;         // ring depth
+constexpr int kBTiles = 3;         // dequantized bf16 weight tiles
+constexpr int kSplit = 3;          // blocks of a cluster, one third of K each
+constexpr int kConsumers = 256;    // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kXBox = 32;          // f32 columns of one swizzled x box (128 bytes)
+constexpr int kXHalf = kBM * kXBox * 4;    // 16384
+constexpr int kXBytes = 2 * kXHalf;
+constexpr int kWBytes = kBK * kBN;         // int8 weight tile
+constexpr int kSBytes = 2048;              // the stage's scale (and min) rows
+constexpr int kStageBytes = kXBytes + kWBytes + kSBytes;  // 43008 = 42 KB
+constexpr int kBTileBytes = kBK * kBN * 2;
+constexpr int kAtomBytes = kBK * 128;      // 64 columns (one swizzle atom) x 64 rows
+constexpr int kPLd = kBN + 4;              // partial tile row stride, floats
+constexpr int kBarOff = kStages * kStageBytes + kBTiles * kBTileBytes;
+constexpr size_t kSmemBytes = 1024 + kBarOff + 2 * kStages * 8;
+static_assert(kStageBytes % 1024 == 0 && kBarOff % 1024 == 0, "swizzled tiles on 1 KB");
+static_assert(kBM * kPLd * 4 <= kStages * kStageBytes, "the partial tile fits the ring");
+static_assert(kSmemBytes <= 232448, "shared memory of one block");
+
+struct Params {
+  const int8_t* sub_s;  // (kp/G, np) int8 [factored]
+  const int8_t* sub_m;  // (kp/G, np) int8 [factored, mins]
+  const float* sd;      // (kp/256, np); plain: s (kp/G, np)
+  const float* sm;      // (kp/256, np) [factored, mins]; plain: m (kp/G, np) [mins]
+  float* out;           // (m, np)
+  int m, kp, np;
+};
+
+// ---- PTX helpers ------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// wgmma descriptor of a B operand stored N-major with the 128-byte swizzle:
+// 64-column atoms (8 rows of 128 bytes each, 16-byte chunks XOR-ed with the
+// row) kAtomBytes apart along N (the leading byte offset) and 8-row K groups
+// 1024 bytes apart (the stride byte offset)
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kAtomBytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// (d0 | d1) (64 x 128 f32, this warpgroup's; d0 the first 64 columns) +=
+// a (64 x 16 bf16, registers) x b (16 x 128 bf16 in shared memory, N-major:
+// the transposed-B flag)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d0)[32], float (&d1)[32],
+                                                 const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]), "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// keep the compiler from moving accumulator reads across a wait
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---- the kernel ---------------------------------------------------------------
+
+// The token of fragment row g8 (0..7) of a warp's 8: 0, 4, 1, 5, 2, 6, 3, 7,
+// so that rows g8 = 2i and 2i + 1 (one quarter-warp) differ in bit 2 and
+// their swizzles spread over all 8 chunks of a 128-byte row.
+__device__ __forceinline__ int token_row(int g8) { return ((g8 & 1) << 2) | (g8 >> 1); }
+
+// The K slot of weight row k of a stage: in each 16-row step, rows 4a, 4a + 1
+// go to slots 2a, 2a + 1 and rows 4a + 2, 4a + 3 to slots 2a + 8, 2a + 9,
+// the slots a thread's A fragment holds for x columns 4a .. 4a + 3.
+__device__ __forceinline__ int k_slot(int k) {
+  const int o = k & 15;
+  return (k & ~15) + 2 * (o >> 2) + ((o & 2) << 2) + (o & 1);
+}
+
+// The scale rows of a stage (kSBytes): [0, 1024) the scales, [1024, 2048)
+// the mins. Factored: sub_s rows at 128 bytes each from 0, the superblock's
+// sd row at 512; sub_m rows from 1024, sm at 1280. Plain: the f32 s rows at
+// 512 bytes each from 0, m rows from 1024.
+template <int G, bool HAS_MINS, bool PLAIN_S>
+struct Scales {
+  static constexpr int kRows = kBK / G;  // quant groups of a stage
+  static constexpr int kBytes = PLAIN_S ? kRows * kBN * 4 * (HAS_MINS ? 2 : 1)
+                                        : (kRows * kBN + kBN * 4) * (HAS_MINS ? 2 : 1);
+  static_assert((PLAIN_S ? kRows * kBN * 4 <= 1024 : kRows * kBN <= 512) && kBK % G == 0 &&
+                    256 % kBK == 0,
+                "stage layout");
+
+  // the producer: this stage's rows, completing on bar
+  __device__ __forceinline__ static void copy(const Params& p, int k0, int n0, uint32_t dst,
+                                              uint32_t bar) {
+    const int g0 = k0 / G;
+    if (PLAIN_S) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        bulk_copy(dst + i * kBN * 4, p.sd + (size_t)(g0 + i) * p.np + n0, kBN * 4, bar);
+        if (HAS_MINS)
+          bulk_copy(dst + 1024 + i * kBN * 4, p.sm + (size_t)(g0 + i) * p.np + n0, kBN * 4, bar);
+      }
+    } else {
+      const int sb = k0 / 256;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        bulk_copy(dst + i * kBN, p.sub_s + (size_t)(g0 + i) * p.np + n0, kBN, bar);
+        if (HAS_MINS)
+          bulk_copy(dst + 1024 + i * kBN, p.sub_m + (size_t)(g0 + i) * p.np + n0, kBN, bar);
+      }
+      bulk_copy(dst + 512, p.sd + (size_t)sb * p.np + n0, kBN * 4, bar);
+      if (HAS_MINS) bulk_copy(dst + 1280, p.sm + (size_t)sb * p.np + n0, kBN * 4, bar);
+    }
+  }
+
+  // a consumer thread: the scale s and min m of group gl of the stage for
+  // columns 4 lane .. 4 lane + 3, rounded as GridTile::load rounds them
+  // (s = sd * sub_s and m = sm * sub_m one f32 product each)
+  template <bool WITH_MINS>
+  __device__ __forceinline__ static void load(const uint8_t* sc, int gl, int lane, float (&s)[4],
+                                              float (&m)[4]) {
+    if (PLAIN_S) {
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + gl * kBN * 4 + 16 * lane);
+      s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+      if (WITH_MINS) {
+        const float4 m4 = *reinterpret_cast<const float4*>(sc + 1024 + gl * kBN * 4 + 16 * lane);
+        m[0] = m4.x, m[1] = m4.y, m[2] = m4.z, m[3] = m4.w;
+      }
+    } else {
+      const uint32_t sw = *reinterpret_cast<const uint32_t*>(sc + gl * kBN + 4 * lane);
+      const float4 d4 = *reinterpret_cast<const float4*>(sc + 512 + 16 * lane);
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
+      if (WITH_MINS) {
+        const uint32_t mw = *reinterpret_cast<const uint32_t*>(sc + 1024 + gl * kBN + 4 * lane);
+        const float4 m4 = *reinterpret_cast<const float4*>(sc + 1280 + 16 * lane);
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          m[j] = __fmul_rn(mv[j], static_cast<float>(ctq::sbyte(mw, j)));
+      }
+    }
+  }
+};
+
+struct Smem {
+  uint8_t* base;  // 1024-aligned
+  __device__ __forceinline__ uint8_t* stage(int s) const { return base + s * kStageBytes; }
+  __device__ __forceinline__ uint8_t* wtile(int s) const { return stage(s) + kXBytes; }
+  __device__ __forceinline__ uint8_t* scales(int s) const {
+    return stage(s) + kXBytes + kWBytes;
+  }
+  __device__ __forceinline__ uint8_t* btile(int i) const {
+    return base + kStages * kStageBytes + i * kBTileBytes;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return smem_addr(base + kBarOff + 8 * s);
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return smem_addr(base + kBarOff + 8 * (kStages + s));
+  }
+};
+
+// One consumer stage. FOLD: the sum-fold of the mins (wait for the stage's
+// products, then acc += xsum @ M over its two groups of 32 rows).
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD>
+__device__ __forceinline__ void consume(const Smem& sh, int it, int wg, uint32_t (&af)[4][4],
+                                        float (&acc)[2][32]) {
+  using S = Scales<G, HAS_MINS, PLAIN_S>;
+  constexpr bool kAddMins = HAS_MINS && !FOLD;
+  const int tid = threadIdx.x, lane = tid & 31, cw = tid >> 5;
+  const int wl = cw & 3;
+  const int st = it % kStages;
+  mbar_wait(sh.full(st), (it / kStages) & 1);
+  const uint8_t* sc = sh.scales(st);
+
+  // 1. dequantize rows 8 cw .. 8 cw + 7, columns 4 lane .. 4 lane + 3 into
+  //    the bf16 tile: N-major, atom nh of 64 columns, row k_slot(k) of 128
+  //    bytes, 16-byte chunk c stored at c ^ (row % 8) (the 128-byte
+  //    swizzle)
+  {
+    float s[4], mn[4];
+    S::template load<kAddMins>(sc, (8 * cw) / G, lane, s, mn);
+    const uint8_t* wt = sh.wtile(st);
+    uint8_t* bt = sh.btile(it % kBTiles) + (lane >> 4) * kAtomBytes + ((lane & 1) << 3);
+    const int c = (lane & 15) >> 1;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int k = 8 * cw + r;
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(wt + k * kBN + 4 * lane);
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = __fmul_rn(static_cast<float>(ctq::sbyte(w, j)), s[j]);
+        if (kAddMins) v[j] = __fadd_rn(v[j], mn[j]);
+      }
+      const int kr = k_slot(k);
+      *reinterpret_cast<uint2*>(bt + kr * 128 + ((c ^ (kr & 7)) << 4)) =
+          make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));
+    }
+  }
+
+  // 2. this warpgroup's x rows as wgmma A fragments. The fragment's rows
+  //    g8 and g8 + 8 of the warp's 16 are tokens ra and ra + 8 (rows
+  //    permuted so that the 8 lanes of a quarter-warp read 8 distinct
+  //    chunks of the swizzled boxes), and its K slots 2q, 2q + 1, 2q + 8,
+  //    2q + 9 of a 16-row step hold x columns 4q .. 4q + 3 (one 16-byte
+  //    load; the weight tile's rows are permuted to match); with the fold,
+  //    the rows' f32 sums over each group of 32 columns
+  const int g8 = lane >> 2, q = lane & 3;
+  const int ra = wg * 64 + wl * 16 + token_row(g8);
+  float gs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  {
+    const uint8_t* xt = sh.stage(st);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint8_t* box = xt + (kk >> 1) * kXHalf;
+      const int c = (kk & 1) * 4 + q;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = ra + 8 * hr;
+        const float4 v = *reinterpret_cast<const float4*>(box + row * 128 + ((c ^ (row & 7)) << 4));
+        af[kk][hr] = bf16x2(v.x, v.y);
+        af[kk][2 + hr] = bf16x2(v.z, v.w);
+        if (FOLD) {
+          gs[kk >> 1][hr] = __fadd_rn(gs[kk >> 1][hr],
+                                      __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w)));
+        }
+      }
+    }
+    if (FOLD) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+#pragma unroll
+        for (int gi = 0; gi < 2; ++gi) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            gs[gi][hr] = __fadd_rn(gs[gi][hr], __shfl_xor_sync(0xffffffffu, gs[gi][hr], o));
+        }
+      }
+    }
+  }
+  if (!FOLD) mbar_arrive(sh.empty(st));  // the stage is in registers and the bf16 tile
+
+  // 3. the stage's products, once every consumer has written the bf16 tile
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  consumers_sync();
+  {
+    const uint32_t bt = smem_addr(sh.btile(it % kBTiles));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16(acc[0], acc[1], af[kk], b_desc(bt + kk * 2048));
+    wgmma_commit();
+    if (FOLD) {
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      // acc += xsum @ M: the thread's rows ra, ra + 8 and columns
+      // 64 nh + 8 j + 2 q (+1), M's two rows from the stage
+      const float* mrow = reinterpret_cast<const float*>(sc + 1024);
+#pragma unroll
+      for (int gi = 0; gi < 2; ++gi) {
+#pragma unroll
+        for (int nh = 0; nh < 2; ++nh) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 mm =
+                *reinterpret_cast<const float2*>(mrow + gi * kBN + nh * 64 + 8 * j + 2 * q);
+            acc[nh][4 * j] = fmaf(gs[gi][0], mm.x, acc[nh][4 * j]);
+            acc[nh][4 * j + 1] = fmaf(gs[gi][0], mm.y, acc[nh][4 * j + 1]);
+            acc[nh][4 * j + 2] = fmaf(gs[gi][1], mm.x, acc[nh][4 * j + 2]);
+            acc[nh][4 * j + 3] = fmaf(gs[gi][1], mm.y, acc[nh][4 * j + 3]);
+          }
+        }
+      }
+    } else {
+      wgmma_wait<1>();  // the stage before: its A registers and bf16 tile are free
+    }
+  }
+  if (FOLD) mbar_arrive(sh.empty(st));
+}
+
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD>
+__global__ void __cluster_dims__(1, 1, kSplit) __launch_bounds__(kThreads, 1)
+grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                 const Params p) {
+  static_assert(!FOLD || (PLAIN_S && HAS_MINS && G == 32), "the fold: plain planes, group 32");
+  using S = Scales<G, HAS_MINS, PLAIN_S>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem sh;
+  {
+    const uint32_t a = smem_addr(smem_raw);
+    sh.base = smem_raw + (((a + 1023) & ~1023u) - a);
+  }
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBN, row0 = blockIdx.y * kBM;
+  const uint32_t rank = cluster_rank();
+  // this block's share of the K steps (shares differ by one at most)
+  const int steps = p.kp / kBK;
+  const int s_beg = rank * steps / kSplit;
+  const int n_iter = (rank + 1) * steps / kSplit - s_beg;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(sh.full(s), 1);
+      mbar_init(sh.empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup index, warp-uniform in the compiler's view (a branch on
+  // threadIdx itself would make it serialize the wgmma instructions)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == kConsumers / 128) {
+    // the producer warp: one thread issues every copy
+    if (tid == kConsumers) {
+      for (int it = 0; it < n_iter; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(sh.empty(st), (it / kStages - 1) & 1);
+        const int k0 = (s_beg + it) * kBK;
+        const uint32_t bar = sh.full(st);
+        mbar_expect_tx(bar, kXBytes + kWBytes + S::kBytes);
+        const uint32_t xs = smem_addr(sh.stage(st));
+        tma_2d(xs, &tx, k0, row0, bar);
+        tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
+        tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0, bar);
+        S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);
+      }
+    }
+  } else {
+    float acc[2][32];
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nh][i] = 0.f;
+    }
+    // two sets of A registers: a stage's products may still read one set
+    // while the next stage fills the other
+    uint32_t af0[4][4], af1[4][4];
+    for (int it = 0; it < n_iter; it += 2) {
+      consume<G, HAS_MINS, PLAIN_S, FOLD>(sh, it, wg, af0, acc);
+      if (it + 1 < n_iter) consume<G, HAS_MINS, PLAIN_S, FOLD>(sh, it + 1, wg, af1, acc);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    consumers_sync();  // every stage read: the ring takes the partial tile
+    float* part = reinterpret_cast<float*>(sh.base);
+    {
+      const int lane = tid & 31, g8 = lane >> 2, q = lane & 3;
+      const int ra = wg * 64 + ((tid >> 5) & 3) * 16 + token_row(g8);
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = nh * 64 + 8 * j + 2 * q;
+          *reinterpret_cast<float2*>(part + ra * kPLd + col) =
+              make_float2(acc[nh][4 * j], acc[nh][4 * j + 1]);
+          *reinterpret_cast<float2*>(part + (ra + 8) * kPLd + col) =
+              make_float2(acc[nh][4 * j + 2], acc[nh][4 * j + 3]);
+        }
+      }
+    }
+  }
+  cluster_sync();  // every block's partial tile is written
+  if (tid < kConsumers) {
+    // block `rank` sums its share of the rows of the cluster's partial
+    // tiles in rank order and writes them
+    const uint32_t part = smem_addr(sh.base);
+    const int r_beg = rank * kBM / kSplit, r_end = (rank + 1) * kBM / kSplit;
+    for (int f = tid; f < (r_end - r_beg) * (kBN / 4); f += kConsumers) {
+      const int r = r_beg + f / (kBN / 4), c = (f % (kBN / 4)) * 4;
+      if (row0 + r < p.m) {
+        const uint32_t off = part + (r * kPLd + c) * 4;
+        float4 sum = ld_cluster(off, 0);
+#pragma unroll
+        for (uint32_t src = 1; src < kSplit; ++src) {
+          const float4 v = ld_cluster(off, src);
+          sum.x = __fadd_rn(sum.x, v.x);
+          sum.y = __fadd_rn(sum.y, v.y);
+          sum.z = __fadd_rn(sum.z, v.z);
+          sum.w = __fadd_rn(sum.w, v.w);
+        }
+        *reinterpret_cast<float4*>(p.out + (size_t)(row0 + r) * p.np + n0 + c) = sum;
+      }
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its tile
+}
+
+// ---- host side ----------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no link to libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// x (m, kp) f32 in boxes of 32 columns x 128 rows, 128-byte swizzle, rows
+// past m read as zeros; the grid (kp, np) int8 in boxes of 64 rows x 128
+// columns, as stored
+inline bool make_maps(CUtensorMap* tx, CUtensorMap* tw, const float* x, const int8_t* qs,
+                      int m, int kp, int np) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t one[2] = {1, 1};
+  const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(kp), static_cast<cuuint64_t>(m)};
+  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(kp) * 4};
+  const cuuint32_t xbox[2] = {kXBox, kBM};
+  if (enc(tx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), xdim, xstride, xbox, one,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  const cuuint64_t wdim[2] = {static_cast<cuuint64_t>(np), static_cast<cuuint64_t>(kp)};
+  const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(np)};
+  const cuuint32_t wbox[2] = {kBN, kBK};
+  return enc(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(qs), wdim, wstride, wbox,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Launch over an (m, np) output: (np / 128, ceil(m / 128), 3) blocks in
+// clusters of 3 along K. kp a multiple of 256, np of 128 (the QTensor's
+// padding). Returns a CUDA error code.
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD>
+int launch_core(const float* x, const int8_t* qs, const Params& p, cudaStream_t stream) {
+  if (p.m <= 0 || p.kp % kBK || p.kp / kBK < kSplit || p.np % kBN) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!make_maps(&tx, &tw, x, qs, p.m, p.kp, p.np)) return cudaErrorInvalidValue;
+  auto kern = grid_gemm_kernel<G, HAS_MINS, PLAIN_S, FOLD>;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(kSmemBytes));
+  if (e != cudaSuccess) return e;
+  dim3 grid(p.np / kBN, (p.m + kBM - 1) / kBM, kSplit);
+  kern<<<grid, kThreads, kSmemBytes, stream>>>(tx, tw, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ctw

@@ -11,7 +11,8 @@ for one decode token per slot:
     cache dtype otherwise);
   * layer `il` of the full stacked cache (L, B, S, Hkv, dh) (sequence-major)
     or (L, B, Hkv, S, dh) (head-major) is read over [0, window), each kv
-    head serving its rep = H / Hkv query heads;
+    head serving its rep = H / Hkv query heads (any rep; on the card any
+    head width dh up to 256);
   * the softmax is online over chunks of `chunk` positions counted from 0
     (decode_chunk shrinks the chunk to divide the window, as the Pallas
     function does): scores are summed in f32, multiplied by the int8
@@ -36,11 +37,12 @@ import torch
 from . import qmm_kernels as K
 
 DEFAULT_CHUNK = 512
-# the kernel's limits (the plain version has none): query heads per kv head,
-# head widths, shared memory for one chunk's scores (and an int8 cache's V
-# scales)
+# the kernel's limits (the plain version has none): the widest head, and
+# shared memory for one chunk's scores of a block's query heads (at most
+# MAX_REP of a kv head's; more heads a kv head take more blocks) and an int8
+# cache's V scales
+MAX_HEAD_DIM = 256
 MAX_REP = 8
-HEAD_DIMS = (64, 128, 256)
 MAX_CHUNK_SCORE_BYTES = 192 * 1024
 SOURCE = "ctransformers_tpu_torch/csrc/attn_decode.cu"
 REPLACES = "scripts/_attention_kernel.py:47"
@@ -149,9 +151,9 @@ def _check_operands(q, kv_k, kv_v, il, n_past, window, k_scale, v_scale, alibi_s
     _check(q, "q", torch.float32, (b, h, dh), dev)
     if h % hkv:
         raise ValueError(f"{h} query heads over {hkv} kv heads")
-    if dev.type == "cuda" and (h // hkv > MAX_REP or dh not in HEAD_DIMS):
-        raise ValueError(f"{h} query heads over {hkv} kv heads of width {dh}: the kernel takes "
-                         f"up to {MAX_REP} query heads a kv head and widths {HEAD_DIMS}")
+    if dev.type == "cuda" and dh > MAX_HEAD_DIM:
+        raise ValueError(f"head width {dh}: the decode attention kernel takes head widths up "
+                         f"to {MAX_HEAD_DIM}")
     if not 0 <= il < n_layer:
         raise ValueError(f"layer {il} of a {n_layer}-layer cache")
     _check(n_past, "n_past", torch.int32, (b,), dev)
@@ -185,8 +187,8 @@ def decode_attention(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor, il
     b, h = q.shape[:2]
     dev = kv_k.device
     c = decode_chunk(win, chunk)
-    # a chunk's scores for every head (and an int8 cache's V scales)
-    chunk_bytes = (h // hkv + (kv_k.dtype == torch.int8)) * c * 4
+    # a chunk's scores for a block's heads (and an int8 cache's V scales)
+    chunk_bytes = (min(h // hkv, MAX_REP) + (kv_k.dtype == torch.int8)) * c * 4
     if dev.type == "cuda" and chunk_bytes > MAX_CHUNK_SCORE_BYTES:
         raise ValueError(f"a chunk of {c} positions for {h // hkv} heads does not fit the "
                          "kernel's shared memory")

@@ -197,6 +197,22 @@ def q4k_weight(k: int, n: int, seed: int = 0, device: str = "cuda"):
     return qt, scale_planes(qt)[0].contiguous()
 
 
+def library_matmul(r: "Runner", qt, sp, m: int) -> Optional[Callable[[int], object]]:
+    """The one torch call that computes a grouped nibble dot's function,
+    x @ (w4 * s) with the weight's stored nibbles w4 and its f32 scale plane
+    s (K/32, N): torch.matmul of bf16 x (m, K) with that weight dequantized
+    to bf16, cycled over copies past L2 as the kernel is (the library column
+    of the kernel table's rows 1-11). None where nothing is timed."""
+    if not (r.cuda and r.time):
+        return None
+    from .qmm_kernels import unpack_w4
+
+    w = (unpack_w4(qt.qs).float() * sp.repeat_interleave(GROUP, 0)).to(torch.bfloat16)
+    ws = r.copies(lambda: w.clone(), w.numel() * 2)
+    x = torch.zeros((m, w.shape[0]), dtype=torch.bfloat16, device=r.dev)
+    return lambda i: torch.matmul(x, ws[i % len(ws)])
+
+
 def clone_qtensor(qt):
     """A copy of a QTensor with planes of its own (another weight of the same
     key, for the L2 rotation of the production kernels' timing)."""

@@ -62,7 +62,8 @@ csrc/qmm_float.cu):
           (replaces _qmm_q_kernel, mode "q", packed4=False)
   qmm_qx8 the same function on raw f32 x, quantized inside the kernel
           (replaces _qmm_qx_kernel, mode "qx", packed4=False)
-  qmm_b   bf16(x) @ bf16(q * s + m)          (replaces _qmm_kernel, mode "b")
+  qmm_b   bf16(x) @ bf16(q * s + m)          (replaces _qmm_kernel, mode "b";
+          the Hopper GEMM core of csrc/qmm_wgmma.cuh)
   qmm_sb  xsum @ M + bf16(x) @ bf16(q * s)   (replaces _qmm_s_kernel, mode "sb")
   qmm_g8  xsum @ M + sum_g s[g] * dot_g(bf16(x), q)    (replaces _qmm_g_kernel)
   qmm_f   x @ (q * s + m), all f32           (replaces _qmm_kernel, mode "")
@@ -76,6 +77,7 @@ kernels' sfactor == 0 branches:
 
   qmm_q8_legacy, qmm_qx8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy,
   qmm_f_legacy, qmm_s_legacy   the functions of the seven grid kernels above
+                               (qmm_sb_legacy on the Hopper GEMM core)
 
 The same six nibble layouts (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_1, Q4_0) packed
 "ksplit" (ops/qmatmul.py: byte r holds row r in the low nibble, lo = q + zp,
@@ -602,6 +604,15 @@ def plain_qx8(x: torch.Tensor, qt) -> torch.Tensor:
     return plain_q8(*quantize_activations(x, qt.group), qt)
 
 
+def x_operands(x: torch.Tensor, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the bf16 GEMMs make of the activations: x rounded to nearest
+    even bf16 (held in f32, exactly) and the f32 sums of x over each group
+    of `group` columns, (m, Kp/group). The GEMM core of csrc/qmm_wgmma.cuh
+    makes both inside the kernel, once per block, from the f32 x."""
+    m, kp = x.shape
+    return _bf16_round(x), x.reshape(m, kp // group, group).sum(-1)
+
+
 def plain_b(x: torch.Tensor, qt) -> torch.Tensor:
     s, mn = grid_planes(qt)
     w = qt.qs.float() * s.repeat_interleave(qt.group, 0)
@@ -611,12 +622,12 @@ def plain_b(x: torch.Tensor, qt) -> torch.Tensor:
 
 
 def plain_sb(x: torch.Tensor, qt) -> torch.Tensor:
-    m, kp = x.shape
     s, mn = grid_planes(qt)
-    out = _bf16_round(x) @ _bf16_round(qt.qs.float() * s.repeat_interleave(qt.group, 0))
+    xb, xs = x_operands(x, qt.group)
+    out = xb @ _bf16_round(qt.qs.float() * s.repeat_interleave(qt.group, 0))
     if mn is None:
         return out
-    return x.reshape(m, kp // qt.group, qt.group).sum(-1) @ mn + out
+    return xs @ mn + out
 
 
 def plain_f(x: torch.Tensor, qt) -> torch.Tensor:
@@ -795,6 +806,9 @@ _SPECS = {
 KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
+# the symbols of qmm_grid.cu that run the Hopper GEMM core
+WGMMA_KERNELS = ("qmm_b", "qmm_sb_legacy")
+SOURCE_OF.update({n: "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh" for n in WGMMA_KERNELS})
 REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
 # the wrappers as module functions: qmm_qx(x, qt), qmm_q(xq, sx, xsum, qt), ...
 # (ops/qmatmul.py looks them up here by name at call time)
@@ -816,12 +830,16 @@ DENSE_CALLS: Dict[str, int] = {"dense": 0}
 DECODE_CONFIG = "n32k1024"  # 32 columns and all of K per block, 1024-row chunks
 KSPLIT_FLOAT_CONFIG = "n32k512"  # the same, 512 byte rows (both halves) a chunk
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
-GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps
-GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_b", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq",
-                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_b_legacy", "qmm_sb_legacy", "qmm_i_k16",
+GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
+GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq",
+                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_b_legacy", "qmm_i_k16",
                 "qmm_si_k16", "qmm_b_ks", "qmm_sb_ks", "qmm_rb_ks", "qmm_rb8",
                 "qmm_rb8_legacy")
+# 128 x 128 output tile over two wgmma warpgroups, K split over a cluster of
+# 3 (csrc/qmm_wgmma.cuh)
+WGMMA_CONFIG = "wg128n128c3"
 CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SPECS}
+CONFIG_OF.update(dict.fromkeys(WGMMA_KERNELS, WGMMA_CONFIG))
 CONFIG_OF.update(qmm_f_ks=KSPLIT_FLOAT_CONFIG, qmm_s_ks=KSPLIT_FLOAT_CONFIG,
                  qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's

@@ -1,0 +1,190 @@
+"""Split the time of the int8-grid GEMM core (csrc/qmm_wgmma.cuh, behind
+ct_qmm_b) on one card: build the core as it is and copies with one part
+taken out, and time each on the same card in one process.
+
+    python3 scripts/torch_gemm_core_ablate.py [--m 128 ...] [--reps 20]
+
+Every variant is qmm_grid.cu built by nvcc (the package's flags, all
+started together) from a copy of csrc/ under build/gemm_core_ablate/ with
+one edit to qmm_wgmma.cuh:
+
+  base         the source as it is
+  split4       K split over a cluster of 4 blocks (the source: 3)
+  split2       over a cluster of 2
+  no_copies    the producer issues no copy (the stage's barrier completes
+               with one arrival): the consumers' work alone
+  no_xfrag     the x fragments are constants, not loaded and rounded
+  no_dequant   the dequantized weight tile is not stored
+  no_wgmma     no tensor-core product (a stand-in keeps the fragments live)
+  no_fence     no proxy fence and barrier between the tile and the products
+
+Only base computes the function (its error against plain_b is printed;
+the others print theirs too, meaningless by design). For each variant:
+the clusters the card runs at once (cudaOccupancyMaxActiveClusters) and,
+per Q6_K shape (v: 4096 x 4096, down: 11264 x 4096) and m, the kernel ms
+from a replayed CUDA graph cycling over weight copies past the L2, as
+chip_smoke.py phase 3 times it. Last line: a JSON object
+{variant: {"shape m": ms}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from ctransformers_tpu_torch.ops import qmm_kernels as K  # noqa: E402
+from ctransformers_tpu_torch.ops.qmatmul import QTensor  # noqa: E402
+
+CORE = "qmm_wgmma.cuh"
+OUT = os.path.join(ROOT, "build", "gemm_core_ablate")
+WGMMA = "    for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16(acc[0], acc[1], af[kk], b_desc(bt + kk * 2048));"
+VARIANTS = {
+    "base": [],
+    "split4": [("constexpr int kSplit = 3;", "constexpr int kSplit = 4;")],
+    "split2": [("constexpr int kSplit = 3;", "constexpr int kSplit = 2;")],
+    "no_copies": [
+        ("""        tma_2d(xs, &tx, k0, row0, bar);
+        tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
+        tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0, bar);
+        S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);""", ""),
+        ("mbar_expect_tx(bar, kXBytes + kWBytes + S::kBytes);", "mbar_arrive(bar);")],
+    "no_xfrag": [("""        const float4 v = *reinterpret_cast<const float4*>(box + row * 128 + ((c ^ (row & 7)) << 4));""",
+                  """        const float4 v = make_float4(kk, hr, c, row);""")],
+    "no_dequant": [("""      *reinterpret_cast<uint2*>(bt + kr * 128 + ((c ^ (kr & 7)) << 4)) =
+          make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));""", "")],
+    "no_wgmma": [(WGMMA, """    for (int kk = 0; kk < 4; ++kk)
+      acc[0][kk] += __uint_as_float(af[kk][0] ^ af[kk][1] ^ af[kk][2] ^ af[kk][3] ^ bt);""")],
+    "no_fence": [("""  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  consumers_sync();""", "")],
+}
+# appended to each copy of qmm_grid.cu: the clusters of the Q6_K instantiation
+# that the card runs at once
+OCCUPANCY = """
+extern "C" int ablate_max_active_clusters() {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(32, 1, ctw::kSplit);
+  cfg.blockDim = dim3(ctw::kThreads);
+  cfg.dynamicSmemBytes = ctw::kSmemBytes;
+  auto kern = ctw::grid_gemm_kernel<16, false, false, false>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ctw::kSmemBytes);
+  int n = -1;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (void*)kern, &cfg);
+  return e == cudaSuccess ? n : -1000 - (int)e;
+}
+"""
+SHAPES = {"v": (4096, 4096), "down": (11264, 4096)}
+
+
+def build(names):
+    """nvcc on a patched copy per variant, all started together; returns
+    {name: loaded library}."""
+    procs = {}
+    for name in names:
+        d = os.path.join(OUT, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(K.CSRC, d)
+        path = os.path.join(d, CORE)
+        src = open(path).read()
+        for old, new in VARIANTS[name]:
+            if old not in src:
+                raise SystemExit(f"{name}: the edit's anchor is not in {CORE}: {old[:60]!r}")
+            src = src.replace(old, new)
+        open(path, "w").write(src)
+        with open(os.path.join(d, "qmm_grid.cu"), "a") as f:
+            f.write(OCCUPANCY)
+        so = os.path.join(d, "libqmm_grid.so")
+        procs[name] = (so, subprocess.Popen(
+            [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, "qmm_grid.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{out[-4000:]}")
+        lib = ctypes.CDLL(so)
+        K._bind(lib)
+        lib.ablate_max_active_clusters.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def q6k(k: int, n: int, seed: int) -> QTensor:
+    g = torch.Generator().manual_seed(seed)
+    qs = torch.randint(-32, 32, (k, n), generator=g, dtype=torch.int8)
+    sub_s = torch.randint(-64, 64, (k // 16, n), generator=g, dtype=torch.int8)
+    sd = torch.rand((k // 256, n), generator=g) * 1e-3 + 1e-4
+    return QTensor(qs, sub_s, None, "Q6_K", 16, (k, n), sd=sd, sm=None, sfactor=16).to("cuda")
+
+
+def graph_ms(fn, reps: int) -> float:
+    fn(0)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(reps):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--m", type=int, nargs="+", default=[128])
+    ap.add_argument("--reps", type=int, default=20)
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_gemm_core_ablate: CUDA is not available", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    libs = build(list(VARIANTS))
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, lib in libs.items():
+        print(f"{name}: max active clusters {lib.ablate_max_active_clusters()}", flush=True)
+    dev = torch.device("cuda")
+    result = {name: {} for name in libs}
+    for shape, (k, n) in SHAPES.items():
+        per_copy = k * n * (1 + 1 / 16) + 4 * k * n / 256
+        qts = [q6k(k, n, i) for i in range(max(1, math.ceil(150e6 / per_copy)))]
+        for m in opts.m:
+            x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+            out = torch.empty(m, n, device=dev)
+            ref = K.plain_b(x, qts[0])
+            for name, lib in libs.items():
+                def call(i, fn=lib.ct_qmm_b):
+                    qt = qts[i % len(qts)]
+                    rc = fn(*K._ptrs(x, qt.qs, qt.scales, None, qt.sd, None, out), m, k, n, 16,
+                            K._stream(dev))
+                    if rc:
+                        raise SystemExit(f"{name}: launch failed with CUDA error {rc}")
+                ms = graph_ms(call, opts.reps)
+                call(0)
+                torch.cuda.synchronize()
+                err = ((out - ref).norm() / ref.norm()).item()
+                result[name][f"{shape} {m}"] = ms
+                print(f"{name:10s} Q6_K {shape:4s} m={m:4d}: {ms:.4f} ms (rel err {err:.2e})",
+                      flush=True)
+    print(torch.cuda.get_device_name(0))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

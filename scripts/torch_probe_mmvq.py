@@ -69,7 +69,7 @@ def run(r: P.Runner, small: bool = False) -> None:
                                          s=mm[i % len(mm)][1]),
                 lambda: P.plain_probe_nibble(qt.qs, "i4", "gdot", xq, sx=sxq, s=sp), 1e-6,
                 nbytes=wbytes + xq.numel() + 4 * (sxq.numel() + m * n), ops=2 * m * k * n,
-                peak=P.PEAK_INT8_S, gbs=qt.qs.numel())
+                peak=P.PEAK_INT8_S, gbs=qt.qs.numel(), library=P.library_matmul(r, qt, sp, m))
 
 
 if __name__ == "__main__":

@@ -50,8 +50,11 @@ def run(r: P.Runner, small: bool = False) -> None:
 
     grid8 = P.unpack_s8_grid(qt.qs)
     outs = {}
+    # full and nocast compute x @ (w4 * s): the library call's function
+    lib = P.library_matmul(r, qt, sp, 1)
     for stage in STAGES:
-        outs[stage] = stage_probe(r, stage, grid8 if stage == "nocast" else qt.qs, sp, xg, sx, n)
+        outs[stage] = stage_probe(r, stage, grid8 if stage == "nocast" else qt.qs, sp, xg, sx, n,
+                                  lib if stage in ("full", "nocast") else None)
     if r.check:
         r.compare("nocast against full (the same parts)", outs["nocast"], outs["full"], 0)
     # the full stage's function, as the production decode kernel computes it
@@ -64,8 +67,9 @@ def run(r: P.Runner, small: bool = False) -> None:
             lambda i: K.qmm_q_q4_0(xq, sxn, sxn, q40s[i % len(q40s)]), nbytes=qt.qs.numel())
 
 
-def stage_probe(r: P.Runner, stage: str, w, sp, xg, sx, n: int):
-    """One stage of the grouped dot held and timed; returns its output (on
+def stage_probe(r: P.Runner, stage: str, w, sp, xg, sx, n: int, library=None):
+    """One stage of the grouped dot held and timed (beside `library`, the
+    torch call of its function, where it has one); returns its output (on
     the checked run)."""
     unpack = "s8" if stage == "nocast" else "i4"
     scaled = stage != "norescale"
@@ -86,7 +90,7 @@ def stage_probe(r: P.Runner, stage: str, w, sp, xg, sx, n: int):
     nbytes = w.numel() + 4 * n + (0 if x is None else x.numel())
     nbytes += 4 * (sp.numel() + sx.numel()) if scaled else 0
     r.probe(f"{stage:10s}", "probe_nibble", kernel, plain, 1e-6 if scaled else 0, nbytes=nbytes,
-            ops=2 * k * n, peak=P.PEAK_INT8_S, gbs=w.numel())
+            ops=2 * k * n, peak=P.PEAK_INT8_S, gbs=w.numel(), library=library)
     return kernel(0) if r.check else None
 
 if __name__ == "__main__":

@@ -68,7 +68,8 @@ def grouped(r: P.Runner, form: str, acts, qt, sp, ms, check_q=None):
     r.probe(f"m={m} {'q' if form == 'q' else 'qp' + form}", "probe_nibble", kernel,
             lambda: P.plain_probe_nibble(qt.qs, unpack, "gdot", x, xb, sx=sx, s=sp, form=form),
             1e-6, nbytes=qt.qs.numel() + 4 * (sp.numel() + sx.numel() + m * n) + xbytes,
-            ops=2 * m * k * n, peak=P.PEAK_INT8_S, gbs=qt.qs.numel() + 4 * sp.numel())
+            ops=2 * m * k * n, peak=P.PEAK_INT8_S, gbs=qt.qs.numel() + 4 * sp.numel(),
+            library=P.library_matmul(r, qt, sp, m))
     if check_q is not None and r.check:
         r.compare(f"parity {form}: qp{form} against q", kernel(0), check_q, 0)
 

@@ -72,21 +72,29 @@ def _torch(a, name=None):
 # n_past (5, 200) (window 128: (5, 120)), chunk 64: every dtype in both
 # layouts, GQA at rep 4, ALiBi, a window below the cache
 DECODE_CASES = [
-    ("f32", False, 4, 2, False, None), ("f32", True, 4, 2, False, None),
-    ("bf16", False, 4, 2, False, None), ("bf16", True, 4, 4, False, 128),
-    ("ieee_f16", True, 4, 2, False, None), ("int8", False, 4, 2, False, None),
-    ("int8", True, 8, 2, False, None), ("bf16", False, 8, 2, False, None),
-    ("f32", True, 4, 2, True, None), ("int8", False, 4, 1, True, 128),
+    ("f32", False, 4, 2, False, None, 16), ("f32", True, 4, 2, False, None, 16),
+    ("bf16", False, 4, 2, False, None, 16), ("bf16", True, 4, 4, False, 128, 16),
+    ("ieee_f16", True, 4, 2, False, None, 16), ("int8", False, 4, 2, False, None, 16),
+    ("int8", True, 8, 2, False, None, 16), ("bf16", False, 8, 2, False, None, 16),
+    ("f32", True, 4, 2, True, None, 16), ("int8", False, 4, 1, True, 128, 16),
+    # llama head shapes past the kernel's first template: widths 48, 80 and
+    # 100 (n_embd / n_head of 3B-class files), and 16 query heads over one
+    # kv head (two blocks of 8 on the card)
+    ("f32", False, 4, 2, False, None, 48), ("bf16", True, 4, 2, False, None, 80),
+    ("int8", False, 4, 2, False, None, 100), ("bf16", False, 16, 1, False, None, 16),
 ]
+# ids as before the head width joined the cases; other widths append it
+DECODE_IDS = ["-".join(map(str, c[:6])) + ("" if c[6] == 16 else f"-dh{c[6]}")
+              for c in DECODE_CASES]
 # both round q and p to cdt at the same places and sum in f32 in another
 # order, so a rounding flips only where the sums land within an ulp of a
 # bf16 / f16 boundary: 1.8e-8..4.1e-7 measured here, every dtype
 DECODE_TOL = 1e-5
 
 
-@pytest.mark.parametrize("name,hm,h,hkv,alibi,window", DECODE_CASES)
-def test_plain_decode_attention_matches_pallas(pallas, name, hm, h, hkv, alibi, window):
-    n_layer, b, s, dh, chunk = 2, 2, 256, 16, 64
+@pytest.mark.parametrize("name,hm,h,hkv,alibi,window,dh", DECODE_CASES, ids=DECODE_IDS)
+def test_plain_decode_attention_matches_pallas(pallas, name, hm, h, hkv, alibi, window, dh):
+    n_layer, b, s, chunk = 2, 2, 256, 64
     k, v, ks, vs = random_cache(name, (n_layer, b, s, hkv, dh), seed=h * 10 + hkv)
     rng = np.random.default_rng(1)
     q = rng.standard_normal((b, h, dh)).astype(np.float32)

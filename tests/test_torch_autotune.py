@@ -360,7 +360,7 @@ def test_ct_qmatmul_keeps_its_meaning(monkeypatch):
     qt = _real_qtensor("Q5_K")
     x = torch.from_numpy(np.random.RandomState(0).randn(64, 512).astype(np.float32))
     exact = x @ qm.dequantize_qtensor(qt)
-    entry = dict(_entry("dense", qt), kernel=("b", K.GEMM_CONFIG))
+    entry = dict(_entry("dense", qt), kernel=("b", K.CONFIG_OF["qmm_b"]))
     qm.save_table(qm.table_path(), "cpu", {qm.cache_key(64, qt): entry})
     monkeypatch.setenv("CT_QMM_AUTOTUNE", "precompiled")
     K.reset_counts()

@@ -7,7 +7,9 @@ kernels on every nibble kind, the four reshape-broadcast int8-grid
 kernels and the two int8-grid kernels that quantize x inside (qmm_qx8 and
 its legacy form); the race that picks among them; the decode attention
 kernel (ops/attention.py) over f32, bf16, f16 and int8 caches in both
-layouts; and the fused decode loop of engine/engine.py (a captured CUDA
+layouts, at every llama head width up to 256 and any number of query heads
+a kv head; the two symbols of the Hopper GEMM core (qmm_b and
+qmm_sb_legacy) at prompt sizes up to m = 2048; and the fused decode loop of engine/engine.py (a captured CUDA
 graph per key) against the eager loop on a tiny model.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
@@ -279,6 +281,52 @@ def test_legacy_symbols_refuse_a_mins_flag_that_disagrees(dev):
     assert rc != 0
     rc = lib(*K._ptrs(x, q51.qs, q51.scales, q51.mins, out), 64, 256, 128, 0, K._stream(dev))
     assert rc != 0
+
+
+# the Hopper GEMM core (csrc/qmm_wgmma.cuh): both symbols at every
+# instantiation, at the prompt chunk sizes Engine._chunks sends (and the
+# ragged m = 33), at llama-2-7B shapes
+CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb_legacy", "Q5_1"),
+        ("qmm_sb_legacy", "Q8_0"), ("qmm_sb_legacy", "Q5_0")]
+
+
+@pytest.mark.parametrize("name,kind", CORE)
+@pytest.mark.parametrize("m", [33, 64, 128, 256, 2048])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096)])
+def test_core_kernel_matches_plain_at_prompt_sizes(dev, name, kind, k, n, m):
+    qt = (random_grid if name == "qmm_b" else random_legacy)(kind, k, n, seed=k + m, device=dev)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    before = K.LAUNCHES[name]
+    got = K.KERNELS[name](x, qt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    ref = K.PLAIN[name](x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-3
+    assert torch.equal(got, K.KERNELS[name](x, qt)), "kernel runs are not bitwise repeatable"
+
+
+def test_core_symbols_refuse_what_they_do_not_take(dev):
+    """ct_qmm_b takes group 16 without mins (Q6_K) or 32 with them (Q5_K),
+    ct_qmm_sb_legacy a has-mins flag that agrees with the min plane; both a
+    K padded to 64-row steps, at least three of them; a refusal launches
+    nothing."""
+    x = torch.randn(64, 256, device=dev)
+    out = torch.full((64, 128), 7.0, device=dev)
+    q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
+    fn = K._fn("qmm_grid", "ct_qmm_b")
+    for qt, group in ((q6k, 32), (q5k, 16)):
+        assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 256, 128,
+                  group, K._stream(dev)) != 0
+    assert fn(*K._ptrs(x, q6k.qs, q6k.scales, None, q6k.sd, None, out), 64, 128, 128, 16,
+              K._stream(dev)) != 0  # two 64-row steps for three blocks of a cluster
+    q51 = random_legacy("Q5_1", 256, 128, 3, dev)
+    fn = K._fn("qmm_grid", "ct_qmm_sb_legacy")
+    assert fn(*K._ptrs(x, q51.qs, q51.scales, None, out), 64, 256, 128, 1, K._stream(dev)) != 0
+    assert fn(*K._ptrs(x, q51.qs, q51.scales, q51.mins, out), 64, 256, 128, 0,
+              K._stream(dev)) != 0
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0)
 
 
 @pytest.mark.parametrize("name", K16)
@@ -611,11 +659,9 @@ def test_decode_attn_refuses_what_it_does_not_take(dev):
                                      head_major=True),
         "strided q": lambda: run(torch.randn(1, 4, 128, device=dev)[..., ::2], k, v, 0, n_past),
         "3 heads over 2": lambda: run(q[:, :3].contiguous(), k, v, 0, n_past),
-        "9 heads a kv head": lambda: run(torch.randn(1, 18, 64, device=dev), k, v, 0, n_past),
-        "width 48": lambda: run(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                                v[..., :48].contiguous(), 0, n_past),
-        "width 16": lambda: run(q[..., :16].contiguous(), k[..., :16].contiguous(),
-                                v[..., :16].contiguous(), 0, n_past),
+        "width 264": lambda: run(torch.randn(1, 4, 264, device=dev),
+                                 *random_cache(torch.float32, False, (1, 1, 256, 2, 264), 2,
+                                               dev)[:2], 0, n_past),
         "int64 n_past": lambda: run(q, k, v, 0, n_past.long()),
         "n_past on the CPU": lambda: run(q, k, v, 0, n_past.cpu()),
         "int8 without scales": lambda: run(q, ki, vi, 0, n_past),
@@ -630,6 +676,33 @@ def test_decode_attn_refuses_what_it_does_not_take(dev):
             call()
             pytest.fail(what)
     assert A.LAUNCHES["decode_attn"] == launches
+
+
+# every llama head shape: any number of query heads a kv head (groups of 8
+# per block) and any width up to 256 (padded templates; widths that are no
+# multiple of 4 load element by element). The first three were refused
+# before the kernel took them: 9 heads a kv head, widths 48 and 16
+@pytest.mark.parametrize("h,hkv,dh", [(18, 2, 64), (4, 2, 48), (4, 2, 16), (8, 2, 80),
+                                     (4, 1, 96), (8, 4, 100), (4, 2, 112), (4, 2, 160),
+                                     (4, 2, 192), (16, 1, 128), (16, 1, 80), (12, 1, 64),
+                                     (4, 2, 50), (3, 1, 22)])
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("hm", [False, True])
+def test_decode_attn_takes_every_llama_head_shape(dev, h, hkv, dh, dtype, hm):
+    s, b = 768, 2
+    k, v, ks, vs = random_cache(dtype, hm, (2, b, s, hkv, dh), seed=h + dh, device=dev)
+    g = torch.Generator().manual_seed(dh)
+    q = torch.randn((b, h, dh), generator=g).to(dev)
+    n_past = torch.tensor([9, s - 1], dtype=torch.int32, device=dev)
+    slopes = (torch.rand(h, generator=g) * 0.1).to(dev)
+    kw = dict(k_scale=ks, v_scale=vs, alibi_slopes=slopes, head_major=hm)
+    launches = A.LAUNCHES["decode_attn"]
+    got = A.decode_attention(q, k, v, 1, n_past, **kw)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["decode_attn"] == launches + 1
+    ref = A.plain_decode_attention(q, k, v, 1, n_past, **kw)
+    assert got.shape == (b, h, dh) and torch.isfinite(got).all()
+    assert _rel(got, ref) < ATTN_TOL[dtype], _rel(got, ref)
 
 
 def test_decode_attn_raises_on_a_launch_error(dev, monkeypatch):

@@ -1,0 +1,143 @@
+"""The int8-grid prompt GEMMs of the Hopper core (csrc/qmm_wgmma.cuh:
+qmm_b on Q6_K and Q5_K, qmm_sb_legacy on Q5_1, Q8_0 and Q5_0) on the CPU:
+what the core makes of x (bf16 rounding, group sums) against numpy, the
+plain versions at ragged m against the Pallas kernels in interpret mode,
+the launch configuration the candidate lists name, and a tiny llama of
+head width 80 with 16 query heads over one kv head through the port
+against the JAX LLM (every decode step through decode_attention's plain
+version). The kernels themselves run in tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import ctransformers_tpu as J
+import ctransformers_tpu_torch as T
+from ctransformers_tpu.formats.quants import GGMLType
+from ctransformers_tpu.ops import qmatmul as jqm
+from ctransformers_tpu_torch.ops import attention as A
+from ctransformers_tpu_torch.ops import qmatmul as tqm
+from ctransformers_tpu_torch.ops import qmm_kernels as K
+
+from .fixtures import build_llama_gguf
+from .test_torch_qmatmul import _both, _fro, _pallas, _port
+
+
+def _bf16_rne(a: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 -> f32, round to nearest even, in integer arithmetic."""
+    u = a.astype(np.float32).view(np.uint32).astype(np.uint64)
+    r = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return r.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("m,kp,group", [(1, 256, 32), (33, 512, 32), (100, 256, 16)])
+def test_x_operands_match_numpy(m, kp, group):
+    rng = np.random.default_rng(m)
+    x = (rng.standard_normal((m, kp)) * 3).astype(np.float32)
+    x[0, :4] = [1.00390625, 1.01171875, -2.00781250, 3.0e-39]  # ties to even, a subnormal
+    xb, xs = K.x_operands(torch.from_numpy(x), group)
+    assert xb.dtype == xs.dtype == torch.float32 and xs.shape == (m, kp // group)
+    np.testing.assert_array_equal(xb.numpy().view(np.uint32), _bf16_rne(x).view(np.uint32))
+    want = x.reshape(m, kp // group, group).astype(np.float64).sum(-1)
+    # f32 sums of 16 or 32 values in some order: a few ulps of the largest term
+    np.testing.assert_allclose(xs.numpy(), want, rtol=0, atol=1e-5 * np.abs(x).max())
+
+
+# (weight type, port mode, Pallas mode): the core's instantiations
+CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q5_1", "sb", "sb"),
+              ("Q8_0", "sb", "sb"), ("Q5_0", "sb", "sb")]
+
+
+@pytest.mark.parametrize("kind,mode,pallas_mode", CORE_CASES)
+@pytest.mark.parametrize("m", [33, 100])
+def test_core_plain_versions_match_pallas_at_ragged_m(kind, mode, pallas_mode, m, monkeypatch):
+    """plain_b and plain_sb (the functions of qmm_b and qmm_sb_legacy) at m
+    that fill no 128-row tile, against _qmm_kernel and _qmm_s_kernel."""
+    k, n = 256, 256
+    jq, tq = _both(k, n, seed=5, monkeypatch=monkeypatch, kind=kind)
+    name = K.kernel_name(mode, tq)
+    assert name in K.WGMMA_KERNELS
+    x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
+    before = K.PLAIN_CALLS[name]
+    got = _port(mode, x, tq)
+    assert K.PLAIN_CALLS[name] == before + 1
+    ref = _pallas(pallas_mode, x, jq, m)
+    # same algorithm, same roundings: only the f32 summation order differs
+    assert _fro(got, ref) <= 1e-4
+    # the bf16-operand class of tests/test_qmatmul.py against the exact product
+    exact = np.asarray(jqm._qmm_jnp(x, jq))
+    assert _fro(got, exact) < 0.025 and _fro(ref, exact) < 0.025
+
+
+def _real(kind, k=512, n=384):
+    from ctransformers_tpu_torch.formats.quants import GGMLType as TG
+    from ctransformers_tpu_torch.formats.quants import quantize as tquantize
+
+    w = (np.random.RandomState(1).randn(k, n) * 0.3).astype(np.float32)
+    return tqm.repack(tquantize(np.ascontiguousarray(w.T), TG[kind]), TG[kind], n, k)
+
+
+@pytest.mark.parametrize("kind,m,want", [
+    ("Q6_K", 128, {"b": K.WGMMA_CONFIG}),
+    ("Q6_K", 8, {"b": K.WGMMA_CONFIG, "g": K.DECODE_CONFIG, "q8": K.DECODE_CONFIG,
+                 "": K.DECODE_CONFIG}),
+    ("Q5_K", 128, {"b": K.WGMMA_CONFIG, "sb": K.GEMM_CONFIG}),
+    ("Q5_1", 128, {"b": K.GEMM_CONFIG, "sb": K.WGMMA_CONFIG}),
+    ("Q8_0", 128, {"b": K.GEMM_CONFIG}),
+])
+def test_candidates_name_the_core_config(kind, m, want):
+    qt = _real(kind)
+    got = dict(tqm.mode_candidates(qt, m))
+    assert {mode: got[mode] for mode in want} == want
+    assert K.WGMMA_CONFIG == "wg128n128c3" and K.CONFIG_OF["qmm_b"] == K.WGMMA_CONFIG
+    assert K.CONFIG_OF["qmm_sb_legacy"] == K.WGMMA_CONFIG
+    assert K.SOURCE_OF["qmm_b"].endswith("csrc/qmm_wgmma.cuh")
+    # the other GEMMs keep qmm_gemm.cuh's tile
+    assert K.CONFIG_OF["qmm_sb"] == K.CONFIG_OF["qmm_b_legacy"] == K.GEMM_CONFIG
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# port against JAX with the same kv_dtype, as tests/test_torch_kv.py holds
+# them: f32 1e-4; bf16 in the 5% wiring class: decode_attention rounds
+# q * scale and the unnormalized p per chunk where the JAX LLM's full scores
+# round the normalized probabilities, which on this 1280-wide model with 16
+# heads a kv head read 8.3e-4 after the prompt and 1.0e-2..1.9e-2 over the
+# decode steps, with equal greedy tokens (tests/test_torch_kv.py's smaller
+# fixture reads 1.1e-4..1.8e-3 and keeps 1e-2)
+HEAD_CASES = [(1280, 16, 1, "f32"), (1280, 16, 1, "bf16"), (384, 8, 2, "f32")]
+LOGIT_CLASS = {"f32": 1e-4, "bf16": 5e-2}
+
+
+@pytest.mark.parametrize("n_embd,n_head,n_head_kv,kv_dtype", HEAD_CASES)
+def test_llm_matches_jax_at_wide_gqa_and_odd_widths(tmp_path, n_embd, n_head, n_head_kv,
+                                                    kv_dtype):
+    """Head width 80 with 16 query heads over one kv head, and width 48:
+    shapes outside the decode attention kernel's first templates (widths
+    64, 128, 256; at most 8 heads a kv head). A 40-token prompt (chunks
+    32 + 8), then four greedy decode steps."""
+    path = str(tmp_path / "llama.gguf")
+    build_llama_gguf(path, n_ctx=128, n_embd=n_embd, n_head=n_head, n_head_kv=n_head_kv,
+                     wtype=GGMLType.F32, seed=13)
+    jl = J.AutoModelForCausalLM.from_pretrained(path, kv_dtype=kv_dtype)
+    tl = T.AutoModelForCausalLM.from_pretrained(path, kv_dtype=kv_dtype, device="cpu")
+    spec = tl._bundle.spec
+    assert (spec.n_embd // spec.n_head, spec.n_head // spec.n_head_kv) == (
+        n_embd // n_head, n_head // n_head_kv)
+    toks = [1] + [int(t) for t in np.random.RandomState(0).randint(3, jl.vocab_size, 39)]
+    A.reset_counts()
+    for llm in (jl, tl):
+        llm.eval(toks)
+    errs, jtok, ttok = [_rel(tl.logits, jl.logits)], [], []
+    for _ in range(4):
+        jtok.append(int(np.argmax(jl.logits)))
+        ttok.append(int(np.argmax(tl.logits)))
+        jl.eval([jtok[-1]])
+        tl.eval([jtok[-1]])
+        errs.append(_rel(tl.logits, jl.logits))
+    assert A.PLAIN_CALLS["decode_attn"] == 4 * spec.n_layer
+    assert ttok == jtok
+    assert max(errs) < LOGIT_CLASS[kv_dtype], errs

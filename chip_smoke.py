@@ -19,17 +19,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                every other candidate of those keys at m = 1, 8 and 128 is
                held against its plain version too, so that whatever a
                table sends to a main path was held at that shape and m
-               (phase 5 fails on a launch that was not); the two symbols of
+               (phase 5 fails on a launch that was not); the symbols of
                the Hopper GEMM core (csrc/qmm_wgmma.cuh: qmm_b on the Q6_K
-               and Q5_K grids, qmm_sb_legacy on Q5_1 and on Q8_0 without
-               mins) held at m = 33, 64, 256 and 2048 as well, and every
-               call of theirs checked bitwise against a second call;
+               and Q5_K grids, qmm_b_legacy and qmm_sb_legacy on Q5_1 and
+               on Q8_0 without mins, qmm_sb_ks on the ksplit nibbles of
+               Q4_K, GPTQ4 at groups 32, 64 and 128, Q4_0, Q2_K and Q3_K)
+               held at m = 33, 64,
+               256 and 2048 as well (qmm_sb_ks also at its decode design's
+               m = 1, 8 and 32), and every call of theirs checked bitwise
+               against a second call;
      attention the decode attention kernel (csrc/attn_decode.cu) against its
                plain version at llama-2-7B heads (32 of width 128, n_ctx
                2048): f32, bf16, IEEE f16 and int8 caches at n_past 200 and
                2000, head-major at 2000, GQA (32 heads over 8), ALiBi, and
-               4 slots at n_past (5, 300, 1000, 2000); times beside the
-               bound and scaled_dot_product_attention as the yardstick
+               4 slots at n_past (5, 300, 1000, 2000); and at widths above
+               256 (8 heads of width 512 over 2, 4 of width 320 over 1, in
+               column slices of 256); times beside the bound and
+               scaled_dot_product_attention as the yardstick
      probes    the probe kernels (ops/probes.py: csrc/probe_{dot,nibble,
                stream}.cu, the ports of scripts/probe_*.py): every probe of
                scripts/torch_probe_*.py (torch_probe_q5b.py is
@@ -58,8 +64,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                llama with bf16 and int8 KV
                caches and head-major caches (CT_KV_LAYOUT=hm) on both, and
                tiny llamas of head width 80 with 16 query heads over one kv
-               head and of width 48, every decode attention call held
-               against its plain version
+               head, of width 48 and of width 320 with 4 query heads over
+               one kv head, every decode attention call held against its
+               plain version
   5. main      llama-2-7B-width checkpoints (random weights from a seed)
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
@@ -67,8 +74,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                asserted against the table's choices: the Q4_K_M file at
                full depth (with the device time of one 128-token chunk), a
                GPTQ 4-bit directory (group 128) and the Q4_K_M file packed
-               ksplit at 16 layers and Q2_K, Q3_K_M, Q4_0 and Q8_0 files
-               at 8 layers, loaded cold (an
+               ksplit at 8 layers and Q2_K, Q3_K_M, Q4_0 and Q8_0 files
+               at 4 layers, loaded cold (an
                empty table: the load races) and again warm, served under
                the fixed rule and under the raced table in turns; a Q5_K_M
                file at 4 layers, an all-Q4_K file at 8, an act-order GPTQ
@@ -81,7 +88,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                names the float-activation and sum-fold modes for every key;
                the ksplit Q4_K_M and the Q8_0 file at 2 layers under one
                that names r and rb; the Q4_K_M file at 2 layers and the
-               Q8_0 file at 8 under one that names qx, also through
+               Q8_0 file at 4 under one that names qx, also through
                generate_fast; the 32-layer Q4_K_M file through
                generate_fast (the fused decode: a CUDA graph a key, replayed
                a token; tokens and segment-end logits against the eager
@@ -219,11 +226,17 @@ KERNEL_CASES = [
 # the symbols of the Hopper GEMM core (csrc/qmm_wgmma.cuh), held at every
 # instantiation at CORE_HELD_M beside phase 3's timed m = 128 on these
 # cases (Q6_K's and Q5_K's grids for qmm_b; Q5_1 with mins and Q8_0 without
-# for qmm_sb_legacy), each call checked bitwise against a second one
-CORE_KERNELS = ("qmm_b", "qmm_sb_legacy")
+# for qmm_b_legacy and qmm_sb_legacy; the ksplit nibbles of every layout
+# for qmm_sb_ks, also at CORE_KS_HELD_M, its decode design's m), each call
+# checked bitwise against a second one
+CORE_KERNELS = ("qmm_b", "qmm_b_legacy", "qmm_sb_legacy", "qmm_sb_ks")
 CORE_HELD_M = (33, 64, 256, 2048)
+CORE_KS_HELD_M = (1, 8, 32)
 CORE_HELD_CASES = {("Q6_K", "v"), ("Q6_K", "down"), ("Q5_K", "o"), ("Q5_K", "down"),
-                   ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o")}
+                   ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o"), ("ks:Q4_K", "qkv"),
+                   ("ks:Q4_K", "down"), ("ks:GPTQ4/128", "o"), ("ks:GPTQ4/32", "o"),
+                   ("ks:GPTQ4/64", "o"), ("ks:Q4_0", "down"), ("ks:Q2_K", "o"),
+                   ("ks:Q3_K", "down")}
 # (kernel, table key) held against its plain version in phase 3
 HELD = set()
 # the batch sizes raced per case (the sizes the main path's prompt and decode run)
@@ -290,30 +303,33 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
 # to make room for the fused decode (serve_fast) of the 32-layer Q4_K_M file
 # and the two qx paths; GPTQ4 g128 and the ksplit Q4_K_M from 32 to 16 to
 # make room for the tiny head-shape llamas of phase 4 and the GEMM core's
-# rows of phase 3.
+# rows of phase 3; then, to keep the whole run (nvcc build included) well
+# inside its 1200 s on a shared host, GPTQ4 g128 and the ksplit Q4_K_M
+# from 16 to 8 layers and Q4_0, Q8_0 (and its qx path), Q2_K and Q3_K_M
+# from 8 to 4.
 MAIN_PATHS = [
     ("Q4_K_M", "Q4_K_M", 32, "race"),
     ("Q5_K_M", "Q5_K_M", 4, "kernels"),
     ("Q4_K", None, 8, "kernels"),
-    ("GPTQ4-g128", ("gptq", 128, False), 16, "race"),
+    ("GPTQ4-g128", ("gptq", 128, False), 8, "race"),
     ("GPTQ4-g128-actorder", ("gptq", 128, True), 4, "kernels"),
     ("Q4_K_M-new", "Q4_K_M", 2, "new"),
     ("Q5_K_M-new", "Q5_K_M", 2, "new"),
     ("GPTQ4-g128-new", ("gptq", 128, False), 2, "new"),
-    ("Q4_0", "Q4_0", 8, "race"),
-    ("Q8_0", "Q8_0", 8, "race"),
+    ("Q4_0", "Q4_0", 4, "race"),
+    ("Q8_0", "Q8_0", 4, "race"),
     ("Q4_1", "Q4_1", 4, "kernels"),
     ("Q5_0", "Q5_0", 4, "kernels"),
     ("Q5_1", "Q5_1", 4, "kernels"),
     ("Q4_0-new", "Q4_0", 2, "new"),
     ("Q5_1-new", "Q5_1", 2, "new"),
-    ("Q2_K", "Q2_K", 8, "race"),
-    ("Q3_K_M", "Q3_K_M", 8, "race"),
+    ("Q2_K", "Q2_K", 4, "race"),
+    ("Q3_K_M", "Q3_K_M", 4, "race"),
     ("Q3_K_S", "Q3_K_S", 4, "kernels"),
     ("Q3_K_L", "Q3_K_L", 4, "kernels"),
     ("Q2_K-new", "Q2_K", 2, "new"),
     ("Q3_K_M-new", "Q3_K_M", 2, "new"),
-    ("Q4_K_M-ksplit", "Q4_K_M", 16, "race"),
+    ("Q4_K_M-ksplit", "Q4_K_M", 8, "race"),
     ("GPTQ4-g128-ksplit", ("gptq", 128, False), 4, "kernels"),
     ("Q4_0-ksplit", "Q4_0", 4, "kernels"),
     ("Q2_K-ksplit", "Q2_K", 4, "kernels"),
@@ -322,7 +338,7 @@ MAIN_PATHS = [
     ("Q4_K_M-ksplit-rb", "Q4_K_M", 2, "rb"),
     ("Q8_0-rb", "Q8_0", 2, "rb"),
     ("Q4_K_M-qx", "Q4_K_M", 2, "qx"),
-    ("Q8_0-qx", "Q8_0", 8, "qx"),
+    ("Q8_0-qx", "Q8_0", 4, "qx"),
 ]
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
@@ -385,14 +401,19 @@ TINY_MIN_MARGIN_OF = {"Q2_K": 0.05, "GPTQ4-g128-ksplit": 0.05}
 # the JAX package)
 ATTN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "ieee_f16": torch.float16,
                "int8": torch.int8}
-ATTN_CASES = (
+ATTN_HEADS, ATTN_DH, ATTN_CTX = 32, 128, 2048
+ATTN_CASES = [c + (ATTN_HEADS, ATTN_DH) for c in (
     [(d, False, 32, (200,), 256, False) for d in ATTN_DTYPES]
     + [(d, False, 32, (2000,), 2048, False) for d in ATTN_DTYPES]
     + [(d, True, 32, (2000,), 2048, False) for d in ATTN_DTYPES]
     + [("bf16", False, 8, (2000,), 2048, False), ("f32", False, 32, (2000,), 2048, True),
        ("bf16", False, 32, (5, 300, 1000, 2000), 2048, False)]
-)
-ATTN_HEADS, ATTN_DH, ATTN_CTX = 32, 128, 2048
+)]
+# and heads wider than the kernel's 256 templates (query heads, width last):
+# 8 of width 512 over 2 kv heads (the 4096-wide residual of a 7B), 4 of
+# width 320 over one, head-major
+ATTN_CASES += [("bf16", False, 2, (2000,), 2048, False, 8, 512),
+               ("f32", True, 1, (2000,), 2048, False, 4, 320)]
 # f32: the same sums in another order; bf16, f16, int8: q and p rounded at
 # the same places as the plain version, which a rounding flip changes only
 # where the f32 sums land within an ulp of a boundary
@@ -403,11 +424,12 @@ TINY_KV = (("bf16", "sm"), ("int8", "sm"), ("f32", "hm"), ("bf16", "hm"), ("int8
 # its first widths (64, 128, 256) and 8 heads a kv head: (label, n_embd,
 # n_head, n_head_kv, first seed), served with TINY_HEADS_KV: width 80 with
 # 16 query heads over one kv head, width 48 with 4 query heads over each of
-# 4 kv
-# heads over 4; each with the first seed tried (the first without a greedy
-# near-tie on a CPU with any of its caches, so that the search seldom writes
-# a model twice)
-TINY_HEADS = (("dh80-gqa16", 1280, 16, 1, 29), ("dh48", 768, 16, 4, 59))
+# 4 kv heads, width 320 (past 256: column slices) with 4 query heads over
+# one; each with the first seed tried (the first without a greedy near-tie
+# on a CPU with any of its caches, so that the search seldom writes a model
+# twice)
+TINY_HEADS = (("dh80-gqa16", 1280, 16, 1, 29), ("dh48", 768, 16, 4, 59),
+              ("dh320-gqa4", 1280, 4, 1, 37))
 TINY_HEADS_KV = (("f32", "sm"), ("bf16", "hm"), ("int8", "sm"))
 # the long-context decode of the 32-layer Q4_K_M file: the prompt as 15
 # chunks of 128 tokens (the chunk size phase 3 holds the kernels at), then
@@ -647,8 +669,10 @@ def phase_kernels(K, copy_bw: float):
         if not base.packed:  # and where one of qx_mode_entries sends the grids
             others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
-            core = K.kernel_name("b" if base.sfactor else "sb", base)
-            others += [(core, m) for m in CORE_HELD_M]
+            for core in dict.fromkeys(K.kernel_name(mode, base) for mode in ("b", "sb")):
+                if core in CORE_KERNELS:
+                    others += [(core, m) for m in CORE_HELD_M + (
+                        CORE_KS_HELD_M if core == "qmm_sb_ks" else ())]
         others = [r for r in dict.fromkeys(others) if r not in runs]
         for j, (name, m) in enumerate(runs + others):
             timed = j < len(runs)
@@ -722,10 +746,10 @@ def phase_attention(A) -> list:
     the bound of this run's live rows."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for name, hm, hkv, n_past, window, alibi in ATTN_CASES:
+    for name, hm, hkv, n_past, window, alibi, h, dh in ATTN_CASES:
         dt = ATTN_DTYPES[name]
         quant = dt == torch.int8
-        b, h, dh = len(n_past), ATTN_HEADS, ATTN_DH
+        b = len(n_past)
         live = sum(n + 1 for n in n_past)  # the K/V rows the slots attend over
         elem = torch.empty(0, dtype=dt).element_size()
         kv_bytes = 2 * live * hkv * (dh * elem + (4 if quant else 0))
@@ -773,7 +797,7 @@ def phase_attention(A) -> list:
         ops = 4 * live * h * dh
         peak = PEAK_F32_S if dt == torch.float32 else PEAK_BF16_S
         bound_ms = max(nbytes / PEAK_BYTES_S, ops / peak) * 1e3
-        what = (f"{name} {'hm' if hm else 'sm'} H={h} Hkv={hkv} n_past={list(n_past)} "
+        what = (f"{name} {'hm' if hm else 'sm'} H={h} Hkv={hkv} dh={dh} n_past={list(n_past)} "
                 f"window={window}{' alibi' if alibi else ''}")
         log(f"[attention] decode_attn {what}: rel_err={err:.3e} max_abs_err={max_abs:.3e} "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "

@@ -37,9 +37,15 @@
 // template padded to DHP = 64, 128 or 256 lanes' worth of elements, the
 // lanes past dh loading zeros (so q . k and p . v are unchanged); rows
 // whose element offsets are not all multiples of 4 (dh % 4 != 0, or odd
-// strides) take element-wise loads in the DHP = 256 template. Splitting
-// the sequence across blocks, with a combine pass that keeps the running
-// max's rounding of p, is the next step for speed.
+// strides) take element-wise loads in the DHP = 256 template. A wider
+// head (any width; shared memory bounds it) runs in the 256 templates in
+// column slices of 256: the score pass adds each slice's partial dot to
+// the row's score in slice order, and the block's slice (blockIdx.z, one
+// block per slice) takes that slice of the PV pass and of the output.
+// Each slice's block computes the same scores, softmax and rounded p (the
+// same operations in the same order), reading K once per slice and V
+// once. Splitting the sequence across blocks, with a combine pass that
+// keeps the running max's rounding of p, is the next step for speed.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -58,8 +64,9 @@ constexpr int kMaxRep = 8;           // query heads a kv head
 constexpr int kVec = 4;              // cache elements a lane loads at once
 constexpr int kScoreBudget = 64 * 1024;  // shared bytes for a span's scores
 constexpr int kMaxSmem = 227 * 1024;
-constexpr int kMaxDh = 256;          // widest head (padded width of the
-                                     // element-wise template)
+constexpr int kMaxDh = 256;          // widest template (padded width of the
+                                     // element-wise one), the width of a
+                                     // wider head's column slices
 
 enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
@@ -146,6 +153,7 @@ struct Args {
   const int* n_past;     // (B,)
   float* out;            // (B, H, dh)
   int h, hkv, dh, win, chunk, span;  // span: chunks whose scores share memory at once
+  int qw;                // q_s row: DH, or the slices' widths of a wider head
   int rep, ngrp;         // query heads a kv head; groups of kMaxRep of them
   float scale;
   long long k_l, k_b, k_s, k_h;  // cache: layer il's offset, slot, position, kv head strides
@@ -154,7 +162,8 @@ struct Args {
 
 // kRep: the query heads of a group, min(rep, 8) rounded up to 1, 2, 4 or 8
 // (the heads past the group's own are skipped); DH: the head width a.dh
-// padded to 64, 128 or 256; kScalar: element-wise loads
+// padded to 64, 128 or 256, or a slice of 256 of a wider head (a.qw / DH
+// slices, this block's blockIdx.z); kScalar: element-wise loads
 template <typename T, int DH, int kRep, bool kScalar>
 __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
@@ -179,8 +188,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   const int head0 = g * a.rep + grp * kMaxRep;
   const int rep = min(kMaxRep, a.rep - grp * kMaxRep);
   const int span_len = a.span * a.chunk;
-  float* q_s = smem;                  // rep x DH: q * scale rounded to cdt
-  float* sc = q_s + rep * DH;         // rep x span_len: scores, then p * vs rounded
+  const int nsl = a.qw / DH, d0 = blockIdx.z * DH;  // slices; this block's first column
+  float* q_s = smem;                  // rep x qw: q * scale rounded to cdt
+  float* sc = q_s + rep * a.qw;       // rep x span_len: scores, then p * vs rounded
   float* red = sc + rep * span_len;   // kThreads * kVec: the final sum over PV rows
   float* cmax = red + kThreads * kVec;  // rep x span: each chunk's max score
   float* msafe = cmax + rep * a.span;   // rep x span: running max (0 where -inf)
@@ -191,13 +201,13 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long off = a.k_l + b * a.k_b + g * a.k_h;
   const T* kb = static_cast<const T*>(a.k) + off;
-  const T* vb = static_cast<const T*>(a.v) + off;
+  const T* vb = static_cast<const T*>(a.v) + off + d0;
   const long long soff = a.s_l + b * a.s_b + g * a.s_h;
   const float* ksb = kQuant ? a.ks + soff : nullptr;
   const float* vsb = kQuant ? a.vs + soff : nullptr;
 
-  for (int i = tid; i < rep * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
+  for (int i = tid; i < rep * a.qw; i += kThreads) {
+    const int r = i / a.qw, d = i % a.qw;
     q_s[i] = d < a.dh
         ? to_cdt<T>(__fmul_rn(a.q[(static_cast<long long>(b) * a.h + head0 + r) * a.dh + d],
                               a.scale))
@@ -223,52 +233,62 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
     const int s0 = c0 * a.chunk, rows = nch * a.chunk;
     __syncthreads();  // q_s written; the previous span's sc read
 
-    // 1. the span's scores
+    // 1. the span's scores, slice by slice (one slice up to width 256)
     for (int base = 0; base < rows; base += kWarps * kRpw * kUnrollK) {
-      typename Raw<T>::type kr[kUnrollK][kNv];
       float ksr[kUnrollK], vsr[kUnrollK];  // int8: the rows' scales, loaded with them
+      float dot[kUnrollK][kRep];           // the rows' scores: the slices' sums in order
+      for (int sl = 0; sl < nsl; ++sl) {
+        typename Raw<T>::type kr[kUnrollK][kNv];
 #pragma unroll
-      for (int u = 0; u < kUnrollK; ++u) {
-        const int row = base + u * kWarps * kRpw + krow;
+        for (int u = 0; u < kUnrollK; ++u) {
+          const int row = base + u * kWarps * kRpw + krow;
 #pragma unroll
-        for (int n = 0; n < kNv; ++n) {
-          const int e0 = (n * kTpr + ksub) * kVec;
-          kr[u][n] = load_part<T, kScalar>(kb + static_cast<long long>(s0 + row) * a.k_s + e0,
-                                           row < rows ? a.dh - e0 : 0);
-        }
-        if constexpr (kQuant) {
-          const long long so = static_cast<long long>(s0 + row) * a.s_s;
-          ksr[u] = row < rows ? ksb[so] : 0.f;
-          vsr[u] = row < rows ? vsb[so] : 0.f;
-        }
-      }
-      // the rows' partial dots, then their sums over the kTpr lanes of a row,
-      // every row's shuffles interleaved
-      float part[kUnrollK][kRep];
-#pragma unroll
-      for (int u = 0; u < kUnrollK; ++u) {
-#pragma unroll
-        for (int r = 0; r < kRep; ++r) {
-          part[u][r] = 0.f;
-          if (r < rep) {
-#pragma unroll
-            for (int n = 0; n < kNv; ++n) {
-              const float* qq = q_s + r * DH + (n * kTpr + ksub) * kVec;
-              const Vec4 kv = widen<T>(kr[u][n]);
-#pragma unroll
-              for (int e = 0; e < kVec; ++e) part[u][r] = fmaf(qq[e], kv.x[e], part[u][r]);
+          for (int n = 0; n < kNv; ++n) {
+            const int e0 = sl * DH + (n * kTpr + ksub) * kVec;
+            kr[u][n] = load_part<T, kScalar>(kb + static_cast<long long>(s0 + row) * a.k_s + e0,
+                                             row < rows ? a.dh - e0 : 0);
+          }
+          if constexpr (kQuant) {
+            if (sl == 0) {
+              const long long so = static_cast<long long>(s0 + row) * a.s_s;
+              ksr[u] = row < rows ? ksb[so] : 0.f;
+              vsr[u] = row < rows ? vsb[so] : 0.f;
             }
           }
         }
-      }
-#pragma unroll
-      for (int o = kTpr / 2; o > 0; o >>= 1) {
+        // the rows' partial dots, then their sums over the kTpr lanes of a
+        // row, every row's shuffles interleaved
+        float part[kUnrollK][kRep];
 #pragma unroll
         for (int u = 0; u < kUnrollK; ++u) {
 #pragma unroll
           for (int r = 0; r < kRep; ++r) {
-            part[u][r] += __shfl_xor_sync(0xffffffffu, part[u][r], o);
+            part[u][r] = 0.f;
+            if (r < rep) {
+#pragma unroll
+              for (int n = 0; n < kNv; ++n) {
+                const float* qq = q_s + r * a.qw + sl * DH + (n * kTpr + ksub) * kVec;
+                const Vec4 kv = widen<T>(kr[u][n]);
+#pragma unroll
+                for (int e = 0; e < kVec; ++e) part[u][r] = fmaf(qq[e], kv.x[e], part[u][r]);
+              }
+            }
           }
+        }
+#pragma unroll
+        for (int o = kTpr / 2; o > 0; o >>= 1) {
+#pragma unroll
+          for (int u = 0; u < kUnrollK; ++u) {
+#pragma unroll
+            for (int r = 0; r < kRep; ++r) {
+              part[u][r] += __shfl_xor_sync(0xffffffffu, part[u][r], o);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnrollK; ++u) {
+#pragma unroll
+          for (int r = 0; r < kRep; ++r) dot[u][r] = sl == 0 ? part[u][r] : dot[u][r] + part[u][r];
         }
       }
 #pragma unroll
@@ -280,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
 #pragma unroll
           for (int r = 0; r < kRep; ++r) {
             if (r < rep) {
-              float x = part[u][r];
+              float x = dot[u][r];
               if constexpr (kQuant) x = __fmul_rn(x, ksr[u]);
               if (a.slopes) x = __fadd_rn(x, __fmul_rn(a.slopes[head0 + r], static_cast<float>(s)));
               sc[r * span_len + row] = s <= np ? x : -INFINITY;
@@ -359,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
           const int row = base + u * kVrows;
           vr[u] = load_part<T, kScalar>(
               vb + static_cast<long long>(s0 + r0 + row) * a.k_s + vsub * kVec,
-              row < a.chunk ? a.dh - vsub * kVec : 0);
+              row < a.chunk ? a.dh - d0 - vsub * kVec : 0);
         }
 #pragma unroll
         for (int u = 0; u < kUnrollV; ++u) {
@@ -388,10 +408,10 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) red[tid * kVec + e] = acc[r][e];
       __syncthreads();
-      for (int d = tid; d < a.dh; d += kThreads) {
+      for (int d = tid; d < min(DH, a.dh - d0); d += kThreads) {
         float s = 0.f;
         for (int gi = 0; gi < kVrows; ++gi) s += red[gi * DH + d];
-        a.out[(static_cast<long long>(b) * a.h + head0 + r) * a.dh + d] =
+        a.out[(static_cast<long long>(b) * a.h + head0 + r) * a.dh + d0 + d] =
             __fdiv_rn(s, fmaxf(l_run[r], 1e-30f));
       }
       __syncthreads();
@@ -407,7 +427,7 @@ cudaError_t launch(const Args& a, int batch, size_t smem, cudaStream_t stream) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(a.hkv * a.ngrp, batch), kThreads, smem, stream>>>(a);
+  kern<<<dim3(a.hkv * a.ngrp, batch, a.qw / DH), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -423,6 +443,7 @@ cudaError_t by_rep(const Args& a, int batch, size_t smem, cudaStream_t st) {
 template <typename T>
 cudaError_t by_head_dim(const Args& a, bool scalar, int batch, size_t smem, cudaStream_t st) {
   if (scalar) return by_rep<T, kMaxDh, true>(a, batch, smem, st);
+  if (a.dh > kMaxDh) return by_rep<T, kMaxDh, false>(a, batch, smem, st);
   if (a.dh <= 64) return by_rep<T, 64, false>(a, batch, smem, st);
   if (a.dh <= 128) return by_rep<T, 128, false>(a, batch, smem, st);
   return by_rep<T, 256, false>(a, batch, smem, st);
@@ -431,7 +452,9 @@ cudaError_t by_head_dim(const Args& a, bool scalar, int batch, size_t smem, cuda
 }  // namespace
 
 // dtype: 0 f32, 1 bf16, 2 f16, 3 int8 (ks and vs given exactly for int8);
-// dh: any head width up to 256; h / hkv query heads a kv head, any number;
+// dh: any head width whose q rows and scores fit the block's shared memory
+// (widths above 256 in slices of 256); h / hkv query heads a kv head, any
+// number;
 // strides in elements of the cache's (layer, slot, position, kv head) axes
 // and of the scale planes' (zero without them). Returns a CUDA error code.
 extern "C" int ct_decode_attn(const void* q, const void* k, const void* v, const void* ks,
@@ -442,7 +465,7 @@ extern "C" int ct_decode_attn(const void* q, const void* k, const void* v, const
                               long long s_ss, long long s_sh, void* stream) {
   const bool quant = dtype == kI8;
   if ((ks != nullptr) != quant || (vs != nullptr) != quant || batch <= 0 || hkv <= 0 ||
-      h % hkv || dh <= 0 || dh > kMaxDh || chunk <= 0 || win % chunk || il < 0) {
+      h % hkv || dh <= 0 || chunk <= 0 || win % chunk || il < 0) {
     return cudaErrorInvalidValue;
   }
   const int rep = h / hkv;
@@ -450,12 +473,14 @@ extern "C" int ct_decode_attn(const void* q, const void* k, const void* v, const
   const long long chunk_bytes = 4LL * grp_rep * chunk;
   const int span = static_cast<int>(
       std::min(static_cast<long long>(win / chunk), std::max(1LL, kScoreBudget / chunk_bytes)));
-  const int dhp = dh <= 64 ? 64 : dh <= 128 ? 128 : kMaxDh;
   // vector loads need every row's elements at multiples of kVec (the cache
   // pointer itself is 16-byte aligned)
   const bool scalar = dh % kVec || k_sl % kVec || k_sb % kVec || k_ss % kVec || k_sh % kVec;
+  // q_s's row: the padded template width, or 256 a slice of a wider head
+  const int qw = dh > kMaxDh ? (dh + kMaxDh - 1) / kMaxDh * kMaxDh
+                             : scalar ? kMaxDh : dh <= 64 ? 64 : dh <= 128 ? 128 : kMaxDh;
   const size_t smem =
-      4 * (static_cast<size_t>(grp_rep) * (scalar ? kMaxDh : dhp) +
+      4 * (static_cast<size_t>(grp_rep) * qw +
            static_cast<size_t>(grp_rep) * span * chunk + kThreads * kVec +
            4 * static_cast<size_t>(grp_rep) * span +
            (quant ? static_cast<size_t>(span) * chunk : 0));
@@ -463,7 +488,7 @@ extern "C" int ct_decode_attn(const void* q, const void* k, const void* v, const
   Args a{static_cast<const float*>(q), k, v, static_cast<const float*>(ks),
          static_cast<const float*>(vs), static_cast<const float*>(slopes),
          static_cast<const int*>(n_past), static_cast<float*>(out), h, hkv, dh, win, chunk,
-         span, rep, (rep + kMaxRep - 1) / kMaxRep, scale, il * k_sl, k_sb, k_ss, k_sh,
+         span, qw, rep, (rep + kMaxRep - 1) / kMaxRep, scale, il * k_sl, k_sb, k_ss, k_sh,
          il * s_sl, s_sb, s_ss, s_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -1,6 +1,7 @@
 // Quantized matmuls on float activations for small m (decode and short
-// chunks): the grouped dot "g" on every served layout, and the f32
-// dequantize-and-dot modes "" and "s" on the int8 grids.
+// chunks): the grouped dot "g" on every served layout, the f32
+// dequantize-and-dot modes "" and "s" on the int8 grids and ksplit
+// nibbles, and "sb" on ksplit nibbles (at m > 32 on the Hopper core).
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_g_kernel (mode "g")  -> ct_qmm_g, ct_qmm_g_gptq, ct_qmm_g_q4_0,
@@ -24,6 +25,13 @@
 //       on the ksplit nibbles of every kind (qmm_common.cuh): x_lo, x_hi the
 //       two halves of x's columns, xs their f32 group sums; one symbol per
 //       mode reads the layout from its ints (ctq::dispatch_ksplit)
+//   _qmm_pack4_s_kernel (mode "sb", bf16 dots) -> ct_qmm_sb_ks
+//       out = xs_lo @ B_lo + xs_hi @ B_hi + bf16(x) @ bf16(v * s): at
+//       m <= 32 this file's ksplit design with x rounded to bf16 as it is
+//       staged and each v * s rounded to bf16 before the f32 product (a
+//       bf16 x bf16 product is exact in f32: the tensor core's products,
+//       summed in a fixed order); at m > 32 the Hopper core's ksplit
+//       nibble tile (qmm_wgmma.cuh)
 // The scale planes are the k-quants' int8 sub-scales times f32 superblock
 // factors (Q4_K at group 32, Q2_K and Q3_K at 16, the grids), or (PLAIN_S: GPTQ4, Q4_1, Q4_0 and the legacy
 // grids Q8_0, Q5_0, Q5_1, the reference's sfactor == 0 branches) f32
@@ -61,6 +69,7 @@
 #include <cuda_bf16.h>
 
 #include "qmm_common.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -69,7 +78,9 @@ constexpr int kThreads = 256;
 constexpr int kCQ = kTN / 4;            // column quads per block
 constexpr int kGL = kThreads / kCQ;     // K lanes
 
-enum Mode { kModeG, kModeF, kModeS };
+// kModeSB: "s" on bf16 operands (ksplit only): x rounded to bf16 as it is
+// staged, v * s rounded to bf16
+enum Mode { kModeG, kModeF, kModeS, kModeSB };
 // the weight's layout: an int8 grid (kp, np), or adjk or ksplit nibbles (kp/2, np)
 enum Layout { kGrid, kAdjk, kKsplit };
 
@@ -127,7 +138,8 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
                 "factored nibble groups are 32 rows (Q4_K) or 16 (Q2_K, Q3_K)");
   static_assert(!PLAIN_S || LAYOUT != kGrid || G == 32, "the legacy grids' groups are 32 rows");
   static_assert(MODE == kModeG || !kPacked, "\"\" and \"s\" are int8-grid and ksplit modes");
-  static_assert(MODE != kModeG || !kKs, "ksplit takes the modes \"\" and \"s\"");
+  static_assert(MODE != kModeG || !kKs, "ksplit takes the modes \"\", \"s\" and \"sb\"");
+  static_assert(MODE != kModeSB || kKs, "\"sb\" is this file's on ksplit nibbles only");
   static_assert(!kKs || (kKC % G == 0 && G % kLR == 0), "a ksplit group is 1 to 8 whole lanes");
   static_assert(4 * kThreads >= kXC, "one float4 per thread stages a chunk");
   static_assert(sizeof(FloatSmem<MT, kXC, kXG>) <= 48 * 1024, "static shared memory limit");
@@ -170,7 +182,7 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
             sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
           if (mine && tid % kQT == 0) sh.in.xs[i][kk / G] = sum;
         }
-        if (MODE == kModeG) {
+        if (MODE == kModeG || MODE == kModeSB) {
           v.x = __bfloat162float(__float2bfloat16(v.x));
           v.y = __bfloat162float(__float2bfloat16(v.y));
           v.z = __bfloat162float(__float2bfloat16(v.z));
@@ -218,6 +230,10 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
               wl[c] = __fadd_rn(wl[c], b_lo[c]);
               wh[c] = __fadd_rn(wh[c], b_hi[c]);
             }
+            if (MODE == kModeSB) {  // the bf16 operand
+              wl[c] = __bfloat162float(__float2bfloat16(wl[c]));
+              wh[c] = __bfloat162float(__float2bfloat16(wh[c]));
+            }
           }
           const int kl = gl * kLR + r;
 #pragma unroll
@@ -228,7 +244,7 @@ qmm_float_kernel(const float* __restrict__ x,       // (m, kp) f32
             for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xh, wh[c], fmaf(xl, wl[c], acc[i][c]));
           }
         }
-        // "s": the group's first lane adds each half's xs @ B once
+        // "s", "sb": the group's first lane adds each half's xs @ B once
         if (kBias && (gl * kLR) % G == 0) {
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
@@ -414,6 +430,26 @@ struct KsplitFloat {
   }
 };
 
+// ct_qmm_sb_ks of a layout dispatch_ksplit names: this file's design at
+// m <= 32 (a block owns 32 columns and all of K: the weight's bytes bound
+// these m, and a 128-row MMA tile would waste its rows), the Hopper core's
+// ksplit nibble tile with the sum fold above
+struct KsplitSb {
+  const float* x;
+  const int8_t* qs;
+  float* out;
+  int m, kp, np;
+  cudaStream_t st;
+  template <int G, int SF, bool HAS_MINS>
+  int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
+    if (m <= 32)
+      return launch<kModeSB, kKsplit, SF == 0, G, HAS_MINS>(x, qs, sub_s, sub_m, sd, sm, out, m,
+                                                            kp, np, st);
+    const ctw::Params p{sub_s, sub_m, sd, sm, out, m, kp, np};
+    return ctw::launch_core<G, HAS_MINS, SF == 0, true, true>(x, qs, p, st);
+  }
+};
+
 // factored int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K).
 template <int MODE>
 int launch_grid(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
@@ -565,6 +601,16 @@ int ct_qmm_s_ks(const float* x, const int8_t* qs, const void* scales, const void
   return ctq::dispatch_ksplit(
       KsplitFloat<kModeS>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales,
       mins, sd, sm, group, has_mins, zp, sfactor);
+}
+
+// mode "sb" on ksplit nibbles: xs_lo @ B_lo + xs_hi @ B_hi + bf16(x) @
+// bf16(v * s), the design chosen by m (KsplitSb)
+int ct_qmm_sb_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
+                 const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
+                 int has_mins, int zp, int sfactor, void* stream) {
+  return ctq::dispatch_ksplit(
+      KsplitSb{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins, sd, sm,
+      group, has_mins, zp, sfactor);
 }
 
 }  // extern "C"

@@ -28,9 +28,7 @@
 // sub_m null; the _legacy symbols say so, and whether there are mins,
 // explicitly (a null pointer selects nothing).
 //
-// The kernels are templated on G, HAS_MINS and PLAIN_S (the layouts), and
-// the GEMM on SUMFOLD ("b" adds m per element before the bf16 cast; "sb"
-// folds it through the group sums of x). Every block owns one output tile
+// The kernels are templated on G, HAS_MINS and PLAIN_S (the layouts). Every block owns one output tile
 // and all of K and sums in a fixed order (no atomics, no split-K), so runs
 // are bitwise repeatable.
 //
@@ -67,14 +65,14 @@
 //   sb: out = xsum @ M + bf16(x) @ bf16(q * s)
 //   Bound: at m = 128 a weight byte (1.08 B/weight) feeds ~237 operations,
 //   just under the bf16 ridge, so bytes and tensor-core operations bound it
-//   about equally; chip_smoke.py reports the larger. ct_qmm_b and
-//   ct_qmm_sb_legacy run the Hopper core of qmm_wgmma.cuh (TMA ring,
-//   wgmma, K split over a cluster of 4). ct_qmm_sb and ct_qmm_b_legacy keep
-//   qmm_gemm.cuh's GEMM (64 x 64 tiles, WMMA bf16, fixed-order sums, the
-//   bias fold), shared with the Q4_K kernels, with this file's int8-grid
+//   about equally; chip_smoke.py reports the larger. ct_qmm_b,
+//   ct_qmm_b_legacy and ct_qmm_sb_legacy run the Hopper core of
+//   qmm_wgmma.cuh (TMA ring, wgmma, K split over a cluster of 3). ct_qmm_sb
+//   keeps qmm_gemm.cuh's GEMM (64 x 64 tiles, WMMA bf16, fixed-order sums,
+//   the bias fold), shared with the Q4_K kernels, with this file's int8-grid
 //   weight tile: each of the 128 threads takes 4 rows x 4 columns of a
 //   32-row K step (one 32-bit load per row, its group's scales once), and
-//   for "sb" the step's rows of the min plane M.
+//   the step's rows of the min plane M.
 #include "qmm_gemm.cuh"
 #include "qmm_wgmma.cuh"
 
@@ -306,9 +304,9 @@ int launch_q8_legacy(const float* x, const int8_t* xq, const float* sx, const fl
                                               out, m, kp, np, st);
 }
 
-// ---- ct_qmm_b / ct_qmm_sb: the int8-grid tile of qmm_gemm.cuh ----------
+// ---- ct_qmm_sb: the factored int8-grid tile of qmm_gemm.cuh --------------
 
-template <int G, bool HAS_MINS, bool PLAIN_S>
+template <int G, bool HAS_MINS>
 struct GridTile {
   static constexpr int kGroup = G;
   static constexpr bool kHasBias = HAS_MINS;
@@ -318,15 +316,17 @@ struct GridTile {
                 "threads must tile the weight step");
   static_assert(G % kWRows == 0, "a thread's rows lie in one quant group");
 
+  // the GEMM folds the mins (FOLD) exactly when there are any: q * s alone
   template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs,     // (kp, np)
-      const int8_t* __restrict__ sub_s,  // (kp/G, np)   [!PLAIN_S]
-      const int8_t* __restrict__ sub_m,  // (kp/G, np)   [!PLAIN_S, HAS_MINS]
-      const float* __restrict__ sd,      // (kp/256, np); PLAIN_S: s (kp/G, np)
-      const float* __restrict__ sm,      // (kp/256, np); PLAIN_S: m [HAS_MINS]
+      const int8_t* __restrict__ sub_s,  // (kp/G, np)
+      const int8_t* __restrict__ sub_m,  // (kp/G, np)   [HAS_MINS]
+      const float* __restrict__ sd,      // (kp/256, np)
+      const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]
       int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*b_s)[ctq::kGemmBN]) {
+    static_assert(FOLD == HAS_MINS, "ct_qmm_sb folds the mins");
     constexpr int kSF = 256 / G;
     constexpr int kNGS = ctq::kGemmBK / G;
     // rows wr .. wr+kWRows-1 of the step, columns wc .. wc+3
@@ -335,38 +335,19 @@ struct GridTile {
     const int g = (k0 + wr) / G;
     const size_t go = (size_t)g * np + n;
     const size_t fo = (size_t)(g / kSF) * np + n;
-    float s[4], mv[4];
-    if (PLAIN_S) {
-      const float4 s4 = __ldg(reinterpret_cast<const float4*>(sd + go));
-      s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
-      if (HAS_MINS && !FOLD) {
-        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + go));
-        mv[0] = m4.x, mv[1] = m4.y, mv[2] = m4.z, mv[3] = m4.w;
-      }
-    } else {
-      const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + go));
-      const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
-      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+    float s[4];
+    const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + go));
+    const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
+    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
-      if (HAS_MINS && !FOLD) {
-        const uint32_t mw = __ldg(reinterpret_cast<const unsigned int*>(sub_m + go));
-        const float4 m4 = __ldg(reinterpret_cast<const float4*>(sm + fo));
-        const float mm[4] = {m4.x, m4.y, m4.z, m4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mv[j] = __fmul_rn(mm[j], static_cast<float>(ctq::sbyte(mw, j)));
-      }
-    }
+    for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
     if (FOLD) {
-      // the step's rows of the min plane M (= sm * sub_m where factored), one
-      // per group
+      // the step's rows of the min plane M = sm * sub_m, one per group
       for (int e = tid; e < kNGS * ctq::kGemmBN; e += ctq::kGemmThreads) {
         const int gi = e / ctq::kGemmBN, col = e % ctq::kGemmBN;
         const int gg = k0 / G + gi;
-        b_s[gi][col] = PLAIN_S
-            ? __ldg(sm + (size_t)gg * np + col0 + col)
-            : __fmul_rn(__ldg(sm + (size_t)(gg / kSF) * np + col0 + col),
-                        static_cast<float>(__ldg(sub_m + (size_t)gg * np + col0 + col)));
+        b_s[gi][col] = __fmul_rn(__ldg(sm + (size_t)(gg / kSF) * np + col0 + col),
+                                 static_cast<float>(__ldg(sub_m + (size_t)gg * np + col0 + col)));
       }
     }
     uint32_t w[kWRows];
@@ -377,11 +358,8 @@ struct GridTile {
     for (int r = 0; r < kWRows; ++r) {
       __nv_bfloat16* b = Bs + (wr + r) * ctq::kGemmLDB + wc;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v = __fmul_rn(static_cast<float>(ctq::sbyte(w[r], j)), s[j]);
-        if (HAS_MINS && !FOLD) v = __fadd_rn(v, mv[j]);
-        b[j] = __float2bfloat16(v);
-      }
+      for (int j = 0; j < 4; ++j)
+        b[j] = __float2bfloat16(__fmul_rn(static_cast<float>(ctq::sbyte(w[r], j)), s[j]));
     }
   }
 };
@@ -399,6 +377,18 @@ int launch_b_core(const float* x, const int8_t* qs, const int8_t* sub_s, const i
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ct_qmm_b_legacy on the Hopper core: plain f32 planes at group 32, the
+// mins (Q5_1) added per weight (q * s + m in f32, rounded once to bf16);
+// without mins (Q8_0, Q5_0) the instantiation of sb_legacy without mins
+int launch_b_legacy_core(const float* x, const int8_t* qs, const float* s, const float* mn,
+                         float* out, int m, int kp, int np, int has_mins,
+                         cudaStream_t stream) {
+  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const ctw::Params p{nullptr, nullptr, s, mn, out, m, kp, np};
+  if (has_mins) return ctw::launch_core<32, true, true, false>(x, qs, p, stream);
+  return ctw::launch_core<32, false, true, false>(x, qs, p, stream);
+}
+
 // ct_qmm_sb_legacy on the Hopper core: plain f32 planes at group 32, the
 // mins (Q5_1) folded through the group sums of x; without mins (Q8_0, Q5_0)
 // the product alone
@@ -411,32 +401,18 @@ int launch_sb_legacy_core(const float* x, const int8_t* qs, const float* s, cons
   return ctw::launch_core<32, false, true, false>(x, qs, p, stream);
 }
 
-template <bool SUMFOLD>
-int launch_grid_gemm(const float* x, const int8_t* qs, const int8_t* sub_s,
-                const int8_t* sub_m, const float* sd, const float* sm,
-                float* out, int m, int kp, int np, int group,
-                cudaStream_t stream) {
+// ct_qmm_sb on qmm_gemm.cuh: group 16 without mins (Q6_K: the product
+// alone) or 32 with mins (Q5_K: folded)
+int launch_sb_gemm(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+                   const float* sd, const float* sm, float* out, int m, int kp, int np,
+                   int group, cudaStream_t stream) {
   if (group == 16 && sub_m == nullptr)
-    return ctq::launch_gemm<GridTile<16, false, false>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm,
-                                                                 out, m, kp, np, stream);
+    return ctq::launch_gemm<GridTile<16, false>, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
+                                                       np, stream);
   if (group == 32 && sub_m != nullptr)
-    return ctq::launch_gemm<GridTile<32, true, false>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm,
-                                                                out, m, kp, np, stream);
+    return ctq::launch_gemm<GridTile<32, true>, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
+                                                      np, stream);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The legacy types: group 32, f32 planes s and mn (null exactly when
-// has_mins is 0: Q8_0 and Q5_0; Q5_1 has mins).
-template <bool SUMFOLD>
-int launch_legacy_gemm(const float* x, const int8_t* qs, const float* s, const float* mn,
-                       float* out, int m, int kp, int np, int has_mins,
-                       cudaStream_t stream) {
-  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (has_mins)
-    return ctq::launch_gemm<GridTile<32, true, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn,
-                                                               out, m, kp, np, stream);
-  return ctq::launch_gemm<GridTile<32, false, true>, SUMFOLD>(x, qs, nullptr, nullptr, s,
-                                                              nullptr, out, m, kp, np, stream);
 }
 
 }  // namespace
@@ -474,8 +450,8 @@ int ct_qmm_b(const float* x, const int8_t* qs, const int8_t* sub_s,
 int ct_qmm_sb(const float* x, const int8_t* qs, const int8_t* sub_s,
               const int8_t* sub_m, const float* sd, const float* sm,
               float* out, int m, int kp, int np, int group, void* stream) {
-  return launch_grid_gemm<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
-                           static_cast<cudaStream_t>(stream));
+  return launch_sb_gemm(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // mode "q" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): xq int8 (m, kp), sx and
@@ -500,8 +476,8 @@ int ct_qmm_qx8_legacy(const float* x, const int8_t* qs, const float* s, const fl
 // mode "b" on a legacy int8 grid: bf16(x) @ bf16(q * s + mn)
 int ct_qmm_b_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
                     float* out, int m, int kp, int np, int has_mins, void* stream) {
-  return launch_legacy_gemm<false>(x, qs, s, mn, out, m, kp, np, has_mins,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_b_legacy_core(x, qs, s, mn, out, m, kp, np, has_mins,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // mode "sb" on a legacy int8 grid: xsum @ mn + bf16(x) @ bf16(q * s)

@@ -33,18 +33,14 @@
 // same GEMM through their own tile:
 //   _qmm_pack4_kernel,   mode "b":  out = bf16(x) @ bf16(v * s + B)
 //                                    -> ct_qmm_b_ks
-//   _qmm_pack4_s_kernel, mode "sb": out = xsum @ B + bf16(x) @ bf16(v * s)
-//                                    -> ct_qmm_sb_ks
 // with v = l in the low half of K and f in the high half and B that half's
 // bias. A byte row holds one row of each half; a 32-row K step lies wholly
 // in one half (kp/2 is a multiple of 128), so the tile knows its nibble and
-// its half's bias, reads only the byte rows of its step (one nibble of each
-// byte: ksplit streams the weight twice over a prompt chunk, once per half)
-// and, for the fold, writes B of each of its groups (the high half of Q4_0
-// and Q3_K has none: 0). A group of 128 rows spans 4 steps of one half (the
-// halves meet at a group boundary), so the fold's per-group carry never
-// crosses them. One symbol per mode serves every kind; it reads the layout
-// from its ints (ctq::dispatch_ksplit).
+// its half's bias and reads only the byte rows of its step (one nibble of
+// each byte: ksplit streams the weight twice over a prompt chunk, once per
+// half). One symbol serves every kind; it reads the layout from its ints
+// (ctq::dispatch_ksplit). Mode "sb" on ksplit (ct_qmm_sb_ks) is
+// qmm_float.cu's, on the Hopper core's ksplit tile at m > 32.
 #include "qmm_gemm.cuh"
 
 namespace {
@@ -182,7 +178,7 @@ struct GptqTile {
 // ksplit nibbles (kp/2, np) of any kind: G, SF groups a superblock (0:
 // the f32 planes s and m come as sd and sm) and whether there are mins. Each
 // of the 128 threads takes 4 byte rows x 4 columns of the step (one 32-bit
-// load per row), which lie in one group.
+// load per row), which lie in one group. No fold: mode "b" only.
 template <int G, int SF, bool HAS_MINS>
 struct KsplitTile {
   static constexpr int kGroup = G;
@@ -200,8 +196,8 @@ struct KsplitTile {
       const float* __restrict__ sd,      // (kp/256, np); SF 0: s (kp/G, np)
       const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]; SF 0: m
       int np, int kp, int k0, int col0, int tid, __nv_bfloat16* Bs,
-      float (*b_s)[ctq::kGemmBN]) {
-    constexpr int kNGS = G >= ctq::kGemmBK ? 1 : ctq::kGemmBK / G;
+      float (*)[ctq::kGemmBN]) {
+    static_assert(!FOLD, "the ksplit tile of qmm_gemm.cuh serves mode \"b\" only");
     const int half = kp / 2;
     const bool hi = k0 >= half;  // the step's half: its nibble and its bias
     // logical rows wr .. wr+kWRows-1 of the step, columns wc .. wc+3
@@ -215,14 +211,6 @@ struct KsplitTile {
       ctq::group_sm<SF, HAS_MINS>(sub_s, sub_m, sd, sm, np, g, n + j, &s[j], &mv);
       b[j] = ctq::ksplit_bias<HAS_MINS>(s[j], mv, hi);
     }
-    if (FOLD) {
-      for (int e = tid; e < kNGS * ctq::kGemmBN; e += ctq::kGemmThreads) {
-        const int gi = e / ctq::kGemmBN, col = e % ctq::kGemmBN;
-        float sv, mv;
-        ctq::group_sm<SF, HAS_MINS>(sub_s, sub_m, sd, sm, np, k0 / G + gi, col0 + col, &sv, &mv);
-        b_s[gi][col] = ctq::ksplit_bias<HAS_MINS>(sv, mv, hi);
-      }
-    }
     const int8_t* qrow = qs + (size_t)(k0 - (hi ? half : 0) + wr) * np + n;
     uint32_t w[kWRows];
 #pragma unroll
@@ -234,16 +222,13 @@ struct KsplitTile {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int v = ctq::ksplit_value(ctq::sbyte(w[r], j), hi);
-        float val = __fmul_rn(static_cast<float>(v), s[j]);
-        if (!FOLD) val = __fadd_rn(val, b[j]);
-        dst[j] = __float2bfloat16(val);
+        dst[j] = __float2bfloat16(__fadd_rn(__fmul_rn(static_cast<float>(v), s[j]), b[j]));
       }
     }
   }
 };
 
-// The ksplit GEMM of a layout dispatch_ksplit names.
-template <bool SUMFOLD>
+// The ksplit "b" GEMM of a layout dispatch_ksplit names.
 struct KsplitGemm {
   const float* x;
   const int8_t* qs;
@@ -252,8 +237,8 @@ struct KsplitGemm {
   cudaStream_t st;
   template <int G, int SF, bool HAS_MINS>
   int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
-    return ctq::launch_gemm<KsplitTile<G, SF, HAS_MINS>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm,
-                                                                  out, m, kp, np, st);
+    return ctq::launch_gemm<KsplitTile<G, SF, HAS_MINS>, false>(x, qs, sub_s, sub_m, sd, sm,
+                                                                out, m, kp, np, st);
   }
 };
 
@@ -362,7 +347,7 @@ int ct_qmm_si_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const i
                           static_cast<cudaStream_t>(stream));
 }
 
-// modes "b" and "sb" on ksplit nibbles: scales and mins the QTensor's planes
+// mode "b" on ksplit nibbles: scales and mins the QTensor's planes
 // (int8 sub-planes where sfactor > 0, else f32 s and m), sd and sm its
 // factors (null where sfactor is 0); group, has_mins, zp and sfactor name
 // the layout (ctq::dispatch_ksplit refuses one there is not).
@@ -370,16 +355,8 @@ int ct_qmm_b_ks(const float* x, const int8_t* qs, const void* scales, const void
                 const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
                 int has_mins, int zp, int sfactor, void* stream) {
   return ctq::dispatch_ksplit(
-      KsplitGemm<false>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins,
-      sd, sm, group, has_mins, zp, sfactor);
-}
-
-int ct_qmm_sb_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
-                 const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
-                 int has_mins, int zp, int sfactor, void* stream) {
-  return ctq::dispatch_ksplit(
-      KsplitGemm<true>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins,
-      sd, sm, group, has_mins, zp, sfactor);
+      KsplitGemm{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins, sd, sm,
+      group, has_mins, zp, sfactor);
 }
 
 }  // extern "C"

@@ -1,16 +1,23 @@
-// The Hopper GEMM core of the int8-grid prompt GEMMs: ct_qmm_b (Q6_K and
-// Q5_K, factored scales) and ct_qmm_sb_legacy (Q5_1 with mins, Q8_0 and Q5_0
-// without; plain f32 planes), routed here by qmm_grid.cu. It replaces, for
-// those two symbols, the 64 x 64 WMMA tiles of qmm_gemm.cuh, which the
-// other prompt GEMMs keep.
+// The Hopper GEMM core of the prompt GEMMs on int8 grids, ct_qmm_b (Q6_K
+// and Q5_K, factored scales), ct_qmm_b_legacy and ct_qmm_sb_legacy (Q5_1
+// with mins, Q8_0 and Q5_0 without; plain f32 planes), routed here by
+// qmm_grid.cu, and on ksplit nibbles, ct_qmm_sb_ks at m > 32 (every nibble
+// kind; qmm_float.cu). It replaces, for those symbols, the 64 x 64 WMMA
+// tiles of qmm_gemm.cuh, which the other prompt GEMMs keep.
 //
-// Function (the JAX package's _qmm_kernel mode "b" and _qmm_s_kernel mode
-// "sb", ctransformers_tpu/ops/qmatmul.py:734 and :1040):
-//   b:   out = bf16(x) @ bf16(q * s + m)         (m only with mins)
-//   sb:  out = xsum @ M + bf16(x) @ bf16(q * s)  (the fold only with mins)
+// Function (the JAX package's _qmm_kernel mode "b", _qmm_s_kernel mode
+// "sb" and _qmm_pack4_s_kernel mode "sb", ctransformers_tpu/ops/
+// qmatmul.py:734, :1040 and :957):
+//   b:     out = bf16(x) @ bf16(q * s + m)         (m only with mins)
+//   sb:    out = xsum @ M + bf16(x) @ bf16(q * s)  (the fold only with mins)
+//   sb_ks: out = xs_lo @ B_lo + xs_hi @ B_hi + bf16(x) @ bf16(v * s)
 // with f32 accumulation; s = sd * sub_s (factored) or the f32 plane s, each
 // weight's q * s (+ m) in f32 rounded once to bf16, x rounded to nearest
-// even, xsum the f32 sums of x over each group of 32 K rows.
+// even, xsum the f32 sums of x over each group of 32 K rows. On ksplit
+// nibbles (qmm_common.cuh) v is the low nibble l in the low half of K and
+// f in the high half, B each half's bias (ctq::ksplit_bias; the high half
+// of Q4_0 and Q3_K has none) and xs the f32 sums of x over each group of G
+// rows (16 to 128).
 //
 // Bound: at m = 128 a weight byte (about 1.08 B/weight with its scales)
 // feeds ~237 operations, just under the bf16 ridge, so the weight's bytes
@@ -42,7 +49,8 @@
 //     wgmma.mma_async m64n128k16 (bf16 in, f32 accumulators) over the
 //     stage, keeping one stage's products in flight while it dequantizes
 //     the next (the sum-fold form waits for each stage, then adds its
-//     xsum @ M in f32 FFMA to the accumulators);
+//     xsum @ M in f32 FFMA to the accumulators: issuing a stage's products
+//     after the next stage's fold instead measured no faster, PERF.md);
 //   * at the end each block stores its partial tile in shared memory; after
 //     a cluster barrier block r adds the three blocks' partial sums of its
 //     third of the rows in rank order through distributed shared memory and
@@ -51,6 +59,22 @@
 // order: runs are bitwise repeatable. Any m runs: rows past m are zeros in
 // the x tile and never written; m > 128 takes more blocks along m, each
 // dequantizing the weight again.
+//
+// The ksplit nibble tile (KS). A stage holds 32 byte rows x 128 columns of
+// the (kp/2, np) plane (4 KB): they feed 64 K rows, the stage's 32 rows of
+// the low half and the same 32 rows of the high half (row r + kp/2), so
+// the stage's two x boxes lie at K offsets r and r + kp/2. Each consumer
+// thread reads 4 byte rows x 4 columns once and unpacks both nibbles
+// (ctq::ksplit_value), rounding v * s of each half to bf16 into B rows
+// r (low) and 32 + r (high) of the tile; the products are as above. The
+// stage's scale rows (5 KB at most) lie in the weight slot's unused half
+// and the scale slot. The fold is general: groups of 16 to 128 rows,
+// factored or plain planes; the first thread rows of each group write its
+// two biases into the stage (bias rows beside the scales), each warpgroup
+// thread sums its rows of x over each group's columns of the stage and,
+// once the stage's products are done, adds sum * B in f32; a group of 64
+// or 128 rows carries its sum across its stages and adds it once, at its
+// last stage (or the block's last: a cluster's K split may cut a group).
 #pragma once
 
 #include <cuda.h>
@@ -79,6 +103,8 @@ constexpr int kStageBytes = kXBytes + kWBytes + kSBytes;  // 43008 = 42 KB
 constexpr int kBTileBytes = kBK * kBN * 2;
 constexpr int kAtomBytes = kBK * 128;      // 64 columns (one swizzle atom) x 64 rows
 constexpr int kPLd = kBN + 4;              // partial tile row stride, floats
+constexpr int kKsRows = kBK / 2;           // ksplit byte rows of a stage
+constexpr int kKsWBytes = kKsRows * kBN;   // their bytes: half the weight slot
 constexpr int kBarOff = kStages * kStageBytes + kBTiles * kBTileBytes;
 constexpr size_t kSmemBytes = 1024 + kBarOff + 2 * kStages * 8;
 static_assert(kStageBytes % 1024 == 0 && kBarOff % 1024 == 0, "swizzled tiles on 1 KB");
@@ -90,6 +116,8 @@ struct Params {
   const int8_t* sub_m;  // (kp/G, np) int8 [factored, mins]
   const float* sd;      // (kp/256, np); plain: s (kp/G, np)
   const float* sm;      // (kp/256, np) [factored, mins]; plain: m (kp/G, np) [mins]
+                        // (ksplit: sub_s, sub_m, sd, sm as ctq::dispatch_ksplit names
+                        // them, indexed by the logical row)
   float* out;           // (m, np)
   int m, kp, np;
 };
@@ -316,6 +344,83 @@ struct Scales {
   }
 };
 
+// The scale rows of a ksplit stage, at the weight tile + kKsWBytes: group
+// f = h * kNGB + j is group j of half h's 32 rows (h 0 low, 1 high).
+// Plain (GPTQ4, Q4_1, Q4_0): the f32 s rows at 512 f from 0, m rows from
+// 1024. Factored (Q4_K, Q2_K, Q3_K: s = sd * sub_s, m = sm * sub_m): sub_s
+// rows at 128 f from 0, the halves' sd rows at 512 + 512 h, sub_m rows from
+// 1536, sm rows at 2048 + 512 h. From kBiasOff the fold's bias rows, f32,
+// 512 bytes a group in the same order, which the consumers write.
+template <int G, bool HAS_MINS, bool PLAIN_S>
+struct KsScales {
+  static constexpr int kNGB = G < kKsRows ? kKsRows / G : 1;  // groups of a half's rows
+  static constexpr int kMinOff = PLAIN_S ? 1024 : 1536;
+  static constexpr int kBiasOff = 3072;
+  static constexpr int kBytes = PLAIN_S ? 2 * kBN * 4 * (HAS_MINS ? 2 : 1)
+                                        : (2 * kNGB * kBN + 2 * kBN * 4) * (HAS_MINS ? 2 : 1);
+  static_assert(PLAIN_S ? G >= kKsRows && G <= 128 : G * kNGB == kKsRows || G == kKsRows,
+                "plain groups of 32 to 128 rows, factored groups of 16 or 32");
+  static_assert(kBytes <= kBiasOff && kBiasOff + 2 * kNGB * kBN * 4 <= kWBytes - kKsWBytes + kSBytes,
+                "stage layout");
+
+  // the producer: the rows of the stage's byte rows r0 .. r0 + 31 in both
+  // halves (logical rows r0 and half + r0 on), completing on bar
+  __device__ __forceinline__ static void copy(const Params& p, int r0, int half, int n0,
+                                              uint32_t dst, uint32_t bar) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = h * half + r0;
+      if (PLAIN_S) {
+        bulk_copy(dst + h * kBN * 4, p.sd + (size_t)(k / G) * p.np + n0, kBN * 4, bar);
+        if (HAS_MINS)
+          bulk_copy(dst + kMinOff + h * kBN * 4, p.sm + (size_t)(k / G) * p.np + n0, kBN * 4, bar);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNGB; ++j) {
+          const int f = h * kNGB + j;
+          bulk_copy(dst + f * kBN, p.sub_s + (size_t)(k / G + j) * p.np + n0, kBN, bar);
+          if (HAS_MINS)
+            bulk_copy(dst + kMinOff + f * kBN, p.sub_m + (size_t)(k / G + j) * p.np + n0, kBN,
+                      bar);
+        }
+        bulk_copy(dst + 512 + h * kBN * 4, p.sd + (size_t)(k / 256) * p.np + n0, kBN * 4, bar);
+        if (HAS_MINS)
+          bulk_copy(dst + 2048 + h * kBN * 4, p.sm + (size_t)(k / 256) * p.np + n0, kBN * 4, bar);
+      }
+    }
+  }
+
+  // a consumer thread: the scale s and min m (0 without mins) of group j of
+  // half h for columns 4 lane .. 4 lane + 3, each factored one an f32
+  // product rounded once, as the reference's _apply_factors
+  __device__ __forceinline__ static void load(const uint8_t* sc, int h, int j, int lane,
+                                              float (&s)[4], float (&m)[4]) {
+    const int f = h * kNGB + j;
+    m[0] = m[1] = m[2] = m[3] = 0.f;
+    if (PLAIN_S) {
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + h * kBN * 4 + 16 * lane);
+      s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+      if (HAS_MINS) {
+        const float4 m4 = *reinterpret_cast<const float4*>(sc + kMinOff + h * kBN * 4 + 16 * lane);
+        m[0] = m4.x, m[1] = m4.y, m[2] = m4.z, m[3] = m4.w;
+      }
+    } else {
+      const uint32_t sw = *reinterpret_cast<const uint32_t*>(sc + f * kBN + 4 * lane);
+      const float4 d4 = *reinterpret_cast<const float4*>(sc + 512 + h * kBN * 4 + 16 * lane);
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+      if (HAS_MINS) {
+        const uint32_t mw = *reinterpret_cast<const uint32_t*>(sc + kMinOff + f * kBN + 4 * lane);
+        const float4 m4 = *reinterpret_cast<const float4*>(sc + 2048 + h * kBN * 4 + 16 * lane);
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) m[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
+      }
+    }
+  }
+};
+
 struct Smem {
   uint8_t* base;  // 1024-aligned
   __device__ __forceinline__ uint8_t* stage(int s) const { return base + s * kStageBytes; }
@@ -334,42 +439,96 @@ struct Smem {
   }
 };
 
-// One consumer stage. FOLD: the sum-fold of the mins (wait for the stage's
-// products, then acc += xsum @ M over its two groups of 32 rows).
-template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD>
-__device__ __forceinline__ void consume(const Smem& sh, int it, int wg, uint32_t (&af)[4][4],
-                                        float (&acc)[2][32]) {
+// four bf16 values of B row kr (a K slot of the stage) at the thread's
+// columns: N-major, atom nh of 64 columns, row kr of 128 bytes, 16-byte
+// chunk c stored at c ^ (kr % 8) (the 128-byte swizzle); bt is the tile at
+// the thread's atom and 8-byte half of its chunk
+__device__ __forceinline__ void store_b(uint8_t* bt, int kr, int c, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(bt + kr * 128 + ((c ^ (kr & 7)) << 4)) =
+      make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));
+}
+
+// One consumer stage: the stage `it` of the block, its K step `step` (the
+// block's steps start at s_beg), `last` the block's last. FOLD: the sum
+// fold (wait for the stage's products, then acc += xsum @ M over its
+// groups: the int8 grid's two groups of 32 rows, or the ksplit halves'
+// groups, a group of 64 or 128 rows carried in cs until its last stage).
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS>
+__device__ __forceinline__ void consume(const Smem& sh, int it, int step, bool last, int wg,
+                                        uint32_t (&af)[4][4], float (&acc)[2][32],
+                                        float (&cs)[2][2]) {
   using S = Scales<G, HAS_MINS, PLAIN_S>;
+  using KSS = KsScales<G, HAS_MINS, PLAIN_S>;
   constexpr bool kAddMins = HAS_MINS && !FOLD;
+  // the fold: x columns of a group within a box (16 or 32), its groups in a
+  // stage, those with a bias (the ksplit high half without mins has none),
+  // and whether a group spans stages
+  constexpr int kGW = G < kXBox ? G : kXBox;
+  constexpr int kNF = 2 * (kXBox / kGW);
+  constexpr int kNFB = KS && !HAS_MINS ? kNF / 2 : kNF;
+  constexpr bool kCarry = G > kXBox;
   const int tid = threadIdx.x, lane = tid & 31, cw = tid >> 5;
   const int wl = cw & 3;
   const int st = it % kStages;
   mbar_wait(sh.full(st), (it / kStages) & 1);
-  const uint8_t* sc = sh.scales(st);
+  const uint8_t* sc = KS ? sh.wtile(st) + kKsWBytes : sh.scales(st);
 
-  // 1. dequantize rows 8 cw .. 8 cw + 7, columns 4 lane .. 4 lane + 3 into
-  //    the bf16 tile: N-major, atom nh of 64 columns, row k_slot(k) of 128
-  //    bytes, 16-byte chunk c stored at c ^ (row % 8) (the 128-byte
-  //    swizzle)
+  // 1. dequantize into the bf16 tile: the int8 grid's rows 8 cw .. 8 cw + 7,
+  //    or the ksplit byte rows 4 cw .. 4 cw + 3 (B rows of both halves), at
+  //    columns 4 lane .. 4 lane + 3
   {
-    float s[4], mn[4];
-    S::template load<kAddMins>(sc, (8 * cw) / G, lane, s, mn);
     const uint8_t* wt = sh.wtile(st);
     uint8_t* bt = sh.btile(it % kBTiles) + (lane >> 4) * kAtomBytes + ((lane & 1) << 3);
     const int c = (lane & 15) >> 1;
+    if constexpr (KS) {
+      const int j = (4 * cw) / kGW;  // the rows' group in each half
+      float s[2][4], mn[2][4], b[2][4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int k = 8 * cw + r;
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(wt + k * kBN + 4 * lane);
-      float v[4];
+      for (int h = 0; h < 2; ++h) {
+        KSS::load(sc, h, j, lane, s[h], mn[h]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = __fmul_rn(static_cast<float>(ctq::sbyte(w, j)), s[j]);
-        if (kAddMins) v[j] = __fadd_rn(v[j], mn[j]);
+        for (int q = 0; q < 4; ++q) b[h][q] = ctq::ksplit_bias<HAS_MINS>(s[h][q], mn[h][q], h == 1);
       }
-      const int kr = k_slot(k);
-      *reinterpret_cast<uint2*>(bt + kr * 128 + ((c ^ (kr & 7)) << 4)) =
-          make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));
+      if (FOLD && (4 * cw) % kGW == 0) {  // the group's first rows write its bias rows
+        float* brow = reinterpret_cast<float*>(const_cast<uint8_t*>(sc) + KSS::kBiasOff);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float4*>(brow + (h * KSS::kNGB + j) * kBN + 4 * lane) =
+              make_float4(b[h][0], b[h][1], b[h][2], b[h][3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = 4 * cw + r;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(wt + k * kBN + 4 * lane);
+        float v[2][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int byte = ctq::sbyte(w, q);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            v[h][q] = __fmul_rn(static_cast<float>(ctq::ksplit_value(byte, h == 1)), s[h][q]);
+            if (!FOLD) v[h][q] = __fadd_rn(v[h][q], b[h][q]);
+          }
+        }
+        store_b(bt, k_slot(k), c, v[0]);
+        store_b(bt, k_slot(kKsRows + k), c, v[1]);
+      }
+    } else {
+      float s[4], mn[4];
+      S::template load<kAddMins>(sc, (8 * cw) / G, lane, s, mn);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int k = 8 * cw + r;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(wt + k * kBN + 4 * lane);
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = __fmul_rn(static_cast<float>(ctq::sbyte(w, j)), s[j]);
+          if (kAddMins) v[j] = __fadd_rn(v[j], mn[j]);
+        }
+        store_b(bt, k_slot(k), c, v);
+      }
     }
   }
 
@@ -379,10 +538,10 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int wg, uint32_t
   //    chunks of the swizzled boxes), and its K slots 2q, 2q + 1, 2q + 8,
   //    2q + 9 of a 16-row step hold x columns 4q .. 4q + 3 (one 16-byte
   //    load; the weight tile's rows are permuted to match); with the fold,
-  //    the rows' f32 sums over each group of 32 columns
+  //    the rows' f32 sums over each group's kGW columns of the stage
   const int g8 = lane >> 2, q = lane & 3;
   const int ra = wg * 64 + wl * 16 + token_row(g8);
-  float gs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float gs[kNF][2] = {};
   {
     const uint8_t* xt = sh.stage(st);
 #pragma unroll
@@ -396,8 +555,8 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int wg, uint32_t
         af[kk][hr] = bf16x2(v.x, v.y);
         af[kk][2 + hr] = bf16x2(v.z, v.w);
         if (FOLD) {
-          gs[kk >> 1][hr] = __fadd_rn(gs[kk >> 1][hr],
-                                      __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w)));
+          const int f = kk / (kGW / 16);
+          gs[f][hr] = __fadd_rn(gs[f][hr], __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w)));
         }
       }
     }
@@ -405,7 +564,7 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int wg, uint32_t
 #pragma unroll
       for (int o = 1; o < 4; o <<= 1) {
 #pragma unroll
-        for (int gi = 0; gi < 2; ++gi) {
+        for (int gi = 0; gi < kNFB; ++gi) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr)
             gs[gi][hr] = __fadd_rn(gs[gi][hr], __shfl_xor_sync(0xffffffffu, gs[gi][hr], o));
@@ -429,20 +588,30 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int wg, uint32_t
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       // acc += xsum @ M: the thread's rows ra, ra + 8 and columns
-      // 64 nh + 8 j + 2 q (+1), M's two rows from the stage
-      const float* mrow = reinterpret_cast<const float*>(sc + 1024);
+      // 64 nh + 8 j + 2 q (+1), M's rows from the stage (the grid's m
+      // plane; the ksplit bias rows)
+      const float* mrow = reinterpret_cast<const float*>(sc + (KS ? KSS::kBiasOff : 1024));
+      // a group of 64 or 128 rows: its sum so far, added at its last stage
+      const bool flush = !kCarry || last || ((step + 1) * kXBox) % G == 0;
 #pragma unroll
-      for (int gi = 0; gi < 2; ++gi) {
+      for (int gi = 0; gi < kNFB; ++gi) {
+        float g0 = gs[gi][0], g1 = gs[gi][1];
+        if (kCarry) {
+          g0 = cs[gi][0] = __fadd_rn(cs[gi][0], g0);
+          g1 = cs[gi][1] = __fadd_rn(cs[gi][1], g1);
+          if (!flush) continue;
+          cs[gi][0] = cs[gi][1] = 0.f;
+        }
 #pragma unroll
         for (int nh = 0; nh < 2; ++nh) {
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const float2 mm =
                 *reinterpret_cast<const float2*>(mrow + gi * kBN + nh * 64 + 8 * j + 2 * q);
-            acc[nh][4 * j] = fmaf(gs[gi][0], mm.x, acc[nh][4 * j]);
-            acc[nh][4 * j + 1] = fmaf(gs[gi][0], mm.y, acc[nh][4 * j + 1]);
-            acc[nh][4 * j + 2] = fmaf(gs[gi][1], mm.x, acc[nh][4 * j + 2]);
-            acc[nh][4 * j + 3] = fmaf(gs[gi][1], mm.y, acc[nh][4 * j + 3]);
+            acc[nh][4 * j] = fmaf(g0, mm.x, acc[nh][4 * j]);
+            acc[nh][4 * j + 1] = fmaf(g0, mm.y, acc[nh][4 * j + 1]);
+            acc[nh][4 * j + 2] = fmaf(g1, mm.x, acc[nh][4 * j + 2]);
+            acc[nh][4 * j + 3] = fmaf(g1, mm.y, acc[nh][4 * j + 3]);
           }
         }
       }
@@ -453,12 +622,14 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int wg, uint32_t
   if (FOLD) mbar_arrive(sh.empty(st));
 }
 
-template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD>
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS>
 __global__ void __cluster_dims__(1, 1, kSplit) __launch_bounds__(kThreads, 1)
 grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                  const Params p) {
-  static_assert(!FOLD || (PLAIN_S && HAS_MINS && G == 32), "the fold: plain planes, group 32");
+  static_assert(KS || !FOLD || (PLAIN_S && HAS_MINS && G == 32),
+                "the int8 grid's fold: plain planes, group 32");
   using S = Scales<G, HAS_MINS, PLAIN_S>;
+  using KSS = KsScales<G, HAS_MINS, PLAIN_S>;
   extern __shared__ uint8_t smem_raw[];
   Smem sh;
   {
@@ -468,7 +639,8 @@ grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN, row0 = blockIdx.y * kBM;
   const uint32_t rank = cluster_rank();
-  // this block's share of the K steps (shares differ by one at most)
+  // this block's share of the K steps (shares differ by one at most; a
+  // ksplit step is 32 byte rows, 64 K rows as an int8-grid step)
   const int steps = p.kp / kBK;
   const int s_beg = rank * steps / kSplit;
   const int n_iter = (rank + 1) * steps / kSplit - s_beg;
@@ -490,14 +662,23 @@ grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
       for (int it = 0; it < n_iter; ++it) {
         const int st = it % kStages;
         if (it >= kStages) mbar_wait(sh.empty(st), (it / kStages - 1) & 1);
-        const int k0 = (s_beg + it) * kBK;
         const uint32_t bar = sh.full(st);
-        mbar_expect_tx(bar, kXBytes + kWBytes + S::kBytes);
         const uint32_t xs = smem_addr(sh.stage(st));
-        tma_2d(xs, &tx, k0, row0, bar);
-        tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
-        tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0, bar);
-        S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);
+        if constexpr (KS) {  // byte rows r0 .. r0 + 31: x columns r0 and kp/2 + r0 on
+          const int r0 = (s_beg + it) * kKsRows, half = p.kp / 2;
+          mbar_expect_tx(bar, kXBytes + kKsWBytes + KSS::kBytes);
+          tma_2d(xs, &tx, r0, row0, bar);
+          tma_2d(xs + kXHalf, &tx, half + r0, row0, bar);
+          tma_2d(smem_addr(sh.wtile(st)), &tw, n0, r0, bar);
+          KSS::copy(p, r0, half, n0, smem_addr(sh.wtile(st)) + kKsWBytes, bar);
+        } else {
+          const int k0 = (s_beg + it) * kBK;
+          mbar_expect_tx(bar, kXBytes + kWBytes + S::kBytes);
+          tma_2d(xs, &tx, k0, row0, bar);
+          tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
+          tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0, bar);
+          S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);
+        }
       }
     }
   } else {
@@ -510,9 +691,13 @@ grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     // two sets of A registers: a stage's products may still read one set
     // while the next stage fills the other
     uint32_t af0[4][4], af1[4][4];
+    float cs[2][2] = {};  // the fold's carried group sums (groups of 64, 128 rows)
     for (int it = 0; it < n_iter; it += 2) {
-      consume<G, HAS_MINS, PLAIN_S, FOLD>(sh, it, wg, af0, acc);
-      if (it + 1 < n_iter) consume<G, HAS_MINS, PLAIN_S, FOLD>(sh, it + 1, wg, af1, acc);
+      consume<G, HAS_MINS, PLAIN_S, FOLD, KS>(sh, it, s_beg + it, it + 1 == n_iter, wg, af0,
+                                              acc, cs);
+      if (it + 1 < n_iter)
+        consume<G, HAS_MINS, PLAIN_S, FOLD, KS>(sh, it + 1, s_beg + it + 1, it + 2 == n_iter, wg,
+                                                af1, acc, cs);
     }
     wgmma_wait<0>();
     fence_acc(acc[0]);
@@ -587,10 +772,10 @@ inline EncodeTiled encode_tiled() {
 }
 
 // x (m, kp) f32 in boxes of 32 columns x 128 rows, 128-byte swizzle, rows
-// past m read as zeros; the grid (kp, np) int8 in boxes of 64 rows x 128
-// columns, as stored
+// past m read as zeros; the weight, wrows x np bytes (the grid: kp; ksplit
+// nibbles: kp / 2), in boxes of wbox rows x 128 columns, as stored
 inline bool make_maps(CUtensorMap* tx, CUtensorMap* tw, const float* x, const int8_t* qs,
-                      int m, int kp, int np) {
+                      int m, int kp, int np, int wrows, int wbox) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint32_t one[2] = {1, 1};
@@ -601,10 +786,10 @@ inline bool make_maps(CUtensorMap* tx, CUtensorMap* tw, const float* x, const in
           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  const cuuint64_t wdim[2] = {static_cast<cuuint64_t>(np), static_cast<cuuint64_t>(kp)};
+  const cuuint64_t wdim[2] = {static_cast<cuuint64_t>(np), static_cast<cuuint64_t>(wrows)};
   const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(np)};
-  const cuuint32_t wbox[2] = {kBN, kBK};
-  return enc(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(qs), wdim, wstride, wbox,
+  const cuuint32_t wboxes[2] = {kBN, static_cast<cuuint32_t>(wbox)};
+  return enc(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(qs), wdim, wstride, wboxes,
              one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
@@ -612,13 +797,15 @@ inline bool make_maps(CUtensorMap* tx, CUtensorMap* tw, const float* x, const in
 
 // Launch over an (m, np) output: (np / 128, ceil(m / 128), 3) blocks in
 // clusters of 3 along K. kp a multiple of 256, np of 128 (the QTensor's
-// padding). Returns a CUDA error code.
-template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD>
+// padding). KS: qs is the (kp / 2, np) ksplit plane. Returns a CUDA error
+// code.
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS = false>
 int launch_core(const float* x, const int8_t* qs, const Params& p, cudaStream_t stream) {
   if (p.m <= 0 || p.kp % kBK || p.kp / kBK < kSplit || p.np % kBN) return cudaErrorInvalidValue;
   CUtensorMap tx, tw;
-  if (!make_maps(&tx, &tw, x, qs, p.m, p.kp, p.np)) return cudaErrorInvalidValue;
-  auto kern = grid_gemm_kernel<G, HAS_MINS, PLAIN_S, FOLD>;
+  if (!make_maps(&tx, &tw, x, qs, p.m, p.kp, p.np, KS ? p.kp / 2 : p.kp, KS ? kKsRows : kBK))
+    return cudaErrorInvalidValue;
+  auto kern = grid_gemm_kernel<G, HAS_MINS, PLAIN_S, FOLD, KS>;
   const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(kSmemBytes));
   if (e != cudaSuccess) return e;

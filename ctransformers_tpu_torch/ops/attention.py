@@ -12,19 +12,26 @@ for one decode token per slot:
   * layer `il` of the full stacked cache (L, B, S, Hkv, dh) (sequence-major)
     or (L, B, Hkv, S, dh) (head-major) is read over [0, window), each kv
     head serving its rep = H / Hkv query heads (any rep; on the card any
-    head width dh up to 256);
+    head width dh whose q rows and scores fit a block's shared memory,
+    kernel_smem_bytes: every width up to 1024 at any chunk up to 512, wider
+    heads in column slices of 256);
   * the softmax is online over chunks of `chunk` positions counted from 0
     (decode_chunk shrinks the chunk to divide the window, as the Pallas
-    function does): scores are summed in f32, multiplied by the int8
-    cache's k_scale[s], given slope * kpos with ALiBi, masked to
+    function does): scores are summed in f32 (a head wider than 256 as
+    the sum of its column slices' dots of 256, in slice order), multiplied
+    by the int8 cache's k_scale[s], given slope * kpos with ALiBi, masked to
     kpos <= n_past[b]; l sums the unscaled p = exp(score - running max),
     and p * v_scale[s] is rounded to cdt before the PV dot;
   * the result is acc / max(l, 1e-30), (B, H, dh) f32.
 
 The rounding of p after subtracting the RUNNING max makes a bf16 result
 depend on the chunk partition, so the kernel and its plain version share
-it. A CUDA tensor launches the kernel or raises; a CPU tensor takes the
-plain version. There is no fallback from one to the other.
+it; for the same reason they share a wide head's column slices (a score
+an ulp apart may round p to the other neighbour: on a tiny 320-wide
+llama with an int8 cache one such flip moved a call by 4.8e-4 against a
+score summed in one piece). A CUDA tensor launches the kernel or raises;
+a CPU tensor takes the plain version. There is no fallback from one to
+the other.
 """
 
 from __future__ import annotations
@@ -37,13 +44,18 @@ import torch
 from . import qmm_kernels as K
 
 DEFAULT_CHUNK = 512
-# the kernel's limits (the plain version has none): the widest head, and
-# shared memory for one chunk's scores of a block's query heads (at most
-# MAX_REP of a kv head's; more heads a kv head take more blocks) and an int8
-# cache's V scales
-MAX_HEAD_DIM = 256
+# the kernel's limit (the plain version has none): the shared memory of one
+# block (the card's 227 KB), which holds q * scale for the block's query
+# heads (at most MAX_REP of a kv head's; more heads a kv head take more
+# blocks) at the head's padded width (64, 128 or 256; a wider head in
+# column slices of 256), a span of chunks' scores (as many chunks as fit
+# SCORE_BUDGET, at least one), an int8 cache's V scales and the PV pass's
+# sums; csrc/attn_decode.cu:ct_decode_attn computes the same
+MAX_SMEM_BYTES = 227 * 1024
 MAX_REP = 8
-MAX_CHUNK_SCORE_BYTES = 192 * 1024
+SLICE = 256
+SCORE_BUDGET = 64 * 1024
+THREADS, VEC = 512, 4
 SOURCE = "ctransformers_tpu_torch/csrc/attn_decode.cu"
 REPLACES = "scripts/_attention_kernel.py:47"
 # cache dtype -> the kernel's dtype code (csrc/attn_decode.cu)
@@ -71,6 +83,22 @@ def decode_chunk(win: int, chunk: int = DEFAULT_CHUNK) -> int:
     while chunk > 256 and win % chunk:
         chunk -= 256
     return win if win % chunk else chunk
+
+
+def kernel_smem_bytes(rep: int, dh: int, win: int, chunk: int, quant: bool,
+                      scalar: bool) -> int:
+    """Shared memory of one block of the kernel: `rep` query heads a kv
+    head, width dh, the window and chunk it reads, an int8 cache (`quant`),
+    element-wise loads (`scalar`: a width or stride that is no multiple of
+    4)."""
+    r = min(rep, MAX_REP)
+    span = min(win // chunk, max(1, SCORE_BUDGET // (4 * r * chunk)))
+    if dh > SLICE:
+        qw = -(-dh // SLICE) * SLICE
+    else:
+        qw = SLICE if scalar else 64 if dh <= 64 else 128 if dh <= 128 else SLICE
+    return 4 * (r * qw + r * span * chunk + THREADS * VEC + 4 * r * span
+                + (span * chunk if quant else 0))
 
 
 def _head_major_view(a: torch.Tensor, head_major: bool) -> torch.Tensor:
@@ -103,7 +131,8 @@ def plain_decode_attention(q, kv_k, kv_v, il: int, n_past, *, window=None, k_sca
     acc = torch.zeros((b, hkv, rep, dh), device=q.device)
     for j in range(win // c):
         part = slice(j * c, (j + 1) * c)
-        sc = torch.einsum("bgrd,bgcd->bgrc", qt, k[:, :, part].float())
+        sc = sum(torch.einsum("bgrd,bgcd->bgrc", qt[..., i:i + SLICE],
+                              k[:, :, part, i:i + SLICE].float()) for i in range(0, dh, SLICE))
         if quant:
             sc = sc * ks[:, :, None, part]
         kpos = j * c + torch.arange(c, device=q.device)
@@ -151,9 +180,6 @@ def _check_operands(q, kv_k, kv_v, il, n_past, window, k_scale, v_scale, alibi_s
     _check(q, "q", torch.float32, (b, h, dh), dev)
     if h % hkv:
         raise ValueError(f"{h} query heads over {hkv} kv heads")
-    if dev.type == "cuda" and dh > MAX_HEAD_DIM:
-        raise ValueError(f"head width {dh}: the decode attention kernel takes head widths up "
-                         f"to {MAX_HEAD_DIM}")
     if not 0 <= il < n_layer:
         raise ValueError(f"layer {il} of a {n_layer}-layer cache")
     _check(n_past, "n_past", torch.int32, (b,), dev)
@@ -187,11 +213,19 @@ def decode_attention(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor, il
     b, h = q.shape[:2]
     dev = kv_k.device
     c = decode_chunk(win, chunk)
-    # a chunk's scores for a block's heads (and an int8 cache's V scales)
-    chunk_bytes = (min(h // hkv, MAX_REP) + (kv_k.dtype == torch.int8)) * c * 4
-    if dev.type == "cuda" and chunk_bytes > MAX_CHUNK_SCORE_BYTES:
-        raise ValueError(f"a chunk of {c} positions for {h // hkv} heads does not fit the "
-                         "kernel's shared memory")
+
+    def strides(a):  # elements between (layer, slot, position, kv head) neighbours
+        if a is None:
+            return (0, 0, 0, 0)
+        st = a.stride()
+        return (st[0], st[1], st[3], st[2]) if head_major else st[:4]
+
+    scalar = dh % VEC != 0 or any(x % VEC for x in strides(kv_k))
+    need = kernel_smem_bytes(h // hkv, dh, win, c, kv_k.dtype == torch.int8, scalar)
+    if dev.type == "cuda" and need > MAX_SMEM_BYTES:
+        raise ValueError(f"head width {dh}, {h // hkv} heads a kv head and a chunk of {c} "
+                         f"positions need {need} bytes of shared memory a block; the decode "
+                         f"attention kernel's limit is {MAX_SMEM_BYTES} (227 KB)")
     kw = dict(window=window, k_scale=k_scale, v_scale=v_scale, alibi_slopes=alibi_slopes,
               chunk=chunk, head_major=head_major)
     if dev.type == "cpu":
@@ -200,12 +234,6 @@ def decode_attention(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor, il
     if dev.type != "cuda":
         raise ValueError(f"decode_attn: tensors on {dev}; the kernel runs on CUDA only")
     out = torch.empty_like(q)
-    def strides(a):  # elements between (layer, slot, position, kv head) neighbours
-        if a is None:
-            return (0, 0, 0, 0)
-        st = a.stride()
-        return (st[0], st[1], st[3], st[2]) if head_major else st[:4]
-
     fn = K._fn("attn_decode", "ct_decode_attn")
     rc = fn(*K._ptrs(q, kv_k, kv_v, k_scale, v_scale, alibi_slopes, n_past, out),
             DTYPE_CODES[kv_k.dtype], b, h, hkv, dh, win, c, il, score_scale(dh),

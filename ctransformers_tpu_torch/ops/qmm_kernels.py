@@ -77,7 +77,8 @@ kernels' sfactor == 0 branches:
 
   qmm_q8_legacy, qmm_qx8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy,
   qmm_f_legacy, qmm_s_legacy   the functions of the seven grid kernels above
-                               (qmm_sb_legacy on the Hopper GEMM core)
+                               (qmm_b_legacy and qmm_sb_legacy on the Hopper
+                               GEMM core)
 
 The same six nibble layouts (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_1, Q4_0) packed
 "ksplit" (ops/qmatmul.py: byte r holds row r in the low nibble, lo = q + zp,
@@ -93,7 +94,9 @@ zero point and the superblock factor count:
   qmm_b_ks   the function of qmm_f_ks on bf16 operands, f32 sums
              (replaces _qmm_pack4_kernel, mode "b"; csrc/qmm_prefill.cu)
   qmm_sb_ks  the function of qmm_s_ks with the two dots on bf16 operands
-             (replaces _qmm_pack4_s_kernel, mode "sb")
+             (replaces _qmm_pack4_s_kernel, mode "sb"; csrc/qmm_float.cu:
+             qmm_s_ks's design at m <= 32, the Hopper GEMM core's ksplit
+             nibble tile above)
   qmm_r_ks, qmm_rb_ks  the functions of qmm_f_ks and qmm_b_ks, dequantized
              per (group, column) pair (replaces _qmm_pack4_rb_kernel, modes
              "r" and "rb"; csrc/qmm_rb.cu)
@@ -504,7 +507,12 @@ def quantize_activations(x: torch.Tensor, group: int):
     1e-20)), +-127); torch.round rounds half to even, as jnp.round does."""
     m, kp = x.shape
     xr = x.reshape(m, kp // group, group)
-    sx = xr.abs().amax(-1) / 127.0
+    amax = xr.abs().amax(-1)
+    # a tensor divisor: on the card torch divides by a Python scalar as a
+    # product with its reciprocal, which can miss the IEEE quotient that the
+    # kernels (and the JAX package) take by an ulp and so quantize an element
+    # one step off (a qx_gptq call read 6.2e-4 from its kernel so)
+    sx = amax / torch.full_like(amax, 127.0)
     xq = torch.clamp(torch.round(xr / torch.clamp_min(sx, 1e-20)[..., None]), -127, 127)
     return xq.to(torch.int8).reshape(m, kp), sx, xr.sum(-1)
 
@@ -795,7 +803,7 @@ _SPECS = {
     "qmm_f_ks": ("qmm_float", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 783),
     "qmm_s_ks": ("qmm_float", check_ksplit_qtensor, plain_s_ks, _ksplit_ints, 957),
     "qmm_b_ks": ("qmm_prefill", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 783),
-    "qmm_sb_ks": ("qmm_prefill", check_ksplit_qtensor, plain_sb_ks, _ksplit_ints, 957),
+    "qmm_sb_ks": ("qmm_float", check_ksplit_qtensor, plain_sb_ks, _ksplit_ints, 957),
     "qmm_r_ks": ("qmm_rb", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 872),
     "qmm_rb_ks": ("qmm_rb", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 872),
     "qmm_r8": ("qmm_rb", check_grid_qtensor, plain_f, _group, 1459),
@@ -806,9 +814,11 @@ _SPECS = {
 KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
-# the symbols of qmm_grid.cu that run the Hopper GEMM core
-WGMMA_KERNELS = ("qmm_b", "qmm_sb_legacy")
-SOURCE_OF.update({n: "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh" for n in WGMMA_KERNELS})
+# the symbols that run the Hopper GEMM core: those of qmm_grid.cu at every m,
+# qmm_sb_ks of qmm_float.cu (its source) at m > 32
+WGMMA_KERNELS = ("qmm_b", "qmm_b_legacy", "qmm_sb_legacy", "qmm_sb_ks")
+SOURCE_OF.update({n: "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh" for n in WGMMA_KERNELS
+                  if _SPECS[n][0] == "qmm_grid"})
 REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
 # the wrappers as module functions: qmm_qx(x, qt), qmm_q(xq, sx, xsum, qt), ...
 # (ops/qmatmul.py looks them up here by name at call time)
@@ -832,14 +842,15 @@ KSPLIT_FLOAT_CONFIG = "n32k512"  # the same, 512 byte rows (both halves) a chunk
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
 GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq",
-                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_b_legacy", "qmm_i_k16",
-                "qmm_si_k16", "qmm_b_ks", "qmm_sb_ks", "qmm_rb_ks", "qmm_rb8",
-                "qmm_rb8_legacy")
+                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_i_k16", "qmm_si_k16", "qmm_b_ks",
+                "qmm_rb_ks", "qmm_rb8", "qmm_rb8_legacy")
 # 128 x 128 output tile over two wgmma warpgroups, K split over a cluster of
 # 3 (csrc/qmm_wgmma.cuh)
 WGMMA_CONFIG = "wg128n128c3"
 CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SPECS}
 CONFIG_OF.update(dict.fromkeys(WGMMA_KERNELS, WGMMA_CONFIG))
+# qmm_sb_ks: the float design at m <= 32, the core above
+CONFIG_OF.update(qmm_sb_ks=f"{KSPLIT_FLOAT_CONFIG}|{WGMMA_CONFIG}")
 CONFIG_OF.update(qmm_f_ks=KSPLIT_FLOAT_CONFIG, qmm_s_ks=KSPLIT_FLOAT_CONFIG,
                  qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's

@@ -1,12 +1,16 @@
-"""Split the time of the int8-grid GEMM core (csrc/qmm_wgmma.cuh, behind
-ct_qmm_b) on one card: build the core as it is and copies with one part
-taken out, and time each on the same card in one process.
+"""Split the time of the Hopper GEMM core (csrc/qmm_wgmma.cuh) on one card:
+build the core as it is and copies with one part taken out, and time each
+on the same card in one process.
 
-    python3 scripts/torch_gemm_core_ablate.py [--m 128 ...] [--reps 20]
+    python3 scripts/torch_gemm_core_ablate.py [--kind Q6_K|ks:Q4_K] [--m 128 ...] [--reps 20]
 
-Every variant is qmm_grid.cu built by nvcc (the package's flags, all
-started together) from a copy of csrc/ under build/gemm_core_ablate/ with
-one edit to qmm_wgmma.cuh:
+--kind Q6_K (the default) times the int8-grid tile behind ct_qmm_b on a
+Q6_K grid; ks:Q4_K the ksplit nibble tile behind ct_qmm_sb_ks (m > 32) on
+Q4_K nibbles packed ksplit, with the sum fold of both halves' biases.
+Every variant is the symbol's source (qmm_grid.cu, or qmm_float.cu for
+ks:Q4_K) built by nvcc (the package's flags, all started together) from a
+copy of csrc/ under build/gemm_core_ablate/ with one edit to
+qmm_wgmma.cuh:
 
   base         the source as it is
   split4       K split over a cluster of 4 blocks (the source: 3)
@@ -18,13 +22,13 @@ one edit to qmm_wgmma.cuh:
   no_wgmma     no tensor-core product (a stand-in keeps the fragments live)
   no_fence     no proxy fence and barrier between the tile and the products
 
-Only base computes the function (its error against plain_b is printed;
-the others print theirs too, meaningless by design). For each variant:
-the clusters the card runs at once (cudaOccupancyMaxActiveClusters) and,
-per Q6_K shape (v: 4096 x 4096, down: 11264 x 4096) and m, the kernel ms
-from a replayed CUDA graph cycling over weight copies past the L2, as
-chip_smoke.py phase 3 times it. Last line: a JSON object
-{variant: {"shape m": ms}}.
+Only base computes the function (its error against plain_b or
+plain_sb_ks is printed; the others print theirs too, meaningless by
+design). For each variant: the clusters the card runs at once
+(cudaOccupancyMaxActiveClusters) and, per shape (v: 4096 x 4096, down:
+11264 x 4096) and m, the kernel ms from a replayed CUDA graph cycling over
+weight copies past the L2, as chip_smoke.py phase 3 times it. Last line: a
+JSON object {variant: {"shape m": ms}}.
 """
 
 from __future__ import annotations
@@ -55,29 +59,34 @@ VARIANTS = {
     "split4": [("constexpr int kSplit = 3;", "constexpr int kSplit = 4;")],
     "split2": [("constexpr int kSplit = 3;", "constexpr int kSplit = 2;")],
     "no_copies": [
-        ("""        tma_2d(xs, &tx, k0, row0, bar);
-        tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
-        tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0, bar);
-        S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);""", ""),
-        ("mbar_expect_tx(bar, kXBytes + kWBytes + S::kBytes);", "mbar_arrive(bar);")],
+        ("""          tma_2d(xs, &tx, k0, row0, bar);
+          tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
+          tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0, bar);
+          S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);""", ""),
+        ("mbar_expect_tx(bar, kXBytes + kWBytes + S::kBytes);", "mbar_arrive(bar);"),
+        ("""          tma_2d(xs, &tx, r0, row0, bar);
+          tma_2d(xs + kXHalf, &tx, half + r0, row0, bar);
+          tma_2d(smem_addr(sh.wtile(st)), &tw, n0, r0, bar);
+          KSS::copy(p, r0, half, n0, smem_addr(sh.wtile(st)) + kKsWBytes, bar);""", ""),
+        ("mbar_expect_tx(bar, kXBytes + kKsWBytes + KSS::kBytes);", "mbar_arrive(bar);")],
     "no_xfrag": [("""        const float4 v = *reinterpret_cast<const float4*>(box + row * 128 + ((c ^ (row & 7)) << 4));""",
                   """        const float4 v = make_float4(kk, hr, c, row);""")],
-    "no_dequant": [("""      *reinterpret_cast<uint2*>(bt + kr * 128 + ((c ^ (kr & 7)) << 4)) =
-          make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));""", "")],
+    "no_dequant": [("""  *reinterpret_cast<uint2*>(bt + kr * 128 + ((c ^ (kr & 7)) << 4)) =
+      make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));""", "")],
     "no_wgmma": [(WGMMA, """    for (int kk = 0; kk < 4; ++kk)
       acc[0][kk] += __uint_as_float(af[kk][0] ^ af[kk][1] ^ af[kk][2] ^ af[kk][3] ^ bt);""")],
     "no_fence": [("""  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   consumers_sync();""", "")],
 }
-# appended to each copy of qmm_grid.cu: the clusters of the Q6_K instantiation
-# that the card runs at once
+# appended to each copy of the source: the clusters of the timed
+# instantiation (INSTANCE) that the card runs at once
 OCCUPANCY = """
 extern "C" int ablate_max_active_clusters() {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(32, 1, ctw::kSplit);
   cfg.blockDim = dim3(ctw::kThreads);
   cfg.dynamicSmemBytes = ctw::kSmemBytes;
-  auto kern = ctw::grid_gemm_kernel<16, false, false, false>;
+  auto kern = ctw::grid_gemm_kernel<INSTANCE>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ctw::kSmemBytes);
   int n = -1;
   const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (void*)kern, &cfg);
@@ -85,11 +94,14 @@ extern "C" int ablate_max_active_clusters() {
 }
 """
 SHAPES = {"v": (4096, 4096), "down": (11264, 4096)}
+# kind -> (source, symbol, the core's template arguments)
+KINDS = {"Q6_K": ("qmm_grid.cu", "ct_qmm_b", "16, false, false, false, false"),
+         "ks:Q4_K": ("qmm_float.cu", "ct_qmm_sb_ks", "32, true, false, true, true")}
 
 
-def build(names):
-    """nvcc on a patched copy per variant, all started together; returns
-    {name: loaded library}."""
+def build(names, kind: str):
+    """nvcc on a patched copy per variant of `kind`'s source, all started
+    together; returns {name: loaded library}."""
     procs = {}
     for name in names:
         d = os.path.join(OUT, name)
@@ -102,11 +114,12 @@ def build(names):
                 raise SystemExit(f"{name}: the edit's anchor is not in {CORE}: {old[:60]!r}")
             src = src.replace(old, new)
         open(path, "w").write(src)
-        with open(os.path.join(d, "qmm_grid.cu"), "a") as f:
-            f.write(OCCUPANCY)
-        so = os.path.join(d, "libqmm_grid.so")
+        source = KINDS[kind][0]
+        with open(os.path.join(d, source), "a") as f:
+            f.write(OCCUPANCY.replace("INSTANCE", KINDS[kind][2]))
+        so = os.path.join(d, f"lib{source[:-3]}.so")
         procs[name] = (so, subprocess.Popen(
-            [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, "qmm_grid.cu")],
+            [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, p) in procs.items():
@@ -120,12 +133,21 @@ def build(names):
     return libs
 
 
-def q6k(k: int, n: int, seed: int) -> QTensor:
+def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
+    """A random Q6_K grid, or Q4_K nibbles packed ksplit (any byte is a
+    pair of nibbles), at padded shape (k, n)."""
     g = torch.Generator().manual_seed(seed)
-    qs = torch.randint(-32, 32, (k, n), generator=g, dtype=torch.int8)
-    sub_s = torch.randint(-64, 64, (k // 16, n), generator=g, dtype=torch.int8)
     sd = torch.rand((k // 256, n), generator=g) * 1e-3 + 1e-4
-    return QTensor(qs, sub_s, None, "Q6_K", 16, (k, n), sd=sd, sm=None, sfactor=16).to("cuda")
+    if kind == "Q6_K":
+        qs = torch.randint(-32, 32, (k, n), generator=g, dtype=torch.int8)
+        sub_s = torch.randint(-64, 64, (k // 16, n), generator=g, dtype=torch.int8)
+        return QTensor(qs, sub_s, None, "Q6_K", 16, (k, n), sd=sd, sm=None, sfactor=16).to("cuda")
+    qs = torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8)
+    sub_s = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
+    sub_m = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
+    sm = -torch.rand((k // 256, n), generator=g) * 1e-3
+    return QTensor(qs, sub_s, sub_m, "Q4_K", 32, (k, n), packed=True, zp=0, sd=sd, sm=sm,
+                   sfactor=8, pack_layout="ksplit").to("cuda")
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -147,6 +169,7 @@ def graph_ms(fn, reps: int) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kind", choices=sorted(KINDS), default="Q6_K")
     ap.add_argument("--m", type=int, nargs="+", default=[128])
     ap.add_argument("--reps", type=int, default=20)
     opts = ap.parse_args()
@@ -154,24 +177,29 @@ def main() -> int:
         print("torch_gemm_core_ablate: CUDA is not available", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    libs = build(list(VARIANTS))
+    if min(opts.m) <= 32:
+        raise SystemExit("the core serves m > 32")
+    libs = build(list(VARIANTS), opts.kind)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, lib in libs.items():
         print(f"{name}: max active clusters {lib.ablate_max_active_clusters()}", flush=True)
     dev = torch.device("cuda")
     result = {name: {} for name in libs}
+    symbol = KINDS[opts.kind][1]
+    ks = opts.kind.startswith("ks:")
     for shape, (k, n) in SHAPES.items():
-        per_copy = k * n * (1 + 1 / 16) + 4 * k * n / 256
-        qts = [q6k(k, n, i) for i in range(max(1, math.ceil(150e6 / per_copy)))]
+        qts = [weight(opts.kind, k, n, 0)]
+        per_copy = sum(a.numel() * a.element_size() for a in K._planes(qts[0]) if a is not None)
+        qts += [weight(opts.kind, k, n, i) for i in range(1, math.ceil(150e6 / per_copy))]
         for m in opts.m:
             x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
             out = torch.empty(m, n, device=dev)
-            ref = K.plain_b(x, qts[0])
+            ref = (K.plain_sb_ks if ks else K.plain_b)(x, qts[0])
             for name, lib in libs.items():
-                def call(i, fn=lib.ct_qmm_b):
+                def call(i, fn=getattr(lib, symbol)):
                     qt = qts[i % len(qts)]
-                    rc = fn(*K._ptrs(x, qt.qs, qt.scales, None, qt.sd, None, out), m, k, n, 16,
-                            K._stream(dev))
+                    ints = K._ksplit_ints(qt) if ks else (16,)
+                    rc = fn(*K._ptrs(x, *K._planes(qt), out), m, k, n, *ints, K._stream(dev))
                     if rc:
                         raise SystemExit(f"{name}: launch failed with CUDA error {rc}")
                 ms = graph_ms(call, opts.reps)
@@ -179,8 +207,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = ((out - ref).norm() / ref.norm()).item()
                 result[name][f"{shape} {m}"] = ms
-                print(f"{name:10s} Q6_K {shape:4s} m={m:4d}: {ms:.4f} ms (rel err {err:.2e})",
-                      flush=True)
+                print(f"{name:10s} {opts.kind} {shape:4s} m={m:4d}: {ms:.4f} ms (rel err "
+                      f"{err:.2e})", flush=True)
     print(torch.cuda.get_device_name(0))
     print(json.dumps(result))
     return 0

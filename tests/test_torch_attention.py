@@ -82,6 +82,10 @@ DECODE_CASES = [
     # kv head (two blocks of 8 on the card)
     ("f32", False, 4, 2, False, None, 48), ("bf16", True, 4, 2, False, None, 80),
     ("int8", False, 4, 2, False, None, 100), ("bf16", False, 16, 1, False, None, 16),
+    # widths above 256, whose scores the port sums per column slice of 256
+    # (the kernel's slices) in slice order
+    ("f32", True, 4, 1, True, None, 320), ("bf16", False, 4, 1, False, 128, 512),
+    ("int8", True, 8, 2, False, None, 264),
 ]
 # ids as before the head width joined the cases; other widths append it
 DECODE_IDS = ["-".join(map(str, c[:6])) + ("" if c[6] == 16 else f"-dh{c[6]}")
@@ -118,6 +122,25 @@ def test_plain_decode_attention_matches_pallas(pallas, name, hm, h, hkv, alibi, 
     assert A.PLAIN_CALLS["decode_attn"] == 1 and A.LAUNCHES["decode_attn"] == 0
     assert got.dtype == torch.float32 and got.shape == (b, h, dh)
     assert _rel(got, np.asarray(want)) < DECODE_TOL
+
+
+def test_kernel_smem_bytes_bounds_the_card_widths():
+    """The wrapper's one limit on the card: a block's shared memory (q rows
+    at the padded width, a span of chunks' scores, an int8 cache's V
+    scales, the PV sums). Every width up to 1024 fits at any chunk the
+    default takes and any number of heads a kv head; a q row of 8 heads of
+    8192 does not."""
+    for dh in (16, 64, 100, 128, 256, 257, 320, 512, 1000, 1024):
+        for rep in (1, 4, 8, 16):
+            for quant in (False, True):
+                for win in (256, 2048, 4096):
+                    need = A.kernel_smem_bytes(rep, dh, win, A.decode_chunk(win), quant,
+                                               scalar=dh % 4 != 0)
+                    assert need <= A.MAX_SMEM_BYTES, (dh, rep, quant, win)
+    # padded widths: 64, 128, 256, then slices of 256
+    base = A.kernel_smem_bytes(8, 64, 512, 512, False, False)
+    assert A.kernel_smem_bytes(8, 300, 512, 512, False, False) - base == 4 * 8 * (512 - 64)
+    assert A.kernel_smem_bytes(8, 8192, 512, 512, False, False) > A.MAX_SMEM_BYTES
 
 
 def test_decode_chunk_divides_the_window_as_the_pallas_function():

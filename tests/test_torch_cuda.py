@@ -7,10 +7,12 @@ kernels on every nibble kind, the four reshape-broadcast int8-grid
 kernels and the two int8-grid kernels that quantize x inside (qmm_qx8 and
 its legacy form); the race that picks among them; the decode attention
 kernel (ops/attention.py) over f32, bf16, f16 and int8 caches in both
-layouts, at every llama head width up to 256 and any number of query heads
-a kv head; the two symbols of the Hopper GEMM core (qmm_b and
-qmm_sb_legacy) at prompt sizes up to m = 2048; and the fused decode loop of engine/engine.py (a captured CUDA
-graph per key) against the eager loop on a tiny model.
+layouts, at every llama head width (above 256 in column slices) and any
+number of query heads a kv head; the symbols of the Hopper GEMM core
+(qmm_b, qmm_b_legacy, qmm_sb_legacy, and qmm_sb_ks with its decode design
+at m <= 32) at prompt sizes up to m = 2048; and the fused decode loop of
+engine/engine.py (a captured CUDA graph per key) against the eager loop on
+a tiny model.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -283,11 +285,16 @@ def test_legacy_symbols_refuse_a_mins_flag_that_disagrees(dev):
     assert rc != 0
 
 
-# the Hopper GEMM core (csrc/qmm_wgmma.cuh): both symbols at every
+# the Hopper GEMM core (csrc/qmm_wgmma.cuh): the int8-grid symbols at every
 # instantiation, at the prompt chunk sizes Engine._chunks sends (and the
 # ragged m = 33), at llama-2-7B shapes
-CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb_legacy", "Q5_1"),
+CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_b_legacy", "Q8_0"),
+        ("qmm_b_legacy", "Q5_0"), ("qmm_b_legacy", "Q5_1"), ("qmm_sb_legacy", "Q5_1"),
         ("qmm_sb_legacy", "Q8_0"), ("qmm_sb_legacy", "Q5_0")]
+# and qmm_sb_ks on every ksplit layout (ctq::dispatch_ksplit: Q4_K, Q2_K,
+# Q3_K, GPTQ4 / Q4_1 at groups 32, 64 and 128, Q4_0), at the decode design's
+# m <= 32 and the core's m > 32
+CORE_KSPLIT_KINDS = ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/32", "GPTQ4/64", "GPTQ4/128", "Q4_0")
 
 
 @pytest.mark.parametrize("name,kind", CORE)
@@ -306,6 +313,25 @@ def test_core_kernel_matches_plain_at_prompt_sizes(dev, name, kind, k, n, m):
     assert torch.equal(got, K.KERNELS[name](x, qt)), "kernel runs are not bitwise repeatable"
 
 
+@pytest.mark.parametrize("kind", CORE_KSPLIT_KINDS)
+@pytest.mark.parametrize("m", [1, 8, 17, 32, 33, 64, 128, 256, 2048])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096)])
+def test_core_ksplit_kernel_matches_plain_at_every_m(dev, kind, k, n, m):
+    """qmm_sb_ks: the float design at m <= 32, the core's ksplit nibble
+    tile above (the halves meet at 2048 and 5632 byte rows; a group of 128
+    rows may be cut by the cluster's K split)."""
+    qt = random_ksplit(kind, k, n, seed=k + m, device=dev)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    before = K.LAUNCHES["qmm_sb_ks"]
+    got = K.KERNELS["qmm_sb_ks"](x, qt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["qmm_sb_ks"] == before + 1
+    ref = K.PLAIN["qmm_sb_ks"](x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-3
+    assert torch.equal(got, K.KERNELS["qmm_sb_ks"](x, qt)), "runs are not bitwise repeatable"
+
+
 def test_core_symbols_refuse_what_they_do_not_take(dev):
     """ct_qmm_b takes group 16 without mins (Q6_K) or 32 with them (Q5_K),
     ct_qmm_sb_legacy a has-mins flag that agrees with the min plane; both a
@@ -321,10 +347,12 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
     assert fn(*K._ptrs(x, q6k.qs, q6k.scales, None, q6k.sd, None, out), 64, 128, 128, 16,
               K._stream(dev)) != 0  # two 64-row steps for three blocks of a cluster
     q51 = random_legacy("Q5_1", 256, 128, 3, dev)
-    fn = K._fn("qmm_grid", "ct_qmm_sb_legacy")
-    assert fn(*K._ptrs(x, q51.qs, q51.scales, None, out), 64, 256, 128, 1, K._stream(dev)) != 0
-    assert fn(*K._ptrs(x, q51.qs, q51.scales, q51.mins, out), 64, 256, 128, 0,
-              K._stream(dev)) != 0
+    for sym in ("ct_qmm_sb_legacy", "ct_qmm_b_legacy"):
+        fn = K._fn("qmm_grid", sym)
+        assert fn(*K._ptrs(x, q51.qs, q51.scales, None, out), 64, 256, 128, 1,
+                  K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q51.qs, q51.scales, q51.mins, out), 64, 256, 128, 0,
+                  K._stream(dev)) != 0
     torch.cuda.synchronize()
     assert torch.all(out == 7.0)
 
@@ -659,9 +687,9 @@ def test_decode_attn_refuses_what_it_does_not_take(dev):
                                      head_major=True),
         "strided q": lambda: run(torch.randn(1, 4, 128, device=dev)[..., ::2], k, v, 0, n_past),
         "3 heads over 2": lambda: run(q[:, :3].contiguous(), k, v, 0, n_past),
-        "width 264": lambda: run(torch.randn(1, 4, 264, device=dev),
-                                 *random_cache(torch.float32, False, (1, 1, 256, 2, 264), 2,
-                                               dev)[:2], 0, n_past),
+        "q rows past shared memory": lambda: run(
+            torch.randn(1, 16, 8192, device=dev),
+            *random_cache(torch.float32, False, (1, 1, 256, 2, 8192), 2, dev)[:2], 0, n_past),
         "int64 n_past": lambda: run(q, k, v, 0, n_past.long()),
         "n_past on the CPU": lambda: run(q, k, v, 0, n_past.cpu()),
         "int8 without scales": lambda: run(q, ki, vi, 0, n_past),
@@ -705,11 +733,36 @@ def test_decode_attn_takes_every_llama_head_shape(dev, h, hkv, dh, dtype, hm):
     assert _rel(got, ref) < ATTN_TOL[dtype], _rel(got, ref)
 
 
+# widths above 256 (column slices of 256; the last one partial at 264, 266,
+# 288, 320 and 384; 266 loads element by element) over each cache dtype, in
+# both layouts, with a GQA of 4 over 1; 264 was refused before the kernel
+# took widths above 256
+@pytest.mark.parametrize("dh", [264, 266, 288, 320, 384, 512])
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("hm", [False, True])
+def test_decode_attn_takes_widths_above_256(dev, dh, dtype, hm):
+    s, b, h, hkv = 768, 2, 4, 1
+    k, v, ks, vs = random_cache(dtype, hm, (2, b, s, hkv, dh), seed=dh, device=dev)
+    g = torch.Generator().manual_seed(dh)
+    q = torch.randn((b, h, dh), generator=g).to(dev)
+    n_past = torch.tensor([9, s - 1], dtype=torch.int32, device=dev)
+    slopes = (torch.rand(h, generator=g) * 0.1).to(dev)
+    kw = dict(k_scale=ks, v_scale=vs, alibi_slopes=slopes, head_major=hm)
+    launches = A.LAUNCHES["decode_attn"]
+    got = A.decode_attention(q, k, v, 1, n_past, **kw)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["decode_attn"] == launches + 1
+    ref = A.plain_decode_attention(q, k, v, 1, n_past, **kw)
+    assert got.shape == (b, h, dh) and torch.isfinite(got).all()
+    assert _rel(got, ref) < ATTN_TOL[dtype], _rel(got, ref)
+    assert torch.equal(got, A.decode_attention(q, k, v, 1, n_past, **kw))
+
+
 def test_decode_attn_raises_on_a_launch_error(dev, monkeypatch):
     """A launch the kernel refuses (here: one chunk's scores above the
     card's shared memory, past the wrapper's own check) raises and counts
     nothing."""
-    monkeypatch.setattr(A, "MAX_CHUNK_SCORE_BYTES", 1 << 40)
+    monkeypatch.setattr(A, "MAX_SMEM_BYTES", 1 << 40)
     k, v, _, _ = random_cache(torch.float32, False, (1, 1, 8000, 1, 64), 0, dev)
     q = torch.randn(1, 8, 64, device=dev)
     n_past = torch.tensor([7999], dtype=torch.int32, device=dev)

@@ -1,11 +1,12 @@
-"""The int8-grid prompt GEMMs of the Hopper core (csrc/qmm_wgmma.cuh:
-qmm_b on Q6_K and Q5_K, qmm_sb_legacy on Q5_1, Q8_0 and Q5_0) on the CPU:
-what the core makes of x (bf16 rounding, group sums) against numpy, the
-plain versions at ragged m against the Pallas kernels in interpret mode,
-the launch configuration the candidate lists name, and a tiny llama of
-head width 80 with 16 query heads over one kv head through the port
-against the JAX LLM (every decode step through decode_attention's plain
-version). The kernels themselves run in tests/test_torch_cuda.py."""
+"""The prompt GEMMs of the Hopper core (csrc/qmm_wgmma.cuh: qmm_b on Q6_K
+and Q5_K, qmm_b_legacy and qmm_sb_legacy on Q5_1, Q8_0 and Q5_0, qmm_sb_ks
+on the ksplit nibbles of every kind) on the CPU: what the core makes of x
+(bf16 rounding, group sums) against numpy, the plain versions at ragged m
+against the Pallas kernels in interpret mode, the launch configuration the
+candidate lists name, and tiny llamas of head width 80 with 16 query heads
+over one kv head and of width 320 through the port against the JAX LLM
+(every decode step through decode_attention's plain version). The kernels
+themselves run in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from ctransformers_tpu_torch.ops import attention as A
 from ctransformers_tpu_torch.ops import qmatmul as tqm
 from ctransformers_tpu_torch.ops import qmm_kernels as K
 
+from . import test_torch_ksplit as TK
 from .fixtures import build_llama_gguf
 from .test_torch_qmatmul import _both, _fro, _pallas, _port
 
@@ -43,25 +45,34 @@ def test_x_operands_match_numpy(m, kp, group):
     np.testing.assert_allclose(xs.numpy(), want, rtol=0, atol=1e-5 * np.abs(x).max())
 
 
-# (weight type, port mode, Pallas mode): the core's instantiations
-CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q5_1", "sb", "sb"),
-              ("Q8_0", "sb", "sb"), ("Q5_0", "sb", "sb")]
+# (weight type, port mode, Pallas mode): the core's instantiations; "ks:"
+# the ksplit nibbles of a kind (qmm_sb_ks against _qmm_pack4_s_kernel)
+CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q8_0", "b", "b"), ("Q5_1", "b", "b"),
+              ("Q5_1", "sb", "sb"), ("Q8_0", "sb", "sb"), ("Q5_0", "sb", "sb")] + [
+    (f"ks:{kind}", "sb", "sb") for kind in ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/128", "Q4_0")]
 
 
 @pytest.mark.parametrize("kind,mode,pallas_mode", CORE_CASES)
 @pytest.mark.parametrize("m", [33, 100])
 def test_core_plain_versions_match_pallas_at_ragged_m(kind, mode, pallas_mode, m, monkeypatch):
-    """plain_b and plain_sb (the functions of qmm_b and qmm_sb_legacy) at m
-    that fill no 128-row tile, against _qmm_kernel and _qmm_s_kernel."""
+    """plain_b, plain_sb and plain_sb_ks (the functions of qmm_b,
+    qmm_b_legacy, qmm_sb_legacy and qmm_sb_ks) at m that fill no 128-row
+    tile, against _qmm_kernel, _qmm_s_kernel and _qmm_pack4_s_kernel."""
     k, n = 256, 256
-    jq, tq = _both(k, n, seed=5, monkeypatch=monkeypatch, kind=kind)
+    x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
+    if kind.startswith("ks:"):
+        monkeypatch.setenv("CT_PACK4_LAYOUT", "ksplit")
+        jq, tq = TK._both(kind[3:], k, n, seed=5)
+        port, pallas = TK._port, TK._pallas
+    else:
+        jq, tq = _both(k, n, seed=5, monkeypatch=monkeypatch, kind=kind)
+        port, pallas = _port, _pallas
     name = K.kernel_name(mode, tq)
     assert name in K.WGMMA_KERNELS
-    x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
     before = K.PLAIN_CALLS[name]
-    got = _port(mode, x, tq)
+    got = port(mode, x, tq)
     assert K.PLAIN_CALLS[name] == before + 1
-    ref = _pallas(pallas_mode, x, jq, m)
+    ref = pallas(pallas_mode, x, jq, m)
     # same algorithm, same roundings: only the f32 summation order differs
     assert _fro(got, ref) <= 1e-4
     # the bf16-operand class of tests/test_qmatmul.py against the exact product
@@ -77,23 +88,36 @@ def _real(kind, k=512, n=384):
     return tqm.repack(tquantize(np.ascontiguousarray(w.T), TG[kind]), TG[kind], n, k)
 
 
+# qmm_sb_ks: the ksplit float design ("n32k512") at m <= 32, the core above
+SB_KS_CONFIG = "n32k512|wg128n128c3"
+
+
 @pytest.mark.parametrize("kind,m,want", [
     ("Q6_K", 128, {"b": K.WGMMA_CONFIG}),
     ("Q6_K", 8, {"b": K.WGMMA_CONFIG, "g": K.DECODE_CONFIG, "q8": K.DECODE_CONFIG,
                  "": K.DECODE_CONFIG}),
     ("Q5_K", 128, {"b": K.WGMMA_CONFIG, "sb": K.GEMM_CONFIG}),
-    ("Q5_1", 128, {"b": K.GEMM_CONFIG, "sb": K.WGMMA_CONFIG}),
-    ("Q8_0", 128, {"b": K.GEMM_CONFIG}),
+    ("Q5_1", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
+    ("Q8_0", 128, {"b": K.WGMMA_CONFIG}),
+    ("ks:Q4_K", 128, {"b": K.GEMM_CONFIG, "sb": SB_KS_CONFIG}),
+    ("ks:Q3_K", 8, {"": K.KSPLIT_FLOAT_CONFIG, "s": K.KSPLIT_FLOAT_CONFIG, "b": K.GEMM_CONFIG,
+                    "sb": SB_KS_CONFIG}),
 ])
-def test_candidates_name_the_core_config(kind, m, want):
+def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
+    if kind.startswith("ks:"):
+        monkeypatch.setenv("CT_PACK4_LAYOUT", "ksplit")
+        kind = kind[3:]
     qt = _real(kind)
     got = dict(tqm.mode_candidates(qt, m))
     assert {mode: got[mode] for mode in want} == want
     assert K.WGMMA_CONFIG == "wg128n128c3" and K.CONFIG_OF["qmm_b"] == K.WGMMA_CONFIG
-    assert K.CONFIG_OF["qmm_sb_legacy"] == K.WGMMA_CONFIG
-    assert K.SOURCE_OF["qmm_b"].endswith("csrc/qmm_wgmma.cuh")
+    assert K.CONFIG_OF["qmm_sb_legacy"] == K.CONFIG_OF["qmm_b_legacy"] == K.WGMMA_CONFIG
+    assert K.CONFIG_OF["qmm_sb_ks"] == SB_KS_CONFIG
+    assert K.SOURCE_OF["qmm_b"] == K.SOURCE_OF["qmm_b_legacy"] == (
+        "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh")
+    assert K.SOURCE_OF["qmm_sb_ks"] == "ctransformers_tpu_torch/csrc/qmm_float.cu"
     # the other GEMMs keep qmm_gemm.cuh's tile
-    assert K.CONFIG_OF["qmm_sb"] == K.CONFIG_OF["qmm_b_legacy"] == K.GEMM_CONFIG
+    assert K.CONFIG_OF["qmm_sb"] == K.CONFIG_OF["qmm_b_ks"] == K.GEMM_CONFIG
 
 
 def _rel(a, b):
@@ -108,17 +132,20 @@ def _rel(a, b):
 # heads a kv head read 8.3e-4 after the prompt and 1.0e-2..1.9e-2 over the
 # decode steps, with equal greedy tokens (tests/test_torch_kv.py's smaller
 # fixture reads 1.1e-4..1.8e-3 and keeps 1e-2)
-HEAD_CASES = [(1280, 16, 1, "f32"), (1280, 16, 1, "bf16"), (384, 8, 2, "f32")]
+# and width 320 (4 query heads over one kv head), past the kernel's 256
+# templates: on the card in column slices of 256
+HEAD_CASES = [(1280, 16, 1, "f32"), (1280, 16, 1, "bf16"), (384, 8, 2, "f32"),
+              (1280, 4, 1, "f32")]
 LOGIT_CLASS = {"f32": 1e-4, "bf16": 5e-2}
 
 
 @pytest.mark.parametrize("n_embd,n_head,n_head_kv,kv_dtype", HEAD_CASES)
 def test_llm_matches_jax_at_wide_gqa_and_odd_widths(tmp_path, n_embd, n_head, n_head_kv,
                                                     kv_dtype):
-    """Head width 80 with 16 query heads over one kv head, and width 48:
-    shapes outside the decode attention kernel's first templates (widths
-    64, 128, 256; at most 8 heads a kv head). A 40-token prompt (chunks
-    32 + 8), then four greedy decode steps."""
+    """Head width 80 with 16 query heads over one kv head, width 48 and
+    width 320: shapes outside the decode attention kernel's first templates
+    (widths 64, 128, 256; at most 8 heads a kv head). A 40-token prompt
+    (chunks 32 + 8), then four greedy decode steps."""
     path = str(tmp_path / "llama.gguf")
     build_llama_gguf(path, n_ctx=128, n_embd=n_embd, n_head=n_head, n_head_kv=n_head_kv,
                      wtype=GGMLType.F32, seed=13)

@@ -20,9 +20,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                held against its plain version too, so that whatever a
                table sends to a main path was held at that shape and m
                (phase 5 fails on a launch that was not); the symbols of
-               the Hopper GEMM core (csrc/qmm_wgmma.cuh: qmm_b on the Q6_K
-               and Q5_K grids, qmm_b_legacy and qmm_sb_legacy on Q5_1 and
-               on Q8_0 without mins, qmm_sb_ks on the ksplit nibbles of
+               the Hopper GEMM core (csrc/qmm_wgmma.cuh: qmm_b and qmm_sb on
+               the Q6_K and Q5_K grids, qmm_b_legacy and qmm_sb_legacy on
+               Q5_1 and on Q8_0 without mins, qmm_si_gptq on GPTQ4 at
+               groups 32, 64 and 128, qmm_sb_ks on the ksplit nibbles of
                Q4_K, GPTQ4 at groups 32, 64 and 128, Q4_0, Q2_K and Q3_K)
                held at m = 33, 64,
                256 and 2048 as well (qmm_sb_ks also at its decode design's
@@ -66,7 +67,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                tiny llamas of head width 80 with 16 query heads over one kv
                head, of width 48 and of width 320 with 4 query heads over
                one kv head, every decode attention call held against its
-               plain version
+               plain version; the K and V rows of the int8-cache runs'
+               first prompt chunk (layer 0) quantized by the card's
+               kv_quantize bit for bit as the CPU's on a copy
   5. main      llama-2-7B-width checkpoints (random weights from a seed)
                through AutoModelForCausalLM.from_pretrained -> llm(...):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
@@ -225,15 +228,18 @@ KERNEL_CASES = [
 ]
 # the symbols of the Hopper GEMM core (csrc/qmm_wgmma.cuh), held at every
 # instantiation at CORE_HELD_M beside phase 3's timed m = 128 on these
-# cases (Q6_K's and Q5_K's grids for qmm_b; Q5_1 with mins and Q8_0 without
-# for qmm_b_legacy and qmm_sb_legacy; the ksplit nibbles of every layout
-# for qmm_sb_ks, also at CORE_KS_HELD_M, its decode design's m), each call
-# checked bitwise against a second one
-CORE_KERNELS = ("qmm_b", "qmm_b_legacy", "qmm_sb_legacy", "qmm_sb_ks")
+# cases (Q6_K's and Q5_K's grids for qmm_b and qmm_sb; Q5_1 with mins and
+# Q8_0 without for qmm_b_legacy and qmm_sb_legacy; GPTQ4 at its three
+# groups for qmm_si_gptq; the ksplit nibbles of every layout for qmm_sb_ks,
+# also at CORE_KS_HELD_M, its decode design's m), each call checked bitwise
+# against a second one
+CORE_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si_gptq", "qmm_sb_ks")
 CORE_HELD_M = (33, 64, 256, 2048)
 CORE_KS_HELD_M = (1, 8, 32)
 CORE_HELD_CASES = {("Q6_K", "v"), ("Q6_K", "down"), ("Q5_K", "o"), ("Q5_K", "down"),
-                   ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o"), ("ks:Q4_K", "qkv"),
+                   ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o"), ("GPTQ4/128", "qkv"),
+                   ("GPTQ4/128", "down"), ("GPTQ4/32", "o"), ("GPTQ4/64", "o"),
+                   ("ks:Q4_K", "qkv"),
                    ("ks:Q4_K", "down"), ("ks:GPTQ4/128", "o"), ("ks:GPTQ4/32", "o"),
                    ("ks:GPTQ4/64", "o"), ("ks:Q4_0", "down"), ("ks:Q2_K", "o"),
                    ("ks:Q3_K", "down")}
@@ -358,6 +364,14 @@ TINY_KSPLIT_MODELS = (
     ("GPTQ4-g32-ksplit", ("gptq", 32, False)), ("GPTQ4-g128-ksplit", ("gptq", 128, False)),
     ("GPTQ4-g128-actorder-ksplit", ("gptq", 128, True)),
 )
+# where each tiny model's seed search starts (pick_tiny_seed): the seed it
+# settled on in a whole run on one H100 host, so that the search writes one
+# model, not up to 23 (and still goes on from there if a margin moves)
+TINY_FIRST_SEED = {"GPTQ4-g32": 23, "GPTQ4-g32-ksplit": 23, "GPTQ4-g128-ksplit": 23,
+                   "GPTQ4-g32-actorder": 14, "Q2_K": 10, "Q5_1": 10, "Q4_K_M": 8,
+                   "Q4_K_M-ksplit": 8, "GPTQ4-g128-actorder-ksplit": 8, "Q3_K_S": 7,
+                   "Q2_K-ksplit": 4, "Q3_K_M": 4, "Q3_K_M-ksplit": 4, "Q5_K_M": 3,
+                   "GPTQ4-g128-actorder": 2, "Q8_0": 2}
 # the tiny models served again under the table that names the new modes
 TINY_NEW_MODES = ("Q4_K_M", "Q5_K_M", "GPTQ4-g32", "GPTQ4-g128", "Q4_0", "Q8_0", "Q5_1",
                   "Q2_K", "Q3_K_M", "Q4_K_M-ksplit", "GPTQ4-g32-ksplit", "Q2_K-ksplit")
@@ -669,7 +683,9 @@ def phase_kernels(K, copy_bw: float):
         if not base.packed:  # and where one of qx_mode_entries sends the grids
             others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
-            for core in dict.fromkeys(K.kernel_name(mode, base) for mode in ("b", "sb")):
+            adjk = base.packed and base.pack_layout == "adjk"
+            for core in dict.fromkeys(K.kernel_name(mode, base)
+                                      for mode in (("si",) if adjk else ("b", "sb"))):
                 if core in CORE_KERNELS:
                     others += [(core, m) for m in CORE_HELD_M + (
                         CORE_KS_HELD_M if core == "qmm_sb_ks" else ())]
@@ -876,7 +892,7 @@ def phase_tiny_kv(A, tmpdir: str) -> None:
     for label, n_embd, n_head, n_head_kv, first in TINY_HEADS:
         tiny_kv_model(A, tmpdir, label, dict(TINY, n_embd=n_embd, n_head=n_head,
                                              n_head_kv=n_head_kv), TINY_HEADS_KV, first)
-    tiny_kv_model(A, tmpdir, "Q4_K_M", TINY, TINY_KV)
+    tiny_kv_model(A, tmpdir, "Q4_K_M", TINY, TINY_KV, TINY_FIRST_SEED["Q4_K_M"])
 
 
 def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1) -> None:
@@ -889,9 +905,10 @@ def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1)
     kv_dtypes = (None,) if label == "Q4_K_M" else tuple(dict.fromkeys(d for d, _ in caches))
     seed = pick_tiny_seed(path, label, "Q4_K_M", cfg=cfg, first=first, kv_dtypes=kv_dtypes,
                           max_seed=max(32, first + 32))
-    kernel = F.decode_attention
+    kernel, quantize = F.decode_attention, F.kv_quantize
     worst, calls = 0.0, 0
     launches = A.LAUNCHES["decode_attn"]
+    kv_rows = []  # (card rows, card values, card scales) of the first K and V writes
 
     def checked(*args, **kw):
         nonlocal worst, calls
@@ -901,6 +918,12 @@ def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1)
         calls += 1
         return out
 
+    def recorded(x):
+        q, sc = quantize(x)
+        if len(kv_rows) < 2:  # layer 0's K, then V, of the prompt's first chunk
+            kv_rows.append((x.cpu(), q.cpu(), sc.cpu()))
+        return q, sc
+
     for kv_dtype, layout in caches:
         with env(CT_KV_LAYOUT=layout, CT_QMM_AUTOTUNE="0"):
             gpu = AutoModelForCausalLM.from_pretrained(path, kv_dtype=kv_dtype)
@@ -908,12 +931,15 @@ def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1)
             if gpu._engine.kv.k.device.type != "cuda" or cpu._engine.kv.k.dtype != gpu._engine.kv.k.dtype:
                 raise SystemExit(f"tiny kv {kv_dtype} {layout}: caches {gpu._engine.kv.k.dtype} "
                                  f"on {gpu._engine.kv.k.device}, {cpu._engine.kv.k.dtype}")
-            F.decode_attention = checked
+            F.decode_attention, F.kv_quantize = checked, recorded
+            kv_rows.clear()
             try:
                 got = greedy_margins(gpu)
             finally:
-                F.decode_attention = kernel
+                F.decode_attention, F.kv_quantize = kernel, quantize
             want = greedy_margins(cpu)
+            if kv_dtype == "int8":
+                check_kv_quantize(label, layout, kv_rows)
         rel = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(got[1], want[1]))
         spec = gpu._bundle.spec
         log(f"[tiny] {label} ({spec.n_head} heads over {spec.n_head_kv}, width "
@@ -929,6 +955,26 @@ def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1)
     if not calls or launched < calls or worst > max(ATTN_TOL.values()):
         raise SystemExit(f"tiny kv {label}: decode_attn disagrees with its plain version (or "
                          "never ran)")
+
+
+def check_kv_quantize(label: str, layout: str, kv_rows: list) -> None:
+    """The card's kv_quantize of the prompt's K and V rows (layer 0, first
+    chunk) against the CPU's kv_quantize of a copy of the same rows, bit for
+    bit, values and scales: the scale is max(amax, 1e-8) / 127 by IEEE
+    division on both (the card's K and V themselves differ from a CPU run's
+    by the kernels' roundings, so the caches are not compared)."""
+    from ctransformers_tpu_torch.models import forward as F
+
+    if len(kv_rows) != 2:
+        raise SystemExit(f"tiny kv {label} int8 {layout}: kv_quantize ran {len(kv_rows)} times")
+    for what, (x, q, sc) in zip("KV", kv_rows):
+        cq, csc = F.kv_quantize(x)
+        same = torch.equal(q, cq) and torch.equal(sc.view(torch.int32), csc.view(torch.int32))
+        log(f"[tiny] {label} int8 {layout}: kv_quantize of layer 0's prompt {what} rows "
+            f"{tuple(x.shape)} card vs CPU {'bitwise equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise SystemExit(f"tiny kv {label} int8 {layout}: the card's kv_quantize of the "
+                             f"prompt's {what} rows differs from the CPU's")
 
 
 def empty_context(llm) -> None:
@@ -1079,8 +1125,8 @@ def phase_tiny(K, tmpdir: str):
     closer, because
     bf16 and int8 rounding of the activations turn the ~1e-7 differences of
     the two devices' other ops into whole rounding steps here and there.
-    Each model's seed is the first without a greedy near-tie on the CPU
-    (pick_tiny_seed)."""
+    Each model's seed is the first from TINY_FIRST_SEED's without a greedy
+    near-tie on the CPU (pick_tiny_seed)."""
     from ctransformers_tpu_torch import AutoModelForCausalLM
     from ctransformers_tpu_torch.ops import qmatmul as qm
 
@@ -1148,7 +1194,8 @@ def phase_tiny(K, tmpdir: str):
         # a file per model and purpose: a table file is read once per card,
         # not again when its contents change
         cpu_table = os.path.join(tmpdir, f"tiny_{label}_raced_cpu.json")
-        seed = pick_tiny_seed(path, label, mix)
+        first = TINY_FIRST_SEED.get(label, 1)
+        seed = pick_tiny_seed(path, label, mix, first=first, max_seed=first + 31)
         gpu = AutoModelForCausalLM.from_pretrained(path)
         gpu.eval(tiny_prompt())  # races the chunk sizes 64 and 8 (m = 1 raced at load)
         chosen = picks(gpu._engine)

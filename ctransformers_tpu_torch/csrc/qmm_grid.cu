@@ -65,15 +65,11 @@
 //   sb: out = xsum @ M + bf16(x) @ bf16(q * s)
 //   Bound: at m = 128 a weight byte (1.08 B/weight) feeds ~237 operations,
 //   just under the bf16 ridge, so bytes and tensor-core operations bound it
-//   about equally; chip_smoke.py reports the larger. ct_qmm_b,
-//   ct_qmm_b_legacy and ct_qmm_sb_legacy run the Hopper core of
-//   qmm_wgmma.cuh (TMA ring, wgmma, K split over a cluster of 3). ct_qmm_sb
-//   keeps qmm_gemm.cuh's GEMM (64 x 64 tiles, WMMA bf16, fixed-order sums,
-//   the bias fold), shared with the Q4_K kernels, with this file's int8-grid
-//   weight tile: each of the 128 threads takes 4 rows x 4 columns of a
-//   32-row K step (one 32-bit load per row, its group's scales once), and
-//   the step's rows of the min plane M.
-#include "qmm_gemm.cuh"
+//   about equally; chip_smoke.py reports the larger. All four (ct_qmm_b,
+//   ct_qmm_sb and their legacy forms) run the Hopper core of qmm_wgmma.cuh
+//   (TMA ring, wgmma, K split over a cluster of 3): ct_qmm_sb on Q5_K folds
+//   the factored M = sm * sub_m through the group sums of x, on Q6_K (no
+//   mins) it is the product alone, ct_qmm_b's instantiation.
 #include "qmm_wgmma.cuh"
 
 namespace {
@@ -304,66 +300,6 @@ int launch_q8_legacy(const float* x, const int8_t* xq, const float* sx, const fl
                                               out, m, kp, np, st);
 }
 
-// ---- ct_qmm_sb: the factored int8-grid tile of qmm_gemm.cuh --------------
-
-template <int G, bool HAS_MINS>
-struct GridTile {
-  static constexpr int kGroup = G;
-  static constexpr bool kHasBias = HAS_MINS;
-  // weight rows per thread: 128 threads x 4 rows x 4 columns tile the step
-  static constexpr int kWRows = ctq::kGemmBK * ctq::kGemmBN / 4 / ctq::kGemmThreads;
-  static_assert(kWRows * ctq::kGemmThreads * 4 == ctq::kGemmBK * ctq::kGemmBN,
-                "threads must tile the weight step");
-  static_assert(G % kWRows == 0, "a thread's rows lie in one quant group");
-
-  // the GEMM folds the mins (FOLD) exactly when there are any: q * s alone
-  template <bool FOLD>
-  __device__ __forceinline__ static void load(
-      const int8_t* __restrict__ qs,     // (kp, np)
-      const int8_t* __restrict__ sub_s,  // (kp/G, np)
-      const int8_t* __restrict__ sub_m,  // (kp/G, np)   [HAS_MINS]
-      const float* __restrict__ sd,      // (kp/256, np)
-      const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]
-      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
-      float (*b_s)[ctq::kGemmBN]) {
-    static_assert(FOLD == HAS_MINS, "ct_qmm_sb folds the mins");
-    constexpr int kSF = 256 / G;
-    constexpr int kNGS = ctq::kGemmBK / G;
-    // rows wr .. wr+kWRows-1 of the step, columns wc .. wc+3
-    const int wr = (tid / 16) * kWRows, wc = (tid % 16) * 4;
-    const int n = col0 + wc;
-    const int g = (k0 + wr) / G;
-    const size_t go = (size_t)g * np + n;
-    const size_t fo = (size_t)(g / kSF) * np + n;
-    float s[4];
-    const uint32_t sw = __ldg(reinterpret_cast<const unsigned int*>(sub_s + go));
-    const float4 d4 = __ldg(reinterpret_cast<const float4*>(sd + fo));
-    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
-    if (FOLD) {
-      // the step's rows of the min plane M = sm * sub_m, one per group
-      for (int e = tid; e < kNGS * ctq::kGemmBN; e += ctq::kGemmThreads) {
-        const int gi = e / ctq::kGemmBN, col = e % ctq::kGemmBN;
-        const int gg = k0 / G + gi;
-        b_s[gi][col] = __fmul_rn(__ldg(sm + (size_t)(gg / kSF) * np + col0 + col),
-                                 static_cast<float>(__ldg(sub_m + (size_t)gg * np + col0 + col)));
-      }
-    }
-    uint32_t w[kWRows];
-#pragma unroll
-    for (int r = 0; r < kWRows; ++r)
-      w[r] = __ldg(reinterpret_cast<const unsigned int*>(qs + (size_t)(k0 + wr + r) * np + n));
-#pragma unroll
-    for (int r = 0; r < kWRows; ++r) {
-      __nv_bfloat16* b = Bs + (wr + r) * ctq::kGemmLDB + wc;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = __float2bfloat16(__fmul_rn(static_cast<float>(ctq::sbyte(w[r], j)), s[j]));
-    }
-  }
-};
-
 // ct_qmm_b on the Hopper core: Q6_K (group 16, no mins) or Q5_K (group 32,
 // mins added per weight)
 int launch_b_core(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
@@ -401,17 +337,17 @@ int launch_sb_legacy_core(const float* x, const int8_t* qs, const float* s, cons
   return ctw::launch_core<32, false, true, false>(x, qs, p, stream);
 }
 
-// ct_qmm_sb on qmm_gemm.cuh: group 16 without mins (Q6_K: the product
-// alone) or 32 with mins (Q5_K: folded)
-int launch_sb_gemm(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+// ct_qmm_sb on the Hopper core: group 16 without mins (Q6_K: the product
+// alone, ct_qmm_b's instantiation) or 32 with mins (Q5_K: the factored
+// M = sm * sub_m folded through the group sums of x)
+int launch_sb_core(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
                    const float* sd, const float* sm, float* out, int m, int kp, int np,
                    int group, cudaStream_t stream) {
-  if (group == 16 && sub_m == nullptr)
-    return ctq::launch_gemm<GridTile<16, false>, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
-                                                       np, stream);
-  if (group == 32 && sub_m != nullptr)
-    return ctq::launch_gemm<GridTile<32, true>, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
-                                                      np, stream);
+  const ctw::Params p{sub_s, sub_m, sd, sm, out, m, kp, np};
+  if (group == 16 && sub_m == nullptr && sm == nullptr)
+    return ctw::launch_core<16, false, false, false>(x, qs, p, stream);
+  if (group == 32 && sub_m != nullptr && sm != nullptr)
+    return ctw::launch_core<32, true, false, true>(x, qs, p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -450,7 +386,7 @@ int ct_qmm_b(const float* x, const int8_t* qs, const int8_t* sub_s,
 int ct_qmm_sb(const float* x, const int8_t* qs, const int8_t* sub_s,
               const int8_t* sub_m, const float* sd, const float* sm,
               float* out, int m, int kp, int np, int group, void* stream) {
-  return launch_sb_gemm(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+  return launch_sb_core(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
                         static_cast<cudaStream_t>(stream));
 }
 

@@ -23,11 +23,14 @@
 // decodes the same nibbles with the reference's sfactor == 0 branch: s and m
 // are f32 planes read as they are, one row per group of 32, 64 or 128 rows,
 // so a K step is a whole group or a whole part of one and needs only that
-// group's row; W = w4 * s + B ("i") or w4 * s ("si", with B handed to the
-// GEMM's fold) is rounded once to bf16, as in the reference. Q4_0 takes the
-// same tile without a bias (the reference's `b is None` branch): it reads
-// no min plane, W = w4 * s, and "si" then computes what "i" does (the GEMM
-// folds nothing).
+// group's row; W = w4 * s + B ("i") is rounded once to bf16, as in the
+// reference. Q4_0 takes the same tile without a bias (the reference's
+// `b is None` branch): it reads no min plane, W = w4 * s, and "si" then
+// computes what "i" does (the GEMM folds nothing). Mode "si" on GPTQ4 and
+// Q4_1 (ct_qmm_si_gptq) runs the Hopper core of qmm_wgmma.cuh instead,
+// through its adjk nibble tile: w4 * s rounded once to bf16 and B = 8 s + m
+// folded through the f32 group sums of x (a group of 128 rows spans two of
+// the core's 64-row stages).
 //
 // The ksplit nibbles of every kind (ops/qmatmul.py; qmm_common.cuh) take the
 // same GEMM through their own tile:
@@ -42,6 +45,7 @@
 // (ctq::dispatch_ksplit). Mode "sb" on ksplit (ct_qmm_sb_ks) is
 // qmm_float.cu's, on the Hopper core's ksplit tile at m > 32.
 #include "qmm_gemm.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -119,9 +123,9 @@ struct KQuantTile {
 
 using Q4KTile = KQuantTile<ctq::kGroup, true>;
 
-// GPTQ 4-bit and Q4_1 (HAS_BIAS, B = 8 * s + m) and Q4_0 (no bias): adjk
-// nibbles, f32 planes s and m (kp/G, np) passed as sd and sm (m null for
-// Q4_0).
+// GPTQ 4-bit and Q4_1 (HAS_BIAS, B = 8 * s + m, added per weight: mode "i")
+// and Q4_0 (no bias): adjk nibbles, f32 planes s and m (kp/G, np) passed as
+// sd and sm (m null for Q4_0).
 template <int G, bool HAS_BIAS>
 struct GptqTile {
   static constexpr int kGroup = G;
@@ -136,7 +140,8 @@ struct GptqTile {
       const float* __restrict__ s_p,  // (kp/G, np) s
       const float* __restrict__ m_p,  // (kp/G, np) m   [HAS_BIAS]
       int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
-      float (*b_s)[ctq::kGemmBN]) {
+      float (*)[ctq::kGemmBN]) {
+    static_assert(!(FOLD && HAS_BIAS), "mode \"si\" with a bias runs the Hopper core");
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
     const int n = col0 + wc;
@@ -162,12 +167,8 @@ struct GptqTile {
       float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]);
       if (HAS_BIAS) {
         const float b = ctq::plain_bias(sv[j], mv[j]);
-        if (!FOLD) {
-          w0 = __fadd_rn(w0, b);
-          w1 = __fadd_rn(w1, b);
-        } else if (wr == 0) {
-          b_s[0][wc + j] = b;  // the group's one row of B, the same in each of its steps
-        }
+        w0 = __fadd_rn(w0, b);
+        w1 = __fadd_rn(w1, b);
       }
       b0[j] = __float2bfloat16(w0);
       b1[j] = __float2bfloat16(w1);
@@ -242,19 +243,26 @@ struct KsplitGemm {
   }
 };
 
+// GPTQ4 and Q4_1 at group 32, 64 or 128: mode "i" (qmm_gemm.cuh's GEMM) or,
+// SUMFOLD, mode "si" (the Hopper core's adjk tile); both planes are needed
 template <bool SUMFOLD>
 int launch_gptq(const float* x, const int8_t* qs, const float* s, const float* mn,
                 float* out, int m, int kp, int np, int group, cudaStream_t st) {
+  if (s == nullptr || mn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const ctw::Params p{nullptr, nullptr, s, mn, out, m, kp, np};
   switch (group) {
     case 32:
-      return ctq::launch_gemm<GptqTile<32, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out,
-                                                           m, kp, np, st);
+      if constexpr (SUMFOLD) return ctw::launch_core<32, true, true, true, false, true>(x, qs, p, st);
+      return ctq::launch_gemm<GptqTile<32, true>, false>(x, qs, nullptr, nullptr, s, mn, out,
+                                                         m, kp, np, st);
     case 64:
-      return ctq::launch_gemm<GptqTile<64, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out,
-                                                           m, kp, np, st);
+      if constexpr (SUMFOLD) return ctw::launch_core<64, true, true, true, false, true>(x, qs, p, st);
+      return ctq::launch_gemm<GptqTile<64, true>, false>(x, qs, nullptr, nullptr, s, mn, out,
+                                                         m, kp, np, st);
     case 128:
-      return ctq::launch_gemm<GptqTile<128, true>, SUMFOLD>(x, qs, nullptr, nullptr, s, mn, out,
-                                                            m, kp, np, st);
+      if constexpr (SUMFOLD) return ctw::launch_core<128, true, true, true, false, true>(x, qs, p, st);
+      return ctq::launch_gemm<GptqTile<128, true>, false>(x, qs, nullptr, nullptr, s, mn, out,
+                                                          m, kp, np, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,23 +1,29 @@
-// The Hopper GEMM core of the prompt GEMMs on int8 grids, ct_qmm_b (Q6_K
-// and Q5_K, factored scales), ct_qmm_b_legacy and ct_qmm_sb_legacy (Q5_1
-// with mins, Q8_0 and Q5_0 without; plain f32 planes), routed here by
-// qmm_grid.cu, and on ksplit nibbles, ct_qmm_sb_ks at m > 32 (every nibble
-// kind; qmm_float.cu). It replaces, for those symbols, the 64 x 64 WMMA
-// tiles of qmm_gemm.cuh, which the other prompt GEMMs keep.
+// The Hopper GEMM core of the prompt GEMMs on int8 grids, ct_qmm_b and
+// ct_qmm_sb (Q6_K and Q5_K, factored scales), ct_qmm_b_legacy and
+// ct_qmm_sb_legacy (Q5_1 with mins, Q8_0 and Q5_0 without; plain f32
+// planes), routed here by qmm_grid.cu; on ksplit nibbles, ct_qmm_sb_ks at
+// m > 32 (every nibble kind; qmm_float.cu); and on adjk nibbles,
+// ct_qmm_si_gptq (GPTQ4 at groups 32, 64 and 128, Q4_1; qmm_prefill.cu).
+// It replaces, for those symbols, the 64 x 64 WMMA tiles of qmm_gemm.cuh,
+// which the other prompt GEMMs keep.
 //
 // Function (the JAX package's _qmm_kernel mode "b", _qmm_s_kernel mode
-// "sb" and _qmm_pack4_s_kernel mode "sb", ctransformers_tpu/ops/
-// qmatmul.py:734, :1040 and :957):
+// "sb", _qmm_pack4_s_kernel mode "sb" and _qmm_i4_s_kernel,
+// ctransformers_tpu/ops/qmatmul.py:734, :1040, :957 and :1148):
 //   b:     out = bf16(x) @ bf16(q * s + m)         (m only with mins)
 //   sb:    out = xsum @ M + bf16(x) @ bf16(q * s)  (the fold only with mins)
 //   sb_ks: out = xs_lo @ B_lo + xs_hi @ B_hi + bf16(x) @ bf16(v * s)
+//   si:    out = xsum @ B + bf16(x) @ bf16(w4 * s)
 // with f32 accumulation; s = sd * sub_s (factored) or the f32 plane s, each
 // weight's q * s (+ m) in f32 rounded once to bf16, x rounded to nearest
-// even, xsum the f32 sums of x over each group of 32 K rows. On ksplit
-// nibbles (qmm_common.cuh) v is the low nibble l in the low half of K and
-// f in the high half, B each half's bias (ctq::ksplit_bias; the high half
-// of Q4_0 and Q3_K has none) and xs the f32 sums of x over each group of G
-// rows (16 to 128).
+// even, xsum the f32 sums of x over each group of 32 K rows (M = sm * sub_m
+// on Q5_K, one f32 product, or the plain m plane). On ksplit nibbles
+// (qmm_common.cuh) v is the low nibble l in the low half of K and f in the
+// high half, B each half's bias (ctq::ksplit_bias; the high half of Q4_0
+// and Q3_K has none) and xs the f32 sums of x over each group of G rows
+// (16 to 128). On adjk nibbles w4 is the signed nibble, B = 8 s + m
+// (ctq::plain_bias) and xsum the sums over each group of G = 32, 64 or 128
+// rows.
 //
 // Bound: at m = 128 a weight byte (about 1.08 B/weight with its scales)
 // feeds ~237 operations, just under the bf16 ridge, so the weight's bytes
@@ -75,6 +81,25 @@
 // once the stage's products are done, adds sum * B in f32; a group of 64
 // or 128 rows carries its sum across its stages and adds it once, at its
 // last stage (or the block's last: a cluster's K split may cut a group).
+//
+// The adjk nibble tile (AJ). A stage is 64 contiguous K rows, as on the
+// grid: the same two x boxes, and 32 byte rows x 128 columns of the
+// (kp/2, np) plane (4 KB, half the weight slot), byte row r holding K rows
+// 2r (low nibble) and 2r + 1 (high nibble). Each consumer thread reads 4
+// byte rows x 4 columns once, which give the grid tile's 8 K rows, rounds
+// w4 * s once to bf16 (ctq::nibble) into their K slots, and, with the
+// fold, the first rows of each group write its bias row B = 8 s + m into
+// the free half of the weight slot. The scale rows are the grid's (the
+// plain s and m rows of the stage's groups in the scale slot; one row at
+// groups of 64 and 128). The fold takes two groups a stage at G = 32, one
+// at 64, and at 128 carries the group's sums over its two stages, adding
+// them at its last (or the block's last).
+//
+// The factored sum fold (ct_qmm_sb on Q5_K). The scale slot holds sub_m
+// and sm, not M; the first rows of each group write its f32 row
+// M = sm * sub_m (one product, as the reference's _apply_factors) into an
+// area of 1 KB a stage after the barriers (the other instantiations do not
+// allocate it), which the fold reads as it reads the plain m rows.
 #pragma once
 
 #include <cuda.h>
@@ -106,10 +131,13 @@ constexpr int kPLd = kBN + 4;              // partial tile row stride, floats
 constexpr int kKsRows = kBK / 2;           // ksplit byte rows of a stage
 constexpr int kKsWBytes = kKsRows * kBN;   // their bytes: half the weight slot
 constexpr int kBarOff = kStages * kStageBytes + kBTiles * kBTileBytes;
-constexpr size_t kSmemBytes = 1024 + kBarOff + 2 * kStages * 8;
+constexpr int kMRowOff = kBarOff + 2 * kStages * 8;  // the factored fold's M rows
+constexpr int kMRowBytes = 2 * kBN * 4;              // a stage's two f32 rows
+constexpr size_t kSmemBytes = 1024 + kMRowOff;
+constexpr size_t kSmemMRowsBytes = kSmemBytes + kStages * kMRowBytes;
 static_assert(kStageBytes % 1024 == 0 && kBarOff % 1024 == 0, "swizzled tiles on 1 KB");
 static_assert(kBM * kPLd * 4 <= kStages * kStageBytes, "the partial tile fits the ring");
-static_assert(kSmemBytes <= 232448, "shared memory of one block");
+static_assert(kSmemMRowsBytes <= 232448, "shared memory of one block");
 
 struct Params {
   const int8_t* sub_s;  // (kp/G, np) int8 [factored]
@@ -117,7 +145,7 @@ struct Params {
   const float* sd;      // (kp/256, np); plain: s (kp/G, np)
   const float* sm;      // (kp/256, np) [factored, mins]; plain: m (kp/G, np) [mins]
                         // (ksplit: sub_s, sub_m, sd, sm as ctq::dispatch_ksplit names
-                        // them, indexed by the logical row)
+                        // them, indexed by the logical row; adjk: as on the grid)
   float* out;           // (m, np)
   int m, kp, np;
 };
@@ -279,14 +307,15 @@ __device__ __forceinline__ int k_slot(int k) {
 // The scale rows of a stage (kSBytes): [0, 1024) the scales, [1024, 2048)
 // the mins. Factored: sub_s rows at 128 bytes each from 0, the superblock's
 // sd row at 512; sub_m rows from 1024, sm at 1280. Plain: the f32 s rows at
-// 512 bytes each from 0, m rows from 1024.
+// 512 bytes each from 0, m rows from 1024. A group of 128 rows (the adjk
+// tile) spans two stages: each holds its one row.
 template <int G, bool HAS_MINS, bool PLAIN_S>
 struct Scales {
-  static constexpr int kRows = kBK / G;  // quant groups of a stage
+  static constexpr int kRows = kBK >= G ? kBK / G : 1;  // quant groups of a stage
   static constexpr int kBytes = PLAIN_S ? kRows * kBN * 4 * (HAS_MINS ? 2 : 1)
                                         : (kRows * kBN + kBN * 4) * (HAS_MINS ? 2 : 1);
-  static_assert((PLAIN_S ? kRows * kBN * 4 <= 1024 : kRows * kBN <= 512) && kBK % G == 0 &&
-                    256 % kBK == 0,
+  static_assert((PLAIN_S ? kRows * kBN * 4 <= 1024 : kRows * kBN <= 512) &&
+                    (kBK % G == 0 || G % kBK == 0) && 256 % kBK == 0,
                 "stage layout");
 
   // the producer: this stage's rows, completing on bar
@@ -437,6 +466,9 @@ struct Smem {
   __device__ __forceinline__ uint32_t empty(int s) const {
     return smem_addr(base + kBarOff + 8 * (kStages + s));
   }
+  __device__ __forceinline__ float* mrows(int s) const {
+    return reinterpret_cast<float*>(base + kMRowOff + s * kMRowBytes);
+  }
 };
 
 // four bf16 values of B row kr (a K slot of the stage) at the thread's
@@ -451,31 +483,42 @@ __device__ __forceinline__ void store_b(uint8_t* bt, int kr, int c, const float 
 // One consumer stage: the stage `it` of the block, its K step `step` (the
 // block's steps start at s_beg), `last` the block's last. FOLD: the sum
 // fold (wait for the stage's products, then acc += xsum @ M over its
-// groups: the int8 grid's two groups of 32 rows, or the ksplit halves'
-// groups, a group of 64 or 128 rows carried in cs until its last stage).
-template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS>
+// groups: the int8 grid's two groups of 32 rows, the ksplit halves' groups
+// or the adjk tile's groups, a group that spans stages carried in cs until
+// its last stage). KS, AJ: the ksplit or the adjk nibble tile (else the
+// int8 grid).
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS, bool AJ>
 __device__ __forceinline__ void consume(const Smem& sh, int it, int step, bool last, int wg,
                                         uint32_t (&af)[4][4], float (&acc)[2][32],
                                         float (&cs)[2][2]) {
   using S = Scales<G, HAS_MINS, PLAIN_S>;
   using KSS = KsScales<G, HAS_MINS, PLAIN_S>;
   constexpr bool kAddMins = HAS_MINS && !FOLD;
-  // the fold: x columns of a group within a box (16 or 32), its groups in a
-  // stage, those with a bias (the ksplit high half without mins has none),
-  // and whether a group spans stages
-  constexpr int kGW = G < kXBox ? G : kXBox;
-  constexpr int kNF = 2 * (kXBox / kGW);
+  // the fold: x columns of a group within the stage's columns (a box of 32
+  // on ksplit, whose boxes are the two halves; the stage's 64 otherwise),
+  // its groups in a stage, those with a bias (the ksplit high half without
+  // mins has none), the K rows of a step and whether a group spans steps
+  constexpr int kSpan = KS ? kXBox : kBK;
+  constexpr int kGW = G < kSpan ? G : kSpan;
+  constexpr int kNF = (KS ? 2 : 1) * (kSpan / kGW);
   constexpr int kNFB = KS && !HAS_MINS ? kNF / 2 : kNF;
-  constexpr bool kCarry = G > kXBox;
+  constexpr bool kCarry = G > kSpan;
   const int tid = threadIdx.x, lane = tid & 31, cw = tid >> 5;
   const int wl = cw & 3;
   const int st = it % kStages;
   mbar_wait(sh.full(st), (it / kStages) & 1);
   const uint8_t* sc = KS ? sh.wtile(st) + kKsWBytes : sh.scales(st);
+  // the fold's f32 rows of M or B: the plain m rows of the scale slot, the
+  // factored grid's M rows and the nibble tiles' bias rows (written below)
+  float* mrow = KS   ? reinterpret_cast<float*>(sh.wtile(st) + kKsWBytes + KSS::kBiasOff)
+                : AJ ? reinterpret_cast<float*>(sh.wtile(st) + kKsWBytes)
+                : PLAIN_S ? reinterpret_cast<float*>(sh.scales(st) + 1024)
+                          : sh.mrows(st);
 
   // 1. dequantize into the bf16 tile: the int8 grid's rows 8 cw .. 8 cw + 7,
-  //    or the ksplit byte rows 4 cw .. 4 cw + 3 (B rows of both halves), at
-  //    columns 4 lane .. 4 lane + 3
+  //    the ksplit byte rows 4 cw .. 4 cw + 3 (B rows of both halves), or the
+  //    adjk byte rows 4 cw .. 4 cw + 3 (K rows 8 cw .. 8 cw + 7), at columns
+  //    4 lane .. 4 lane + 3
   {
     const uint8_t* wt = sh.wtile(st);
     uint8_t* bt = sh.btile(it % kBTiles) + (lane >> 4) * kAtomBytes + ((lane & 1) << 3);
@@ -490,10 +533,9 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int step, bool l
         for (int q = 0; q < 4; ++q) b[h][q] = ctq::ksplit_bias<HAS_MINS>(s[h][q], mn[h][q], h == 1);
       }
       if (FOLD && (4 * cw) % kGW == 0) {  // the group's first rows write its bias rows
-        float* brow = reinterpret_cast<float*>(const_cast<uint8_t*>(sc) + KSS::kBiasOff);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          *reinterpret_cast<float4*>(brow + (h * KSS::kNGB + j) * kBN + 4 * lane) =
+          *reinterpret_cast<float4*>(mrow + (h * KSS::kNGB + j) * kBN + 4 * lane) =
               make_float4(b[h][0], b[h][1], b[h][2], b[h][3]);
         }
       }
@@ -514,9 +556,44 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int step, bool l
         store_b(bt, k_slot(k), c, v[0]);
         store_b(bt, k_slot(kKsRows + k), c, v[1]);
       }
+    } else if constexpr (AJ) {
+      const int gl = (8 * cw) / G;  // the rows' group in the stage
+      float s[4], mn[4], b[4] = {};
+      S::template load<HAS_MINS>(sc, gl, lane, s, mn);
+      if (HAS_MINS) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) b[q] = ctq::plain_bias(s[q], mn[q]);
+        if (FOLD && (8 * cw) % kGW == 0)  // the group's first rows write its bias row
+          *reinterpret_cast<float4*>(mrow + gl * kBN + 4 * lane) = make_float4(b[0], b[1], b[2], b[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int br = 4 * cw + r;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(wt + br * kBN + 4 * lane);
+        float v[2][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            v[h][q] = __fmul_rn(static_cast<float>(ctq::nibble(w, 2 * q + h)), s[q]);
+            if (kAddMins) v[h][q] = __fadd_rn(v[h][q], b[q]);
+          }
+        }
+        store_b(bt, k_slot(2 * br), c, v[0]);
+        store_b(bt, k_slot(2 * br + 1), c, v[1]);
+      }
     } else {
+      const int gl = (8 * cw) / G;
       float s[4], mn[4];
-      S::template load<kAddMins>(sc, (8 * cw) / G, lane, s, mn);
+      S::template load<kAddMins>(sc, gl, lane, s, mn);
+      if constexpr (FOLD && !PLAIN_S) {
+        if ((8 * cw) % G == 0) {  // the group's first rows write its row of M = sm * sub_m
+          float s1[4], m1[4];
+          S::template load<true>(sc, gl, lane, s1, m1);
+          *reinterpret_cast<float4*>(mrow + gl * kBN + 4 * lane) =
+              make_float4(m1[0], m1[1], m1[2], m1[3]);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const int k = 8 * cw + r;
@@ -588,11 +665,9 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int step, bool l
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       // acc += xsum @ M: the thread's rows ra, ra + 8 and columns
-      // 64 nh + 8 j + 2 q (+1), M's rows from the stage (the grid's m
-      // plane; the ksplit bias rows)
-      const float* mrow = reinterpret_cast<const float*>(sc + (KS ? KSS::kBiasOff : 1024));
-      // a group of 64 or 128 rows: its sum so far, added at its last stage
-      const bool flush = !kCarry || last || ((step + 1) * kXBox) % G == 0;
+      // 64 nh + 8 j + 2 q (+1), M's rows from mrow; a group that spans
+      // steps: its sum so far, added at its last step
+      const bool flush = !kCarry || last || ((step + 1) * kSpan) % G == 0;
 #pragma unroll
       for (int gi = 0; gi < kNFB; ++gi) {
         float g0 = gs[gi][0], g1 = gs[gi][1];
@@ -622,12 +697,20 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int step, bool l
   if (FOLD) mbar_arrive(sh.empty(st));
 }
 
-template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS>
+// The shared memory a block of an instantiation takes: the factored grid's
+// fold adds its M rows.
+template <bool PLAIN_S, bool FOLD, bool KS, bool AJ>
+constexpr size_t kSmemOf = FOLD && !PLAIN_S && !KS && !AJ ? kSmemMRowsBytes : kSmemBytes;
+
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS, bool AJ>
 __global__ void __cluster_dims__(1, 1, kSplit) __launch_bounds__(kThreads, 1)
 grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                  const Params p) {
-  static_assert(KS || !FOLD || (PLAIN_S && HAS_MINS && G == 32),
-                "the int8 grid's fold: plain planes, group 32");
+  static_assert(!(KS && AJ), "one weight tile");
+  static_assert(KS || AJ || !FOLD || (HAS_MINS && G == 32),
+                "the int8 grid's fold: group 32 with mins");
+  static_assert(!AJ || ((G == 32 || G == 64 || G == 128) && (HAS_MINS || !FOLD)),
+                "the adjk tile: groups of 32 to 128 rows, a fold only of a bias");
   using S = Scales<G, HAS_MINS, PLAIN_S>;
   using KSS = KsScales<G, HAS_MINS, PLAIN_S>;
   extern __shared__ uint8_t smem_raw[];
@@ -640,7 +723,7 @@ grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   const int n0 = blockIdx.x * kBN, row0 = blockIdx.y * kBM;
   const uint32_t rank = cluster_rank();
   // this block's share of the K steps (shares differ by one at most; a
-  // ksplit step is 32 byte rows, 64 K rows as an int8-grid step)
+  // nibble step is 32 byte rows, 64 K rows as an int8-grid step)
   const int steps = p.kp / kBK;
   const int s_beg = rank * steps / kSplit;
   const int n_iter = (rank + 1) * steps / kSplit - s_beg;
@@ -671,6 +754,13 @@ grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
           tma_2d(xs + kXHalf, &tx, half + r0, row0, bar);
           tma_2d(smem_addr(sh.wtile(st)), &tw, n0, r0, bar);
           KSS::copy(p, r0, half, n0, smem_addr(sh.wtile(st)) + kKsWBytes, bar);
+        } else if constexpr (AJ) {  // K rows k0 .. k0 + 63: byte rows k0/2 .. k0/2 + 31
+          const int k0 = (s_beg + it) * kBK;
+          mbar_expect_tx(bar, kXBytes + kKsWBytes + S::kBytes);
+          tma_2d(xs, &tx, k0, row0, bar);
+          tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
+          tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0 / 2, bar);
+          S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);
         } else {
           const int k0 = (s_beg + it) * kBK;
           mbar_expect_tx(bar, kXBytes + kWBytes + S::kBytes);
@@ -691,13 +781,13 @@ grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     // two sets of A registers: a stage's products may still read one set
     // while the next stage fills the other
     uint32_t af0[4][4], af1[4][4];
-    float cs[2][2] = {};  // the fold's carried group sums (groups of 64, 128 rows)
+    float cs[2][2] = {};  // the fold's carried group sums (groups that span steps)
     for (int it = 0; it < n_iter; it += 2) {
-      consume<G, HAS_MINS, PLAIN_S, FOLD, KS>(sh, it, s_beg + it, it + 1 == n_iter, wg, af0,
-                                              acc, cs);
+      consume<G, HAS_MINS, PLAIN_S, FOLD, KS, AJ>(sh, it, s_beg + it, it + 1 == n_iter, wg, af0,
+                                                  acc, cs);
       if (it + 1 < n_iter)
-        consume<G, HAS_MINS, PLAIN_S, FOLD, KS>(sh, it + 1, s_beg + it + 1, it + 2 == n_iter, wg,
-                                                af1, acc, cs);
+        consume<G, HAS_MINS, PLAIN_S, FOLD, KS, AJ>(sh, it + 1, s_beg + it + 1, it + 2 == n_iter,
+                                                    wg, af1, acc, cs);
     }
     wgmma_wait<0>();
     fence_acc(acc[0]);
@@ -797,20 +887,23 @@ inline bool make_maps(CUtensorMap* tx, CUtensorMap* tw, const float* x, const in
 
 // Launch over an (m, np) output: (np / 128, ceil(m / 128), 3) blocks in
 // clusters of 3 along K. kp a multiple of 256, np of 128 (the QTensor's
-// padding). KS: qs is the (kp / 2, np) ksplit plane. Returns a CUDA error
-// code.
-template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS = false>
+// padding). KS, AJ: qs is the (kp / 2, np) ksplit or adjk nibble plane.
+// Returns a CUDA error code.
+template <int G, bool HAS_MINS, bool PLAIN_S, bool FOLD, bool KS = false, bool AJ = false>
 int launch_core(const float* x, const int8_t* qs, const Params& p, cudaStream_t stream) {
   if (p.m <= 0 || p.kp % kBK || p.kp / kBK < kSplit || p.np % kBN) return cudaErrorInvalidValue;
+  constexpr bool kNibbles = KS || AJ;
   CUtensorMap tx, tw;
-  if (!make_maps(&tx, &tw, x, qs, p.m, p.kp, p.np, KS ? p.kp / 2 : p.kp, KS ? kKsRows : kBK))
+  if (!make_maps(&tx, &tw, x, qs, p.m, p.kp, p.np, kNibbles ? p.kp / 2 : p.kp,
+                 kNibbles ? kKsRows : kBK))
     return cudaErrorInvalidValue;
-  auto kern = grid_gemm_kernel<G, HAS_MINS, PLAIN_S, FOLD, KS>;
+  auto kern = grid_gemm_kernel<G, HAS_MINS, PLAIN_S, FOLD, KS, AJ>;
+  constexpr size_t smem = kSmemOf<PLAIN_S, FOLD, KS, AJ>;
   const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(kSmemBytes));
+                                             static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   dim3 grid(p.np / kBN, (p.m + kBM - 1) / kBM, kSplit);
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(tx, tw, p);
+  kern<<<grid, kThreads, smem, stream>>>(tx, tw, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -241,11 +241,15 @@ def sample_device(
     if temperature <= 0.0:
         return torch.argmax(logits).to(torch.int32).view(1)
     inf = float("inf")
-    l = logits.float() / temperature
+    # tensor divisors: on the card torch divides by a Python scalar as a
+    # product with its reciprocal, which can miss the IEEE quotient by an ulp
+    l = logits.float()
+    l = l / torch.full_like(l, temperature)
     if repetition_penalty != 1.0:
         ids = torch.where(last_tokens >= 0, last_tokens, v).to(torch.int64)
         seen = torch.zeros(v + 1, dtype=torch.bool, device=l.device).index_fill_(0, ids, True)
-        pen = torch.where(l > 0, l / repetition_penalty, l * repetition_penalty)
+        pen = torch.where(l > 0, l / torch.full_like(l, repetition_penalty),
+                          l * repetition_penalty)
         l = torch.where(seen[:v], pen, l)
     k = min(int(top_k) if top_k > 0 else v, v)
     if k < v:

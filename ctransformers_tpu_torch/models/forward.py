@@ -105,10 +105,12 @@ class KVCache(NamedTuple):
 def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 row quantization over the last axis: (int8 values,
     f32 scale over the leading axes), x ~= q * scale. The scale is
-    max(amax, 1e-8) / 127 by IEEE division; torch.round rounds half to
-    even, as jnp.round does."""
-    amax = x.abs().amax(dim=-1)
-    scale = torch.clamp_min(amax, 1e-8).float() / 127.0
+    max(amax, 1e-8) / 127 by IEEE division (a tensor divisor: on the card
+    torch divides by a Python scalar as a product with its reciprocal, which
+    can miss the quotient by an ulp); torch.round rounds half to even, as
+    jnp.round does."""
+    amax = torch.clamp_min(x.abs().amax(dim=-1), 1e-8).float()
+    scale = amax / torch.full_like(amax, 127.0)
     return torch.round(x / scale[..., None]).to(torch.int8), scale
 
 

@@ -152,7 +152,8 @@ def quant_q3(x: torch.Tensor, group: int = GROUP):
     (ng, m) f32)."""
     m, k = x.shape
     xr = x.reshape(m, k // group, group)
-    sx = (xr.abs().amax(-1) + 1e-12) / 127.0
+    amax = xr.abs().amax(-1) + 1e-12
+    sx = amax / torch.full_like(amax, 127.0)  # IEEE division on the card too
     xq = torch.clamp(torch.round(xr / sx[:, :, None]), -127, 127).to(torch.int8)
     return xq.transpose(0, 1).contiguous(), sx.T.contiguous()
 
@@ -163,7 +164,8 @@ def quant_q5(x: torch.Tensor, group: int = GROUP):
     odd columns, xp (ng, m, g): [evens | odds], sx (ng, m), sx / 16)."""
     m, k = x.shape
     xr = x.reshape(m, k // group, group)
-    sx = xr.abs().amax(-1) / 127.0 + 1e-20
+    amax = xr.abs().amax(-1)
+    sx = amax / torch.full_like(amax, 127.0) + 1e-20
     xq = torch.clamp(torch.round(xr / sx[:, :, None]), -127, 127).to(torch.int8)
     xg = xq.transpose(0, 1).contiguous()
     xe, xo = xg[:, :, 0::2].contiguous(), xg[:, :, 1::2].contiguous()
@@ -178,7 +180,8 @@ def quant_mmvq(x: torch.Tensor, group: int = GROUP):
     xr = x.reshape(m, k // group, group)
     amax = xr.abs().amax(-1)
     xq = torch.clamp(torch.round(xr / torch.clamp_min(amax, 1e-8)[:, :, None] * 127.0), -127, 127)
-    return xq.to(torch.int8).transpose(0, 1).contiguous(), (amax / 127.0).T.contiguous()
+    sx = amax / torch.full_like(amax, 127.0)
+    return xq.to(torch.int8).transpose(0, 1).contiguous(), sx.T.contiguous()
 
 
 @functools.lru_cache(maxsize=2)

@@ -29,7 +29,8 @@ instantiations); the reference kernels' sfactor == 0 branches
   qmm_qx_gptq  the function of qmm_qx  (replaces _qmm_qx_kernel)
   qmm_q_gptq   the function of qmm_q   (replaces _qmm_q_kernel)
   qmm_i_gptq   the function of qmm_i   (replaces _qmm_i4_kernel)
-  qmm_si_gptq  the function of qmm_si  (replaces _qmm_i4_s_kernel)
+  qmm_si_gptq  the function of qmm_si  (replaces _qmm_i4_s_kernel; the
+               Hopper GEMM core's adjk nibble tile)
   qmm_g_gptq   the function of qmm_g   (replaces _qmm_g_kernel)
 
 Q4_0, the same nibbles at zero point 8 (w4 = q in [-8, 7]) with a plain
@@ -64,7 +65,8 @@ csrc/qmm_float.cu):
           (replaces _qmm_qx_kernel, mode "qx", packed4=False)
   qmm_b   bf16(x) @ bf16(q * s + m)          (replaces _qmm_kernel, mode "b";
           the Hopper GEMM core of csrc/qmm_wgmma.cuh)
-  qmm_sb  xsum @ M + bf16(x) @ bf16(q * s)   (replaces _qmm_s_kernel, mode "sb")
+  qmm_sb  xsum @ M + bf16(x) @ bf16(q * s)   (replaces _qmm_s_kernel, mode "sb";
+          the Hopper GEMM core)
   qmm_g8  xsum @ M + sum_g s[g] * dot_g(bf16(x), q)    (replaces _qmm_g_kernel)
   qmm_f   x @ (q * s + m), all f32           (replaces _qmm_kernel, mode "")
   qmm_s   xsum @ M + x @ (q * s), all f32    (replaces _qmm_s_kernel, mode "s")
@@ -814,11 +816,12 @@ _SPECS = {
 KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
-# the symbols that run the Hopper GEMM core: those of qmm_grid.cu at every m,
+# the symbols that run the Hopper GEMM core: those of qmm_grid.cu and
+# qmm_si_gptq of qmm_prefill.cu (the core's adjk nibble tile) at every m,
 # qmm_sb_ks of qmm_float.cu (its source) at m > 32
-WGMMA_KERNELS = ("qmm_b", "qmm_b_legacy", "qmm_sb_legacy", "qmm_sb_ks")
+WGMMA_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si_gptq", "qmm_sb_ks")
 SOURCE_OF.update({n: "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh" for n in WGMMA_KERNELS
-                  if _SPECS[n][0] == "qmm_grid"})
+                  if n != "qmm_sb_ks"})
 REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
 # the wrappers as module functions: qmm_qx(x, qt), qmm_q(xq, sx, xsum, qt), ...
 # (ops/qmatmul.py looks them up here by name at call time)
@@ -841,9 +844,8 @@ DECODE_CONFIG = "n32k1024"  # 32 columns and all of K per block, 1024-row chunks
 KSPLIT_FLOAT_CONFIG = "n32k512"  # the same, 512 byte rows (both halves) a chunk
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
-GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_sb", "qmm_i_gptq", "qmm_si_gptq",
-                "qmm_i_q4_0", "qmm_si_q4_0", "qmm_i_k16", "qmm_si_k16", "qmm_b_ks",
-                "qmm_rb_ks", "qmm_rb8", "qmm_rb8_legacy")
+GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_i_gptq", "qmm_i_q4_0", "qmm_si_q4_0", "qmm_i_k16",
+                "qmm_si_k16", "qmm_b_ks", "qmm_rb_ks", "qmm_rb8", "qmm_rb8_legacy")
 # 128 x 128 output tile over two wgmma warpgroups, K split over a cluster of
 # 3 (csrc/qmm_wgmma.cuh)
 WGMMA_CONFIG = "wg128n128c3"

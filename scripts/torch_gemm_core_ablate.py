@@ -2,15 +2,19 @@
 build the core as it is and copies with one part taken out, and time each
 on the same card in one process.
 
-    python3 scripts/torch_gemm_core_ablate.py [--kind Q6_K|ks:Q4_K] [--m 128 ...] [--reps 20]
+    python3 scripts/torch_gemm_core_ablate.py [--kind Q6_K|ks:Q4_K|sb:Q5_K|aj:GPTQ4/128]
+        [--m 128 ...] [--reps 20]
 
 --kind Q6_K (the default) times the int8-grid tile behind ct_qmm_b on a
 Q6_K grid; ks:Q4_K the ksplit nibble tile behind ct_qmm_sb_ks (m > 32) on
-Q4_K nibbles packed ksplit, with the sum fold of both halves' biases.
-Every variant is the symbol's source (qmm_grid.cu, or qmm_float.cu for
-ks:Q4_K) built by nvcc (the package's flags, all started together) from a
-copy of csrc/ under build/gemm_core_ablate/ with one edit to
-qmm_wgmma.cuh:
+Q4_K nibbles packed ksplit, with the sum fold of both halves' biases;
+sb:Q5_K the int8-grid tile behind ct_qmm_sb on a Q5_K grid, with the fold
+of the factored M = sm * sub_m; aj:GPTQ4/128 the adjk nibble tile behind
+ct_qmm_si_gptq on GPTQ4 planes at group 128, with the fold of B = 8 s + m
+carried over a group's two stages. Every variant is the symbol's source
+(qmm_grid.cu, qmm_float.cu or qmm_prefill.cu) built by nvcc (the
+package's flags, all started together) from a copy of csrc/ under
+build/gemm_core_ablate/ with one edit to qmm_wgmma.cuh:
 
   base         the source as it is
   split4       K split over a cluster of 4 blocks (the source: 3)
@@ -21,9 +25,15 @@ qmm_wgmma.cuh:
   no_dequant   the dequantized weight tile is not stored
   no_wgmma     no tensor-core product (a stand-in keeps the fragments live)
   no_fence     no proxy fence and barrier between the tile and the products
+  no_mrows     (the fold's kinds) no rows of M or B written or read: the
+               fold adds constants
+  m_in_fold    (sb:Q5_K) M is not written into shared memory: the fold
+               rebuilds each M value from the stage's sub_m bytes and sm
+               row (one more f32 product per value), the other way to feed
+               the factored fold
 
-Only base computes the function (its error against plain_b or
-plain_sb_ks is printed; the others print theirs too, meaningless by
+Only base and m_in_fold compute the function (the error against the
+plain version is printed; the others print theirs too, meaningless by
 design). For each variant: the clusters the card runs at once
 (cudaOccupancyMaxActiveClusters) and, per shape (v: 4096 x 4096, down:
 11264 x 4096) and m, the kernel ms from a replayed CUDA graph cycling over
@@ -54,6 +64,14 @@ from ctransformers_tpu_torch.ops.qmatmul import QTensor  # noqa: E402
 CORE = "qmm_wgmma.cuh"
 OUT = os.path.join(ROOT, "build", "gemm_core_ablate")
 WGMMA = "    for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16(acc[0], acc[1], af[kk], b_desc(bt + kk * 2048));"
+# the fold's reads of its rows of M or B, and each tile's writes of them
+MROW_READ = """            const float2 mm =
+                *reinterpret_cast<const float2*>(mrow + gi * kBN + nh * 64 + 8 * j + 2 * q);"""
+AJ_WRITE = """          *reinterpret_cast<float4*>(mrow + gl * kBN + 4 * lane) = make_float4(b[0], b[1], b[2], b[3]);"""
+GRID_WRITE = """          *reinterpret_cast<float4*>(mrow + gl * kBN + 4 * lane) =
+              make_float4(m1[0], m1[1], m1[2], m1[3]);"""
+KS_WRITE = """          *reinterpret_cast<float4*>(mrow + (h * KSS::kNGB + j) * kBN + 4 * lane) =
+              make_float4(b[h][0], b[h][1], b[h][2], b[h][3]);"""
 VARIANTS = {
     "base": [],
     "split4": [("constexpr int kSplit = 3;", "constexpr int kSplit = 4;")],
@@ -68,7 +86,12 @@ VARIANTS = {
           tma_2d(xs + kXHalf, &tx, half + r0, row0, bar);
           tma_2d(smem_addr(sh.wtile(st)), &tw, n0, r0, bar);
           KSS::copy(p, r0, half, n0, smem_addr(sh.wtile(st)) + kKsWBytes, bar);""", ""),
-        ("mbar_expect_tx(bar, kXBytes + kKsWBytes + KSS::kBytes);", "mbar_arrive(bar);")],
+        ("mbar_expect_tx(bar, kXBytes + kKsWBytes + KSS::kBytes);", "mbar_arrive(bar);"),
+        ("""          tma_2d(xs, &tx, k0, row0, bar);
+          tma_2d(xs + kXHalf, &tx, k0 + kXBox, row0, bar);
+          tma_2d(smem_addr(sh.wtile(st)), &tw, n0, k0 / 2, bar);
+          S::copy(p, k0, n0, smem_addr(sh.scales(st)), bar);""", ""),
+        ("mbar_expect_tx(bar, kXBytes + kKsWBytes + S::kBytes);", "mbar_arrive(bar);")],
     "no_xfrag": [("""        const float4 v = *reinterpret_cast<const float4*>(box + row * 128 + ((c ^ (row & 7)) << 4));""",
                   """        const float4 v = make_float4(kk, hr, c, row);""")],
     "no_dequant": [("""  *reinterpret_cast<uint2*>(bt + kr * 128 + ((c ^ (kr & 7)) << 4)) =
@@ -77,7 +100,19 @@ VARIANTS = {
       acc[0][kk] += __uint_as_float(af[kk][0] ^ af[kk][1] ^ af[kk][2] ^ af[kk][3] ^ bt);""")],
     "no_fence": [("""  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   consumers_sync();""", "")],
+    "no_mrows": [
+        (MROW_READ, "            const float2 mm = make_float2(1.f, 2.f);"),
+        (AJ_WRITE, ";"), (GRID_WRITE, ";"), (KS_WRITE, ";")],
+    "m_in_fold": [(GRID_WRITE, ";"), (MROW_READ, """            const int col = nh * 64 + 8 * j + 2 * q;
+            const uint8_t* sm2 = sh.scales(st) + 1280 + 4 * col;
+            const int8_t* subm = reinterpret_cast<const int8_t*>(sh.scales(st) + 1024 + gi * kBN + col);
+            const float2 mm = make_float2(
+                __fmul_rn(*reinterpret_cast<const float*>(sm2), static_cast<float>(subm[0])),
+                __fmul_rn(*reinterpret_cast<const float*>(sm2 + 4), static_cast<float>(subm[1])));""")],
 }
+# the variants each kind builds (no_mrows where there is a fold, m_in_fold
+# where M is factored)
+FOLD_KINDS = ("ks:Q4_K", "sb:Q5_K", "aj:GPTQ4/128")
 # appended to each copy of the source: the clusters of the timed
 # instantiation (INSTANCE) that the card runs at once
 OCCUPANCY = """
@@ -85,18 +120,26 @@ extern "C" int ablate_max_active_clusters() {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(32, 1, ctw::kSplit);
   cfg.blockDim = dim3(ctw::kThreads);
-  cfg.dynamicSmemBytes = ctw::kSmemBytes;
+  cfg.dynamicSmemBytes = ctw::kSmemOf<SMEM>;
   auto kern = ctw::grid_gemm_kernel<INSTANCE>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ctw::kSmemBytes);
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ctw::kSmemOf<SMEM>);
   int n = -1;
   const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (void*)kern, &cfg);
   return e == cudaSuccess ? n : -1000 - (int)e;
 }
 """
 SHAPES = {"v": (4096, 4096), "down": (11264, 4096)}
-# kind -> (source, symbol, the core's template arguments)
-KINDS = {"Q6_K": ("qmm_grid.cu", "ct_qmm_b", "16, false, false, false, false"),
-         "ks:Q4_K": ("qmm_float.cu", "ct_qmm_sb_ks", "32, true, false, true, true")}
+# kind -> (source, symbol, the core's template arguments: G, HAS_MINS,
+# PLAIN_S, FOLD, KS, AJ)
+KINDS = {"Q6_K": ("qmm_grid.cu", "ct_qmm_b", "16, false, false, false, false, false"),
+         "ks:Q4_K": ("qmm_float.cu", "ct_qmm_sb_ks", "32, true, false, true, true, false"),
+         "sb:Q5_K": ("qmm_grid.cu", "ct_qmm_sb", "32, true, false, true, false, false"),
+         "aj:GPTQ4/128": ("qmm_prefill.cu", "ct_qmm_si_gptq", "128, true, true, true, false, true")}
+
+
+def variants_of(kind: str) -> list:
+    return [v for v in VARIANTS if (v != "no_mrows" or kind in FOLD_KINDS)
+            and (v != "m_in_fold" or kind == "sb:Q5_K")]
 
 
 def build(names, kind: str):
@@ -115,8 +158,10 @@ def build(names, kind: str):
             src = src.replace(old, new)
         open(path, "w").write(src)
         source = KINDS[kind][0]
+        args = KINDS[kind][2]
         with open(os.path.join(d, source), "a") as f:
-            f.write(OCCUPANCY.replace("INSTANCE", KINDS[kind][2]))
+            f.write(OCCUPANCY.replace("INSTANCE", args).replace(
+                "SMEM", ", ".join(args.split(", ")[2:])))
         so = os.path.join(d, f"lib{source[:-3]}.so")
         procs[name] = (so, subprocess.Popen(
             [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, source)],
@@ -134,14 +179,27 @@ def build(names, kind: str):
 
 
 def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
-    """A random Q6_K grid, or Q4_K nibbles packed ksplit (any byte is a
-    pair of nibbles), at padded shape (k, n)."""
+    """A random Q6_K or Q5_K grid, GPTQ4 group-128 adjk nibbles over f32
+    planes, or Q4_K nibbles packed ksplit (any byte is a pair of nibbles),
+    at padded shape (k, n)."""
     g = torch.Generator().manual_seed(seed)
     sd = torch.rand((k // 256, n), generator=g) * 1e-3 + 1e-4
     if kind == "Q6_K":
         qs = torch.randint(-32, 32, (k, n), generator=g, dtype=torch.int8)
         sub_s = torch.randint(-64, 64, (k // 16, n), generator=g, dtype=torch.int8)
         return QTensor(qs, sub_s, None, "Q6_K", 16, (k, n), sd=sd, sm=None, sfactor=16).to("cuda")
+    if kind == "sb:Q5_K":
+        qs = torch.randint(0, 32, (k, n), generator=g, dtype=torch.int8)
+        sub_s = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
+        sub_m = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
+        sm = -torch.rand((k // 256, n), generator=g) * 1e-3
+        return QTensor(qs, sub_s, sub_m, "Q5_K", 32, (k, n), sd=sd, sm=sm, sfactor=8).to("cuda")
+    if kind == "aj:GPTQ4/128":
+        qs = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8)
+        s = torch.rand((k // 128, n), generator=g) * 3e-3 + 1e-3
+        z = torch.randint(0, 16, (k // 128, n), generator=g).float()
+        return QTensor(qs, s, -(s * z), "GPTQ4", 128, (k, n), packed=True, zp=0, sfactor=0,
+                       pack_layout="adjk").to("cuda")
     qs = torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8)
     sub_s = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
     sub_m = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
@@ -179,14 +237,16 @@ def main() -> int:
     t0 = time.perf_counter()
     if min(opts.m) <= 32:
         raise SystemExit("the core serves m > 32")
-    libs = build(list(VARIANTS), opts.kind)
+    libs = build(variants_of(opts.kind), opts.kind)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, lib in libs.items():
         print(f"{name}: max active clusters {lib.ablate_max_active_clusters()}", flush=True)
     dev = torch.device("cuda")
     result = {name: {} for name in libs}
     symbol = KINDS[opts.kind][1]
-    ks = opts.kind.startswith("ks:")
+    plain, ints = {"Q6_K": (K.plain_b, lambda qt: (16,)), "ks:Q4_K": (K.plain_sb_ks, K._ksplit_ints),
+                   "sb:Q5_K": (K.plain_sb, lambda qt: (32,)),
+                   "aj:GPTQ4/128": (K.plain_si, lambda qt: (128,))}[opts.kind]
     for shape, (k, n) in SHAPES.items():
         qts = [weight(opts.kind, k, n, 0)]
         per_copy = sum(a.numel() * a.element_size() for a in K._planes(qts[0]) if a is not None)
@@ -194,12 +254,11 @@ def main() -> int:
         for m in opts.m:
             x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
             out = torch.empty(m, n, device=dev)
-            ref = (K.plain_sb_ks if ks else K.plain_b)(x, qts[0])
+            ref = plain(x, qts[0])
             for name, lib in libs.items():
                 def call(i, fn=getattr(lib, symbol)):
                     qt = qts[i % len(qts)]
-                    ints = K._ksplit_ints(qt) if ks else (16,)
-                    rc = fn(*K._ptrs(x, *K._planes(qt), out), m, k, n, *ints, K._stream(dev))
+                    rc = fn(*K._ptrs(x, *K._planes(qt), out), m, k, n, *ints(qt), K._stream(dev))
                     if rc:
                         raise SystemExit(f"{name}: launch failed with CUDA error {rc}")
                 ms = graph_ms(call, opts.reps)

@@ -9,10 +9,11 @@ its legacy form); the race that picks among them; the decode attention
 kernel (ops/attention.py) over f32, bf16, f16 and int8 caches in both
 layouts, at every llama head width (above 256 in column slices) and any
 number of query heads a kv head; the symbols of the Hopper GEMM core
-(qmm_b, qmm_b_legacy, qmm_sb_legacy, and qmm_sb_ks with its decode design
-at m <= 32) at prompt sizes up to m = 2048; and the fused decode loop of
-engine/engine.py (a captured CUDA graph per key) against the eager loop on
-a tiny model.
+(qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq, and qmm_sb_ks
+with its decode design at m <= 32) at prompt sizes up to m = 2048; the
+IEEE scale divisions of kv_quantize and the probes' quantizers; and the
+fused decode loop of engine/engine.py (a captured CUDA graph per key)
+against the eager loop on a tiny model.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -285,12 +286,62 @@ def test_legacy_symbols_refuse_a_mins_flag_that_disagrees(dev):
     assert rc != 0
 
 
-# the Hopper GEMM core (csrc/qmm_wgmma.cuh): the int8-grid symbols at every
-# instantiation, at the prompt chunk sizes Engine._chunks sends (and the
-# ragged m = 33), at llama-2-7B shapes
-CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_b_legacy", "Q8_0"),
-        ("qmm_b_legacy", "Q5_0"), ("qmm_b_legacy", "Q5_1"), ("qmm_sb_legacy", "Q5_1"),
-        ("qmm_sb_legacy", "Q8_0"), ("qmm_sb_legacy", "Q5_0")]
+def reciprocal_misses(n: int, seed: int) -> np.ndarray:
+    """n f32 values a in [0.5, 64) at which the product with float32(1/127),
+    what torch computes on the card for a tensor divided by the Python
+    scalar 127, is not the IEEE quotient a / 127 (found in numpy)."""
+    a = (np.random.default_rng(seed).random(40 * n) * 63.5 + 0.5).astype(np.float32)
+    d = np.float32(127.0)
+    miss = a[a * (np.float32(1.0) / d) != a / d]
+    assert len(miss) >= n
+    return miss[:n]
+
+
+def test_scale_divisions_are_ieee_on_the_card(dev):
+    """kv_quantize (the int8 KV cache) and the probes' three quantizers
+    divide by a tensor: on the card their scales are numpy's IEEE quotients
+    bit for bit at amax values where the reciprocal product misses, and
+    their int8 values are the CPU's on the same rows."""
+    from ctransformers_tpu_torch.models import forward as F
+    from ctransformers_tpu_torch.ops import probes as PR
+
+    rows = 64
+    amax = reciprocal_misses(rows, seed=13)
+    rng = np.random.default_rng(14)
+    # rows of 32 whose largest magnitude is amax, at a random column, either sign
+    x = rng.uniform(-0.99, 0.99, (rows, 32)).astype(np.float32) * amax[:, None]
+    x[np.arange(rows), rng.integers(0, 32, rows)] = amax * rng.choice([-1, 1], rows)
+    d = np.float32(127.0)
+    want = {"kv": amax / d, "q3": (amax + np.float32(1e-12)) / d,
+            "q5": amax / d + np.float32(1e-20), "mmvq": amax / d}
+    assert not np.array_equal(want["kv"], amax * (np.float32(1.0) / d))
+
+    def run(t):  # (int8 values, scales) of each quantizer
+        kq, ks = F.kv_quantize(t)
+        q3 = PR.quant_q3(t, 32)
+        q5 = PR.quant_q5(t, 32)
+        mv = PR.quant_mmvq(t, 32)
+        # the probes' scales are (groups, rows): one group a row here
+        return {"kv": (kq, ks), "q3": (q3[0], q3[1][0]), "q5": (q5[0], q5[4][0]),
+                "mmvq": (mv[0], mv[1][0])}
+
+    xt = torch.from_numpy(x)
+    card, cpu = run(xt.to(dev)), run(xt)
+    for name, (q, sc) in card.items():
+        got = sc.cpu().numpy()
+        assert np.array_equal(got.view(np.uint32), want[name].view(np.uint32)), name
+        assert torch.equal(q.cpu(), cpu[name][0]), name
+        assert torch.equal(sc.cpu(), cpu[name][1]), name
+
+
+# the Hopper GEMM core (csrc/qmm_wgmma.cuh): the int8-grid symbols and
+# qmm_si_gptq (the adjk nibble tile) at every instantiation, at the prompt
+# chunk sizes Engine._chunks sends (and the ragged m = 33), at llama-2-7B
+# shapes
+CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb", "Q5_K"), ("qmm_sb", "Q6_K"),
+        ("qmm_b_legacy", "Q8_0"), ("qmm_b_legacy", "Q5_0"), ("qmm_b_legacy", "Q5_1"),
+        ("qmm_sb_legacy", "Q5_1"), ("qmm_sb_legacy", "Q8_0"), ("qmm_sb_legacy", "Q5_0")] + [
+    ("qmm_si_gptq", f"GPTQ4/{g}") for g in K.GPTQ_GROUPS] + [("qmm_si_gptq", "Q4_1")]
 # and qmm_sb_ks on every ksplit layout (ctq::dispatch_ksplit: Q4_K, Q2_K,
 # Q3_K, GPTQ4 / Q4_1 at groups 32, 64 and 128, Q4_0), at the decode design's
 # m <= 32 and the core's m > 32
@@ -301,7 +352,7 @@ CORE_KSPLIT_KINDS = ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/32", "GPTQ4/64", "GPTQ4/128"
 @pytest.mark.parametrize("m", [33, 64, 128, 256, 2048])
 @pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096)])
 def test_core_kernel_matches_plain_at_prompt_sizes(dev, name, kind, k, n, m):
-    qt = (random_grid if name == "qmm_b" else random_legacy)(kind, k, n, seed=k + m, device=dev)
+    qt = _weight(name, kind, k, n, seed=k + m, device=dev)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
     before = K.LAUNCHES[name]
     got = K.KERNELS[name](x, qt)
@@ -333,19 +384,34 @@ def test_core_ksplit_kernel_matches_plain_at_every_m(dev, kind, k, n, m):
 
 
 def test_core_symbols_refuse_what_they_do_not_take(dev):
-    """ct_qmm_b takes group 16 without mins (Q6_K) or 32 with them (Q5_K),
-    ct_qmm_sb_legacy a has-mins flag that agrees with the min plane; both a
-    K padded to 64-row steps, at least three of them; a refusal launches
-    nothing."""
+    """ct_qmm_b and ct_qmm_sb take group 16 without mins (Q6_K) or 32 with
+    them (Q5_K: sub-mins and sm both given), ct_qmm_sb_legacy a has-mins
+    flag that agrees with the min plane, ct_qmm_si_gptq group 32, 64 or 128
+    with both planes; all a K padded to 64-row steps, at least three of
+    them; a refusal launches nothing."""
     x = torch.randn(64, 256, device=dev)
     out = torch.full((64, 128), 7.0, device=dev)
     q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
-    fn = K._fn("qmm_grid", "ct_qmm_b")
-    for qt, group in ((q6k, 32), (q5k, 16)):
-        assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 256, 128,
-                  group, K._stream(dev)) != 0
-    assert fn(*K._ptrs(x, q6k.qs, q6k.scales, None, q6k.sd, None, out), 64, 128, 128, 16,
-              K._stream(dev)) != 0  # two 64-row steps for three blocks of a cluster
+    for sym in ("ct_qmm_b", "ct_qmm_sb"):
+        fn = K._fn("qmm_grid", sym)
+        for qt, group in ((q6k, 32), (q5k, 16)):
+            assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 256, 128,
+                      group, K._stream(dev)) != 0
+        # mins that disagree: Q5_K's sub-mins without sm, Q6_K's planes with them
+        assert fn(*K._ptrs(x, q5k.qs, q5k.scales, q5k.mins, q5k.sd, None, out), 64, 256, 128,
+                  32, K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q6k.qs, q6k.scales, q5k.mins, q6k.sd, q5k.sm, out), 64, 256, 128,
+                  16, K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q6k.qs, q6k.scales, None, q6k.sd, None, out), 64, 128, 128, 16,
+                  K._stream(dev)) != 0  # two 64-row steps for three blocks of a cluster
+    fn = K._fn("qmm_prefill", "ct_qmm_si_gptq")
+    gq = random_gptq(256, 128, 32, 4, dev)
+    for group in (16, 48, 256):  # no instantiation
+        assert fn(*K._ptrs(x, gq.qs, gq.scales, gq.mins, out), 64, 256, 128, group,
+                  K._stream(dev)) != 0
+    assert fn(*K._ptrs(x, gq.qs, gq.scales, None, out), 64, 256, 128, 32, K._stream(dev)) != 0
+    assert fn(*K._ptrs(x, gq.qs, gq.scales, gq.mins, out), 64, 128, 128, 32,
+              K._stream(dev)) != 0
     q51 = random_legacy("Q5_1", 256, 128, 3, dev)
     for sym in ("ct_qmm_sb_legacy", "ct_qmm_b_legacy"):
         fn = K._fn("qmm_grid", sym)

@@ -1,6 +1,7 @@
-"""The prompt GEMMs of the Hopper core (csrc/qmm_wgmma.cuh: qmm_b on Q6_K
-and Q5_K, qmm_b_legacy and qmm_sb_legacy on Q5_1, Q8_0 and Q5_0, qmm_sb_ks
-on the ksplit nibbles of every kind) on the CPU: what the core makes of x
+"""The prompt GEMMs of the Hopper core (csrc/qmm_wgmma.cuh: qmm_b and qmm_sb
+on Q6_K and Q5_K, qmm_b_legacy and qmm_sb_legacy on Q5_1, Q8_0 and Q5_0,
+qmm_si_gptq on GPTQ4 at groups 32, 64 and 128 and on Q4_1, qmm_sb_ks on the
+ksplit nibbles of every kind) on the CPU: what the core makes of x
 (bf16 rounding, group sums) against numpy, the plain versions at ragged m
 against the Pallas kernels in interpret mode, the launch configuration the
 candidate lists name, and tiny llamas of head width 80 with 16 query heads
@@ -32,7 +33,8 @@ def _bf16_rne(a: np.ndarray) -> np.ndarray:
     return r.astype(np.uint32).view(np.float32)
 
 
-@pytest.mark.parametrize("m,kp,group", [(1, 256, 32), (33, 512, 32), (100, 256, 16)])
+@pytest.mark.parametrize("m,kp,group", [(1, 256, 32), (33, 512, 32), (100, 256, 16),
+                                         (33, 512, 64), (100, 256, 128)])
 def test_x_operands_match_numpy(m, kp, group):
     rng = np.random.default_rng(m)
     x = (rng.standard_normal((m, kp)) * 3).astype(np.float32)
@@ -41,29 +43,37 @@ def test_x_operands_match_numpy(m, kp, group):
     assert xb.dtype == xs.dtype == torch.float32 and xs.shape == (m, kp // group)
     np.testing.assert_array_equal(xb.numpy().view(np.uint32), _bf16_rne(x).view(np.uint32))
     want = x.reshape(m, kp // group, group).astype(np.float64).sum(-1)
-    # f32 sums of 16 or 32 values in some order: a few ulps of the largest term
+    # f32 sums of 16 to 128 values in some order: a few ulps of the largest term
     np.testing.assert_allclose(xs.numpy(), want, rtol=0, atol=1e-5 * np.abs(x).max())
 
 
 # (weight type, port mode, Pallas mode): the core's instantiations; "ks:"
-# the ksplit nibbles of a kind (qmm_sb_ks against _qmm_pack4_s_kernel)
+# the ksplit nibbles of a kind (qmm_sb_ks against _qmm_pack4_s_kernel);
+# GPTQ4 and Q4_1 adjk nibbles (qmm_si_gptq against _qmm_i4_s_kernel)
 CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q8_0", "b", "b"), ("Q5_1", "b", "b"),
-              ("Q5_1", "sb", "sb"), ("Q8_0", "sb", "sb"), ("Q5_0", "sb", "sb")] + [
+              ("Q5_1", "sb", "sb"), ("Q8_0", "sb", "sb"), ("Q5_0", "sb", "sb"),
+              ("Q5_K", "sb", "sb"), ("Q6_K", "sb", "sb")] + [
+    (kind, "si", "si") for kind in ("GPTQ4/32", "GPTQ4/64", "GPTQ4/128", "Q4_1")] + [
     (f"ks:{kind}", "sb", "sb") for kind in ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/128", "Q4_0")]
 
 
 @pytest.mark.parametrize("kind,mode,pallas_mode", CORE_CASES)
 @pytest.mark.parametrize("m", [33, 100])
 def test_core_plain_versions_match_pallas_at_ragged_m(kind, mode, pallas_mode, m, monkeypatch):
-    """plain_b, plain_sb and plain_sb_ks (the functions of qmm_b,
-    qmm_b_legacy, qmm_sb_legacy and qmm_sb_ks) at m that fill no 128-row
-    tile, against _qmm_kernel, _qmm_s_kernel and _qmm_pack4_s_kernel."""
+    """plain_b, plain_sb, plain_si and plain_sb_ks (the functions of qmm_b,
+    qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq and qmm_sb_ks) at m
+    that fill no 128-row tile, against _qmm_kernel, _qmm_s_kernel,
+    _qmm_i4_s_kernel and _qmm_pack4_s_kernel."""
     k, n = 256, 256
     x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
     if kind.startswith("ks:"):
         monkeypatch.setenv("CT_PACK4_LAYOUT", "ksplit")
         jq, tq = TK._both(kind[3:], k, n, seed=5)
         port, pallas = TK._port, TK._pallas
+    elif kind.startswith("GPTQ4"):
+        monkeypatch.setenv("CT_PACK4_LAYOUT", "adjk")
+        jq, tq = TK._both(kind, k, n, seed=5)
+        port, pallas = _port, _pallas
     else:
         jq, tq = _both(k, n, seed=5, monkeypatch=monkeypatch, kind=kind)
         port, pallas = _port, _pallas
@@ -84,6 +94,8 @@ def _real(kind, k=512, n=384):
     from ctransformers_tpu_torch.formats.quants import GGMLType as TG
     from ctransformers_tpu_torch.formats.quants import quantize as tquantize
 
+    if kind.startswith("GPTQ4"):
+        return TK._both(kind, k, n, seed=1)[1]
     w = (np.random.RandomState(1).randn(k, n) * 0.3).astype(np.float32)
     return tqm.repack(tquantize(np.ascontiguousarray(w.T), TG[kind]), TG[kind], n, k)
 
@@ -96,7 +108,9 @@ SB_KS_CONFIG = "n32k512|wg128n128c3"
     ("Q6_K", 128, {"b": K.WGMMA_CONFIG}),
     ("Q6_K", 8, {"b": K.WGMMA_CONFIG, "g": K.DECODE_CONFIG, "q8": K.DECODE_CONFIG,
                  "": K.DECODE_CONFIG}),
-    ("Q5_K", 128, {"b": K.WGMMA_CONFIG, "sb": K.GEMM_CONFIG}),
+    ("Q5_K", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
+    ("GPTQ4/128", 128, {"i": K.GEMM_CONFIG, "si": K.WGMMA_CONFIG}),
+    ("Q4_1", 128, {"i": K.GEMM_CONFIG, "si": K.WGMMA_CONFIG}),
     ("Q5_1", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
     ("Q8_0", 128, {"b": K.WGMMA_CONFIG}),
     ("ks:Q4_K", 128, {"b": K.GEMM_CONFIG, "sb": SB_KS_CONFIG}),
@@ -112,12 +126,13 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
     assert {mode: got[mode] for mode in want} == want
     assert K.WGMMA_CONFIG == "wg128n128c3" and K.CONFIG_OF["qmm_b"] == K.WGMMA_CONFIG
     assert K.CONFIG_OF["qmm_sb_legacy"] == K.CONFIG_OF["qmm_b_legacy"] == K.WGMMA_CONFIG
+    assert K.CONFIG_OF["qmm_sb"] == K.CONFIG_OF["qmm_si_gptq"] == K.WGMMA_CONFIG
     assert K.CONFIG_OF["qmm_sb_ks"] == SB_KS_CONFIG
-    assert K.SOURCE_OF["qmm_b"] == K.SOURCE_OF["qmm_b_legacy"] == (
-        "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh")
+    for name in ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si_gptq"):
+        assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh"
     assert K.SOURCE_OF["qmm_sb_ks"] == "ctransformers_tpu_torch/csrc/qmm_float.cu"
     # the other GEMMs keep qmm_gemm.cuh's tile
-    assert K.CONFIG_OF["qmm_sb"] == K.CONFIG_OF["qmm_b_ks"] == K.GEMM_CONFIG
+    assert K.CONFIG_OF["qmm_i_gptq"] == K.CONFIG_OF["qmm_b_ks"] == K.GEMM_CONFIG
 
 
 def _rel(a, b):

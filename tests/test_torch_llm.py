@@ -296,11 +296,13 @@ def test_tiny_smoke_models_pick_a_seed_without_near_ties(tmp_path, label, mix, c
     """chip_smoke.py phase 4 serves each tiny model at the first seed whose
     greedy path on the CPU keeps every top-2 margin above its minimum
     (TINY_MIN_MARGIN_OF, else TINY_MIN_MARGIN); the rule finds such a seed,
-    and its log lists every seed it tried."""
+    its log lists every seed it tried, and the search of phase 4 starts at
+    it (TINY_FIRST_SEED)."""
     path = chip_smoke.model_path(str(tmp_path), f"tiny_{label}", mix)
     seed = chip_smoke.pick_tiny_seed(path, label, mix)
     tried = [line for line in capsys.readouterr().out.splitlines() if " seed " in line]
     assert len(tried) == seed
+    assert chip_smoke.TINY_FIRST_SEED.get(label, 1) == seed
     _, _, margins = chip_smoke.greedy_margins(T.AutoModelForCausalLM.from_pretrained(path, device="cpu"))
     assert min(margins) > chip_smoke.TINY_MIN_MARGIN_OF.get(label, chip_smoke.TINY_MIN_MARGIN)
     with capsys.disabled():

@@ -22,8 +22,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                (phase 5 fails on a launch that was not); the symbols of
                the Hopper GEMM core (csrc/qmm_wgmma.cuh: qmm_b and qmm_sb on
                the Q6_K and Q5_K grids, qmm_b_legacy and qmm_sb_legacy on
-               Q5_1 and on Q8_0 without mins, qmm_si_gptq on GPTQ4 at
-               groups 32, 64 and 128, qmm_sb_ks on the ksplit nibbles of
+               Q5_1 and on Q8_0 without mins, qmm_si_gptq and qmm_i_gptq
+               on GPTQ4 at groups 32, 64 and 128 and on Q4_1, qmm_si_k16
+               on Q2_K and Q3_K, qmm_sb_ks on the ksplit nibbles of
                Q4_K, GPTQ4 at groups 32, 64 and 128, Q4_0, Q2_K and Q3_K)
                held at m = 33, 64,
                256 and 2048 as well (qmm_sb_ks also at its decode design's
@@ -75,10 +76,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
                decode, each with its launch counts (dense calls included)
                asserted against the table's choices: the Q4_K_M file at
-               full depth (with the device time of one 128-token chunk), a
-               GPTQ 4-bit directory (group 128) and the Q4_K_M file packed
-               ksplit at 8 layers and Q2_K, Q3_K_M, Q4_0 and Q8_0 files
-               at 4 layers, loaded cold (an
+               full depth, a GPTQ 4-bit directory (group 128) and the
+               Q4_K_M file packed ksplit at 8 layers and Q2_K, Q3_K_M,
+               Q4_0 and Q8_0 files at 4 layers (the device time of one
+               128-token chunk on the Q4_K_M, GPTQ, Q2_K and Q3_K_M
+               paths), loaded cold (an
                empty table: the load races) and again warm, served under
                the fixed rule and under the raced table in turns; a Q5_K_M
                file at 4 layers, an all-Q4_K file at 8, an act-order GPTQ
@@ -230,16 +232,19 @@ KERNEL_CASES = [
 # instantiation at CORE_HELD_M beside phase 3's timed m = 128 on these
 # cases (Q6_K's and Q5_K's grids for qmm_b and qmm_sb; Q5_1 with mins and
 # Q8_0 without for qmm_b_legacy and qmm_sb_legacy; GPTQ4 at its three
-# groups for qmm_si_gptq; the ksplit nibbles of every layout for qmm_sb_ks,
-# also at CORE_KS_HELD_M, its decode design's m), each call checked bitwise
-# against a second one
-CORE_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si_gptq", "qmm_sb_ks")
+# groups and Q4_1 (at down: its o key is GPTQ4 group 32's) for qmm_si_gptq
+# and qmm_i_gptq; Q2_K and Q3_K for qmm_si_k16; the ksplit nibbles of every
+# layout for qmm_sb_ks, also at CORE_KS_HELD_M, its decode design's m), each
+# call checked bitwise against a second one
+CORE_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si_gptq", "qmm_i_gptq",
+                "qmm_si_k16", "qmm_sb_ks")
 CORE_HELD_M = (33, 64, 256, 2048)
 CORE_KS_HELD_M = (1, 8, 32)
 CORE_HELD_CASES = {("Q6_K", "v"), ("Q6_K", "down"), ("Q5_K", "o"), ("Q5_K", "down"),
                    ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o"), ("GPTQ4/128", "qkv"),
                    ("GPTQ4/128", "down"), ("GPTQ4/32", "o"), ("GPTQ4/64", "o"),
-                   ("ks:Q4_K", "qkv"),
+                   ("Q4_1", "down"), ("Q2_K", "qkv"), ("Q2_K", "down"), ("Q3_K", "qkv"),
+                   ("Q3_K", "down"), ("ks:Q4_K", "qkv"),
                    ("ks:Q4_K", "down"), ("ks:GPTQ4/128", "o"), ("ks:GPTQ4/32", "o"),
                    ("ks:GPTQ4/64", "o"), ("ks:Q4_0", "down"), ("ks:Q2_K", "o"),
                    ("ks:Q3_K", "down")}
@@ -347,6 +352,10 @@ MAIN_PATHS = [
     ("Q8_0-qx", "Q8_0", 4, "qx"),
 ]
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
+# main paths whose served runs also profile one 128-token prompt chunk on the
+# device: the 32-layer Q4_K_M file, and the paths whose prompt GEMMs run
+# GPTQ4's and the group-16 nibbles' kernels of the GEMM core
+CHUNK_PROFILED = ("Q4_K_M", "GPTQ4-g128", "Q2_K", "Q3_K_M")
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
 # K_M mix (None: all-Q4_K), prompt and greedy steps
 TINY = dict(n_vocab=512, n_ctx=128, n_embd=256, n_ff=512, n_layer=2)
@@ -685,7 +694,7 @@ def phase_kernels(K, copy_bw: float):
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
             adjk = base.packed and base.pack_layout == "adjk"
             for core in dict.fromkeys(K.kernel_name(mode, base)
-                                      for mode in (("si",) if adjk else ("b", "sb"))):
+                                      for mode in (("si", "i") if adjk else ("b", "sb"))):
                 if core in CORE_KERNELS:
                     others += [(core, m) for m in CORE_HELD_M + (
                         CORE_KS_HELD_M if core == "qmm_sb_ks" else ())]
@@ -1326,7 +1335,7 @@ def serve(K, llm, ids, chunks, label: str, what: str, copy_bw: float, wbytes: in
     now = counts_now(K)
     dec_launch = {k: (now[k] - prefill_launch[k]) / n_dec for k in now}
     busy_ms, _ = profile_decode(llm, tok, dec_s, f"{label} | {what}")
-    if label == "Q4_K_M":  # the 32-layer file: device time of one 128-token chunk
+    if label in CHUNK_PROFILED:  # device time of one 128-token chunk
         profile_chunk(llm, ids[:128], f"{label} | {what}")
     if full:
         runs = []

@@ -1,26 +1,27 @@
 // Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the
-// k-quant nibble kernels (qmm_prefill.cu: "si", "i" on Q4_K, Q2_K, Q3_K), the GPTQ 4-bit, Q4_1 and Q4_0
-// kernels (qmm_prefill.cu: "si", "i"), the ksplit nibble kernels
-// (qmm_prefill.cu: "sb", "b"), the int8-grid kernels (qmm_grid.cu: "sb",
-// "b", factored and legacy) and the reshape-broadcast "rb" kernels
-// (qmm_rb.cu).
+// k-quant nibble kernels (qmm_prefill.cu: "si" and "i" on Q4_K, "i" on Q2_K
+// and Q3_K), the Q4_0 kernels (qmm_prefill.cu: "si", "i"), the ksplit
+// nibble kernel of mode "b" (qmm_prefill.cu) and the reshape-broadcast "rb"
+// kernels (qmm_rb.cu). The int8-grid GEMMs (qmm_grid.cu), GPTQ4 and Q4_1
+// (modes "si" and "i"), Q2_K and Q3_K "si" and the ksplit "sb" run the
+// Hopper core of qmm_wgmma.cuh instead.
 // Only the weight tile's decoding differs between formats; it comes in as a
 // tile type W:
 //
-//   W::kGroup    K rows per quant group (32; 16 for Q6_K, Q2_K and Q3_K;
-//                32, 64 or 128 for GPTQ). A group larger than the K step is walked in
-//                several steps, each reading the group's one row of s and
-//                B; the fold (SUMFOLD) then carries the group's xsum across
-//                its steps and applies B once, at the group's last step.
+//   W::kGroup    K rows per quant group (32; 16 for Q2_K and Q3_K; 32, 64
+//                or 128 for a plain ksplit group). A group larger than the
+//                K step is walked in several steps, each reading the
+//                group's one row of s and B. The fold (SUMFOLD) takes one
+//                group a step (Q4_K's 32 rows).
 //   W::kHasBias  whether the format adds a per-group bias B (its mins, or
 //                a nibble's re-bias; not Q4_0, Q3_K, Q6_K, Q8_0, Q5_0)
 //   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, kp, k0, col0, tid, Bs, b_s)
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
 //                kGemmLDB): W = q * s + B rounded once to bf16, or, when
-//                FOLD, q * s alone, with B of each of the step's groups
-//                written to b_s[group in step][column]. A format with
-//                unfactored planes (GPTQ4 and the legacy types) takes
+//                FOLD, q * s alone, with the step's B written to
+//                b_s[0][column]. A format with
+//                unfactored planes (Q4_0, plain ksplit, the legacy grids) takes
 //                sub_s = sub_m = null and its f32 (kp/G, np) planes s and
 //                m as sd and sm (m null where it has none). kp tells a
 //                ksplit tile which half, and so which nibble, row k0 is in.
@@ -38,9 +39,8 @@
 // multiply 32 x 32 sub-tiles on the tensor cores with WMMA bf16 16x16x16
 // fragments and f32 accumulators. For the fold each thread also keeps the
 // bias sums of 32 of the tile's outputs, from the group sums of the f32
-// activations it loaded; a group of 2 or 4 steps adds its steps' sums in
-// step order before the one multiply by B. Later work: a TMA + wgmma pipeline with several
-// stages in flight.
+// activations it loaded. The Hopper core (qmm_wgmma.cuh) is the TMA +
+// wgmma design that replaces this one symbol by symbol.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,20 +71,15 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
                 int m, int kp, int np) {
   using namespace nvcuda;
   constexpr int G = W::kGroup;
-  // quant groups per K step (1 or 2; 1 where a step is part of one group)
-  constexpr int kNGS = G >= kGemmBK ? 1 : kGemmBK / G;
   constexpr bool kFold = SUMFOLD && W::kHasBias;
-  static_assert(G >= kGemmBK ? G % kGemmBK == 0 : kNGS * G == kGemmBK,
+  static_assert(G >= kGemmBK ? G % kGemmBK == 0 : kGemmBK % G == 0,
                 "a K step holds whole quant groups, or is a whole part of one");
-  // K steps per quant group, and the activation columns of a step that lie
-  // in one group
-  constexpr int kSPG = G > kGemmBK ? G / kGemmBK : 1;
-  constexpr int kGW = G > kGemmBK ? kGemmBK : G;
+  static_assert(!kFold || G == kGemmBK, "the fold takes one quant group a K step");
   __shared__ __align__(128) __nv_bfloat16 As[kGemmBM * kGemmLDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[kGemmBK * kGemmLDB];
   __shared__ __align__(128) float Cs[kGemmBM * kGemmLDC];
-  __shared__ float xs_s[kGemmBM][kNGS];
-  __shared__ float b_s[kNGS][kGemmBN];
+  __shared__ float xs_s[kGemmBM];
+  __shared__ float b_s[1][kGemmBN];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -117,17 +112,12 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
       if (grow < m)
         v = __ldg(reinterpret_cast<const float4*>(x + (size_t)grow * kp + k0 + ac));
       if (kFold) {
-        // kGW/4 neighbouring lanes hold this row's part of one group
+        // 8 neighbouring lanes hold this row's part of the step's group
         float s = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
 #pragma unroll
-        for (int off = 1; off < kGW / 4; off <<= 1)
+        for (int off = 1; off < kGemmBK / 4; off <<= 1)
           s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-        if (tid % (kGW / 4) == 0) {
-          // a group of several steps: the same thread adds its steps' sums
-          // in step order (the fold below reads them between two barriers)
-          const bool first = kSPG == 1 || (k0 / kGemmBK) % kSPG == 0;
-          xs_s[r][ac / kGW] = first ? s : __fadd_rn(xs_s[r][ac / kGW], s);
-        }
+        if (tid % (kGemmBK / 4) == 0) xs_s[r] = s;
       }
       __nv_bfloat16* a = As + r * kGemmLDA + ac;
       a[0] = __float2bfloat16(v.x);
@@ -153,14 +143,11 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
     }
-    if (kFold && (kSPG == 1 || (k0 / kGemmBK) % kSPG == kSPG - 1)) {
+    if (kFold) {
+      const float bv = b_s[0][bn];
 #pragma unroll
-      for (int gi = 0; gi < kNGS; ++gi) {
-        const float bv = b_s[gi][bn];
-#pragma unroll
-        for (int i = 0; i < kGemmRowsPerThread; ++i)
-          bacc[i] = __fadd_rn(bacc[i], __fmul_rn(xs_s[br0 + i][gi], bv));
-      }
+      for (int i = 0; i < kGemmRowsPerThread; ++i)
+        bacc[i] = __fadd_rn(bacc[i], __fmul_rn(xs_s[br0 + i], bv));
     }
     __syncthreads();
   }

@@ -13,24 +13,26 @@
 // Bound on an H100: at m = 128 a 4-bit weight byte feeds 512 multiply-adds,
 // above the bf16 ridge (~295 operations per byte), so the kernel is
 // operation-bound once the tensor cores are kept busy; the dequantization
-// (unpack, scale, round to bf16) is per weight and independent of m. The
-// GEMM (tiles, WMMA, fixed-order sums, the bias fold) is qmm_gemm.cuh's;
-// this file decodes the k-quant weight tile: each of the 128 threads takes
-// one byte row (two K rows, one nibble each) of 8 columns, with those
-// columns' group scale and bias, so a 32-row K step is one Q4_K quant group
-// or two Q2_K / Q3_K groups of 16 (the GEMM folds each group's bias with its
-// own group sums; Q3_K has none, so its "si" computes what "i" does). The GPTQ tile
-// decodes the same nibbles with the reference's sfactor == 0 branch: s and m
-// are f32 planes read as they are, one row per group of 32, 64 or 128 rows,
-// so a K step is a whole group or a whole part of one and needs only that
-// group's row; W = w4 * s + B ("i") is rounded once to bf16, as in the
-// reference. Q4_0 takes the same tile without a bias (the reference's
-// `b is None` branch): it reads no min plane, W = w4 * s, and "si" then
-// computes what "i" does (the GEMM folds nothing). Mode "si" on GPTQ4 and
-// Q4_1 (ct_qmm_si_gptq) runs the Hopper core of qmm_wgmma.cuh instead,
-// through its adjk nibble tile: w4 * s rounded once to bf16 and B = 8 s + m
-// folded through the f32 group sums of x (a group of 128 rows spans two of
-// the core's 64-row stages).
+// (unpack, scale, round to bf16) is per weight and independent of m.
+//
+// Two GEMMs serve these symbols; this file decodes the weight tile of
+// each. The Hopper core of qmm_wgmma.cuh, through its adjk nibble tile,
+// runs modes "si" and "i" on GPTQ4 and Q4_1 (ct_qmm_si_gptq,
+// ct_qmm_i_gptq: the f32 planes s and m read as they are, one row per
+// group of 32, 64 or 128 rows, the reference's sfactor == 0 branch; a
+// group of 128 spans two of the core's 64-row stages) and mode "si" on
+// Q2_K and Q3_K (ct_qmm_si_k16: factored scales s = sd * sub_s and
+// m = sm * sub_m at group 16, four groups a stage; Q3_K has no bias, so its
+// "si" computes what "i" does). w4 * s (+ B in mode "i") is rounded once
+// to bf16 and, in mode "si", B = 8 s + m folded through the f32 group sums
+// of x. The others run qmm_gemm.cuh's 64 x 64 WMMA GEMM (tiles, fixed-order
+// sums, the bias fold): each of its 128 threads takes one byte row (two K
+// rows, one nibble each) of 8 columns, with those columns' group scale and
+// bias, so a 32-row K step is one Q4_K quant group or two Q2_K / Q3_K
+// groups of 16 (ct_qmm_si, ct_qmm_i, ct_qmm_i_k16); Q4_0 takes a tile
+// without a bias (the reference's `b is None` branch): it reads no min
+// plane, W = w4 * s, and "si" then computes what "i" does (the GEMM folds
+// nothing).
 //
 // The ksplit nibbles of every kind (ops/qmatmul.py; qmm_common.cuh) take the
 // same GEMM through their own tile:
@@ -52,8 +54,9 @@ namespace {
 // The k-quant nibbles: Q4_K (group 32, with a bias), Q2_K (group 16, with a
 // bias) and Q3_K (group 16, without): int8 (kp/G, np) sub-scales (and
 // sub-mins) over f32 (kp/256, np) factors. A 32-row K step is one group, or
-// two at group 16: a thread's byte row lies in group (k0 + 2 wr) / G, and
-// for the fold the first byte row of each group writes that group's B.
+// two at group 16: a thread's byte row lies in group (k0 + 2 wr) / G. The
+// fold (Q4_K's "si": one group a step) has the step's first byte row write
+// its B.
 template <int G, bool HAS_BIAS>
 struct KQuantTile {
   static constexpr int kGroup = G;
@@ -111,8 +114,8 @@ struct KQuantTile {
         if (!FOLD) {
           w0 = __fadd_rn(w0, b);
           w1 = __fadd_rn(w1, b);
-        } else if ((2 * wr) % G == 0) {
-          b_s[2 * wr / G][wc + j] = b;
+        } else if (wr == 0) {
+          b_s[0][wc + j] = b;
         }
       }
       b0[j] = __float2bfloat16(w0);
@@ -123,38 +126,27 @@ struct KQuantTile {
 
 using Q4KTile = KQuantTile<ctq::kGroup, true>;
 
-// GPTQ 4-bit and Q4_1 (HAS_BIAS, B = 8 * s + m, added per weight: mode "i")
-// and Q4_0 (no bias): adjk nibbles, f32 planes s and m (kp/G, np) passed as
-// sd and sm (m null for Q4_0).
-template <int G, bool HAS_BIAS>
-struct GptqTile {
-  static constexpr int kGroup = G;
-  static constexpr bool kHasBias = HAS_BIAS;
-  static_assert(G % ctq::kGemmBK == 0, "a K step lies in one quant group");
+// Q4_0: adjk nibbles at zero point 8 (w4 = q), one f32 plane s (kp/32, np)
+// passed as sd, no mins and no bias: W = w4 * s.
+struct Q40Tile {
+  static constexpr int kGroup = ctq::kGemmBK;
+  static constexpr bool kHasBias = false;
 
   template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs,  // (kp/2, np) adjk nibbles
       const int8_t* __restrict__,     // no sub-scales
       const int8_t* __restrict__,     // no sub-mins
-      const float* __restrict__ s_p,  // (kp/G, np) s
-      const float* __restrict__ m_p,  // (kp/G, np) m   [HAS_BIAS]
+      const float* __restrict__ s_p,  // (kp/32, np) s
+      const float* __restrict__,      // no mins
       int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
       float (*)[ctq::kGemmBN]) {
-    static_assert(!(FOLD && HAS_BIAS), "mode \"si\" with a bias runs the Hopper core");
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
     const int n = col0 + wc;
-    const size_t go = (size_t)(k0 / G) * np + n;
+    const size_t go = (size_t)(k0 / kGroup) * np + n;
     const float4 s0 = __ldg(reinterpret_cast<const float4*>(s_p + go));
     const float4 s1 = __ldg(reinterpret_cast<const float4*>(s_p + go + 4));
-    float mv[8] = {};
-    if (HAS_BIAS) {
-      const float4 m0 = __ldg(reinterpret_cast<const float4*>(m_p + go));
-      const float4 m1 = __ldg(reinterpret_cast<const float4*>(m_p + go + 4));
-      mv[0] = m0.x, mv[1] = m0.y, mv[2] = m0.z, mv[3] = m0.w;
-      mv[4] = m1.x, mv[5] = m1.y, mv[6] = m1.z, mv[7] = m1.w;
-    }
     const uint2 wv = __ldg(reinterpret_cast<const uint2*>(
         qs + ((size_t)(k0 / 2) + wr) * np + n));
     const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
@@ -163,15 +155,9 @@ struct GptqTile {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint32_t wj = j < 4 ? wv.x : wv.y;
-      float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), sv[j]);
-      float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]);
-      if (HAS_BIAS) {
-        const float b = ctq::plain_bias(sv[j], mv[j]);
-        w0 = __fadd_rn(w0, b);
-        w1 = __fadd_rn(w1, b);
-      }
-      b0[j] = __float2bfloat16(w0);
-      b1[j] = __float2bfloat16(w1);
+      b0[j] = __float2bfloat16(__fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), sv[j]));
+      b1[j] = __float2bfloat16(
+          __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]));
     }
   }
 };
@@ -243,43 +229,41 @@ struct KsplitGemm {
   }
 };
 
-// GPTQ4 and Q4_1 at group 32, 64 or 128: mode "i" (qmm_gemm.cuh's GEMM) or,
-// SUMFOLD, mode "si" (the Hopper core's adjk tile); both planes are needed
-template <bool SUMFOLD>
+// GPTQ4 and Q4_1 at group 32, 64 or 128 on the Hopper core's adjk tile:
+// mode "i" or, FOLD, mode "si"; both planes are needed
+template <bool FOLD>
 int launch_gptq(const float* x, const int8_t* qs, const float* s, const float* mn,
                 float* out, int m, int kp, int np, int group, cudaStream_t st) {
   if (s == nullptr || mn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const ctw::Params p{nullptr, nullptr, s, mn, out, m, kp, np};
   switch (group) {
-    case 32:
-      if constexpr (SUMFOLD) return ctw::launch_core<32, true, true, true, false, true>(x, qs, p, st);
-      return ctq::launch_gemm<GptqTile<32, true>, false>(x, qs, nullptr, nullptr, s, mn, out,
-                                                         m, kp, np, st);
-    case 64:
-      if constexpr (SUMFOLD) return ctw::launch_core<64, true, true, true, false, true>(x, qs, p, st);
-      return ctq::launch_gemm<GptqTile<64, true>, false>(x, qs, nullptr, nullptr, s, mn, out,
-                                                         m, kp, np, st);
-    case 128:
-      if constexpr (SUMFOLD) return ctw::launch_core<128, true, true, true, false, true>(x, qs, p, st);
-      return ctq::launch_gemm<GptqTile<128, true>, false>(x, qs, nullptr, nullptr, s, mn, out,
-                                                          m, kp, np, st);
+    case 32: return ctw::launch_core<32, true, true, FOLD, false, true>(x, qs, p, st);
+    case 64: return ctw::launch_core<64, true, true, FOLD, false, true>(x, qs, p, st);
+    case 128: return ctw::launch_core<128, true, true, FOLD, false, true>(x, qs, p, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Q2_K (has_mins 1: sub_m and sm given, B = 8 * s + m) and Q3_K (has_mins 0:
 // both null, no bias); a flag that disagrees with the pointers is refused.
+// Mode "i" runs qmm_gemm.cuh's GEMM, mode "si" (SUMFOLD) the Hopper core's
+// adjk tile at group 16 (Q2_K with the fold, Q3_K without: nothing to fold).
 template <bool SUMFOLD>
 int launch_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
                const float* sd, const float* sm, float* out, int m, int kp, int np,
                int has_mins, cudaStream_t st) {
   if (has_mins != (sub_m != nullptr) || has_mins != (sm != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (SUMFOLD) {
+    const ctw::Params p{sub_s, sub_m, sd, sm, out, m, kp, np};
+    if (has_mins) return ctw::launch_core<16, true, false, true, false, true>(x, qs, p, st);
+    return ctw::launch_core<16, false, false, false, false, true>(x, qs, p, st);
+  }
   if (has_mins)
-    return ctq::launch_gemm<KQuantTile<16, true>, SUMFOLD>(x, qs, sub_s, sub_m, sd, sm, out, m,
-                                                           kp, np, st);
-  return ctq::launch_gemm<KQuantTile<16, false>, SUMFOLD>(x, qs, sub_s, nullptr, sd, nullptr,
-                                                          out, m, kp, np, st);
+    return ctq::launch_gemm<KQuantTile<16, true>, false>(x, qs, sub_s, sub_m, sd, sm, out, m,
+                                                         kp, np, st);
+  return ctq::launch_gemm<KQuantTile<16, false>, false>(x, qs, sub_s, nullptr, sd, nullptr,
+                                                        out, m, kp, np, st);
 }
 
 }  // namespace
@@ -324,18 +308,16 @@ int ct_qmm_si_gptq(const float* x, const int8_t* qs, const float* s,
 // mode "i" on Q4_0: bf16(x) @ bf16(w4 * s); s f32 (kp/32, np), no mins (null).
 int ct_qmm_i_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
                   float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<GptqTile<32, false>, false>(x, qs, nullptr, nullptr, s, nullptr, out,
-                                                      m, kp, np,
-                                                      static_cast<cudaStream_t>(stream));
+  return ctq::launch_gemm<Q40Tile, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // mode "si" on Q4_0: the reference's sum-fold kernel with no bias to fold,
 // bf16(x) @ bf16(w4 * s), as "i".
 int ct_qmm_si_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
                    float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<GptqTile<32, false>, true>(x, qs, nullptr, nullptr, s, nullptr, out,
-                                                     m, kp, np,
-                                                     static_cast<cudaStream_t>(stream));
+  return ctq::launch_gemm<Q40Tile, true>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // mode "i" on Q2_K and Q3_K: bf16(x) @ bf16(w4 * s + B) (B absent for Q3_K).

@@ -2,18 +2,20 @@
 // ct_qmm_sb (Q6_K and Q5_K, factored scales), ct_qmm_b_legacy and
 // ct_qmm_sb_legacy (Q5_1 with mins, Q8_0 and Q5_0 without; plain f32
 // planes), routed here by qmm_grid.cu; on ksplit nibbles, ct_qmm_sb_ks at
-// m > 32 (every nibble kind; qmm_float.cu); and on adjk nibbles,
-// ct_qmm_si_gptq (GPTQ4 at groups 32, 64 and 128, Q4_1; qmm_prefill.cu).
-// It replaces, for those symbols, the 64 x 64 WMMA tiles of qmm_gemm.cuh,
-// which the other prompt GEMMs keep.
+// m > 32 (every nibble kind; qmm_float.cu); and on adjk nibbles (all in
+// qmm_prefill.cu), ct_qmm_si_gptq and ct_qmm_i_gptq (GPTQ4 at groups 32, 64
+// and 128, Q4_1) and ct_qmm_si_k16 (Q2_K and Q3_K, group 16, factored
+// scales). It replaces, for those symbols, the 64 x 64 WMMA tiles of
+// qmm_gemm.cuh, which the other prompt GEMMs keep.
 //
 // Function (the JAX package's _qmm_kernel mode "b", _qmm_s_kernel mode
-// "sb", _qmm_pack4_s_kernel mode "sb" and _qmm_i4_s_kernel,
-// ctransformers_tpu/ops/qmatmul.py:734, :1040, :957 and :1148):
+// "sb", _qmm_pack4_s_kernel mode "sb", _qmm_i4_s_kernel and _qmm_i4_kernel,
+// ctransformers_tpu/ops/qmatmul.py:734, :1040, :957, :1148 and :1090):
 //   b:     out = bf16(x) @ bf16(q * s + m)         (m only with mins)
 //   sb:    out = xsum @ M + bf16(x) @ bf16(q * s)  (the fold only with mins)
 //   sb_ks: out = xs_lo @ B_lo + xs_hi @ B_hi + bf16(x) @ bf16(v * s)
-//   si:    out = xsum @ B + bf16(x) @ bf16(w4 * s)
+//   si:    out = xsum @ B + bf16(x) @ bf16(w4 * s)  (the fold only with a bias)
+//   i:     out = bf16(x) @ bf16(w4 * s + B)
 // with f32 accumulation; s = sd * sub_s (factored) or the f32 plane s, each
 // weight's q * s (+ m) in f32 rounded once to bf16, x rounded to nearest
 // even, xsum the f32 sums of x over each group of 32 K rows (M = sm * sub_m
@@ -22,7 +24,8 @@
 // high half, B each half's bias (ctq::ksplit_bias; the high half of Q4_0
 // and Q3_K has none) and xs the f32 sums of x over each group of G rows
 // (16 to 128). On adjk nibbles w4 is the signed nibble, B = 8 s + m
-// (ctq::plain_bias) and xsum the sums over each group of G = 32, 64 or 128
+// (ctq::plain_bias; m = sm * sub_m on Q2_K, none on Q3_K, which has no
+// bias) and xsum the sums over each group of G = 16 (Q2_K), 32, 64 or 128
 // rows.
 //
 // Bound: at m = 128 a weight byte (about 1.08 B/weight with its scales)
@@ -86,14 +89,17 @@
 // grid: the same two x boxes, and 32 byte rows x 128 columns of the
 // (kp/2, np) plane (4 KB, half the weight slot), byte row r holding K rows
 // 2r (low nibble) and 2r + 1 (high nibble). Each consumer thread reads 4
-// byte rows x 4 columns once, which give the grid tile's 8 K rows, rounds
-// w4 * s once to bf16 (ctq::nibble) into their K slots, and, with the
-// fold, the first rows of each group write its bias row B = 8 s + m into
-// the free half of the weight slot. The scale rows are the grid's (the
-// plain s and m rows of the stage's groups in the scale slot; one row at
-// groups of 64 and 128). The fold takes two groups a stage at G = 32, one
-// at 64, and at 128 carries the group's sums over its two stages, adding
-// them at its last (or the block's last).
+// byte rows x 4 columns once, which give the grid tile's 8 K rows (one
+// group's: they start at a multiple of 8), rounds w4 * s (+ B without the
+// fold) once to bf16 (ctq::nibble) into their K slots, and, with the fold,
+// the first rows of each group write its bias row B = 8 s + m into the
+// free half of the weight slot. The scale rows are the grid's: the plain s
+// and m rows of the stage's groups (one row at groups of 64 and 128), or
+// the factored sub_s and sub_m rows of its four groups of 16 beside the
+// superblock's sd and sm rows. The fold takes four groups a stage at
+// G = 16 (each 16-column x step one group), two at 32, one at 64, and at
+// 128 carries the group's sums over its two stages, adding them at its last
+// (or the block's last).
 //
 // The factored sum fold (ct_qmm_sb on Q5_K). The scale slot holds sub_m
 // and sm, not M; the first rows of each group write its f32 row
@@ -306,12 +312,15 @@ __device__ __forceinline__ int k_slot(int k) {
 
 // The scale rows of a stage (kSBytes): [0, 1024) the scales, [1024, 2048)
 // the mins. Factored: sub_s rows at 128 bytes each from 0, the superblock's
-// sd row at 512; sub_m rows from 1024, sm at 1280. Plain: the f32 s rows at
-// 512 bytes each from 0, m rows from 1024. A group of 128 rows (the adjk
-// tile) spans two stages: each holds its one row.
+// sd row at 512; sub_m rows from 1024, sm at kSmOff: 1280, or 1536 where
+// four sub_m rows (group 16 with mins: Q2_K's adjk tile) fill 1024-1535.
+// Plain: the f32 s rows at 512 bytes each from 0, m rows from 1024. A
+// group of 128 rows (the adjk tile) spans two stages: each holds its one
+// row.
 template <int G, bool HAS_MINS, bool PLAIN_S>
 struct Scales {
   static constexpr int kRows = kBK >= G ? kBK / G : 1;  // quant groups of a stage
+  static constexpr int kSmOff = kRows * kBN <= 256 ? 1280 : 1536;
   static constexpr int kBytes = PLAIN_S ? kRows * kBN * 4 * (HAS_MINS ? 2 : 1)
                                         : (kRows * kBN + kBN * 4) * (HAS_MINS ? 2 : 1);
   static_assert((PLAIN_S ? kRows * kBN * 4 <= 1024 : kRows * kBN <= 512) &&
@@ -338,7 +347,7 @@ struct Scales {
           bulk_copy(dst + 1024 + i * kBN, p.sub_m + (size_t)(g0 + i) * p.np + n0, kBN, bar);
       }
       bulk_copy(dst + 512, p.sd + (size_t)sb * p.np + n0, kBN * 4, bar);
-      if (HAS_MINS) bulk_copy(dst + 1280, p.sm + (size_t)sb * p.np + n0, kBN * 4, bar);
+      if (HAS_MINS) bulk_copy(dst + kSmOff, p.sm + (size_t)sb * p.np + n0, kBN * 4, bar);
     }
   }
 
@@ -363,7 +372,7 @@ struct Scales {
       for (int j = 0; j < 4; ++j) s[j] = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(sw, j)));
       if (WITH_MINS) {
         const uint32_t mw = *reinterpret_cast<const uint32_t*>(sc + 1024 + gl * kBN + 4 * lane);
-        const float4 m4 = *reinterpret_cast<const float4*>(sc + 1280 + 16 * lane);
+        const float4 m4 = *reinterpret_cast<const float4*>(sc + kSmOff + 16 * lane);
         const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -709,8 +718,10 @@ grid_gemm_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   static_assert(!(KS && AJ), "one weight tile");
   static_assert(KS || AJ || !FOLD || (HAS_MINS && G == 32),
                 "the int8 grid's fold: group 32 with mins");
-  static_assert(!AJ || ((G == 32 || G == 64 || G == 128) && (HAS_MINS || !FOLD)),
-                "the adjk tile: groups of 32 to 128 rows, a fold only of a bias");
+  static_assert(!AJ || ((PLAIN_S ? G == 32 || G == 64 || G == 128 : G == 16) &&
+                        (HAS_MINS || !FOLD)),
+                "the adjk tile: plain groups of 32 to 128 rows or factored groups of 16, "
+                "a fold only of a bias");
   using S = Scales<G, HAS_MINS, PLAIN_S>;
   using KSS = KsScales<G, HAS_MINS, PLAIN_S>;
   extern __shared__ uint8_t smem_raw[];

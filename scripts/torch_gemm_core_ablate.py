@@ -2,8 +2,9 @@
 build the core as it is and copies with one part taken out, and time each
 on the same card in one process.
 
-    python3 scripts/torch_gemm_core_ablate.py [--kind Q6_K|ks:Q4_K|sb:Q5_K|aj:GPTQ4/128]
-        [--m 128 ...] [--reps 20]
+    python3 scripts/torch_gemm_core_ablate.py
+        [--kind Q6_K|ks:Q4_K|sb:Q5_K|aj:GPTQ4/128|aj:Q2_K] [--m 128 ...]
+        [--variants base no_mrows ...] [--reps 20]
 
 --kind Q6_K (the default) times the int8-grid tile behind ct_qmm_b on a
 Q6_K grid; ks:Q4_K the ksplit nibble tile behind ct_qmm_sb_ks (m > 32) on
@@ -11,7 +12,9 @@ Q4_K nibbles packed ksplit, with the sum fold of both halves' biases;
 sb:Q5_K the int8-grid tile behind ct_qmm_sb on a Q5_K grid, with the fold
 of the factored M = sm * sub_m; aj:GPTQ4/128 the adjk nibble tile behind
 ct_qmm_si_gptq on GPTQ4 planes at group 128, with the fold of B = 8 s + m
-carried over a group's two stages. Every variant is the symbol's source
+carried over a group's two stages; aj:Q2_K the same tile behind
+ct_qmm_si_k16 on Q2_K nibbles (group 16, factored scales), whose fold takes
+four groups a stage. Every variant is the symbol's source
 (qmm_grid.cu, qmm_float.cu or qmm_prefill.cu) built by nvcc (the
 package's flags, all started together) from a copy of csrc/ under
 build/gemm_core_ablate/ with one edit to qmm_wgmma.cuh:
@@ -32,7 +35,8 @@ build/gemm_core_ablate/ with one edit to qmm_wgmma.cuh:
                row (one more f32 product per value), the other way to feed
                the factored fold
 
-Only base and m_in_fold compute the function (the error against the
+--variants builds only those named (all of the kind's by default). Only
+base and m_in_fold compute the function (the error against the
 plain version is printed; the others print theirs too, meaningless by
 design). For each variant: the clusters the card runs at once
 (cudaOccupancyMaxActiveClusters) and, per shape (v: 4096 x 4096, down:
@@ -58,6 +62,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
+from ctransformers_tpu_torch.models.synthetic import K16_PLANE_RANGES  # noqa: E402
 from ctransformers_tpu_torch.ops import qmm_kernels as K  # noqa: E402
 from ctransformers_tpu_torch.ops.qmatmul import QTensor  # noqa: E402
 
@@ -112,7 +117,7 @@ VARIANTS = {
 }
 # the variants each kind builds (no_mrows where there is a fold, m_in_fold
 # where M is factored)
-FOLD_KINDS = ("ks:Q4_K", "sb:Q5_K", "aj:GPTQ4/128")
+FOLD_KINDS = ("ks:Q4_K", "sb:Q5_K", "aj:GPTQ4/128", "aj:Q2_K")
 # appended to each copy of the source: the clusters of the timed
 # instantiation (INSTANCE) that the card runs at once
 OCCUPANCY = """
@@ -134,7 +139,8 @@ SHAPES = {"v": (4096, 4096), "down": (11264, 4096)}
 KINDS = {"Q6_K": ("qmm_grid.cu", "ct_qmm_b", "16, false, false, false, false, false"),
          "ks:Q4_K": ("qmm_float.cu", "ct_qmm_sb_ks", "32, true, false, true, true, false"),
          "sb:Q5_K": ("qmm_grid.cu", "ct_qmm_sb", "32, true, false, true, false, false"),
-         "aj:GPTQ4/128": ("qmm_prefill.cu", "ct_qmm_si_gptq", "128, true, true, true, false, true")}
+         "aj:GPTQ4/128": ("qmm_prefill.cu", "ct_qmm_si_gptq", "128, true, true, true, false, true"),
+         "aj:Q2_K": ("qmm_prefill.cu", "ct_qmm_si_k16", "16, true, false, true, false, true")}
 
 
 def variants_of(kind: str) -> list:
@@ -180,8 +186,9 @@ def build(names, kind: str):
 
 def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
     """A random Q6_K or Q5_K grid, GPTQ4 group-128 adjk nibbles over f32
-    planes, or Q4_K nibbles packed ksplit (any byte is a pair of nibbles),
-    at padded shape (k, n)."""
+    planes, Q2_K adjk nibbles over group-16 factors (the ranges of
+    models/synthetic.py's random blocks), or Q4_K nibbles packed ksplit (any
+    byte is a pair of nibbles), at padded shape (k, n)."""
     g = torch.Generator().manual_seed(seed)
     sd = torch.rand((k // 256, n), generator=g) * 1e-3 + 1e-4
     if kind == "Q6_K":
@@ -200,6 +207,15 @@ def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
         z = torch.randint(0, 16, (k // 128, n), generator=g).float()
         return QTensor(qs, s, -(s * z), "GPTQ4", 128, (k, n), packed=True, zp=0, sfactor=0,
                        pack_layout="adjk").to("cuda")
+    if kind == "aj:Q2_K":
+        r = K16_PLANE_RANGES["Q2_K"]
+        qs = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8)
+        sub_s = torch.randint(*r["sub"], (k // 16, n), generator=g, dtype=torch.int8)
+        sub_m = torch.randint(*r["sub"], (k // 16, n), generator=g, dtype=torch.int8)
+        sd = torch.rand((k // 256, n), generator=g) * (r["d"][1] - r["d"][0]) + r["d"][0]
+        sm = -torch.rand((k // 256, n), generator=g) * r["dmin"]
+        return QTensor(qs, sub_s, sub_m, "Q2_K", 16, (k, n), packed=True, zp=0, sd=sd, sm=sm,
+                       sfactor=16, pack_layout="adjk").to("cuda")
     qs = torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8)
     sub_s = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
     sub_m = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
@@ -229,6 +245,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kind", choices=sorted(KINDS), default="Q6_K")
     ap.add_argument("--m", type=int, nargs="+", default=[128])
+    ap.add_argument("--variants", nargs="+", help="build only these (default: all of the kind's)")
     ap.add_argument("--reps", type=int, default=20)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -237,7 +254,13 @@ def main() -> int:
     t0 = time.perf_counter()
     if min(opts.m) <= 32:
         raise SystemExit("the core serves m > 32")
-    libs = build(variants_of(opts.kind), opts.kind)
+    names = variants_of(opts.kind)
+    if opts.variants:
+        unknown = set(opts.variants) - set(names)
+        if unknown:
+            raise SystemExit(f"no such variant of {opts.kind}: {sorted(unknown)}")
+        names = [v for v in names if v in opts.variants]
+    libs = build(names, opts.kind)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, lib in libs.items():
         print(f"{name}: max active clusters {lib.ablate_max_active_clusters()}", flush=True)
@@ -246,7 +269,8 @@ def main() -> int:
     symbol = KINDS[opts.kind][1]
     plain, ints = {"Q6_K": (K.plain_b, lambda qt: (16,)), "ks:Q4_K": (K.plain_sb_ks, K._ksplit_ints),
                    "sb:Q5_K": (K.plain_sb, lambda qt: (32,)),
-                   "aj:GPTQ4/128": (K.plain_si, lambda qt: (128,))}[opts.kind]
+                   "aj:GPTQ4/128": (K.plain_si, lambda qt: (128,)),
+                   "aj:Q2_K": (K.plain_si, K._has_mins)}[opts.kind]
     for shape, (k, n) in SHAPES.items():
         qts = [weight(opts.kind, k, n, 0)]
         per_copy = sum(a.numel() * a.element_size() for a in K._planes(qts[0]) if a is not None)

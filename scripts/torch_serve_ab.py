@@ -3,7 +3,8 @@ port on one card, one fresh process per run, so that two versions of the
 engine's host path (not only of a kernel) are compared under the same card,
 power limit and host.
 
-    python3 scripts/torch_serve_ab.py [--layers 32] [--steps 64] RUN [RUN ...]
+    python3 scripts/torch_serve_ab.py [--layers 32] [--steps 64]
+        [--models Q4_K_M,GPTQ4-g128,...] RUN [RUN ...]
 
 Each RUN is ROOT or ROOT:NAME=VALUE[,NAME=VALUE...]: a checkout of this
 repository (a `git archive` of a commit unpacked into a directory, or "."
@@ -12,16 +13,18 @@ for the working tree) and environment variables for that run, for example
     build/parent . .:CT_QMM_AUTOTUNE=0 .:CT_QMM_AUTOTUNE=0 . build/parent
 
 (parent, the table's choices, the fixed rule twice, the table, parent). The
-checkpoints, a Q4_K_M GGUF file and a GPTQ 4-bit directory of group 128 at
+checkpoints (--models, of MODELS: by default a Q4_K_M GGUF file and a GPTQ
+4-bit directory of group 128; Q2_K and Q3_K_M GGUF files too) at
 llama-2-7B width with random weights from seed 7, are written once by this
 checkout's writer under build/serve_ab/ and removed at the end. Each run
 loads a checkpoint through AutoModelForCausalLM.from_pretrained, evaluates
 the 137-token prompt once untimed (a checkout with kernel selection picks
 its kernels there; each run has a user table of its own, which starts
 empty), then from an empty context times the prompt plus the first sample
-(TTFT), `--steps` decode steps (eval + sample on the host clock: mean,
-median and least), the device's busy time over four more steps under
-torch.profiler, and, where the checkout has kernel selection, the host's
+(TTFT), the device's busy time over one 128-token prompt chunk from an
+empty context under torch.profiler, `--steps` decode steps (eval + sample
+on the host clock: mean, median and least), the device's busy time over
+four more steps, and, where the checkout has kernel selection, the host's
 cost of one settled `pick_mode` call (the mean over 20 passes over the
 engine's weights at m = 1). Prints one line per run and model and, last, a JSON list of
 them.
@@ -37,7 +40,8 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODELS = (("Q4_K_M", "Q4_K_M"), ("GPTQ4-g128", ("gptq", 128, False)))
+MODELS = {"Q4_K_M": "Q4_K_M", "GPTQ4-g128": ("gptq", 128, False), "Q2_K": "Q2_K",
+          "Q3_K_M": "Q3_K_M"}
 
 CHILD = """
 import json, statistics, sys, time, warnings
@@ -50,6 +54,10 @@ from ctransformers_tpu_torch import AutoModelForCausalLM
 def step(llm, tok):
     llm.eval([tok])
     return llm.sample(seed=5, top_k=40, temperature=0.8)
+
+def device_us(prof):
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 out = []
 ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, 32000, 136)]
@@ -66,6 +74,13 @@ for label, path in {models!r}:
         llm.eval(ids)
         tok = llm.sample(seed=5, top_k=40, temperature=0.8)
         ttft_ms = (time.perf_counter() - t0) * 1e3
+        llm.reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            llm.eval(ids[:128])
+            torch.cuda.synchronize()
+        chunk_busy_us = device_us(prof)
+        tok = llm.sample(seed=5, top_k=40, temperature=0.8)
         times = []
         for _ in range({steps}):
             t0 = time.perf_counter()
@@ -74,8 +89,7 @@ for label, path in {models!r}:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(4):
                 tok = step(llm, tok)
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us = device_us(prof)
     pick_us = None
     from ctransformers_tpu_torch.ops import qmatmul as qm
     if hasattr(qm, "pick_mode"):
@@ -86,6 +100,7 @@ for label, path in {models!r}:
                 qm.pick_mode(1, w)
         pick_us = (time.perf_counter() - t0) * 1e6 / (20 * len(qts))
     out.append(dict(model=label, load_s=load_s, ttft_ms=ttft_ms,
+                    chunk_busy_ms=chunk_busy_us / 1e3,
                     decode_ms_mean=statistics.fmean(times),
                     decode_ms_median=statistics.median(times),
                     decode_ms_min=min(times),
@@ -100,8 +115,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--models", default="Q4_K_M,GPTQ4-g128",
+                    help=f"comma-separated, of {','.join(MODELS)}")
     ap.add_argument("runs", nargs="+")
     args = ap.parse_args()
+    labels = args.models.split(",")
+    if not set(labels) <= set(MODELS):
+        ap.error(f"--models: unknown {sorted(set(labels) - set(MODELS))}")
 
     sys.path.insert(0, HERE)
     import chip_smoke as C
@@ -116,7 +136,8 @@ def main() -> int:
     ).stdout.strip()
     print(f"card {smi}", flush=True)
     models = []
-    for label, mix in MODELS:
+    for label in labels:
+        mix = MODELS[label]
         path = C.model_path(tmp, f"llama7b_{args.layers}l_{label}", mix)
         C.write_model(path, mix, seed=7, big=True, **dict(LLAMA2_7B, n_layer=args.layers, n_ctx=2048))
         models.append((label, path))

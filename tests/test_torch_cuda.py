@@ -9,11 +9,11 @@ its legacy form); the race that picks among them; the decode attention
 kernel (ops/attention.py) over f32, bf16, f16 and int8 caches in both
 layouts, at every llama head width (above 256 in column slices) and any
 number of query heads a kv head; the symbols of the Hopper GEMM core
-(qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq, and qmm_sb_ks
-with its decode design at m <= 32) at prompt sizes up to m = 2048; the
-IEEE scale divisions of kv_quantize and the probes' quantizers; and the
-fused decode loop of engine/engine.py (a captured CUDA graph per key)
-against the eager loop on a tiny model.
+(qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq, qmm_i_gptq,
+qmm_si_k16, and qmm_sb_ks with its decode design at m <= 32) at prompt
+sizes up to m = 2048; the IEEE scale divisions of kv_quantize and the
+probes' quantizers; and the fused decode loop of engine/engine.py (a
+captured CUDA graph per key) against the eager loop on a tiny model.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; they skip elsewhere. The
 file imports only the port (no JAX), so it also runs on a machine without
@@ -334,14 +334,18 @@ def test_scale_divisions_are_ieee_on_the_card(dev):
         assert torch.equal(sc.cpu(), cpu[name][1]), name
 
 
-# the Hopper GEMM core (csrc/qmm_wgmma.cuh): the int8-grid symbols and
-# qmm_si_gptq (the adjk nibble tile) at every instantiation, at the prompt
-# chunk sizes Engine._chunks sends (and the ragged m = 33), at llama-2-7B
-# shapes
+# the Hopper GEMM core (csrc/qmm_wgmma.cuh): the int8-grid symbols,
+# qmm_si_gptq and qmm_i_gptq (the adjk nibble tile with and without the
+# fold) and qmm_si_k16 (the adjk tile at group 16 with factored scales: Q2_K
+# folding four groups a stage, Q3_K without a bias) at every instantiation,
+# at the prompt chunk sizes Engine._chunks sends (and the ragged m = 33), at
+# llama-2-7B shapes
 CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb", "Q5_K"), ("qmm_sb", "Q6_K"),
         ("qmm_b_legacy", "Q8_0"), ("qmm_b_legacy", "Q5_0"), ("qmm_b_legacy", "Q5_1"),
         ("qmm_sb_legacy", "Q5_1"), ("qmm_sb_legacy", "Q8_0"), ("qmm_sb_legacy", "Q5_0")] + [
-    ("qmm_si_gptq", f"GPTQ4/{g}") for g in K.GPTQ_GROUPS] + [("qmm_si_gptq", "Q4_1")]
+    (name, kind) for name in ("qmm_si_gptq", "qmm_i_gptq")
+    for kind in [f"GPTQ4/{g}" for g in K.GPTQ_GROUPS] + ["Q4_1"]] + [
+    ("qmm_si_k16", "Q2_K"), ("qmm_si_k16", "Q3_K")]
 # and qmm_sb_ks on every ksplit layout (ctq::dispatch_ksplit: Q4_K, Q2_K,
 # Q3_K, GPTQ4 / Q4_1 at groups 32, 64 and 128, Q4_0), at the decode design's
 # m <= 32 and the core's m > 32
@@ -386,9 +390,10 @@ def test_core_ksplit_kernel_matches_plain_at_every_m(dev, kind, k, n, m):
 def test_core_symbols_refuse_what_they_do_not_take(dev):
     """ct_qmm_b and ct_qmm_sb take group 16 without mins (Q6_K) or 32 with
     them (Q5_K: sub-mins and sm both given), ct_qmm_sb_legacy a has-mins
-    flag that agrees with the min plane, ct_qmm_si_gptq group 32, 64 or 128
-    with both planes; all a K padded to 64-row steps, at least three of
-    them; a refusal launches nothing."""
+    flag that agrees with the min plane, ct_qmm_si_gptq and ct_qmm_i_gptq
+    group 32, 64 or 128 with both planes, ct_qmm_si_k16 a has-mins flag
+    that agrees with the sub-min and sm pointers; all a K padded to 64-row
+    steps, at least three of them; a refusal launches nothing."""
     x = torch.randn(64, 256, device=dev)
     out = torch.full((64, 128), 7.0, device=dev)
     q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
@@ -404,14 +409,26 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
                   16, K._stream(dev)) != 0
         assert fn(*K._ptrs(x, q6k.qs, q6k.scales, None, q6k.sd, None, out), 64, 128, 128, 16,
                   K._stream(dev)) != 0  # two 64-row steps for three blocks of a cluster
-    fn = K._fn("qmm_prefill", "ct_qmm_si_gptq")
     gq = random_gptq(256, 128, 32, 4, dev)
-    for group in (16, 48, 256):  # no instantiation
-        assert fn(*K._ptrs(x, gq.qs, gq.scales, gq.mins, out), 64, 256, 128, group,
+    for sym in ("ct_qmm_si_gptq", "ct_qmm_i_gptq"):
+        fn = K._fn("qmm_prefill", sym)
+        for group in (16, 48, 256):  # no instantiation
+            assert fn(*K._ptrs(x, gq.qs, gq.scales, gq.mins, out), 64, 256, 128, group,
+                      K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, gq.qs, gq.scales, None, out), 64, 256, 128, 32,
                   K._stream(dev)) != 0
-    assert fn(*K._ptrs(x, gq.qs, gq.scales, None, out), 64, 256, 128, 32, K._stream(dev)) != 0
-    assert fn(*K._ptrs(x, gq.qs, gq.scales, gq.mins, out), 64, 128, 128, 32,
+        assert fn(*K._ptrs(x, gq.qs, gq.scales, gq.mins, out), 64, 128, 128, 32,
+                  K._stream(dev)) != 0
+    fn = K._fn("qmm_prefill", "ct_qmm_si_k16")
+    q2, q3 = random_k16("Q2_K", 256, 128, 5, dev), random_k16("Q3_K", 256, 128, 6, dev)
+    for qt, flag in ((q2, 0), (q3, 1)):  # a flag that disagrees with the pointers
+        assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 256, 128, flag,
+                  K._stream(dev)) != 0
+    assert fn(*K._ptrs(x, q2.qs, q2.scales, q2.mins, q2.sd, None, out), 64, 256, 128, 1,
               K._stream(dev)) != 0
+    for qt in (q2, q3):  # two 64-row steps for three blocks of a cluster
+        assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 128, 128,
+                  int(qt.mins is not None), K._stream(dev)) != 0
     q51 = random_legacy("Q5_1", 256, 128, 3, dev)
     for sym in ("ct_qmm_sb_legacy", "ct_qmm_b_legacy"):
         fn = K._fn("qmm_grid", sym)

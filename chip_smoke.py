@@ -22,12 +22,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                (phase 5 fails on a launch that was not); the symbols of
                the Hopper GEMM core (csrc/qmm_wgmma.cuh: qmm_b and qmm_sb on
                the Q6_K and Q5_K grids, qmm_b_legacy and qmm_sb_legacy on
-               Q5_1 and on Q8_0 without mins, qmm_si_gptq and qmm_i_gptq
-               on GPTQ4 at groups 32, 64 and 128 and on Q4_1, qmm_si_k16
-               on Q2_K and Q3_K, qmm_sb_ks on the ksplit nibbles of
-               Q4_K, GPTQ4 at groups 32, 64 and 128, Q4_0, Q2_K and Q3_K)
-               held at m = 33, 64,
-               256 and 2048 as well (qmm_sb_ks also at its decode design's
+               Q5_1 and on Q8_0 without mins, qmm_si and qmm_i on Q4_K,
+               qmm_si_gptq and qmm_i_gptq on GPTQ4 at groups 32, 64 and
+               128 and on Q4_1, qmm_si_k16 on Q2_K and Q3_K, qmm_sb_ks on
+               the ksplit nibbles of Q4_K, GPTQ4 at groups 32, 64 and 128,
+               Q4_0, Q2_K and Q3_K) held at m = 33, 64, 256 and 2048 as
+               well (qmm_sb_ks also at its decode design's
                m = 1, 8 and 32), and every call of theirs checked bitwise
                against a second call;
      attention the decode attention kernel (csrc/attn_decode.cu) against its
@@ -231,16 +231,18 @@ KERNEL_CASES = [
 # the symbols of the Hopper GEMM core (csrc/qmm_wgmma.cuh), held at every
 # instantiation at CORE_HELD_M beside phase 3's timed m = 128 on these
 # cases (Q6_K's and Q5_K's grids for qmm_b and qmm_sb; Q5_1 with mins and
-# Q8_0 without for qmm_b_legacy and qmm_sb_legacy; GPTQ4 at its three
-# groups and Q4_1 (at down: its o key is GPTQ4 group 32's) for qmm_si_gptq
-# and qmm_i_gptq; Q2_K and Q3_K for qmm_si_k16; the ksplit nibbles of every
-# layout for qmm_sb_ks, also at CORE_KS_HELD_M, its decode design's m), each
-# call checked bitwise against a second one
-CORE_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si_gptq", "qmm_i_gptq",
-                "qmm_si_k16", "qmm_sb_ks")
+# Q8_0 without for qmm_b_legacy and qmm_sb_legacy; Q4_K at qkv and down for
+# qmm_si and qmm_i; GPTQ4 at its three groups and Q4_1 (at down: its o key
+# is GPTQ4 group 32's) for qmm_si_gptq and qmm_i_gptq; Q2_K and Q3_K for
+# qmm_si_k16; the ksplit nibbles of every layout for qmm_sb_ks, also at
+# CORE_KS_HELD_M, its decode design's m), each call checked bitwise against
+# a second one
+CORE_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si", "qmm_i",
+                "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_sb_ks")
 CORE_HELD_M = (33, 64, 256, 2048)
 CORE_KS_HELD_M = (1, 8, 32)
-CORE_HELD_CASES = {("Q6_K", "v"), ("Q6_K", "down"), ("Q5_K", "o"), ("Q5_K", "down"),
+CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
+                   ("Q6_K", "v"), ("Q6_K", "down"), ("Q5_K", "o"), ("Q5_K", "down"),
                    ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o"), ("GPTQ4/128", "qkv"),
                    ("GPTQ4/128", "down"), ("GPTQ4/32", "o"), ("GPTQ4/64", "o"),
                    ("Q4_1", "down"), ("Q2_K", "qkv"), ("Q2_K", "down"), ("Q3_K", "qkv"),

@@ -1,35 +1,32 @@
 // Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the
-// k-quant nibble kernels (qmm_prefill.cu: "si" and "i" on Q4_K, "i" on Q2_K
+// group-16 nibble kernel of mode "i" (qmm_prefill.cu: ct_qmm_i_k16 on Q2_K
 // and Q3_K), the Q4_0 kernels (qmm_prefill.cu: "si", "i"), the ksplit
-// nibble kernel of mode "b" (qmm_prefill.cu) and the reshape-broadcast "rb"
-// kernels (qmm_rb.cu). The int8-grid GEMMs (qmm_grid.cu), GPTQ4 and Q4_1
-// (modes "si" and "i"), Q2_K and Q3_K "si" and the ksplit "sb" run the
-// Hopper core of qmm_wgmma.cuh instead.
+// nibble kernel of mode "b" (qmm_prefill.cu: ct_qmm_b_ks) and the
+// reshape-broadcast "rb" kernels (qmm_rb.cu). The int8-grid GEMMs
+// (qmm_grid.cu), Q4_K, GPTQ4 and Q4_1 (modes "si" and "i"), Q2_K and Q3_K
+// "si" and the ksplit "sb" run the Hopper core of qmm_wgmma.cuh instead.
 // Only the weight tile's decoding differs between formats; it comes in as a
 // tile type W:
 //
-//   W::kGroup    K rows per quant group (32; 16 for Q2_K and Q3_K; 32, 64
-//                or 128 for a plain ksplit group). A group larger than the
-//                K step is walked in several steps, each reading the
-//                group's one row of s and B. The fold (SUMFOLD) takes one
-//                group a step (Q4_K's 32 rows).
-//   W::kHasBias  whether the format adds a per-group bias B (its mins, or
-//                a nibble's re-bias; not Q4_0, Q3_K, Q6_K, Q8_0, Q5_0)
-//   W::load<FOLD>(qs, sub_s, sub_m, sd, sm, np, kp, k0, col0, tid, Bs, b_s)
+//   W::kGroup    K rows per quant group (16 for Q2_K and Q3_K; 32, 64 or
+//                128 for a plain ksplit group). A group larger than the K
+//                step is walked in several steps, each reading the group's
+//                one row of s and B.
+//   W::load(qs, sub_s, sub_m, sd, sm, np, kp, k0, col0, tid, Bs)
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
-//                kGemmLDB): W = q * s + B rounded once to bf16, or, when
-//                FOLD, q * s alone, with the step's B written to
-//                b_s[0][column]. A format with
-//                unfactored planes (Q4_0, plain ksplit, the legacy grids) takes
-//                sub_s = sub_m = null and its f32 (kp/G, np) planes s and
-//                m as sd and sm (m null where it has none). kp tells a
-//                ksplit tile which half, and so which nibble, row k0 is in.
+//                kGemmLDB): W = q * s + B rounded once to bf16 (B the
+//                format's per-group bias, none on Q4_0 and Q3_K). A format
+//                with unfactored planes (Q4_0, plain ksplit, the legacy
+//                grids) takes sub_s = sub_m = null and its f32 (kp/G, np)
+//                planes s and m as sd and sm (m null where it has none). kp
+//                tells a ksplit tile which half, and so which nibble, row
+//                k0 is in.
 //
-// The kernel computes
-//   SUMFOLD and W has a bias:  out = bf16(x) @ bf16(q * s) + xsum @ B
-//   otherwise:                 out = bf16(x) @ bf16(q * s + B)
-// with xsum the f32 sums of x over each quant group.
+// The kernel computes out = bf16(x) @ bf16(q * s + B) with f32
+// accumulation. No symbol folds a bias through the group sums of x here:
+// the sum-fold modes with a bias run the Hopper core, and Q4_0's "si" has
+// no bias to fold, so it computes what "i" does.
 //
 // Design (simple first): a block owns a 64 x 64 output tile and walks all
 // of K 32 rows at a time, so every output element is summed by one block in
@@ -37,10 +34,8 @@
 // Per step its 128 threads round the 64 x 32 activation tile to bf16 and
 // dequantize the 32 x 64 weight tile into shared memory, then four warps
 // multiply 32 x 32 sub-tiles on the tensor cores with WMMA bf16 16x16x16
-// fragments and f32 accumulators. For the fold each thread also keeps the
-// bias sums of 32 of the tile's outputs, from the group sums of the f32
-// activations it loaded. The Hopper core (qmm_wgmma.cuh) is the TMA +
-// wgmma design that replaces this one symbol by symbol.
+// fragments and f32 accumulators. The Hopper core (qmm_wgmma.cuh) is the
+// TMA + wgmma design that replaces this one symbol by symbol.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,27 +54,23 @@ constexpr int kGemmLDB = kGemmBN + 8;
 constexpr int kGemmLDC = kGemmBN + 4;  // f32 elements, multiple of 4 for WMMA
 constexpr int kGemmRowsPerThread = kGemmBM * kGemmBN / kGemmThreads;  // 32 outputs
 
-template <class W, bool SUMFOLD>
+template <class W>
 __global__ void __launch_bounds__(kGemmThreads)
 qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
                 const int8_t* __restrict__ qs,     // weight grid, W's layout
                 const int8_t* __restrict__ sub_s,  // (kp/G, np)
-                const int8_t* __restrict__ sub_m,  // (kp/G, np)   [bias]
+                const int8_t* __restrict__ sub_m,  // (kp/G, np)   [mins]
                 const float* __restrict__ sd,      // (kp/256, np); unfactored: s (kp/G, np)
-                const float* __restrict__ sm,      // (kp/256, np) [bias]; unfactored: m
+                const float* __restrict__ sm,      // (kp/256, np) [mins]; unfactored: m
                 float* __restrict__ out,           // (m, np)
                 int m, int kp, int np) {
   using namespace nvcuda;
   constexpr int G = W::kGroup;
-  constexpr bool kFold = SUMFOLD && W::kHasBias;
   static_assert(G >= kGemmBK ? G % kGemmBK == 0 : kGemmBK % G == 0,
                 "a K step holds whole quant groups, or is a whole part of one");
-  static_assert(!kFold || G == kGemmBK, "the fold takes one quant group a K step");
   __shared__ __align__(128) __nv_bfloat16 As[kGemmBM * kGemmLDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[kGemmBK * kGemmLDB];
   __shared__ __align__(128) float Cs[kGemmBM * kGemmLDC];
-  __shared__ float xs_s[kGemmBM];
-  __shared__ float b_s[1][kGemmBN];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -93,12 +84,9 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
 
-  // bias sums: this thread owns column bn of the tile, rows br0 .. br0+31
+  // the output: this thread stores column bn of the tile, rows br0 .. br0+31
   const int bn = tid % kGemmBN;
   const int br0 = (tid / kGemmBN) * kGemmRowsPerThread;
-  float bacc[kGemmRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kGemmRowsPerThread; ++i) bacc[i] = 0.0f;
 
   // activation tile: rows ar + 16*i, columns ac .. ac+3
   const int ar = tid / 8, ac = (tid % 8) * 4;
@@ -111,21 +99,13 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (grow < m)
         v = __ldg(reinterpret_cast<const float4*>(x + (size_t)grow * kp + k0 + ac));
-      if (kFold) {
-        // 8 neighbouring lanes hold this row's part of the step's group
-        float s = __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
-#pragma unroll
-        for (int off = 1; off < kGemmBK / 4; off <<= 1)
-          s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-        if (tid % (kGemmBK / 4) == 0) xs_s[r] = s;
-      }
       __nv_bfloat16* a = As + r * kGemmLDA + ac;
       a[0] = __float2bfloat16(v.x);
       a[1] = __float2bfloat16(v.y);
       a[2] = __float2bfloat16(v.z);
       a[3] = __float2bfloat16(v.w);
     }
-    W::template load<kFold>(qs, sub_s, sub_m, sd, sm, np, kp, k0, col0, tid, Bs, b_s);
+    W::load(qs, sub_s, sub_m, sd, sm, np, kp, k0, col0, tid, Bs);
     __syncthreads();
 
 #pragma unroll
@@ -143,12 +123,6 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
     }
-    if (kFold) {
-      const float bv = b_s[0][bn];
-#pragma unroll
-      for (int i = 0; i < kGemmRowsPerThread; ++i)
-        bacc[i] = __fadd_rn(bacc[i], __fmul_rn(xs_s[br0 + i], bv));
-    }
     __syncthreads();
   }
 
@@ -163,21 +137,17 @@ qmm_gemm_kernel(const float* __restrict__ x,       // (m, kp) f32
   for (int i = 0; i < kGemmRowsPerThread; ++i) {
     const int r = br0 + i;
     const int grow = row0 + r;
-    if (grow < m) {
-      float v = Cs[r * kGemmLDC + bn];
-      if (kFold) v = __fadd_rn(v, bacc[i]);
-      out[(size_t)grow * np + col0 + bn] = v;
-    }
+    if (grow < m) out[(size_t)grow * np + col0 + bn] = Cs[r * kGemmLDC + bn];
   }
 }
 
 // Launch over an (m, np) output: one block per 64 x 64 tile.
-template <class W, bool SUMFOLD>
+template <class W>
 int launch_gemm(const float* x, const int8_t* qs, const int8_t* sub_s,
                 const int8_t* sub_m, const float* sd, const float* sm,
                 float* out, int m, int kp, int np, cudaStream_t stream) {
   dim3 grid(np / kGemmBN, (m + kGemmBM - 1) / kGemmBM);
-  qmm_gemm_kernel<W, SUMFOLD><<<grid, kGemmThreads, 0, stream>>>(
+  qmm_gemm_kernel<W><<<grid, kGemmThreads, 0, stream>>>(
       x, qs, sub_s, sub_m, sd, sm, out, m, kp, np);
   return static_cast<int>(cudaGetLastError());
 }

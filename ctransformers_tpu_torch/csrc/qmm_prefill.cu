@@ -17,22 +17,22 @@
 //
 // Two GEMMs serve these symbols; this file decodes the weight tile of
 // each. The Hopper core of qmm_wgmma.cuh, through its adjk nibble tile,
-// runs modes "si" and "i" on GPTQ4 and Q4_1 (ct_qmm_si_gptq,
-// ct_qmm_i_gptq: the f32 planes s and m read as they are, one row per
-// group of 32, 64 or 128 rows, the reference's sfactor == 0 branch; a
-// group of 128 spans two of the core's 64-row stages) and mode "si" on
-// Q2_K and Q3_K (ct_qmm_si_k16: factored scales s = sd * sub_s and
-// m = sm * sub_m at group 16, four groups a stage; Q3_K has no bias, so its
-// "si" computes what "i" does). w4 * s (+ B in mode "i") is rounded once
-// to bf16 and, in mode "si", B = 8 s + m folded through the f32 group sums
-// of x. The others run qmm_gemm.cuh's 64 x 64 WMMA GEMM (tiles, fixed-order
-// sums, the bias fold): each of its 128 threads takes one byte row (two K
-// rows, one nibble each) of 8 columns, with those columns' group scale and
-// bias, so a 32-row K step is one Q4_K quant group or two Q2_K / Q3_K
-// groups of 16 (ct_qmm_si, ct_qmm_i, ct_qmm_i_k16); Q4_0 takes a tile
-// without a bias (the reference's `b is None` branch): it reads no min
-// plane, W = w4 * s, and "si" then computes what "i" does (the GEMM folds
-// nothing).
+// runs modes "si" and "i" on Q4_K (ct_qmm_si, ct_qmm_i: factored scales
+// s = sd * sub_s and m = sm * sub_m at group 32, two groups a stage), on
+// GPTQ4 and Q4_1 (ct_qmm_si_gptq, ct_qmm_i_gptq: the f32 planes s and m
+// read as they are, one row per group of 32, 64 or 128 rows, the
+// reference's sfactor == 0 branch; a group of 128 spans two of the core's
+// 64-row stages) and mode "si" on Q2_K and Q3_K (ct_qmm_si_k16: factored
+// scales at group 16, four groups a stage; Q3_K has no bias, so its "si"
+// computes what "i" does). w4 * s (+ B in mode "i") is rounded once to
+// bf16 and, in mode "si", B = 8 s + m folded through the f32 group sums of
+// x. The others run qmm_gemm.cuh's 64 x 64 WMMA GEMM (tiles, fixed-order
+// sums, no fold): mode "i" on Q2_K and Q3_K (ct_qmm_i_k16: each of its 128
+// threads takes one byte row (two K rows, one nibble each) of 8 columns,
+// with those columns' group scale and bias, two groups of 16 a 32-row K
+// step) and Q4_0 (a tile without a bias, the reference's `b is None`
+// branch: it reads no min plane, W = w4 * s, and "si" computes what "i"
+// does).
 //
 // The ksplit nibbles of every kind (ops/qmatmul.py; qmm_common.cuh) take the
 // same GEMM through their own tile:
@@ -51,29 +51,24 @@
 
 namespace {
 
-// The k-quant nibbles: Q4_K (group 32, with a bias), Q2_K (group 16, with a
-// bias) and Q3_K (group 16, without): int8 (kp/G, np) sub-scales (and
-// sub-mins) over f32 (kp/256, np) factors. A 32-row K step is one group, or
-// two at group 16: a thread's byte row lies in group (k0 + 2 wr) / G. The
-// fold (Q4_K's "si": one group a step) has the step's first byte row write
-// its B.
+// The k-quant nibbles at group 16 for mode "i": Q2_K (with a bias) and Q3_K
+// (without): int8 (kp/G, np) sub-scales (and sub-mins) over f32
+// (kp/256, np) factors. A 32-row K step is two groups: a thread's byte row
+// lies in group (k0 + 2 wr) / G.
 template <int G, bool HAS_BIAS>
 struct KQuantTile {
   static constexpr int kGroup = G;
-  static constexpr bool kHasBias = HAS_BIAS;
   static constexpr int kSF = ctq::kSuperblock / G;  // groups per superblock
   static_assert(ctq::kGemmBK % G == 0 && ctq::kGemmThreads == 16 * 8,
                 "whole quant groups per K step; 16 byte rows x 8 column octets");
 
-  template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs,     // (kp/2, np) adjk nibbles
       const int8_t* __restrict__ sub_s,  // (kp/G, np)
       const int8_t* __restrict__ sub_m,  // (kp/G, np)     [HAS_BIAS]
       const float* __restrict__ sd,      // (kp/256, np)
       const float* __restrict__ sm,      // (kp/256, np)   [HAS_BIAS]
-      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
-      float (*b_s)[ctq::kGemmBN]) {
+      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs) {
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
     const int g = (k0 + 2 * wr) / G;
@@ -111,12 +106,8 @@ struct KQuantTile {
       float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), s);
       float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), s);
       if (HAS_BIAS) {
-        if (!FOLD) {
-          w0 = __fadd_rn(w0, b);
-          w1 = __fadd_rn(w1, b);
-        } else if (wr == 0) {
-          b_s[0][wc + j] = b;
-        }
+        w0 = __fadd_rn(w0, b);
+        w1 = __fadd_rn(w1, b);
       }
       b0[j] = __float2bfloat16(w0);
       b1[j] = __float2bfloat16(w1);
@@ -124,23 +115,18 @@ struct KQuantTile {
   }
 };
 
-using Q4KTile = KQuantTile<ctq::kGroup, true>;
-
 // Q4_0: adjk nibbles at zero point 8 (w4 = q), one f32 plane s (kp/32, np)
 // passed as sd, no mins and no bias: W = w4 * s.
 struct Q40Tile {
   static constexpr int kGroup = ctq::kGemmBK;
-  static constexpr bool kHasBias = false;
 
-  template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs,  // (kp/2, np) adjk nibbles
       const int8_t* __restrict__,     // no sub-scales
       const int8_t* __restrict__,     // no sub-mins
       const float* __restrict__ s_p,  // (kp/32, np) s
       const float* __restrict__,      // no mins
-      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs,
-      float (*)[ctq::kGemmBN]) {
+      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs) {
     // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
     const int wr = tid / 8, wc = (tid % 8) * 8;
     const int n = col0 + wc;
@@ -165,26 +151,22 @@ struct Q40Tile {
 // ksplit nibbles (kp/2, np) of any kind: G, SF groups a superblock (0:
 // the f32 planes s and m come as sd and sm) and whether there are mins. Each
 // of the 128 threads takes 4 byte rows x 4 columns of the step (one 32-bit
-// load per row), which lie in one group. No fold: mode "b" only.
+// load per row), which lie in one group. Mode "b".
 template <int G, int SF, bool HAS_MINS>
 struct KsplitTile {
   static constexpr int kGroup = G;
-  static constexpr bool kHasBias = true;  // the low half has one on every kind
   static constexpr int kWRows = ctq::kGemmBK * ctq::kGemmBN / 4 / ctq::kGemmThreads;
   static_assert(kWRows * ctq::kGemmThreads * 4 == ctq::kGemmBK * ctq::kGemmBN,
                 "threads must tile the weight step");
   static_assert(G % kWRows == 0, "a thread's rows lie in one quant group");
 
-  template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs,     // (kp/2, np) ksplit bytes
       const int8_t* __restrict__ sub_s,  // (kp/G, np)     [SF]
       const int8_t* __restrict__ sub_m,  // (kp/G, np)     [SF, HAS_MINS]
       const float* __restrict__ sd,      // (kp/256, np); SF 0: s (kp/G, np)
       const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]; SF 0: m
-      int np, int kp, int k0, int col0, int tid, __nv_bfloat16* Bs,
-      float (*)[ctq::kGemmBN]) {
-    static_assert(!FOLD, "the ksplit tile of qmm_gemm.cuh serves mode \"b\" only");
+      int np, int kp, int k0, int col0, int tid, __nv_bfloat16* Bs) {
     const int half = kp / 2;
     const bool hi = k0 >= half;  // the step's half: its nibble and its bias
     // logical rows wr .. wr+kWRows-1 of the step, columns wc .. wc+3
@@ -224,8 +206,8 @@ struct KsplitGemm {
   cudaStream_t st;
   template <int G, int SF, bool HAS_MINS>
   int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
-    return ctq::launch_gemm<KsplitTile<G, SF, HAS_MINS>, false>(x, qs, sub_s, sub_m, sd, sm,
-                                                                out, m, kp, np, st);
+    return ctq::launch_gemm<KsplitTile<G, SF, HAS_MINS>>(x, qs, sub_s, sub_m, sd, sm, out, m,
+                                                         kp, np, st);
   }
 };
 
@@ -244,6 +226,18 @@ int launch_gptq(const float* x, const int8_t* qs, const float* s, const float* m
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Q4_K on the Hopper core's adjk tile with factored scales at group 32: mode
+// "i" or, FOLD, mode "si"; every plane is needed (Q4_K always has mins)
+template <bool FOLD>
+int launch_q4k(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np,
+               cudaStream_t st) {
+  if (sub_s == nullptr || sub_m == nullptr || sd == nullptr || sm == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ctw::Params p{sub_s, sub_m, sd, sm, out, m, kp, np};
+  return ctw::launch_core<32, true, false, FOLD, false, true>(x, qs, p, st);
+}
+
 // Q2_K (has_mins 1: sub_m and sm given, B = 8 * s + m) and Q3_K (has_mins 0:
 // both null, no bias); a flag that disagrees with the pointers is refused.
 // Mode "i" runs qmm_gemm.cuh's GEMM, mode "si" (SUMFOLD) the Hopper core's
@@ -260,30 +254,31 @@ int launch_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8
     return ctw::launch_core<16, false, false, false, false, true>(x, qs, p, st);
   }
   if (has_mins)
-    return ctq::launch_gemm<KQuantTile<16, true>, false>(x, qs, sub_s, sub_m, sd, sm, out, m,
-                                                         kp, np, st);
-  return ctq::launch_gemm<KQuantTile<16, false>, false>(x, qs, sub_s, nullptr, sd, nullptr,
-                                                        out, m, kp, np, st);
+    return ctq::launch_gemm<KQuantTile<16, true>>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                                                  st);
+  return ctq::launch_gemm<KQuantTile<16, false>>(x, qs, sub_s, nullptr, sd, nullptr, out, m,
+                                                 kp, np, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// mode "si": bf16(x) @ bf16(w4 * s) + xsum @ B
+// mode "si" on Q4_K: bf16(x) @ bf16(w4 * s) + xsum @ B, xsum the f32 sums
+// of x over each group of 32 rows
 int ct_qmm_si(const float* x, const int8_t* qs, const int8_t* sub_s,
               const int8_t* sub_m, const float* sd, const float* sm,
               float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<Q4KTile, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
-                                         static_cast<cudaStream_t>(stream));
+  return launch_q4k<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// mode "i": bf16(x) @ bf16(w4 * s + B)
+// mode "i" on Q4_K: bf16(x) @ bf16(w4 * s + B)
 int ct_qmm_i(const float* x, const int8_t* qs, const int8_t* sub_s,
              const int8_t* sub_m, const float* sd, const float* sm,
              float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<Q4KTile, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
-                                          static_cast<cudaStream_t>(stream));
+  return launch_q4k<false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // mode "i" on GPTQ4 and Q4_1: bf16(x) @ bf16(w4 * s + B), B = 8 * s + mn; s
@@ -308,16 +303,16 @@ int ct_qmm_si_gptq(const float* x, const int8_t* qs, const float* s,
 // mode "i" on Q4_0: bf16(x) @ bf16(w4 * s); s f32 (kp/32, np), no mins (null).
 int ct_qmm_i_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
                   float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<Q40Tile, false>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
-                                          static_cast<cudaStream_t>(stream));
+  return ctq::launch_gemm<Q40Tile>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // mode "si" on Q4_0: the reference's sum-fold kernel with no bias to fold,
-// bf16(x) @ bf16(w4 * s), as "i".
+// bf16(x) @ bf16(w4 * s), as "i" (the same kernel).
 int ct_qmm_si_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
                    float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<Q40Tile, true>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
-                                         static_cast<cudaStream_t>(stream));
+  return ctq::launch_gemm<Q40Tile>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // mode "i" on Q2_K and Q3_K: bf16(x) @ bf16(w4 * s + B) (B absent for Q3_K).

@@ -162,21 +162,18 @@ struct RLaunch {
 // ---- "rb": the pair tile of qmm_gemm.cuh -----------------------------------
 
 // 128 threads: column tid % 64 of the step, rows 16 (tid / 64) .. +15, one
-// (group, column) pair each. "rb" computes the function of "b": no fold.
+// (group, column) pair each. "rb" computes the function of "b".
 template <int FMT, int G, int SF, bool HAS_MINS>
 struct RbTile {
   static constexpr int kGroup = G;
-  static constexpr bool kHasBias = false;
   static_assert(ctq::kGemmThreads * 16 == ctq::kGemmBK * ctq::kGemmBN,
                 "64 columns x 2 segments of 16 rows tile the step");
 
-  template <bool FOLD>
   __device__ __forceinline__ static void load(
       const int8_t* __restrict__ qs, const int8_t* __restrict__ sub_s,
       const int8_t* __restrict__ sub_m, const float* __restrict__ sd,
       const float* __restrict__ sm, int np, int kp, int k0, int col0, int tid,
-      __nv_bfloat16* Bs, float (*)[ctq::kGemmBN]) {
-    static_assert(!FOLD, "rb does not fold");
+      __nv_bfloat16* Bs) {
     const int c = tid % ctq::kGemmBN, seg = tid / ctq::kGemmBN;
     dequant_pair<FMT, G, SF, HAS_MINS, 16>(qs, sub_s, sub_m, sd, sm, np, kp, k0 + 16 * seg,
                                            col0 + c, Bs + 16 * seg * ctq::kGemmLDB + c,
@@ -193,8 +190,8 @@ struct RbLaunch {
   cudaStream_t st;
   template <int G, int SF, bool HAS_MINS>
   int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
-    return ctq::launch_gemm<RbTile<FMT, G, SF, HAS_MINS>, false>(x, qs, sub_s, sub_m, sd, sm,
-                                                                 out, m, kp, np, st);
+    return ctq::launch_gemm<RbTile<FMT, G, SF, HAS_MINS>>(x, qs, sub_s, sub_m, sd, sm, out, m,
+                                                          kp, np, st);
   }
 };
 

@@ -820,10 +820,11 @@ KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in 
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
 # the symbols that run the Hopper GEMM core: those of qmm_grid.cu and
-# qmm_si_gptq, qmm_i_gptq and qmm_si_k16 of qmm_prefill.cu (the core's adjk
-# nibble tile) at every m, qmm_sb_ks of qmm_float.cu (its source) at m > 32
-WGMMA_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si_gptq",
-                 "qmm_i_gptq", "qmm_si_k16", "qmm_sb_ks")
+# qmm_si, qmm_i, qmm_si_gptq, qmm_i_gptq and qmm_si_k16 of qmm_prefill.cu
+# (the core's adjk nibble tile) at every m, qmm_sb_ks of qmm_float.cu (its
+# source) at m > 32
+WGMMA_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si", "qmm_i",
+                 "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_sb_ks")
 SOURCE_OF.update({n: "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh" for n in WGMMA_KERNELS
                   if n != "qmm_sb_ks"})
 REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
@@ -848,8 +849,8 @@ DECODE_CONFIG = "n32k1024"  # 32 columns and all of K per block, 1024-row chunks
 KSPLIT_FLOAT_CONFIG = "n32k512"  # the same, 512 byte rows (both halves) a chunk
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
-GEMM_KERNELS = ("qmm_si", "qmm_i", "qmm_i_q4_0", "qmm_si_q4_0", "qmm_i_k16", "qmm_b_ks",
-                "qmm_rb_ks", "qmm_rb8", "qmm_rb8_legacy")
+GEMM_KERNELS = ("qmm_i_q4_0", "qmm_si_q4_0", "qmm_i_k16", "qmm_b_ks", "qmm_rb_ks", "qmm_rb8",
+                "qmm_rb8_legacy")
 # 128 x 128 output tile over two wgmma warpgroups, K split over a cluster of
 # 3 (csrc/qmm_wgmma.cuh)
 WGMMA_CONFIG = "wg128n128c3"

@@ -3,7 +3,7 @@ build the core as it is and copies with one part taken out, and time each
 on the same card in one process.
 
     python3 scripts/torch_gemm_core_ablate.py
-        [--kind Q6_K|ks:Q4_K|sb:Q5_K|aj:GPTQ4/128|aj:Q2_K] [--m 128 ...]
+        [--kind Q6_K|ks:Q4_K|sb:Q5_K|aj:GPTQ4/128|aj:Q2_K|aj:Q4_K] [--m 128 ...]
         [--variants base no_mrows ...] [--reps 20]
 
 --kind Q6_K (the default) times the int8-grid tile behind ct_qmm_b on a
@@ -14,10 +14,11 @@ of the factored M = sm * sub_m; aj:GPTQ4/128 the adjk nibble tile behind
 ct_qmm_si_gptq on GPTQ4 planes at group 128, with the fold of B = 8 s + m
 carried over a group's two stages; aj:Q2_K the same tile behind
 ct_qmm_si_k16 on Q2_K nibbles (group 16, factored scales), whose fold takes
-four groups a stage. Every variant is the symbol's source
-(qmm_grid.cu, qmm_float.cu or qmm_prefill.cu) built by nvcc (the
-package's flags, all started together) from a copy of csrc/ under
-build/gemm_core_ablate/ with one edit to qmm_wgmma.cuh:
+four groups a stage; aj:Q4_K the same tile behind ct_qmm_si on Q4_K
+nibbles (group 32, factored scales), whose fold takes two. Every variant
+is the symbol's source (qmm_grid.cu, qmm_float.cu or qmm_prefill.cu)
+built by nvcc (the package's flags, all started together) from a copy of
+csrc/ under build/gemm_core_ablate/ with one edit to qmm_wgmma.cuh:
 
   base         the source as it is
   split4       K split over a cluster of 4 blocks (the source: 3)
@@ -117,7 +118,7 @@ VARIANTS = {
 }
 # the variants each kind builds (no_mrows where there is a fold, m_in_fold
 # where M is factored)
-FOLD_KINDS = ("ks:Q4_K", "sb:Q5_K", "aj:GPTQ4/128", "aj:Q2_K")
+FOLD_KINDS = ("ks:Q4_K", "sb:Q5_K", "aj:GPTQ4/128", "aj:Q2_K", "aj:Q4_K")
 # appended to each copy of the source: the clusters of the timed
 # instantiation (INSTANCE) that the card runs at once
 OCCUPANCY = """
@@ -140,7 +141,8 @@ KINDS = {"Q6_K": ("qmm_grid.cu", "ct_qmm_b", "16, false, false, false, false, fa
          "ks:Q4_K": ("qmm_float.cu", "ct_qmm_sb_ks", "32, true, false, true, true, false"),
          "sb:Q5_K": ("qmm_grid.cu", "ct_qmm_sb", "32, true, false, true, false, false"),
          "aj:GPTQ4/128": ("qmm_prefill.cu", "ct_qmm_si_gptq", "128, true, true, true, false, true"),
-         "aj:Q2_K": ("qmm_prefill.cu", "ct_qmm_si_k16", "16, true, false, true, false, true")}
+         "aj:Q2_K": ("qmm_prefill.cu", "ct_qmm_si_k16", "16, true, false, true, false, true"),
+         "aj:Q4_K": ("qmm_prefill.cu", "ct_qmm_si", "32, true, false, true, false, true")}
 
 
 def variants_of(kind: str) -> list:
@@ -187,8 +189,9 @@ def build(names, kind: str):
 def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
     """A random Q6_K or Q5_K grid, GPTQ4 group-128 adjk nibbles over f32
     planes, Q2_K adjk nibbles over group-16 factors (the ranges of
-    models/synthetic.py's random blocks), or Q4_K nibbles packed ksplit (any
-    byte is a pair of nibbles), at padded shape (k, n)."""
+    models/synthetic.py's random blocks), or Q4_K nibbles over group-32
+    factors, adjk or packed ksplit (any byte is a pair of nibbles), at
+    padded shape (k, n)."""
     g = torch.Generator().manual_seed(seed)
     sd = torch.rand((k // 256, n), generator=g) * 1e-3 + 1e-4
     if kind == "Q6_K":
@@ -216,12 +219,14 @@ def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
         sm = -torch.rand((k // 256, n), generator=g) * r["dmin"]
         return QTensor(qs, sub_s, sub_m, "Q2_K", 16, (k, n), packed=True, zp=0, sd=sd, sm=sm,
                        sfactor=16, pack_layout="adjk").to("cuda")
-    qs = torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8)
+    adjk = kind == "aj:Q4_K"
+    qs = (torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8) if adjk
+          else torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8))
     sub_s = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
     sub_m = torch.randint(0, 64, (k // 32, n), generator=g, dtype=torch.int8)
     sm = -torch.rand((k // 256, n), generator=g) * 1e-3
     return QTensor(qs, sub_s, sub_m, "Q4_K", 32, (k, n), packed=True, zp=0, sd=sd, sm=sm,
-                   sfactor=8, pack_layout="ksplit").to("cuda")
+                   sfactor=8, pack_layout="adjk" if adjk else "ksplit").to("cuda")
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -270,7 +275,8 @@ def main() -> int:
     plain, ints = {"Q6_K": (K.plain_b, lambda qt: (16,)), "ks:Q4_K": (K.plain_sb_ks, K._ksplit_ints),
                    "sb:Q5_K": (K.plain_sb, lambda qt: (32,)),
                    "aj:GPTQ4/128": (K.plain_si, lambda qt: (128,)),
-                   "aj:Q2_K": (K.plain_si, K._has_mins)}[opts.kind]
+                   "aj:Q2_K": (K.plain_si, K._has_mins),
+                   "aj:Q4_K": (K.plain_si, K._no_ints)}[opts.kind]
     for shape, (k, n) in SHAPES.items():
         qts = [weight(opts.kind, k, n, 0)]
         per_copy = sum(a.numel() * a.element_size() for a in K._planes(qts[0]) if a is not None)

@@ -336,8 +336,10 @@ def test_scale_divisions_are_ieee_on_the_card(dev):
 
 # the Hopper GEMM core (csrc/qmm_wgmma.cuh): the int8-grid symbols,
 # qmm_si_gptq and qmm_i_gptq (the adjk nibble tile with and without the
-# fold) and qmm_si_k16 (the adjk tile at group 16 with factored scales: Q2_K
-# folding four groups a stage, Q3_K without a bias) at every instantiation,
+# fold), qmm_si and qmm_i (the adjk tile at group 32 with factored scales,
+# Q4_K: two fold groups a stage, or the bias added per weight) and
+# qmm_si_k16 (the adjk tile at group 16 with factored scales: Q2_K folding
+# four groups a stage, Q3_K without a bias) at every instantiation,
 # at the prompt chunk sizes Engine._chunks sends (and the ragged m = 33), at
 # llama-2-7B shapes
 CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb", "Q5_K"), ("qmm_sb", "Q6_K"),
@@ -345,7 +347,7 @@ CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb", "Q5_K"), ("qmm_sb", "Q6
         ("qmm_sb_legacy", "Q5_1"), ("qmm_sb_legacy", "Q8_0"), ("qmm_sb_legacy", "Q5_0")] + [
     (name, kind) for name in ("qmm_si_gptq", "qmm_i_gptq")
     for kind in [f"GPTQ4/{g}" for g in K.GPTQ_GROUPS] + ["Q4_1"]] + [
-    ("qmm_si_k16", "Q2_K"), ("qmm_si_k16", "Q3_K")]
+    ("qmm_si_k16", "Q2_K"), ("qmm_si_k16", "Q3_K"), ("qmm_si", "Q4_K"), ("qmm_i", "Q4_K")]
 # and qmm_sb_ks on every ksplit layout (ctq::dispatch_ksplit: Q4_K, Q2_K,
 # Q3_K, GPTQ4 / Q4_1 at groups 32, 64 and 128, Q4_0), at the decode design's
 # m <= 32 and the core's m > 32
@@ -392,8 +394,9 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
     them (Q5_K: sub-mins and sm both given), ct_qmm_sb_legacy a has-mins
     flag that agrees with the min plane, ct_qmm_si_gptq and ct_qmm_i_gptq
     group 32, 64 or 128 with both planes, ct_qmm_si_k16 a has-mins flag
-    that agrees with the sub-min and sm pointers; all a K padded to 64-row
-    steps, at least three of them; a refusal launches nothing."""
+    that agrees with the sub-min and sm pointers, ct_qmm_si and ct_qmm_i
+    every factored plane (Q4_K's sub-mins and sm included); all a K padded
+    to 64-row steps, at least three of them; a refusal launches nothing."""
     x = torch.randn(64, 256, device=dev)
     out = torch.full((64, 128), 7.0, device=dev)
     q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
@@ -429,6 +432,14 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
     for qt in (q2, q3):  # two 64-row steps for three blocks of a cluster
         assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 128, 128,
                   int(qt.mins is not None), K._stream(dev)) != 0
+    q4k = random_q4k(256, 128, 7, dev)
+    for sym in ("ct_qmm_si", "ct_qmm_i"):
+        fn = K._fn("qmm_prefill", sym)
+        for sub_m, sm in ((None, q4k.sm), (q4k.mins, None)):  # a null sub-min or sm plane
+            assert fn(*K._ptrs(x, q4k.qs, q4k.scales, sub_m, q4k.sd, sm, out), 64, 256, 128,
+                      K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q4k.qs, q4k.scales, q4k.mins, q4k.sd, q4k.sm, out), 64, 128, 128,
+                  K._stream(dev)) != 0  # two 64-row steps for three blocks of a cluster
     q51 = random_legacy("Q5_1", 256, 128, 3, dev)
     for sym in ("ct_qmm_sb_legacy", "ct_qmm_b_legacy"):
         fn = K._fn("qmm_grid", sym)

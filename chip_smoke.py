@@ -443,6 +443,8 @@ ATTN_CASES += [("bf16", False, 2, (2000,), 2048, False, 8, 512),
 # the same places as the plain version, which a rounding flip changes only
 # where the f32 sums land within an ulp of a boundary
 ATTN_TOL = {"f32": 1e-5, "bf16": 1e-4, "ieee_f16": 1e-4, "int8": 1e-4}
+# row 13's sub-row of each cache dtype in PERF.md's kernel table
+ATTN_ROW_OF = {"f32": "f32", "bf16": "bf16", "ieee_f16": "f16", "int8": "int8"}
 # tiny Q4_K_M llama served with these (kv_dtype, CT_KV_LAYOUT) on both devices
 TINY_KV = (("bf16", "sm"), ("int8", "sm"), ("f32", "hm"), ("bf16", "hm"), ("int8", "hm"))
 # tiny Q4_K_M llamas of the head shapes the decode attention kernel takes past
@@ -460,6 +462,9 @@ TINY_HEADS_KV = (("f32", "sm"), ("bf16", "hm"), ("int8", "sm"))
 # chunks of 128 tokens (the chunk size phase 3 holds the kernels at), then
 # decode steps at window 2048
 LONG_PROMPT, LONG_CHUNK, LONG_STEPS = 1920, 128, 32
+# then three fused segments of LONG_FAST tokens (capture, timed, profiled),
+# which end at n_past 2004, inside the window
+LONG_FAST = 16
 # the fused decode (LLM.generate_fast): greedy tokens in segments of
 # FAST_CHUNK after a FAST_PROMPT-token text prompt (chunks 8 + 1, sizes
 # phase 3 holds every kernel at); the tiny models' run
@@ -764,16 +769,25 @@ def phase_kernels(K, copy_bw: float):
     return results, raced
 
 
-def phase_attention(A) -> list:
+def attn_label(name, hm, hkv, n_past, window, alibi, h, dh) -> str:
+    return (f"{name} {'hm' if hm else 'sm'} H={h} Hkv={hkv} dh={dh} n_past={list(n_past)} "
+            f"window={window}{' alibi' if alibi else ''}")
+
+
+def phase_attention(A, cases=ATTN_CASES, check: bool = True) -> list:
     """Phase 3's decode attention cases (ATTN_CASES): the kernel against its
-    plain version on the same cache, its ms replayed in a CUDA graph that
-    cycles over the layers of a cache larger than three L2s, the plain
-    version's ms, scaled_dot_product_attention's (a boolean mask; a float
-    one with ALiBi; none for int8, whose scales no single call takes) and
-    the bound of this run's live rows."""
+    plain version on the same cache (and against itself: bitwise
+    repeatable), its ms replayed in a CUDA graph that cycles over the layers
+    of a cache larger than three L2s, the plain version's ms,
+    scaled_dot_product_attention's (a boolean mask; a float one with ALiBi;
+    none for int8, whose scales no single call takes) and the bound of this
+    run's live rows. Ends with one summary line per cache dtype (row 13's
+    sub-rows). check=False times a build that is known to be wrong (an
+    ablation) without failing on its results."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for name, hm, hkv, n_past, window, alibi, h, dh in ATTN_CASES:
+    for case in cases:
+        name, hm, hkv, n_past, window, alibi, h, dh = case
         dt = ATTN_DTYPES[name]
         quant = dt == torch.int8
         b = len(n_past)
@@ -795,11 +809,13 @@ def phase_attention(A) -> list:
         slopes = torch.rand(h, generator=gen, device="cuda") * 0.1 if alibi else None
         kw = dict(window=window, k_scale=ks, v_scale=vs, alibi_slopes=slopes, head_major=hm)
         got = A.decode_attention(q, k, v, 0, npt, **kw)
+        again = A.decode_attention(q, k, v, 0, npt, **kw)
         torch.cuda.synchronize()
         ref = A.plain_decode_attention(q, k, v, 0, npt, **kw)
         err = (torch.linalg.norm(got - ref) / torch.linalg.norm(ref)).item()
         max_abs = (got - ref).abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and err <= ATTN_TOL[name]
+        ok = (bool(torch.isfinite(got).all()) and err <= ATTN_TOL[name]
+              and torch.equal(got, again))
         ms = cuda_time_ms(lambda i: A.decode_attention(q, k, v, i % n_layer, npt, **kw), 50,
                           graph=True)
         plain_ms = min(cuda_time_ms(lambda i: A.plain_decode_attention(q, k, v, 0, npt, **kw), 1)
@@ -824,18 +840,27 @@ def phase_attention(A) -> list:
         ops = 4 * live * h * dh
         peak = PEAK_F32_S if dt == torch.float32 else PEAK_BF16_S
         bound_ms = max(nbytes / PEAK_BYTES_S, ops / peak) * 1e3
-        what = (f"{name} {'hm' if hm else 'sm'} H={h} Hkv={hkv} dh={dh} n_past={list(n_past)} "
-                f"window={window}{' alibi' if alibi else ''}")
+        what = attn_label(*case)
         log(f"[attention] decode_attn {what}: rel_err={err:.3e} max_abs_err={max_abs:.3e} "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.4f} "
             f"bound_ms={bound_ms:.4f} GB/s={nbytes / ms / 1e6:.0f} over {n_layer} layers "
             f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"decode_attn {what}: rel err {err:.3e} > {ATTN_TOL[name]}")
-        rows.append(dict(case=what, rel_err=err, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bytes=nbytes, ops=ops, peak=peak))
+        if check and not ok:
+            raise SystemExit(f"decode_attn {what}: rel err {err:.3e} > {ATTN_TOL[name]}, or "
+                             "two calls differ")
+        rows.append(dict(case=what, dtype=name, rel_err=err, max_abs_err=max_abs, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bytes=nbytes,
+                         ops=ops, peak=peak))
         del k, v, ks, vs
         torch.cuda.empty_cache()
+    for name in ATTN_DTYPES:
+        sub = [r for r in rows if r["dtype"] == name]
+        lib = [r for r in sub if r["library_ms"] == r["library_ms"]]
+        if sub:
+            lib_txt = f"{sum(r['library_ms'] for r in lib):.4f}" if lib else "none"
+            log(f"[attention] row 13-{ATTN_ROW_OF[name]}: kernel_ms={sum(r['ms'] for r in sub):.4f} "
+                f"bound_ms={sum(r['bound_ms'] for r in sub):.4f} library_ms={lib_txt} "
+                f"over {len(sub)} cases")
     return rows
 
 
@@ -899,7 +924,8 @@ def phase_tiny_kv(A, tmpdir: str) -> None:
     of TINY_HEADS with those of TINY_HEADS_KV, on the card and on the CPU,
     both under the fixed rule (the same matmul functions): equal greedy
     tokens, logits within the wiring class (5%), and every decode attention
-    call of the card held against its plain version on the same operands."""
+    call of the card held against its plain version on the same operands
+    and against a second call (bitwise)."""
     for label, n_embd, n_head, n_head_kv, first in TINY_HEADS:
         tiny_kv_model(A, tmpdir, label, dict(TINY, n_embd=n_embd, n_head=n_head,
                                              n_head_kv=n_head_kv), TINY_HEADS_KV, first)
@@ -917,13 +943,14 @@ def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1)
     seed = pick_tiny_seed(path, label, "Q4_K_M", cfg=cfg, first=first, kv_dtypes=kv_dtypes,
                           max_seed=max(32, first + 32))
     kernel, quantize = F.decode_attention, F.kv_quantize
-    worst, calls = 0.0, 0
+    worst, calls, repeated = 0.0, 0, True
     launches = A.LAUNCHES["decode_attn"]
     kv_rows = []  # (card rows, card values, card scales) of the first K and V writes
 
     def checked(*args, **kw):
-        nonlocal worst, calls
+        nonlocal worst, calls, repeated
         out = kernel(*args, **kw)
+        repeated = repeated and torch.equal(out, kernel(*args, **kw))
         ref = A.plain_decode_attention(*args, **kw)
         worst = max(worst, (torch.linalg.norm(out - ref) / torch.linalg.norm(ref)).item())
         calls += 1
@@ -961,9 +988,10 @@ def tiny_kv_model(A, tmpdir: str, label: str, cfg: dict, caches, first: int = 1)
             raise SystemExit(f"tiny kv {label} {kv_dtype} {layout}: card and CPU disagree")
     launched = A.LAUNCHES["decode_attn"] - launches
     log(f"[tiny] {label}: decode_attn calls held against the plain version: {calls}, worst rel "
-        f"err {worst:.3e}, kernel launches {launched}")
+        f"err {worst:.3e}, kernel launches {launched} (each call twice: bitwise "
+        f"{'equal' if repeated else 'DIFFERENT'})")
     remove_model(path)
-    if not calls or launched < calls or worst > max(ATTN_TOL.values()):
+    if not calls or launched < calls or worst > max(ATTN_TOL.values()) or not repeated:
         raise SystemExit(f"tiny kv {label}: decode_attn disagrees with its plain version (or "
                          "never ran)")
 
@@ -1700,6 +1728,47 @@ def serve_long(K, llm, label: str, launches: collections.Counter, resident: int 
     if dec_launch["decode_attn"] != spec.n_layer or qm.N_RACES != races:
         raise SystemExit(f"{tag} decode_attn ran {dec_launch['decode_attn']} times a token, or a "
                          "race ran inside")
+    fused_long(llm, tag, dec_s, busy_ms)
+
+
+def fused_long(llm, tag: str, eager_s: float, eager_busy_ms: float) -> None:
+    """The fused token (Engine.decode: one CUDA graph replayed a token) at
+    the long context's window 2048, greedy, where serve_long's eager loop
+    left it: a segment of LONG_FAST tokens that captures, one timed on the
+    host clock (ms a token) and one under torch.profiler (busy ms a token,
+    decode_attn's part), beside the eager figures, which the host sets."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = llm._engine
+    cfg = llm.config
+    kw = dict(top_k=cfg.top_k, top_p=cfg.top_p, temperature=0.0, repetition_penalty=1.0,
+              last_tokens=llm._context, last_n=cfg.last_n_tokens)
+    c0 = eng.n_compile
+    n0 = eng.n_past
+    eng.decode(LONG_FAST, **kw)  # captures the key, then replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.decode(LONG_FAST, **kw)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3 / LONG_FAST
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.decode(LONG_FAST, **kw)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    rows = [(e.self_device_time_total / LONG_FAST, e.key) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(us for us, _ in rows) / 1e3
+    attn_ms = sum(us for us, key in rows if "decode_attn" in key) / 1e3
+    if eng.n_compile - c0 > 1 or eng.n_past != n0 + 3 * LONG_FAST:
+        raise SystemExit(f"{tag} the fused segments captured more than once or fell short")
+    log(f"{tag} fused decode at n_past {n0}..{eng.n_past - 1}, window 2048: "
+        f"fused_ms_per_token={fused_ms:.3f} device_busy_ms_per_token={busy_ms:.3f} "
+        f"decode_attn_ms_per_token={attn_ms:.3f} ({100 * attn_ms / busy_ms:.1f}% of busy; idle "
+        f"{100 - 100 * busy_ms / fused_ms:.1f}%), beside eager decode_ms_per_token="
+        f"{eager_s * 1e3:.3f} device_busy_ms_per_token={eager_busy_ms:.3f}")
+    empty_context(llm)
 
 
 def write_cost(spec, steps: int = 16, device: str = "cuda") -> None:

@@ -32,11 +32,16 @@ llama with an int8 cache one such flip moved a call by 4.8e-4 against a
 score summed in one piece). A CUDA tensor launches the kernel or raises;
 a CPU tensor takes the plain version. There is no fallback from one to
 the other.
+
+On the card the kernel splits the window over the blocks of a
+thread-block cluster (decode_plan); each block forms every chunk's running
+max from all parts' maxima, in chunk order, so p rounds as here; only the
+sums of l and p * v are taken per part and then added in part order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,14 +53,20 @@ DEFAULT_CHUNK = 512
 # block (the card's 227 KB), which holds q * scale for the block's query
 # heads (at most MAX_REP of a kv head's; more heads a kv head take more
 # blocks) at the head's padded width (64, 128 or 256; a wider head in
-# column slices of 256), a span of chunks' scores (as many chunks as fit
-# SCORE_BUDGET, at least one), an int8 cache's V scales and the PV pass's
-# sums; csrc/attn_decode.cu:ct_decode_attn computes the same
+# column slices of 256), a span of its part's scores (as many rows as fit
+# SCORE_BUDGET), an int8 cache's V scales, the PV pass's sums and four
+# numbers a (head, chunk) of the window; csrc/attn_decode.cu:ct_decode_attn
+# computes the same
 MAX_SMEM_BYTES = 227 * 1024
 MAX_REP = 8
 SLICE = 256
 SCORE_BUDGET = 64 * 1024
-THREADS, VEC = 512, 4
+THREADS, VEC = 256, 4
+# floats of the kernel's `red`: the PV rows' sums, then a part's column sums
+RED = max(THREADS * VEC, MAX_REP * SLICE)
+# the window's split over a thread-block cluster (decode_plan): at most
+# MAX_PARTS blocks a cluster, each part at least MIN_PART rows
+MAX_PARTS, MIN_PART = 8, 64
 SOURCE = "ctransformers_tpu_torch/csrc/attn_decode.cu"
 REPLACES = "scripts/_attention_kernel.py:47"
 # cache dtype -> the kernel's dtype code (csrc/attn_decode.cu)
@@ -85,20 +96,52 @@ def decode_chunk(win: int, chunk: int = DEFAULT_CHUNK) -> int:
     return win if win % chunk else chunk
 
 
+def decode_plan(batch: int, hkv: int, rep: int, win: int, sms: int) -> Tuple[int, int, int]:
+    """(P, rows a part, group): the kernel serves a kv head's `rep` query
+    heads in groups of `group` (1, 2, 4 or 8) and splits each window over a
+    cluster of P blocks a (slot, kv head, group), part i taking rows
+    [i * rows, (i + 1) * rows) of the window. P is the largest power of two
+    up to MAX_PARTS whose grid still fits two blocks an SM of the card's
+    `sms` (three fit: an H100 holds 45 clusters of 8 at once), with parts
+    of at least MIN_PART rows; the group is halved while the grid would give
+    an SM at most one block (each group reads the kv head's rows again,
+    mostly from L2). It never depends on n_past, which the kernel reads on
+    the card (a captured graph replays one grid at every n_past).
+    csrc/attn_decode.cu:plan computes the same."""
+    group = 1
+    while group < min(rep, MAX_REP):
+        group *= 2
+    while True:
+        units = batch * hkv * -(-rep // group)
+        parts = 1
+        while parts < MAX_PARTS and win >= 2 * parts * MIN_PART and units * 2 * parts <= 2 * sms:
+            parts *= 2
+        if group > 1 and units * parts <= sms:
+            group //= 2
+            continue
+        return parts, -(-win // parts), group
+
+
 def kernel_smem_bytes(rep: int, dh: int, win: int, chunk: int, quant: bool,
-                      scalar: bool) -> int:
-    """Shared memory of one block of the kernel: `rep` query heads a kv
-    head, width dh, the window and chunk it reads, an int8 cache (`quant`),
-    element-wise loads (`scalar`: a width or stride that is no multiple of
-    4)."""
+                      scalar: bool, parts: int = 1) -> int:
+    """Shared memory of one block of the kernel: `rep` query heads a block
+    (a group of decode_plan, at most MAX_REP), width dh, the window and
+    chunk it reads, an int8 cache (`quant`), element-wise loads (`scalar`:
+    a width or stride that is no multiple of 4 elements), the window split
+    in `parts` (decode_plan)."""
     r = min(rep, MAX_REP)
-    span = min(win // chunk, max(1, SCORE_BUDGET // (4 * r * chunk)))
+    span = min(-(-win // parts), max(1, SCORE_BUDGET // (4 * r)))
     if dh > SLICE:
         qw = -(-dh // SLICE) * SLICE
     else:
         qw = SLICE if scalar else 64 if dh <= 64 else 128 if dh <= 128 else SLICE
-    return 4 * (r * qw + r * span * chunk + THREADS * VEC + 4 * r * span
-                + (span * chunk if quant else 0))
+    return 4 * (r * qw + r * span + RED + 4 * r * (win // chunk)
+                + (2 * span if quant else 0))
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors, which decode_plan fills."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _head_major_view(a: torch.Tensor, head_major: bool) -> torch.Tensor:
@@ -221,11 +264,13 @@ def decode_attention(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor, il
         return (st[0], st[1], st[3], st[2]) if head_major else st[:4]
 
     scalar = dh % VEC != 0 or any(x % VEC for x in strides(kv_k))
-    need = kernel_smem_bytes(h // hkv, dh, win, c, kv_k.dtype == torch.int8, scalar)
-    if dev.type == "cuda" and need > MAX_SMEM_BYTES:
-        raise ValueError(f"head width {dh}, {h // hkv} heads a kv head and a chunk of {c} "
-                         f"positions need {need} bytes of shared memory a block; the decode "
-                         f"attention kernel's limit is {MAX_SMEM_BYTES} (227 KB)")
+    if dev.type == "cuda":
+        parts, _, group = decode_plan(b, hkv, h // hkv, win, sm_count(dev))
+        need = kernel_smem_bytes(group, dh, win, c, kv_k.dtype == torch.int8, scalar, parts)
+        if need > MAX_SMEM_BYTES:
+            raise ValueError(f"head width {dh}, {h // hkv} heads a kv head and a window of {win} "
+                             f"in chunks of {c} need {need} bytes of shared memory a block; the "
+                             f"decode attention kernel's limit is {MAX_SMEM_BYTES} (227 KB)")
     kw = dict(window=window, k_scale=k_scale, v_scale=v_scale, alibi_slopes=alibi_slopes,
               chunk=chunk, head_major=head_major)
     if dev.type == "cpu":

@@ -143,6 +143,78 @@ def test_kernel_smem_bytes_bounds_the_card_widths():
     assert A.kernel_smem_bytes(8, 8192, 512, 512, False, False) > A.MAX_SMEM_BYTES
 
 
+# the kernel's split of the window over a cluster (decode_plan): batch, kv
+# heads, query heads a kv head, windows and SM counts of the card tests,
+# chip_smoke.py's cases and the tiny served models
+PLAN_SHAPES = [(b, hkv, rep) for b in (1, 2, 3, 4, 8) for hkv in (1, 2, 4, 8, 32)
+               for rep in (1, 2, 4, 8, 16)]
+PLAN_WINDOWS = (8, 64, 100, 128, 256, 300, 1000, 2048, 4096, 8000)
+
+
+def test_decode_plan_is_a_power_of_two_of_the_shape_alone():
+    """P and the group are powers of two up to 8, from B, Hkv, the query
+    heads a kv head, the window and the SM count alone: the function takes
+    no n_past."""
+    import inspect
+
+    assert list(inspect.signature(A.decode_plan).parameters) == ["batch", "hkv", "rep", "win",
+                                                                  "sms"]
+    for b, hkv, rep in PLAN_SHAPES:
+        for win in PLAN_WINDOWS:
+            for sms in (132, 114, 16):
+                parts, rows, group = A.decode_plan(b, hkv, rep, win, sms)
+                assert parts in (1, 2, 4, 8) and group in (1, 2, 4, 8) and group < 2 * rep
+                assert (parts, rows, group) == A.decode_plan(b, hkv, rep, win, sms)
+    # llama-2-7B at one slot: 32 clusters of 8, two blocks an SM of the
+    # H100's 132; its GQA form (8 kv heads) a query head a group; four slots
+    assert A.decode_plan(1, 32, 1, 2048, 132) == (8, 256, 1)
+    assert A.decode_plan(1, 8, 4, 2048, 132) == (8, 256, 1)
+    assert A.decode_plan(4, 32, 1, 2048, 132) == (2, 1024, 1)
+
+
+def test_decode_plan_parts_tile_the_window():
+    """Part i takes rows [i * rows, (i + 1) * rows) of the window: together
+    every row once, no part empty."""
+    for b, hkv, rep in PLAN_SHAPES:
+        for win in PLAN_WINDOWS:
+            parts, rows, _ = A.decode_plan(b, hkv, rep, win, 132)
+            spans = [(i * rows, min(win, (i + 1) * rows)) for i in range(parts)]
+            assert spans[0][0] == 0 and spans[-1][1] == win
+            assert all(lo < hi for lo, hi in spans)
+            assert all(spans[i][1] == spans[i + 1][0] for i in range(parts - 1))
+
+
+def test_decode_plan_fills_the_card_where_the_window_allows():
+    """The grid fits two blocks an SM, and doubles its split until it
+    would not, P reaches 8 or a part would fall below MIN_PART rows; the
+    group is halved while the grid gives an SM at most one block."""
+    for b, hkv, rep in PLAN_SHAPES:
+        for win in PLAN_WINDOWS:
+            for sms in (132, 114):
+                parts, rows, group = A.decode_plan(b, hkv, rep, win, sms)
+                units = b * hkv * -(-rep // group)
+                assert parts == 1 or units * parts <= 2 * sms
+                assert (parts == A.MAX_PARTS or win < 2 * parts * A.MIN_PART
+                        or units * 2 * parts > 2 * sms)
+                assert parts == 1 or rows >= A.MIN_PART
+                assert group == 1 or units * parts > sms
+
+
+def test_kernel_smem_bytes_fits_every_plan():
+    """Every shape of test_kernel_smem_bytes_bounds_the_card_widths fits a
+    block under the split and group the plan takes for it, and a split never
+    needs more shared memory than the whole window in one block."""
+    for dh in (16, 64, 100, 128, 256, 257, 320, 512, 1000, 1024):
+        for rep in (1, 4, 8, 16):
+            for quant in (False, True):
+                for win in (256, 2048, 4096):
+                    for b, hkv in ((1, 1), (1, 32), (4, 8)):
+                        parts, _, group = A.decode_plan(b, hkv, rep, win, 132)
+                        args = (dh, win, A.decode_chunk(win), quant, dh % 4 != 0)
+                        need = A.kernel_smem_bytes(group, *args, parts)
+                        assert need <= min(A.MAX_SMEM_BYTES, A.kernel_smem_bytes(rep, *args))
+
+
 def test_decode_chunk_divides_the_window_as_the_pallas_function():
     assert [A.decode_chunk(w) for w in (128, 256, 768, 1024, 2048, 300, 1000)] == [
         128, 256, 256, 512, 512, 300, 1000]

@@ -782,8 +782,8 @@ def test_decode_attn_refuses_what_it_does_not_take(dev):
         "strided q": lambda: run(torch.randn(1, 4, 128, device=dev)[..., ::2], k, v, 0, n_past),
         "3 heads over 2": lambda: run(q[:, :3].contiguous(), k, v, 0, n_past),
         "q rows past shared memory": lambda: run(
-            torch.randn(1, 16, 8192, device=dev),
-            *random_cache(torch.float32, False, (1, 1, 256, 2, 8192), 2, dev)[:2], 0, n_past),
+            torch.randn(1, 2, 60000, device=dev),
+            *random_cache(torch.float32, False, (1, 1, 256, 2, 60000), 2, dev)[:2], 0, n_past),
         "int64 n_past": lambda: run(q, k, v, 0, n_past.long()),
         "n_past on the CPU": lambda: run(q, k, v, 0, n_past.cpu()),
         "int8 without scales": lambda: run(q, ki, vi, 0, n_past),
@@ -853,18 +853,135 @@ def test_decode_attn_takes_widths_above_256(dev, dh, dtype, hm):
 
 
 def test_decode_attn_raises_on_a_launch_error(dev, monkeypatch):
-    """A launch the kernel refuses (here: one chunk's scores above the
-    card's shared memory, past the wrapper's own check) raises and counts
-    nothing."""
+    """A launch the kernel refuses (here: the q row of one head of width
+    60000 above the card's shared memory, past the wrapper's own check)
+    raises and counts nothing."""
     monkeypatch.setattr(A, "MAX_SMEM_BYTES", 1 << 40)
-    k, v, _, _ = random_cache(torch.float32, False, (1, 1, 8000, 1, 64), 0, dev)
-    q = torch.randn(1, 8, 64, device=dev)
-    n_past = torch.tensor([7999], dtype=torch.int32, device=dev)
-    assert A.decode_chunk(8000) == 8000  # 8 heads x 8000 scores = 256 KB
+    k, v, _, _ = random_cache(torch.float32, False, (1, 1, 256, 1, 60000), 0, dev)
+    q = torch.randn(1, 1, 60000, device=dev)
+    n_past = torch.tensor([200], dtype=torch.int32, device=dev)
+    assert A.kernel_smem_bytes(1, 60000, 256, 256, False, False) > 227 * 1024  # 235 KB of q
     launches = A.LAUNCHES["decode_attn"]
     with pytest.raises(RuntimeError, match="launch failed"):
         A.decode_attention(q, k, v, 0, n_past)
     assert A.LAUNCHES["decode_attn"] == launches
+
+
+# -- the window's split over a cluster (ops/attention.py:decode_plan) ----------
+
+
+def split_case(dev, dtype, hm, h, hkv, n_past, *, dh=128, s=2048, window=None,
+               chunk=A.DEFAULT_CHUNK, plant=(), slopes=None, parts=None, seed=0):
+    """One decode_attention call against its plain version at ATTN_TOL and
+    against a second call (bitwise), on a random cache of S positions with
+    the rows `plant` made to score high for every query head (each row's
+    score above the last: the running max rises there); `parts`, if given,
+    is the split the plan must choose. Returns the kernel's output."""
+    b = len(n_past)
+    k, v, ks, vs = random_cache(dtype, hm, (1, b, s, hkv, dh), seed=seed, device=dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    q = torch.randn((b, h, dh), generator=g).to(dev)
+    rep = h // hkv
+    for i, row in enumerate(plant):
+        for kv in range(hkv):
+            # the direction of the kv head's query heads' sum, scaled up
+            want = q[:, kv * rep:(kv + 1) * rep].sum(1)
+            want = want / want.norm(dim=-1, keepdim=True) * (8.0 + 4 * i)
+            if dtype == torch.int8:
+                want = torch.clamp(torch.round(want * 127 / want.abs().amax(-1, keepdim=True)),
+                                   -127, 127)
+                at = (0, slice(None), kv, row) if hm else (0, slice(None), row, kv)
+                ks[at] = (8.0 + 4 * i) / 127
+            at = (0, slice(None), kv, row) if hm else (0, slice(None), row, kv)
+            k[at] = want.to(dtype)
+    npt = torch.tensor(n_past, dtype=torch.int32, device=dev)
+    kw = dict(window=window, k_scale=ks, v_scale=vs, alibi_slopes=slopes, head_major=hm,
+              chunk=chunk)
+    win = s if window is None else min(window, s)
+    if parts is not None:
+        assert A.decode_plan(b, hkv, rep, win, A.sm_count(dev))[0] == parts
+    launches = A.LAUNCHES["decode_attn"]
+    got = A.decode_attention(q, k, v, 0, npt, **kw)
+    again = A.decode_attention(q, k, v, 0, npt, **kw)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["decode_attn"] == launches + 2
+    ref = A.plain_decode_attention(q, k, v, 0, npt, **kw)
+    assert got.shape == (b, h, dh) and torch.isfinite(got).all()
+    assert _rel(got, ref) < ATTN_TOL[dtype], _rel(got, ref)
+    assert torch.equal(got, again)
+    return got
+
+
+# scores planted so that the running max rises in a late chunk (row 1800 of
+# chunk 3, the last of 8 parts), in a late part of one chunk (row 400: chunk
+# 0's second part) and at each of four rows in turn
+@pytest.mark.parametrize("plant", [(1800,), (400,), (100, 400, 1000, 1800)])
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("hm", [False, True])
+def test_decode_attn_split_follows_a_rising_max(dev, plant, dtype, hm):
+    split_case(dev, dtype, hm, 4, 2, [2047], plant=plant, parts=8)
+
+
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+def test_decode_attn_split_follows_alibi(dev, dtype):
+    """Steep ALiBi slopes: every chunk raises the running max."""
+    slopes = torch.linspace(0.05, 0.5, 8, device=dev)
+    split_case(dev, dtype, False, 8, 2, [2047, 1500], slopes=slopes, parts=8)
+
+
+# n_past 0 (one live row), inside the first of 8 parts only, and the last row
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("hm", [False, True])
+def test_decode_attn_split_at_the_edges_of_n_past(dev, dtype, hm):
+    split_case(dev, dtype, hm, 4, 2, [0, 100, 2047], plant=(50,), parts=8)
+
+
+# four slots whose n_past fall in parts 0, 1, 4 and 7
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("hm", [False, True])
+def test_decode_attn_split_slots_in_different_parts(dev, dtype, hm):
+    split_case(dev, dtype, hm, 4, 2, [10, 300, 1100, 2000], plant=(5, 290), parts=8)
+
+
+# a window of one chunk (256 positions: 4 parts of 64) and one of 8 chunks
+# of 256 with the cluster at its largest split
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("window,chunk,chunks,parts", [(256, 512, 1, 4), (2048, 256, 8, 8)])
+def test_decode_attn_split_windows(dev, dtype, window, chunk, chunks, parts):
+    assert window // A.decode_chunk(window, chunk) == chunks
+    split_case(dev, dtype, False, 4, 2, [window - 1, window // 3], window=window, chunk=chunk,
+               plant=(window // 2,), parts=parts)
+
+
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+@pytest.mark.parametrize("hm", [False, True])
+def test_decode_attn_split_gqa_16_over_1(dev, dtype, hm):
+    split_case(dev, dtype, hm, 16, 1, [2047, 700], plant=(1500,), parts=8)
+
+
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
+def test_decode_attn_split_replays_in_a_graph(dev, dtype):
+    """One captured call replayed at three n_past (written into the device
+    tensor the graph reads) equals eager calls at the same n_past, bitwise:
+    the split is planned on the host and never from n_past."""
+    b, h, hkv, dh, s = 2, 8, 2, 128, 2048
+    k, v, ks, vs = random_cache(dtype, False, (1, b, s, hkv, dh), seed=3, device=dev)
+    q = torch.randn((b, h, dh), generator=torch.Generator().manual_seed(4)).to(dev)
+    npt = torch.tensor([100, 200], dtype=torch.int32, device=dev)
+    kw = dict(k_scale=ks, v_scale=vs)
+    A.decode_attention(q, k, v, 0, npt, **kw)  # builds and warms
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.decode_attention(q, k, v, 0, npt, **kw)
+    for n_past in ([0, 2047], [700, 1300], [1999, 63]):
+        npt.copy_(torch.tensor(n_past, dtype=torch.int32))
+        graph.replay()
+        eager = A.decode_attention(q, k, v, 0, npt, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), n_past
+        ref = A.plain_decode_attention(q, k, v, 0, npt, **kw)
+        assert _rel(out, ref) < ATTN_TOL[dtype], (n_past, _rel(out, ref))
 
 
 # -- the fused decode loop -------------------------------------------------------

@@ -29,7 +29,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                Q4_0, Q2_K and Q3_K) held at m = 33, 64, 256 and 2048 as
                well (qmm_sb_ks also at its decode design's
                m = 1, 8 and 32), and every call of theirs checked bitwise
-               against a second call;
+               against a second call; qmm_g8 and qmm_f (the K split over a
+               cluster of csrc/qmm_splitk.cuh at m <= 32) also held at m = 3
+               and 32 on the Q6_K and Q5_K cases, every call checked
+               bitwise against a second one, the split's P logged, and
+               PERF.md's rows 5b and 7c summed;
      attention the decode attention kernel (csrc/attn_decode.cu) against its
                plain version at llama-2-7B heads (32 of width 128, n_ctx
                2048): f32, bf16, IEEE f16 and int8 caches at n_past 200 and
@@ -76,9 +80,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                text prompts, a 137-token prompt (chunks 128 + 8 + 1) and
                decode, each with its launch counts (dense calls included)
                asserted against the table's choices: the Q4_K_M file at
-               full depth, a GPTQ 4-bit directory (group 128) and the
-               Q4_K_M file packed ksplit at 8 layers and Q2_K, Q3_K_M,
-               Q4_0 and Q8_0 files at 4 layers (the device time of one
+               full depth, a GPTQ 4-bit directory (group 128), the Q4_K_M
+               file packed ksplit and Q2_K, Q3_K_M, Q4_0 and Q8_0 files at
+               4 layers (the device time of one
                128-token chunk on the Q4_K_M, GPTQ, Q2_K and Q3_K_M
                paths), loaded cold (an
                empty table: the load races) and again warm, served under
@@ -250,6 +254,13 @@ CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
                    ("ks:Q4_K", "down"), ("ks:GPTQ4/128", "o"), ("ks:GPTQ4/32", "o"),
                    ("ks:GPTQ4/64", "o"), ("ks:Q4_0", "down"), ("ks:Q2_K", "o"),
                    ("ks:Q3_K", "down")}
+# qmm_g8 and qmm_f at m <= 32: the K split over a cluster (csrc/qmm_splitk.cuh),
+# held on the Q6_K and Q5_K cases at SPLIT_HELD_M beside the timed m = 1 and
+# 8, each call checked bitwise against a second one, its plan's P logged;
+# PERF.md's kernel-table row of each
+SPLIT_KERNELS = ("qmm_g8", "qmm_f")
+SPLIT_HELD_M = (3, 32)
+SPLIT_ROWS = {"qmm_g8": "7c", "qmm_f": "5b"}
 # (kernel, table key) held against its plain version in phase 3
 HELD = set()
 # the batch sizes raced per case (the sizes the main path's prompt and decode run)
@@ -319,12 +330,14 @@ TOL = {"qmm_qx": 1e-5, "qmm_q": 1e-5, "qmm_q8": 1e-5,
 # rows of phase 3; then, to keep the whole run (nvcc build included) well
 # inside its 1200 s on a shared host, GPTQ4 g128 and the ksplit Q4_K_M
 # from 16 to 8 layers and Q4_0, Q8_0 (and its qx path), Q2_K and Q3_K_M
-# from 8 to 4.
+# from 8 to 4; then, to make room for phase 3's held cases of the K split
+# (qmm_g8 and qmm_f at SPLIT_HELD_M) and its longer build, GPTQ4 g128 and
+# the ksplit Q4_K_M from 8 to 4 layers.
 MAIN_PATHS = [
     ("Q4_K_M", "Q4_K_M", 32, "race"),
     ("Q5_K_M", "Q5_K_M", 4, "kernels"),
     ("Q4_K", None, 8, "kernels"),
-    ("GPTQ4-g128", ("gptq", 128, False), 8, "race"),
+    ("GPTQ4-g128", ("gptq", 128, False), 4, "race"),
     ("GPTQ4-g128-actorder", ("gptq", 128, True), 4, "kernels"),
     ("Q4_K_M-new", "Q4_K_M", 2, "new"),
     ("Q5_K_M-new", "Q5_K_M", 2, "new"),
@@ -342,7 +355,7 @@ MAIN_PATHS = [
     ("Q3_K_L", "Q3_K_L", 4, "kernels"),
     ("Q2_K-new", "Q2_K", 2, "new"),
     ("Q3_K_M-new", "Q3_K_M", 2, "new"),
-    ("Q4_K_M-ksplit", "Q4_K_M", 8, "race"),
+    ("Q4_K_M-ksplit", "Q4_K_M", 4, "race"),
     ("GPTQ4-g128-ksplit", ("gptq", 128, False), 4, "kernels"),
     ("Q4_0-ksplit", "Q4_0", 4, "kernels"),
     ("Q2_K-ksplit", "Q2_K", 4, "kernels"),
@@ -698,6 +711,8 @@ def phase_kernels(K, copy_bw: float):
             others += [(K.kernel_name("r" if m <= 32 else "rb", base), m) for m in RACE_M]
         if not base.packed:  # and where one of qx_mode_entries sends the grids
             others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
+        if not base.packed and base.sfactor:  # the K split at more m
+            others += [(name, m) for name in SPLIT_KERNELS for m in SPLIT_HELD_M]
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
             adjk = base.packed and base.pack_layout == "adjk"
             for core in dict.fromkeys(K.kernel_name(mode, base)
@@ -719,10 +734,12 @@ def phase_kernels(K, copy_bw: float):
             max_abs = (got - ref).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and err <= TOL[name]
             repeat = ""
-            if name in CORE_KERNELS:  # one writer per output, sums in a fixed order
+            if name in CORE_KERNELS + SPLIT_KERNELS:  # one writer per output, fixed-order sums
                 same = torch.equal(got, kern(*args, base))
                 ok = ok and same
                 repeat = " second call bitwise " + ("equal" if same else "DIFFERENT")
+            if name in SPLIT_KERNELS and m <= 32:
+                repeat += f" split_P={K.grid_split_plan(name, base, m)}"
             ms = cuda_time_ms(lambda i: kern(*args, copies[i % len(copies)]), 50, graph=True)
             plain_ms = lib_ms = float("nan")
             if timed:
@@ -766,6 +783,11 @@ def phase_kernels(K, copy_bw: float):
                 f"-> winner {qm.label(res['pick'])}, best hand-written {qm.label(res['kernel'])}")
         del copies, base, lib_copies, w_bf16
         torch.cuda.empty_cache()
+    for name, row in SPLIT_ROWS.items():
+        rows = [r for r in results[name] if r["timed"]]
+        log(f"[kernels] row {row} ({name}): kernel_ms={sum(r['ms'] for r in rows):.4f} "
+            f"bound_ms={sum(r['bound_ms'] for r in rows):.4f} "
+            f"library_ms={sum(r['library_ms'] for r in rows):.4f} over {len(rows)} timed cases")
     return results, raced
 
 

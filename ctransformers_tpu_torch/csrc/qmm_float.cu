@@ -43,6 +43,9 @@
 // to m = 8 and by f32 operations above, and "g" (bf16 operands, ~295
 // operations per byte) by bytes at every m it is offered for (m <= 32).
 // This simple version multiplies on the f32 pipes for all three modes.
+// "g" and "" on the factored grids (ct_qmm_g8, ct_qmm_f) take another design
+// at m <= 32: K split over a thread-block cluster, the weight stream kept in
+// flight by a cp.async ring (qmm_splitk.cuh).
 // Design: that of qmm_decode.cu. A block owns 32
 // output columns and ALL of K, so every output element is summed by one
 // block in a fixed order (no atomics, no split-K: runs are bitwise
@@ -69,6 +72,7 @@
 #include <cuda_bf16.h>
 
 #include "qmm_common.cuh"
+#include "qmm_splitk.cuh"
 #include "qmm_wgmma.cuh"
 
 namespace {
@@ -450,17 +454,31 @@ struct KsplitSb {
   }
 };
 
-// factored int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K).
+// factored int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K);
+// "g" and "" at m <= 32 on the K split of qmm_splitk.cuh, the rest on this
+// file's design.
 template <int MODE>
 int launch_grid(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
                 const float* sd, const float* sm, float* out, int m, int kp, int np,
                 int group, cudaStream_t stream) {
-  if (group == 16 && sub_m == nullptr)
+  constexpr bool kSplit = MODE == kModeG || MODE == kModeF;
+  const bool split = kSplit && m >= 1 && m <= ctsk::kMaxM;
+  if (group == 16 && sub_m == nullptr) {
+    if constexpr (kSplit)
+      if (split)
+        return ctsk::run<MODE == kModeG, 16, false>(x, qs, sub_s, nullptr, sd, nullptr, out, m,
+                                                    kp, np, stream);
     return launch<MODE, kGrid, false, 16, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                                  stream);
-  if (group == 32 && sub_m != nullptr)
+  }
+  if (group == 32 && sub_m != nullptr) {
+    if constexpr (kSplit)
+      if (split)
+        return ctsk::run<MODE == kModeG, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                                                   stream);
     return launch<MODE, kGrid, false, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                                 stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -532,7 +550,8 @@ int ct_qmm_g_gptq(const float* x, const int8_t* qs, const float* s, const float*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// mode "g" on a factored int8 grid (Q6_K, Q5_K).
+// mode "g" on a factored int8 grid (Q6_K, Q5_K); at m <= 32 the K split of
+// qmm_splitk.cuh.
 int ct_qmm_g8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp, int np,
               int group, void* stream) {
@@ -540,12 +559,35 @@ int ct_qmm_g8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_
                              static_cast<cudaStream_t>(stream));
 }
 
-// mode "": x @ (q * s + m) in f32 on a factored int8 grid.
+// mode "": x @ (q * s + m) in f32 on a factored int8 grid; at m <= 32 the K
+// split of qmm_splitk.cuh.
 int ct_qmm_f(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp, int np,
              int group, void* stream) {
   return launch_grid<kModeF>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
                              static_cast<cudaStream_t>(stream));
+}
+
+// the K split's plan (qmm_splitk.cuh) for ct_qmm_g8 (g8 1) or ct_qmm_f (g8 0)
+// at group 16 without mins (Q6_K) or 32 with them (Q5_K): the cluster's
+// blocks P, or a negative CUDA error code (m outside 1..32 among them).
+int ct_qmm_grid_split_plan(int g8, int group, int m, int kp, int np) {
+  if (group == 16)
+    return g8 ? ctsk::plan_of<true, 16, false>(m, kp, np) : ctsk::plan_of<false, 16, false>(m, kp, np);
+  if (group == 32)
+    return g8 ? ctsk::plan_of<true, 32, true>(m, kp, np) : ctsk::plan_of<false, 32, true>(m, kp, np);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the clusters of p blocks the split's kernel for ct_qmm_g8 (g8 1) or
+// ct_qmm_f at batch size m runs on the card at once (qmm_splitk.cuh), or a
+// negative CUDA error code.
+int ct_qmm_grid_split_capacity(int g8, int group, int m, int p) {
+  if (group == 16)
+    return g8 ? ctsk::capacity_of<true, 16, false>(m, p) : ctsk::capacity_of<false, 16, false>(m, p);
+  if (group == 32)
+    return g8 ? ctsk::capacity_of<true, 32, true>(m, p) : ctsk::capacity_of<false, 32, true>(m, p);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // mode "s": x @ (q * s) + xsum @ M in f32 on a factored int8 grid.

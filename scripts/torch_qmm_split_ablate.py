@@ -1,0 +1,200 @@
+"""Time the K-split decode GEMVs ct_qmm_g8 and ct_qmm_f (csrc/qmm_splitk.cuh)
+against variants of their design on one card, in one process.
+
+    python3 scripts/torch_qmm_split_ablate.py [--m 1 8] [--reps 50]
+        [--cases REGEX] [--no-check] VARIANT [VARIANT ...]
+
+Each VARIANT is qmm_float.cu built by nvcc (the package's flags, all
+started together) from a copy of csrc/ under build/split_ablate/ with one
+edit to qmm_splitk.cuh:
+
+  base         the sources as they are
+  stages3      a ring of 3 stages (the design: 2, one in flight while a
+               stage computes)
+  stages4      a ring of 4 stages
+  mt4          4 rows of x a block at m > 1, three blocks an SM (the
+               design: 8 rows, two)
+  p4, p2, p1   clusters of at most 4, 2 or 1 blocks (the design: 8; p1 is
+               no K split: one block a column tile takes all of K)
+  no_compute   no products: the stage's copies, barriers, scales and
+               reductions alone
+  no_weights   no weight copies issued (the stage's x, scales and
+               factors only): the compute, barriers and reductions alone
+  root:PATH    the qmm_float.cu of another checkout (PATH/ctransformers_tpu_torch/
+               csrc), e.g. a `git archive` of the parent unpacked under build/
+
+For each (Q6_K v, down, output; Q5_K fused QKV, o, gate/up, down at their padded
+llama-2-7B shapes) x m x symbol: the kernel ms from a replayed CUDA graph
+cycling over weight copies past the 50 MB L2 (as chip_smoke.py phase 3
+times it), the bytes bound, the error against the plain version (a variant
+that computes the function fails the run above 1e-5 unless --no-check;
+no_weights and no_compute print theirs, meaningless by design) and the split's P of
+the variant's plan. The build log's ptxas lines of the split's kernels
+(registers, spills) are printed per variant first. Last line: a JSON
+object {variant: {"symbol kind shape m": ms}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import itertools
+import json
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke as C  # noqa: E402
+from ctransformers_tpu_torch.ops import qmatmul as qm  # noqa: E402
+from ctransformers_tpu_torch.ops import qmm_kernels as K  # noqa: E402
+
+OUT = os.path.join(HERE, "build", "split_ablate")
+# the keys of PERF.md's rows 5b and 7c (chip_smoke.py phase 3's timed cases)
+CASES = [("Q6_K", "v"), ("Q6_K", "down"), ("Q6_K", "lm_head"), ("Q5_K", "qkv"), ("Q5_K", "o"),
+         ("Q5_K", "gate_up"), ("Q5_K", "down")]
+# variant -> edits to qmm_splitk.cuh
+VARIANTS = {
+    "base": (),
+    "stages3": (("constexpr int kStages = 2;", "constexpr int kStages = 3;"),),
+    "stages4": (("constexpr int kStages = 2;", "constexpr int kStages = 4;"),),
+    "mt4": (("constexpr int kMT = 8;", "constexpr int kMT = 4;"),),
+    "p4": (("constexpr int kMaxP = 8;", "constexpr int kMaxP = 4;"),),
+    "p2": (("constexpr int kMaxP = 8;", "constexpr int kMaxP = 2;"),),
+    "p1": (("constexpr int kMaxP = 8;", "constexpr int kMaxP = 1;"),),
+    "no_compute": (("    for (int rr = 0; rr < kLR; rr += 4) {",
+                    "    for (int rr = 0; rr < 0; rr += 4) {"),),
+    "no_weights": (("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), "
+                    "wp + u * wstep);", "    (void)wp;"),),
+}
+CHECKED = tuple(v for v in VARIANTS if not v.startswith("no_"))
+
+
+def build(names):
+    """nvcc on qmm_float.cu of a copy of csrc/ per variant, all started
+    together; returns {name: (library, ptxas lines of the split's kernels)}."""
+    procs = {}
+    for name in names:
+        d = os.path.join(OUT, re.sub(r"[^A-Za-z0-9_]", "_", name))
+        shutil.rmtree(d, ignore_errors=True)
+        if name.startswith("root:"):
+            shutil.copytree(os.path.join(name[5:], "ctransformers_tpu_torch", "csrc"), d)
+        else:
+            shutil.copytree(K.CSRC, d)
+            edits = VARIANTS[name]
+            path = os.path.join(d, "qmm_splitk.cuh")
+            src = open(path).read()
+            for old, new in edits:
+                if old not in src:
+                    raise SystemExit(f"{name}: the edit's anchor is not in qmm_splitk.cuh: "
+                                     f"{old[:60]!r}")
+                src = src.replace(old, new)
+            open(path, "w").write(src)
+        so = os.path.join(d, "libqmm_float.so")
+        procs[name] = (so, subprocess.Popen(
+            [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, "qmm_float.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{out[-4000:]}")
+        lib = ctypes.CDLL(so)
+        K._bind(lib)
+        lines = out.splitlines()
+        ptxas = [" ".join([lines[i].split("entry function")[-1].split(" for ")[0].strip()] + [
+            ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
+            if "spill" in ln or "Used" in ln])
+            for i in range(len(lines)) if "splitk_kernel" in lines[i] and "Compiling entry" in lines[i]]
+        libs[name] = (lib, ptxas)
+    return libs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="+")
+    ap.add_argument("--m", type=int, nargs="+", default=[1, 8])
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--cases", default="", help="regex over 'kind shape'")
+    ap.add_argument("--no-check", action="store_true")
+    opts = ap.parse_args()
+    for v in opts.variants:
+        if v not in VARIANTS and not v.startswith("root:"):
+            raise SystemExit(f"no such variant: {v}")
+    if not torch.cuda.is_available():
+        print("torch_qmm_split_ablate: CUDA is not available", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    names = list(dict.fromkeys(opts.variants))
+    libs = build(names)
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, (lib, ptxas) in libs.items():
+        for line in ptxas:
+            print(f"[ptxas] {name}: {line}", flush=True)
+        cap = getattr(lib, "ct_qmm_grid_split_capacity", None)
+        if cap:  # clusters of p blocks the card holds at once, per instantiation
+            for g8, group, m in itertools.product((1, 0), (16, 32), (1, 8)):
+                print(f"[occupancy] {name}: {'g8' if g8 else 'f'} group {group} m={m}: " + " ".join(
+                    f"P={p}:{cap(g8, group, m, p)}" for p in (8, 6, 4, 3, 2, 1)), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {name: {} for name in opts.variants}
+    for kind, shape in CASES:
+        if not re.search(opts.cases, f"{kind} {shape}"):
+            continue
+        k, n = C.SHAPES[shape]
+        kp, npad = qm.padded_shape(k, n)
+        qts = [C.random_planes(K, kind, kp, npad, k, n, gen)]
+        wbytes = C.plane_bytes(qts[0])
+        qts += [C.random_planes(K, kind, kp, npad, k, n, gen)
+                for _ in range(max(0, math.ceil(150e6 / wbytes) - 1))]
+        for m in opts.m:
+            x = torch.zeros((m, kp), device=dev)
+            x[:, :k] = torch.randn((m, k), generator=gen, device=dev)
+            out = torch.empty(m, npad, device=dev)
+            bound = (wbytes + 4 * m * (kp + npad)) / C.PEAK_BYTES_S * 1e3
+            for sym in ("qmm_g8", "qmm_f"):
+                ref = K.PLAIN[sym](x, qts[0])
+                for j, name in enumerate(opts.variants):
+                    lib = libs[name][0]
+                    fn = getattr(lib, "ct_" + sym)
+
+                    def call(i, fn=fn):
+                        qt = qts[i % len(qts)]
+                        rc = fn(*K._ptrs(x, *K._planes(qt), out), m, kp, npad, qt.group,
+                                K._stream(dev))
+                        if rc:
+                            raise SystemExit(f"{name} {sym}: launch failed with CUDA error {rc}")
+
+                    ms = C.cuda_time_ms(call, opts.reps, graph=True)
+                    call(0)
+                    torch.cuda.synchronize()
+                    err = ((out - ref).norm() / ref.norm()).item()
+                    plan = getattr(lib, "ct_qmm_grid_split_plan", None)
+                    p = plan(int(sym == "qmm_g8"), qts[0].group, m, kp, npad) if plan else "-"
+                    label = f"{j}:{name}" if opts.variants.count(name) > 1 else name
+                    result[name][f"{sym} {kind} {shape} m={m}"] = ms
+                    print(f"{label:24s} {sym:6s} {kind} {shape:7s} m={m:2d} P={p}: {ms:.4f} ms "
+                          f"(bound {bound:.4f}, x{ms / bound:.2f}; rel err {err:.2e})",
+                          flush=True)
+                    if not opts.no_check and (name in CHECKED or name.startswith("root:")) \
+                            and not err <= 1e-5:
+                        raise SystemExit(f"{name} {sym} {kind} {shape} m={m}: rel err {err:.2e}")
+        del qts
+        torch.cuda.empty_cache()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,7 @@ port on one card, one fresh process per run, so that two versions of the
 engine's host path (not only of a kernel) are compared under the same card,
 power limit and host.
 
-    python3 scripts/torch_serve_ab.py [--layers 32] [--steps 64]
+    python3 scripts/torch_serve_ab.py [--layers 32] [--steps 64] [--fused]
         [--models Q4_K_M,GPTQ4-g128,...] RUN [RUN ...]
 
 Each RUN is ROOT or ROOT:NAME=VALUE[,NAME=VALUE...]: a checkout of this
@@ -26,8 +26,12 @@ empty context under torch.profiler, `--steps` decode steps (eval + sample
 on the host clock: mean, median and least), the device's busy time over
 four more steps, and, where the checkout has kernel selection, the host's
 cost of one settled `pick_mode` call (the mean over 20 passes over the
-engine's weights at m = 1). Prints one line per run and model and, last, a JSON list of
-them.
+engine's weights at m = 1). With --fused, also the fused decode as
+chip_smoke.py's serve_fast takes it (the checkout's own chip_smoke.py
+helpers): a greedy generate_fast of 64 tokens in segments of 32 that
+captures, a second one whose engine timings give the fused ms per token,
+and the device's busy ms per token over one replayed segment. Prints one
+line per run and model and, last, a JSON list of them.
 """
 
 from __future__ import annotations
@@ -90,6 +94,28 @@ for label, path in {models!r}:
             for _ in range(4):
                 tok = step(llm, tok)
         busy_us = device_us(prof)
+    fused = {{}}
+    if {fused}:
+        import chip_smoke as C
+        eng = llm._engine
+        prompt = C.prompt_of_len(llm, C.FAST_PROMPT)
+        C.fused_greedy(llm, prompt, C.FAST_TOKENS, C.FAST_CHUNK)  # captures
+        t = eng.timings()
+        C.fused_greedy(llm, prompt, C.FAST_TOKENS, C.FAST_CHUNK)  # replays only
+        t2 = eng.timings()
+        C.empty_context(llm)
+        pids = llm.tokenize(prompt)
+        llm.eval(pids)
+        cfg = llm.config
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                eng.decode(C.FAST_CHUNK, top_k=cfg.top_k, top_p=cfg.top_p, temperature=0.0,
+                           repetition_penalty=1.0, last_tokens=pids, last_n=cfg.last_n_tokens)
+                torch.cuda.synchronize()
+        fused = dict(fused_ms=(t2["t_eval_ms"] - t["t_eval_ms"]) / (t2["n_eval"] - t["n_eval"]),
+                     fused_busy_ms=device_us(prof) / 1e3 / C.FAST_CHUNK)
     pick_us = None
     from ctransformers_tpu_torch.ops import qmatmul as qm
     if hasattr(qm, "pick_mode"):
@@ -104,7 +130,7 @@ for label, path in {models!r}:
                     decode_ms_mean=statistics.fmean(times),
                     decode_ms_median=statistics.median(times),
                     decode_ms_min=min(times),
-                    device_busy_ms=busy_us / 4e3, pick_mode_us=pick_us))
+                    device_busy_ms=busy_us / 4e3, pick_mode_us=pick_us, **fused))
     del llm
     torch.cuda.empty_cache()
 print("AB_RESULT " + json.dumps(out))
@@ -115,6 +141,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--fused", action="store_true", help="also time generate_fast")
     ap.add_argument("--models", default="Q4_K_M,GPTQ4-g128",
                     help=f"comma-separated, of {','.join(MODELS)}")
     ap.add_argument("runs", nargs="+")
@@ -149,7 +176,8 @@ def main() -> int:
             env.update(kv.split("=", 1) for kv in settings.split(",") if kv)
             r = subprocess.run(
                 [sys.executable, "-c",
-                 CHILD.format(root=os.path.abspath(root), models=models, steps=args.steps)],
+                 CHILD.format(root=os.path.abspath(root), models=models, steps=args.steps,
+                              fused=args.fused)],
                 capture_output=True, text=True, cwd=os.path.abspath(root), env=env)
             if r.returncode != 0:
                 print(r.stdout[-2000:], r.stderr[-4000:], file=sys.stderr)

@@ -11,7 +11,8 @@ layouts, at every llama head width (above 256 in column slices) and any
 number of query heads a kv head; the symbols of the Hopper GEMM core
 (qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq, qmm_i_gptq,
 qmm_si_k16, and qmm_sb_ks with its decode design at m <= 32) at prompt
-sizes up to m = 2048; the IEEE scale divisions of kv_quantize and the
+sizes up to m = 2048; qmm_g8 and qmm_f at m <= 32 (K split over a
+cluster) at the llama-2-7B keys, the split's edges and in a CUDA graph; the IEEE scale divisions of kv_quantize and the
 probes' quantizers; and the fused decode loop of engine/engine.py (a
 captured CUDA graph per key) against the eager loop on a tiny model.
 
@@ -447,6 +448,83 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
                   K._stream(dev)) != 0
         assert fn(*K._ptrs(x, q51.qs, q51.scales, q51.mins, out), 64, 256, 128, 0,
                   K._stream(dev)) != 0
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0)
+
+
+# qmm_g8 and qmm_f at m <= 32: the K split over a cluster of
+# csrc/qmm_splitk.cuh, at the llama-2-7B keys (Q6_K attn_v, ffn_down and
+# output of a Q4_K_M file; Q5_K fused QKV and ffn_down of a Q5_K_M file) and
+# at the split's edges: the smallest K (two 128-row stages) at the narrowest
+# N the wrapper takes, and stage counts that no P divides (10, 26)
+SPLIT_KEYS = [("Q6_K", 4096, 4096), ("Q6_K", 11264, 4096), ("Q6_K", 4096, 32768),
+              ("Q5_K", 4096, 12288), ("Q5_K", 11264, 4096)]
+SPLIT_EDGES = [("Q6_K", 256, 128), ("Q5_K", 256, 128), ("Q6_K", 1280, 4096),
+               ("Q5_K", 3328, 256)]
+
+
+@pytest.mark.parametrize("name", ["qmm_g8", "qmm_f"])
+@pytest.mark.parametrize("kind,k,n", SPLIT_KEYS + SPLIT_EDGES)
+@pytest.mark.parametrize("m", [1, 3, 8, 32])
+def test_grid_split_matches_plain(dev, name, kind, k, n, m):
+    qt = random_grid(kind, k, n, seed=k + n + m, device=dev)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    p = K.grid_split_plan(name, qt, m)
+    assert p in (1, 2, 3, 4, 6, 8) and p <= k // 128
+    if (k, n, m) == (4096, 4096, 1):  # enough blocks for the card's SMs
+        assert p * n // 128 >= 128
+    before = K.LAUNCHES[name]
+    got = K.KERNELS[name](x, qt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    ref = K.PLAIN[name](x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= TOL[name], (p, _rel(got, ref))
+    assert torch.equal(got, K.KERNELS[name](x, qt)), "kernel runs are not bitwise repeatable"
+
+
+@pytest.mark.parametrize("name,kind,m", [("qmm_g8", "Q6_K", 1), ("qmm_g8", "Q5_K", 8),
+                                         ("qmm_f", "Q6_K", 8), ("qmm_f", "Q5_K", 1)])
+def test_grid_split_replays_in_a_graph(dev, name, kind, m):
+    """One captured call replayed on new activations (copied into the tensor
+    the graph reads) equals eager calls, bitwise."""
+    qt = random_grid(kind, 11264, 4096, seed=5, device=dev)
+    x = torch.randn(m, 11264, generator=torch.Generator().manual_seed(6)).to(dev)
+    kern = K.KERNELS[name]
+    kern(x, qt)  # builds, plans and warms
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern(x, qt)
+    for seed in (7, 8, 9):
+        x.copy_(torch.randn(m, 11264, generator=torch.Generator().manual_seed(seed)))
+        graph.replay()
+        eager = kern(x, qt)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), seed
+        assert _rel(out, K.PLAIN[name](x, qt)) <= TOL[name]
+
+
+def test_grid_split_refuses_what_it_does_not_take(dev):
+    """The split takes m 1..32, a K padded to 256 rows and an N to 128
+    columns, group 16 without mins or 32 with both min planes (Q5_K's
+    sub-mins without sm refused); a refusal launches nothing, and the plan
+    raises."""
+    x = torch.randn(8, 256, device=dev)
+    out = torch.full((8, 128), 7.0, device=dev)
+    q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
+    for sym in ("ct_qmm_g8", "ct_qmm_f"):
+        fn = K._fn("qmm_float", sym)
+        for qt, kp, np_, group in ((q6k, 128, 128, 16), (q6k, 256, 64, 16), (q6k, 256, 128, 32),
+                                   (q5k, 256, 128, 16)):
+            assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 8, kp, np_,
+                      group, K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q5k.qs, q5k.scales, q5k.mins, q5k.sd, None, out), 8, 256, 128, 32,
+                  K._stream(dev)) != 0
+    with pytest.raises(RuntimeError):
+        K.grid_split_plan("qmm_g8", q6k, 33)
+    with pytest.raises(ValueError):
+        K.grid_split_plan("qmm_s", q5k, 1)
     torch.cuda.synchronize()
     assert torch.all(out == 7.0)
 

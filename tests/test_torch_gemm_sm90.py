@@ -113,12 +113,15 @@ def _real(kind, k=512, n=384):
 
 # qmm_sb_ks: the ksplit float design ("n32k512") at m <= 32, the core above
 SB_KS_CONFIG = "n32k512|wg128n128c3"
+# qmm_g8 and qmm_f: the K split ("n128k16r2c8") at m <= 32, the decode
+# design ("n32k1024") above
+GRID_SPLIT_CONFIG = "n128k16r2c8|n32k1024"
 
 
 @pytest.mark.parametrize("kind,m,want", [
     ("Q6_K", 128, {"b": K.WGMMA_CONFIG}),
-    ("Q6_K", 8, {"b": K.WGMMA_CONFIG, "g": K.DECODE_CONFIG, "q8": K.DECODE_CONFIG,
-                 "": K.DECODE_CONFIG}),
+    ("Q6_K", 8, {"b": K.WGMMA_CONFIG, "g": GRID_SPLIT_CONFIG, "q8": K.DECODE_CONFIG,
+                 "": GRID_SPLIT_CONFIG}),
     ("Q5_K", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
     ("Q4_K", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
     ("GPTQ4/128", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),

@@ -368,9 +368,7 @@ def _pallas_as_port(x, qt, compute_dtype=None, mode=None):
     return _pallas(mode or tqm.select_mode(x.shape[0], qt), x, qt, x.shape[0])
 
 
-@pytest.mark.parametrize("act_order", [False, True], ids=["plain", "actorder"])
-@pytest.mark.parametrize("size", sorted(TINY))
-def test_gptq_llm_matches_jax(tmp_path, size, act_order, monkeypatch):
+def gptq_llm_matches_jax(tmp_path, size, act_order, monkeypatch):
     """A tiny GPTQ directory written by the port's writer through both
     packages' AutoModelForCausalLM ('gptq' in the name routes): the same
     greedy text and tokens, every matmul call of the port equal to the
@@ -458,6 +456,11 @@ def test_gptq_llm_matches_jax(tmp_path, size, act_order, monkeypatch):
     # (measured up to 5.7% on one decode step; 0.8-1.7% at group 32)
     assert max(same) < 0.05, same
     assert max(exact) < EXACT_CLASS[size], exact
+
+
+# test_gptq_llm_matches_jax runs gptq_llm_matches_jax in files of its own
+# (tests/test_torch_gptq_llm.py, tests/test_torch_gptq_llm_actorder.py), so
+# that the test workers, which take a file each, share its minutes
 
 
 def test_gptq_llm_uses_decayed_penalty(tmp_path):

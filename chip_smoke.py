@@ -254,13 +254,14 @@ CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
                    ("ks:Q4_K", "down"), ("ks:GPTQ4/128", "o"), ("ks:GPTQ4/32", "o"),
                    ("ks:GPTQ4/64", "o"), ("ks:Q4_0", "down"), ("ks:Q2_K", "o"),
                    ("ks:Q3_K", "down")}
-# qmm_g8 and qmm_f at m <= 32: the K split over a cluster (csrc/qmm_splitk.cuh),
-# held on the Q6_K and Q5_K cases at SPLIT_HELD_M beside the timed m = 1 and
-# 8, each call checked bitwise against a second one, its plan's P logged;
-# PERF.md's kernel-table row of each
-SPLIT_KERNELS = ("qmm_g8", "qmm_f")
+# the kernels that split K over a cluster at m <= 32 (csrc/qmm_splitk.cuh):
+# qmm_g8 and qmm_f held on the Q6_K and Q5_K cases, qmm_qx and qmm_g on the
+# Q4_K ones, at SPLIT_HELD_M beside the timed m = 1 and 8, each call checked
+# bitwise against a second one, its plan's P logged; PERF.md's kernel-table
+# row of each
+SPLIT_ROWS = {"qmm_g8": "7c", "qmm_f": "5b", "qmm_qx": "1a", "qmm_g": "7a"}
+SPLIT_KERNELS = tuple(SPLIT_ROWS)
 SPLIT_HELD_M = (3, 32)
-SPLIT_ROWS = {"qmm_g8": "7c", "qmm_f": "5b"}
 # (kernel, table key) held against its plain version in phase 3
 HELD = set()
 # the batch sizes raced per case (the sizes the main path's prompt and decode run)
@@ -711,8 +712,10 @@ def phase_kernels(K, copy_bw: float):
             others += [(K.kernel_name("r" if m <= 32 else "rb", base), m) for m in RACE_M]
         if not base.packed:  # and where one of qx_mode_entries sends the grids
             others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
-        if not base.packed and base.sfactor:  # the K split at more m
-            others += [(name, m) for name in SPLIT_KERNELS for m in SPLIT_HELD_M]
+        if base.sfactor and base.pack_layout == "adjk":  # the K split at more m
+            served = {K.kernel_name(mode, base) for mode in ("g", "", "qx")}
+            others += [(name, m) for name in SPLIT_KERNELS if name in served
+                       for m in SPLIT_HELD_M]
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
             adjk = base.packed and base.pack_layout == "adjk"
             for core in dict.fromkeys(K.kernel_name(mode, base)

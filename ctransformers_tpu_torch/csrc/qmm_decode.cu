@@ -42,7 +42,13 @@
 // over the G/4 neighbouring threads of a group with an xor butterfly: every
 // thread adds the same pairs in the same order, so runs stay bitwise
 // repeatable.
+//
+// ct_qmm_qx takes another design at m <= 32: K split over a thread-block
+// cluster, the nibble stream kept in flight by a cp.async ring, x quantized
+// once a block, dp4a on transposed nibble bytes (qmm_splitk.cuh); this
+// file's serves it above.
 #include "qmm_common.cuh"
+#include "qmm_splitk.cuh"
 
 namespace {
 
@@ -347,14 +353,25 @@ int launch_k16(const float* x, const int8_t* xq, const float* sx, const float* x
 
 extern "C" {
 
-// mode "qx" on Q4_K: x f32 (m, kp), quantized in the kernel.
+// mode "qx" on Q4_K: x f32 (m, kp), quantized in the kernel; at m <= 32 the
+// K split of qmm_splitk.cuh (which refuses a null plane).
 int ct_qmm_qx(const float* x, const int8_t* qs, const int8_t* sub_s,
               const int8_t* sub_m, const float* sd, const float* sm,
               float* out, int m, int kp, int np, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m >= 1 && m <= ctsk::kMaxM)
+    return ctsk::run_nibble<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
   return launch<true, ctq::kGroup, false, true>(x, nullptr, nullptr, nullptr, qs, sub_s, sub_m,
-                                                sd, sm, out, m, kp, np,
-                                                static_cast<cudaStream_t>(stream));
+                                                sd, sm, out, m, kp, np, st);
 }
+
+// the K split's plan for ct_qmm_qx at batch size m: the cluster's blocks P,
+// or a negative CUDA error code (m outside 1..32 among them)
+int ct_qmm_qx_split_plan(int m, int kp, int np) { return ctsk::nibble_plan_of<true>(m, kp, np); }
+
+// the clusters of p blocks that the split's kernel for ct_qmm_qx at batch
+// size m runs on the card at once, or a negative CUDA error code
+int ct_qmm_qx_split_capacity(int m, int p) { return ctsk::nibble_capacity_of<true>(m, p); }
 
 // mode "q" on Q4_K: xq int8 (m, kp), sx and xsum f32 (m, kp/32) given.
 int ct_qmm_q(const int8_t* xq, const float* sx, const float* xs,

@@ -43,9 +43,10 @@
 // to m = 8 and by f32 operations above, and "g" (bf16 operands, ~295
 // operations per byte) by bytes at every m it is offered for (m <= 32).
 // This simple version multiplies on the f32 pipes for all three modes.
-// "g" and "" on the factored grids (ct_qmm_g8, ct_qmm_f) take another design
-// at m <= 32: K split over a thread-block cluster, the weight stream kept in
-// flight by a cp.async ring (qmm_splitk.cuh).
+// "g" and "" on the factored grids (ct_qmm_g8, ct_qmm_f) and "g" on Q4_K
+// (ct_qmm_g) take another design at m <= 32: K split over a thread-block
+// cluster, the weight stream kept in flight by a cp.async ring
+// (qmm_splitk.cuh).
 // Design: that of qmm_decode.cu. A block owns 32
 // output columns and ALL of K, so every output element is summed by one
 // block in a fixed order (no atomics, no split-K: runs are bitwise
@@ -515,13 +516,25 @@ int launch_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8
 
 extern "C" {
 
-// mode "g" on Q4_K: x f32 (m, kp).
+// mode "g" on Q4_K: x f32 (m, kp); at m <= 32 the K split of
+// qmm_splitk.cuh (which refuses a null plane).
 int ct_qmm_g(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
              const float* sd, const float* sm, float* out, int m, int kp, int np,
              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m >= 1 && m <= ctsk::kMaxM)
+    return ctsk::run_nibble<false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, st);
   return launch<kModeG, kAdjk, false, ctq::kGroup, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
-                                                       np, static_cast<cudaStream_t>(stream));
+                                                       np, st);
 }
+
+// the K split's plan for ct_qmm_g on Q4_K at batch size m: the cluster's
+// blocks P, or a negative CUDA error code (m outside 1..32 among them)
+int ct_qmm_g_split_plan(int m, int kp, int np) { return ctsk::nibble_plan_of<false>(m, kp, np); }
+
+// the clusters of p blocks that the split's kernel for ct_qmm_g at batch
+// size m runs on the card at once, or a negative CUDA error code
+int ct_qmm_g_split_capacity(int m, int p) { return ctsk::nibble_capacity_of<false>(m, p); }
 
 // mode "g" on Q2_K and Q3_K: sub-scales (and Q2_K's sub-mins) int8
 // (kp/16, np), sd (and sm) f32 (kp/256, np).

@@ -1,57 +1,90 @@
-// The decode GEMVs on the factored int8 grids (Q6_K: group 16, no mins;
-// Q5_K: group 32, with mins) at m <= 32: ct_qmm_g8 (mode "g") and ct_qmm_f
-// (mode "") of qmm_float.cu take this design there, the file's own above.
+// The decode GEMVs at m <= 32 on the factored int8 grids (Q6_K: group 16, no
+// mins; Q5_K: group 32, with mins), ct_qmm_g8 (mode "g") and ct_qmm_f (mode
+// "") of qmm_float.cu, and on the Q4_K adjk nibbles (group 32, with mins),
+// ct_qmm_qx (mode "qx") of qmm_decode.cu and ct_qmm_g (mode "g") of
+// qmm_float.cu: each symbol takes this design there, its file's own above.
 //
-// Replaces, in ctransformers_tpu/ops/qmatmul.py (what they compute is
-// qmm_float.cu's, unchanged):
+// Replaces, in ctransformers_tpu/ops/qmatmul.py (what they compute is the
+// files' first designs', unchanged):
 //   _qmm_g_kernel (:1206) on the grids -> ct_qmm_g8
 //       out = sum_g s[g,n] * dot_g(bf16(x), q)[t,n] + xsum @ M (Q5_K)
 //   _qmm_kernel mode "" (:734) on the grids -> ct_qmm_f
 //       out = x @ (q * s + m), all f32
+//   _qmm_qx_kernel (:1370) on Q4_K -> ct_qmm_qx
+//       out = sum_g (dot_g(xq, w4)[t,n] * sx[t,g]) * s[g,n] + xsum @ B, the
+//       group dots exact in int32, x quantized per (token, group of 32)
+//   _qmm_g_kernel (:1206) on Q4_K -> ct_qmm_g
+//       out = sum_g s[g,n] * dot_g(bf16(x), w4)[t,n] + xsum @ B
+// with w4 the stored nibble and B = 8 s + m.
 //
-// Bound on an H100: the weight's bytes (1 B a weight, 1/G B of sub-scales,
-// 4/256 B of factors) at m = 1; at m = 8 the f32 pipes come near (two f32
-// operations a weight byte a row: 67 TFLOP/s over 3.35 TB/s is 20). The
-// file's first design held a block to 32 columns and all of K: 128 blocks
-// at N = 4096, each chunk's weights loaded only after the barrier that
-// staged its x, 16 KB in flight an SM, so the narrow long-K shapes ran at
-// 2.6-3.0x their bound.
+// Bound on an H100: the weight's bytes (1 B a grid weight or 0.5 B a
+// nibble, 1/G B of sub-scales, 4/256 B of factors) at m = 1; at m = 8 the
+// f32 pipes come near (two f32 operations a weight byte a row: 67 TFLOP/s
+// over 3.35 TB/s is 20). The files' first designs held a block to 32
+// columns and all of K: 128 blocks at N = 4096, each chunk's weights loaded
+// only after the barrier that staged its x, 16 KB in flight an SM, so the
+// narrow long-K shapes ran at 2.6-3.6x their bound.
 //
-// Design:
+// Design (both layouts):
 //   - A block owns 128 output columns (a warp's 32 threads x 4) and a range
-//     of K. Its 8 warps are K lanes: warp w takes rows [16 w, 16 w + 16) of
-//     each 128-row stage, so a Q6_K group is one warp's and a Q5_K group
-//     two warps'. Each thread's cp.async copies are fixed chunks of the
-//     stage. m = 1 runs one row of x a block, m > 1 eight (kMT).
+//     of K. Its 8 warps are K lanes: on a grid warp w takes rows [16 w,
+//     16 w + 16) of each 128-row stage, so a Q6_K group is one warp's and a
+//     Q5_K group two warps'; on nibbles a stage is one superblock (256 rows,
+//     128 byte rows) and warp w takes its group w, whose dot stays in one
+//     thread's registers. Each thread's cp.async copies are fixed chunks of
+//     the stage. m = 1 runs one row of x a block, m > 1 eight (kMT).
 //   - K is split over a thread-block cluster of P blocks along x: block r
-//     of the cluster takes stages [r nst / P, (r + 1) nst / P) of the nst =
-//     kp / kKR, and the cluster adds its P partial tiles through
+//     of the cluster takes stages [r nst / P, (r + 1) nst / P) of the nst
+//     stages, and the cluster adds its P partial tiles through
 //     distributed shared memory in rank order, each output element by one
 //     thread: runs are bitwise repeatable, a replayed CUDA graph too.
 //   - plan() chooses P on the host from the shape alone: the first of 8, 6,
 //     4, 3, 2 (up to kMaxP and nst) whose clusters all fit on the card at
-//     once (cudaOccupancyMaxActiveClusters), else 1, so that no partial
-//     second wave doubles the time: at N = 4096 and m = 1 P = 8, at
-//     N = 32768 P = 1 or 2.
+//     once (cudaOccupancyMaxActiveClusters, asked per instantiation), else
+//     1, so that no partial second wave doubles the time: at N = 4096 and
+//     m = 1 P = 8, at N = 32768 P = 1 or 2.
 //   - The weight stream is kept in flight: a ring of kStages stages in
 //     shared memory, each filled by cp.async (16 bytes a copy, L2 only) with
-//     its weights, its x rows (zero past m), its sub-scales (and sub-mins)
-//     and its superblock row of factors. The loads of stage i + kStages - 1
-//     are issued right after the barrier that opens stage i, before its
-//     compute: kStages - 1 stages are in flight a block while it computes
-//     (the design's 2: 18-19 KB a block at m = 1, up to four blocks an SM,
-//     22 KB at 8 rows of x; 3 and 4 stages ran 3-6% slower on an H100,
-//     PERF.md).
+//     its weights, its sub-scales (and sub-mins) and its superblock row of
+//     factors (the grids: its x rows too, zero past m). The loads of stage
+//     i + kStages - 1 are issued right after the barrier that opens stage i,
+//     before its compute: kStages - 1 stages are in flight a block while it
+//     computes (the design's 2: 18-19 KB a block at m = 1, up to four
+//     blocks an SM, 22 KB at 8 rows of x; 3 and 4 stages ran 3-6% slower on
+//     the grids on an H100, PERF.md).
 //   - The int8 grid becomes f32 without a conversion instruction (16 a
 //     clock an SM, the stream needs ~15 bytes a clock): each byte, biased
 //     by 128, is permuted into the mantissa of 2^23 and 2^23 + 128 is
 //     subtracted, exactly.
-//   - "g": x is rounded to bf16 in place once a stage (after the group sums
-//     of the unrounded x, Q5_K), the exact products summed in f32 over a
-//     group, the sum multiplied once by s = sd * sub_s; a Q5_K group's
+//   - grid "g": x is rounded to bf16 in place once a stage (after the group
+//     sums of the unrounded x, Q5_K), the exact products summed in f32 over
+//     a group, the sum multiplied once by s = sd * sub_s; a Q5_K group's
 //     second warp hands its sum to the first through shared memory before
 //     that multiply. "": each weight dequantized as __fmul_rn(q, s) (then
 //     __fadd_rn(., m), Q5_K) and multiplied in f32 (no TF32).
+//   - Nibbles: the block stages x for its own K range once, in windows of
+//     kWinRows (a block's whole range but at the longest K), while the
+//     ring's first copies are in flight: "qx" quantizes it (xq, sx, the
+//     group sums xs and 8 sum(xq)), "g" rounds it to bf16 (xs of the
+//     unrounded x). A nibble stream runs out of instructions before bytes
+//     (~30 nibbles a clock an SM against 64 integer operations), so a
+//     weight costs few: each word of 4 columns x 2 rows becomes its
+//     unsigned nibbles u = w4 + 8 in two words of bytes (a mask and a shift
+//     and a mask); "qx" transposes four byte rows' words with 8 byte
+//     permutes into K-contiguous words a column and takes dp4a against x
+//     (stored as the even rows, then the odd ones, of each 8), the exact
+//     dot sum(xq u) - 8 sum(xq); "g" at m = 1 permutes each u into the
+//     mantissa of 2^23 and subtracts 2^23 + 8 (no I2F, a quarter-rate
+//     conversion). Then one f32 rescale a group, as the first design.
+//   - "g" at m > 1 (8 rows of x) runs out of f32 pipes (8 products a
+//     weight), so it multiplies on tensor cores: mma.sync m16n8k16 with 16
+//     columns x 16 K rows of nibbles as A, one adjk byte a register (K rows
+//     2r, 2r + 1 of a column: u into the mantissa of 128, minus 136, exact
+//     in bf16), x as bf16 pairs for B; two k steps a group, whose f32 sum
+//     is multiplied once by s. The products are exact, the tensor core's f32
+//     sums of a group are in its own order. The stage's byte rows are
+//     swizzled (chunk j of row r at j ^ 2 (r % 4)) so that the A loads and
+//     the padded x rows meet 32 banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,10 +96,17 @@
 
 namespace ctsk {
 
-// scripts/torch_qmm_split_ablate.py builds variants of these three
+// scripts/torch_qmm_split_ablate.py builds variants of these
 constexpr int kStages = 2;  // stages in the ring
 constexpr int kMaxP = 8;    // the largest cluster
 constexpr int kMT = 8;      // rows of x a block at m > 1
+// the nibble kernels' forms: "qx" dp4a on transposed bytes (false: a shift
+// pair and a multiply-add a nibble, the first design's), "g" at m = 1 the
+// nibble put into the mantissa of 2^23 (false: an I2F a nibble), "g" at
+// m > 1 bf16 mma.sync on tensor cores (false: f32 products, as at m = 1)
+constexpr bool kNibbleDp4a = true;
+constexpr bool kNibbleMagic = true;
+constexpr bool kNibbleMma = true;
 constexpr int kTN = 128;             // output columns a block
 constexpr int kWarps = 8;            // K lanes
 constexpr int kThreads = 32 * kWarps;
@@ -140,6 +180,64 @@ __device__ __forceinline__ float byte_f32(uint32_t wb, int c) {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// The end of both kernels: each thread's sums of its outputs over its warp's
+// K rows, written by store(red) into red[warp][row of x][column], are added
+// over the block's warps in warp order, then over the cluster's blocks in
+// rank order through distributed shared memory, each output element by one
+// thread; the ring (smem) holds the tiles.
+template <int MT, class Store>
+__device__ __forceinline__ void reduce_tile(const Store& store, uint8_t* smem,
+                                            float* __restrict__ out, int m, int np, int n0,
+                                            int t0, uint32_t rank, int parts) {
+  const int tid = threadIdx.x;
+  cp_wait<0>();
+  __syncthreads();  // the ring is free
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][MT][kTN]
+  float* blk = red + kWarps * MT * kTN;         // [MT][kTN]
+  store(red);
+  __syncthreads();
+  for (int e = tid; e < MT * kTN; e += kThreads) {
+    float v = 0.0f;
+#pragma unroll
+    for (int l = 0; l < kWarps; ++l) v = __fadd_rn(v, red[l * MT * kTN + e]);
+    blk[e] = v;
+  }
+  ctw::cluster_sync();  // every block's tile written
+  // block `rank` adds its share of the tile's float4s over the cluster
+  constexpr int kE4 = MT * kTN / 4;
+  for (int e = static_cast<int>(rank) * kE4 / parts + tid;
+       e < (static_cast<int>(rank) + 1) * kE4 / parts; e += kThreads) {
+    const uint32_t local = ctw::smem_addr(blk + 4 * e);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < parts; ++q) {
+      const float4 v = ctw::ld_cluster(local, static_cast<uint32_t>(q));
+      sum.x = __fadd_rn(sum.x, v.x);
+      sum.y = __fadd_rn(sum.y, v.y);
+      sum.z = __fadd_rn(sum.z, v.z);
+      sum.w = __fadd_rn(sum.w, v.w);
+    }
+    const int t = t0 + 4 * e / kTN;
+    if (t < m) *reinterpret_cast<float4*>(out + (size_t)t * np + n0 + 4 * e % kTN) = sum;
+  }
+  ctw::cluster_sync();  // no block leaves while another reads its tile
+}
+
+// reduce_tile of acc[i][c], the sums of output (t0 + i, n0 + 4 lane + c)
+template <int MT>
+__device__ __forceinline__ void reduce_out(const float (&acc)[MT][4], uint8_t* smem,
+                                           float* __restrict__ out, int m, int np, int n0,
+                                           int t0, uint32_t rank, int parts) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  reduce_tile<MT>(
+      [&](float* red) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          *reinterpret_cast<float4*>(red + (w * MT + i) * kTN + 4 * lane) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      },
+      smem, out, m, np, n0, t0, rank, parts);
 }
 
 // MT: rows of x a block (1, or kMT at m > 1); G8: mode "g", else ""; G: 16 (Q6_K, no
@@ -337,53 +435,485 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
     }
   }
 
-  // ---- the warps' tiles, added in warp order; then the cluster's, in rank order ----
-  cp_wait<0>();
-  __syncthreads();  // the ring is free
-  float* red = reinterpret_cast<float*>(smem);  // [kWarps][MT][kTN]
-  float* blk = red + kWarps * MT * kTN;         // [MT][kTN]
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    *reinterpret_cast<float4*>(red + (w * MT + i) * kTN + 4 * lane) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  __syncthreads();
-  for (int e = tid; e < MT * kTN; e += kThreads) {
-    float v = 0.0f;
-#pragma unroll
-    for (int l = 0; l < kWarps; ++l) v = __fadd_rn(v, red[l * MT * kTN + e]);
-    blk[e] = v;
-  }
-  ctw::cluster_sync();  // every block's tile written
-  // block `rank` adds its share of the tile's float4s over the cluster
-  constexpr int kE4 = MT * kTN / 4;
-  for (int e = static_cast<int>(rank) * kE4 / parts + tid;
-       e < (static_cast<int>(rank) + 1) * kE4 / parts; e += kThreads) {
-    const uint32_t local = ctw::smem_addr(blk + 4 * e);
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int q = 0; q < parts; ++q) {
-      const float4 v = ctw::ld_cluster(local, static_cast<uint32_t>(q));
-      sum.x = __fadd_rn(sum.x, v.x);
-      sum.y = __fadd_rn(sum.y, v.y);
-      sum.z = __fadd_rn(sum.z, v.z);
-      sum.w = __fadd_rn(sum.w, v.w);
-    }
-    const int t = t0 + 4 * e / kTN;
-    if (t < m) *reinterpret_cast<float4*>(out + (size_t)t * np + n0 + 4 * e % kTN) = sum;
-  }
-  ctw::cluster_sync();  // no block leaves while another reads its tile
+  reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
 }
 
-template <int MT, bool G8, int G, bool HAS_MINS>
-struct Split {
-  static constexpr size_t kSmem = Smem<MT, G8, G, HAS_MINS>::kBytes;
+// ---- Q4_K adjk nibbles: ct_qmm_qx (QX) and ct_qmm_g ----
+constexpr int kNRows = ctq::kSuperblock;         // K rows a stage: one superblock
+constexpr int kNGroups = kNRows / ctq::kGroup;   // its groups: warp w takes group w
+static_assert(kNGroups == kWarps, "a warp a group of 32 rows");
 
-  static cudaError_t prepare() {
-    return cudaFuncSetAttribute(splitk_kernel<MT, G8, G, HAS_MINS>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(kSmem));
+// byte offsets of one nibble stage's parts (each a multiple of 16)
+struct NStage {
+  static constexpr int kW = 0;                          // int8 [kNRows / 2][kTN] byte rows
+  static constexpr int kSub = kW + kNRows / 2 * kTN;    // int8 [kNGroups][kTN]
+  static constexpr int kSubM = kSub + kNGroups * kTN;   // int8 [kNGroups][kTN]
+  static constexpr int kSd = kSubM + kNGroups * kTN;    // f32 [kTN]
+  static constexpr int kSm = kSd + 4 * kTN;             // f32 [kTN]
+  static constexpr int kBytes = kSm + 4 * kTN;
+};
+
+// "g" at m > 1 on tensor cores: mma.sync m16n8k16, 16 columns x 16 K rows
+// of nibbles as A (the adjk byte holds the pair of K rows that a register
+// of the A fragment holds), the 8 rows of x (kMT) as B
+template <int MT, bool QX>
+constexpr bool kMmaG = !QX && MT == 8 && kNibbleMma;
+
+// K rows of x a block stages at once (a window): all of a block's range
+// but at the longest K (qx: int8, g: f32, g on tensor cores: bf16)
+template <int MT, bool QX>
+constexpr int kWinRows = QX ? (MT == 1 ? 8192 : 4096)
+                            : (kMmaG<MT, QX> ? 2048 : (MT == 1 ? 4096 : 1024));
+
+// shared memory of a nibble block: the ring, then the window's x
+template <int MT, bool QX>
+struct NSmem {
+  static constexpr bool kMma = kMmaG<MT, QX>;
+  static constexpr int kW = kWinRows<MT, QX>;
+  static constexpr int kG = kW / ctq::kGroup;
+  static constexpr int kRing = kStages * NStage::kBytes;
+  // words a row of bf16 pairs (tensor cores), padded so that the lanes' B
+  // fragments meet 32 banks
+  static constexpr int kXStride = kW / 2 + 4;
+  // qx: int8 [MT][kW], each 8 rows as the 4 even rows, then the 4 odd ones
+  // (the dp4a words of 4 byte rows); g: f32 [MT][kW], rounded to bf16; g
+  // on tensor cores: bf16 pairs [MT][kXStride]
+  static constexpr int kX0 = kRing;
+  // qx: f32 [MT][kG] sx
+  static constexpr int kSx0 = kX0 + (QX ? MT * kW : kMma ? MT * kXStride * 4 : MT * kW * 4);
+  static constexpr int kXs0 = kSx0 + (QX ? MT * kG * 4 : 0);  // f32 [MT][kG] group sums of x
+  static constexpr int kXc0 = kXs0 + MT * kG * 4;             // qx: int [MT][kG] 8 * sum(xq)
+  // g on tensor cores: f32 [kWarps][2][kTN], each warp's group's s and B
+  static constexpr int kSc0 = kXc0 + (QX ? MT * kG * 4 : 0);
+  static constexpr int kBytes = kSc0 + (kMma ? kWarps * 2 * kTN * 4 : 0);
+  static_assert(kW % kNRows == 0, "a window holds whole stages");
+  static_assert((kWarps + 1) * MT * kTN * 4 <= kRing, "the reduction fits in the ring");
+};
+
+// t[c] = byte c of a[0], a[1], a[2], a[3]: a 4 x 4 byte transpose
+__device__ __forceinline__ void transpose4(const uint32_t (&a)[4], uint32_t (&t)[4]) {
+  const uint32_t p01 = __byte_perm(a[0], a[1], 0x5140);  // a0.0 a1.0 a0.1 a1.1
+  const uint32_t q01 = __byte_perm(a[0], a[1], 0x7362);  // a0.2 a1.2 a0.3 a1.3
+  const uint32_t p23 = __byte_perm(a[2], a[3], 0x5140);
+  const uint32_t q23 = __byte_perm(a[2], a[3], 0x7362);
+  t[0] = __byte_perm(p01, p23, 0x5410);
+  t[1] = __byte_perm(p01, p23, 0x7632);
+  t[2] = __byte_perm(q01, q23, 0x5410);
+  t[3] = __byte_perm(q01, q23, 0x7632);
+}
+
+// the unsigned nibbles u = w4 + 8 of a word of byte rows: the low ones
+// (rows 2r) in `lo`, the high ones (rows 2r + 1) in `hi`, one a byte
+__device__ __forceinline__ void unsigned_nibbles(uint32_t w, uint32_t* lo, uint32_t* hi) {
+  *lo = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+  *hi = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
+
+// w4 = u - 8 of byte c of u (unsigned nibbles), exactly: u goes into the
+// low mantissa byte of 2^23 and 2^23 + 8 is subtracted
+__device__ __forceinline__ float nibble_f32(uint32_t u, int c) {
+  return __fsub_rn(__int_as_float(static_cast<int>(__byte_perm(u, 0x4B000000u, 0x7540 + c))),
+                   8388616.0f);
+}
+
+// the bf16 pair w4 of K rows 2r, 2r + 1 of byte c of w (low half first),
+// exactly: each unsigned nibble u into the low mantissa of 128, then
+// 128 + 8 subtracted
+__device__ __forceinline__ uint32_t nibble_bf16x2(uint32_t w, int c) {
+  const uint32_t v = (__byte_perm(w, w >> 4, c | (4 + c) << 8) & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  h = __hsub2(h, __floats2bfloat162_rn(136.0f, 136.0f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d += A B on tensor cores: A 16 x 16 bf16 (rows g and g + 8 of lane 4 g + t:
+// a0, a1 K 2t, 2t + 1; a2, a3 K 2t + 8, 2t + 9), B 16 x 8 bf16 (column g:
+// b0 K 2t, 2t + 1; b1 K 2t + 8, 2t + 9), d f32 (rows g, g + 8 x columns
+// 2t, 2t + 1)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// MT: rows of x a block (1, or kMT at m > 1); QX: mode "qx" (x quantized to
+// int8 per group, exact int32 group dots), else "g" (x rounded to bf16,
+// exact products summed in f32 over a group). Grid (np / kTN * parts,
+// ceil(m / MT)) in clusters of `parts` along x.
+template <int MT, bool QX>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<MT>)
+nibble_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
+              const int8_t* __restrict__ sub_s, const int8_t* __restrict__ sub_m,
+              const float* __restrict__ sd, const float* __restrict__ sm,
+              float* __restrict__ out, int m, int kp, int np, int parts) {
+  using St = NStage;
+  using Sm = NSmem<MT, QX>;
+  constexpr int kW = Sm::kW, kG = Sm::kG;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int8_t* xq = reinterpret_cast<int8_t*>(smem + Sm::kX0);
+  float* xf = reinterpret_cast<float*>(smem + Sm::kX0);
+  float* sx = reinterpret_cast<float*>(smem + Sm::kSx0);
+  uint32_t* xb = reinterpret_cast<uint32_t*>(smem + Sm::kX0);
+  float* xs = reinterpret_cast<float*>(smem + Sm::kXs0);
+  int* xc = reinterpret_cast<int*>(smem + Sm::kXc0);
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const uint32_t rank = ctw::cluster_rank();
+  const int n0 = static_cast<int>(blockIdx.x) / parts * kTN;
+  const int t0 = blockIdx.y * MT;
+  const int nst = kp / kNRows;
+  const int s0 = static_cast<int>(rank) * nst / parts;
+  const int n_it = (static_cast<int>(rank) + 1) * nst / parts - s0;
+
+  // ---- stage it of this block's range into ring slot it % kStages ----
+  // Each thread's copies are fixed: 16-byte chunks tid + u * kThreads of the
+  // 128 byte rows (row tid / 8 + u * kThreads / 8, chunk tid % 8), chunk tid
+  // of the sub-scale and sub-min rows, or of the factor rows. On tensor
+  // cores chunk j of byte row r lies at j ^ 2 (r % 4), so that the A
+  // fragments' loads meet 32 banks.
+  static_assert(kNRows / 2 * kTN / 16 == 4 * kThreads, "four weight chunks a thread");
+  constexpr int kSubChunks = kNGroups * kTN / 16;
+  constexpr int kSdThread = kThreads - kTN / 4;  // the last warp copies the factors
+  static_assert(kSubChunks <= kSdThread, "one chunk a thread");
+  const int8_t* wsrc = qs + (size_t)(s0 * kNRows / 2 + tid / 8) * np + n0 + 16 * (tid % 8);
+  const size_t wstep = (size_t)kThreads / 8 * np;  // rows between a thread's chunks
+  const size_t ssrc = (size_t)(s0 * kNGroups + tid / 8) * np + n0 + 16 * (tid % 8);
+  const int wswz = Sm::kMma ? 16 * ((tid % 8 ^ 2 * (tid / 8 % 4)) - tid % 8) : 0;
+  auto load = [&](int it) {
+    uint8_t* b = smem + (it % kStages) * St::kBytes;
+    const int8_t* wp = wsrc + (size_t)it * (kNRows / 2) * np;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads) + wswz, wp + u * wstep);
+    if (tid < kSubChunks) {
+      const size_t o = ssrc + (size_t)it * kNGroups * np;
+      cp16(b + St::kSub + 16 * tid, sub_s + o);
+      cp16(b + St::kSubM + 16 * tid, sub_m + o);
+    } else if (tid >= kSdThread) {  // a stage is one superblock
+      const size_t o = (size_t)(s0 + it) * np + n0 + 4 * (tid - kSdThread);
+      cp16(b + St::kSd + 16 * (tid - kSdThread), sd + o);
+      cp16(b + St::kSm + 16 * (tid - kSdThread), sm + o);
+    }
+  };
+
+  // ---- x rows [k0, k0 + rows) of the block's tokens, staged once ----
+  // A thread takes 8 rows of one token, 4 neighbouring threads a group (a
+  // warp's items are whole groups of one token: rows is a multiple of 256):
+  // the group sums xs of x, and qx quantizes (sx = absmax / 127, xq, and
+  // 8 * sum(xq)), g rounds to bf16.
+  auto stage_x = [&](int k0, int rows) {
+    const int per = rows / 8;
+    for (int e = tid; e < MT * per; e += kThreads) {
+      const int i = e / per, c8 = e % per;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), z = a;
+      if (t0 + i < m) {
+        const float4* src = reinterpret_cast<const float4*>(x + (size_t)(t0 + i) * kp + k0 + 8 * c8);
+        a = __ldg(src);
+        z = __ldg(src + 1);
+      }
+      const float v[8] = {a.x, a.y, a.z, a.w, z.x, z.y, z.z, z.w};
+      float s = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])),
+                          __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+      const int g = i * kG + c8 / 4;
+      if constexpr (QX) {
+        float amax = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+        const float sxv = __fdiv_rn(amax, 127.0f);
+        const float den = fmaxf(sxv, 1e-20f);
+        uint32_t q[8];
+        int qsum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int qj = static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(v[j], den)), -127.f), 127.f));
+          qsum += qj;
+          q[j] = static_cast<uint32_t>(qj) & 0xFFu;
+        }
+        qsum += __shfl_xor_sync(0xffffffffu, qsum, 1);
+        qsum += __shfl_xor_sync(0xffffffffu, qsum, 2);
+        *reinterpret_cast<uint2*>(xq + i * kW + 8 * c8) =
+            make_uint2(q[0] | q[2] << 8 | q[4] << 16 | q[6] << 24,
+                       q[1] | q[3] << 8 | q[5] << 16 | q[7] << 24);
+        if (c8 % 4 == 0) {
+          sx[g] = sxv;
+          xs[g] = s;
+          xc[g] = 8 * qsum;
+        }
+      } else if constexpr (Sm::kMma) {
+        uint32_t pr[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+          pr[j] = *reinterpret_cast<const uint32_t*>(&h);
+        }
+        *reinterpret_cast<uint4*>(xb + i * Sm::kXStride + 4 * c8) =
+            make_uint4(pr[0], pr[1], pr[2], pr[3]);
+        if (c8 % 4 == 0) xs[g] = s;
+      } else {
+        float* d = xf + i * kW + 8 * c8;
+        reinterpret_cast<float4*>(d)[0] =
+            make_float4(bf16_round(v[0]), bf16_round(v[1]), bf16_round(v[2]), bf16_round(v[3]));
+        reinterpret_cast<float4*>(d)[1] =
+            make_float4(bf16_round(v[4]), bf16_round(v[5]), bf16_round(v[6]), bf16_round(v[7]));
+        if (c8 % 4 == 0) xs[g] = s;
+      }
+    }
+  };
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_it) load(it);
+    cp_commit();
+  }
+  constexpr int kWinStages = kW / kNRows;
+  for (int it0 = 0; it0 < n_it; it0 += kWinStages) {
+    const int nw = min(kWinStages, n_it - it0);
+    if (it0 > 0) __syncthreads();  // every warp is done with the last window's x
+    stage_x((s0 + it0) * kNRows, nw * kNRows);  // while the ring's copies are in flight
+    for (int it = it0; it < it0 + nw; ++it) {
+      cp_wait<kStages - 2>();
+      __syncthreads();  // stage it and the window's x have landed; slot (it - 1) % kStages is free
+      if (it + kStages - 1 < n_it) load(it + kStages - 1);
+      cp_commit();
+      const uint8_t* b = smem + (it % kStages) * St::kBytes;
+      const int gx = (it - it0) * kNGroups + w;  // this warp's group in the window
+
+      // the group's scale s and bias B = 8 s + m for this thread's 4 columns
+      float s[4], bias[4];
+      {
+        const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kSub + w * kTN + 4 * lane);
+        const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kSubM + w * kTN + 4 * lane);
+        const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + 16 * lane);
+        const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + 16 * lane);
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w}, mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &bias[c]);
+      }
+      // byte row j of the group (K rows 2 j and 2 j + 1) for this thread's columns
+      const uint8_t* wb = b + St::kW + 16 * w * kTN + 4 * lane;
+
+      if constexpr (QX) {
+        // ---- the group's exact int32 dots, four byte rows at a time ----
+        int dot[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dot[i][c] = 0;
+        const int8_t* xg = xq + gx * ctq::kGroup;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t wv[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            wv[jj] = *reinterpret_cast<const uint32_t*>(wb + (4 * q + jj) * kTN);
+          if constexpr (kNibbleDp4a) {
+            // dp4a on the unsigned nibbles made K-contiguous a column:
+            // sum(xq * u) - 8 sum(xq) = sum(xq * w4), exactly
+            uint32_t lo[4], hi[4], tl[4], th[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) unsigned_nibbles(wv[jj], &lo[jj], &hi[jj]);
+            transpose4(lo, tl);
+            transpose4(hi, th);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              const uint2 xw = *reinterpret_cast<const uint2*>(xg + i * kW + 8 * q);
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                dot[i][c] = __dp4a(static_cast<int>(th[c]), static_cast<int>(xw.y),
+                                   __dp4a(static_cast<int>(tl[c]), static_cast<int>(xw.x),
+                                          dot[i][c]));
+            }
+          } else {
+            // the first design's form: each signed nibble shifted out, one
+            // multiply-add a nibble and token
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              const uint2 xw = *reinterpret_cast<const uint2*>(xg + i * kW + 8 * q);
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const int x0 = ctq::sbyte(xw.x, jj), x1 = ctq::sbyte(xw.y, jj);
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  dot[i][c] += ctq::nibble(wv[jj], 2 * c) * x0 + ctq::nibble(wv[jj], 2 * c + 1) * x1;
+              }
+            }
+          }
+        }
+        // ---- one f32 rescale of the group's dots ----
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float sxv = sx[i * kG + gx], xsv = xs[i * kG + gx];
+          const int xcv = kNibbleDp4a ? xc[i * kG + gx] : 0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float part = __fmul_rn(__fmul_rn(static_cast<float>(dot[i][c] - xcv), sxv), s[c]);
+            acc[i][c] = __fadd_rn(acc[i][c], __fadd_rn(part, __fmul_rn(xsv, bias[c])));
+          }
+        }
+      } else if constexpr (Sm::kMma) {
+        // ---- the group's f32 sums of exact products on tensor cores ----
+        // Tile (q, h) takes columns 32 q + 4 g + 2 h (row g of lane 4 g + t)
+        // and 32 q + 4 g + 2 h + 1 (row g + 8), two k steps of 16 rows: its
+        // sums land in acc[2 q + h] as the mma's d (this warp's group's
+        // products in part, then scaled once into acc).
+        static_assert(MT == 8, "the rows of x are the mma's 8 columns");
+        const int g = lane >> 2, t = lane & 3;
+        float* sc = reinterpret_cast<float*>(smem + Sm::kSc0) + w * 2 * kTN;
+        *reinterpret_cast<float4*>(sc + 4 * lane) = make_float4(s[0], s[1], s[2], s[3]);
+        *reinterpret_cast<float4*>(sc + kTN + 4 * lane) =
+            make_float4(bias[0], bias[1], bias[2], bias[3]);
+        float part[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+        // byte rows 16 w + 8 k + t and + 4 of this lane, and its x pairs
+        const uint8_t* wr = b + St::kW + (16 * w + t) * kTN;
+        const uint32_t* xr = xb + g * Sm::kXStride + gx * (ctq::kGroup / 2) + t;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const uint32_t b0 = xr[8 * k], b1 = xr[8 * k + 4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int off = 16 * ((2 * q + (g >> 2)) ^ (2 * t)) + 4 * (g & 3);
+            const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wr + 8 * k * kTN + off);
+            const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wr + (8 * k + 4) * kTN + off);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              mma_bf16(part[2 * q + h], nibble_bf16x2(w0, 2 * h), nibble_bf16x2(w0, 2 * h + 1),
+                       nibble_bf16x2(w1, 2 * h), nibble_bf16x2(w1, 2 * h + 1), b0, b1);
+          }
+        }
+        __syncwarp();  // the warp's s and B are written
+        const float xs0 = xs[2 * t * kG + gx], xs1 = xs[(2 * t + 1) * kG + gx];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 s4 = *reinterpret_cast<const float4*>(sc + 32 * q + 4 * g);
+          const float4 b4 = *reinterpret_cast<const float4*>(sc + kTN + 32 * q + 4 * g);
+          const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 2 * h + (e >> 1);  // the column's place in 4 g .. 4 g + 3
+              float v = __fmul_rn(part[2 * q + h][e], sv[c]);
+              v = __fadd_rn(v, __fmul_rn(e & 1 ? xs1 : xs0, bv[c]));
+              acc[2 * q + h][e] = __fadd_rn(acc[2 * q + h][e], v);
+            }
+        }
+      } else {
+        // ---- the group's f32 sums of exact products, two byte rows at a time ----
+        float part[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
+        const float* xg = xf + gx * ctq::kGroup;
+#pragma unroll
+        for (int j = 0; j < ctq::kGroup / 2; j += 2) {
+          float wl[2][4], wh[2][4];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const uint32_t wv = *reinterpret_cast<const uint32_t*>(wb + (j + jj) * kTN);
+            if constexpr (kNibbleMagic) {
+              uint32_t lo, hi;
+              unsigned_nibbles(wv, &lo, &hi);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                wl[jj][c] = nibble_f32(lo, c);
+                wh[jj][c] = nibble_f32(hi, c);
+              }
+            } else {  // the first design's form: one I2F a nibble
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                wl[jj][c] = static_cast<float>(ctq::nibble(wv, 2 * c));
+                wh[jj][c] = static_cast<float>(ctq::nibble(wv, 2 * c + 1));
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const float4 x4 = *reinterpret_cast<const float4*>(xg + i * kW + 2 * j);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              part[i][c] = fmaf(x4.x, wl[0][c], part[i][c]);
+              part[i][c] = fmaf(x4.y, wh[0][c], part[i][c]);
+              part[i][c] = fmaf(x4.z, wl[1][c], part[i][c]);
+              part[i][c] = fmaf(x4.w, wh[1][c], part[i][c]);
+            }
+          }
+        }
+        // ---- one multiply by s a group, then the bias through the group sums ----
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float xsv = xs[i * kG + gx];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float v = __fmul_rn(part[i][c], s[c]);
+            v = __fadd_rn(v, __fmul_rn(xsv, bias[c]));
+            acc[i][c] = __fadd_rn(acc[i][c], v);
+          }
+        }
+      }
+    }
   }
 
-  // clusters of p blocks the card runs at once, asked once per device and p
+  if constexpr (Sm::kMma) {
+    // acc[2 q + h][e]: row 2 t + (e & 1) of x, column 32 q + 4 g + 2 h + (e >> 1)
+    const int g = lane >> 2, t = lane & 3;
+    reduce_tile<MT>(
+        [&](float* red) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<float4*>(red + (w * MT + 2 * t + e) * kTN + 32 * q + 4 * g) =
+                  make_float4(acc[2 * q][e], acc[2 * q][e + 2], acc[2 * q + 1][e],
+                              acc[2 * q + 1][e + 2]);
+        },
+        smem, out, m, np, n0, t0, rank, parts);
+  } else {
+    reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
+  }
+}
+
+// The launch shape of a kernel of this file: rows of x a block (kMTile), K
+// rows a stage (kRows), its dynamic shared memory, the kernel itself.
+template <int MT, bool G8, int G, bool HAS_MINS>
+struct GridKernel {
+  static constexpr int kMTile = MT, kRows = kKR;
+  static constexpr size_t kSmem = Smem<MT, G8, G, HAS_MINS>::kBytes;
+  static auto fn() { return splitk_kernel<MT, G8, G, HAS_MINS>; }
+};
+
+template <int MT, bool QX>
+struct NibbleKernel {
+  static constexpr int kMTile = MT, kRows = kNRows;
+  static constexpr size_t kSmem = NSmem<MT, QX>::kBytes;
+  static auto fn() { return nibble_kernel<MT, QX>; }
+};
+
+template <class KT>
+struct Split {
+  static cudaError_t prepare() {
+    return cudaFuncSetAttribute(KT::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(KT::kSmem));
+  }
+
+  // clusters of p blocks the card runs at once, asked once per device, p
+  // and instantiation
   static cudaError_t capacity(int p, int* n) {
     static int cache[16][9] = {};
     int dev = 0;
@@ -404,10 +934,10 @@ struct Split {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(p);
     cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = kSmem;
+    cfg.dynamicSmemBytes = KT::kSmem;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaOccupancyMaxActiveClusters(n, splitk_kernel<MT, G8, G, HAS_MINS>, &cfg);
+    e = cudaOccupancyMaxActiveClusters(n, KT::fn(), &cfg);
     if (e != cudaSuccess) return e;
     if (*n <= 0) return cudaErrorInvalidConfiguration;  // no cluster of p fits an SM group
     if (dev < 16) cache[dev][p] = *n;
@@ -417,8 +947,9 @@ struct Split {
   // P: the first of kPlanParts up to kMaxP and up to the stage count whose
   // clusters (tiles x row tiles of them) all fit on the card at once
   static cudaError_t plan(int m, int kp, int np, int* parts) {
-    const long long clusters = static_cast<long long>(np / kTN) * ((m + MT - 1) / MT);
-    const int nst = kp / kKR;
+    const long long clusters =
+        static_cast<long long>(np / kTN) * ((m + KT::kMTile - 1) / KT::kMTile);
+    const int nst = kp / KT::kRows;
     for (const int p : kPlanParts) {
       if (p > kMaxP || p > nst) continue;
       int n = 0;
@@ -446,56 +977,100 @@ struct Split {
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(np / kTN * parts, (m + MT - 1) / MT);
+    cfg.gridDim = dim3(np / kTN * parts, (m + KT::kMTile - 1) / KT::kMTile);
     cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = kSmem;
+    cfg.dynamicSmemBytes = KT::kSmem;
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, splitk_kernel<MT, G8, G, HAS_MINS>, x, qs, sub_s, sub_m, sd, sm,
-                           out, m, kp, np, parts);
+    e = cudaLaunchKernelEx(&cfg, KT::fn(), x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, parts);
     return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
   }
 };
 
-// ct_qmm_g8 (G8) or ct_qmm_f at 1 <= m <= kMaxM: group 16 without mins
-// (Q6_K) or 32 with both min planes (Q5_K); kp a multiple of 256, np of 128
-// (the QTensor's padding)
-template <bool G8, int G, bool HAS_MINS>
-int run(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
-        const float* sd, const float* sm, float* out, int m, int kp, int np,
-        cudaStream_t stream) {
-  if (m < 1 || m > kMaxM || kp < ctq::kSuperblock || kp % ctq::kSuperblock || np < kTN ||
-      np % kTN || sub_s == nullptr || sd == nullptr ||
-      (HAS_MINS && (sub_m == nullptr || sm == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 1)
-    return Split<1, G8, G, HAS_MINS>::launch(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
-  return Split<kMT, G8, G, HAS_MINS>::launch(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
-                                              stream);
+// the shapes and planes the split takes: 1 <= m <= kMaxM, kp a multiple of
+// 256, np of 128 (the QTensor's padding), sub-scales and factors given, and
+// both min planes or neither as HAS_MINS says
+template <bool HAS_MINS>
+bool takes(int m, int kp, int np, const void* sub_s, const void* sub_m, const float* sd,
+           const float* sm) {
+  return m >= 1 && m <= kMaxM && kp >= ctq::kSuperblock && kp % ctq::kSuperblock == 0 &&
+         np >= kTN && np % kTN == 0 && sub_s != nullptr && sd != nullptr &&
+         (sub_m != nullptr) == HAS_MINS && (sm != nullptr) == HAS_MINS;
 }
 
-// the clusters of p blocks that run()'s kernel for batch size m runs on the
-// card at once, or a negative CUDA error code
-template <bool G8, int G, bool HAS_MINS>
-int capacity_of(int m, int p) {
+// a kernel of this file at batch size m: KT1 (one row of x a block) at
+// m = 1, KT8 (kMT rows) above
+template <class KT1, class KT8>
+int run_family(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np,
+               cudaStream_t stream) {
+  if (m == 1) return Split<KT1>::launch(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+  return Split<KT8>::launch(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+}
+
+// the clusters of p blocks that run_family's kernel for batch size m runs
+// on the card at once, or a negative CUDA error code
+template <class KT1, class KT8>
+int capacity_family(int m, int p) {
   if (m < 1 || m > kMaxM) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
-  const cudaError_t e = m == 1 ? Split<1, G8, G, HAS_MINS>::capacity(p, &n)
-                               : Split<kMT, G8, G, HAS_MINS>::capacity(p, &n);
+  const cudaError_t e = m == 1 ? Split<KT1>::capacity(p, &n) : Split<KT8>::capacity(p, &n);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// the plan of run() for a shape: P, or a negative CUDA error code
-template <bool G8, int G, bool HAS_MINS>
-int plan_of(int m, int kp, int np) {
+// run_family's plan for a shape: P, or a negative CUDA error code
+template <class KT1, class KT8>
+int plan_family(int m, int kp, int np) {
   if (m < 1 || m > kMaxM || kp < ctq::kSuperblock || kp % ctq::kSuperblock || np < kTN ||
       np % kTN)
     return -static_cast<int>(cudaErrorInvalidValue);
   int parts = 0;
-  const cudaError_t e = m == 1 ? Split<1, G8, G, HAS_MINS>::plan(m, kp, np, &parts)
-                               : Split<kMT, G8, G, HAS_MINS>::plan(m, kp, np, &parts);
+  const cudaError_t e =
+      m == 1 ? Split<KT1>::plan(m, kp, np, &parts) : Split<KT8>::plan(m, kp, np, &parts);
   return e == cudaSuccess ? parts : -static_cast<int>(e);
+}
+
+// ct_qmm_g8 (G8) or ct_qmm_f at 1 <= m <= kMaxM: group 16 without mins
+// (Q6_K) or 32 with both min planes (Q5_K)
+template <bool G8, int G, bool HAS_MINS>
+int run(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+        const float* sd, const float* sm, float* out, int m, int kp, int np,
+        cudaStream_t stream) {
+  if (!takes<HAS_MINS>(m, kp, np, sub_s, sub_m, sd, sm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_family<GridKernel<1, G8, G, HAS_MINS>, GridKernel<kMT, G8, G, HAS_MINS>>(
+      x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+}
+
+template <bool G8, int G, bool HAS_MINS>
+int capacity_of(int m, int p) {
+  return capacity_family<GridKernel<1, G8, G, HAS_MINS>, GridKernel<kMT, G8, G, HAS_MINS>>(m, p);
+}
+
+template <bool G8, int G, bool HAS_MINS>
+int plan_of(int m, int kp, int np) {
+  return plan_family<GridKernel<1, G8, G, HAS_MINS>, GridKernel<kMT, G8, G, HAS_MINS>>(m, kp, np);
+}
+
+// ct_qmm_qx (QX) or ct_qmm_g on Q4_K at 1 <= m <= kMaxM
+template <bool QX>
+int run_nibble(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np,
+               cudaStream_t stream) {
+  if (!takes<true>(m, kp, np, sub_s, sub_m, sd, sm)) return static_cast<int>(cudaErrorInvalidValue);
+  return run_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(x, qs, sub_s, sub_m, sd, sm, out,
+                                                                m, kp, np, stream);
+}
+
+template <bool QX>
+int nibble_capacity_of(int m, int p) {
+  return capacity_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(m, p);
+}
+
+template <bool QX>
+int nibble_plan_of(int m, int kp, int np) {
+  return plan_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(m, kp, np);
 }
 
 }  // namespace ctsk

@@ -16,6 +16,10 @@ csrc/qmm_prefill.cu):
   qmm_i   bf16(x) @ bf16(w4 * s + B)         (replaces _qmm_i4_kernel)
   qmm_g   sum_g s[g] * dot_g(bf16(x), w4) + xsum @ B   (replaces
           _qmm_g_kernel; csrc/qmm_float.cu)
+          (qmm_qx and qmm_g at m <= 32: K split over a thread-block cluster,
+          the nibble stream kept in flight by a cp.async ring, x quantized or
+          rounded once a block, csrc/qmm_splitk.cuh; grid_split_plan gives
+          the cluster's size)
 
 with w4 = q + zp - 8 the stored nibble, s = sd * sub_s, m = sm * sub_m and
 B = (8 - zp) * s + m per group of 32 rows (zp = 0: B = 8 * s + m).
@@ -254,6 +258,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_s": [P] * 7 + [I, I, I, I, P],
         "ct_qmm_grid_split_plan": [I] * 5,
         "ct_qmm_grid_split_capacity": [I] * 4,
+        "ct_qmm_qx_split_plan": [I] * 3,
+        "ct_qmm_qx_split_capacity": [I] * 2,
+        "ct_qmm_g_split_plan": [I] * 3,
+        "ct_qmm_g_split_capacity": [I] * 2,
         "ct_qmm_si_gptq": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_qx_q4_0": [P] * 5 + [I, I, I, P],
         "ct_qmm_q_q4_0": [P] * 7 + [I, I, I, P],
@@ -824,9 +832,11 @@ _SPECS = {
 KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
-# qmm_g8 and qmm_f at m <= 32: the K split of csrc/qmm_splitk.cuh (symbols in
-# qmm_float.cu, whose own design serves m > 32)
-SOURCE_OF.update(dict.fromkeys(("qmm_g8", "qmm_f"), "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"))
+# the K split of csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f and qmm_g
+# (symbols in qmm_float.cu) and qmm_qx (qmm_decode.cu); their files' own
+# designs serve m > 32
+SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g")
+SOURCE_OF.update(dict.fromkeys(SPLIT_KERNELS, "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"))
 # the symbols that run the Hopper GEMM core: those of qmm_grid.cu and
 # qmm_si, qmm_i, qmm_si_gptq, qmm_i_gptq and qmm_si_k16 of qmm_prefill.cu
 # (the core's adjk nibble tile) at every m, qmm_sb_ks of qmm_float.cu (its
@@ -858,6 +868,8 @@ KSPLIT_FLOAT_CONFIG = "n32k512"  # the same, 512 byte rows (both halves) a chunk
 # 128 columns a block, stages of 16 rows a warp in a cp.async ring of 2, K
 # split over a cluster of up to 8 blocks (csrc/qmm_splitk.cuh; grid_split_plan)
 SPLIT_CONFIG = "n128k16r2c8"
+# the same on nibbles: a group of 32 rows a warp, a superblock a stage
+NIBBLE_SPLIT_CONFIG = "n128k32r2c8"
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
 GEMM_KERNELS = ("qmm_i_q4_0", "qmm_si_q4_0", "qmm_i_k16", "qmm_b_ks", "qmm_rb_ks", "qmm_rb8",
@@ -872,6 +884,8 @@ CONFIG_OF.update(qmm_sb_ks=f"{KSPLIT_FLOAT_CONFIG}|{WGMMA_CONFIG}")
 # qmm_g8, qmm_f: the K split at m <= 32 (the race offers them there), the
 # decode design above
 CONFIG_OF.update(dict.fromkeys(("qmm_g8", "qmm_f"), f"{SPLIT_CONFIG}|{DECODE_CONFIG}"))
+# qmm_qx, qmm_g: the nibble K split at m <= 32, the decode design above
+CONFIG_OF.update(dict.fromkeys(("qmm_qx", "qmm_g"), f"{NIBBLE_SPLIT_CONFIG}|{DECODE_CONFIG}"))
 CONFIG_OF.update(qmm_f_ks=KSPLIT_FLOAT_CONFIG, qmm_s_ks=KSPLIT_FLOAT_CONFIG,
                  qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
@@ -886,16 +900,22 @@ _KSPLIT_KERNELS = {"": "qmm_f_ks", "s": "qmm_s_ks", "b": "qmm_b_ks", "sb": "qmm_
 
 
 def grid_split_plan(name: str, qt, m: int) -> int:
-    """The blocks P of a cluster that qmm_g8 or qmm_f (`name`) splits K over
-    for weight `qt` (Q6_K or Q5_K, on the card) at batch size m <= 32: the
+    """The blocks P of a cluster that a K-split kernel (`name`, one of
+    SPLIT_KERNELS) splits K over for weight `qt` (on the card; qmm_g8 and
+    qmm_f: Q6_K or Q5_K, qmm_qx and qmm_g: Q4_K) at batch size m <= 32: the
     first of 8, 6, 4, 3 and 2, up to the weight's stages, whose clusters all
     fit on the card at once, else 1 (csrc/qmm_splitk.cuh:plan)."""
-    if name not in ("qmm_g8", "qmm_f"):
-        raise ValueError(f"{name}: the K split serves qmm_g8 and qmm_f")
-    kp, np_ = check_grid_qtensor(qt)
+    if name not in SPLIT_KERNELS:
+        raise ValueError(f"{name}: the K split serves {', '.join(SPLIT_KERNELS)}")
+    grid = name in ("qmm_g8", "qmm_f")
+    kp, np_ = check_grid_qtensor(qt) if grid else check_qtensor(qt)
     if qt.qs.device.type != "cuda":
         raise ValueError(f"{name}: the plan asks the card; the weight is on {qt.qs.device}")
-    p = _fn("qmm_float", "ct_qmm_grid_split_plan")(int(name == "qmm_g8"), qt.group, m, kp, np_)
+    if grid:
+        p = _fn("qmm_float", "ct_qmm_grid_split_plan")(int(name == "qmm_g8"), qt.group, m, kp, np_)
+    else:
+        lib = "qmm_decode" if name == "qmm_qx" else "qmm_float"
+        p = _fn(lib, f"ct_{name}_split_plan")(m, kp, np_)
     if p <= 0:
         raise RuntimeError(f"{name}: no split plan at m={m}, shape ({kp}, {np_}): CUDA error {-p}")
     return p

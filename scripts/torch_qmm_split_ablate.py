@@ -1,12 +1,13 @@
-"""Time the K-split decode GEMVs ct_qmm_g8 and ct_qmm_f (csrc/qmm_splitk.cuh)
+"""Time the K-split decode GEMVs of csrc/qmm_splitk.cuh, ct_qmm_g8 and
+ct_qmm_f on the int8 grids and ct_qmm_qx and ct_qmm_g on Q4_K nibbles,
 against variants of their design on one card, in one process.
 
     python3 scripts/torch_qmm_split_ablate.py [--m 1 8] [--reps 50]
         [--cases REGEX] [--no-check] VARIANT [VARIANT ...]
 
-Each VARIANT is qmm_float.cu built by nvcc (the package's flags, all
-started together) from a copy of csrc/ under build/split_ablate/ with one
-edit to qmm_splitk.cuh:
+Each VARIANT is qmm_float.cu and qmm_decode.cu built by nvcc (the
+package's flags, all started together) from a copy of csrc/ under
+build/split_ablate/ with edits to qmm_splitk.cuh:
 
   base         the sources as they are
   stages3      a ring of 3 stages (the design: 2, one in flight while a
@@ -20,18 +21,25 @@ edit to qmm_splitk.cuh:
                reductions alone
   no_weights   no weight copies issued (the stage's x, scales and
                factors only): the compute, barriers and reductions alone
-  root:PATH    the qmm_float.cu of another checkout (PATH/ctransformers_tpu_torch/
+  imad_dot     qx: a shift pair and a multiply-add a nibble (the first
+               design's form; the design: dp4a on transposed bytes)
+  i2f          g on nibbles: an I2F a nibble (the first design's form; the
+               design: the nibble in the mantissa of 2^23)
+  no_mma       g on nibbles at m > 1: f32 products as at m = 1 (the
+               design: bf16 mma.sync on tensor cores)
+  root:PATH    the sources of another checkout (PATH/ctransformers_tpu_torch/
                csrc), e.g. a `git archive` of the parent unpacked under build/
 
-For each (Q6_K v, down, output; Q5_K fused QKV, o, gate/up, down at their padded
-llama-2-7B shapes) x m x symbol: the kernel ms from a replayed CUDA graph
-cycling over weight copies past the 50 MB L2 (as chip_smoke.py phase 3
-times it), the bytes bound, the error against the plain version (a variant
-that computes the function fails the run above 1e-5 unless --no-check;
-no_weights and no_compute print theirs, meaningless by design) and the split's P of
-the variant's plan. The build log's ptxas lines of the split's kernels
-(registers, spills) are printed per variant first. Last line: a JSON
-object {variant: {"symbol kind shape m": ms}}.
+For each (Q6_K v, down, output; Q5_K fused QKV, o, gate/up, down; Q4_K o,
+fused QKV, gate/up, down, output at their padded llama-2-7B shapes) x m x
+symbol: the kernel ms from a replayed CUDA graph cycling over weight copies
+past the 50 MB L2 (as chip_smoke.py phase 3 times it), the bytes bound, the
+error against the plain version (a variant that computes the function fails
+the run above 1e-5 unless --no-check; no_weights and no_compute print
+theirs, meaningless by design) and the split's P of the variant's plan. The
+build log's ptxas lines of the split's kernels (registers, spills) are
+printed per variant first. Last line: a JSON object
+{variant: {"symbol kind shape m": ms}}.
 """
 
 from __future__ import annotations
@@ -58,9 +66,15 @@ from ctransformers_tpu_torch.ops import qmatmul as qm  # noqa: E402
 from ctransformers_tpu_torch.ops import qmm_kernels as K  # noqa: E402
 
 OUT = os.path.join(HERE, "build", "split_ablate")
-# the keys of PERF.md's rows 5b and 7c (chip_smoke.py phase 3's timed cases)
+# the keys of PERF.md's rows 5b and 7c, and of rows 1a and 7a (chip_smoke.py
+# phase 3's timed cases)
 CASES = [("Q6_K", "v"), ("Q6_K", "down"), ("Q6_K", "lm_head"), ("Q5_K", "qkv"), ("Q5_K", "o"),
-         ("Q5_K", "gate_up"), ("Q5_K", "down")]
+         ("Q5_K", "gate_up"), ("Q5_K", "down"), ("Q4_K", "o"), ("Q4_K", "qkv"),
+         ("Q4_K", "gate_up"), ("Q4_K", "down"), ("Q4_K", "lm_head")]
+# the split's symbols of a weight kind, and the library each is built into
+SYMBOLS = {"Q6_K": ("qmm_g8", "qmm_f"), "Q5_K": ("qmm_g8", "qmm_f"), "Q4_K": ("qmm_qx", "qmm_g")}
+LIB_OF = {"qmm_g8": "qmm_float", "qmm_f": "qmm_float", "qmm_g": "qmm_float",
+          "qmm_qx": "qmm_decode"}
 # variant -> edits to qmm_splitk.cuh
 VARIANTS = {
     "base": (),
@@ -71,16 +85,27 @@ VARIANTS = {
     "p2": (("constexpr int kMaxP = 8;", "constexpr int kMaxP = 2;"),),
     "p1": (("constexpr int kMaxP = 8;", "constexpr int kMaxP = 1;"),),
     "no_compute": (("    for (int rr = 0; rr < kLR; rr += 4) {",
-                    "    for (int rr = 0; rr < 0; rr += 4) {"),),
+                    "    for (int rr = 0; rr < 0; rr += 4) {"),
+                   ("for (int q = 0; q < 4; ++q) {\n          uint32_t wv[4];",
+                    "for (int q = 0; q < 0; ++q) {\n          uint32_t wv[4];"),
+                   ("        for (int j = 0; j < ctq::kGroup / 2; j += 2) {",
+                    "        for (int j = 0; j < 0; j += 2) {"),
+                   ("        for (int k = 0; k < 2; ++k) {", "        for (int k = 0; k < 0; ++k) {")),
     "no_weights": (("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), "
-                    "wp + u * wstep);", "    (void)wp;"),),
+                    "wp + u * wstep);", "    (void)wp;"),
+                   ("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads) + "
+                    "wswz, wp + u * wstep);", "    (void)wp;")),
+    "imad_dot": (("constexpr bool kNibbleDp4a = true;", "constexpr bool kNibbleDp4a = false;"),),
+    "i2f": (("constexpr bool kNibbleMagic = true;", "constexpr bool kNibbleMagic = false;"),),
+    "no_mma": (("constexpr bool kNibbleMma = true;", "constexpr bool kNibbleMma = false;"),),
 }
 CHECKED = tuple(v for v in VARIANTS if not v.startswith("no_"))
 
 
 def build(names):
-    """nvcc on qmm_float.cu of a copy of csrc/ per variant, all started
-    together; returns {name: (library, ptxas lines of the split's kernels)}."""
+    """nvcc on qmm_float.cu and qmm_decode.cu of a copy of csrc/ per
+    variant, all started together; returns {name: ({library name: library},
+    ptxas lines of the split's kernels)}."""
     procs = {}
     for name in names:
         d = os.path.join(OUT, re.sub(r"[^A-Za-z0-9_]", "_", name))
@@ -98,23 +123,26 @@ def build(names):
                                      f"{old[:60]!r}")
                 src = src.replace(old, new)
             open(path, "w").write(src)
-        so = os.path.join(d, "libqmm_float.so")
-        procs[name] = (so, subprocess.Popen(
-            [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, "qmm_float.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
+        for lib in ("qmm_float", "qmm_decode"):
+            so = os.path.join(d, f"lib{lib}.so")
+            procs[(name, lib)] = (so, subprocess.Popen(
+                [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {name: ({}, []) for name in names}
+    for (name, lib), (so, p) in procs.items():
         out, _ = p.communicate()
         if p.returncode:
-            raise SystemExit(f"nvcc failed on {name}:\n{out[-4000:]}")
-        lib = ctypes.CDLL(so)
-        K._bind(lib)
+            raise SystemExit(f"nvcc failed on {name} {lib}:\n{out[-4000:]}")
+        dll = ctypes.CDLL(so)
+        K._bind(dll)
+        libs[name][0][lib] = dll
         lines = out.splitlines()
-        ptxas = [" ".join([lines[i].split("entry function")[-1].split(" for ")[0].strip()] + [
-            ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
-            if "spill" in ln or "Used" in ln])
-            for i in range(len(lines)) if "splitk_kernel" in lines[i] and "Compiling entry" in lines[i]]
-        libs[name] = (lib, ptxas)
+        libs[name][1].extend(
+            " ".join([lines[i].split("entry function")[-1].split(" for ")[0].strip()] + [
+                ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
+                if "spill" in ln or "Used" in ln])
+            for i in range(len(lines)) if "Compiling entry" in lines[i]
+            and ("splitk_kernel" in lines[i] or "nibble_kernel" in lines[i]))
     return libs
 
 
@@ -138,14 +166,20 @@ def main() -> int:
     names = list(dict.fromkeys(opts.variants))
     libs = build(names)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, (lib, ptxas) in libs.items():
+    for name, (dlls, ptxas) in libs.items():
         for line in ptxas:
             print(f"[ptxas] {name}: {line}", flush=True)
-        cap = getattr(lib, "ct_qmm_grid_split_capacity", None)
-        if cap:  # clusters of p blocks the card holds at once, per instantiation
+        # clusters of p blocks the card holds at once, per instantiation
+        cap = getattr(dlls["qmm_float"], "ct_qmm_grid_split_capacity", None)
+        if cap:
             for g8, group, m in itertools.product((1, 0), (16, 32), (1, 8)):
                 print(f"[occupancy] {name}: {'g8' if g8 else 'f'} group {group} m={m}: " + " ".join(
                     f"P={p}:{cap(g8, group, m, p)}" for p in (8, 6, 4, 3, 2, 1)), flush=True)
+        for sym in ("qmm_qx", "qmm_g"):
+            cap = getattr(dlls[LIB_OF[sym]], f"ct_{sym}_split_capacity", None)
+            for m in (1, 8) if cap else ():
+                print(f"[occupancy] {name}: {sym} m={m}: " + " ".join(
+                    f"P={p}:{cap(m, p)}" for p in (8, 6, 4, 3, 2, 1)), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {name: {} for name in opts.variants}
@@ -163,15 +197,16 @@ def main() -> int:
             x[:, :k] = torch.randn((m, k), generator=gen, device=dev)
             out = torch.empty(m, npad, device=dev)
             bound = (wbytes + 4 * m * (kp + npad)) / C.PEAK_BYTES_S * 1e3
-            for sym in ("qmm_g8", "qmm_f"):
+            for sym in SYMBOLS[kind]:
                 ref = K.PLAIN[sym](x, qts[0])
+                ints = K._SPECS[sym][3](qts[0])  # the symbol's own ints (the grids: group)
                 for j, name in enumerate(opts.variants):
-                    lib = libs[name][0]
+                    lib = libs[name][0][LIB_OF[sym]]
                     fn = getattr(lib, "ct_" + sym)
 
                     def call(i, fn=fn):
                         qt = qts[i % len(qts)]
-                        rc = fn(*K._ptrs(x, *K._planes(qt), out), m, kp, npad, qt.group,
+                        rc = fn(*K._ptrs(x, *K._planes(qt), out), m, kp, npad, *ints,
                                 K._stream(dev))
                         if rc:
                             raise SystemExit(f"{name} {sym}: launch failed with CUDA error {rc}")
@@ -180,8 +215,12 @@ def main() -> int:
                     call(0)
                     torch.cuda.synchronize()
                     err = ((out - ref).norm() / ref.norm()).item()
-                    plan = getattr(lib, "ct_qmm_grid_split_plan", None)
-                    p = plan(int(sym == "qmm_g8"), qts[0].group, m, kp, npad) if plan else "-"
+                    if kind == "Q4_K":
+                        plan = getattr(lib, f"ct_{sym}_split_plan", None)
+                        p = plan(m, kp, npad) if plan else "-"
+                    else:
+                        plan = getattr(lib, "ct_qmm_grid_split_plan", None)
+                        p = plan(int(sym == "qmm_g8"), qts[0].group, m, kp, npad) if plan else "-"
                     label = f"{j}:{name}" if opts.variants.count(name) > 1 else name
                     result[name][f"{sym} {kind} {shape} m={m}"] = ms
                     print(f"{label:24s} {sym:6s} {kind} {shape:7s} m={m:2d} P={p}: {ms:.4f} ms "

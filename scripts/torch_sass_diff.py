@@ -2,7 +2,7 @@
 of the port, on a machine with the CUDA toolkit.
 
     python3 scripts/torch_sass_diff.py OLD_ROOT [NEW_ROOT]
-        [--sources qmm_prefill.cu qmm_grid.cu ...]
+        [--sources qmm_prefill.cu qmm_grid.cu ...] [--opcodes REGEX]
 
 OLD_ROOT and NEW_ROOT (default ".") are checkouts of this repository, for
 example a `git archive` of the parent commit unpacked under build/. Each
@@ -15,7 +15,10 @@ Prints, per source, each kernel of the new build (demangled) as "same" (the
 old build has a kernel of that name with the same instructions), "same as
 <old kernels>" (no such name, but those old kernels have the same
 instructions: a dropped template argument), "changed" or "new", then the
-old kernels that no new kernel matches as "gone". Last line: a JSON object
+old kernels that no new kernel matches as "gone". With --opcodes, each
+kernel of either build whose demangled name matches REGEX also gets a line
+of its instruction count by opcode (the mnemonic before its first dot;
+predicates dropped), most frequent first. Last line: a JSON object
 {source: {"same": n, "renamed": n, "changed": [...], "new": [...],
 "gone": [...]}}.
 """
@@ -72,6 +75,17 @@ def local_labels(insns: list) -> list:
     return [LABEL.sub(lambda l: f".L{seen.setdefault(l.group(0), len(seen))}", i) for i in insns]
 
 
+def opcode_counts(body) -> str:
+    """"OP n, ..." of a kernel's instructions, most frequent first."""
+    counts = {}
+    for insn in body:
+        words = insn.split()
+        op = words[1] if words and words[0].startswith("@") and len(words) > 1 else words[0]
+        op = op.split(".")[0]
+        counts[op] = counts.get(op, 0) + 1
+    return ", ".join(f"{op} {n}" for op, n in sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
 def demangle(names) -> dict:
     names = list(names)
     filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
@@ -89,6 +103,7 @@ def main() -> int:
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=".")
     ap.add_argument("--sources", nargs="+")
+    ap.add_argument("--opcodes", help="regex over demangled kernel names")
     opts = ap.parse_args()
     roots = {"old": os.path.abspath(opts.old), "new": os.path.abspath(opts.new)}
     sources = opts.sources or sorted(
@@ -140,6 +155,10 @@ def main() -> int:
         for name in sorted(set(old) - set(new) - matched):
             row["gone"].append(name)
             print(f"  {name}: gone")
+        for side, table in (("old", old), ("new", new)):
+            for name, body in sorted(table.items()):
+                if opts.opcodes and re.search(opts.opcodes, name):
+                    print(f"  [opcodes {side}] {name}: {len(body)}: {opcode_counts(body)}")
         summary[src] = row
     print(json.dumps(summary))
     return 0

@@ -11,8 +11,9 @@ layouts, at every llama head width (above 256 in column slices) and any
 number of query heads a kv head; the symbols of the Hopper GEMM core
 (qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq, qmm_i_gptq,
 qmm_si_k16, and qmm_sb_ks with its decode design at m <= 32) at prompt
-sizes up to m = 2048; qmm_g8 and qmm_f at m <= 32 (K split over a
-cluster) at the llama-2-7B keys, the split's edges and in a CUDA graph; the IEEE scale divisions of kv_quantize and the
+sizes up to m = 2048; qmm_g8 and qmm_f on the grids and qmm_qx and qmm_g
+on Q4_K at m <= 32 (K split over a cluster) at the llama-2-7B keys, the
+split's edges and in a CUDA graph; the IEEE scale divisions of kv_quantize and the
 probes' quantizers; and the fused decode loop of engine/engine.py (a
 captured CUDA graph per key) against the eager loop on a tiny model.
 
@@ -452,25 +453,36 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
     assert torch.all(out == 7.0)
 
 
-# qmm_g8 and qmm_f at m <= 32: the K split over a cluster of
-# csrc/qmm_splitk.cuh, at the llama-2-7B keys (Q6_K attn_v, ffn_down and
-# output of a Q4_K_M file; Q5_K fused QKV and ffn_down of a Q5_K_M file) and
-# at the split's edges: the smallest K (two 128-row stages) at the narrowest
-# N the wrapper takes, and stage counts that no P divides (10, 26)
+# the K split over a cluster at m <= 32 (csrc/qmm_splitk.cuh): qmm_g8 and
+# qmm_f on the grids (128 rows a stage) at the llama-2-7B keys (Q6_K attn_v,
+# ffn_down and output of a Q4_K_M file; Q5_K fused QKV and ffn_down of a
+# Q5_K_M file) and at the split's edges: the smallest K (two stages) at the
+# narrowest N the wrapper takes, and stage counts that no P divides (10,
+# 26); qmm_qx and qmm_g on Q4_K (a superblock a stage) at the five Q4_K keys
+# (o, fused QKV, gate/up, down, lm_head at their padded shapes) and at the
+# edges: one stage at the narrowest N, 13 stages, and block ranges longer
+# than the x window a block stages at once (K 12288 over P = 2 for g at
+# m = 1, K 20480 for qx)
 SPLIT_KEYS = [("Q6_K", 4096, 4096), ("Q6_K", 11264, 4096), ("Q6_K", 4096, 32768),
               ("Q5_K", 4096, 12288), ("Q5_K", 11264, 4096)]
 SPLIT_EDGES = [("Q6_K", 256, 128), ("Q5_K", 256, 128), ("Q6_K", 1280, 4096),
                ("Q5_K", 3328, 256)]
+NIBBLE_SPLIT_KEYS = [(4096, 4096), (4096, 12288), (4096, 22528), (11264, 4096), (4096, 32768)]
+NIBBLE_SPLIT_EDGES = [(256, 128), (3328, 256), (12288, 16384), (20480, 32768)]
+SPLIT_CASES = [(name, kind, k, n) for name in ("qmm_g8", "qmm_f")
+               for kind, k, n in SPLIT_KEYS + SPLIT_EDGES] + [
+    (name, "Q4_K", k, n) for name in ("qmm_qx", "qmm_g")
+    for k, n in NIBBLE_SPLIT_KEYS + NIBBLE_SPLIT_EDGES]
 
 
-@pytest.mark.parametrize("name", ["qmm_g8", "qmm_f"])
-@pytest.mark.parametrize("kind,k,n", SPLIT_KEYS + SPLIT_EDGES)
+@pytest.mark.parametrize("name,kind,k,n", SPLIT_CASES)
 @pytest.mark.parametrize("m", [1, 3, 8, 32])
 def test_grid_split_matches_plain(dev, name, kind, k, n, m):
-    qt = random_grid(kind, k, n, seed=k + n + m, device=dev)
+    qt = _weight(name, kind, k, n, seed=k + n + m, device=dev)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
     p = K.grid_split_plan(name, qt, m)
-    assert p in (1, 2, 3, 4, 6, 8) and p <= k // 128
+    stage = 256 if kind == "Q4_K" else 128  # K rows a stage
+    assert p in (1, 2, 3, 4, 6, 8) and p <= k // stage
     if (k, n, m) == (4096, 4096, 1):  # enough blocks for the card's SMs
         assert p * n // 128 >= 128
     before = K.LAUNCHES[name]
@@ -484,11 +496,13 @@ def test_grid_split_matches_plain(dev, name, kind, k, n, m):
 
 
 @pytest.mark.parametrize("name,kind,m", [("qmm_g8", "Q6_K", 1), ("qmm_g8", "Q5_K", 8),
-                                         ("qmm_f", "Q6_K", 8), ("qmm_f", "Q5_K", 1)])
+                                         ("qmm_f", "Q6_K", 8), ("qmm_f", "Q5_K", 1),
+                                         ("qmm_qx", "Q4_K", 1), ("qmm_qx", "Q4_K", 8),
+                                         ("qmm_g", "Q4_K", 1), ("qmm_g", "Q4_K", 8)])
 def test_grid_split_replays_in_a_graph(dev, name, kind, m):
     """One captured call replayed on new activations (copied into the tensor
     the graph reads) equals eager calls, bitwise."""
-    qt = random_grid(kind, 11264, 4096, seed=5, device=dev)
+    qt = _weight(name, kind, 11264, 4096, seed=5, device=dev)
     x = torch.randn(m, 11264, generator=torch.Generator().manual_seed(6)).to(dev)
     kern = K.KERNELS[name]
     kern(x, qt)  # builds, plans and warms
@@ -528,6 +542,30 @@ def test_grid_split_refuses_what_it_does_not_take(dev):
     torch.cuda.synchronize()
     assert torch.all(out == 7.0)
 
+
+def test_nibble_split_refuses_what_it_does_not_take(dev):
+    """At m <= 32 ct_qmm_qx and ct_qmm_g take a K padded to 256 rows, an N
+    to 128 columns and all four scale planes; a refusal launches nothing,
+    and the plan raises (m = 33 is the first design's, not the split's; a
+    grid weight is no Q4_K)."""
+    x = torch.randn(8, 256, device=dev)
+    out = torch.full((8, 128), 7.0, device=dev)
+    q4k = random_q4k(256, 128, 1, dev)
+    for lib, sym in (("qmm_decode", "ct_qmm_qx"), ("qmm_float", "ct_qmm_g")):
+        fn = K._fn(lib, sym)
+        planes = (q4k.qs, q4k.scales, q4k.mins, q4k.sd, q4k.sm)
+        for kp, np_ in ((128, 128), (384, 128), (256, 64)):
+            assert fn(*K._ptrs(x, *planes, out), 8, kp, np_, K._stream(dev)) != 0
+        for j in (1, 2, 3, 4):  # a null sub-scale, sub-min, sd or sm plane
+            bad = [None if i == j else a for i, a in enumerate(planes)]
+            assert fn(*K._ptrs(x, *bad, out), 8, 256, 128, K._stream(dev)) != 0
+    for name in ("qmm_qx", "qmm_g"):
+        with pytest.raises(RuntimeError):
+            K.grid_split_plan(name, q4k, 33)
+        with pytest.raises(NotImplementedError):
+            K.grid_split_plan(name, random_grid("Q5_K", 256, 128, 2, dev), 1)
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0)
 
 @pytest.mark.parametrize("name", K16)
 @pytest.mark.parametrize("kind", ["Q2_K", "Q3_K"])

@@ -116,6 +116,9 @@ SB_KS_CONFIG = "n32k512|wg128n128c3"
 # qmm_g8 and qmm_f: the K split ("n128k16r2c8") at m <= 32, the decode
 # design ("n32k1024") above
 GRID_SPLIT_CONFIG = "n128k16r2c8|n32k1024"
+# qmm_qx and qmm_g on Q4_K: the nibble K split ("n128k32r2c8") at m <= 32,
+# the decode design above
+NIBBLE_SPLIT_CONFIG = "n128k32r2c8|n32k1024"
 
 
 @pytest.mark.parametrize("kind,m,want", [
@@ -124,6 +127,7 @@ GRID_SPLIT_CONFIG = "n128k16r2c8|n32k1024"
                  "": GRID_SPLIT_CONFIG}),
     ("Q5_K", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
     ("Q4_K", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
+    ("Q4_K", 8, {"g": NIBBLE_SPLIT_CONFIG, "qx": NIBBLE_SPLIT_CONFIG, "q": K.DECODE_CONFIG}),
     ("GPTQ4/128", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
     ("GPTQ4/32", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
     ("Q4_1", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
@@ -157,6 +161,24 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
     for name in ("qmm_i_k16", "qmm_b_ks", "qmm_i_q4_0", "qmm_si_q4_0"):
         assert K.CONFIG_OF[name] == K.GEMM_CONFIG, name
         assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_prefill.cu", name
+
+
+@pytest.mark.parametrize("name,kind,other", [("qmm_g8", "Q6_K", "Q4_K"), ("qmm_f", "Q5_K", "Q4_K"),
+                                             ("qmm_qx", "Q4_K", "Q6_K"), ("qmm_g", "Q4_K", "Q5_K")])
+def test_split_kernels_name_their_design(name, kind, other):
+    """The kernels that split K over a cluster at m <= 32 name
+    csrc/qmm_splitk.cuh and their split configuration; the plan asks the
+    card, so a weight on the CPU raises, as do another kind's weight and a
+    kernel that the split does not serve."""
+    assert name in K.SPLIT_KERNELS
+    assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"
+    assert K.CONFIG_OF[name] == (NIBBLE_SPLIT_CONFIG if kind == "Q4_K" else GRID_SPLIT_CONFIG)
+    with pytest.raises(ValueError, match="asks the card"):
+        K.grid_split_plan(name, _real(kind), 1)
+    with pytest.raises(NotImplementedError):
+        K.grid_split_plan(name, _real(other), 1)
+    with pytest.raises(ValueError, match="serves"):
+        K.grid_split_plan("qmm_s", _real(kind), 1)
 
 
 def _rel(a, b):

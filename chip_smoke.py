@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                the Q6_K and Q5_K grids, qmm_b_legacy and qmm_sb_legacy on
                Q5_1 and on Q8_0 without mins, qmm_si and qmm_i on Q4_K,
                qmm_si_gptq and qmm_i_gptq on GPTQ4 at groups 32, 64 and
-               128 and on Q4_1, qmm_si_k16 on Q2_K and Q3_K, qmm_sb_ks on
+               128 and on Q4_1, qmm_si_k16 and qmm_i_k16 on Q2_K and Q3_K,
+               qmm_si_q4_0 and qmm_i_q4_0 on Q4_0, qmm_sb_ks on
                the ksplit nibbles of Q4_K, GPTQ4 at groups 32, 64 and 128,
                Q4_0, Q2_K and Q3_K) held at m = 33, 64, 256 and 2048 as
                well (qmm_sb_ks also at its decode design's
@@ -83,7 +84,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                full depth, a GPTQ 4-bit directory (group 128), the Q4_K_M
                file packed ksplit and Q2_K, Q3_K_M, Q4_0 and Q8_0 files at
                4 layers (the device time of one
-               128-token chunk on the Q4_K_M, GPTQ, Q2_K and Q3_K_M
+               128-token chunk on the Q4_K_M, GPTQ, Q4_0, Q2_K and Q3_K_M
                paths), loaded cold (an
                empty table: the load races) and again warm, served under
                the fixed rule and under the raced table in turns; a Q5_K_M
@@ -238,18 +239,21 @@ KERNEL_CASES = [
 # Q8_0 without for qmm_b_legacy and qmm_sb_legacy; Q4_K at qkv and down for
 # qmm_si and qmm_i; GPTQ4 at its three groups and Q4_1 (at down: its o key
 # is GPTQ4 group 32's) for qmm_si_gptq and qmm_i_gptq; Q2_K and Q3_K for
-# qmm_si_k16; the ksplit nibbles of every layout for qmm_sb_ks, also at
+# qmm_si_k16 and qmm_i_k16; Q4_0 at qkv and down for qmm_si_q4_0 and
+# qmm_i_q4_0; the ksplit nibbles of every layout for qmm_sb_ks, also at
 # CORE_KS_HELD_M, its decode design's m), each call checked bitwise against
 # a second one
 CORE_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si", "qmm_i",
-                "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_sb_ks")
+                "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_i_k16", "qmm_si_q4_0",
+                "qmm_i_q4_0", "qmm_sb_ks")
 CORE_HELD_M = (33, 64, 256, 2048)
 CORE_KS_HELD_M = (1, 8, 32)
 CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
                    ("Q6_K", "v"), ("Q6_K", "down"), ("Q5_K", "o"), ("Q5_K", "down"),
                    ("Q8_0", "o"), ("Q8_0", "down"), ("Q5_1", "o"), ("GPTQ4/128", "qkv"),
                    ("GPTQ4/128", "down"), ("GPTQ4/32", "o"), ("GPTQ4/64", "o"),
-                   ("Q4_1", "down"), ("Q2_K", "qkv"), ("Q2_K", "down"), ("Q3_K", "qkv"),
+                   ("Q4_1", "down"), ("Q4_0", "qkv"), ("Q4_0", "down"), ("Q2_K", "qkv"),
+                   ("Q2_K", "down"), ("Q3_K", "qkv"),
                    ("Q3_K", "down"), ("ks:Q4_K", "qkv"),
                    ("ks:Q4_K", "down"), ("ks:GPTQ4/128", "o"), ("ks:GPTQ4/32", "o"),
                    ("ks:GPTQ4/64", "o"), ("ks:Q4_0", "down"), ("ks:Q2_K", "o"),
@@ -370,8 +374,8 @@ MAIN_PATHS = [
 PROMPT_LEN = 137  # chunks 128 + 8 + 1
 # main paths whose served runs also profile one 128-token prompt chunk on the
 # device: the 32-layer Q4_K_M file, and the paths whose prompt GEMMs run
-# GPTQ4's and the group-16 nibbles' kernels of the GEMM core
-CHUNK_PROFILED = ("Q4_K_M", "GPTQ4-g128", "Q2_K", "Q3_K_M")
+# GPTQ4's, Q4_0's and the group-16 nibbles' kernels of the GEMM core
+CHUNK_PROFILED = ("Q4_K_M", "GPTQ4-g128", "Q4_0", "Q2_K", "Q3_K_M")
 # tiny llamas of phase 4 (2 layers, so layer 1 is a more-bits layer): label,
 # K_M mix (None: all-Q4_K), prompt and greedy steps
 TINY = dict(n_vocab=512, n_ctx=128, n_embd=256, n_ff=512, n_layer=2)

@@ -1,10 +1,10 @@
 // Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the
-// group-16 nibble kernel of mode "i" (qmm_prefill.cu: ct_qmm_i_k16 on Q2_K
-// and Q3_K), the Q4_0 kernels (qmm_prefill.cu: "si", "i"), the ksplit
-// nibble kernel of mode "b" (qmm_prefill.cu: ct_qmm_b_ks) and the
-// reshape-broadcast "rb" kernels (qmm_rb.cu). The int8-grid GEMMs
-// (qmm_grid.cu), Q4_K, GPTQ4 and Q4_1 (modes "si" and "i"), Q2_K and Q3_K
-// "si" and the ksplit "sb" run the Hopper core of qmm_wgmma.cuh instead.
+// ksplit nibble kernel of mode "b" (qmm_prefill.cu: ct_qmm_b_ks) and the
+// reshape-broadcast "rb" kernels (qmm_rb.cu: ct_qmm_rb_ks, ct_qmm_rb8 and
+// ct_qmm_rb8_legacy). Every other prompt GEMM runs the Hopper core of
+// qmm_wgmma.cuh instead: the int8-grid GEMMs (qmm_grid.cu), every adjk
+// nibble GEMM (qmm_prefill.cu: Q4_K, GPTQ4, Q4_1, Q2_K, Q3_K and Q4_0,
+// modes "si" and "i") and the ksplit "sb" (qmm_float.cu).
 // Only the weight tile's decoding differs between formats; it comes in as a
 // tile type W:
 //
@@ -16,17 +16,15 @@
 //                dequantizes rows k0 .. k0+kGemmBK-1 of columns
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
 //                kGemmLDB): W = q * s + B rounded once to bf16 (B the
-//                format's per-group bias, none on Q4_0 and Q3_K). A format
-//                with unfactored planes (Q4_0, plain ksplit, the legacy
-//                grids) takes sub_s = sub_m = null and its f32 (kp/G, np)
-//                planes s and m as sd and sm (m null where it has none). kp
-//                tells a ksplit tile which half, and so which nibble, row
-//                k0 is in.
+//                format's per-group bias). A format with unfactored planes
+//                (plain ksplit, the legacy grids) takes sub_s = sub_m = null
+//                and its f32 (kp/G, np) planes s and m as sd and sm (m null
+//                where it has none). kp tells a ksplit tile which half, and
+//                so which nibble, row k0 is in.
 //
 // The kernel computes out = bf16(x) @ bf16(q * s + B) with f32
 // accumulation. No symbol folds a bias through the group sums of x here:
-// the sum-fold modes with a bias run the Hopper core, and Q4_0's "si" has
-// no bias to fold, so it computes what "i" does.
+// the sum-fold modes run the Hopper core.
 //
 // Design (simple first): a block owns a 64 x 64 output tile and walks all
 // of K 32 rows at a time, so every output element is summed by one block in

@@ -15,27 +15,23 @@
 // operation-bound once the tensor cores are kept busy; the dequantization
 // (unpack, scale, round to bf16) is per weight and independent of m.
 //
-// Two GEMMs serve these symbols; this file decodes the weight tile of
-// each. The Hopper core of qmm_wgmma.cuh, through its adjk nibble tile,
-// runs modes "si" and "i" on Q4_K (ct_qmm_si, ct_qmm_i: factored scales
-// s = sd * sub_s and m = sm * sub_m at group 32, two groups a stage), on
-// GPTQ4 and Q4_1 (ct_qmm_si_gptq, ct_qmm_i_gptq: the f32 planes s and m
-// read as they are, one row per group of 32, 64 or 128 rows, the
+// Every adjk symbol here runs the Hopper core of qmm_wgmma.cuh through its
+// adjk nibble tile: modes "si" and "i" on Q4_K (ct_qmm_si, ct_qmm_i:
+// factored scales s = sd * sub_s and m = sm * sub_m at group 32, two groups
+// a stage), on GPTQ4 and Q4_1 (ct_qmm_si_gptq, ct_qmm_i_gptq: the f32 planes
+// s and m read as they are, one row per group of 32, 64 or 128 rows, the
 // reference's sfactor == 0 branch; a group of 128 spans two of the core's
-// 64-row stages) and mode "si" on Q2_K and Q3_K (ct_qmm_si_k16: factored
+// 64-row stages), on Q2_K and Q3_K (ct_qmm_si_k16, ct_qmm_i_k16: factored
 // scales at group 16, four groups a stage; Q3_K has no bias, so its "si"
-// computes what "i" does). w4 * s (+ B in mode "i") is rounded once to
-// bf16 and, in mode "si", B = 8 s + m folded through the f32 group sums of
-// x. The others run qmm_gemm.cuh's 64 x 64 WMMA GEMM (tiles, fixed-order
-// sums, no fold): mode "i" on Q2_K and Q3_K (ct_qmm_i_k16: each of its 128
-// threads takes one byte row (two K rows, one nibble each) of 8 columns,
-// with those columns' group scale and bias, two groups of 16 a 32-row K
-// step) and Q4_0 (a tile without a bias, the reference's `b is None`
-// branch: it reads no min plane, W = w4 * s, and "si" computes what "i"
-// does).
+// computes what "i" does) and on Q4_0 (ct_qmm_i_q4_0, ct_qmm_si_q4_0: the
+// f32 s plane at group 32 and no min plane, the reference's `b is None`
+// branch, W = w4 * s; "si" computes what "i" does). w4 * s (+ B in mode
+// "i") is rounded once to bf16 and, in mode "si", B = 8 s + m folded
+// through the f32 group sums of x.
 //
-// The ksplit nibbles of every kind (ops/qmatmul.py; qmm_common.cuh) take the
-// same GEMM through their own tile:
+// The ksplit nibbles of every kind (ops/qmatmul.py; qmm_common.cuh) take
+// qmm_gemm.cuh's 64 x 64 WMMA GEMM (tiles, fixed-order sums, no fold)
+// through a tile of this file:
 //   _qmm_pack4_kernel,   mode "b":  out = bf16(x) @ bf16(v * s + B)
 //                                    -> ct_qmm_b_ks
 // with v = l in the low half of K and f in the high half and B that half's
@@ -50,103 +46,6 @@
 #include "qmm_wgmma.cuh"
 
 namespace {
-
-// The k-quant nibbles at group 16 for mode "i": Q2_K (with a bias) and Q3_K
-// (without): int8 (kp/G, np) sub-scales (and sub-mins) over f32
-// (kp/256, np) factors. A 32-row K step is two groups: a thread's byte row
-// lies in group (k0 + 2 wr) / G.
-template <int G, bool HAS_BIAS>
-struct KQuantTile {
-  static constexpr int kGroup = G;
-  static constexpr int kSF = ctq::kSuperblock / G;  // groups per superblock
-  static_assert(ctq::kGemmBK % G == 0 && ctq::kGemmThreads == 16 * 8,
-                "whole quant groups per K step; 16 byte rows x 8 column octets");
-
-  __device__ __forceinline__ static void load(
-      const int8_t* __restrict__ qs,     // (kp/2, np) adjk nibbles
-      const int8_t* __restrict__ sub_s,  // (kp/G, np)
-      const int8_t* __restrict__ sub_m,  // (kp/G, np)     [HAS_BIAS]
-      const float* __restrict__ sd,      // (kp/256, np)
-      const float* __restrict__ sm,      // (kp/256, np)   [HAS_BIAS]
-      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs) {
-    // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
-    const int wr = tid / 8, wc = (tid % 8) * 8;
-    const int g = (k0 + 2 * wr) / G;
-    const int n = col0 + wc;
-    const size_t go = (size_t)g * np + n;
-    const size_t fo = (size_t)(g / kSF) * np + n;
-    const uint2 sw = __ldg(reinterpret_cast<const uint2*>(sub_s + go));
-    const float4 d0 = __ldg(reinterpret_cast<const float4*>(sd + fo));
-    const float4 d1 = __ldg(reinterpret_cast<const float4*>(sd + fo + 4));
-    uint2 mw = make_uint2(0u, 0u);
-    float mv[8] = {};
-    if (HAS_BIAS) {
-      mw = __ldg(reinterpret_cast<const uint2*>(sub_m + go));
-      const float4 m0 = __ldg(reinterpret_cast<const float4*>(sm + fo));
-      const float4 m1 = __ldg(reinterpret_cast<const float4*>(sm + fo + 4));
-      mv[0] = m0.x, mv[1] = m0.y, mv[2] = m0.z, mv[3] = m0.w;
-      mv[4] = m1.x, mv[5] = m1.y, mv[6] = m1.z, mv[7] = m1.w;
-    }
-    const uint2 wv = __ldg(reinterpret_cast<const uint2*>(
-        qs + ((size_t)(k0 / 2) + wr) * np + n));
-    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-    __nv_bfloat16* b0 = Bs + (2 * wr) * ctq::kGemmLDB + wc;
-    __nv_bfloat16* b1 = b0 + ctq::kGemmLDB;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t swj = j < 4 ? sw.x : sw.y;
-      const uint32_t wj = j < 4 ? wv.x : wv.y;
-      float s, b = 0.0f;
-      if (HAS_BIAS) {
-        const uint32_t mwj = j < 4 ? mw.x : mw.y;
-        ctq::group_scale(dv[j], ctq::sbyte(swj, j % 4), mv[j], ctq::sbyte(mwj, j % 4), &s, &b);
-      } else {
-        s = __fmul_rn(dv[j], static_cast<float>(ctq::sbyte(swj, j % 4)));
-      }
-      float w0 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), s);
-      float w1 = __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), s);
-      if (HAS_BIAS) {
-        w0 = __fadd_rn(w0, b);
-        w1 = __fadd_rn(w1, b);
-      }
-      b0[j] = __float2bfloat16(w0);
-      b1[j] = __float2bfloat16(w1);
-    }
-  }
-};
-
-// Q4_0: adjk nibbles at zero point 8 (w4 = q), one f32 plane s (kp/32, np)
-// passed as sd, no mins and no bias: W = w4 * s.
-struct Q40Tile {
-  static constexpr int kGroup = ctq::kGemmBK;
-
-  __device__ __forceinline__ static void load(
-      const int8_t* __restrict__ qs,  // (kp/2, np) adjk nibbles
-      const int8_t* __restrict__,     // no sub-scales
-      const int8_t* __restrict__,     // no sub-mins
-      const float* __restrict__ s_p,  // (kp/32, np) s
-      const float* __restrict__,      // no mins
-      int np, int /*kp*/, int k0, int col0, int tid, __nv_bfloat16* Bs) {
-    // byte row wr (= K rows 2wr, 2wr+1 of the step), columns wc .. wc+7
-    const int wr = tid / 8, wc = (tid % 8) * 8;
-    const int n = col0 + wc;
-    const size_t go = (size_t)(k0 / kGroup) * np + n;
-    const float4 s0 = __ldg(reinterpret_cast<const float4*>(s_p + go));
-    const float4 s1 = __ldg(reinterpret_cast<const float4*>(s_p + go + 4));
-    const uint2 wv = __ldg(reinterpret_cast<const uint2*>(
-        qs + ((size_t)(k0 / 2) + wr) * np + n));
-    const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-    __nv_bfloat16* b0 = Bs + (2 * wr) * ctq::kGemmLDB + wc;
-    __nv_bfloat16* b1 = b0 + ctq::kGemmLDB;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t wj = j < 4 ? wv.x : wv.y;
-      b0[j] = __float2bfloat16(__fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4))), sv[j]));
-      b1[j] = __float2bfloat16(
-          __fmul_rn(static_cast<float>(ctq::nibble(wj, 2 * (j % 4) + 1)), sv[j]));
-    }
-  }
-};
 
 // ksplit nibbles (kp/2, np) of any kind: G, SF groups a superblock (0:
 // the f32 planes s and m come as sd and sm) and whether there are mins. Each
@@ -238,26 +137,31 @@ int launch_q4k(const float* x, const int8_t* qs, const int8_t* sub_s, const int8
   return ctw::launch_core<32, true, false, FOLD, false, true>(x, qs, p, st);
 }
 
+// Q4_0 on the Hopper core's adjk tile: the plain s plane (kp/32, np) and no
+// min plane (the reference's `b is None` branch: no bias, so "si" has nothing
+// to fold and computes what "i" does, W = w4 * s); a min plane is refused
+int launch_q40(const float* x, const int8_t* qs, const float* s, const float* mn, float* out,
+               int m, int kp, int np, cudaStream_t st) {
+  if (s == nullptr || mn != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const ctw::Params p{nullptr, nullptr, s, nullptr, out, m, kp, np};
+  return ctw::launch_core<32, false, true, false, false, true>(x, qs, p, st);
+}
+
 // Q2_K (has_mins 1: sub_m and sm given, B = 8 * s + m) and Q3_K (has_mins 0:
-// both null, no bias); a flag that disagrees with the pointers is refused.
-// Mode "i" runs qmm_gemm.cuh's GEMM, mode "si" (SUMFOLD) the Hopper core's
-// adjk tile at group 16 (Q2_K with the fold, Q3_K without: nothing to fold).
-template <bool SUMFOLD>
+// both null, no bias) on the Hopper core's adjk tile with factored scales at
+// group 16; a flag that disagrees with the pointers is refused. Mode "i"
+// adds Q2_K's bias to each weight before its one bf16 rounding, mode "si"
+// (FOLD) folds it through the group sums of x, four groups a stage; Q3_K has
+// nothing to fold, so both modes run one instantiation.
+template <bool FOLD>
 int launch_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
                const float* sd, const float* sm, float* out, int m, int kp, int np,
                int has_mins, cudaStream_t st) {
   if (has_mins != (sub_m != nullptr) || has_mins != (sm != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (SUMFOLD) {
-    const ctw::Params p{sub_s, sub_m, sd, sm, out, m, kp, np};
-    if (has_mins) return ctw::launch_core<16, true, false, true, false, true>(x, qs, p, st);
-    return ctw::launch_core<16, false, false, false, false, true>(x, qs, p, st);
-  }
-  if (has_mins)
-    return ctq::launch_gemm<KQuantTile<16, true>>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
-                                                  st);
-  return ctq::launch_gemm<KQuantTile<16, false>>(x, qs, sub_s, nullptr, sd, nullptr, out, m,
-                                                 kp, np, st);
+  const ctw::Params p{sub_s, sub_m, sd, sm, out, m, kp, np};
+  if (has_mins) return ctw::launch_core<16, true, false, FOLD, false, true>(x, qs, p, st);
+  return ctw::launch_core<16, false, false, false, false, true>(x, qs, p, st);
 }
 
 }  // namespace
@@ -301,18 +205,16 @@ int ct_qmm_si_gptq(const float* x, const int8_t* qs, const float* s,
 }
 
 // mode "i" on Q4_0: bf16(x) @ bf16(w4 * s); s f32 (kp/32, np), no mins (null).
-int ct_qmm_i_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
+int ct_qmm_i_q4_0(const float* x, const int8_t* qs, const float* s, const float* mn,
                   float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<Q40Tile>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_q40(x, qs, s, mn, out, m, kp, np, static_cast<cudaStream_t>(stream));
 }
 
 // mode "si" on Q4_0: the reference's sum-fold kernel with no bias to fold,
-// bf16(x) @ bf16(w4 * s), as "i" (the same kernel).
-int ct_qmm_si_q4_0(const float* x, const int8_t* qs, const float* s, const float*,
+// bf16(x) @ bf16(w4 * s), as "i" (the same instantiation).
+int ct_qmm_si_q4_0(const float* x, const int8_t* qs, const float* s, const float* mn,
                    float* out, int m, int kp, int np, void* stream) {
-  return ctq::launch_gemm<Q40Tile>(x, qs, nullptr, nullptr, s, nullptr, out, m, kp, np,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_q40(x, qs, s, mn, out, m, kp, np, static_cast<cudaStream_t>(stream));
 }
 
 // mode "i" on Q2_K and Q3_K: bf16(x) @ bf16(w4 * s + B) (B absent for Q3_K).

@@ -4,10 +4,11 @@
 // planes), routed here by qmm_grid.cu; on ksplit nibbles, ct_qmm_sb_ks at
 // m > 32 (every nibble kind; qmm_float.cu); and on adjk nibbles (all in
 // qmm_prefill.cu), ct_qmm_si_gptq and ct_qmm_i_gptq (GPTQ4 at groups 32, 64
-// and 128, Q4_1), ct_qmm_si and ct_qmm_i (Q4_K, group 32, factored scales)
-// and ct_qmm_si_k16 (Q2_K and Q3_K, group 16, factored scales). It
-// replaces, for those symbols, the 64 x 64 WMMA tiles of qmm_gemm.cuh,
-// which the other prompt GEMMs keep.
+// and 128, Q4_1), ct_qmm_si and ct_qmm_i (Q4_K, group 32, factored scales),
+// ct_qmm_si_k16 and ct_qmm_i_k16 (Q2_K and Q3_K, group 16, factored scales)
+// and ct_qmm_si_q4_0 and ct_qmm_i_q4_0 (Q4_0, group 32, the plain s plane
+// without mins). It replaces, for those symbols, the 64 x 64 WMMA tiles of
+// qmm_gemm.cuh, which the ksplit "b" and the "rb" GEMMs keep.
 //
 // Function (the JAX package's _qmm_kernel mode "b", _qmm_s_kernel mode
 // "sb", _qmm_pack4_s_kernel mode "sb", _qmm_i4_s_kernel and _qmm_i4_kernel,
@@ -25,9 +26,9 @@
 // high half, B each half's bias (ctq::ksplit_bias; the high half of Q4_0
 // and Q3_K has none) and xs the f32 sums of x over each group of G rows
 // (16 to 128). On adjk nibbles w4 is the signed nibble, B = 8 s + m
-// (ctq::plain_bias; m = sm * sub_m on Q4_K and Q2_K, none on Q3_K, which
-// has no bias) and xsum the sums over each group of G = 16 (Q2_K), 32, 64
-// or 128 rows.
+// (ctq::plain_bias; m = sm * sub_m on Q4_K and Q2_K, none on Q3_K and
+// Q4_0, which have no bias) and xsum the sums over each group of G = 16
+// (Q2_K), 32, 64 or 128 rows.
 //
 // Bound: at m = 128 a weight byte (about 1.08 B/weight with its scales)
 // feeds ~237 operations, just under the bf16 ridge, so the weight's bytes
@@ -94,13 +95,14 @@
 // group's: they start at a multiple of 8), rounds w4 * s (+ B without the
 // fold) once to bf16 (ctq::nibble) into their K slots, and, with the fold,
 // the first rows of each group write its bias row B = 8 s + m into the
-// free half of the weight slot. The scale rows are the grid's: the plain s
-// and m rows of the stage's groups (one row at groups of 64 and 128), or
-// the factored sub_s and sub_m rows of its four groups of 16 (Q2_K, Q3_K)
-// or two of 32 (Q4_K) beside the superblock's sd and sm rows. The fold
-// takes four groups a stage at G = 16 (each 16-column x step one group),
-// two at 32, one at 64, and at 128 carries the group's sums over its two
-// stages, adding them at its last (or the block's last).
+// free half of the weight slot; without mins (Q3_K, Q4_0) there is no bias
+// and no fold, W = w4 * s. The scale rows are the grid's: the plain s and
+// m rows of the stage's groups (one row at groups of 64 and 128; Q4_0 only
+// its two s rows), or the factored sub_s and sub_m rows of its four groups
+// of 16 (Q2_K, Q3_K) or two of 32 (Q4_K) beside the superblock's sd and sm
+// rows. The fold takes four groups a stage at G = 16 (each 16-column x
+// step one group), two at 32, one at 64, and at 128 carries the group's
+// sums over its two stages, adding them at its last (or the block's last).
 //
 // The factored sum fold (ct_qmm_sb on Q5_K). The scale slot holds sub_m
 // and sm, not M; the first rows of each group write its f32 row

@@ -43,7 +43,9 @@ f32 (Kp/32, Np) plane s and no mins, so B = 0: the reference kernels'
 branches without a bias term (qx_bias and g_bias False, b is None):
 
   qmm_qx_q4_0, qmm_q_q4_0, qmm_i_q4_0, qmm_si_q4_0, qmm_g_q4_0
-      the functions above without the bias (si then computes what i does)
+      the functions above without the bias (si then computes what i does;
+      qmm_i_q4_0 and qmm_si_q4_0 on the Hopper GEMM core's adjk nibble
+      tile, the plain s plane without mins)
 
 Q2_K and Q3_K, the same nibbles at group 16 with factored scales (16
 groups a superblock): int8 sub-scales over f32 sd, and for Q2_K int8
@@ -55,8 +57,8 @@ that disagrees with the sub-min and sm pointers:
 
   qmm_qx_k16, qmm_q_k16, qmm_i_k16, qmm_si_k16, qmm_g_k16
       the functions of qmm_qx, qmm_q, qmm_i, qmm_si and qmm_g at group 16
-      (qmm_si_k16 on the Hopper GEMM core's adjk nibble tile, four groups
-      of 16 a stage)
+      (qmm_si_k16 and qmm_i_k16 on the Hopper GEMM core's adjk nibble
+      tile, four groups of 16 a stage)
 
 An act-order weight (QTensor.perm) reaches the wrappers with x already
 gathered (ops/qmatmul.py:qmatmul).
@@ -837,12 +839,12 @@ SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPE
 # designs serve m > 32
 SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g")
 SOURCE_OF.update(dict.fromkeys(SPLIT_KERNELS, "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"))
-# the symbols that run the Hopper GEMM core: those of qmm_grid.cu and
-# qmm_si, qmm_i, qmm_si_gptq, qmm_i_gptq and qmm_si_k16 of qmm_prefill.cu
-# (the core's adjk nibble tile) at every m, qmm_sb_ks of qmm_float.cu (its
-# source) at m > 32
+# the symbols that run the Hopper GEMM core: those of qmm_grid.cu and every
+# adjk nibble GEMM of qmm_prefill.cu (the core's adjk nibble tile) at every
+# m, qmm_sb_ks of qmm_float.cu (its source) at m > 32
 WGMMA_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si", "qmm_i",
-                 "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_sb_ks")
+                 "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_i_k16", "qmm_si_q4_0",
+                 "qmm_i_q4_0", "qmm_sb_ks")
 SOURCE_OF.update({n: "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh" for n in WGMMA_KERNELS
                   if n != "qmm_sb_ks"})
 REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
@@ -872,8 +874,7 @@ SPLIT_CONFIG = "n128k16r2c8"
 NIBBLE_SPLIT_CONFIG = "n128k32r2c8"
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
-GEMM_KERNELS = ("qmm_i_q4_0", "qmm_si_q4_0", "qmm_i_k16", "qmm_b_ks", "qmm_rb_ks", "qmm_rb8",
-                "qmm_rb8_legacy")
+GEMM_KERNELS = ("qmm_b_ks", "qmm_rb_ks", "qmm_rb8", "qmm_rb8_legacy")
 # 128 x 128 output tile over two wgmma warpgroups, K split over a cluster of
 # 3 (csrc/qmm_wgmma.cuh)
 WGMMA_CONFIG = "wg128n128c3"

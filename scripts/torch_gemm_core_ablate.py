@@ -3,7 +3,8 @@ build the core as it is and copies with one part taken out, and time each
 on the same card in one process.
 
     python3 scripts/torch_gemm_core_ablate.py
-        [--kind Q6_K|ks:Q4_K|sb:Q5_K|aj:GPTQ4/128|aj:Q2_K|aj:Q4_K] [--m 128 ...]
+        [--kind Q6_K|ks:Q4_K|sb:Q5_K|aj:GPTQ4/128|aj:Q2_K|aj:Q4_K|ai:Q4_0|ai:Q2_K|ai:Q3_K]
+        [--m 128 ...]
         [--variants base no_mrows ...] [--reps 20]
 
 --kind Q6_K (the default) times the int8-grid tile behind ct_qmm_b on a
@@ -15,7 +16,12 @@ ct_qmm_si_gptq on GPTQ4 planes at group 128, with the fold of B = 8 s + m
 carried over a group's two stages; aj:Q2_K the same tile behind
 ct_qmm_si_k16 on Q2_K nibbles (group 16, factored scales), whose fold takes
 four groups a stage; aj:Q4_K the same tile behind ct_qmm_si on Q4_K
-nibbles (group 32, factored scales), whose fold takes two. Every variant
+nibbles (group 32, factored scales), whose fold takes two; ai:Q4_0 the
+adjk tile without a fold behind ct_qmm_i_q4_0 (and ct_qmm_si_q4_0) on Q4_0
+nibbles (group 32, the plain s plane, no mins: W = w4 * s); ai:Q2_K and
+ai:Q3_K the adjk tile without a fold behind ct_qmm_i_k16 on Q2_K nibbles
+(group 16, factored scales, the bias added to each weight) and on Q3_K
+nibbles (no bias; ct_qmm_si_k16 runs the same instantiation). Every variant
 is the symbol's source (qmm_grid.cu, qmm_float.cu or qmm_prefill.cu)
 built by nvcc (the package's flags, all started together) from a copy of
 csrc/ under build/gemm_core_ablate/ with one edit to qmm_wgmma.cuh:
@@ -36,7 +42,9 @@ csrc/ under build/gemm_core_ablate/ with one edit to qmm_wgmma.cuh:
                row (one more f32 product per value), the other way to feed
                the factored fold
 
---variants builds only those named (all of the kind's by default). Only
+--variants builds only those named (all of the kind's by default); each
+build prints ptxas' registers and spill stores for the timed
+instantiation and whether ptxas serialised its wgmma (warning C7513). Only
 base and m_in_fold compute the function (the error against the
 plain version is printed; the others print theirs too, meaningless by
 design). For each variant: the clusters the card runs at once
@@ -53,6 +61,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -142,7 +151,10 @@ KINDS = {"Q6_K": ("qmm_grid.cu", "ct_qmm_b", "16, false, false, false, false, fa
          "sb:Q5_K": ("qmm_grid.cu", "ct_qmm_sb", "32, true, false, true, false, false"),
          "aj:GPTQ4/128": ("qmm_prefill.cu", "ct_qmm_si_gptq", "128, true, true, true, false, true"),
          "aj:Q2_K": ("qmm_prefill.cu", "ct_qmm_si_k16", "16, true, false, true, false, true"),
-         "aj:Q4_K": ("qmm_prefill.cu", "ct_qmm_si", "32, true, false, true, false, true")}
+         "aj:Q4_K": ("qmm_prefill.cu", "ct_qmm_si", "32, true, false, true, false, true"),
+         "ai:Q4_0": ("qmm_prefill.cu", "ct_qmm_i_q4_0", "32, false, true, false, false, true"),
+         "ai:Q2_K": ("qmm_prefill.cu", "ct_qmm_i_k16", "16, true, false, false, false, true"),
+         "ai:Q3_K": ("qmm_prefill.cu", "ct_qmm_i_k16", "16, false, false, false, false, true")}
 
 
 def variants_of(kind: str) -> list:
@@ -150,9 +162,27 @@ def variants_of(kind: str) -> list:
             and (v != "m_in_fold" or kind == "sb:Q5_K")]
 
 
+def ptxas_of(log: str, args: str) -> str:
+    """Registers, spill stores and the wgmma serialisation warning (C7513)
+    of the core's instantiation `args` (KINDS' template arguments) in an
+    `nvcc -Xptxas -v` log."""
+    g, *flags = [a.strip() for a in args.split(",")]
+    mangled = (f"grid_gemm_kernelILi{g}E" + "".join("Lb1E" if f == "true" else "Lb0E" for f in flags)
+               + "E")
+    regs = spill = "?"
+    for blk in re.split(r"ptxas info\s*: Compiling entry function ", log)[1:]:
+        if mangled in blk.split("'")[1]:
+            r = re.search(r"Used (\d+) registers", blk)
+            sp = re.search(r"(\d+) bytes spill stores", blk)
+            regs, spill = (r.group(1) if r else "?"), (sp.group(1) if sp else "?")
+    c7513 = any(mangled in ln for ln in log.splitlines() if "C7513" in ln)
+    return f"{regs} registers, {spill} bytes spill stores, C7513 {'yes' if c7513 else 'no'}"
+
+
 def build(names, kind: str):
     """nvcc on a patched copy per variant of `kind`'s source, all started
-    together; returns {name: loaded library}."""
+    together; returns {name: loaded library} and prints each build's
+    ptxas line for the timed instantiation."""
     procs = {}
     for name in names:
         d = os.path.join(OUT, name)
@@ -179,6 +209,7 @@ def build(names, kind: str):
         out, _ = p.communicate()
         if p.returncode:
             raise SystemExit(f"nvcc failed on {name}:\n{out[-4000:]}")
+        print(f"{name}: ptxas {ptxas_of(out, KINDS[kind][2])}", flush=True)
         lib = ctypes.CDLL(so)
         K._bind(lib)
         lib.ablate_max_active_clusters.restype = ctypes.c_int
@@ -188,10 +219,10 @@ def build(names, kind: str):
 
 def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
     """A random Q6_K or Q5_K grid, GPTQ4 group-128 adjk nibbles over f32
-    planes, Q2_K adjk nibbles over group-16 factors (the ranges of
-    models/synthetic.py's random blocks), or Q4_K nibbles over group-32
-    factors, adjk or packed ksplit (any byte is a pair of nibbles), at
-    padded shape (k, n)."""
+    planes, Q4_0 adjk nibbles over an f32 s plane, Q2_K or Q3_K adjk
+    nibbles over group-16 factors (the ranges of models/synthetic.py's
+    random blocks), or Q4_K nibbles over group-32 factors, adjk or packed
+    ksplit (any byte is a pair of nibbles), at padded shape (k, n)."""
     g = torch.Generator().manual_seed(seed)
     sd = torch.rand((k // 256, n), generator=g) * 1e-3 + 1e-4
     if kind == "Q6_K":
@@ -210,12 +241,22 @@ def weight(kind: str, k: int, n: int, seed: int) -> QTensor:
         z = torch.randint(0, 16, (k // 128, n), generator=g).float()
         return QTensor(qs, s, -(s * z), "GPTQ4", 128, (k, n), packed=True, zp=0, sfactor=0,
                        pack_layout="adjk").to("cuda")
-    if kind == "aj:Q2_K":
-        r = K16_PLANE_RANGES["Q2_K"]
+    if kind == "ai:Q4_0":
+        qs = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8)
+        s = torch.rand((k // 32, n), generator=g) * 3e-3 + 1e-3
+        return QTensor(qs, s, None, "Q4_0", 32, (k, n), packed=True, zp=8, sfactor=0,
+                       pack_layout="adjk").to("cuda")
+    if kind in ("aj:Q2_K", "ai:Q2_K", "ai:Q3_K"):
+        q2 = kind.endswith("Q2_K")
+        r = K16_PLANE_RANGES["Q2_K" if q2 else "Q3_K"]
         qs = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8)
         sub_s = torch.randint(*r["sub"], (k // 16, n), generator=g, dtype=torch.int8)
-        sub_m = torch.randint(*r["sub"], (k // 16, n), generator=g, dtype=torch.int8)
+        sub_m = (torch.randint(*r["sub"], (k // 16, n), generator=g, dtype=torch.int8)
+                 if q2 else None)
         sd = torch.rand((k // 256, n), generator=g) * (r["d"][1] - r["d"][0]) + r["d"][0]
+        if not q2:
+            return QTensor(qs, sub_s, None, "Q3_K", 16, (k, n), packed=True, zp=8, sd=sd,
+                           sm=None, sfactor=16, pack_layout="adjk").to("cuda")
         sm = -torch.rand((k // 256, n), generator=g) * r["dmin"]
         return QTensor(qs, sub_s, sub_m, "Q2_K", 16, (k, n), packed=True, zp=0, sd=sd, sm=sm,
                        sfactor=16, pack_layout="adjk").to("cuda")
@@ -276,7 +317,9 @@ def main() -> int:
                    "sb:Q5_K": (K.plain_sb, lambda qt: (32,)),
                    "aj:GPTQ4/128": (K.plain_si, lambda qt: (128,)),
                    "aj:Q2_K": (K.plain_si, K._has_mins),
-                   "aj:Q4_K": (K.plain_si, K._no_ints)}[opts.kind]
+                   "aj:Q4_K": (K.plain_si, K._no_ints), "ai:Q4_0": (K.plain_i, K._no_ints),
+                   "ai:Q2_K": (K.plain_i, K._has_mins),
+                   "ai:Q3_K": (K.plain_i, K._has_mins)}[opts.kind]
     for shape, (k, n) in SHAPES.items():
         qts = [weight(opts.kind, k, n, 0)]
         per_copy = sum(a.numel() * a.element_size() for a in K._planes(qts[0]) if a is not None)

@@ -14,7 +14,7 @@ for the working tree) and environment variables for that run, for example
 
 (parent, the table's choices, the fixed rule twice, the table, parent). The
 checkpoints (--models, of MODELS: by default a Q4_K_M GGUF file and a GPTQ
-4-bit directory of group 128; Q2_K and Q3_K_M GGUF files too) at
+4-bit directory of group 128; Q2_K, Q3_K_M and Q4_0 GGUF files too) at
 llama-2-7B width with random weights from seed 7, are written once by this
 checkout's writer under build/serve_ab/ and removed at the end. Each run
 loads a checkpoint through AutoModelForCausalLM.from_pretrained, evaluates
@@ -23,10 +23,11 @@ its kernels there; each run has a user table of its own, which starts
 empty), then from an empty context times the prompt plus the first sample
 (TTFT), the device's busy time over one 128-token prompt chunk from an
 empty context under torch.profiler, `--steps` decode steps (eval + sample
-on the host clock: mean, median and least), the device's busy time over
-four more steps, and, where the checkout has kernel selection, the host's
-cost of one settled `pick_mode` call (the mean over 20 passes over the
-engine's weights at m = 1). With --fused, also the fused decode as
+on the host clock: mean, median and least; the first 16 sampled tokens),
+the device's busy time over four more steps, and, where the checkout has
+kernel selection, the host's cost of one settled `pick_mode` call (the
+mean over 20 passes over the engine's weights at m = 1) and the modes the
+128-token chunk ran (weights by weight type and mode). With --fused, also the fused decode as
 chip_smoke.py's serve_fast takes it (the checkout's own chip_smoke.py
 helpers): a greedy generate_fast of 64 tokens in segments of 32 that
 captures, a second one whose engine timings give the fused ms per token,
@@ -45,7 +46,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = {"Q4_K_M": "Q4_K_M", "GPTQ4-g128": ("gptq", 128, False), "Q2_K": "Q2_K",
-          "Q3_K_M": "Q3_K_M"}
+          "Q3_K_M": "Q3_K_M", "Q4_0": "Q4_0"}
 
 CHILD = """
 import json, statistics, sys, time, warnings
@@ -85,11 +86,12 @@ for label, path in {models!r}:
             torch.cuda.synchronize()
         chunk_busy_us = device_us(prof)
         tok = llm.sample(seed=5, top_k=40, temperature=0.8)
-        times = []
+        times, toks = [], [int(tok)]
         for _ in range({steps}):
             t0 = time.perf_counter()
             tok = step(llm, tok)
             times.append((time.perf_counter() - t0) * 1e3)
+            toks.append(int(tok))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(4):
                 tok = step(llm, tok)
@@ -116,10 +118,16 @@ for label, path in {models!r}:
                 torch.cuda.synchronize()
         fused = dict(fused_ms=(t2["t_eval_ms"] - t["t_eval_ms"]) / (t2["n_eval"] - t["n_eval"]),
                      fused_busy_ms=device_us(prof) / 1e3 / C.FAST_CHUNK)
-    pick_us = None
+    pick_us = modes = None
     from ctransformers_tpu_torch.ops import qmatmul as qm
     if hasattr(qm, "pick_mode"):
         qts = qm.qtensors(llm._engine.params)
+        modes = {{}}
+        for w in qts:
+            m128 = w.picks.get(128)
+            if m128 is not None:
+                key = w.kind + ":" + (m128[1][0] or "f")
+                modes[key] = modes.get(key, 0) + 1
         t0 = time.perf_counter()
         for _ in range(20):
             for w in qts:
@@ -130,7 +138,8 @@ for label, path in {models!r}:
                     decode_ms_mean=statistics.fmean(times),
                     decode_ms_median=statistics.median(times),
                     decode_ms_min=min(times),
-                    device_busy_ms=busy_us / 4e3, pick_mode_us=pick_us, **fused))
+                    device_busy_ms=busy_us / 4e3, pick_mode_us=pick_us, modes_m128=modes,
+                    tokens=toks[:16], **fused))
     del llm
     torch.cuda.empty_cache()
 print("AB_RESULT " + json.dumps(out))

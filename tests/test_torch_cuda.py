@@ -10,8 +10,9 @@ kernel (ops/attention.py) over f32, bf16, f16 and int8 caches in both
 layouts, at every llama head width (above 256 in column slices) and any
 number of query heads a kv head; the symbols of the Hopper GEMM core
 (qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq, qmm_i_gptq,
-qmm_si_k16, and qmm_sb_ks with its decode design at m <= 32) at prompt
-sizes up to m = 2048; qmm_g8 and qmm_f on the grids and qmm_qx and qmm_g
+qmm_si, qmm_i, qmm_si_k16, qmm_i_k16, qmm_si_q4_0, qmm_i_q4_0, and
+qmm_sb_ks with its decode design at m <= 32) at prompt sizes up to
+m = 2048; qmm_g8 and qmm_f on the grids and qmm_qx and qmm_g
 on Q4_K at m <= 32 (K split over a cluster) at the llama-2-7B keys, the
 split's edges and in a CUDA graph; the IEEE scale divisions of kv_quantize and the
 probes' quantizers; and the fused decode loop of engine/engine.py (a
@@ -339,9 +340,11 @@ def test_scale_divisions_are_ieee_on_the_card(dev):
 # the Hopper GEMM core (csrc/qmm_wgmma.cuh): the int8-grid symbols,
 # qmm_si_gptq and qmm_i_gptq (the adjk nibble tile with and without the
 # fold), qmm_si and qmm_i (the adjk tile at group 32 with factored scales,
-# Q4_K: two fold groups a stage, or the bias added per weight) and
-# qmm_si_k16 (the adjk tile at group 16 with factored scales: Q2_K folding
-# four groups a stage, Q3_K without a bias) at every instantiation,
+# Q4_K: two fold groups a stage, or the bias added per weight),
+# qmm_si_k16 and qmm_i_k16 (the adjk tile at group 16 with factored scales:
+# Q2_K folding four groups a stage or adding its bias per weight, Q3_K
+# without a bias) and qmm_i_q4_0 and qmm_si_q4_0 (the adjk tile with the
+# plain s plane and no mins) at every instantiation,
 # at the prompt chunk sizes Engine._chunks sends (and the ragged m = 33), at
 # llama-2-7B shapes
 CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb", "Q5_K"), ("qmm_sb", "Q6_K"),
@@ -349,7 +352,9 @@ CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb", "Q5_K"), ("qmm_sb", "Q6
         ("qmm_sb_legacy", "Q5_1"), ("qmm_sb_legacy", "Q8_0"), ("qmm_sb_legacy", "Q5_0")] + [
     (name, kind) for name in ("qmm_si_gptq", "qmm_i_gptq")
     for kind in [f"GPTQ4/{g}" for g in K.GPTQ_GROUPS] + ["Q4_1"]] + [
-    ("qmm_si_k16", "Q2_K"), ("qmm_si_k16", "Q3_K"), ("qmm_si", "Q4_K"), ("qmm_i", "Q4_K")]
+    ("qmm_si_k16", "Q2_K"), ("qmm_si_k16", "Q3_K"), ("qmm_si", "Q4_K"), ("qmm_i", "Q4_K"),
+    ("qmm_i_q4_0", "Q4_0"), ("qmm_si_q4_0", "Q4_0"), ("qmm_i_k16", "Q2_K"),
+    ("qmm_i_k16", "Q3_K")]
 # and qmm_sb_ks on every ksplit layout (ctq::dispatch_ksplit: Q4_K, Q2_K,
 # Q3_K, GPTQ4 / Q4_1 at groups 32, 64 and 128, Q4_0), at the decode design's
 # m <= 32 and the core's m > 32
@@ -395,10 +400,12 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
     """ct_qmm_b and ct_qmm_sb take group 16 without mins (Q6_K) or 32 with
     them (Q5_K: sub-mins and sm both given), ct_qmm_sb_legacy a has-mins
     flag that agrees with the min plane, ct_qmm_si_gptq and ct_qmm_i_gptq
-    group 32, 64 or 128 with both planes, ct_qmm_si_k16 a has-mins flag
-    that agrees with the sub-min and sm pointers, ct_qmm_si and ct_qmm_i
-    every factored plane (Q4_K's sub-mins and sm included); all a K padded
-    to 64-row steps, at least three of them; a refusal launches nothing."""
+    group 32, 64 or 128 with both planes, ct_qmm_si_k16 and ct_qmm_i_k16 a
+    has-mins flag that agrees with the sub-min and sm pointers, ct_qmm_si
+    and ct_qmm_i every factored plane (Q4_K's sub-mins and sm included),
+    ct_qmm_i_q4_0 and ct_qmm_si_q4_0 the s plane and no min plane; all a K
+    padded to 64-row steps, at least three of them; a refusal launches
+    nothing."""
     x = torch.randn(64, 256, device=dev)
     out = torch.full((64, 128), 7.0, device=dev)
     q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
@@ -424,16 +431,26 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
                   K._stream(dev)) != 0
         assert fn(*K._ptrs(x, gq.qs, gq.scales, gq.mins, out), 64, 128, 128, 32,
                   K._stream(dev)) != 0
-    fn = K._fn("qmm_prefill", "ct_qmm_si_k16")
     q2, q3 = random_k16("Q2_K", 256, 128, 5, dev), random_k16("Q3_K", 256, 128, 6, dev)
-    for qt, flag in ((q2, 0), (q3, 1)):  # a flag that disagrees with the pointers
-        assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 256, 128, flag,
+    for sym in ("ct_qmm_si_k16", "ct_qmm_i_k16"):
+        fn = K._fn("qmm_prefill", sym)
+        for qt, flag in ((q2, 0), (q3, 1)):  # a flag that disagrees with the pointers
+            assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 256, 128,
+                      flag, K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q2.qs, q2.scales, q2.mins, q2.sd, None, out), 64, 256, 128, 1,
                   K._stream(dev)) != 0
-    assert fn(*K._ptrs(x, q2.qs, q2.scales, q2.mins, q2.sd, None, out), 64, 256, 128, 1,
-              K._stream(dev)) != 0
-    for qt in (q2, q3):  # two 64-row steps for three blocks of a cluster
-        assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 128, 128,
-                  int(qt.mins is not None), K._stream(dev)) != 0
+        for qt in (q2, q3):  # two 64-row steps for three blocks of a cluster
+            assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 64, 128, 128,
+                      int(qt.mins is not None), K._stream(dev)) != 0
+    q40 = random_legacy("Q4_0", 256, 128, 8, dev)
+    for sym in ("ct_qmm_i_q4_0", "ct_qmm_si_q4_0"):
+        fn = K._fn("qmm_prefill", sym)
+        # a min plane given (Q4_0 has none), and no s plane
+        assert fn(*K._ptrs(x, q40.qs, q40.scales, q40.scales, out), 64, 256, 128,
+                  K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q40.qs, None, None, out), 64, 256, 128, K._stream(dev)) != 0
+        assert fn(*K._ptrs(x, q40.qs, q40.scales, None, out), 64, 128, 128,
+                  K._stream(dev)) != 0  # two 64-row steps for three blocks of a cluster
     q4k = random_q4k(256, 128, 7, dev)
     for sym in ("ct_qmm_si", "ct_qmm_i"):
         fn = K._fn("qmm_prefill", sym)

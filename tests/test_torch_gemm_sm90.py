@@ -1,8 +1,9 @@
 """The prompt GEMMs of the Hopper core (csrc/qmm_wgmma.cuh: qmm_b and qmm_sb
 on Q6_K and Q5_K, qmm_b_legacy and qmm_sb_legacy on Q5_1, Q8_0 and Q5_0,
 qmm_si and qmm_i on Q4_K, qmm_si_gptq and qmm_i_gptq on GPTQ4 at groups 32,
-64 and 128 and on Q4_1, qmm_si_k16 on Q2_K and Q3_K, qmm_sb_ks on the
-ksplit nibbles of every kind)
+64 and 128 and on Q4_1, qmm_si_k16 and qmm_i_k16 on Q2_K and Q3_K,
+qmm_si_q4_0 and qmm_i_q4_0 on Q4_0, qmm_sb_ks on the ksplit nibbles of
+every kind)
 on the CPU: what the core makes of x
 (bf16 rounding, group sums) against numpy, the plain versions at ragged m
 against the Pallas kernels in interpret mode, the launch configuration the
@@ -54,8 +55,11 @@ def test_x_operands_match_numpy(m, kp, group):
 # GPTQ4 and Q4_1 adjk nibbles (qmm_si_gptq against _qmm_i4_s_kernel,
 # qmm_i_gptq against _qmm_i4_kernel); Q2_K and Q3_K adjk nibbles at group 16
 # (qmm_si_k16 against _qmm_i4_s_kernel: Q2_K's bias folded four groups a
-# stage, Q3_K without one); Q4_K adjk nibbles at group 32 with factored
-# scales (qmm_si, its bias folded two groups a stage, and qmm_i)
+# stage, Q3_K without one; qmm_i_k16 against _qmm_i4_kernel: Q2_K's bias
+# added to each weight); Q4_K adjk nibbles at group 32 with factored
+# scales (qmm_si, its bias folded two groups a stage, and qmm_i); Q4_0 adjk
+# nibbles with the plain s plane and no bias (qmm_i_q4_0 and qmm_si_q4_0,
+# the reference's `b is None` branches)
 CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q8_0", "b", "b"), ("Q5_1", "b", "b"),
               ("Q5_1", "sb", "sb"), ("Q8_0", "sb", "sb"), ("Q5_0", "sb", "sb"),
               ("Q5_K", "sb", "sb"), ("Q6_K", "sb", "sb")] + [
@@ -63,6 +67,7 @@ CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q8_0", "b", "b"), ("Q5_1
     for kind in ("GPTQ4/32", "GPTQ4/64", "GPTQ4/128", "Q4_1")] + [
     (kind, "si", "si") for kind in ("Q2_K", "Q3_K")] + [
     ("Q4_K", "si", "si"), ("Q4_K", "i", "i")] + [
+    ("Q4_0", "i", "i"), ("Q4_0", "si", "si"), ("Q2_K", "i", "i"), ("Q3_K", "i", "i")] + [
     (f"ks:{kind}", "sb", "sb") for kind in ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/128", "Q4_0")]
 
 
@@ -71,7 +76,8 @@ CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q8_0", "b", "b"), ("Q5_1
 def test_core_plain_versions_match_pallas_at_ragged_m(kind, mode, pallas_mode, m, monkeypatch):
     """plain_b, plain_sb, plain_si, plain_i and plain_sb_ks (the functions
     of qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si, qmm_i,
-    qmm_si_gptq, qmm_si_k16, qmm_i_gptq and qmm_sb_ks) at m that fill no
+    qmm_si_gptq, qmm_si_k16, qmm_i_k16, qmm_i_gptq, qmm_si_q4_0, qmm_i_q4_0
+    and qmm_sb_ks) at m that fill no
     128-row tile, against
     _qmm_kernel, _qmm_s_kernel, _qmm_i4_s_kernel, _qmm_i4_kernel and
     _qmm_pack4_s_kernel."""
@@ -131,9 +137,10 @@ NIBBLE_SPLIT_CONFIG = "n128k32r2c8|n32k1024"
     ("GPTQ4/128", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
     ("GPTQ4/32", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
     ("Q4_1", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
-    # Q2_K and Q3_K: "si" on the core, "i" keeps qmm_gemm.cuh's tile
-    ("Q2_K", 128, {"i": K.GEMM_CONFIG, "si": K.WGMMA_CONFIG}),
-    ("Q3_K", 128, {"i": K.GEMM_CONFIG, "si": K.WGMMA_CONFIG}),
+    # Q2_K, Q3_K and Q4_0: "si" and "i" on the core
+    ("Q2_K", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
+    ("Q3_K", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
+    ("Q4_0", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
     ("Q5_1", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
     ("Q8_0", 128, {"b": K.WGMMA_CONFIG}),
     ("ks:Q4_K", 128, {"b": K.GEMM_CONFIG, "sb": SB_KS_CONFIG}),
@@ -152,13 +159,16 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
     assert K.CONFIG_OF["qmm_sb"] == K.CONFIG_OF["qmm_si_gptq"] == K.WGMMA_CONFIG
     assert K.CONFIG_OF["qmm_i_gptq"] == K.CONFIG_OF["qmm_si_k16"] == K.WGMMA_CONFIG
     assert K.CONFIG_OF["qmm_si"] == K.CONFIG_OF["qmm_i"] == K.WGMMA_CONFIG
+    assert K.CONFIG_OF["qmm_i_k16"] == K.WGMMA_CONFIG
+    assert K.CONFIG_OF["qmm_i_q4_0"] == K.CONFIG_OF["qmm_si_q4_0"] == K.WGMMA_CONFIG
     assert K.CONFIG_OF["qmm_sb_ks"] == SB_KS_CONFIG
     for name in ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si", "qmm_i",
-                 "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16"):
+                 "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_i_k16", "qmm_i_q4_0",
+                 "qmm_si_q4_0"):
         assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh"
     assert K.SOURCE_OF["qmm_sb_ks"] == "ctransformers_tpu_torch/csrc/qmm_float.cu"
     # the other GEMMs keep qmm_gemm.cuh's tile
-    for name in ("qmm_i_k16", "qmm_b_ks", "qmm_i_q4_0", "qmm_si_q4_0"):
+    for name in ("qmm_b_ks",):
         assert K.CONFIG_OF[name] == K.GEMM_CONFIG, name
         assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_prefill.cu", name
 

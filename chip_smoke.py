@@ -30,11 +30,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                Q4_0, Q2_K and Q3_K) held at m = 33, 64, 256 and 2048 as
                well (qmm_sb_ks also at its decode design's
                m = 1, 8 and 32), and every call of theirs checked bitwise
-               against a second call; qmm_g8 and qmm_f (the K split over a
-               cluster of csrc/qmm_splitk.cuh at m <= 32) also held at m = 3
-               and 32 on the Q6_K and Q5_K cases, every call checked
-               bitwise against a second one, the split's P logged, and
-               PERF.md's rows 5b and 7c summed;
+               against a second call; the kernels of the K split over a
+               cluster (csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f and
+               qmm_q8 on the Q6_K and Q5_K cases, qmm_q8_legacy on the
+               Q8_0 and Q5_1 ones, qmm_qx and qmm_g on the Q4_K ones) also
+               held at m = 3 and 32, every call checked bitwise against a
+               second one, the split's P logged, and PERF.md's row of each
+               summed (SPLIT_ROWS);
      attention the decode attention kernel (csrc/attn_decode.cu) against its
                plain version at llama-2-7B heads (32 of width 128, n_ctx
                2048): f32, bf16, IEEE f16 and int8 caches at n_past 200 and
@@ -259,11 +261,12 @@ CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
                    ("ks:GPTQ4/64", "o"), ("ks:Q4_0", "down"), ("ks:Q2_K", "o"),
                    ("ks:Q3_K", "down")}
 # the kernels that split K over a cluster at m <= 32 (csrc/qmm_splitk.cuh):
-# qmm_g8 and qmm_f held on the Q6_K and Q5_K cases, qmm_qx and qmm_g on the
-# Q4_K ones, at SPLIT_HELD_M beside the timed m = 1 and 8, each call checked
-# bitwise against a second one, its plan's P logged; PERF.md's kernel-table
-# row of each
-SPLIT_ROWS = {"qmm_g8": "7c", "qmm_f": "5b", "qmm_qx": "1a", "qmm_g": "7a"}
+# qmm_g8, qmm_f and qmm_q8 held on the Q6_K and Q5_K cases, qmm_q8_legacy on
+# the Q8_0 and Q5_1 ones, qmm_qx and qmm_g on the Q4_K ones, at SPLIT_HELD_M
+# beside the timed m = 1 and 8, each call checked bitwise against a second
+# one, its plan's P logged; PERF.md's kernel-table row of each
+SPLIT_ROWS = {"qmm_g8": "7c", "qmm_f": "5b", "qmm_qx": "1a", "qmm_g": "7a", "qmm_q8": "2b",
+              "qmm_q8_legacy": "2e"}
 SPLIT_KERNELS = tuple(SPLIT_ROWS)
 SPLIT_HELD_M = (3, 32)
 # (kernel, table key) held against its plain version in phase 3
@@ -716,8 +719,9 @@ def phase_kernels(K, copy_bw: float):
             others += [(K.kernel_name("r" if m <= 32 else "rb", base), m) for m in RACE_M]
         if not base.packed:  # and where one of qx_mode_entries sends the grids
             others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
-        if base.sfactor and base.pack_layout == "adjk":  # the K split at more m
-            served = {K.kernel_name(mode, base) for mode in ("g", "", "qx")}
+        if base.pack_layout == "adjk" and (base.sfactor or not base.packed):
+            # the K split at more m (Q4_K, the int8 grids)
+            served = {K.kernel_name(mode, base) for mode in ("g", "", "qx", "q")}
             others += [(name, m) for name in SPLIT_KERNELS if name in served
                        for m in SPLIT_HELD_M]
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m

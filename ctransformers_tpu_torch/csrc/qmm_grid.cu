@@ -28,19 +28,23 @@
 // sub_m null; the _legacy symbols say so, and whether there are mins,
 // explicitly (a null pointer selects nothing).
 //
-// The kernels are templated on G, HAS_MINS and PLAIN_S (the layouts). Every block owns one output tile
-// and all of K and sums in a fixed order (no atomics, no split-K), so runs
-// are bitwise repeatable.
+// The kernels are templated on G, HAS_MINS and PLAIN_S (the layouts). Every
+// block sums in a fixed order (no atomics; the K split's partial tiles are
+// added in rank order), so runs are bitwise repeatable.
 //
-// ct_qmm_q8, decode and short chunks (m <= 32):
+// ct_qmm_q8 and ct_qmm_q8_legacy, decode and short chunks (m <= 32):
 //   out = xsum @ M + sum_g (int32 dot_g(xq, q[:, n]) * sx[t, g]) * s[g, n]
 //   with xq, sx, xsum per group of G from ops/qmm_kernels.py
 //   quantize_activations. Bound: bytes. One weight byte feeds at most 32
 //   multiply-adds at m = 8, far below the ~295 operations per byte at which
 //   the card turns compute-bound, so the kernel is as fast as it streams
 //   the grid (1 B/weight) and its scale planes (~0.08 B/weight factored,
-//   0.125 or 0.25 B/weight for the legacy types' f32 planes). Design: as
-//   ct_qmm_q in qmm_decode.cu. A block owns 32 output columns; its 256
+//   0.125 or 0.25 B/weight for the legacy types' f32 planes). At
+//   1 <= m <= 32 both take q8_kernel of qmm_splitk.cuh: 128 columns a
+//   block, K split over a thread-block cluster, a cp.async ring of grid,
+//   x and scale stages, dp4a on transposed grid bytes, one rescale a whole
+//   group. Above 32 (only a user's table sends them there) the first
+//   design, qmm_q8_kernel below: a block owns 32 output columns; its 256
 //   threads lie 8 across the columns (4 columns each, one 32-bit load per
 //   row, so a warp reads 32 contiguous bytes from each of 4 rows) and 32
 //   down K (one quant group each per chunk of 32 groups). Each thread loads
@@ -70,6 +74,7 @@
 //   (TMA ring, wgmma, K split over a cluster of 3): ct_qmm_sb on Q5_K folds
 //   the factored M = sm * sub_m through the group sums of x, on Q6_K (no
 //   mins) it is the product alone, ct_qmm_b's instantiation.
+#include "qmm_splitk.cuh"
 #include "qmm_wgmma.cuh"
 
 namespace {
@@ -253,11 +258,17 @@ qmm_q8_kernel(const float* __restrict__ x,       // (m, kp) f32     [QUANT_IN]
   }
 }
 
+// xq given (ct_qmm_q8, ct_qmm_q8_legacy): the K split at 1 <= m <= 32, which
+// refuses what it does not take; QUANT_IN (ct_qmm_qx8, its legacy form) and
+// m > 32: qmm_q8_kernel
 template <int G, bool HAS_MINS, bool PLAIN_S, bool QUANT_IN>
 int launch_q8(const float* x, const int8_t* xq, const float* sx, const float* xs,
               const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp,
               int np, cudaStream_t stream) {
+  if (!QUANT_IN && m >= 1 && m <= ctsk::kMaxM)
+    return ctsk::run_q8<G, HAS_MINS, PLAIN_S>(xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp,
+                                              np, stream);
   if (m == 1) {
     dim3 grid(np / kTN, 1);
     qmm_q8_kernel<1, G, HAS_MINS, PLAIN_S, QUANT_IN><<<grid, kThreads, 0, stream>>>(
@@ -356,13 +367,38 @@ int launch_sb_core(const float* x, const int8_t* qs, const int8_t* sub_s, const 
 extern "C" {
 
 // mode "q" on an int8 grid: xq int8 (m, kp), sx and xsum f32 (m, kp/group).
-// group 16 without mins (Q6_K) or 32 with mins (Q5_K).
+// group 16 without mins (Q6_K) or 32 with mins (Q5_K); at m <= 32 the K
+// split of qmm_splitk.cuh.
 int ct_qmm_q8(const int8_t* xq, const float* sx, const float* xs,
               const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp,
               int np, int group, void* stream) {
   return launch_q8_grid<false>(nullptr, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                group, static_cast<cudaStream_t>(stream));
+}
+
+// the K split's plan (qmm_splitk.cuh) for ct_qmm_q8 (plain_s 0: group 16
+// without mins, Q6_K, or 32 with them, Q5_K) or ct_qmm_q8_legacy (plain_s
+// 1: group 32, with or without mins) at batch size m: the cluster's blocks
+// P, or a negative CUDA error code (m outside 1..32 among them).
+int ct_qmm_q8_split_plan(int plain_s, int has_mins, int group, int m, int kp, int np) {
+  if (plain_s && group == 32)
+    return has_mins ? ctsk::q8_plan_of<32, true, true>(m, kp, np)
+                    : ctsk::q8_plan_of<32, false, true>(m, kp, np);
+  if (!plain_s && group == 16 && !has_mins) return ctsk::q8_plan_of<16, false, false>(m, kp, np);
+  if (!plain_s && group == 32 && has_mins) return ctsk::q8_plan_of<32, true, false>(m, kp, np);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the clusters of p blocks that the split's kernel for that layout at batch
+// size m runs on the card at once, or a negative CUDA error code
+int ct_qmm_q8_split_capacity(int plain_s, int has_mins, int group, int m, int p) {
+  if (plain_s && group == 32)
+    return has_mins ? ctsk::q8_capacity_of<32, true, true>(m, p)
+                    : ctsk::q8_capacity_of<32, false, true>(m, p);
+  if (!plain_s && group == 16 && !has_mins) return ctsk::q8_capacity_of<16, false, false>(m, p);
+  if (!plain_s && group == 32 && has_mins) return ctsk::q8_capacity_of<32, true, false>(m, p);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // mode "qx" on an int8 grid: x f32 (m, kp), quantized per group in the
@@ -392,7 +428,7 @@ int ct_qmm_sb(const float* x, const int8_t* qs, const int8_t* sub_s,
 
 // mode "q" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): xq int8 (m, kp), sx and
 // xsum f32 (m, kp/32); s and mn f32 (kp/32, np), mn null exactly when
-// has_mins is 0.
+// has_mins is 0; at m <= 32 the K split of qmm_splitk.cuh.
 int ct_qmm_q8_legacy(const int8_t* xq, const float* sx, const float* xs,
                      const int8_t* qs, const float* s, const float* mn, float* out,
                      int m, int kp, int np, int has_mins, void* stream) {

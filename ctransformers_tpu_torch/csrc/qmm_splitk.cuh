@@ -1,6 +1,9 @@
 // The decode GEMVs at m <= 32 on the factored int8 grids (Q6_K: group 16, no
 // mins; Q5_K: group 32, with mins), ct_qmm_g8 (mode "g") and ct_qmm_f (mode
-// "") of qmm_float.cu, and on the Q4_K adjk nibbles (group 32, with mins),
+// "") of qmm_float.cu; on every int8 grid (those two, and the legacy Q8_0,
+// Q5_0 and Q5_1 with plain f32 planes at group 32), ct_qmm_q8 and
+// ct_qmm_q8_legacy (mode "q" on activations quantized outside) of
+// qmm_grid.cu; and on the Q4_K adjk nibbles (group 32, with mins),
 // ct_qmm_qx (mode "qx") of qmm_decode.cu and ct_qmm_g (mode "g") of
 // qmm_float.cu: each symbol takes this design there, its file's own above.
 //
@@ -10,6 +13,9 @@
 //       out = sum_g s[g,n] * dot_g(bf16(x), q)[t,n] + xsum @ M (Q5_K)
 //   _qmm_kernel mode "" (:734) on the grids -> ct_qmm_f
 //       out = x @ (q * s + m), all f32
+//   _qmm_q_kernel (:1288) with packed4=False -> ct_qmm_q8, ct_qmm_q8_legacy
+//       out = sum_g (dot_g(xq, q)[t,n] * sx[t,g]) * s[g,n] + xsum @ M, the
+//       group dots exact in int32, xq, sx and xsum given per (token, group)
 //   _qmm_qx_kernel (:1370) on Q4_K -> ct_qmm_qx
 //       out = sum_g (dot_g(xq, w4)[t,n] * sx[t,g]) * s[g,n] + xsum @ B, the
 //       group dots exact in int32, x quantized per (token, group of 32)
@@ -76,6 +82,16 @@
 //     dot sum(xq u) - 8 sum(xq); "g" at m = 1 permutes each u into the
 //     mantissa of 2^23 and subtracts 2^23 + 8 (no I2F, a quarter-rate
 //     conversion). Then one f32 rescale a group, as the first design.
+//   - "q" on the grids (q8_kernel): the stage carries its xq rows (int8),
+//     sx and (with mins) xsum for its groups, and its scale planes: the
+//     factored sub-scales and factor row, or the legacy grids' rows of the
+//     f32 s and mn planes. Each thread's 4 x 4 grid bytes (4 columns, 4 K
+//     rows) are transposed with 8 byte permutes into K-contiguous words a
+//     column and dotted with dp4a against xq's word of those rows, exactly
+//     in int32. At group 32 the second warp of a group hands its int32 dot
+//     to the first through shared memory (a barrier of the pair), so each
+//     group has one whole dot and one f32 rescale, as the first design:
+//     (dot * sx) * s, then + xsum * m.
 //   - "g" at m > 1 (8 rows of x) runs out of f32 pipes (8 products a
 //     weight), so it multiplies on tensor cores: mma.sync m16n8k16 with 16
 //     columns x 16 K rows of nibbles as A, one adjk byte a register (K rows
@@ -107,6 +123,9 @@ constexpr int kMT = 8;      // rows of x a block at m > 1
 constexpr bool kNibbleDp4a = true;
 constexpr bool kNibbleMagic = true;
 constexpr bool kNibbleMma = true;
+// "q" on the grids: dp4a on transposed grid bytes (false: a byte extract and
+// a multiply-add a weight and row of x, the first design's form)
+constexpr bool kGridDp4a = true;
 constexpr int kTN = 128;             // output columns a block
 constexpr int kWarps = 8;            // K lanes
 constexpr int kThreads = 32 * kWarps;
@@ -889,6 +908,273 @@ nibble_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   }
 }
 
+// ---- pre-quantized x on the int8 grids: ct_qmm_q8 and ct_qmm_q8_legacy ----
+
+// byte offsets of one q8 stage's parts (each a multiple of 16): the grid
+// bytes; the x part (xq, sx, and xsum with mins), whose 16-byte chunk c lies
+// at kX + 16 c; the scale part (factored: sub-scales, sub-mins, the factor
+// rows sd and sm; PLAIN_S: the rows of the f32 planes s and mn), chunk c at
+// kS + 16 c
+template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
+struct Q8Stage {
+  static constexpr int kGS = kKR / G;                          // groups a stage
+  static constexpr int kW = 0;                                 // int8 [kKR][kTN]
+  static constexpr int kX = kW + kKR * kTN;                    // int8 [MT][kKR] xq
+  static constexpr int kSx = kX + MT * kKR;                    // f32 [MT][kGS]
+  static constexpr int kXs = kSx + MT * kGS * 4;               // f32 [MT][kGS]
+  static constexpr int kS = kXs + (HAS_MINS ? MT * kGS * 4 : 0);
+  static constexpr int kPlaneRow = PLAIN_S ? 4 * kTN : kTN;    // bytes a row of s (sub_s)
+  static constexpr int kSubM = kS + kGS * kPlaneRow;           // mn (sub_m) [kGS][kTN]
+  static constexpr int kSd = kSubM + (HAS_MINS ? kGS * kPlaneRow : 0);  // f32 [kTN]
+  static constexpr int kSm = kSd + (PLAIN_S ? 0 : 4 * kTN);             // f32 [kTN]
+  static constexpr int kBytes = kSm + (HAS_MINS && !PLAIN_S ? 4 * kTN : 0);
+  static constexpr int kXChunks = (kS - kX) / 16;
+  static constexpr int kSChunks = (kBytes - kS) / 16;
+  static_assert(kGS % 4 == 0, "whole 16-byte chunks a row of sx");
+};
+
+// shared memory of a q8 block: the ring, then (group 32) the int32 dots a
+// group's second warp hands to the first
+template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
+struct Q8Smem {
+  static constexpr bool kComb = G > kLR;
+  static constexpr int kRing = kStages * Q8Stage<MT, G, HAS_MINS, PLAIN_S>::kBytes;
+  static constexpr int kComb0 = kRing;  // int [kWarps / 2][MT][kTN]
+  static constexpr int kBytes = kComb0 + (kComb ? kWarps / 2 * MT * kTN * 4 : 0);
+  static_assert((kWarps + 1) * MT * kTN * 4 <= kRing, "the reduction fits in the ring");
+};
+
+// the barrier of warps 2 p and 2 p + 1 alone (named barrier 1 + p)
+__device__ __forceinline__ void pair_sync(int p) {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + p) : "memory");
+}
+
+// MT: rows of x a block (1, or kMT at m > 1); G: 16 (Q6_K, no mins) or 32
+// (Q5_K with mins; the legacy grids with or without); PLAIN_S: the f32
+// planes s and mn (passed as sd and sm, no sub-planes) instead of the
+// factored ones. xq int8 (m, kp), sx and xs f32 (m, kp / G). Grid
+// (np / kTN * parts, ceil(m / MT)) in clusters of `parts` along x.
+template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<MT>)
+q8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+          const float* __restrict__ xs, const int8_t* __restrict__ qs,
+          const int8_t* __restrict__ sub_s, const int8_t* __restrict__ sub_m,
+          const float* __restrict__ sd, const float* __restrict__ sm,
+          float* __restrict__ out, int m, int kp, int np, int parts) {
+  using St = Q8Stage<MT, G, HAS_MINS, PLAIN_S>;
+  using Sm = Q8Smem<MT, G, HAS_MINS, PLAIN_S>;
+  constexpr int kGS = St::kGS;
+  static_assert(G == kLR || G == 2 * kLR, "a group is one K lane or two");
+  static_assert(!PLAIN_S || G == 2 * kLR, "the legacy grids' planes are at group 32");
+  static_assert(ctq::kSuperblock % kKR == 0, "a stage lies in one superblock");
+  static_assert(St::kXChunks <= kThreads && St::kSChunks <= kThreads, "a chunk of each part a thread");
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* comb = reinterpret_cast<int*>(smem + Sm::kComb0);
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const uint32_t rank = ctw::cluster_rank();
+  const int n0 = static_cast<int>(blockIdx.x) / parts * kTN;
+  const int t0 = blockIdx.y * MT;
+  const int nst = kp / kKR;
+  const int s0 = static_cast<int>(rank) * nst / parts;
+  const int n_it = (static_cast<int>(rank) + 1) * nst / parts - s0;
+
+  // ---- stage it of this block's range into ring slot it % kStages ----
+  // Each thread's copies are fixed: 16-byte chunks tid + u * kThreads of the
+  // grid tile (row tid / 8 + u * kThreads / 8, chunk tid % 8), chunk tid of
+  // the x part (threads below kXChunks: xq's rows, zero past m, then sx's and
+  // xsum's), chunk tid - kS0 of the scale part (the last kSChunks threads).
+  // Each chunk's source at stage 0 and its bytes a stage are set up once;
+  // the factor rows sd and sm move a superblock (two stages) at a time.
+  static_assert(kKR * kTN / 16 == 4 * kThreads, "four weight chunks a thread");
+  const int8_t* wsrc = qs + (size_t)(s0 * kKR + tid / 8) * np + n0 + 16 * (tid % 8);
+  const size_t wstep = (size_t)kThreads / 8 * np;  // rows between a thread's chunks
+  const uint8_t* xsrc = nullptr;
+  int xstep = 0;
+  bool xlive = false;
+  if (tid < St::kXChunks) {
+    constexpr int kRowChunks = kKR / 16, kSxRow = kGS / 4;  // chunks a row of xq, of sx
+    int c = tid;
+    if (c < MT * kRowChunks) {
+      const int i = c / kRowChunks;
+      xlive = t0 + i < m;
+      xsrc = reinterpret_cast<const uint8_t*>(xq + (size_t)(xlive ? t0 + i : 0) * kp + s0 * kKR +
+                                              16 * (c % kRowChunks));
+      xstep = kKR;
+    } else {
+      c -= MT * kRowChunks;
+      const float* plane = c < MT * kSxRow ? sx : xs;
+      c %= MT * kSxRow;
+      const int i = c / kSxRow;
+      xlive = t0 + i < m;
+      xsrc = reinterpret_cast<const uint8_t*>(plane + (size_t)(xlive ? t0 + i : 0) * (kp / G) +
+                                              s0 * kGS + 4 * (c % kSxRow));
+      xstep = kGS * 4;
+    }
+  }
+  constexpr int kS0 = kThreads - St::kSChunks;
+  const uint8_t* ssrc = nullptr;
+  size_t sstep = 0;
+  bool per_sb = false;  // a factor row: indexed by the stage's superblock
+  if (tid >= kS0) {
+    const int c = tid - kS0;
+    if constexpr (PLAIN_S) {
+      constexpr int kPlane = kGS * kTN / 4;  // chunks of a plane's rows
+      const float* plane = c < kPlane ? sd : sm;
+      const int cc = c % kPlane;
+      ssrc = reinterpret_cast<const uint8_t*>(plane + (size_t)(s0 * kGS + cc / (kTN / 4)) * np +
+                                              n0 + 4 * (cc % (kTN / 4)));
+      sstep = (size_t)kGS * np * 4;
+    } else {
+      constexpr int kSub = kGS * kTN / 16;  // chunks of a sub-plane's rows
+      constexpr int kSubs = HAS_MINS ? 2 * kSub : kSub;
+      if (c < kSubs) {
+        const int8_t* plane = c < kSub ? sub_s : sub_m;
+        const int cc = c % kSub;
+        ssrc = reinterpret_cast<const uint8_t*>(plane + (size_t)(s0 * kGS + cc / (kTN / 16)) * np +
+                                                n0 + 16 * (cc % (kTN / 16)));
+        sstep = (size_t)kGS * np;
+      } else {
+        const int cc = c - kSubs;
+        ssrc = reinterpret_cast<const uint8_t*>((cc < kTN / 4 ? sd : sm) + n0 + 4 * (cc % (kTN / 4)));
+        sstep = (size_t)np * 4;
+        per_sb = true;
+      }
+    }
+  }
+  auto load = [&](int it) {
+    uint8_t* b = smem + (it % kStages) * St::kBytes;
+    const int8_t* wp = wsrc + (size_t)it * kKR * np;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), wp + u * wstep);
+    if (tid < St::kXChunks) cp16z(b + St::kX + 16 * tid, xsrc + it * xstep, xlive);
+    if (tid >= kS0) {
+      const int step = per_sb ? (s0 + it) * kKR / ctq::kSuperblock : it;
+      cp16(b + St::kS + 16 * (tid - kS0), ssrc + step * sstep);
+    }
+  };
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_it) load(it);
+    cp_commit();
+  }
+  const int r0 = w * kLR;  // this lane's first row in a stage
+  const int gs = r0 / G;   // its group in the stage
+  for (int it = 0; it < n_it; ++it) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // stage it has landed; slot (it - 1) % kStages is free
+    if (it + kStages - 1 < n_it) load(it + kStages - 1);
+    cp_commit();
+    const uint8_t* b = smem + (it % kStages) * St::kBytes;
+
+    // ---- the lane's 16 rows' exact int32 dots, four rows at a time ----
+    int dot[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dot[i][c] = 0;
+#pragma unroll
+    for (int rr = 0; rr < kLR; rr += 4) {
+      uint32_t wv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wv[q] = *reinterpret_cast<const uint32_t*>(b + St::kW + (r0 + rr + q) * kTN + 4 * lane);
+      if constexpr (kGridDp4a) {
+        // each column's 4 rows made one K-contiguous word
+        uint32_t tw[4];
+        transpose4(wv, tw);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int xw = *reinterpret_cast<const int*>(b + St::kX + i * kKR + r0 + rr);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dot[i][c] = __dp4a(static_cast<int>(tw[c]), xw, dot[i][c]);
+        }
+      } else {
+        // the first design's form: each grid byte extracted, one
+        // multiply-add a weight and row of x
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const uint32_t xw = *reinterpret_cast<const uint32_t*>(b + St::kX + i * kKR + r0 + rr);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int xv = ctq::sbyte(xw, q);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dot[i][c] += ctq::sbyte(wv[q], c) * xv;
+          }
+        }
+      }
+    }
+
+    if constexpr (Sm::kComb) {
+      // a group's second warp hands its dot to the first
+      int* cb = comb + (w / 2) * MT * kTN + 4 * lane;
+      if (w & 1) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          *reinterpret_cast<int4*>(cb + i * kTN) = make_int4(dot[i][0], dot[i][1], dot[i][2], dot[i][3]);
+      }
+      pair_sync(w / 2);
+      if (w & 1) continue;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int4 o = *reinterpret_cast<const int4*>(cb + i * kTN);
+        dot[i][0] += o.x;
+        dot[i][1] += o.y;
+        dot[i][2] += o.z;
+        dot[i][3] += o.w;
+      }
+    }
+
+    // ---- the group's scale (and min) for this thread's 4 columns ----
+    float s[4], mn[4];
+    if constexpr (PLAIN_S) {
+      const float4 s4 = *reinterpret_cast<const float4*>(b + St::kS + gs * St::kPlaneRow + 16 * lane);
+      s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+      if (HAS_MINS) {
+        const float4 m4 =
+            *reinterpret_cast<const float4*>(b + St::kSubM + gs * St::kPlaneRow + 16 * lane);
+        mn[0] = m4.x, mn[1] = m4.y, mn[2] = m4.z, mn[3] = m4.w;
+      }
+    } else {
+      const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kS + gs * kTN + 4 * lane);
+      const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + 16 * lane);
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+      if (HAS_MINS) {
+        const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kSubM + gs * kTN + 4 * lane);
+        const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + 16 * lane);
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mn[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
+      }
+    }
+
+    // ---- one f32 rescale of the group's whole dots ----
+    const float* sxb = reinterpret_cast<const float*>(b + St::kSx);
+    const float* xsb = reinterpret_cast<const float*>(b + St::kXs);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float sxv = sxb[i * kGS + gs];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v = __fmul_rn(__fmul_rn(static_cast<float>(dot[i][c]), sxv), s[c]);
+        if (HAS_MINS) v = __fadd_rn(v, __fmul_rn(xsb[i * kGS + gs], mn[c]));
+        acc[i][c] = __fadd_rn(acc[i][c], v);
+      }
+    }
+  }
+
+  reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
+}
+
 // The launch shape of a kernel of this file: rows of x a block (kMTile), K
 // rows a stage (kRows), its dynamic shared memory, the kernel itself.
 template <int MT, bool G8, int G, bool HAS_MINS>
@@ -903,6 +1189,13 @@ struct NibbleKernel {
   static constexpr int kMTile = MT, kRows = kNRows;
   static constexpr size_t kSmem = NSmem<MT, QX>::kBytes;
   static auto fn() { return nibble_kernel<MT, QX>; }
+};
+
+template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
+struct Q8Kernel {
+  static constexpr int kMTile = MT, kRows = kKR;
+  static constexpr size_t kSmem = Q8Smem<MT, G, HAS_MINS, PLAIN_S>::kBytes;
+  static auto fn() { return q8_kernel<MT, G, HAS_MINS, PLAIN_S>; }
 };
 
 template <class KT>
@@ -964,9 +1257,9 @@ struct Split {
     return cudaSuccess;
   }
 
-  static int launch(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
-                    const float* sd, const float* sm, float* out, int m, int kp, int np,
-                    cudaStream_t stream) {
+  // the kernel on its pointers `ptrs`, then m, kp, np and the plan's P
+  template <class... Ptrs>
+  static int launch(int m, int kp, int np, cudaStream_t stream, Ptrs... ptrs) {
     int parts = 1;
     cudaError_t e = plan(m, kp, np, &parts);
     if (e == cudaSuccess) e = prepare();
@@ -983,30 +1276,33 @@ struct Split {
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, KT::fn(), x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, parts);
+    e = cudaLaunchKernelEx(&cfg, KT::fn(), ptrs..., m, kp, np, parts);
     return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
   }
 };
 
-// the shapes and planes the split takes: 1 <= m <= kMaxM, kp a multiple of
-// 256, np of 128 (the QTensor's padding), sub-scales and factors given, and
-// both min planes or neither as HAS_MINS says
+// the shapes the split takes: 1 <= m <= kMaxM, kp a multiple of 256, np of
+// 128 (the QTensor's padding)
+inline bool fits(int m, int kp, int np) {
+  return m >= 1 && m <= kMaxM && kp >= ctq::kSuperblock && kp % ctq::kSuperblock == 0 &&
+         np >= kTN && np % kTN == 0;
+}
+
+// the shapes and factored planes the split takes: sub-scales and factors
+// given, and both min planes or neither as HAS_MINS says
 template <bool HAS_MINS>
 bool takes(int m, int kp, int np, const void* sub_s, const void* sub_m, const float* sd,
            const float* sm) {
-  return m >= 1 && m <= kMaxM && kp >= ctq::kSuperblock && kp % ctq::kSuperblock == 0 &&
-         np >= kTN && np % kTN == 0 && sub_s != nullptr && sd != nullptr &&
+  return fits(m, kp, np) && sub_s != nullptr && sd != nullptr &&
          (sub_m != nullptr) == HAS_MINS && (sm != nullptr) == HAS_MINS;
 }
 
-// a kernel of this file at batch size m: KT1 (one row of x a block) at
-// m = 1, KT8 (kMT rows) above
-template <class KT1, class KT8>
-int run_family(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
-               const float* sd, const float* sm, float* out, int m, int kp, int np,
-               cudaStream_t stream) {
-  if (m == 1) return Split<KT1>::launch(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
-  return Split<KT8>::launch(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+// a kernel of this file at batch size m on its pointers: KT1 (one row of x
+// a block) at m = 1, KT8 (kMT rows) above
+template <class KT1, class KT8, class... Ptrs>
+int run_family(int m, int kp, int np, cudaStream_t stream, Ptrs... ptrs) {
+  if (m == 1) return Split<KT1>::launch(m, kp, np, stream, ptrs...);
+  return Split<KT8>::launch(m, kp, np, stream, ptrs...);
 }
 
 // the clusters of p blocks that run_family's kernel for batch size m runs
@@ -1022,9 +1318,7 @@ int capacity_family(int m, int p) {
 // run_family's plan for a shape: P, or a negative CUDA error code
 template <class KT1, class KT8>
 int plan_family(int m, int kp, int np) {
-  if (m < 1 || m > kMaxM || kp < ctq::kSuperblock || kp % ctq::kSuperblock || np < kTN ||
-      np % kTN)
-    return -static_cast<int>(cudaErrorInvalidValue);
+  if (!fits(m, kp, np)) return -static_cast<int>(cudaErrorInvalidValue);
   int parts = 0;
   const cudaError_t e =
       m == 1 ? Split<KT1>::plan(m, kp, np, &parts) : Split<KT8>::plan(m, kp, np, &parts);
@@ -1040,7 +1334,7 @@ int run(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub
   if (!takes<HAS_MINS>(m, kp, np, sub_s, sub_m, sd, sm))
     return static_cast<int>(cudaErrorInvalidValue);
   return run_family<GridKernel<1, G8, G, HAS_MINS>, GridKernel<kMT, G8, G, HAS_MINS>>(
-      x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+      m, kp, np, stream, x, qs, sub_s, sub_m, sd, sm, out);
 }
 
 template <bool G8, int G, bool HAS_MINS>
@@ -1059,8 +1353,8 @@ int run_nibble(const float* x, const int8_t* qs, const int8_t* sub_s, const int8
                const float* sd, const float* sm, float* out, int m, int kp, int np,
                cudaStream_t stream) {
   if (!takes<true>(m, kp, np, sub_s, sub_m, sd, sm)) return static_cast<int>(cudaErrorInvalidValue);
-  return run_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(x, qs, sub_s, sub_m, sd, sm, out,
-                                                                m, kp, np, stream);
+  return run_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(m, kp, np, stream, x, qs, sub_s,
+                                                                sub_m, sd, sm, out);
 }
 
 template <bool QX>
@@ -1071,6 +1365,36 @@ int nibble_capacity_of(int m, int p) {
 template <bool QX>
 int nibble_plan_of(int m, int kp, int np) {
   return plan_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(m, kp, np);
+}
+
+// ct_qmm_q8 (factored: group 16 without mins, Q6_K, or 32 with both min
+// planes, Q5_K) or ct_qmm_q8_legacy (PLAIN_S: group 32, the f32 planes s
+// and, with mins, mn passed as sd and sm, no sub-planes) at 1 <= m <= kMaxM,
+// on xq, sx and (with mins) xs given
+template <int G, bool HAS_MINS, bool PLAIN_S>
+int run_q8(const int8_t* xq, const float* sx, const float* xs, const int8_t* qs,
+           const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm,
+           float* out, int m, int kp, int np, cudaStream_t stream) {
+  const bool planes = PLAIN_S ? sub_s == nullptr && sub_m == nullptr && sd != nullptr &&
+                                    (sm != nullptr) == HAS_MINS
+                              : takes<HAS_MINS>(m, kp, np, sub_s, sub_m, sd, sm);
+  if (!fits(m, kp, np) || !planes || xq == nullptr || sx == nullptr ||
+      (HAS_MINS && xs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_family<Q8Kernel<1, G, HAS_MINS, PLAIN_S>, Q8Kernel<kMT, G, HAS_MINS, PLAIN_S>>(
+      m, kp, np, stream, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out);
+}
+
+template <int G, bool HAS_MINS, bool PLAIN_S>
+int q8_capacity_of(int m, int p) {
+  return capacity_family<Q8Kernel<1, G, HAS_MINS, PLAIN_S>, Q8Kernel<kMT, G, HAS_MINS, PLAIN_S>>(
+      m, p);
+}
+
+template <int G, bool HAS_MINS, bool PLAIN_S>
+int q8_plan_of(int m, int kp, int np) {
+  return plan_family<Q8Kernel<1, G, HAS_MINS, PLAIN_S>, Q8Kernel<kMT, G, HAS_MINS, PLAIN_S>>(
+      m, kp, np);
 }
 
 }  // namespace ctsk

@@ -69,7 +69,9 @@ csrc/qmm_float.cu):
 
   qmm_q8  xsum @ M + sum_g int32 dot_g(xq, q) * sx * s, on activations
           quantized outside per group of the weight's group
-          (replaces _qmm_q_kernel, mode "q", packed4=False)
+          (replaces _qmm_q_kernel, mode "q", packed4=False; at m <= 32 K
+          split over a thread-block cluster, dp4a on transposed grid bytes,
+          csrc/qmm_splitk.cuh; grid_split_plan gives the cluster's size)
   qmm_qx8 the same function on raw f32 x, quantized inside the kernel
           (replaces _qmm_qx_kernel, mode "qx", packed4=False)
   qmm_b   bf16(x) @ bf16(q * s + m)          (replaces _qmm_kernel, mode "b";
@@ -92,7 +94,8 @@ kernels' sfactor == 0 branches:
   qmm_q8_legacy, qmm_qx8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy,
   qmm_f_legacy, qmm_s_legacy   the functions of the seven grid kernels above
                                (qmm_b_legacy and qmm_sb_legacy on the Hopper
-                               GEMM core)
+                               GEMM core, qmm_q8_legacy on qmm_q8's K split
+                               at m <= 32)
 
 The same six nibble layouts (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_1, Q4_0) packed
 "ksplit" (ops/qmatmul.py: byte r holds row r in the low nibble, lo = q + zp,
@@ -264,6 +267,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_qx_split_capacity": [I] * 2,
         "ct_qmm_g_split_plan": [I] * 3,
         "ct_qmm_g_split_capacity": [I] * 2,
+        "ct_qmm_q8_split_plan": [I] * 6,
+        "ct_qmm_q8_split_capacity": [I] * 5,
         "ct_qmm_si_gptq": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_qx_q4_0": [P] * 5 + [I, I, I, P],
         "ct_qmm_q_q4_0": [P] * 7 + [I, I, I, P],
@@ -835,9 +840,9 @@ KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in 
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
 # the K split of csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f and qmm_g
-# (symbols in qmm_float.cu) and qmm_qx (qmm_decode.cu); their files' own
-# designs serve m > 32
-SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g")
+# (symbols in qmm_float.cu), qmm_qx (qmm_decode.cu), qmm_q8 and
+# qmm_q8_legacy (qmm_grid.cu); their files' own designs serve m > 32
+SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g", "qmm_q8", "qmm_q8_legacy")
 SOURCE_OF.update(dict.fromkeys(SPLIT_KERNELS, "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"))
 # the symbols that run the Hopper GEMM core: those of qmm_grid.cu and every
 # adjk nibble GEMM of qmm_prefill.cu (the core's adjk nibble tile) at every
@@ -882,9 +887,10 @@ CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SP
 CONFIG_OF.update(dict.fromkeys(WGMMA_KERNELS, WGMMA_CONFIG))
 # qmm_sb_ks: the float design at m <= 32, the core above
 CONFIG_OF.update(qmm_sb_ks=f"{KSPLIT_FLOAT_CONFIG}|{WGMMA_CONFIG}")
-# qmm_g8, qmm_f: the K split at m <= 32 (the race offers them there), the
-# decode design above
-CONFIG_OF.update(dict.fromkeys(("qmm_g8", "qmm_f"), f"{SPLIT_CONFIG}|{DECODE_CONFIG}"))
+# qmm_g8, qmm_f, qmm_q8 and qmm_q8_legacy: the K split at m <= 32 (the race
+# offers them there), the decode design above
+CONFIG_OF.update(dict.fromkeys(("qmm_g8", "qmm_f", "qmm_q8", "qmm_q8_legacy"),
+                               f"{SPLIT_CONFIG}|{DECODE_CONFIG}"))
 # qmm_qx, qmm_g: the nibble K split at m <= 32, the decode design above
 CONFIG_OF.update(dict.fromkeys(("qmm_qx", "qmm_g"), f"{NIBBLE_SPLIT_CONFIG}|{DECODE_CONFIG}"))
 CONFIG_OF.update(qmm_f_ks=KSPLIT_FLOAT_CONFIG, qmm_s_ks=KSPLIT_FLOAT_CONFIG,
@@ -902,20 +908,23 @@ _KSPLIT_KERNELS = {"": "qmm_f_ks", "s": "qmm_s_ks", "b": "qmm_b_ks", "sb": "qmm_
 
 def grid_split_plan(name: str, qt, m: int) -> int:
     """The blocks P of a cluster that a K-split kernel (`name`, one of
-    SPLIT_KERNELS) splits K over for weight `qt` (on the card; qmm_g8 and
-    qmm_f: Q6_K or Q5_K, qmm_qx and qmm_g: Q4_K) at batch size m <= 32: the
-    first of 8, 6, 4, 3 and 2, up to the weight's stages, whose clusters all
-    fit on the card at once, else 1 (csrc/qmm_splitk.cuh:plan)."""
+    SPLIT_KERNELS) splits K over for weight `qt` (on the card; qmm_g8,
+    qmm_f and qmm_q8: Q6_K or Q5_K, qmm_q8_legacy: Q8_0, Q5_0 or Q5_1,
+    qmm_qx and qmm_g: Q4_K) at batch size m <= 32: the first of 8, 6, 4, 3
+    and 2, up to the weight's stages, whose clusters all fit on the card at
+    once, else 1 (csrc/qmm_splitk.cuh:plan)."""
     if name not in SPLIT_KERNELS:
         raise ValueError(f"{name}: the K split serves {', '.join(SPLIT_KERNELS)}")
-    grid = name in ("qmm_g8", "qmm_f")
-    kp, np_ = check_grid_qtensor(qt) if grid else check_qtensor(qt)
+    lib, check = _SPECS[name][:2]
+    kp, np_ = check(qt)
     if qt.qs.device.type != "cuda":
         raise ValueError(f"{name}: the plan asks the card; the weight is on {qt.qs.device}")
-    if grid:
-        p = _fn("qmm_float", "ct_qmm_grid_split_plan")(int(name == "qmm_g8"), qt.group, m, kp, np_)
+    if name in ("qmm_g8", "qmm_f"):
+        p = _fn(lib, "ct_qmm_grid_split_plan")(int(name == "qmm_g8"), qt.group, m, kp, np_)
+    elif name in ("qmm_q8", "qmm_q8_legacy"):
+        p = _fn(lib, "ct_qmm_q8_split_plan")(int(qt.sfactor == 0), int(qt.mins is not None),
+                                             qt.group, m, kp, np_)
     else:
-        lib = "qmm_decode" if name == "qmm_qx" else "qmm_float"
         p = _fn(lib, f"ct_{name}_split_plan")(m, kp, np_)
     if p <= 0:
         raise RuntimeError(f"{name}: no split plan at m={m}, shape ({kp}, {np_}): CUDA error {-p}")

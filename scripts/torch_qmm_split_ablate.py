@@ -1,13 +1,15 @@
-"""Time the K-split decode GEMVs of csrc/qmm_splitk.cuh, ct_qmm_g8 and
-ct_qmm_f on the int8 grids and ct_qmm_qx and ct_qmm_g on Q4_K nibbles,
-against variants of their design on one card, in one process.
+"""Time the K-split decode GEMVs of csrc/qmm_splitk.cuh, ct_qmm_g8, ct_qmm_f
+and ct_qmm_q8 on the factored int8 grids, ct_qmm_q8_legacy on the legacy
+ones and ct_qmm_qx and ct_qmm_g on Q4_K nibbles, against variants of their
+design on one card, in one process.
 
     python3 scripts/torch_qmm_split_ablate.py [--m 1 8] [--reps 50]
-        [--cases REGEX] [--no-check] VARIANT [VARIANT ...]
+        [--cases REGEX] [--symbols REGEX] [--no-check] VARIANT [VARIANT ...]
 
-Each VARIANT is qmm_float.cu and qmm_decode.cu built by nvcc (the
-package's flags, all started together) from a copy of csrc/ under
-build/split_ablate/ with edits to qmm_splitk.cuh:
+Each VARIANT is the libraries of the timed symbols (qmm_float.cu,
+qmm_decode.cu, qmm_grid.cu) built by nvcc (the package's flags, all
+started together) from a copy of csrc/ under build/split_ablate/ with
+edits to qmm_splitk.cuh:
 
   base         the sources as they are
   stages3      a ring of 3 stages (the design: 2, one in flight while a
@@ -25,15 +27,20 @@ build/split_ablate/ with edits to qmm_splitk.cuh:
                design's form; the design: dp4a on transposed bytes)
   i2f          g on nibbles: an I2F a nibble (the first design's form; the
                design: the nibble in the mantissa of 2^23)
+  byte_mad     q8 on the grids: a byte extract and a multiply-add a weight
+               and row of x (the first design's form; the design: dp4a on
+               transposed grid bytes)
   no_mma       g on nibbles at m > 1: f32 products as at m = 1 (the
                design: bf16 mma.sync on tensor cores)
   root:PATH    the sources of another checkout (PATH/ctransformers_tpu_torch/
                csrc), e.g. a `git archive` of the parent unpacked under build/
 
-For each (Q6_K v, down, output; Q5_K fused QKV, o, gate/up, down; Q4_K o,
-fused QKV, gate/up, down, output at their padded llama-2-7B shapes) x m x
-symbol: the kernel ms from a replayed CUDA graph cycling over weight copies
-past the 50 MB L2 (as chip_smoke.py phase 3 times it), the bytes bound, the
+For each (Q6_K v, down, output; Q5_K fused QKV, o, gate/up, down; Q8_0
+fused QKV, o, gate/up, down, output; Q5_1 o; Q4_K o, fused QKV, gate/up,
+down, output at their padded llama-2-7B shapes) x m x symbol (those of
+--symbols): the kernel ms from a replayed CUDA graph cycling over weight copies
+past the 50 MB L2 (as chip_smoke.py phase 3 times it; q8 on activations
+quantized outside, as its wrapper takes them), the bytes bound, the
 error against the plain version (a variant that computes the function fails
 the run above 1e-5 unless --no-check; no_weights and no_compute print
 theirs, meaningless by design) and the split's P of the variant's plan. The
@@ -66,15 +73,18 @@ from ctransformers_tpu_torch.ops import qmatmul as qm  # noqa: E402
 from ctransformers_tpu_torch.ops import qmm_kernels as K  # noqa: E402
 
 OUT = os.path.join(HERE, "build", "split_ablate")
-# the keys of PERF.md's rows 5b and 7c, and of rows 1a and 7a (chip_smoke.py
-# phase 3's timed cases)
+# the keys of PERF.md's rows 5b, 7c and 2b, of row 2e, and of rows 1a and
+# 7a (chip_smoke.py phase 3's timed cases)
 CASES = [("Q6_K", "v"), ("Q6_K", "down"), ("Q6_K", "lm_head"), ("Q5_K", "qkv"), ("Q5_K", "o"),
-         ("Q5_K", "gate_up"), ("Q5_K", "down"), ("Q4_K", "o"), ("Q4_K", "qkv"),
-         ("Q4_K", "gate_up"), ("Q4_K", "down"), ("Q4_K", "lm_head")]
+         ("Q5_K", "gate_up"), ("Q5_K", "down"), ("Q8_0", "qkv"), ("Q8_0", "o"),
+         ("Q8_0", "gate_up"), ("Q8_0", "down"), ("Q8_0", "lm_head"), ("Q5_1", "o"),
+         ("Q4_K", "o"), ("Q4_K", "qkv"), ("Q4_K", "gate_up"), ("Q4_K", "down"),
+         ("Q4_K", "lm_head")]
 # the split's symbols of a weight kind, and the library each is built into
-SYMBOLS = {"Q6_K": ("qmm_g8", "qmm_f"), "Q5_K": ("qmm_g8", "qmm_f"), "Q4_K": ("qmm_qx", "qmm_g")}
+SYMBOLS = {"Q6_K": ("qmm_g8", "qmm_f", "qmm_q8"), "Q5_K": ("qmm_g8", "qmm_f", "qmm_q8"),
+           "Q8_0": ("qmm_q8_legacy",), "Q5_1": ("qmm_q8_legacy",), "Q4_K": ("qmm_qx", "qmm_g")}
 LIB_OF = {"qmm_g8": "qmm_float", "qmm_f": "qmm_float", "qmm_g": "qmm_float",
-          "qmm_qx": "qmm_decode"}
+          "qmm_qx": "qmm_decode", "qmm_q8": "qmm_grid", "qmm_q8_legacy": "qmm_grid"}
 # variant -> edits to qmm_splitk.cuh
 VARIANTS = {
     "base": (),
@@ -98,14 +108,15 @@ VARIANTS = {
     "imad_dot": (("constexpr bool kNibbleDp4a = true;", "constexpr bool kNibbleDp4a = false;"),),
     "i2f": (("constexpr bool kNibbleMagic = true;", "constexpr bool kNibbleMagic = false;"),),
     "no_mma": (("constexpr bool kNibbleMma = true;", "constexpr bool kNibbleMma = false;"),),
+    "byte_mad": (("constexpr bool kGridDp4a = true;", "constexpr bool kGridDp4a = false;"),),
 }
 CHECKED = tuple(v for v in VARIANTS if not v.startswith("no_"))
 
 
-def build(names):
-    """nvcc on qmm_float.cu and qmm_decode.cu of a copy of csrc/ per
-    variant, all started together; returns {name: ({library name: library},
-    ptxas lines of the split's kernels)}."""
+def build(names, libraries):
+    """nvcc on `libraries` (of qmm_float.cu, qmm_decode.cu, qmm_grid.cu) of
+    a copy of csrc/ per variant, all started together; returns {name:
+    ({library name: library}, ptxas lines of the split's kernels)}."""
     procs = {}
     for name in names:
         d = os.path.join(OUT, re.sub(r"[^A-Za-z0-9_]", "_", name))
@@ -123,7 +134,7 @@ def build(names):
                                      f"{old[:60]!r}")
                 src = src.replace(old, new)
             open(path, "w").write(src)
-        for lib in ("qmm_float", "qmm_decode"):
+        for lib in libraries:
             so = os.path.join(d, f"lib{lib}.so")
             procs[(name, lib)] = (so, subprocess.Popen(
                 [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")],
@@ -142,7 +153,7 @@ def build(names):
                 ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
                 if "spill" in ln or "Used" in ln])
             for i in range(len(lines)) if "Compiling entry" in lines[i]
-            and ("splitk_kernel" in lines[i] or "nibble_kernel" in lines[i]))
+            and any(k in lines[i] for k in ("splitk_kernel", "nibble_kernel", "ctsk9q8_kernel")))
     return libs
 
 
@@ -152,6 +163,7 @@ def main() -> int:
     ap.add_argument("--m", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--cases", default="", help="regex over 'kind shape'")
+    ap.add_argument("--symbols", default="", help="regex over the symbols (qmm_g8, qmm_q8, ...)")
     ap.add_argument("--no-check", action="store_true")
     opts = ap.parse_args()
     for v in opts.variants:
@@ -164,28 +176,37 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
     names = list(dict.fromkeys(opts.variants))
-    libs = build(names)
+    cases = [(kind, shape, syms) for kind, shape in CASES
+             if re.search(opts.cases, f"{kind} {shape}")
+             for syms in [[sym for sym in SYMBOLS[kind] if re.search(opts.symbols, sym)]] if syms]
+    libs = build(names, sorted({LIB_OF[sym] for _, _, syms in cases for sym in syms}))
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (dlls, ptxas) in libs.items():
         for line in ptxas:
             print(f"[ptxas] {name}: {line}", flush=True)
         # clusters of p blocks the card holds at once, per instantiation
-        cap = getattr(dlls["qmm_float"], "ct_qmm_grid_split_capacity", None)
+        cap = getattr(dlls.get("qmm_float"), "ct_qmm_grid_split_capacity", None)
         if cap:
             for g8, group, m in itertools.product((1, 0), (16, 32), (1, 8)):
                 print(f"[occupancy] {name}: {'g8' if g8 else 'f'} group {group} m={m}: " + " ".join(
                     f"P={p}:{cap(g8, group, m, p)}" for p in (8, 6, 4, 3, 2, 1)), flush=True)
+        cap = getattr(dlls.get("qmm_grid"), "ct_qmm_q8_split_capacity", None)
+        if cap:
+            for plain, mins, group, m in itertools.product((0, 1), (0, 1), (16, 32), (1, 8)):
+                if cap(plain, mins, group, m, 1) > 0:  # a layout q8 takes
+                    print(f"[occupancy] {name}: q8 {'legacy' if plain else 'grid'} group {group} "
+                          f"mins {mins} m={m}: " + " ".join(
+                              f"P={p}:{cap(plain, mins, group, m, p)}" for p in (8, 6, 4, 3, 2, 1)),
+                          flush=True)
         for sym in ("qmm_qx", "qmm_g"):
-            cap = getattr(dlls[LIB_OF[sym]], f"ct_{sym}_split_capacity", None)
+            cap = getattr(dlls.get(LIB_OF[sym]), f"ct_{sym}_split_capacity", None)
             for m in (1, 8) if cap else ():
                 print(f"[occupancy] {name}: {sym} m={m}: " + " ".join(
                     f"P={p}:{cap(m, p)}" for p in (8, 6, 4, 3, 2, 1)), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {name: {} for name in opts.variants}
-    for kind, shape in CASES:
-        if not re.search(opts.cases, f"{kind} {shape}"):
-            continue
+    for kind, shape, syms in cases:
         k, n = C.SHAPES[shape]
         kp, npad = qm.padded_shape(k, n)
         qts = [C.random_planes(K, kind, kp, npad, k, n, gen)]
@@ -196,9 +217,11 @@ def main() -> int:
             x = torch.zeros((m, kp), device=dev)
             x[:, :k] = torch.randn((m, k), generator=gen, device=dev)
             out = torch.empty(m, npad, device=dev)
-            bound = (wbytes + 4 * m * (kp + npad)) / C.PEAK_BYTES_S * 1e3
-            for sym in SYMBOLS[kind]:
-                ref = K.PLAIN[sym](x, qts[0])
+            for sym in syms:
+                acts = K.quantize_activations(x, qts[0].group) if sym in K.PREQUANTIZED else (x,)
+                nbytes = wbytes + sum(a.numel() * a.element_size() for a in acts) + 4 * m * npad
+                bound = nbytes / C.PEAK_BYTES_S * 1e3
+                ref = K.PLAIN[sym](*acts, qts[0])
                 ints = K._SPECS[sym][3](qts[0])  # the symbol's own ints (the grids: group)
                 for j, name in enumerate(opts.variants):
                     lib = libs[name][0][LIB_OF[sym]]
@@ -206,7 +229,7 @@ def main() -> int:
 
                     def call(i, fn=fn):
                         qt = qts[i % len(qts)]
-                        rc = fn(*K._ptrs(x, *K._planes(qt), out), m, kp, npad, *ints,
+                        rc = fn(*K._ptrs(*acts, *K._planes(qt), out), m, kp, npad, *ints,
                                 K._stream(dev))
                         if rc:
                             raise SystemExit(f"{name} {sym}: launch failed with CUDA error {rc}")
@@ -218,12 +241,17 @@ def main() -> int:
                     if kind == "Q4_K":
                         plan = getattr(lib, f"ct_{sym}_split_plan", None)
                         p = plan(m, kp, npad) if plan else "-"
+                    elif sym in ("qmm_q8", "qmm_q8_legacy"):
+                        plan = getattr(lib, "ct_qmm_q8_split_plan", None)
+                        qt = qts[0]
+                        p = plan(int(qt.sfactor == 0), int(qt.mins is not None), qt.group, m, kp,
+                                 npad) if plan else "-"
                     else:
                         plan = getattr(lib, "ct_qmm_grid_split_plan", None)
                         p = plan(int(sym == "qmm_g8"), qts[0].group, m, kp, npad) if plan else "-"
                     label = f"{j}:{name}" if opts.variants.count(name) > 1 else name
                     result[name][f"{sym} {kind} {shape} m={m}"] = ms
-                    print(f"{label:24s} {sym:6s} {kind} {shape:7s} m={m:2d} P={p}: {ms:.4f} ms "
+                    print(f"{label:24s} {sym:13s} {kind} {shape:7s} m={m:2d} P={p}: {ms:.4f} ms "
                           f"(bound {bound:.4f}, x{ms / bound:.2f}; rel err {err:.2e})",
                           flush=True)
                     if not opts.no_check and (name in CHECKED or name.startswith("root:")) \

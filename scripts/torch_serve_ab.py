@@ -14,7 +14,8 @@ for the working tree) and environment variables for that run, for example
 
 (parent, the table's choices, the fixed rule twice, the table, parent). The
 checkpoints (--models, of MODELS: by default a Q4_K_M GGUF file and a GPTQ
-4-bit directory of group 128; Q2_K, Q3_K_M and Q4_0 GGUF files too) at
+4-bit directory of group 128; Q2_K, Q3_K_M, Q4_0 and Q8_0 GGUF files
+too: a Q8_0 file's every weight is an int8 grid with plain f32 scales) at
 llama-2-7B width with random weights from seed 7, are written once by this
 checkout's writer under build/serve_ab/ and removed at the end. Each run
 loads a checkpoint through AutoModelForCausalLM.from_pretrained, evaluates
@@ -46,7 +47,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = {"Q4_K_M": "Q4_K_M", "GPTQ4-g128": ("gptq", 128, False), "Q2_K": "Q2_K",
-          "Q3_K_M": "Q3_K_M", "Q4_0": "Q4_0"}
+          "Q3_K_M": "Q3_K_M", "Q4_0": "Q4_0", "Q8_0": "Q8_0"}
 
 CHILD = """
 import json, statistics, sys, time, warnings

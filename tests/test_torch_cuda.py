@@ -13,7 +13,8 @@ number of query heads a kv head; the symbols of the Hopper GEMM core
 qmm_si, qmm_i, qmm_si_k16, qmm_i_k16, qmm_si_q4_0, qmm_i_q4_0, and
 qmm_sb_ks with its decode design at m <= 32) at prompt sizes up to
 m = 2048; qmm_g8 and qmm_f on the grids and qmm_qx and qmm_g
-on Q4_K at m <= 32 (K split over a cluster) at the llama-2-7B keys, the
+on Q4_K and qmm_q8 and qmm_q8_legacy on every int8 grid at m <= 32 (K
+split over a cluster) at the llama-2-7B keys, the
 split's edges and in a CUDA graph; the IEEE scale divisions of kv_quantize and the
 probes' quantizers; and the fused decode loop of engine/engine.py (a
 captured CUDA graph per key) against the eager loop on a tiny model.
@@ -479,17 +480,27 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
 # (o, fused QKV, gate/up, down, lm_head at their padded shapes) and at the
 # edges: one stage at the narrowest N, 13 stages, and block ranges longer
 # than the x window a block stages at once (K 12288 over P = 2 for g at
-# m = 1, K 20480 for qx)
+# m = 1, K 20480 for qx); qmm_q8 on the grids' keys and edges, and
+# qmm_q8_legacy on Q8_0 (no mins) and Q5_1 (mins) at the legacy files' o,
+# down, fused QKV and lm_head shapes and the narrowest edge
 SPLIT_KEYS = [("Q6_K", 4096, 4096), ("Q6_K", 11264, 4096), ("Q6_K", 4096, 32768),
               ("Q5_K", 4096, 12288), ("Q5_K", 11264, 4096)]
 SPLIT_EDGES = [("Q6_K", 256, 128), ("Q5_K", 256, 128), ("Q6_K", 1280, 4096),
                ("Q5_K", 3328, 256)]
 NIBBLE_SPLIT_KEYS = [(4096, 4096), (4096, 12288), (4096, 22528), (11264, 4096), (4096, 32768)]
 NIBBLE_SPLIT_EDGES = [(256, 128), (3328, 256), (12288, 16384), (20480, 32768)]
-SPLIT_CASES = [(name, kind, k, n) for name in ("qmm_g8", "qmm_f")
+LEGACY_SPLIT_SHAPES = [(4096, 4096), (11264, 4096), (4096, 12288), (4096, 32768), (256, 128)]
+SPLIT_CASES = [(name, kind, k, n) for name in ("qmm_g8", "qmm_f", "qmm_q8")
                for kind, k, n in SPLIT_KEYS + SPLIT_EDGES] + [
     (name, "Q4_K", k, n) for name in ("qmm_qx", "qmm_g")
-    for k, n in NIBBLE_SPLIT_KEYS + NIBBLE_SPLIT_EDGES]
+    for k, n in NIBBLE_SPLIT_KEYS + NIBBLE_SPLIT_EDGES] + [
+    ("qmm_q8_legacy", kind, k, n) for kind in ("Q8_0", "Q5_1") for k, n in LEGACY_SPLIT_SHAPES]
+
+
+def split_args(name, x, qt):
+    """The activations a K-split kernel takes: xq, sx and xsum from
+    quantize_activations for the q8 kernels, else x itself."""
+    return K.quantize_activations(x, qt.group) if name in K.PREQUANTIZED else (x,)
 
 
 @pytest.mark.parametrize("name,kind,k,n", SPLIT_CASES)
@@ -497,43 +508,48 @@ SPLIT_CASES = [(name, kind, k, n) for name in ("qmm_g8", "qmm_f")
 def test_grid_split_matches_plain(dev, name, kind, k, n, m):
     qt = _weight(name, kind, k, n, seed=k + n + m, device=dev)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    args = split_args(name, x, qt)
     p = K.grid_split_plan(name, qt, m)
     stage = 256 if kind == "Q4_K" else 128  # K rows a stage
     assert p in (1, 2, 3, 4, 6, 8) and p <= k // stage
     if (k, n, m) == (4096, 4096, 1):  # enough blocks for the card's SMs
         assert p * n // 128 >= 128
     before = K.LAUNCHES[name]
-    got = K.KERNELS[name](x, qt)
+    got = K.KERNELS[name](*args, qt)
     torch.cuda.synchronize()
     assert K.LAUNCHES[name] == before + 1
-    ref = K.PLAIN[name](x, qt)
+    ref = K.PLAIN[name](*args, qt)
     assert got.shape == (m, n) and torch.isfinite(got).all()
     assert _rel(got, ref) <= TOL[name], (p, _rel(got, ref))
-    assert torch.equal(got, K.KERNELS[name](x, qt)), "kernel runs are not bitwise repeatable"
+    assert torch.equal(got, K.KERNELS[name](*args, qt)), "kernel runs are not bitwise repeatable"
 
 
 @pytest.mark.parametrize("name,kind,m", [("qmm_g8", "Q6_K", 1), ("qmm_g8", "Q5_K", 8),
                                          ("qmm_f", "Q6_K", 8), ("qmm_f", "Q5_K", 1),
                                          ("qmm_qx", "Q4_K", 1), ("qmm_qx", "Q4_K", 8),
-                                         ("qmm_g", "Q4_K", 1), ("qmm_g", "Q4_K", 8)])
+                                         ("qmm_g", "Q4_K", 1), ("qmm_g", "Q4_K", 8),
+                                         ("qmm_q8", "Q5_K", 8), ("qmm_q8_legacy", "Q5_1", 1)])
 def test_grid_split_replays_in_a_graph(dev, name, kind, m):
-    """One captured call replayed on new activations (copied into the tensor
-    the graph reads) equals eager calls, bitwise."""
+    """One captured call replayed on new activations (copied into the
+    tensors the graph reads) equals eager calls, bitwise."""
     qt = _weight(name, kind, 11264, 4096, seed=5, device=dev)
     x = torch.randn(m, 11264, generator=torch.Generator().manual_seed(6)).to(dev)
+    args = split_args(name, x, qt)
     kern = K.KERNELS[name]
-    kern(x, qt)  # builds, plans and warms
+    kern(*args, qt)  # builds, plans and warms
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = kern(x, qt)
+        out = kern(*args, qt)
     for seed in (7, 8, 9):
         x.copy_(torch.randn(m, 11264, generator=torch.Generator().manual_seed(seed)))
+        for a, v in zip(args, split_args(name, x, qt)):
+            a.copy_(v)
         graph.replay()
-        eager = kern(x, qt)
+        eager = kern(*args, qt)
         torch.cuda.synchronize()
         assert torch.equal(out, eager), seed
-        assert _rel(out, K.PLAIN[name](x, qt)) <= TOL[name]
+        assert _rel(out, K.PLAIN[name](*args, qt)) <= TOL[name]
 
 
 def test_grid_split_refuses_what_it_does_not_take(dev):
@@ -556,6 +572,46 @@ def test_grid_split_refuses_what_it_does_not_take(dev):
         K.grid_split_plan("qmm_g8", q6k, 33)
     with pytest.raises(ValueError):
         K.grid_split_plan("qmm_s", q5k, 1)
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0)
+
+
+def test_q8_split_refuses_what_it_does_not_take(dev):
+    """At m <= 32 ct_qmm_q8 and ct_qmm_q8_legacy take a K padded to 256
+    rows and an N to 128 columns; ct_qmm_q8 group 16 without mins or 32
+    with both min planes, ct_qmm_q8_legacy a min plane exactly when told
+    there are mins. A refusal launches nothing, and the plan raises (m = 33
+    is the first design's, not the split's)."""
+    x = torch.randn(8, 256, device=dev)
+    xq, sx, xs = K.quantize_activations(x, 32)
+    xq16, sx16, xs16 = K.quantize_activations(x, 16)
+    out = torch.full((8, 128), 7.0, device=dev)
+    q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
+    fn = K._fn("qmm_grid", "ct_qmm_q8")
+    for qt, kp, np_, group in ((q6k, 128, 128, 16), (q6k, 256, 64, 16), (q5k, 128, 128, 32),
+                               (q5k, 256, 64, 32)):
+        acts = (xq16, sx16, xs16) if group == 16 else (xq, sx, xs)
+        assert fn(*K._ptrs(*acts, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 8, kp, np_,
+                  group, K._stream(dev)) != 0
+    # Q5_K's sub-mins without sm, and a Q6_K sm plane
+    assert fn(*K._ptrs(xq, sx, xs, q5k.qs, q5k.scales, q5k.mins, q5k.sd, None, out), 8, 256, 128,
+              32, K._stream(dev)) != 0
+    assert fn(*K._ptrs(xq16, sx16, xs16, q6k.qs, q6k.scales, None, q6k.sd, q5k.sm, out), 8, 256,
+              128, 16, K._stream(dev)) != 0
+    fn = K._fn("qmm_grid", "ct_qmm_q8_legacy")
+    q51, q80 = random_legacy("Q5_1", 256, 128, 3, dev), random_legacy("Q8_0", 256, 128, 4, dev)
+    for qt, mn, flag in ((q51, None, 1), (q51, q51.mins, 0), (q80, q51.mins, 0)):
+        assert fn(*K._ptrs(xq, sx, xs, qt.qs, qt.scales, mn, out), 8, 256, 128, flag,
+                  K._stream(dev)) != 0
+    for qt in (q51, q80):  # K or N off the grid
+        for kp, np_ in ((128, 128), (256, 64)):
+            assert fn(*K._ptrs(xq, sx, xs, qt.qs, qt.scales, qt.mins, out), 8, kp, np_,
+                      int(qt.mins is not None), K._stream(dev)) != 0
+    for name, qt in (("qmm_q8", q5k), ("qmm_q8_legacy", q80)):
+        with pytest.raises(RuntimeError):
+            K.grid_split_plan(name, qt, 33)
+    with pytest.raises(NotImplementedError):
+        K.grid_split_plan("qmm_q8_legacy", q6k, 1)
     torch.cuda.synchronize()
     assert torch.all(out == 7.0)
 

@@ -119,8 +119,8 @@ def _real(kind, k=512, n=384):
 
 # qmm_sb_ks: the ksplit float design ("n32k512") at m <= 32, the core above
 SB_KS_CONFIG = "n32k512|wg128n128c3"
-# qmm_g8 and qmm_f: the K split ("n128k16r2c8") at m <= 32, the decode
-# design ("n32k1024") above
+# qmm_g8, qmm_f, qmm_q8 and qmm_q8_legacy: the K split ("n128k16r2c8") at
+# m <= 32, the decode design ("n32k1024") above
 GRID_SPLIT_CONFIG = "n128k16r2c8|n32k1024"
 # qmm_qx and qmm_g on Q4_K: the nibble K split ("n128k32r2c8") at m <= 32,
 # the decode design above
@@ -129,7 +129,7 @@ NIBBLE_SPLIT_CONFIG = "n128k32r2c8|n32k1024"
 
 @pytest.mark.parametrize("kind,m,want", [
     ("Q6_K", 128, {"b": K.WGMMA_CONFIG}),
-    ("Q6_K", 8, {"b": K.WGMMA_CONFIG, "g": GRID_SPLIT_CONFIG, "q8": K.DECODE_CONFIG,
+    ("Q6_K", 8, {"b": K.WGMMA_CONFIG, "g": GRID_SPLIT_CONFIG, "q8": GRID_SPLIT_CONFIG,
                  "": GRID_SPLIT_CONFIG}),
     ("Q5_K", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
     ("Q4_K", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
@@ -174,7 +174,9 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
 
 
 @pytest.mark.parametrize("name,kind,other", [("qmm_g8", "Q6_K", "Q4_K"), ("qmm_f", "Q5_K", "Q4_K"),
-                                             ("qmm_qx", "Q4_K", "Q6_K"), ("qmm_g", "Q4_K", "Q5_K")])
+                                             ("qmm_qx", "Q4_K", "Q6_K"), ("qmm_g", "Q4_K", "Q5_K"),
+                                             ("qmm_q8", "Q6_K", "Q4_K"), ("qmm_q8", "Q5_K", "Q4_K"),
+                                             ("qmm_q8_legacy", "Q8_0", "Q6_K")])
 def test_split_kernels_name_their_design(name, kind, other):
     """The kernels that split K over a cluster at m <= 32 name
     csrc/qmm_splitk.cuh and their split configuration; the plan asks the

@@ -33,7 +33,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                against a second call; the kernels of the K split over a
                cluster (csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f and
                qmm_q8 on the Q6_K and Q5_K cases, qmm_q8_legacy on the
-               Q8_0 and Q5_1 ones, qmm_qx and qmm_g on the Q4_K ones) also
+               Q8_0 and Q5_1 ones, qmm_qx and qmm_g on the Q4_K ones,
+               qmm_f_ks and qmm_s_ks on the ksplit ones) also
                held at m = 3 and 32, every call checked bitwise against a
                second one, the split's P logged, and PERF.md's row of each
                summed (SPLIT_ROWS);
@@ -262,15 +263,19 @@ CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
                    ("ks:Q3_K", "down")}
 # the kernels that split K over a cluster at m <= 32 (csrc/qmm_splitk.cuh):
 # qmm_g8, qmm_f and qmm_q8 held on the Q6_K and Q5_K cases, qmm_q8_legacy on
-# the Q8_0 and Q5_1 ones, qmm_qx and qmm_g on the Q4_K ones, at SPLIT_HELD_M
-# beside the timed m = 1 and 8, each call checked bitwise against a second
-# one, its plan's P logged; PERF.md's kernel-table row of each
+# the Q8_0 and Q5_1 ones, qmm_qx and qmm_g on the Q4_K ones, qmm_f_ks and
+# qmm_s_ks on the ksplit ones, at SPLIT_HELD_M beside the timed m = 1 and
+# 8, each call checked bitwise against a second one, its plan's P logged;
+# PERF.md's kernel-table row of each
 SPLIT_ROWS = {"qmm_g8": "7c", "qmm_f": "5b", "qmm_qx": "1a", "qmm_g": "7a", "qmm_q8": "2b",
-              "qmm_q8_legacy": "2e"}
+              "qmm_q8_legacy": "2e", "qmm_f_ks": "9a", "qmm_s_ks": "11a"}
 SPLIT_KERNELS = tuple(SPLIT_ROWS)
 SPLIT_HELD_M = (3, 32)
 # (kernel, table key) held against its plain version in phase 3
 HELD = set()
+# calls a graph replays to time a held-only case (its ms is logged, not
+# summed into a row); a timed case takes 50
+HELD_REPS = 10
 # the batch sizes raced per case (the sizes the main path's prompt and decode run)
 RACE_M = (1, 8, 128)
 # int8 dots for the activation-quantized kernels, bf16 operands for the GEMMs
@@ -575,7 +580,8 @@ def phase_card(K):
     t0 = time.perf_counter()
     info = K.build()
     log(f"[card] kernel build {time.perf_counter() - t0:.3f} s "
-        f"(compiled {info['compiled']} into {os.path.relpath(info['dir'], HERE)})")
+        f"(compiled {info['compiled']} into {os.path.relpath(info['dir'], HERE)}; "
+        f"seconds to each source's end {info.get('source_seconds', {})})")
     return smi
 
 
@@ -719,9 +725,10 @@ def phase_kernels(K, copy_bw: float):
             others += [(K.kernel_name("r" if m <= 32 else "rb", base), m) for m in RACE_M]
         if not base.packed:  # and where one of qx_mode_entries sends the grids
             others += [(K.kernel_name("qx", base), m) for m in RACE_M if m <= 32]
-        if base.pack_layout == "adjk" and (base.sfactor or not base.packed):
-            # the K split at more m (Q4_K, the int8 grids)
-            served = {K.kernel_name(mode, base) for mode in ("g", "", "qx", "q")}
+        if base.pack_layout == "ksplit" or base.sfactor or not base.packed:
+            # the K split at more m (Q4_K, the int8 grids, the ksplit nibbles)
+            served = {K.kernel_name(mode, base) for mode in (
+                ("", "s") if base.pack_layout == "ksplit" else ("g", "", "qx", "q"))}
             others += [(name, m) for name in SPLIT_KERNELS if name in served
                        for m in SPLIT_HELD_M]
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
@@ -751,7 +758,9 @@ def phase_kernels(K, copy_bw: float):
                 repeat = " second call bitwise " + ("equal" if same else "DIFFERENT")
             if name in SPLIT_KERNELS and m <= 32:
                 repeat += f" split_P={K.grid_split_plan(name, base, m)}"
-            ms = cuda_time_ms(lambda i: kern(*args, copies[i % len(copies)]), 50, graph=True)
+            # a held case's ms is only logged: 10 calls a graph, not 50
+            ms = cuda_time_ms(lambda i: kern(*args, copies[i % len(copies)]),
+                              50 if timed else HELD_REPS, graph=True)
             plain_ms = lib_ms = float("nan")
             if timed:
                 # the least of three single calls: one call now and then reads

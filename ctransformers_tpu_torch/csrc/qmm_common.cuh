@@ -109,39 +109,62 @@ __device__ __forceinline__ float ksplit_bias(float s, float m, bool hi) {
 // in the low one.
 __device__ __forceinline__ int ksplit_value(int b, bool hi) { return hi ? (b >> 4) : (b & 15); }
 
+// The ksplit layouts there are, named by (group, has mins, superblock
+// factor count): factored Q4_K (group 32, with mins), Q2_K and Q3_K (group
+// 16, with and without); unfactored GPTQ4 and Q4_1 (group 32, 64 or 128,
+// with mins) and Q4_0 (group 32, without). Returns f.run<G, SF, HAS_MINS>(),
+// or `bad` for a layout there is not.
+template <class F>
+int ksplit_layout(const F& f, int group, int has_mins, int sfactor,
+                  int bad = static_cast<int>(cudaErrorInvalidValue)) {
+  if (sfactor == 0) {
+    if (!has_mins) return group == 32 ? f.template run<32, 0, false>() : bad;
+    switch (group) {
+      case 32: return f.template run<32, 0, true>();
+      case 64: return f.template run<64, 0, true>();
+      case 128: return f.template run<128, 0, true>();
+    }
+    return bad;
+  }
+  if (group * sfactor != kSuperblock) return bad;
+  if (group == 32 && has_mins) return f.template run<32, 8, true>();
+  if (group == 16) return has_mins ? f.template run<16, 16, true>() : f.template run<16, 16, false>();
+  return bad;
+}
+
+// f.run<G, SF, HAS_MINS> on the planes in the kernels' order (unfactored:
+// no sub-planes, s and m as sd and sm)
+template <class F>
+struct KsplitPlanes {
+  const F& f;
+  const void* scales;
+  const void* mins;
+  const float* sd;
+  const float* sm;
+  template <int G, int SF, bool HAS_MINS>
+  int run() const {
+    if constexpr (SF == 0)
+      return f.template run<G, SF, HAS_MINS>(nullptr, nullptr, static_cast<const float*>(scales),
+                                             static_cast<const float*>(mins));
+    else
+      return f.template run<G, SF, HAS_MINS>(static_cast<const int8_t*>(scales),
+                                             static_cast<const int8_t*>(mins), sd, sm);
+  }
+};
+
 // The ksplit layouts a symbol takes, read from the ints it is given (the
-// pointers must agree, they select nothing): factored Q4_K (group 32, with
-// mins), Q2_K and Q3_K (group 16, with and without); unfactored GPTQ4 and
-// Q4_1 (group 32, 64 or 128, with mins) and Q4_0 (group 32, without). With
-// mins the zero point is 0, without it 8. Calls f.run<G, SF, HAS_MINS> on
-// the planes in the kernels' order (unfactored: no sub-planes, s and m as
-// sd and sm), or returns cudaErrorInvalidValue for a layout there is not.
+// pointers must agree, they select nothing; ksplit_layout). With mins the
+// zero point is 0, without it 8. Calls f.run<G, SF, HAS_MINS> on the planes
+// (KsplitPlanes), or returns cudaErrorInvalidValue for a layout there is
+// not or pointers that disagree.
 template <class F>
 int dispatch_ksplit(const F& f, const void* scales, const void* mins, const float* sd,
                     const float* sm, int group, int has_mins, int zp, int sfactor) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (scales == nullptr || has_mins != (mins != nullptr) || zp != (has_mins ? 0 : 8)) return bad;
-  if (sfactor == 0) {
-    if (sd != nullptr || sm != nullptr) return bad;
-    const float* s = static_cast<const float*>(scales);
-    const float* mn = static_cast<const float*>(mins);
-    if (!has_mins)
-      return group == 32 ? f.template run<32, 0, false>(nullptr, nullptr, s, nullptr) : bad;
-    switch (group) {
-      case 32: return f.template run<32, 0, true>(nullptr, nullptr, s, mn);
-      case 64: return f.template run<64, 0, true>(nullptr, nullptr, s, mn);
-      case 128: return f.template run<128, 0, true>(nullptr, nullptr, s, mn);
-    }
+  if (sfactor == 0 ? sd != nullptr || sm != nullptr : sd == nullptr || has_mins != (sm != nullptr))
     return bad;
-  }
-  if (sd == nullptr || has_mins != (sm != nullptr) || group * sfactor != kSuperblock) return bad;
-  const int8_t* ss = static_cast<const int8_t*>(scales);
-  const int8_t* smn = static_cast<const int8_t*>(mins);
-  if (group == 32 && has_mins) return f.template run<32, 8, true>(ss, smn, sd, sm);
-  if (group == 16)
-    return has_mins ? f.template run<16, 16, true>(ss, smn, sd, sm)
-                    : f.template run<16, 16, false>(ss, nullptr, sd, nullptr);
-  return bad;
+  return ksplit_layout(KsplitPlanes<F>{f, scales, mins, sd, sm}, group, has_mins, sfactor);
 }
 
 }  // namespace ctq

@@ -3,9 +3,11 @@
 // "") of qmm_float.cu; on every int8 grid (those two, and the legacy Q8_0,
 // Q5_0 and Q5_1 with plain f32 planes at group 32), ct_qmm_q8 and
 // ct_qmm_q8_legacy (mode "q" on activations quantized outside) of
-// qmm_grid.cu; and on the Q4_K adjk nibbles (group 32, with mins),
-// ct_qmm_qx (mode "qx") of qmm_decode.cu and ct_qmm_g (mode "g") of
-// qmm_float.cu: each symbol takes this design there, its file's own above.
+// qmm_grid.cu; on the Q4_K adjk nibbles (group 32, with mins), ct_qmm_qx
+// (mode "qx") of qmm_decode.cu and ct_qmm_g (mode "g") of qmm_float.cu; and
+// on the ksplit nibbles of every kind, ct_qmm_f_ks (mode "") and
+// ct_qmm_s_ks (mode "s") of qmm_ksplit.cu: each symbol takes this design
+// there, its file's own (qmm_float.cuh for the ksplit ones) above.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py (what they compute is the
 // files' first designs', unchanged):
@@ -21,7 +23,13 @@
 //       group dots exact in int32, x quantized per (token, group of 32)
 //   _qmm_g_kernel (:1206) on Q4_K -> ct_qmm_g
 //       out = sum_g s[g,n] * dot_g(bf16(x), w4)[t,n] + xsum @ B
-// with w4 the stored nibble and B = 8 s + m.
+//   _qmm_pack4_kernel (:783) -> ct_qmm_f_ks
+//       out = x_lo @ (l * s + B_lo) + x_hi @ (f * s + B_hi), all f32
+//   _qmm_pack4_s_kernel (:957) mode "s" -> ct_qmm_s_ks
+//       out = xs_lo @ B_lo + xs_hi @ B_hi + x_lo @ (l * s) + x_hi @ (f * s)
+// with w4 the stored nibble and B = 8 s + m; on ksplit (qmm_common.cuh) l
+// and f the low and high nibble's values, x_lo and x_hi the halves of x,
+// xs their group sums, B_lo = -zp s + m, B_hi = (8 - zp) s + m.
 //
 // Bound on an H100: the weight's bytes (1 B a grid weight or 0.5 B a
 // nibble, 1/G B of sub-scales, 4/256 B of factors) at m = 1; at m = 8 the
@@ -92,6 +100,25 @@
 //     to the first through shared memory (a barrier of the pair), so each
 //     group has one whole dot and one f32 rescale, as the first design:
 //     (dot * sx) * s, then + xsum * m.
+//   - ksplit (ksplit_kernel, modes "" and "s", every layout of
+//     ctq::ksplit_layout): the grids' stage of 128 byte rows, warp w's 16
+//     byte rows carrying logical rows r of the low half and kp / 2 + r of
+//     the high one; the ring carries, besides the bytes, both halves'
+//     plane rows (the factored sub-scales and sub-mins of their groups and
+//     the factor row of each half's superblock, which differ where a small
+//     weight's superblock spans both halves; or the plain f32 s and m
+//     rows), each thread's plane copies set up once. x is staged once a
+//     block for its range, both halves, in windows of kKsWinRows ("s": the
+//     group sums of each half as it is staged). A word of 4 bytes gives 4
+//     low nibbles l (a mask) and 4 unsigned high ones f + 8 (a shift, a
+//     mask and an xor), each put into the mantissa of 2^23; 2^23 + 8
+//     subtracted from the high one, exactly: no I2F (the low one's l * s is
+//     one fma of 2^23 + l with s and -2^23 s, rounded once as __fmul_rn
+//     rounds it). Each weight is dequantized once, __fmul_rn(v, s) ("":
+//     then __fadd_rn(., B)), and multiplied into f32
+//     accumulators for every row of x (no TF32); "s" adds each half's
+//     xs * B once a group, by the group's first warp (a group of 64 or 128
+//     rows spans 4 or 8 warps).
 //   - "g" at m > 1 (8 rows of x) runs out of f32 pipes (8 products a
 //     weight), so it multiplies on tensor cores: mma.sync m16n8k16 with 16
 //     columns x 16 K rows of nibbles as A, one adjk byte a register (K rows
@@ -117,15 +144,20 @@ constexpr int kStages = 2;  // stages in the ring
 constexpr int kMaxP = 8;    // the largest cluster
 constexpr int kMT = 8;      // rows of x a block at m > 1
 // the nibble kernels' forms: "qx" dp4a on transposed bytes (false: a shift
-// pair and a multiply-add a nibble, the first design's), "g" at m = 1 the
-// nibble put into the mantissa of 2^23 (false: an I2F a nibble), "g" at
-// m > 1 bf16 mma.sync on tensor cores (false: f32 products, as at m = 1)
+// pair and a multiply-add a nibble, the first design's), "g" at m = 1 and
+// the ksplit kernels the nibble put into the mantissa of 2^23 (false: an
+// I2F a nibble), "g" at m > 1 bf16 mma.sync on tensor cores (false: f32
+// products, as at m = 1)
 constexpr bool kNibbleDp4a = true;
 constexpr bool kNibbleMagic = true;
 constexpr bool kNibbleMma = true;
 // "q" on the grids: dp4a on transposed grid bytes (false: a byte extract and
 // a multiply-add a weight and row of x, the first design's form)
 constexpr bool kGridDp4a = true;
+// the ksplit kernels' low nibble: l * s as one fma of 2^23 + l with s and
+// -2^23 s (exact: the fma rounds l * s once, as __fmul_rn does, one f32
+// operation fewer; false: the subtraction, then the multiply)
+constexpr bool kKsLoFma = true;
 constexpr int kTN = 128;             // output columns a block
 constexpr int kWarps = 8;            // K lanes
 constexpr int kThreads = 32 * kWarps;
@@ -190,11 +222,20 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// signed byte c of w as an f32, exactly: wb = w ^ 0x80808080 holds q + 128,
-// permuted into the low mantissa byte of 2^23
-__device__ __forceinline__ float byte_f32(uint32_t wb, int c) {
-  return __fsub_rn(__int_as_float(static_cast<int>(__byte_perm(wb, 0x4B000000u, 0x7540 + c))),
-                   8388736.0f);
+// u_c - BIAS as an f32, exactly, for byte c of u (u_c < 256): u_c goes into
+// the low mantissa byte of 2^23 and 2^23 + BIAS is subtracted (no I2F, a
+// quarter-rate conversion). A signed grid byte q is u_c = q + 128 (the word
+// XOR 0x80808080, BIAS 128); an adjk nibble w4 = u - 8 (BIAS 8); a ksplit
+// low nibble l = lo (BIAS 0) and high one f = hi - 8 (BIAS 8).
+template <int BIAS>
+__device__ __forceinline__ float mantissa_f32(uint32_t u, int c) {
+  return __fsub_rn(__int_as_float(static_cast<int>(__byte_perm(u, 0x4B000000u, 0x7540 + c))),
+                   8388608.0f + BIAS);
+}
+
+// 2^23 + u_c as an f32 (mantissa_f32 before its subtraction)
+__device__ __forceinline__ float mantissa_raw(uint32_t u, int c) {
+  return __int_as_float(static_cast<int>(__byte_perm(u, 0x4B000000u, 0x7540 + c)));
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -394,7 +435,7 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
             0x80808080u;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          wv[q][c] = byte_f32(wd, c);
+          wv[q][c] = mantissa_f32<128>(wd, c);
           if (!G8) {  // q * s (+ m), rounded as the reference's f32 multiply and add
             wv[q][c] = __fmul_rn(wv[q][c], s[c]);
             if (HAS_MINS) wv[q][c] = __fadd_rn(wv[q][c], mn[c]);
@@ -455,6 +496,34 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   }
 
   reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
+}
+
+// The loop of a kernel that stages its block's x once, in windows of
+// kWinStages stages (the nibble and ksplit families): the ring's first
+// kStages - 1 loads; then per window stage_x(it0, nw), x of stages [it0,
+// it0 + nw) of the block's range while the ring's copies are in flight;
+// then per stage it, the jw-th of its window, the barrier that opens it,
+// the loads of stage it + kStages - 1 and body(it, jw).
+template <int kWinStages, class Load, class StageX, class Body>
+__device__ __forceinline__ void ring_windows(int n_it, const Load& load, const StageX& stage_x,
+                                             const Body& body) {
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_it) load(it);
+    cp_commit();
+  }
+  for (int it0 = 0; it0 < n_it; it0 += kWinStages) {
+    const int nw = min(kWinStages, n_it - it0);
+    if (it0 > 0) __syncthreads();  // every warp is done with the last window's x
+    stage_x(it0, nw);
+    for (int it = it0; it < it0 + nw; ++it) {
+      cp_wait<kStages - 2>();
+      __syncthreads();  // stage it and the window's x have landed; slot (it - 1) % kStages is free
+      if (it + kStages - 1 < n_it) load(it + kStages - 1);
+      cp_commit();
+      body(it, it - it0);
+    }
+  }
 }
 
 // ---- Q4_K adjk nibbles: ct_qmm_qx (QX) and ct_qmm_g ----
@@ -526,13 +595,6 @@ __device__ __forceinline__ void transpose4(const uint32_t (&a)[4], uint32_t (&t)
 __device__ __forceinline__ void unsigned_nibbles(uint32_t w, uint32_t* lo, uint32_t* hi) {
   *lo = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
   *hi = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-}
-
-// w4 = u - 8 of byte c of u (unsigned nibbles), exactly: u goes into the
-// low mantissa byte of 2^23 and 2^23 + 8 is subtracted
-__device__ __forceinline__ float nibble_f32(uint32_t u, int c) {
-  return __fsub_rn(__int_as_float(static_cast<int>(__byte_perm(u, 0x4B000000u, 0x7540 + c))),
-                   8388616.0f);
 }
 
 // the bf16 pair w4 of K rows 2r, 2r + 1 of byte c of w (low half first),
@@ -690,204 +752,191 @@ nibble_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
 
-#pragma unroll
-  for (int it = 0; it < kStages - 1; ++it) {
-    if (it < n_it) load(it);
-    cp_commit();
-  }
-  constexpr int kWinStages = kW / kNRows;
-  for (int it0 = 0; it0 < n_it; it0 += kWinStages) {
-    const int nw = min(kWinStages, n_it - it0);
-    if (it0 > 0) __syncthreads();  // every warp is done with the last window's x
-    stage_x((s0 + it0) * kNRows, nw * kNRows);  // while the ring's copies are in flight
-    for (int it = it0; it < it0 + nw; ++it) {
-      cp_wait<kStages - 2>();
-      __syncthreads();  // stage it and the window's x have landed; slot (it - 1) % kStages is free
-      if (it + kStages - 1 < n_it) load(it + kStages - 1);
-      cp_commit();
-      const uint8_t* b = smem + (it % kStages) * St::kBytes;
-      const int gx = (it - it0) * kNGroups + w;  // this warp's group in the window
+  ring_windows<kW / kNRows>(n_it, load, [&](int it0, int nw) {
+    stage_x((s0 + it0) * kNRows, nw * kNRows);
+  }, [&](int it, int jw) {
+    const uint8_t* b = smem + (it % kStages) * St::kBytes;
+    const int gx = jw * kNGroups + w;  // this warp's group in the window
 
-      // the group's scale s and bias B = 8 s + m for this thread's 4 columns
-      float s[4], bias[4];
-      {
-        const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kSub + w * kTN + 4 * lane);
-        const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kSubM + w * kTN + 4 * lane);
-        const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + 16 * lane);
-        const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + 16 * lane);
-        const float dv[4] = {d4.x, d4.y, d4.z, d4.w}, mv[4] = {m4.x, m4.y, m4.z, m4.w};
+    // the group's scale s and bias B = 8 s + m for this thread's 4 columns
+    float s[4], bias[4];
+    {
+      const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kSub + w * kTN + 4 * lane);
+      const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kSubM + w * kTN + 4 * lane);
+      const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + 16 * lane);
+      const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + 16 * lane);
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w}, mv[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &bias[c]);
-      }
-      // byte row j of the group (K rows 2 j and 2 j + 1) for this thread's columns
-      const uint8_t* wb = b + St::kW + 16 * w * kTN + 4 * lane;
+      for (int c = 0; c < 4; ++c)
+        ctq::group_scale(dv[c], ctq::sbyte(sw, c), mv[c], ctq::sbyte(mw, c), &s[c], &bias[c]);
+    }
+    // byte row j of the group (K rows 2 j and 2 j + 1) for this thread's columns
+    const uint8_t* wb = b + St::kW + 16 * w * kTN + 4 * lane;
 
-      if constexpr (QX) {
-        // ---- the group's exact int32 dots, four byte rows at a time ----
-        int dot[MT][4];
+    if constexpr (QX) {
+      // ---- the group's exact int32 dots, four byte rows at a time ----
+      int dot[MT][4];
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) dot[i][c] = 0;
-        const int8_t* xg = xq + gx * ctq::kGroup;
+        for (int c = 0; c < 4; ++c) dot[i][c] = 0;
+      const int8_t* xg = xq + gx * ctq::kGroup;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          uint32_t wv[4];
+      for (int q = 0; q < 4; ++q) {
+        uint32_t wv[4];
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            wv[jj] = *reinterpret_cast<const uint32_t*>(wb + (4 * q + jj) * kTN);
-          if constexpr (kNibbleDp4a) {
-            // dp4a on the unsigned nibbles made K-contiguous a column:
-            // sum(xq * u) - 8 sum(xq) = sum(xq * w4), exactly
-            uint32_t lo[4], hi[4], tl[4], th[4];
+        for (int jj = 0; jj < 4; ++jj)
+          wv[jj] = *reinterpret_cast<const uint32_t*>(wb + (4 * q + jj) * kTN);
+        if constexpr (kNibbleDp4a) {
+          // dp4a on the unsigned nibbles made K-contiguous a column:
+          // sum(xq * u) - 8 sum(xq) = sum(xq * w4), exactly
+          uint32_t lo[4], hi[4], tl[4], th[4];
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) unsigned_nibbles(wv[jj], &lo[jj], &hi[jj]);
-            transpose4(lo, tl);
-            transpose4(hi, th);
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              const uint2 xw = *reinterpret_cast<const uint2*>(xg + i * kW + 8 * q);
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                dot[i][c] = __dp4a(static_cast<int>(th[c]), static_cast<int>(xw.y),
-                                   __dp4a(static_cast<int>(tl[c]), static_cast<int>(xw.x),
-                                          dot[i][c]));
-            }
-          } else {
-            // the first design's form: each signed nibble shifted out, one
-            // multiply-add a nibble and token
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              const uint2 xw = *reinterpret_cast<const uint2*>(xg + i * kW + 8 * q);
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj) {
-                const int x0 = ctq::sbyte(xw.x, jj), x1 = ctq::sbyte(xw.y, jj);
-#pragma unroll
-                for (int c = 0; c < 4; ++c)
-                  dot[i][c] += ctq::nibble(wv[jj], 2 * c) * x0 + ctq::nibble(wv[jj], 2 * c + 1) * x1;
-              }
-            }
-          }
-        }
-        // ---- one f32 rescale of the group's dots ----
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const float sxv = sx[i * kG + gx], xsv = xs[i * kG + gx];
-          const int xcv = kNibbleDp4a ? xc[i * kG + gx] : 0;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float part = __fmul_rn(__fmul_rn(static_cast<float>(dot[i][c] - xcv), sxv), s[c]);
-            acc[i][c] = __fadd_rn(acc[i][c], __fadd_rn(part, __fmul_rn(xsv, bias[c])));
-          }
-        }
-      } else if constexpr (Sm::kMma) {
-        // ---- the group's f32 sums of exact products on tensor cores ----
-        // Tile (q, h) takes columns 32 q + 4 g + 2 h (row g of lane 4 g + t)
-        // and 32 q + 4 g + 2 h + 1 (row g + 8), two k steps of 16 rows: its
-        // sums land in acc[2 q + h] as the mma's d (this warp's group's
-        // products in part, then scaled once into acc).
-        static_assert(MT == 8, "the rows of x are the mma's 8 columns");
-        const int g = lane >> 2, t = lane & 3;
-        float* sc = reinterpret_cast<float*>(smem + Sm::kSc0) + w * 2 * kTN;
-        *reinterpret_cast<float4*>(sc + 4 * lane) = make_float4(s[0], s[1], s[2], s[3]);
-        *reinterpret_cast<float4*>(sc + kTN + 4 * lane) =
-            make_float4(bias[0], bias[1], bias[2], bias[3]);
-        float part[8][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
-        // byte rows 16 w + 8 k + t and + 4 of this lane, and its x pairs
-        const uint8_t* wr = b + St::kW + (16 * w + t) * kTN;
-        const uint32_t* xr = xb + g * Sm::kXStride + gx * (ctq::kGroup / 2) + t;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const uint32_t b0 = xr[8 * k], b1 = xr[8 * k + 4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int off = 16 * ((2 * q + (g >> 2)) ^ (2 * t)) + 4 * (g & 3);
-            const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wr + 8 * k * kTN + off);
-            const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wr + (8 * k + 4) * kTN + off);
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-              mma_bf16(part[2 * q + h], nibble_bf16x2(w0, 2 * h), nibble_bf16x2(w0, 2 * h + 1),
-                       nibble_bf16x2(w1, 2 * h), nibble_bf16x2(w1, 2 * h + 1), b0, b1);
-          }
-        }
-        __syncwarp();  // the warp's s and B are written
-        const float xs0 = xs[2 * t * kG + gx], xs1 = xs[(2 * t + 1) * kG + gx];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 s4 = *reinterpret_cast<const float4*>(sc + 32 * q + 4 * g);
-          const float4 b4 = *reinterpret_cast<const float4*>(sc + kTN + 32 * q + 4 * g);
-          const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int c = 2 * h + (e >> 1);  // the column's place in 4 g .. 4 g + 3
-              float v = __fmul_rn(part[2 * q + h][e], sv[c]);
-              v = __fadd_rn(v, __fmul_rn(e & 1 ? xs1 : xs0, bv[c]));
-              acc[2 * q + h][e] = __fadd_rn(acc[2 * q + h][e], v);
-            }
-        }
-      } else {
-        // ---- the group's f32 sums of exact products, two byte rows at a time ----
-        float part[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
-        const float* xg = xf + gx * ctq::kGroup;
-#pragma unroll
-        for (int j = 0; j < ctq::kGroup / 2; j += 2) {
-          float wl[2][4], wh[2][4];
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const uint32_t wv = *reinterpret_cast<const uint32_t*>(wb + (j + jj) * kTN);
-            if constexpr (kNibbleMagic) {
-              uint32_t lo, hi;
-              unsigned_nibbles(wv, &lo, &hi);
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                wl[jj][c] = nibble_f32(lo, c);
-                wh[jj][c] = nibble_f32(hi, c);
-              }
-            } else {  // the first design's form: one I2F a nibble
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                wl[jj][c] = static_cast<float>(ctq::nibble(wv, 2 * c));
-                wh[jj][c] = static_cast<float>(ctq::nibble(wv, 2 * c + 1));
-              }
-            }
-          }
+          for (int jj = 0; jj < 4; ++jj) unsigned_nibbles(wv[jj], &lo[jj], &hi[jj]);
+          transpose4(lo, tl);
+          transpose4(hi, th);
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
-            const float4 x4 = *reinterpret_cast<const float4*>(xg + i * kW + 2 * j);
+            const uint2 xw = *reinterpret_cast<const uint2*>(xg + i * kW + 8 * q);
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              part[i][c] = fmaf(x4.x, wl[0][c], part[i][c]);
-              part[i][c] = fmaf(x4.y, wh[0][c], part[i][c]);
-              part[i][c] = fmaf(x4.z, wl[1][c], part[i][c]);
-              part[i][c] = fmaf(x4.w, wh[1][c], part[i][c]);
+            for (int c = 0; c < 4; ++c)
+              dot[i][c] = __dp4a(static_cast<int>(th[c]), static_cast<int>(xw.y),
+                                 __dp4a(static_cast<int>(tl[c]), static_cast<int>(xw.x),
+                                        dot[i][c]));
+          }
+        } else {
+          // the first design's form: each signed nibble shifted out, one
+          // multiply-add a nibble and token
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const uint2 xw = *reinterpret_cast<const uint2*>(xg + i * kW + 8 * q);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const int x0 = ctq::sbyte(xw.x, jj), x1 = ctq::sbyte(xw.y, jj);
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                dot[i][c] += ctq::nibble(wv[jj], 2 * c) * x0 + ctq::nibble(wv[jj], 2 * c + 1) * x1;
             }
           }
         }
-        // ---- one multiply by s a group, then the bias through the group sums ----
+      }
+      // ---- one f32 rescale of the group's dots ----
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float sxv = sx[i * kG + gx], xsv = xs[i * kG + gx];
+        const int xcv = kNibbleDp4a ? xc[i * kG + gx] : 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float part = __fmul_rn(__fmul_rn(static_cast<float>(dot[i][c] - xcv), sxv), s[c]);
+          acc[i][c] = __fadd_rn(acc[i][c], __fadd_rn(part, __fmul_rn(xsv, bias[c])));
+        }
+      }
+    } else if constexpr (Sm::kMma) {
+      // ---- the group's f32 sums of exact products on tensor cores ----
+      // Tile (q, h) takes columns 32 q + 4 g + 2 h (row g of lane 4 g + t)
+      // and 32 q + 4 g + 2 h + 1 (row g + 8), two k steps of 16 rows: its
+      // sums land in acc[2 q + h] as the mma's d (this warp's group's
+      // products in part, then scaled once into acc).
+      static_assert(MT == 8, "the rows of x are the mma's 8 columns");
+      const int g = lane >> 2, t = lane & 3;
+      float* sc = reinterpret_cast<float*>(smem + Sm::kSc0) + w * 2 * kTN;
+      *reinterpret_cast<float4*>(sc + 4 * lane) = make_float4(s[0], s[1], s[2], s[3]);
+      *reinterpret_cast<float4*>(sc + kTN + 4 * lane) =
+          make_float4(bias[0], bias[1], bias[2], bias[3]);
+      float part[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+      // byte rows 16 w + 8 k + t and + 4 of this lane, and its x pairs
+      const uint8_t* wr = b + St::kW + (16 * w + t) * kTN;
+      const uint32_t* xr = xb + g * Sm::kXStride + gx * (ctq::kGroup / 2) + t;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const uint32_t b0 = xr[8 * k], b1 = xr[8 * k + 4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int off = 16 * ((2 * q + (g >> 2)) ^ (2 * t)) + 4 * (g & 3);
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wr + 8 * k * kTN + off);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wr + (8 * k + 4) * kTN + off);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            mma_bf16(part[2 * q + h], nibble_bf16x2(w0, 2 * h), nibble_bf16x2(w0, 2 * h + 1),
+                     nibble_bf16x2(w1, 2 * h), nibble_bf16x2(w1, 2 * h + 1), b0, b1);
+        }
+      }
+      __syncwarp();  // the warp's s and B are written
+      const float xs0 = xs[2 * t * kG + gx], xs1 = xs[(2 * t + 1) * kG + gx];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 s4 = *reinterpret_cast<const float4*>(sc + 32 * q + 4 * g);
+        const float4 b4 = *reinterpret_cast<const float4*>(sc + kTN + 32 * q + 4 * g);
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 2 * h + (e >> 1);  // the column's place in 4 g .. 4 g + 3
+            float v = __fmul_rn(part[2 * q + h][e], sv[c]);
+            v = __fadd_rn(v, __fmul_rn(e & 1 ? xs1 : xs0, bv[c]));
+            acc[2 * q + h][e] = __fadd_rn(acc[2 * q + h][e], v);
+          }
+      }
+    } else {
+      // ---- the group's f32 sums of exact products, two byte rows at a time ----
+      float part[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
+      const float* xg = xf + gx * ctq::kGroup;
+#pragma unroll
+      for (int j = 0; j < ctq::kGroup / 2; j += 2) {
+        float wl[2][4], wh[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const uint32_t wv = *reinterpret_cast<const uint32_t*>(wb + (j + jj) * kTN);
+          if constexpr (kNibbleMagic) {
+            uint32_t lo, hi;
+            unsigned_nibbles(wv, &lo, &hi);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              wl[jj][c] = mantissa_f32<8>(lo, c);
+              wh[jj][c] = mantissa_f32<8>(hi, c);
+            }
+          } else {  // the first design's form: one I2F a nibble
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              wl[jj][c] = static_cast<float>(ctq::nibble(wv, 2 * c));
+              wh[jj][c] = static_cast<float>(ctq::nibble(wv, 2 * c + 1));
+            }
+          }
+        }
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          const float xsv = xs[i * kG + gx];
+          const float4 x4 = *reinterpret_cast<const float4*>(xg + i * kW + 2 * j);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            float v = __fmul_rn(part[i][c], s[c]);
-            v = __fadd_rn(v, __fmul_rn(xsv, bias[c]));
-            acc[i][c] = __fadd_rn(acc[i][c], v);
+            part[i][c] = fmaf(x4.x, wl[0][c], part[i][c]);
+            part[i][c] = fmaf(x4.y, wh[0][c], part[i][c]);
+            part[i][c] = fmaf(x4.z, wl[1][c], part[i][c]);
+            part[i][c] = fmaf(x4.w, wh[1][c], part[i][c]);
           }
+        }
+      }
+      // ---- one multiply by s a group, then the bias through the group sums ----
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float xsv = xs[i * kG + gx];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v = __fmul_rn(part[i][c], s[c]);
+          v = __fadd_rn(v, __fmul_rn(xsv, bias[c]));
+          acc[i][c] = __fadd_rn(acc[i][c], v);
         }
       }
     }
-  }
+  });
 
   if constexpr (Sm::kMma) {
     // acc[2 q + h][e]: row 2 t + (e & 1) of x, column 32 q + 4 g + 2 h + (e >> 1)
@@ -906,6 +955,293 @@ nibble_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   } else {
     reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
   }
+}
+
+// ---- ksplit nibbles: ct_qmm_f_ks ("") and ct_qmm_s_ks ("s") ----
+
+// the modes of the ksplit family: "" (each weight dequantized with its
+// bias, w = v s + B) and "s" (w = v s, the biases through the group sums of
+// x, once a group and half)
+enum KsMode { kKsF, kKsS };
+
+// byte offsets of one ksplit stage's parts (each a multiple of 16): kKR
+// byte rows (the low nibbles logical rows [r, r + kKR), the high ones
+// [kp / 2 + r, ...)), then, for each half's kKR / G groups, the rows of s
+// (factored: the int8 sub-scales; plain: the f32 plane), low half first, the
+// same of m with mins, and where factored the f32 factor rows sd (and sm)
+// of each half's superblock (a half's kKR rows lie in one)
+template <int G, int SF, bool HAS_MINS>
+struct KsStage {
+  static constexpr bool kPlain = SF == 0;
+  static constexpr int kR = kKR / G;                   // plane rows a half
+  static constexpr int kRow = kPlain ? 4 * kTN : kTN;  // bytes a plane row
+  static constexpr int kW = 0;                         // uint8 [kKR][kTN]
+  static constexpr int kS = kW + kKR * kTN;            // [2][kR] rows of s
+  static constexpr int kM = kS + 2 * kR * kRow;        // [2][kR] rows of m
+  static constexpr int kSd = kM + (HAS_MINS ? 2 * kR * kRow : 0);  // f32 [2][kTN]
+  static constexpr int kSm = kSd + (kPlain ? 0 : 2 * 4 * kTN);     // f32 [2][kTN]
+  static constexpr int kBytes = kSm + (!kPlain && HAS_MINS ? 2 * 4 * kTN : 0);
+  static constexpr int kPChunks = (kBytes - kS) / 16;  // 16-byte chunks of the planes
+  static constexpr int kPPer = (kPChunks + kThreads - 1) / kThreads;  // a thread's
+};
+
+// the ksplit kernel's blocks an SM asked of the compiler, byte rows a step
+// of its inner loop and the steps unrolled, and byte rows of x (of each
+// half) a block stages at once (a window: all of a block's range but at the
+// longest K). Four blocks at m = 1 (two rows a step, a window of 1024) and
+// three at 8 rows of x (80 registers: spills) ran no faster on an H100
+// (PERF.md).
+template <int MT>
+constexpr int kKsMinBlocks = MT == 1 ? 3 : 2;
+template <int MT>
+constexpr int kKsStep = MT == 1 ? 4 : 4;
+template <int MT>
+constexpr int kKsUnroll = MT == 1 ? 4 : 4;  // steps of the inner loop unrolled
+template <int MT>
+constexpr int kKsWinRows = MT == 1 ? 2048 : 512;
+
+// shared memory of a ksplit block: the ring, then the window's x and ("s")
+// its group sums
+template <int MT, int MODE, int G, int SF, bool HAS_MINS>
+struct KsSmem {
+  static constexpr int kW = kKsWinRows<MT>;
+  static constexpr int kRing = kStages * KsStage<G, SF, HAS_MINS>::kBytes;
+  static constexpr int kX0 = kRing;                   // f32 [MT][2][kW]
+  static constexpr int kXs0 = kX0 + MT * 2 * kW * 4;  // "s": f32 [MT][2][kW / G]
+  static constexpr int kBytes = kXs0 + (MODE == kKsS ? MT * 2 * (kW / G) * 4 : 0);
+  static_assert(kW % kKR == 0, "a window holds whole stages");
+  static_assert((kWarps + 1) * MT * kTN * 4 <= kBytes, "the reduction fits in the ring and x");
+};
+
+// MT: rows of x a block (1, or kMT at m > 1); MODE: kKsF or kKsS; G, SF,
+// HAS_MINS: the layout (qmm_common.cuh:ksplit_layout), SF == 0 with the
+// f32 planes s and m passed as sd and sm and no sub-planes. Grid
+// (np / kTN * parts, ceil(m / MT)) in clusters of `parts` along x.
+template <int MT, int MODE, int G, int SF, bool HAS_MINS>
+__global__ void __launch_bounds__(kThreads, kKsMinBlocks<MT>)
+ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
+              const int8_t* __restrict__ sub_s, const int8_t* __restrict__ sub_m,
+              const float* __restrict__ sd, const float* __restrict__ sm,
+              float* __restrict__ out, int m, int kp, int np, int parts) {
+  using St = KsStage<G, SF, HAS_MINS>;
+  using Sm = KsSmem<MT, MODE, G, SF, HAS_MINS>;
+  constexpr int kW = Sm::kW, kXG = kW / G;
+  constexpr int kLogG = G == 16 ? 4 : G == 32 ? 5 : G == 64 ? 6 : 7;
+  static_assert(1 << kLogG == G && G >= kLR && ctq::kSuperblock % kKR == 0,
+                "a group of 16 to 128 rows: one warp's rows or whole warps; a half of a "
+                "stage lies in one superblock");
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* xf = reinterpret_cast<float*>(smem + Sm::kX0);
+  float* xs = reinterpret_cast<float*>(smem + Sm::kXs0);
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const uint32_t rank = ctw::cluster_rank();
+  const int n0 = static_cast<int>(blockIdx.x) / parts * kTN;
+  const int t0 = blockIdx.y * MT;
+  const int half = kp / 2;
+  const int nst = half / kKR;
+  const int s0 = static_cast<int>(rank) * nst / parts;
+  const int n_it = (static_cast<int>(rank) + 1) * nst / parts - s0;
+
+  // ---- stage it of this block's range into ring slot it % kStages ----
+  // Each thread's copies are fixed: 16-byte chunks tid + u * kThreads of the
+  // byte rows (row tid / 8 + u * kThreads / 8, chunk tid % 8) and chunks
+  // tid + j * kThreads of the planes. A plane chunk's source row at stage it
+  // is (first + it kKR) / G (a row of s or m; first is the logical row of
+  // the block's first stage in its half) or / 256 (a factor row), so each
+  // is set up once: its column's pointer and first.
+  static_assert(kKR * kTN / 16 == 4 * kThreads, "four weight chunks a thread");
+  const int8_t* wsrc = qs + (size_t)(s0 * kKR + tid / 8) * np + n0 + 16 * (tid % 8);
+  const size_t wstep = (size_t)kThreads / 8 * np;  // rows between a thread's chunks
+  const uint8_t* psrc[St::kPPer];
+  int pfirst[St::kPPer];
+  bool pfac[St::kPPer];
+#pragma unroll
+  for (int j = 0; j < St::kPPer; ++j) {
+    int off = 16 * (tid + j * kThreads);  // bytes into the stage's planes
+    constexpr int kHalfBytes = St::kR * St::kRow, kRowBytes = (HAS_MINS ? 4 : 2) * kHalfBytes;
+    const int el = St::kPlain ? 4 : 1;  // bytes a plane element
+    pfac[j] = off >= kRowBytes;
+    if (!pfac[j]) {  // a row of s or m: plane, half, row in the stage, column
+      const int8_t* plane = St::kPlain ? reinterpret_cast<const int8_t*>(off < 2 * kHalfBytes ? sd : sm)
+                                       : (off < 2 * kHalfBytes ? sub_s : sub_m);
+      off %= 2 * kHalfBytes;
+      pfirst[j] = off / kHalfBytes * half + s0 * kKR;
+      off %= kHalfBytes;
+      psrc[j] = reinterpret_cast<const uint8_t*>(plane) + (size_t)(off / St::kRow) * np * el +
+                (size_t)n0 * el + off % St::kRow;
+    } else {  // a factor row (sd, then sm), its half, its column
+      off -= kRowBytes;
+      const float* plane = off < 8 * kTN ? sd : sm;
+      pfirst[j] = off / (4 * kTN) % 2 * half + s0 * kKR;
+      psrc[j] = reinterpret_cast<const uint8_t*>(plane + n0) + off % (4 * kTN);
+    }
+  }
+  auto load = [&](int it) {
+    uint8_t* b = smem + (it % kStages) * St::kBytes;
+    const int8_t* wp = wsrc + (size_t)it * kKR * np;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), wp + u * wstep);
+#pragma unroll
+    for (int j = 0; j < St::kPPer; ++j) {
+      const int c = tid + j * kThreads;
+      if (St::kPChunks % kThreads == 0 || c < St::kPChunks) {
+        const int row = (pfirst[j] + it * kKR) >> (pfac[j] ? 8 : kLogG);
+        const size_t pitch = pfac[j] || St::kPlain ? 4 * (size_t)np : (size_t)np;
+        cp16(b + St::kS + 16 * c, psrc[j] + row * pitch);
+      }
+    }
+  };
+
+  // ---- x of stages [it0, it0 + nw) of the block's range, staged once ----
+  // Both halves (the byte rows' columns of x, then those kp / 2 on), f32
+  // as they are; a thread takes 8 columns of one row and half, G / 8
+  // neighbouring threads a group (a warp's items are whole groups of one
+  // row and half: a window's columns a half are a multiple of 128), whose
+  // sum "s" takes.
+  auto stage_x = [&](int it0, int nw) {
+    const int k0 = (s0 + it0) * kKR;
+    const int per = nw * kKR / 8;  // items of a row and half
+    for (int e = tid; e < MT * 2 * per; e += kThreads) {
+      const int ih = e / per, c8 = e % per;  // ih = 2 i + the half
+      const int i = ih >> 1;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), z = a;
+      if (t0 + i < m) {
+        const float4* src = reinterpret_cast<const float4*>(
+            x + (size_t)(t0 + i) * kp + (ih & 1) * half + k0 + 8 * c8);
+        a = __ldg(src);
+        z = __ldg(src + 1);
+      }
+      float4* d = reinterpret_cast<float4*>(xf + ih * kW + 8 * c8);
+      d[0] = a;
+      d[1] = z;
+      if constexpr (MODE == kKsS) {
+        float s = __fadd_rn(__fadd_rn(__fadd_rn(a.x, a.y), __fadd_rn(a.z, a.w)),
+                            __fadd_rn(__fadd_rn(z.x, z.y), __fadd_rn(z.z, z.w)));
+#pragma unroll
+        for (int off = 1; off < G / 8; off <<= 1)
+          s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+        if (c8 % (G / 8) == 0) xs[ih * kXG + c8 / (G / 8)] = s;
+      }
+    }
+  };
+
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  ring_windows<kW / kKR>(n_it, load, stage_x, [&](int it, int jw) {
+    const uint8_t* b = smem + (it % kStages) * St::kBytes;
+    // the scale s and bias B of this warp's group in each half (both its
+    // 16 byte rows' groups) for this thread's 4 columns
+    float s[2][4], bias[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pr = h * St::kR + w * kLR / G;  // the group's plane row in the stage
+      float mv[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (St::kPlain) {
+        const float4 s4 = *reinterpret_cast<const float4*>(b + St::kS + pr * St::kRow + 16 * lane);
+        s[h][0] = s4.x, s[h][1] = s4.y, s[h][2] = s4.z, s[h][3] = s4.w;
+        if (HAS_MINS) {
+          const float4 m4 = *reinterpret_cast<const float4*>(b + St::kM + pr * St::kRow + 16 * lane);
+          mv[0] = m4.x, mv[1] = m4.y, mv[2] = m4.z, mv[3] = m4.w;
+        }
+      } else {
+        const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kS + pr * kTN + 4 * lane);
+        const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + h * 4 * kTN + 16 * lane);
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)  // the signed sub-scale through the mantissa too
+          s[h][c] = __fmul_rn(dv[c], mantissa_f32<128>(sw ^ 0x80808080u, c));
+        if (HAS_MINS) {
+          const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kM + pr * kTN + 4 * lane);
+          const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + h * 4 * kTN + 16 * lane);
+          const float dm[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mv[c] = __fmul_rn(dm[c], mantissa_f32<128>(mw ^ 0x80808080u, c));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bias[h][c] = ctq::ksplit_bias<HAS_MINS>(s[h][c], mv[c], h == 1);
+    }
+    float lo_off[4];  // kKsLoFma: -2^23 s of the low half, exact
+#pragma unroll
+    for (int c = 0; c < 4; ++c) lo_off[c] = __fmul_rn(-8388608.0f, s[0][c]);
+    // byte row r of this warp's 16 for this thread's columns, and x of its
+    // logical rows in each half
+    const uint8_t* wb = b + St::kW + w * kLR * kTN + 4 * lane;
+    const float* xw = xf + jw * kKR + w * kLR;
+
+    // ---- the warp's 16 byte rows, kQ at a time: both nibbles of each ----
+    constexpr int kQ = kKsStep<MT>, kU = kKsUnroll<MT>;
+    static_assert(kQ == 2 || kQ == 4, "two or four byte rows a step");
+#pragma unroll (kU)
+    for (int rr = 0; rr < kLR; rr += kQ) {
+      // v * s (+ B), rounded as the reference's f32 multiply and add; the
+      // high half has no B without mins
+      float wl[kQ][4], wh[kQ][4];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const uint32_t wd = *reinterpret_cast<const uint32_t*>(wb + (rr + q) * kTN);
+        const uint32_t lo = wd & 0x0F0F0F0Fu;                       // l
+        const uint32_t hi = ((wd >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;  // f + 8
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (kNibbleMagic) {
+            wl[q][c] = kKsLoFma ? fmaf(mantissa_raw(lo, c), s[0][c], lo_off[c])
+                                : __fmul_rn(mantissa_f32<0>(lo, c), s[0][c]);
+            wh[q][c] = __fmul_rn(mantissa_f32<8>(hi, c), s[1][c]);
+          } else {  // the first design's form: an I2F a nibble
+            wl[q][c] = __fmul_rn(static_cast<float>(ctq::ksplit_value(ctq::sbyte(wd, c), false)),
+                                 s[0][c]);
+            wh[q][c] = __fmul_rn(static_cast<float>(ctq::ksplit_value(ctq::sbyte(wd, c), true)),
+                                 s[1][c]);
+          }
+          if (MODE == kKsF) {
+            wl[q][c] = __fadd_rn(wl[q][c], bias[0][c]);
+            if (HAS_MINS) wh[q][c] = __fadd_rn(wh[q][c], bias[1][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        float xl[kQ], xh[kQ];
+        if constexpr (kQ == 4) {
+          const float4 l4 = *reinterpret_cast<const float4*>(xw + 2 * i * kW + rr);
+          const float4 h4 = *reinterpret_cast<const float4*>(xw + (2 * i + 1) * kW + rr);
+          xl[0] = l4.x, xl[1] = l4.y, xl[2] = l4.z, xl[3] = l4.w;
+          xh[0] = h4.x, xh[1] = h4.y, xh[2] = h4.z, xh[3] = h4.w;
+        } else {
+          const float2 l2 = *reinterpret_cast<const float2*>(xw + 2 * i * kW + rr);
+          const float2 h2 = *reinterpret_cast<const float2*>(xw + (2 * i + 1) * kW + rr);
+          xl[0] = l2.x, xl[1] = l2.y, xh[0] = h2.x, xh[1] = h2.y;
+        }
+#pragma unroll
+        for (int q = 0; q < kQ; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xh[q], wh[q][c], fmaf(xl[q], wl[q][c], acc[i][c]));
+      }
+    }
+
+    // "s": the group's first warp adds each half's xs @ B once
+    if constexpr (MODE == kKsS) {
+      if (w % (G / kLR) == 0) {
+        const int g = (jw * kKR + w * kLR) / G;  // the group in the window
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(xs[2 * i * kXG + g], bias[0][c]));
+            if (HAS_MINS)
+              acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(xs[(2 * i + 1) * kXG + g], bias[1][c]));
+          }
+      }
+    }
+  });
+
+  reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
 }
 
 // ---- pre-quantized x on the int8 grids: ct_qmm_q8 and ct_qmm_q8_legacy ----
@@ -1191,6 +1527,13 @@ struct NibbleKernel {
   static auto fn() { return nibble_kernel<MT, QX>; }
 };
 
+template <int MT, int MODE, int G, int SF, bool HAS_MINS>
+struct KsKernel {
+  static constexpr int kMTile = MT, kRows = 2 * kKR;  // logical K rows a stage
+  static constexpr size_t kSmem = KsSmem<MT, MODE, G, SF, HAS_MINS>::kBytes;
+  static auto fn() { return ksplit_kernel<MT, MODE, G, SF, HAS_MINS>; }
+};
+
 template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
 struct Q8Kernel {
   static constexpr int kMTile = MT, kRows = kKR;
@@ -1365,6 +1708,29 @@ int nibble_capacity_of(int m, int p) {
 template <bool QX>
 int nibble_plan_of(int m, int kp, int np) {
   return plan_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(m, kp, np);
+}
+
+// ct_qmm_f_ks (kKsF) or ct_qmm_s_ks (kKsS) at 1 <= m <= kMaxM on a layout
+// of ctq::ksplit_layout, its planes as ctq::dispatch_ksplit passes them
+template <int MODE, int G, int SF, bool HAS_MINS>
+int run_ksplit(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np,
+               cudaStream_t stream) {
+  if (!fits(m, kp, np)) return static_cast<int>(cudaErrorInvalidValue);
+  return run_family<KsKernel<1, MODE, G, SF, HAS_MINS>, KsKernel<kMT, MODE, G, SF, HAS_MINS>>(
+      m, kp, np, stream, x, qs, sub_s, sub_m, sd, sm, out);
+}
+
+template <int MODE, int G, int SF, bool HAS_MINS>
+int ksplit_capacity_of(int m, int p) {
+  return capacity_family<KsKernel<1, MODE, G, SF, HAS_MINS>, KsKernel<kMT, MODE, G, SF, HAS_MINS>>(
+      m, p);
+}
+
+template <int MODE, int G, int SF, bool HAS_MINS>
+int ksplit_plan_of(int m, int kp, int np) {
+  return plan_family<KsKernel<1, MODE, G, SF, HAS_MINS>, KsKernel<kMT, MODE, G, SF, HAS_MINS>>(
+      m, kp, np);
 }
 
 // ct_qmm_q8 (factored: group 16 without mins, Q6_K, or 32 with both min

@@ -105,15 +105,19 @@ per mode for every layout, told the group, whether there are mins, the
 zero point and the superblock factor count:
 
   qmm_f_ks   x_lo @ (l * s + B_lo) + x_hi @ (f * s + B_hi), all f32
-             (replaces _qmm_pack4_kernel, mode ""; csrc/qmm_float.cu)
+             (replaces _qmm_pack4_kernel, mode ""; csrc/qmm_ksplit.cu)
   qmm_s_ks   xs_lo @ B_lo + xs_hi @ B_hi + x_lo @ (l * s) + x_hi @ (f * s),
              all f32 (replaces _qmm_pack4_s_kernel, mode "s")
+             (qmm_f_ks and qmm_s_ks at m <= 32: K split over a thread-block
+             cluster, both nibbles of a byte per load and neither through an
+             I2F, csrc/qmm_splitk.cuh; grid_split_plan gives the cluster's
+             size)
   qmm_b_ks   the function of qmm_f_ks on bf16 operands, f32 sums
              (replaces _qmm_pack4_kernel, mode "b"; csrc/qmm_prefill.cu)
   qmm_sb_ks  the function of qmm_s_ks with the two dots on bf16 operands
              (replaces _qmm_pack4_s_kernel, mode "sb"; csrc/qmm_float.cu:
-             qmm_s_ks's design at m <= 32, the Hopper GEMM core's ksplit
-             nibble tile above)
+             the first design of qmm_float.cuh at m <= 32, the Hopper GEMM
+             core's ksplit nibble tile above)
   qmm_r_ks, qmm_rb_ks  the functions of qmm_f_ks and qmm_b_ks, dequantized
              per (group, column) pair (replaces _qmm_pack4_rb_kernel, modes
              "r" and "rb"; csrc/qmm_rb.cu)
@@ -151,8 +155,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
 # every kernel source of the port; attn_decode.cu is ops/attention.py's, the
 # probe_*.cu sources ops/probes.py's
-SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu", "qmm_rb.cu",
-           "attn_decode.cu", "probe_dot.cu", "probe_nibble.cu", "probe_stream.cu")
+SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_grid.cu", "qmm_float.cu", "qmm_ksplit.cu",
+           "qmm_rb.cu", "attn_decode.cu", "probe_dot.cu", "probe_nibble.cu", "probe_stream.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -195,7 +199,8 @@ def _source_hash(prefix: str = "qmm_") -> str:
 def build() -> Dict[str, object]:
     """Compile every source under csrc/ (one nvcc per file, all started
     together) into <package>/_build/<source hash>/, unless already built,
-    and load the libraries. Returns BUILD_INFO: seconds and ptxas output."""
+    and load the libraries. Returns BUILD_INFO: seconds (each source's in
+    source_seconds: the longest sets the build's) and ptxas output."""
     if len(_LIBS) == len(SOURCES):
         return BUILD_INFO
     out_dir = os.path.join(BUILD_ROOT, _source_hash(""))
@@ -208,21 +213,29 @@ def build() -> Dict[str, object]:
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
-        procs[src] = (so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        log = open(f"{tmp}.log", "w+")
+        procs[src] = (so, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True
         ))
+    seconds = {}
+    while len(seconds) < len(procs):
+        for src, (_, _, _, p) in procs.items():
+            if src not in seconds and p.poll() is not None:
+                seconds[src] = round(time.perf_counter() - t0, 1)
+        time.sleep(0.05)
     logs = {}
-    for src, (so, tmp, p) in procs.items():
-        out, _ = p.communicate()
-        logs[src] = out
+    for src, (so, tmp, log, p) in procs.items():
+        log.seek(0)
+        logs[src] = log.read()
+        log.close()
+        os.remove(log.name)
+    for src, (so, tmp, _, p) in procs.items():
         if p.returncode != 0:
-            for _, t, q in procs.values():
-                q.wait()
-            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+            raise RuntimeError(f"nvcc failed on {src}:\n{logs[src]}")
         os.replace(tmp, so)
     BUILD_INFO.update(
         dir=out_dir, seconds=time.perf_counter() - t0, compiled=sorted(procs),
-        log=logs,
+        source_seconds=seconds, log=logs,
     )
     for src in SOURCES:
         lib = ctypes.CDLL(os.path.join(out_dir, f"lib{src[:-3]}.so"))
@@ -269,6 +282,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_g_split_capacity": [I] * 2,
         "ct_qmm_q8_split_plan": [I] * 6,
         "ct_qmm_q8_split_capacity": [I] * 5,
+        "ct_qmm_ks_split_plan": [I] * 7,
+        "ct_qmm_ks_split_capacity": [I] * 6,
         "ct_qmm_si_gptq": [P] * 5 + [I, I, I, I, P],
         "ct_qmm_qx_q4_0": [P] * 5 + [I, I, I, P],
         "ct_qmm_q_q4_0": [P] * 7 + [I, I, I, P],
@@ -825,8 +840,8 @@ _SPECS = {
     "qmm_i_k16": ("qmm_prefill", check_k16_qtensor, plain_i, _has_mins, 1090),
     "qmm_si_k16": ("qmm_prefill", check_k16_qtensor, plain_si, _has_mins, 1148),
     "qmm_g_k16": ("qmm_float", check_k16_qtensor, plain_g, _has_mins, 1206),
-    "qmm_f_ks": ("qmm_float", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 783),
-    "qmm_s_ks": ("qmm_float", check_ksplit_qtensor, plain_s_ks, _ksplit_ints, 957),
+    "qmm_f_ks": ("qmm_ksplit", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 783),
+    "qmm_s_ks": ("qmm_ksplit", check_ksplit_qtensor, plain_s_ks, _ksplit_ints, 957),
     "qmm_b_ks": ("qmm_prefill", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 783),
     "qmm_sb_ks": ("qmm_float", check_ksplit_qtensor, plain_sb_ks, _ksplit_ints, 957),
     "qmm_r_ks": ("qmm_rb", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 872),
@@ -841,8 +856,10 @@ PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
 # the K split of csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f and qmm_g
 # (symbols in qmm_float.cu), qmm_qx (qmm_decode.cu), qmm_q8 and
-# qmm_q8_legacy (qmm_grid.cu); their files' own designs serve m > 32
-SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g", "qmm_q8", "qmm_q8_legacy")
+# qmm_q8_legacy (qmm_grid.cu), qmm_f_ks and qmm_s_ks (qmm_ksplit.cu); their
+# files' own designs serve m > 32
+SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g", "qmm_q8", "qmm_q8_legacy", "qmm_f_ks",
+                 "qmm_s_ks")
 SOURCE_OF.update(dict.fromkeys(SPLIT_KERNELS, "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"))
 # the symbols that run the Hopper GEMM core: those of qmm_grid.cu and every
 # adjk nibble GEMM of qmm_prefill.cu (the core's adjk nibble tile) at every
@@ -877,6 +894,8 @@ KSPLIT_FLOAT_CONFIG = "n32k512"  # the same, 512 byte rows (both halves) a chunk
 SPLIT_CONFIG = "n128k16r2c8"
 # the same on nibbles: a group of 32 rows a warp, a superblock a stage
 NIBBLE_SPLIT_CONFIG = "n128k32r2c8"
+# the same on ksplit bytes: 16 byte rows a warp, both nibbles (halves) of each
+KSPLIT_SPLIT_CONFIG = "n128k16h2r2c8"
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
 GEMM_KERNELS = ("qmm_b_ks", "qmm_rb_ks", "qmm_rb8", "qmm_rb8_legacy")
@@ -893,8 +912,10 @@ CONFIG_OF.update(dict.fromkeys(("qmm_g8", "qmm_f", "qmm_q8", "qmm_q8_legacy"),
                                f"{SPLIT_CONFIG}|{DECODE_CONFIG}"))
 # qmm_qx, qmm_g: the nibble K split at m <= 32, the decode design above
 CONFIG_OF.update(dict.fromkeys(("qmm_qx", "qmm_g"), f"{NIBBLE_SPLIT_CONFIG}|{DECODE_CONFIG}"))
-CONFIG_OF.update(qmm_f_ks=KSPLIT_FLOAT_CONFIG, qmm_s_ks=KSPLIT_FLOAT_CONFIG,
-                 qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
+# qmm_f_ks, qmm_s_ks: the ksplit K split at m <= 32, the float design above
+CONFIG_OF.update(dict.fromkeys(("qmm_f_ks", "qmm_s_ks"),
+                               f"{KSPLIT_SPLIT_CONFIG}|{KSPLIT_FLOAT_CONFIG}"))
+CONFIG_OF.update(qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
 # name for its "q" with packed4=False; "qx" is in no candidate list, as in
 # the JAX package: a table sends keys there, ops/qmatmul.py:qx_mode_entries)
@@ -910,9 +931,10 @@ def grid_split_plan(name: str, qt, m: int) -> int:
     """The blocks P of a cluster that a K-split kernel (`name`, one of
     SPLIT_KERNELS) splits K over for weight `qt` (on the card; qmm_g8,
     qmm_f and qmm_q8: Q6_K or Q5_K, qmm_q8_legacy: Q8_0, Q5_0 or Q5_1,
-    qmm_qx and qmm_g: Q4_K) at batch size m <= 32: the first of 8, 6, 4, 3
-    and 2, up to the weight's stages, whose clusters all fit on the card at
-    once, else 1 (csrc/qmm_splitk.cuh:plan)."""
+    qmm_qx and qmm_g: Q4_K, qmm_f_ks and qmm_s_ks: the ksplit nibbles of
+    every kind) at batch size m <= 32: the first of 8, 6, 4, 3 and 2, up to
+    the weight's stages, whose clusters all fit on the card at once, else 1
+    (csrc/qmm_splitk.cuh:plan)."""
     if name not in SPLIT_KERNELS:
         raise ValueError(f"{name}: the K split serves {', '.join(SPLIT_KERNELS)}")
     lib, check = _SPECS[name][:2]
@@ -924,6 +946,9 @@ def grid_split_plan(name: str, qt, m: int) -> int:
     elif name in ("qmm_q8", "qmm_q8_legacy"):
         p = _fn(lib, "ct_qmm_q8_split_plan")(int(qt.sfactor == 0), int(qt.mins is not None),
                                              qt.group, m, kp, np_)
+    elif name in ("qmm_f_ks", "qmm_s_ks"):
+        p = _fn(lib, "ct_qmm_ks_split_plan")(int(name == "qmm_s_ks"), qt.group,
+                                             int(qt.mins is not None), qt.sfactor, m, kp, np_)
     else:
         p = _fn(lib, f"ct_{name}_split_plan")(m, kp, np_)
     if p <= 0:

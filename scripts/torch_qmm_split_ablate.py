@@ -1,14 +1,16 @@
 """Time the K-split decode GEMVs of csrc/qmm_splitk.cuh, ct_qmm_g8, ct_qmm_f
 and ct_qmm_q8 on the factored int8 grids, ct_qmm_q8_legacy on the legacy
-ones and ct_qmm_qx and ct_qmm_g on Q4_K nibbles, against variants of their
-design on one card, in one process.
+ones, ct_qmm_qx and ct_qmm_g on Q4_K nibbles and ct_qmm_f_ks and ct_qmm_s_ks
+on the ksplit nibbles of every kind, against variants of their design on
+one card, in one process.
 
     python3 scripts/torch_qmm_split_ablate.py [--m 1 8] [--reps 50]
         [--cases REGEX] [--symbols REGEX] [--no-check] VARIANT [VARIANT ...]
 
 Each VARIANT is the libraries of the timed symbols (qmm_float.cu,
-qmm_decode.cu, qmm_grid.cu) built by nvcc (the package's flags, all
-started together) from a copy of csrc/ under build/split_ablate/ with
+qmm_decode.cu, qmm_grid.cu, qmm_ksplit.cu; a checkout without qmm_ksplit.cu
+has the ksplit symbols in qmm_float.cu) built by nvcc (the package's flags,
+all started together) from a copy of csrc/ under build/split_ablate/ with
 edits to qmm_splitk.cuh:
 
   base         the sources as they are
@@ -25,11 +27,21 @@ edits to qmm_splitk.cuh:
                factors only): the compute, barriers and reductions alone
   imad_dot     qx: a shift pair and a multiply-add a nibble (the first
                design's form; the design: dp4a on transposed bytes)
-  i2f          g on nibbles: an I2F a nibble (the first design's form; the
-               design: the nibble in the mantissa of 2^23)
+  i2f          g on Q4_K nibbles at m = 1, and the ksplit kernels: an I2F
+               a nibble (the first design's form; the design: the nibble in
+               the mantissa of 2^23)
   byte_mad     q8 on the grids: a byte extract and a multiply-add a weight
                and row of x (the first design's form; the design: dp4a on
                transposed grid bytes)
+  lo_mul       the ksplit kernels: l * s of the low nibble as the
+               subtraction of 2^23, then the multiply (the design: one exact
+               fma of 2^23 + l, kKsLoFma)
+  m1occ        the ksplit kernels at m = 1: four blocks an SM asked of the
+               compiler, two byte rows a step, a window of 1024 (the design:
+               three, four, 2048)
+  m8occ        the ksplit kernels at m > 1: three blocks an SM, two byte
+               rows a step, the steps not unrolled (the design: two, four,
+               unrolled)
   no_mma       g on nibbles at m > 1: f32 products as at m = 1 (the
                design: bf16 mma.sync on tensor cores)
   root:PATH    the sources of another checkout (PATH/ctransformers_tpu_torch/
@@ -37,8 +49,10 @@ edits to qmm_splitk.cuh:
 
 For each (Q6_K v, down, output; Q5_K fused QKV, o, gate/up, down; Q8_0
 fused QKV, o, gate/up, down, output; Q5_1 o; Q4_K o, fused QKV, gate/up,
-down, output at their padded llama-2-7B shapes) x m x symbol (those of
---symbols): the kernel ms from a replayed CUDA graph cycling over weight copies
+down, output; packed ksplit ("ks:"): Q4_K at those five, GPTQ4 group 128
+at fused QKV, o, gate/up and down, groups 32 and 64 at o, Q4_0, Q2_K and
+Q3_K at o and down; at their padded llama-2-7B shapes) x m x symbol
+(those of --symbols): the kernel ms from a replayed CUDA graph cycling over weight copies
 past the 50 MB L2 (as chip_smoke.py phase 3 times it; q8 on activations
 quantized outside, as its wrapper takes them), the bytes bound, the
 error against the plain version (a variant that computes the function fails
@@ -73,18 +87,27 @@ from ctransformers_tpu_torch.ops import qmatmul as qm  # noqa: E402
 from ctransformers_tpu_torch.ops import qmm_kernels as K  # noqa: E402
 
 OUT = os.path.join(HERE, "build", "split_ablate")
-# the keys of PERF.md's rows 5b, 7c and 2b, of row 2e, and of rows 1a and
-# 7a (chip_smoke.py phase 3's timed cases)
+# the keys of PERF.md's rows 5b, 7c and 2b, of row 2e, of rows 1a and 7a,
+# and of rows 9a and 11a (chip_smoke.py phase 3's timed cases)
 CASES = [("Q6_K", "v"), ("Q6_K", "down"), ("Q6_K", "lm_head"), ("Q5_K", "qkv"), ("Q5_K", "o"),
          ("Q5_K", "gate_up"), ("Q5_K", "down"), ("Q8_0", "qkv"), ("Q8_0", "o"),
          ("Q8_0", "gate_up"), ("Q8_0", "down"), ("Q8_0", "lm_head"), ("Q5_1", "o"),
          ("Q4_K", "o"), ("Q4_K", "qkv"), ("Q4_K", "gate_up"), ("Q4_K", "down"),
-         ("Q4_K", "lm_head")]
+         ("Q4_K", "lm_head")] + [
+    ("ks:Q4_K", s) for s in ("o", "qkv", "gate_up", "down", "lm_head")] + [
+    ("ks:GPTQ4/128", s) for s in ("qkv", "o", "gate_up", "down")] + [
+    ("ks:GPTQ4/32", "o"), ("ks:GPTQ4/64", "o")] + [
+    (f"ks:{kind}", s) for kind in ("Q4_0", "Q2_K", "Q3_K") for s in ("o", "down")]
 # the split's symbols of a weight kind, and the library each is built into
 SYMBOLS = {"Q6_K": ("qmm_g8", "qmm_f", "qmm_q8"), "Q5_K": ("qmm_g8", "qmm_f", "qmm_q8"),
-           "Q8_0": ("qmm_q8_legacy",), "Q5_1": ("qmm_q8_legacy",), "Q4_K": ("qmm_qx", "qmm_g")}
+           "Q8_0": ("qmm_q8_legacy",), "Q5_1": ("qmm_q8_legacy",), "Q4_K": ("qmm_qx", "qmm_g"),
+           "ks": ("qmm_f_ks", "qmm_s_ks")}
 LIB_OF = {"qmm_g8": "qmm_float", "qmm_f": "qmm_float", "qmm_g": "qmm_float",
-          "qmm_qx": "qmm_decode", "qmm_q8": "qmm_grid", "qmm_q8_legacy": "qmm_grid"}
+          "qmm_qx": "qmm_decode", "qmm_q8": "qmm_grid", "qmm_q8_legacy": "qmm_grid",
+          "qmm_f_ks": "qmm_ksplit", "qmm_s_ks": "qmm_ksplit"}
+# the ksplit layouts (group, has mins, superblock factor count) whose
+# cluster capacities are printed
+KS_LAYOUTS = ((32, 1, 8), (16, 1, 16), (16, 0, 16), (32, 1, 0), (64, 1, 0), (128, 1, 0), (32, 0, 0))
 # variant -> edits to qmm_splitk.cuh
 VARIANTS = {
     "base": (),
@@ -96,11 +119,13 @@ VARIANTS = {
     "p1": (("constexpr int kMaxP = 8;", "constexpr int kMaxP = 1;"),),
     "no_compute": (("    for (int rr = 0; rr < kLR; rr += 4) {",
                     "    for (int rr = 0; rr < 0; rr += 4) {"),
-                   ("for (int q = 0; q < 4; ++q) {\n          uint32_t wv[4];",
-                    "for (int q = 0; q < 0; ++q) {\n          uint32_t wv[4];"),
-                   ("        for (int j = 0; j < ctq::kGroup / 2; j += 2) {",
-                    "        for (int j = 0; j < 0; j += 2) {"),
-                   ("        for (int k = 0; k < 2; ++k) {", "        for (int k = 0; k < 0; ++k) {")),
+                   ("    for (int rr = 0; rr < kLR; rr += kQ) {",
+                    "    for (int rr = 0; rr < 0; rr += kQ) {"),
+                   ("for (int q = 0; q < 4; ++q) {\n        uint32_t wv[4];",
+                    "for (int q = 0; q < 0; ++q) {\n        uint32_t wv[4];"),
+                   ("      for (int j = 0; j < ctq::kGroup / 2; j += 2) {",
+                    "      for (int j = 0; j < 0; j += 2) {"),
+                   ("      for (int k = 0; k < 2; ++k) {", "      for (int k = 0; k < 0; ++k) {")),
     "no_weights": (("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), "
                     "wp + u * wstep);", "    (void)wp;"),
                    ("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads) + "
@@ -109,6 +134,19 @@ VARIANTS = {
     "i2f": (("constexpr bool kNibbleMagic = true;", "constexpr bool kNibbleMagic = false;"),),
     "no_mma": (("constexpr bool kNibbleMma = true;", "constexpr bool kNibbleMma = false;"),),
     "byte_mad": (("constexpr bool kGridDp4a = true;", "constexpr bool kGridDp4a = false;"),),
+    "lo_mul": (("constexpr bool kKsLoFma = true;", "constexpr bool kKsLoFma = false;"),),
+    "m1occ": (("constexpr int kKsMinBlocks = MT == 1 ? 3 : 2;",
+               "constexpr int kKsMinBlocks = MT == 1 ? 4 : 2;"),
+              ("constexpr int kKsStep = MT == 1 ? 4 : 4;", "constexpr int kKsStep = MT == 1 ? 2 : 4;"),
+              ("constexpr int kKsUnroll = MT == 1 ? 4 : 4;",
+               "constexpr int kKsUnroll = MT == 1 ? 8 : 4;"),
+              ("constexpr int kKsWinRows = MT == 1 ? 2048 : 512;",
+               "constexpr int kKsWinRows = MT == 1 ? 1024 : 512;")),
+    "m8occ": (("constexpr int kKsMinBlocks = MT == 1 ? 3 : 2;",
+               "constexpr int kKsMinBlocks = MT == 1 ? 3 : 3;"),
+              ("constexpr int kKsStep = MT == 1 ? 4 : 4;", "constexpr int kKsStep = MT == 1 ? 4 : 2;"),
+              ("constexpr int kKsUnroll = MT == 1 ? 4 : 4;",
+               "constexpr int kKsUnroll = MT == 1 ? 4 : 1;")),
 }
 CHECKED = tuple(v for v in VARIANTS if not v.startswith("no_"))
 
@@ -135,9 +173,15 @@ def build(names, libraries):
                 src = src.replace(old, new)
             open(path, "w").write(src)
         for lib in libraries:
+            if not os.path.exists(os.path.join(d, f"{lib}.cu")):
+                continue  # an older checkout: its symbols are in another library
             so = os.path.join(d, f"lib{lib}.so")
+            # -fno-gnu-unique: each variant's function-local statics (the
+            # split's cluster capacities) stay its own, not the first
+            # loaded variant's
             procs[(name, lib)] = (so, subprocess.Popen(
-                [K._nvcc(), *K.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")],
+                [K._nvcc(), *K.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o", so,
+                 os.path.join(d, f"{lib}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {name: ({}, []) for name in names}
     for (name, lib), (so, p) in procs.items():
@@ -153,7 +197,8 @@ def build(names, libraries):
                 ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
                 if "spill" in ln or "Used" in ln])
             for i in range(len(lines)) if "Compiling entry" in lines[i]
-            and any(k in lines[i] for k in ("splitk_kernel", "nibble_kernel", "ctsk9q8_kernel")))
+            and any(k in lines[i] for k in ("splitk_kernel", "nibble_kernel", "ctsk9q8_kernel",
+                                            "ksplit_kernel")))
     return libs
 
 
@@ -178,8 +223,12 @@ def main() -> int:
     names = list(dict.fromkeys(opts.variants))
     cases = [(kind, shape, syms) for kind, shape in CASES
              if re.search(opts.cases, f"{kind} {shape}")
-             for syms in [[sym for sym in SYMBOLS[kind] if re.search(opts.symbols, sym)]] if syms]
-    libs = build(names, sorted({LIB_OF[sym] for _, _, syms in cases for sym in syms}))
+             for syms in [[sym for sym in SYMBOLS[kind.split(":")[0]]
+                           if re.search(opts.symbols, sym)]] if syms]
+    libraries = {LIB_OF[sym] for _, _, syms in cases for sym in syms}
+    if "qmm_ksplit" in libraries:  # where an older checkout keeps the ksplit symbols
+        libraries.add("qmm_float")
+    libs = build(names, sorted(libraries))
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (dlls, ptxas) in libs.items():
         for line in ptxas:
@@ -203,6 +252,13 @@ def main() -> int:
             for m in (1, 8) if cap else ():
                 print(f"[occupancy] {name}: {sym} m={m}: " + " ".join(
                     f"P={p}:{cap(m, p)}" for p in (8, 6, 4, 3, 2, 1)), flush=True)
+        cap = getattr(dlls.get("qmm_ksplit"), "ct_qmm_ks_split_capacity", None)
+        for mode_s, (group, mins, sf), m in itertools.product((0, 1), KS_LAYOUTS, (1, 8)):
+            if cap and any(s.endswith("_ks") for _, _, syms in cases for s in syms):
+                print(f"[occupancy] {name}: {'s' if mode_s else 'f'}_ks group {group} mins {mins} "
+                      f"sfactor {sf} m={m}: " + " ".join(
+                          f"P={p}:{cap(mode_s, group, mins, sf, m, p)}" for p in (8, 6, 4, 3, 2, 1)),
+                      flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {name: {} for name in opts.variants}
@@ -224,7 +280,7 @@ def main() -> int:
                 ref = K.PLAIN[sym](*acts, qts[0])
                 ints = K._SPECS[sym][3](qts[0])  # the symbol's own ints (the grids: group)
                 for j, name in enumerate(opts.variants):
-                    lib = libs[name][0][LIB_OF[sym]]
+                    lib = libs[name][0].get(LIB_OF[sym]) or libs[name][0]["qmm_float"]
                     fn = getattr(lib, "ct_" + sym)
 
                     def call(i, fn=fn):
@@ -238,7 +294,12 @@ def main() -> int:
                     call(0)
                     torch.cuda.synchronize()
                     err = ((out - ref).norm() / ref.norm()).item()
-                    if kind == "Q4_K":
+                    if kind.startswith("ks:"):
+                        plan = getattr(lib, "ct_qmm_ks_split_plan", None)
+                        qt = qts[0]
+                        p = plan(int(sym == "qmm_s_ks"), qt.group, int(qt.mins is not None),
+                                 qt.sfactor, m, kp, npad) if plan else "-"
+                    elif kind == "Q4_K":
                         plan = getattr(lib, f"ct_{sym}_split_plan", None)
                         p = plan(m, kp, npad) if plan else "-"
                     elif sym in ("qmm_q8", "qmm_q8_legacy"):

@@ -15,7 +15,9 @@ for the working tree) and environment variables for that run, for example
 (parent, the table's choices, the fixed rule twice, the table, parent). The
 checkpoints (--models, of MODELS: by default a Q4_K_M GGUF file and a GPTQ
 4-bit directory of group 128; Q2_K, Q3_K_M, Q4_0 and Q8_0 GGUF files
-too: a Q8_0 file's every weight is an int8 grid with plain f32 scales) at
+too: a Q8_0 file's every weight is an int8 grid with plain f32 scales; and
+"Q4_K_M-ksplit", the Q4_K_M file loaded with its nibbles packed ksplit,
+CT_PACK4_LAYOUT=ksplit, so that its Q4_K matmuls run the ksplit kernels) at
 llama-2-7B width with random weights from seed 7, are written once by this
 checkout's writer under build/serve_ab/ and removed at the end. Each run
 loads a checkpoint through AutoModelForCausalLM.from_pretrained, evaluates
@@ -47,10 +49,12 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = {"Q4_K_M": "Q4_K_M", "GPTQ4-g128": ("gptq", 128, False), "Q2_K": "Q2_K",
-          "Q3_K_M": "Q3_K_M", "Q4_0": "Q4_0", "Q8_0": "Q8_0"}
+          "Q3_K_M": "Q3_K_M", "Q4_0": "Q4_0", "Q8_0": "Q8_0", "Q4_K_M-ksplit": "Q4_K_M"}
+# the nibble layout each label loads with (CT_PACK4_LAYOUT); adjk elsewhere
+LAYOUT_OF = {"Q4_K_M-ksplit": "ksplit"}
 
 CHILD = """
-import json, statistics, sys, time, warnings
+import json, os, statistics, sys, time, warnings
 sys.path.insert(0, {root!r})
 import numpy as np
 import torch
@@ -67,7 +71,8 @@ def device_us(prof):
 
 out = []
 ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, 32000, 136)]
-for label, path in {models!r}:
+for label, path, layout in {models!r}:
+    os.environ["CT_PACK4_LAYOUT"] = layout
     t0 = time.perf_counter()
     llm = AutoModelForCausalLM.from_pretrained(path)
     load_s = time.perf_counter() - t0
@@ -172,12 +177,15 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"card {smi}", flush=True)
-    models = []
+    models, written = [], {}
     for label in labels:
         mix = MODELS[label]
-        path = C.model_path(tmp, f"llama7b_{args.layers}l_{label}", mix)
-        C.write_model(path, mix, seed=7, big=True, **dict(LLAMA2_7B, n_layer=args.layers, n_ctx=2048))
-        models.append((label, path))
+        if repr(mix) not in written:  # one file a mix, whatever layout loads it
+            path = C.model_path(tmp, f"llama7b_{args.layers}l_{label}", mix)
+            C.write_model(path, mix, seed=7, big=True,
+                          **dict(LLAMA2_7B, n_layer=args.layers, n_ctx=2048))
+            written[repr(mix)] = path
+        models.append((label, written[repr(mix)], LAYOUT_OF.get(label, "adjk")))
     rows = []
     try:
         for i, run in enumerate(args.runs):

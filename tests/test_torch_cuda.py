@@ -13,8 +13,9 @@ number of query heads a kv head; the symbols of the Hopper GEMM core
 qmm_si, qmm_i, qmm_si_k16, qmm_i_k16, qmm_si_q4_0, qmm_i_q4_0, and
 qmm_sb_ks with its decode design at m <= 32) at prompt sizes up to
 m = 2048; qmm_g8 and qmm_f on the grids and qmm_qx and qmm_g
-on Q4_K and qmm_q8 and qmm_q8_legacy on every int8 grid at m <= 32 (K
-split over a cluster) at the llama-2-7B keys, the
+on Q4_K, qmm_q8 and qmm_q8_legacy on every int8 grid and qmm_f_ks and
+qmm_s_ks on every ksplit layout at m <= 32 (K split over a cluster) at the
+llama-2-7B keys, the
 split's edges and in a CUDA graph; the IEEE scale divisions of kv_quantize and the
 probes' quantizers; and the fused decode loop of engine/engine.py (a
 captured CUDA graph per key) against the eager loop on a tiny model.
@@ -482,7 +483,11 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
 # than the x window a block stages at once (K 12288 over P = 2 for g at
 # m = 1, K 20480 for qx); qmm_q8 on the grids' keys and edges, and
 # qmm_q8_legacy on Q8_0 (no mins) and Q5_1 (mins) at the legacy files' o,
-# down, fused QKV and lm_head shapes and the narrowest edge
+# down, fused QKV and lm_head shapes and the narrowest edge; qmm_f_ks and
+# qmm_s_ks on the ksplit nibbles (128 byte rows a stage, both halves): Q4_K
+# at the Q4_K keys and edges, GPTQ4 group 128 at its four keys, groups 32
+# and 64, Q4_0, Q2_K and Q3_K at o and down, and every layout at K 256,
+# where one superblock spans both halves, and 13 stages at N 256
 SPLIT_KEYS = [("Q6_K", 4096, 4096), ("Q6_K", 11264, 4096), ("Q6_K", 4096, 32768),
               ("Q5_K", 4096, 12288), ("Q5_K", 11264, 4096)]
 SPLIT_EDGES = [("Q6_K", 256, 128), ("Q5_K", 256, 128), ("Q6_K", 1280, 4096),
@@ -490,11 +495,18 @@ SPLIT_EDGES = [("Q6_K", 256, 128), ("Q5_K", 256, 128), ("Q6_K", 1280, 4096),
 NIBBLE_SPLIT_KEYS = [(4096, 4096), (4096, 12288), (4096, 22528), (11264, 4096), (4096, 32768)]
 NIBBLE_SPLIT_EDGES = [(256, 128), (3328, 256), (12288, 16384), (20480, 32768)]
 LEGACY_SPLIT_SHAPES = [(4096, 4096), (11264, 4096), (4096, 12288), (4096, 32768), (256, 128)]
+KSPLIT_SPLIT_SHAPES = [("ks:Q4_K", k, n) for k, n in NIBBLE_SPLIT_KEYS + NIBBLE_SPLIT_EDGES] + [
+    ("ks:GPTQ4/128", k, n) for k, n in NIBBLE_SPLIT_KEYS[:4]] + [
+    ("ks:" + kind, k, n) for kind in ("GPTQ4/32", "GPTQ4/64", "Q4_0", "Q2_K", "Q3_K")
+    for k, n in ((4096, 4096), (11264, 4096))] + [
+    ("ks:" + kind, k, n) for kind in ("GPTQ4/32", "GPTQ4/64", "GPTQ4/128", "Q4_0", "Q2_K", "Q3_K")
+    for k, n in ((256, 128), (3328, 256))]
 SPLIT_CASES = [(name, kind, k, n) for name in ("qmm_g8", "qmm_f", "qmm_q8")
                for kind, k, n in SPLIT_KEYS + SPLIT_EDGES] + [
     (name, "Q4_K", k, n) for name in ("qmm_qx", "qmm_g")
     for k, n in NIBBLE_SPLIT_KEYS + NIBBLE_SPLIT_EDGES] + [
-    ("qmm_q8_legacy", kind, k, n) for kind in ("Q8_0", "Q5_1") for k, n in LEGACY_SPLIT_SHAPES]
+    ("qmm_q8_legacy", kind, k, n) for kind in ("Q8_0", "Q5_1") for k, n in LEGACY_SPLIT_SHAPES] + [
+    (name, kind, k, n) for name in ("qmm_f_ks", "qmm_s_ks") for kind, k, n in KSPLIT_SPLIT_SHAPES]
 
 
 def split_args(name, x, qt):
@@ -510,7 +522,7 @@ def test_grid_split_matches_plain(dev, name, kind, k, n, m):
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
     args = split_args(name, x, qt)
     p = K.grid_split_plan(name, qt, m)
-    stage = 256 if kind == "Q4_K" else 128  # K rows a stage
+    stage = 256 if kind == "Q4_K" or kind.startswith("ks:") else 128  # K rows a stage
     assert p in (1, 2, 3, 4, 6, 8) and p <= k // stage
     if (k, n, m) == (4096, 4096, 1):  # enough blocks for the card's SMs
         assert p * n // 128 >= 128
@@ -528,7 +540,8 @@ def test_grid_split_matches_plain(dev, name, kind, k, n, m):
                                          ("qmm_f", "Q6_K", 8), ("qmm_f", "Q5_K", 1),
                                          ("qmm_qx", "Q4_K", 1), ("qmm_qx", "Q4_K", 8),
                                          ("qmm_g", "Q4_K", 1), ("qmm_g", "Q4_K", 8),
-                                         ("qmm_q8", "Q5_K", 8), ("qmm_q8_legacy", "Q5_1", 1)])
+                                         ("qmm_q8", "Q5_K", 8), ("qmm_q8_legacy", "Q5_1", 1),
+                                         ("qmm_f_ks", "ks:Q4_K", 1), ("qmm_s_ks", "ks:Q2_K", 8)])
 def test_grid_split_replays_in_a_graph(dev, name, kind, m):
     """One captured call replayed on new activations (copied into the
     tensors the graph reads) equals eager calls, bitwise."""
@@ -639,6 +652,43 @@ def test_nibble_split_refuses_what_it_does_not_take(dev):
             K.grid_split_plan(name, random_grid("Q5_K", 256, 128, 2, dev), 1)
     torch.cuda.synchronize()
     assert torch.all(out == 7.0)
+
+def test_ksplit_split_refuses_what_it_does_not_take(dev):
+    """At m <= 32 ct_qmm_f_ks and ct_qmm_s_ks take a K padded to 256 rows
+    and an N to 128 columns, on the layouts ctq::dispatch_ksplit takes
+    (ints that no layout has, or pointers that disagree with them, are
+    refused before the split); a refusal launches nothing. The plan raises
+    at m = 33 (the float design's, not the split's) and on an adjk weight,
+    and its symbol gives a negative code for a layout there is not."""
+    x = torch.randn(8, 512, device=dev)
+    out = torch.full((8, 128), 7.0, device=dev)
+    q4k = random_ksplit("Q4_K", 512, 128, 1, dev)
+    q40 = random_ksplit("Q4_0", 512, 128, 2, dev)
+    for name in ("qmm_f_ks", "qmm_s_ks"):
+        fn = K._fn("qmm_ksplit", "ct_" + name)
+
+        def call(qt, kp, np_, *ints):
+            return fn(*K._ptrs(x, *K._planes(qt), out), 8, kp, np_, *ints, K._stream(dev))
+
+        for kp, np_ in ((128, 128), (384, 128), (512, 64), (512, 96)):
+            assert call(q4k, kp, np_, 32, 1, 0, 8) != 0, (kp, np_)
+            assert call(q40, kp, np_, 32, 0, 8, 0) != 0, (kp, np_)
+        for bad in ((32, 1, 8, 8), (16, 1, 0, 8), (32, 0, 0, 8), (32, 1, 0, 0), (64, 0, 8, 0)):
+            assert call(q4k, 512, 128, *bad) != 0, bad
+        for bad in ((32, 1, 0, 0), (32, 0, 0, 0), (64, 0, 8, 0), (32, 0, 8, 8)):
+            assert call(q40, 512, 128, *bad) != 0, bad
+        with pytest.raises(RuntimeError):
+            K.grid_split_plan(name, q4k, 33)
+        with pytest.raises(NotImplementedError):
+            K.grid_split_plan(name, random_q4k(512, 128, 3, dev), 1)
+    plan = K._fn("qmm_ksplit", "ct_qmm_ks_split_plan")
+    for ints in ((32, 0, 8), (64, 1, 8), (16, 1, 8), (128, 0, 0), (48, 1, 0)):
+        assert plan(0, *ints, 1, 512, 128) < 0, ints
+    assert plan(1, 32, 1, 8, 1, 512, 128) >= 1 and plan(0, 128, 1, 0, 8, 512, 128) >= 1
+    assert plan(0, 32, 1, 8, 0, 512, 128) < 0 and plan(0, 32, 1, 8, 1, 384, 128) < 0
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0)
+
 
 @pytest.mark.parametrize("name", K16)
 @pytest.mark.parametrize("kind", ["Q2_K", "Q3_K"])

@@ -125,6 +125,9 @@ GRID_SPLIT_CONFIG = "n128k16r2c8|n32k1024"
 # qmm_qx and qmm_g on Q4_K: the nibble K split ("n128k32r2c8") at m <= 32,
 # the decode design above
 NIBBLE_SPLIT_CONFIG = "n128k32r2c8|n32k1024"
+# qmm_f_ks and qmm_s_ks: the ksplit K split ("n128k16h2r2c8") at m <= 32,
+# the ksplit float design above
+KSPLIT_SPLIT_CONFIG = "n128k16h2r2c8|n32k512"
 
 
 @pytest.mark.parametrize("kind,m,want", [
@@ -144,7 +147,7 @@ NIBBLE_SPLIT_CONFIG = "n128k32r2c8|n32k1024"
     ("Q5_1", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
     ("Q8_0", 128, {"b": K.WGMMA_CONFIG}),
     ("ks:Q4_K", 128, {"b": K.GEMM_CONFIG, "sb": SB_KS_CONFIG}),
-    ("ks:Q3_K", 8, {"": K.KSPLIT_FLOAT_CONFIG, "s": K.KSPLIT_FLOAT_CONFIG, "b": K.GEMM_CONFIG,
+    ("ks:Q3_K", 8, {"": KSPLIT_SPLIT_CONFIG, "s": KSPLIT_SPLIT_CONFIG, "b": K.GEMM_CONFIG,
                     "sb": SB_KS_CONFIG}),
 ])
 def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
@@ -176,21 +179,34 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
 @pytest.mark.parametrize("name,kind,other", [("qmm_g8", "Q6_K", "Q4_K"), ("qmm_f", "Q5_K", "Q4_K"),
                                              ("qmm_qx", "Q4_K", "Q6_K"), ("qmm_g", "Q4_K", "Q5_K"),
                                              ("qmm_q8", "Q6_K", "Q4_K"), ("qmm_q8", "Q5_K", "Q4_K"),
-                                             ("qmm_q8_legacy", "Q8_0", "Q6_K")])
-def test_split_kernels_name_their_design(name, kind, other):
+                                             ("qmm_q8_legacy", "Q8_0", "Q6_K"),
+                                             ("qmm_f_ks", "ks:Q4_K", "Q4_K"),
+                                             ("qmm_f_ks", "ks:GPTQ4/128", "GPTQ4/128"),
+                                             ("qmm_s_ks", "ks:Q4_K", "Q4_K"),
+                                             ("qmm_s_ks", "ks:GPTQ4/128", "GPTQ4/128")])
+def test_split_kernels_name_their_design(name, kind, other, monkeypatch):
     """The kernels that split K over a cluster at m <= 32 name
     csrc/qmm_splitk.cuh and their split configuration; the plan asks the
-    card, so a weight on the CPU raises, as do another kind's weight and a
-    kernel that the split does not serve."""
+    card, so a weight on the CPU raises, as do another kind's weight (for
+    a ksplit kernel the same kind packed adjk) and a kernel that the split
+    does not serve."""
     assert name in K.SPLIT_KERNELS
     assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"
-    assert K.CONFIG_OF[name] == (NIBBLE_SPLIT_CONFIG if kind == "Q4_K" else GRID_SPLIT_CONFIG)
+    assert K.CONFIG_OF[name] == (KSPLIT_SPLIT_CONFIG if kind.startswith("ks:") else
+                                 NIBBLE_SPLIT_CONFIG if kind == "Q4_K" else GRID_SPLIT_CONFIG)
+    monkeypatch.setenv("CT_PACK4_LAYOUT", "adjk")
+    other = _real(other)
+    if kind.startswith("ks:"):
+        monkeypatch.setenv("CT_PACK4_LAYOUT", "ksplit")
+        kind = kind[3:]
+    qt = _real(kind)
+    assert qt.pack_layout != other.pack_layout or qt.kind != other.kind
     with pytest.raises(ValueError, match="asks the card"):
-        K.grid_split_plan(name, _real(kind), 1)
+        K.grid_split_plan(name, qt, 1)
     with pytest.raises(NotImplementedError):
-        K.grid_split_plan(name, _real(other), 1)
+        K.grid_split_plan(name, other, 1)
     with pytest.raises(ValueError, match="serves"):
-        K.grid_split_plan("qmm_s", _real(kind), 1)
+        K.grid_split_plan("qmm_s", qt, 1)
 
 
 def _rel(a, b):

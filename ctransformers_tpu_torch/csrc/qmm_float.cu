@@ -69,20 +69,21 @@ int launch_grid(const float* x, const int8_t* qs, const int8_t* sub_s, const int
                 const float* sd, const float* sm, float* out, int m, int kp, int np,
                 int group, cudaStream_t stream) {
   constexpr bool kSplit = MODE == kModeG || MODE == kModeF;
+  constexpr int kSplitMode = MODE == kModeG ? ctsk::kGridG : ctsk::kGridF;
   const bool split = kSplit && m >= 1 && m <= ctsk::kMaxM;
   if (group == 16 && sub_m == nullptr) {
     if constexpr (kSplit)
       if (split)
-        return ctsk::run<MODE == kModeG, 16, false>(x, qs, sub_s, nullptr, sd, nullptr, out, m,
-                                                    kp, np, stream);
+        return ctsk::run<kSplitMode, 16, false>(x, qs, sub_s, nullptr, sd, nullptr, out, m,
+                                                kp, np, stream);
     return launch<MODE, kGrid, false, 16, false>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                                  stream);
   }
   if (group == 32 && sub_m != nullptr) {
     if constexpr (kSplit)
       if (split)
-        return ctsk::run<MODE == kModeG, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
-                                                   stream);
+        return ctsk::run<kSplitMode, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
+                                               stream);
     return launch<MODE, kGrid, false, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np,
                                                 stream);
   }
@@ -192,9 +193,11 @@ int ct_qmm_f(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t
 // blocks P, or a negative CUDA error code (m outside 1..32 among them).
 int ct_qmm_grid_split_plan(int g8, int group, int m, int kp, int np) {
   if (group == 16)
-    return g8 ? ctsk::plan_of<true, 16, false>(m, kp, np) : ctsk::plan_of<false, 16, false>(m, kp, np);
+    return g8 ? ctsk::plan_of<ctsk::kGridG, 16, false>(m, kp, np)
+              : ctsk::plan_of<ctsk::kGridF, 16, false>(m, kp, np);
   if (group == 32)
-    return g8 ? ctsk::plan_of<true, 32, true>(m, kp, np) : ctsk::plan_of<false, 32, true>(m, kp, np);
+    return g8 ? ctsk::plan_of<ctsk::kGridG, 32, true>(m, kp, np)
+              : ctsk::plan_of<ctsk::kGridF, 32, true>(m, kp, np);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -203,9 +206,11 @@ int ct_qmm_grid_split_plan(int g8, int group, int m, int kp, int np) {
 // negative CUDA error code.
 int ct_qmm_grid_split_capacity(int g8, int group, int m, int p) {
   if (group == 16)
-    return g8 ? ctsk::capacity_of<true, 16, false>(m, p) : ctsk::capacity_of<false, 16, false>(m, p);
+    return g8 ? ctsk::capacity_of<ctsk::kGridG, 16, false>(m, p)
+              : ctsk::capacity_of<ctsk::kGridF, 16, false>(m, p);
   if (group == 32)
-    return g8 ? ctsk::capacity_of<true, 32, true>(m, p) : ctsk::capacity_of<false, 32, true>(m, p);
+    return g8 ? ctsk::capacity_of<ctsk::kGridG, 32, true>(m, p)
+              : ctsk::capacity_of<ctsk::kGridF, 32, true>(m, p);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 

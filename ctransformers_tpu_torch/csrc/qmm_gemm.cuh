@@ -1,8 +1,9 @@
-// Dequantize-then-bf16-GEMM for prompt chunks (m > 32), shared by the
-// ksplit nibble kernel of mode "b" (qmm_prefill.cu: ct_qmm_b_ks) and the
-// reshape-broadcast "rb" kernels (qmm_rb.cu: ct_qmm_rb_ks, ct_qmm_rb8 and
-// ct_qmm_rb8_legacy). Every other prompt GEMM runs the Hopper core of
-// qmm_wgmma.cuh instead: the int8-grid GEMMs (qmm_grid.cu), every adjk
+// Dequantize-then-bf16-GEMM, shared by the two ksplit nibble kernels of
+// the bf16 function "b" at every m: mode "b" (qmm_prefill.cu: ct_qmm_b_ks)
+// and its reshape-broadcast form "rb" (qmm_rb.cu: ct_qmm_rb_ks). Every other
+// prompt GEMM runs the Hopper core of qmm_wgmma.cuh instead: the int8-grid
+// GEMMs (qmm_grid.cu; the grids' "rb", ct_qmm_rb8 and ct_qmm_rb8_legacy,
+// above m = 32, and the K split of qmm_splitk.cuh below), every adjk
 // nibble GEMM (qmm_prefill.cu: Q4_K, GPTQ4, Q4_1, Q2_K, Q3_K and Q4_0,
 // modes "si" and "i") and the ksplit "sb" (qmm_float.cu).
 // Only the weight tile's decoding differs between formats; it comes in as a
@@ -17,7 +18,7 @@
 //                col0 .. col0+kGemmBN-1 into Bs (bf16, row stride
 //                kGemmLDB): W = q * s + B rounded once to bf16 (B the
 //                format's per-group bias). A format with unfactored planes
-//                (plain ksplit, the legacy grids) takes sub_s = sub_m = null
+//                (plain ksplit) takes sub_s = sub_m = null
 //                and its f32 (kp/G, np) planes s and m as sd and sm (m null
 //                where it has none). kp tells a ksplit tile which half, and
 //                so which nibble, row k0 is in.

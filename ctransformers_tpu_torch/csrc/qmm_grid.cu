@@ -8,9 +8,11 @@
 //                  the kernel)                                  -> ct_qmm_qx8
 //   _qmm_kernel,   mode "b"  (bf16 dots)                         -> ct_qmm_b
 //   _qmm_s_kernel, mode "sb" (sum-fold mins, bf16 dots)          -> ct_qmm_sb
+//   _qmm_rb_kernel, mode "rb" (the function of "b", the reference's
+//                  reshape-broadcast form)                       -> ct_qmm_rb8
 // and, on the legacy types' unfactored planes (the reference's sfactor == 0
-// branches), ct_qmm_q8_legacy, ct_qmm_qx8_legacy, ct_qmm_b_legacy and
-// ct_qmm_sb_legacy.
+// branches), ct_qmm_q8_legacy, ct_qmm_qx8_legacy, ct_qmm_b_legacy,
+// ct_qmm_sb_legacy and ct_qmm_rb8_legacy.
 //
 // Weight layout (ctransformers_tpu_torch/ops/qmatmul.py, an unpacked
 // QTensor) for a logical (K, N) weight padded to (Kp, Np):
@@ -74,6 +76,15 @@
 //   (TMA ring, wgmma, K split over a cluster of 3): ct_qmm_sb on Q5_K folds
 //   the factored M = sm * sub_m through the group sums of x, on Q6_K (no
 //   mins) it is the product alone, ct_qmm_b's instantiation.
+//
+// ct_qmm_rb8 / ct_qmm_rb8_legacy compute ct_qmm_b's function (the reference
+//   computes it again in its reshape-broadcast form, _qmm_rb_kernel): above
+//   m = 32 they launch ct_qmm_b's and ct_qmm_b_legacy's instantiations of
+//   the core; at 1 <= m <= 32 the K split's "b" form (qmm_splitk.cuh:
+//   128 columns a block, K split over a cluster, each weight's q * s (+ m)
+//   rounded once to bf16, f32 sums of the exact products at m = 1, bf16
+//   mma.sync above), which the legacy grids feed their plain f32 planes.
+//   Bound at m <= 32: the weight's bytes, as "q8".
 #include "qmm_splitk.cuh"
 #include "qmm_wgmma.cuh"
 
@@ -362,6 +373,35 @@ int launch_sb_core(const float* x, const int8_t* qs, const int8_t* sub_s, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ct_qmm_rb8: the K split's "b" form at 1 <= m <= 32 (which refuses what it
+// does not take), ct_qmm_b's core above
+int launch_rb8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
+               cudaStream_t stream) {
+  if (m < 1 || m > ctsk::kMaxM)
+    return launch_b_core(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group, stream);
+  if (group == 16 && sub_m == nullptr)
+    return ctsk::run<ctsk::kGridB, 16, false>(x, qs, sub_s, nullptr, sd, sm, out, m, kp, np,
+                                              stream);
+  if (group == 32 && sub_m != nullptr)
+    return ctsk::run<ctsk::kGridB, 32, true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ct_qmm_rb8_legacy: the same on the plain f32 planes at group 32 (s and,
+// with mins, mn), ct_qmm_b_legacy's core above
+int launch_rb8_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                      float* out, int m, int kp, int np, int has_mins, cudaStream_t stream) {
+  if (m < 1 || m > ctsk::kMaxM)
+    return launch_b_legacy_core(x, qs, s, mn, out, m, kp, np, has_mins, stream);
+  if (has_mins != (mn != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (has_mins)
+    return ctsk::run<ctsk::kGridB, 32, true, true>(x, qs, nullptr, nullptr, s, mn, out, m, kp,
+                                                   np, stream);
+  return ctsk::run<ctsk::kGridB, 32, false, true>(x, qs, nullptr, nullptr, s, nullptr, out, m,
+                                                  kp, np, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -450,6 +490,50 @@ int ct_qmm_b_legacy(const float* x, const int8_t* qs, const float* s, const floa
                     float* out, int m, int kp, int np, int has_mins, void* stream) {
   return launch_b_legacy_core(x, qs, s, mn, out, m, kp, np, has_mins,
                               static_cast<cudaStream_t>(stream));
+}
+
+// mode "rb" on an int8 grid: bf16(x) @ bf16(q * s + m), the function of
+// ct_qmm_b; group 16 without mins (Q6_K) or 32 with mins (Q5_K)
+int ct_qmm_rb8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
+               const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
+               void* stream) {
+  return launch_rb8(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, group,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// mode "rb" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): the function of
+// ct_qmm_b_legacy; s and mn f32 (kp/32, np), mn null exactly when has_mins
+// is 0
+int ct_qmm_rb8_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
+                      float* out, int m, int kp, int np, int has_mins, void* stream) {
+  return launch_rb8_legacy(x, qs, s, mn, out, m, kp, np, has_mins,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// the K split's plan for ct_qmm_rb8 (plain_s 0: group 16 without mins, Q6_K,
+// or 32 with them, Q5_K) or ct_qmm_rb8_legacy (plain_s 1: group 32, with or
+// without mins) at batch size m: the cluster's blocks P, or a negative CUDA
+// error code (m outside 1..32 among them: the core's).
+int ct_qmm_rb8_split_plan(int plain_s, int has_mins, int group, int m, int kp, int np) {
+  if (plain_s && group == 32)
+    return has_mins ? ctsk::plan_of<ctsk::kGridB, 32, true, true>(m, kp, np)
+                    : ctsk::plan_of<ctsk::kGridB, 32, false, true>(m, kp, np);
+  if (!plain_s && group == 16 && !has_mins)
+    return ctsk::plan_of<ctsk::kGridB, 16, false>(m, kp, np);
+  if (!plain_s && group == 32 && has_mins) return ctsk::plan_of<ctsk::kGridB, 32, true>(m, kp, np);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the clusters of p blocks that the split's "b" kernel for that layout at
+// batch size m runs on the card at once, or a negative CUDA error code
+int ct_qmm_rb8_split_capacity(int plain_s, int has_mins, int group, int m, int p) {
+  if (plain_s && group == 32)
+    return has_mins ? ctsk::capacity_of<ctsk::kGridB, 32, true, true>(m, p)
+                    : ctsk::capacity_of<ctsk::kGridB, 32, false, true>(m, p);
+  if (!plain_s && group == 16 && !has_mins)
+    return ctsk::capacity_of<ctsk::kGridB, 16, false>(m, p);
+  if (!plain_s && group == 32 && has_mins) return ctsk::capacity_of<ctsk::kGridB, 32, true>(m, p);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // mode "sb" on a legacy int8 grid: xsum @ mn + bf16(x) @ bf16(q * s)

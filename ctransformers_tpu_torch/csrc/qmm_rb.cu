@@ -1,15 +1,16 @@
 // The reshape-broadcast dequantize-and-matmul ("r": f32 dots, "rb": bf16
-// operands) on int8 grids and on ksplit nibbles.
+// operands) on int8 grids ("r") and on ksplit nibbles ("r", "rb"). The int8
+// grids' "rb", ct_qmm_rb8 and ct_qmm_rb8_legacy, computes ct_qmm_b's
+// function and runs its designs (qmm_grid.cu).
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
-//   _qmm_rb_kernel       (modes "r", "rb") -> ct_qmm_r8, ct_qmm_rb8 (Q6_K,
-//       Q5_K) and ct_qmm_r8_legacy, ct_qmm_rb8_legacy (Q8_0, Q5_0, Q5_1):
-//       out = x @ (q * s + m)  ("r": all f32; "rb": bf16(x) @ bf16(...))
+//   _qmm_rb_kernel       (mode "r") -> ct_qmm_r8 (Q6_K, Q5_K) and
+//       ct_qmm_r8_legacy (Q8_0, Q5_0, Q5_1): out = x @ (q * s + m), all f32
 //   _qmm_pack4_rb_kernel (modes "r", "rb") -> ct_qmm_r_ks, ct_qmm_rb_ks on
 //       the ksplit nibbles of every kind (qmm_common.cuh):
 //       out = x_lo @ (l * s + B_lo) + x_hi @ (f * s + B_hi), the same way
 // These compute the functions of _qmm_kernel and _qmm_pack4_kernel (ct_qmm_f,
-// ct_qmm_b, ct_qmm_f_ks, ct_qmm_b_ks). The reference's variant applies the
+// ct_qmm_f_ks, ct_qmm_b_ks). The reference's variant applies the
 // per-group planes through a (groups, group, columns) reshape and a
 // broadcast instead of a repeat along the rows; the Hopper reading of that
 // form organises the dequantization by (group, column) pair:
@@ -19,7 +20,7 @@
 //      as the reference's),
 //   3. the dot reads the tile.
 // ct_qmm_f / ct_qmm_b and the ksplit kernels instead apply the scale per row
-// inside the dot loop. "rb" feeds the tile to the WMMA loop of
+// inside the dot loop. "rb" on ksplit feeds the tile to the WMMA loop of
 // qmm_gemm.cuh (a tile type of its own: 64 columns x 2 segments of 16 rows
 // a 32-row step, one pair each). "r" keeps the dot on the f32 pipes: a
 // block owns 8 rows (1 at decode) x 32 output columns and all of K, its 256
@@ -159,11 +160,11 @@ struct RLaunch {
   }
 };
 
-// ---- "rb": the pair tile of qmm_gemm.cuh -----------------------------------
+// ---- "rb" on ksplit: the pair tile of qmm_gemm.cuh ------------------------
 
 // 128 threads: column tid % 64 of the step, rows 16 (tid / 64) .. +15, one
 // (group, column) pair each. "rb" computes the function of "b".
-template <int FMT, int G, int SF, bool HAS_MINS>
+template <int G, int SF, bool HAS_MINS>
 struct RbTile {
   static constexpr int kGroup = G;
   static_assert(ctq::kGemmThreads * 16 == ctq::kGemmBK * ctq::kGemmBN,
@@ -175,13 +176,13 @@ struct RbTile {
       const float* __restrict__ sm, int np, int kp, int k0, int col0, int tid,
       __nv_bfloat16* Bs) {
     const int c = tid % ctq::kGemmBN, seg = tid / ctq::kGemmBN;
-    dequant_pair<FMT, G, SF, HAS_MINS, 16>(qs, sub_s, sub_m, sd, sm, np, kp, k0 + 16 * seg,
-                                           col0 + c, Bs + 16 * seg * ctq::kGemmLDB + c,
-                                           ctq::kGemmLDB);
+    dequant_pair<kKsplitFmt, G, SF, HAS_MINS, 16>(qs, sub_s, sub_m, sd, sm, np, kp,
+                                                  k0 + 16 * seg, col0 + c,
+                                                  Bs + 16 * seg * ctq::kGemmLDB + c,
+                                                  ctq::kGemmLDB);
   }
 };
 
-template <int FMT>
 struct RbLaunch {
   const float* x;
   const int8_t* qs;
@@ -190,8 +191,8 @@ struct RbLaunch {
   cudaStream_t st;
   template <int G, int SF, bool HAS_MINS>
   int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
-    return ctq::launch_gemm<RbTile<FMT, G, SF, HAS_MINS>>(x, qs, sub_s, sub_m, sd, sm, out, m,
-                                                          kp, np, st);
+    return ctq::launch_gemm<RbTile<G, SF, HAS_MINS>>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
+                                                     np, st);
   }
 };
 
@@ -218,7 +219,7 @@ int dispatch_legacy(const L& l, const float* s, const float* mn, int has_mins) {
 
 extern "C" {
 
-// mode "r" / "rb" on a factored int8 grid (Q6_K, Q5_K)
+// mode "r" on a factored int8 grid (Q6_K, Q5_K)
 int ct_qmm_r8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
               const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
               void* stream) {
@@ -226,27 +227,12 @@ int ct_qmm_r8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_
                        sub_s, sub_m, sd, sm, group);
 }
 
-int ct_qmm_rb8(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
-               const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
-               void* stream) {
-  return dispatch_grid(
-      RbLaunch<kGridFmt>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, sub_s, sub_m,
-      sd, sm, group);
-}
-
-// mode "r" / "rb" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): s and mn f32
+// mode "r" on a legacy int8 grid (Q8_0, Q5_0, Q5_1): s and mn f32
 // (kp/32, np), mn null exactly when has_mins is 0
 int ct_qmm_r8_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
                      float* out, int m, int kp, int np, int has_mins, void* stream) {
   return dispatch_legacy(
       RLaunch<kGridFmt>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, s, mn,
-      has_mins);
-}
-
-int ct_qmm_rb8_legacy(const float* x, const int8_t* qs, const float* s, const float* mn,
-                      float* out, int m, int kp, int np, int has_mins, void* stream) {
-  return dispatch_legacy(
-      RbLaunch<kGridFmt>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, s, mn,
       has_mins);
 }
 
@@ -266,8 +252,8 @@ int ct_qmm_rb_ks(const float* x, const int8_t* qs, const void* scales, const voi
                  const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
                  int has_mins, int zp, int sfactor, void* stream) {
   return ctq::dispatch_ksplit(
-      RbLaunch<kKsplitFmt>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales,
-      mins, sd, sm, group, has_mins, zp, sfactor);
+      RbLaunch{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins, sd, sm,
+      group, has_mins, zp, sfactor);
 }
 
 }  // extern "C"

@@ -3,11 +3,13 @@
 // "") of qmm_float.cu; on every int8 grid (those two, and the legacy Q8_0,
 // Q5_0 and Q5_1 with plain f32 planes at group 32), ct_qmm_q8 and
 // ct_qmm_q8_legacy (mode "q" on activations quantized outside) of
-// qmm_grid.cu; on the Q4_K adjk nibbles (group 32, with mins), ct_qmm_qx
-// (mode "qx") of qmm_decode.cu and ct_qmm_g (mode "g") of qmm_float.cu; and
-// on the ksplit nibbles of every kind, ct_qmm_f_ks (mode "") and
-// ct_qmm_s_ks (mode "s") of qmm_ksplit.cu: each symbol takes this design
-// there, its file's own (qmm_float.cuh for the ksplit ones) above.
+// qmm_grid.cu, and ct_qmm_rb8 and ct_qmm_rb8_legacy (mode "rb", the bf16
+// function of "b") of qmm_grid.cu; on the Q4_K adjk nibbles (group 32, with
+// mins), ct_qmm_qx (mode "qx") of qmm_decode.cu and ct_qmm_g (mode "g") of
+// qmm_float.cu; and on the ksplit nibbles of every kind, ct_qmm_f_ks (mode
+// "") and ct_qmm_s_ks (mode "s") of qmm_ksplit.cu: each symbol takes this
+// design there, its file's own (qmm_float.cuh for the ksplit ones, the
+// Hopper core of qmm_wgmma.cuh for the rb8 ones) above.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py (what they compute is the
 // files' first designs', unchanged):
@@ -15,6 +17,9 @@
 //       out = sum_g s[g,n] * dot_g(bf16(x), q)[t,n] + xsum @ M (Q5_K)
 //   _qmm_kernel mode "" (:734) on the grids -> ct_qmm_f
 //       out = x @ (q * s + m), all f32
+//   _qmm_rb_kernel mode "rb" (:1459) on every int8 grid -> ct_qmm_rb8,
+//       ct_qmm_rb8_legacy
+//       out = bf16(x) @ bf16(q * s + m), f32 sums (the function of "b")
 //   _qmm_q_kernel (:1288) with packed4=False -> ct_qmm_q8, ct_qmm_q8_legacy
 //       out = sum_g (dot_g(xq, q)[t,n] * sx[t,g]) * s[g,n] + xsum @ M, the
 //       group dots exact in int32, xq, sx and xsum given per (token, group)
@@ -76,6 +81,21 @@
 //     second warp hands its sum to the first through shared memory before
 //     that multiply. "": each weight dequantized as __fmul_rn(q, s) (then
 //     __fadd_rn(., m), Q5_K) and multiplied in f32 (no TF32).
+//   - grid "b" (ct_qmm_rb8; PLAIN_S, ct_qmm_rb8_legacy: the stage carries
+//     the rows of the f32 planes s and mn, as q8_kernel's does): each weight
+//     dequantized as "" does, then rounded once to bf16; x rounded to bf16
+//     once a stage. At m = 1 the exact products of the two bf16 operands
+//     are summed in f32, as "". At m > 1 (8 rows of x) on tensor cores:
+//     mma.sync m16n8k16 with the dequantized weights as A and x as B. A
+//     lane (4 g + t) dequantizes 16 columns [16 g, 16 g + 16) x its warp's
+//     4 K rows 4 t .. 4 t + 3 (one 16-byte load a row; the stage's 16-byte
+//     chunk j of row r lies at j ^ 2 (r / 4 % 4), so that the lanes' loads
+//     meet 32 banks), whose bf16 pairs are A's registers as they stand:
+//     A's row g of tile j is column 16 g + j, row g + 8 column 16 g + 8 + j,
+//     and its K slots 2t, 2t + 1, 2t + 8, 2t + 9 the K rows 4 t .. 4 t + 3,
+//     which B (x row g, those K rows, rounded as it is read) takes in the
+//     same order. Eight tiles a warp and stage; the tensor core's f32 sums
+//     run over the block's whole K range.
 //   - Nibbles: the block stages x for its own K range once, in windows of
 //     kWinRows (a block's whole range but at the longest K), while the
 //     ring's first copies are in flight: "qx" quantizes it (xq, sx, the
@@ -154,6 +174,9 @@ constexpr bool kNibbleMma = true;
 // "q" on the grids: dp4a on transposed grid bytes (false: a byte extract and
 // a multiply-add a weight and row of x, the first design's form)
 constexpr bool kGridDp4a = true;
+// "b" on the grids at m > 1: bf16 mma.sync on tensor cores (false: f32
+// products, as at m = 1)
+constexpr bool kGridMma = true;
 // the ksplit kernels' low nibble: l * s as one fma of 2^23 + l with s and
 // -2^23 s (exact: the fma rounds l * s once, as __fmul_rn does, one f32
 // operation fewer; false: the subtraction, then the multiply)
@@ -177,25 +200,38 @@ static_assert(kMT == 2 || kMT == 4 || kMT == 8, "2, 4 or 8 rows of x a block at 
 template <int MT>
 constexpr int kMinBlocks = MT >= 8 ? 2 : 3;
 
-// byte offsets of one stage's parts (each a multiple of 16)
-template <int MT, int G, bool HAS_MINS>
+// the grid kernel's modes: "" (f32 products of the dequantized weight),
+// "g" (exact bf16 products summed over a group, then one rescale), "b" (the
+// dequantized weight and x rounded to bf16, f32 sums)
+enum GridMode { kGridF, kGridG, kGridB };
+
+// byte offsets of one stage's parts (each a multiple of 16): the factored
+// planes' sub-scales, sub-mins and factor rows, or (PLAIN_S) the rows of
+// the f32 planes s and mn at kSub and kSubM
+template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
 struct Stage {
+  static constexpr int kGS = kKR / G;                            // groups a stage
+  static constexpr int kPlaneRow = PLAIN_S ? 4 * kTN : kTN;      // bytes a row of s (sub_s)
   static constexpr int kW = 0;                                   // int8 [kKR][kTN]
   static constexpr int kX = kW + kKR * kTN;                      // f32 [MT][kKR]
-  static constexpr int kSub = kX + MT * kKR * 4;                 // int8 [kKR / G][kTN]
-  static constexpr int kSubM = kSub + kKR / G * kTN;             // int8 [kKR / G][kTN]
-  static constexpr int kSd = kSubM + (HAS_MINS ? kKR / G * kTN : 0);  // f32 [kTN]
-  static constexpr int kSm = kSd + 4 * kTN;                      // f32 [kTN]
-  static constexpr int kBytes = kSm + (HAS_MINS ? 4 * kTN : 0);
+  static constexpr int kSub = kX + MT * kKR * 4;                 // [kGS][kTN]
+  static constexpr int kSubM = kSub + kGS * kPlaneRow;           // [kGS][kTN]
+  static constexpr int kSd = kSubM + (HAS_MINS ? kGS * kPlaneRow : 0);  // f32 [kTN]
+  static constexpr int kSm = kSd + (PLAIN_S ? 0 : 4 * kTN);      // f32 [kTN]
+  static constexpr int kBytes = kSm + (HAS_MINS && !PLAIN_S ? 4 * kTN : 0);
 };
+
+// "b" at m > 1 on tensor cores
+template <int MT, int MODE>
+constexpr bool kMmaB = MODE == kGridB && MT == 8 && kGridMma;
 
 // shared memory of a block: the ring, then ("g" on Q5_K) the hand-over of
 // a group's second warp and the group sums of x
-template <int MT, bool G8, int G, bool HAS_MINS>
+template <int MT, int MODE, int G, bool HAS_MINS, bool PLAIN_S>
 struct Smem {
-  static constexpr bool kComb = G8 && G > kLR;
-  static constexpr bool kBias = G8 && HAS_MINS;
-  static constexpr int kRing = kStages * Stage<MT, G, HAS_MINS>::kBytes;
+  static constexpr bool kComb = MODE == kGridG && G > kLR;
+  static constexpr bool kBias = MODE == kGridG && HAS_MINS;
+  static constexpr int kRing = kStages * Stage<MT, G, HAS_MINS, PLAIN_S>::kBytes;
   static constexpr int kComb0 = kRing;  // f32 [kWarps / 2][MT][kTN]
   static constexpr int kXs0 = kComb0 + (kComb ? kWarps / 2 * MT * kTN * 4 : 0);  // f32 [MT][kKR / G]
   static constexpr int kBytes = kXs0 + (kBias ? MT * (kKR / G) * 4 : 0);
@@ -300,20 +336,81 @@ __device__ __forceinline__ void reduce_out(const float (&acc)[MT][4], uint8_t* s
       smem, out, m, np, n0, t0, rank, parts);
 }
 
-// MT: rows of x a block (1, or kMT at m > 1); G8: mode "g", else ""; G: 16 (Q6_K, no
-// mins) or 32 (Q5_K, mins). Grid (np / kTN * parts, ceil(m / MT)) in
-// clusters of `parts` along x.
-template <int MT, bool G8, int G, bool HAS_MINS>
+// d += A B on tensor cores: A 16 x 16 bf16 (rows g and g + 8 of lane 4 g + t:
+// a0, a1 K 2t, 2t + 1; a2, a3 K 2t + 8, 2t + 9), B 16 x 8 bf16 (column g:
+// b0 K 2t, 2t + 1; b1 K 2t + 8, 2t + 9), d f32 (rows g, g + 8 x columns
+// 2t, 2t + 1)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The group's scale (and min) of NC columns [col0, col0 + NC) of stage b,
+// group gs: s = sd * sub_s and m = sm * sub_m (each an f32 product rounded
+// once, as the reference's _apply_factors), or the plain f32 rows (PLAIN_S)
+template <int NC, class St, bool HAS_MINS, bool PLAIN_S>
+__device__ __forceinline__ void group_scales(const uint8_t* b, int gs, int col0, float (&s)[NC],
+                                             float (&mn)[NC]) {
+#pragma unroll
+  for (int c4 = 0; c4 < NC; c4 += 4) {
+    if constexpr (PLAIN_S) {
+      const float4 s4 =
+          *reinterpret_cast<const float4*>(b + St::kSub + gs * St::kPlaneRow + 4 * (col0 + c4));
+      s[c4] = s4.x, s[c4 + 1] = s4.y, s[c4 + 2] = s4.z, s[c4 + 3] = s4.w;
+      if (HAS_MINS) {
+        const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSubM + gs * St::kPlaneRow +
+                                                           4 * (col0 + c4));
+        mn[c4] = m4.x, mn[c4 + 1] = m4.y, mn[c4 + 2] = m4.z, mn[c4 + 3] = m4.w;
+      }
+    } else {
+      const uint32_t sw =
+          *reinterpret_cast<const uint32_t*>(b + St::kSub + gs * kTN + col0 + c4);
+      const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + 4 * (col0 + c4));
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[c4 + c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
+      if (HAS_MINS) {
+        const uint32_t mw =
+            *reinterpret_cast<const uint32_t*>(b + St::kSubM + gs * kTN + col0 + c4);
+        const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + 4 * (col0 + c4));
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mn[c4 + c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
+      }
+    }
+  }
+}
+
+// the bf16 pair (lo, hi) rounded to nearest even, lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// MT: rows of x a block (1, or kMT at m > 1); MODE: "", "g" or "b"
+// (GridMode); G: 16 (Q6_K, no mins) or 32 (Q5_K, mins; the legacy grids
+// with or without); PLAIN_S ("b" only): the f32 planes s and mn (passed as
+// sd and sm, no sub-planes) instead of the factored ones. Grid
+// (np / kTN * parts, ceil(m / MT)) in clusters of `parts` along x.
+template <int MT, int MODE, int G, bool HAS_MINS, bool PLAIN_S>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<MT>)
 splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
               const int8_t* __restrict__ sub_s, const int8_t* __restrict__ sub_m,
               const float* __restrict__ sd, const float* __restrict__ sm,
               float* __restrict__ out, int m, int kp, int np, int parts) {
-  using St = Stage<MT, G, HAS_MINS>;
-  using Sm = Smem<MT, G8, G, HAS_MINS>;
+  using St = Stage<MT, G, HAS_MINS, PLAIN_S>;
+  using Sm = Smem<MT, MODE, G, HAS_MINS, PLAIN_S>;
+  constexpr bool kG8 = MODE == kGridG, kMma = kMmaB<MT, MODE>;
   static_assert(G == kLR || G == 2 * kLR, "a group is one K lane or two");
   static_assert(kKR % G == 0 && ctq::kSuperblock % kKR == 0, "a stage holds whole groups "
                 "and lies in one superblock");
+  static_assert(!PLAIN_S || (MODE == kGridB && G == 2 * kLR),
+                "plain planes: the legacy grids' \"b\" at group 32");
   extern __shared__ __align__(16) uint8_t smem[];
   float* comb = reinterpret_cast<float*>(smem + Sm::kComb0);
   float* xs = reinterpret_cast<float*>(smem + Sm::kXs0);
@@ -328,26 +425,37 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
 
   // ---- stage it of this block's range into ring slot it % kStages ----
   // Each thread's copies are fixed: 16-byte chunks tid + u * kThreads of the
-  // weight tile (row tid / 8 + u * kThreads / 8, chunk tid % 8), chunk tid
-  // of x's rows, of the sub-scale rows, or of the factor row.
+  // weight tile (row tid / 8 + u * kThreads / 8, chunk tid % 8; on tensor
+  // cores at chunk tid % 8 ^ 2 (row / 4 % 4)), chunk tid of x's rows, of the
+  // sub-scale rows, or of the factor row; PLAIN_S: chunk tid of the s rows
+  // (the first kPChunks threads) and of the mn rows (the last kPChunks).
   static_assert(kKR * kTN / 16 == 4 * kThreads, "four weight chunks a thread");
-  constexpr int kXChunks = MT * kKR / 4, kSubChunks = kKR / G * kTN / 16;
+  constexpr int kXChunks = MT * kKR / 4, kSubChunks = St::kGS * kTN / 16;
+  constexpr int kPChunks = St::kGS * kTN / 4;
   constexpr int kSdThread = kThreads - kTN / 4;  // the last warp copies the factors
-  static_assert(kXChunks <= kThreads && kSubChunks <= kSdThread, "one chunk a thread");
+  static_assert(kXChunks <= kThreads && kSubChunks <= kSdThread &&
+                (!PLAIN_S || 2 * kPChunks <= kThreads), "one chunk a thread");
   const int8_t* wsrc = qs + (size_t)(s0 * kKR + tid / 8) * np + n0 + 16 * (tid % 8);
   const size_t wstep = (size_t)kThreads / 8 * np;  // rows between a thread's chunks
+  const int wswz = kMma ? 16 * ((tid % 8 ^ 2 * (tid / 32 % 4)) - tid % 8) : 0;
   const bool xlive = tid < kXChunks && t0 + tid / (kKR / 4) < m;
   const float* xsrc = x + (size_t)(xlive ? t0 + tid / (kKR / 4) : 0) * kp + s0 * kKR +
                       4 * (tid % (kKR / 4));
-  const size_t ssrc = (size_t)(s0 * kKR / G + tid / 8) * np + n0 + 16 * (tid % 8);
+  const size_t ssrc = (size_t)(s0 * St::kGS + tid / 8) * np + n0 + 16 * (tid % 8);
+  const int pc = tid < kPChunks ? tid : tid - (kThreads - kPChunks);  // PLAIN_S
+  const size_t psrc = (size_t)(s0 * St::kGS + pc / (kTN / 4)) * np + n0 + 4 * (pc % (kTN / 4));
   auto load = [&](int it) {
     uint8_t* b = smem + (it % kStages) * St::kBytes;
     const int8_t* wp = wsrc + (size_t)it * kKR * np;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), wp + u * wstep);
+    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads) + wswz, wp + u * wstep);
     if (tid < kXChunks) cp16z(b + St::kX + 16 * tid, xsrc + it * kKR, xlive);
-    if (tid < kSubChunks) {
-      const size_t o = ssrc + (size_t)it * (kKR / G) * np;
+    if constexpr (PLAIN_S) {
+      const size_t o = psrc + (size_t)it * St::kGS * np;
+      if (tid < kPChunks) cp16(b + St::kSub + 16 * tid, sd + o);
+      else if (HAS_MINS && tid >= kThreads - kPChunks) cp16(b + St::kSubM + 16 * pc, sm + o);
+    } else if (tid < kSubChunks) {
+      const size_t o = ssrc + (size_t)it * St::kGS * np;
       cp16(b + St::kSub + 16 * tid, sub_s + o);
       if (HAS_MINS) cp16(b + St::kSubM + 16 * tid, sub_m + o);
     } else if (tid >= kSdThread) {  // a stage lies in one superblock
@@ -363,6 +471,13 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+  // tensor cores: tile j's sums, columns 16 g + j (d[0], d[1]) and
+  // 16 g + 8 + j (d[2], d[3]) x rows 2 t (d[0], d[2]) and 2 t + 1 of x
+  float dm[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dm[j][c] = 0.0f;
 
 #pragma unroll
   for (int it = 0; it < kStages - 1; ++it) {
@@ -378,10 +493,10 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
     cp_commit();
     const uint8_t* b = smem + (it % kStages) * St::kBytes;
     float* xb = reinterpret_cast<float*>(const_cast<uint8_t*>(b) + St::kX);
-    if constexpr (G8) {
-      // x rounded to bf16 in place; with mins first the group sums of the
-      // unrounded x, over the G / 4 neighbouring threads of a group (whole
-      // warps: kXChunks is a multiple of 32)
+    if constexpr (MODE != kGridF && !kMma) {
+      // x rounded to bf16 in place; "g" with mins first the group sums of
+      // the unrounded x, over the G / 4 neighbouring threads of a group
+      // (whole warps: kXChunks is a multiple of 32)
       if (tid < kXChunks) {
         const int c = tid;
         float4 v = reinterpret_cast<float4*>(xb)[c];
@@ -401,101 +516,147 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
       __syncthreads();
     }
 
-    // the group's scale (and min) for this thread's 4 columns
-    float s[4], mn[4];
-    {
-      const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kSub + gs * kTN + 4 * lane);
-      const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + 16 * lane);
-      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+    if constexpr (kMma) {
+      // ---- "b" on tensor cores: the lane's 16 columns x 4 K rows ----
+      const int g = lane >> 2, t = lane & 3;
+      float s[16], mn[16];
+      group_scales<16, St, HAS_MINS, PLAIN_S>(b, gs, 16 * g, s, mn);
+      // B: x row g at K rows 4 t .. 4 t + 3, rounded to bf16 pairs
+      const float4 x4 = *reinterpret_cast<const float4*>(xb + g * kKR + r0 + 4 * t);
+      const uint32_t b0 = bf16x2(x4.x, x4.y), b1 = bf16x2(x4.z, x4.w);
+      uint4 wq[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
-      if (HAS_MINS) {
-        const uint32_t mw =
-            *reinterpret_cast<const uint32_t*>(b + St::kSubM + gs * kTN + 4 * lane);
-        const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + 16 * lane);
-        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+      for (int q = 0; q < 4; ++q)
+        wq[q] = *reinterpret_cast<const uint4*>(b + St::kW + (r0 + 4 * t + q) * kTN +
+                                                16 * (g ^ 2 * t));
 #pragma unroll
-        for (int c = 0; c < 4; ++c) mn[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
-      }
-    }
-
-    // ---- the lane's 16 rows, four at a time ----
-    float part[MT][4];
+      for (int h = 0; h < 2; ++h) {
+        // words h (columns 16 g + 4 h + c: tiles 4 h + c, A row g) and 2 + h
+        // (columns 16 g + 8 + 4 h + c: the same tiles, A row g + 8)
+        float wl[4][4], wh[4][4];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
-#pragma unroll
-    for (int rr = 0; rr < kLR; rr += 4) {
-      float wv[4][4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t wd =
-            *reinterpret_cast<const uint32_t*>(b + St::kW + (r0 + rr + q) * kTN + 4 * lane) ^
-            0x80808080u;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          wv[q][c] = mantissa_f32<128>(wd, c);
-          if (!G8) {  // q * s (+ m), rounded as the reference's f32 multiply and add
-            wv[q][c] = __fmul_rn(wv[q][c], s[c]);
-            if (HAS_MINS) wv[q][c] = __fadd_rn(wv[q][c], mn[c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float4 x4 = *reinterpret_cast<const float4*>(xb + i * kKR + r0 + rr);
-        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t lo = (h ? wq[q].y : wq[q].x) ^ 0x80808080u;
+          const uint32_t hi = (h ? wq[q].w : wq[q].z) ^ 0x80808080u;
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            if (G8)
-              part[i][c] = fmaf(xv[q], wv[q][c], part[i][c]);
-            else
-              acc[i][c] = fmaf(xv[q], wv[q][c], acc[i][c]);
+            // q * s (+ m), rounded as the reference's f32 multiply and add
+            wl[q][c] = __fmul_rn(mantissa_f32<128>(lo, c), s[4 * h + c]);
+            wh[q][c] = __fmul_rn(mantissa_f32<128>(hi, c), s[8 + 4 * h + c]);
+            if (HAS_MINS) {
+              wl[q][c] = __fadd_rn(wl[q][c], mn[4 * h + c]);
+              wh[q][c] = __fadd_rn(wh[q][c], mn[8 + 4 * h + c]);
+            }
           }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mma_bf16(dm[4 * h + c], bf16x2(wl[0][c], wl[1][c]), bf16x2(wh[0][c], wh[1][c]),
+                   bf16x2(wl[2][c], wl[3][c]), bf16x2(wh[2][c], wh[3][c]), b0, b1);
       }
-    }
+    } else {
+      // the group's scale (and min) for this thread's 4 columns
+      float s[4], mn[4];
+      group_scales<4, St, HAS_MINS, PLAIN_S>(b, gs, 4 * lane, s, mn);
 
-    if constexpr (G8) {
-      if constexpr (Sm::kComb) {
-        // a group's second warp hands its partial sum to the first
-        float* cb = comb + (w / 2) * MT * kTN + 4 * lane;
-        if (w & 1) {
+      // ---- the lane's 16 rows, four at a time ----
+      float part[MT][4];
 #pragma unroll
-          for (int i = 0; i < MT; ++i)
-            *reinterpret_cast<float4*>(cb + i * kTN) =
-                make_float4(part[i][0], part[i][1], part[i][2], part[i][3]);
-        }
-        __syncthreads();
-        if (!(w & 1)) {
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            const float4 o = *reinterpret_cast<const float4*>(cb + i * kTN);
-            part[i][0] = __fadd_rn(part[i][0], o.x);
-            part[i][1] = __fadd_rn(part[i][1], o.y);
-            part[i][2] = __fadd_rn(part[i][2], o.z);
-            part[i][3] = __fadd_rn(part[i][3], o.w);
+        for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
+#pragma unroll
+      for (int rr = 0; rr < kLR; rr += 4) {
+        float wv[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t wd =
+              *reinterpret_cast<const uint32_t*>(b + St::kW + (r0 + rr + q) * kTN + 4 * lane) ^
+              0x80808080u;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            wv[q][c] = mantissa_f32<128>(wd, c);
+            if (!kG8) {  // q * s (+ m), rounded as the reference's f32 multiply and add
+              wv[q][c] = __fmul_rn(wv[q][c], s[c]);
+              if (HAS_MINS) wv[q][c] = __fadd_rn(wv[q][c], mn[c]);
+              if (MODE == kGridB) wv[q][c] = bf16_round(wv[q][c]);  // then once to bf16
+            }
           }
         }
-      }
-      if (!Sm::kComb || !(w & 1)) {
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          const float xsv = Sm::kBias ? xs[i * (kKR / G) + gs] : 0.0f;
+          const float4 x4 = *reinterpret_cast<const float4*>(xb + i * kKR + r0 + rr);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            float v = __fmul_rn(part[i][c], s[c]);
-            if (Sm::kBias) v = __fadd_rn(v, __fmul_rn(xsv, mn[c]));
-            acc[i][c] = __fadd_rn(acc[i][c], v);
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (kG8)
+                part[i][c] = fmaf(xv[q], wv[q][c], part[i][c]);
+              else
+                acc[i][c] = fmaf(xv[q], wv[q][c], acc[i][c]);
+            }
+        }
+      }
+
+      if constexpr (kG8) {
+        if constexpr (Sm::kComb) {
+          // a group's second warp hands its partial sum to the first
+          float* cb = comb + (w / 2) * MT * kTN + 4 * lane;
+          if (w & 1) {
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+              *reinterpret_cast<float4*>(cb + i * kTN) =
+                  make_float4(part[i][0], part[i][1], part[i][2], part[i][3]);
+          }
+          __syncthreads();
+          if (!(w & 1)) {
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              const float4 o = *reinterpret_cast<const float4*>(cb + i * kTN);
+              part[i][0] = __fadd_rn(part[i][0], o.x);
+              part[i][1] = __fadd_rn(part[i][1], o.y);
+              part[i][2] = __fadd_rn(part[i][2], o.z);
+              part[i][3] = __fadd_rn(part[i][3], o.w);
+            }
+          }
+        }
+        if (!Sm::kComb || !(w & 1)) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const float xsv = Sm::kBias ? xs[i * (kKR / G) + gs] : 0.0f;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              float v = __fmul_rn(part[i][c], s[c]);
+              if (Sm::kBias) v = __fadd_rn(v, __fmul_rn(xsv, mn[c]));
+              acc[i][c] = __fadd_rn(acc[i][c], v);
+            }
           }
         }
       }
     }
   }
 
-  reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
+  if constexpr (kMma) {
+    const int g = lane >> 2, t = lane & 3;
+    reduce_tile<MT>(
+        [&](float* red) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {  // rows 2 t + r of x
+            float* d = red + (w * MT + 2 * t + r) * kTN + 16 * g;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)  // columns 16 g + 8 e + j
+#pragma unroll
+              for (int j4 = 0; j4 < 8; j4 += 4)
+                *reinterpret_cast<float4*>(d + 8 * e + j4) =
+                    make_float4(dm[j4][2 * e + r], dm[j4 + 1][2 * e + r], dm[j4 + 2][2 * e + r],
+                                dm[j4 + 3][2 * e + r]);
+          }
+        },
+        smem, out, m, np, n0, t0, rank, parts);
+  } else {
+    reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
+  }
 }
 
 // The loop of a kernel that stages its block's x once, in windows of
@@ -605,18 +766,6 @@ __device__ __forceinline__ uint32_t nibble_bf16x2(uint32_t w, int c) {
   __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
   h = __hsub2(h, __floats2bfloat162_rn(136.0f, 136.0f));
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// d += A B on tensor cores: A 16 x 16 bf16 (rows g and g + 8 of lane 4 g + t:
-// a0, a1 K 2t, 2t + 1; a2, a3 K 2t + 8, 2t + 9), B 16 x 8 bf16 (column g:
-// b0 K 2t, 2t + 1; b1 K 2t + 8, 2t + 9), d f32 (rows g, g + 8 x columns
-// 2t, 2t + 1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // MT: rows of x a block (1, or kMT at m > 1); QX: mode "qx" (x quantized to
@@ -1250,7 +1399,7 @@ ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
 // bytes; the x part (xq, sx, and xsum with mins), whose 16-byte chunk c lies
 // at kX + 16 c; the scale part (factored: sub-scales, sub-mins, the factor
 // rows sd and sm; PLAIN_S: the rows of the f32 planes s and mn), chunk c at
-// kS + 16 c
+// kSub + 16 c
 template <int MT, int G, bool HAS_MINS, bool PLAIN_S>
 struct Q8Stage {
   static constexpr int kGS = kKR / G;                          // groups a stage
@@ -1258,14 +1407,14 @@ struct Q8Stage {
   static constexpr int kX = kW + kKR * kTN;                    // int8 [MT][kKR] xq
   static constexpr int kSx = kX + MT * kKR;                    // f32 [MT][kGS]
   static constexpr int kXs = kSx + MT * kGS * 4;               // f32 [MT][kGS]
-  static constexpr int kS = kXs + (HAS_MINS ? MT * kGS * 4 : 0);
+  static constexpr int kSub = kXs + (HAS_MINS ? MT * kGS * 4 : 0);
   static constexpr int kPlaneRow = PLAIN_S ? 4 * kTN : kTN;    // bytes a row of s (sub_s)
-  static constexpr int kSubM = kS + kGS * kPlaneRow;           // mn (sub_m) [kGS][kTN]
+  static constexpr int kSubM = kSub + kGS * kPlaneRow;           // mn (sub_m) [kGS][kTN]
   static constexpr int kSd = kSubM + (HAS_MINS ? kGS * kPlaneRow : 0);  // f32 [kTN]
   static constexpr int kSm = kSd + (PLAIN_S ? 0 : 4 * kTN);             // f32 [kTN]
   static constexpr int kBytes = kSm + (HAS_MINS && !PLAIN_S ? 4 * kTN : 0);
-  static constexpr int kXChunks = (kS - kX) / 16;
-  static constexpr int kSChunks = (kBytes - kS) / 16;
+  static constexpr int kXChunks = (kSub - kX) / 16;
+  static constexpr int kSChunks = (kBytes - kSub) / 16;
   static_assert(kGS % 4 == 0, "whole 16-byte chunks a row of sx");
 };
 
@@ -1386,7 +1535,7 @@ q8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     if (tid < St::kXChunks) cp16z(b + St::kX + 16 * tid, xsrc + it * xstep, xlive);
     if (tid >= kS0) {
       const int step = per_sb ? (s0 + it) * kKR / ctq::kSuperblock : it;
-      cp16(b + St::kS + 16 * (tid - kS0), ssrc + step * sstep);
+      cp16(b + St::kSub + 16 * (tid - kS0), ssrc + step * sstep);
     }
   };
 
@@ -1470,28 +1619,7 @@ q8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
     // ---- the group's scale (and min) for this thread's 4 columns ----
     float s[4], mn[4];
-    if constexpr (PLAIN_S) {
-      const float4 s4 = *reinterpret_cast<const float4*>(b + St::kS + gs * St::kPlaneRow + 16 * lane);
-      s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
-      if (HAS_MINS) {
-        const float4 m4 =
-            *reinterpret_cast<const float4*>(b + St::kSubM + gs * St::kPlaneRow + 16 * lane);
-        mn[0] = m4.x, mn[1] = m4.y, mn[2] = m4.z, mn[3] = m4.w;
-      }
-    } else {
-      const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kS + gs * kTN + 4 * lane);
-      const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + 16 * lane);
-      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], static_cast<float>(ctq::sbyte(sw, c)));
-      if (HAS_MINS) {
-        const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kSubM + gs * kTN + 4 * lane);
-        const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + 16 * lane);
-        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) mn[c] = __fmul_rn(mv[c], static_cast<float>(ctq::sbyte(mw, c)));
-      }
-    }
+    group_scales<4, St, HAS_MINS, PLAIN_S>(b, gs, 4 * lane, s, mn);
 
     // ---- one f32 rescale of the group's whole dots ----
     const float* sxb = reinterpret_cast<const float*>(b + St::kSx);
@@ -1513,11 +1641,11 @@ q8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
 // The launch shape of a kernel of this file: rows of x a block (kMTile), K
 // rows a stage (kRows), its dynamic shared memory, the kernel itself.
-template <int MT, bool G8, int G, bool HAS_MINS>
+template <int MT, int MODE, int G, bool HAS_MINS, bool PLAIN_S>
 struct GridKernel {
   static constexpr int kMTile = MT, kRows = kKR;
-  static constexpr size_t kSmem = Smem<MT, G8, G, HAS_MINS>::kBytes;
-  static auto fn() { return splitk_kernel<MT, G8, G, HAS_MINS>; }
+  static constexpr size_t kSmem = Smem<MT, MODE, G, HAS_MINS, PLAIN_S>::kBytes;
+  static auto fn() { return splitk_kernel<MT, MODE, G, HAS_MINS, PLAIN_S>; }
 };
 
 template <int MT, bool QX>
@@ -1640,6 +1768,16 @@ bool takes(int m, int kp, int np, const void* sub_s, const void* sub_m, const fl
          (sub_m != nullptr) == HAS_MINS && (sm != nullptr) == HAS_MINS;
 }
 
+// takes, or (PLAIN_S) the shapes and the legacy grids' plain planes: s
+// given as sd, mn as sm exactly when HAS_MINS, no sub-planes
+template <bool HAS_MINS, bool PLAIN_S>
+bool takes_planes(int m, int kp, int np, const void* sub_s, const void* sub_m, const float* sd,
+                  const float* sm) {
+  if (!PLAIN_S) return takes<HAS_MINS>(m, kp, np, sub_s, sub_m, sd, sm);
+  return fits(m, kp, np) && sub_s == nullptr && sub_m == nullptr && sd != nullptr &&
+         (sm != nullptr) == HAS_MINS;
+}
+
 // a kernel of this file at batch size m on its pointers: KT1 (one row of x
 // a block) at m = 1, KT8 (kMT rows) above
 template <class KT1, class KT8, class... Ptrs>
@@ -1668,26 +1806,31 @@ int plan_family(int m, int kp, int np) {
   return e == cudaSuccess ? parts : -static_cast<int>(e);
 }
 
-// ct_qmm_g8 (G8) or ct_qmm_f at 1 <= m <= kMaxM: group 16 without mins
-// (Q6_K) or 32 with both min planes (Q5_K)
-template <bool G8, int G, bool HAS_MINS>
+// ct_qmm_g8 (kGridG), ct_qmm_f (kGridF) or ct_qmm_rb8 (kGridB) at
+// 1 <= m <= kMaxM: group 16 without mins (Q6_K) or 32 with both min planes
+// (Q5_K); ct_qmm_rb8_legacy (kGridB, PLAIN_S): group 32, the f32 planes s
+// and, with mins, mn passed as sd and sm, no sub-planes
+template <int MODE, int G, bool HAS_MINS, bool PLAIN_S = false>
 int run(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
         const float* sd, const float* sm, float* out, int m, int kp, int np,
         cudaStream_t stream) {
-  if (!takes<HAS_MINS>(m, kp, np, sub_s, sub_m, sd, sm))
+  if (!takes_planes<HAS_MINS, PLAIN_S>(m, kp, np, sub_s, sub_m, sd, sm))
     return static_cast<int>(cudaErrorInvalidValue);
-  return run_family<GridKernel<1, G8, G, HAS_MINS>, GridKernel<kMT, G8, G, HAS_MINS>>(
-      m, kp, np, stream, x, qs, sub_s, sub_m, sd, sm, out);
+  return run_family<GridKernel<1, MODE, G, HAS_MINS, PLAIN_S>,
+                    GridKernel<kMT, MODE, G, HAS_MINS, PLAIN_S>>(m, kp, np, stream, x, qs, sub_s,
+                                                                 sub_m, sd, sm, out);
 }
 
-template <bool G8, int G, bool HAS_MINS>
+template <int MODE, int G, bool HAS_MINS, bool PLAIN_S = false>
 int capacity_of(int m, int p) {
-  return capacity_family<GridKernel<1, G8, G, HAS_MINS>, GridKernel<kMT, G8, G, HAS_MINS>>(m, p);
+  return capacity_family<GridKernel<1, MODE, G, HAS_MINS, PLAIN_S>,
+                         GridKernel<kMT, MODE, G, HAS_MINS, PLAIN_S>>(m, p);
 }
 
-template <bool G8, int G, bool HAS_MINS>
+template <int MODE, int G, bool HAS_MINS, bool PLAIN_S = false>
 int plan_of(int m, int kp, int np) {
-  return plan_family<GridKernel<1, G8, G, HAS_MINS>, GridKernel<kMT, G8, G, HAS_MINS>>(m, kp, np);
+  return plan_family<GridKernel<1, MODE, G, HAS_MINS, PLAIN_S>,
+                     GridKernel<kMT, MODE, G, HAS_MINS, PLAIN_S>>(m, kp, np);
 }
 
 // ct_qmm_qx (QX) or ct_qmm_g on Q4_K at 1 <= m <= kMaxM
@@ -1741,11 +1884,8 @@ template <int G, bool HAS_MINS, bool PLAIN_S>
 int run_q8(const int8_t* xq, const float* sx, const float* xs, const int8_t* qs,
            const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm,
            float* out, int m, int kp, int np, cudaStream_t stream) {
-  const bool planes = PLAIN_S ? sub_s == nullptr && sub_m == nullptr && sd != nullptr &&
-                                    (sm != nullptr) == HAS_MINS
-                              : takes<HAS_MINS>(m, kp, np, sub_s, sub_m, sd, sm);
-  if (!fits(m, kp, np) || !planes || xq == nullptr || sx == nullptr ||
-      (HAS_MINS && xs == nullptr))
+  if (!takes_planes<HAS_MINS, PLAIN_S>(m, kp, np, sub_s, sub_m, sd, sm) || xq == nullptr ||
+      sx == nullptr || (HAS_MINS && xs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return run_family<Q8Kernel<1, G, HAS_MINS, PLAIN_S>, Q8Kernel<kMT, G, HAS_MINS, PLAIN_S>>(
       m, kp, np, stream, xq, sx, xs, qs, sub_s, sub_m, sd, sm, out);

@@ -1,14 +1,16 @@
 // The Hopper GEMM core of the prompt GEMMs on int8 grids, ct_qmm_b and
 // ct_qmm_sb (Q6_K and Q5_K, factored scales), ct_qmm_b_legacy and
 // ct_qmm_sb_legacy (Q5_1 with mins, Q8_0 and Q5_0 without; plain f32
-// planes), routed here by qmm_grid.cu; on ksplit nibbles, ct_qmm_sb_ks at
-// m > 32 (every nibble kind; qmm_float.cu); and on adjk nibbles (all in
+// planes), and above m = 32 ct_qmm_rb8 and ct_qmm_rb8_legacy (ct_qmm_b's
+// function and instantiations), routed here by qmm_grid.cu; on ksplit
+// nibbles, ct_qmm_sb_ks at m > 32 (every nibble kind; qmm_float.cu); and
+// on adjk nibbles (all in
 // qmm_prefill.cu), ct_qmm_si_gptq and ct_qmm_i_gptq (GPTQ4 at groups 32, 64
 // and 128, Q4_1), ct_qmm_si and ct_qmm_i (Q4_K, group 32, factored scales),
 // ct_qmm_si_k16 and ct_qmm_i_k16 (Q2_K and Q3_K, group 16, factored scales)
 // and ct_qmm_si_q4_0 and ct_qmm_i_q4_0 (Q4_0, group 32, the plain s plane
 // without mins). It replaces, for those symbols, the 64 x 64 WMMA tiles of
-// qmm_gemm.cuh, which the ksplit "b" and the "rb" GEMMs keep.
+// qmm_gemm.cuh, which the ksplit "b" and "rb" GEMMs keep.
 //
 // Function (the JAX package's _qmm_kernel mode "b", _qmm_s_kernel mode
 // "sb", _qmm_pack4_s_kernel mode "sb", _qmm_i4_s_kernel and _qmm_i4_kernel,

@@ -84,6 +84,11 @@ csrc/qmm_float.cu):
           the weight stream kept in flight by a cp.async ring,
           csrc/qmm_splitk.cuh; grid_split_plan gives the cluster's size)
   qmm_s   xsum @ M + x @ (q * s), all f32    (replaces _qmm_s_kernel, mode "s")
+  qmm_rb8 the function of qmm_b                (replaces _qmm_rb_kernel, mode "rb";
+          qmm_b's Hopper GEMM core above m = 32, at m <= 32 the K split's
+          bf16 form, csrc/qmm_splitk.cuh: each weight's q * s (+ m) rounded
+          once to bf16, f32 sums of the exact products at m = 1, bf16
+          mma.sync at m > 1; grid_split_plan gives the cluster's size)
 
 with M the (Kp/g, Np) plane m = sm * sub_m (absent for Q6_K).
 
@@ -92,10 +97,13 @@ legacy types Q8_0 and Q5_0 (no mins) and Q5_1 (with mins), the reference
 kernels' sfactor == 0 branches:
 
   qmm_q8_legacy, qmm_qx8_legacy, qmm_b_legacy, qmm_sb_legacy, qmm_g8_legacy,
-  qmm_f_legacy, qmm_s_legacy   the functions of the seven grid kernels above
+  qmm_f_legacy, qmm_s_legacy, qmm_rb8_legacy
+                               the functions of the eight grid kernels above
                                (qmm_b_legacy and qmm_sb_legacy on the Hopper
-                               GEMM core, qmm_q8_legacy on qmm_q8's K split
-                               at m <= 32)
+                               GEMM core, qmm_q8_legacy and qmm_rb8_legacy
+                               on the K splits of qmm_q8 and qmm_rb8 at
+                               m <= 32, the plain planes in each stage;
+                               qmm_rb8_legacy on qmm_b_legacy's core above)
 
 The same six nibble layouts (Q4_K, Q2_K, Q3_K, GPTQ4, Q4_1, Q4_0) packed
 "ksplit" (ops/qmatmul.py: byte r holds row r in the low nibble, lo = q + zp,
@@ -129,9 +137,8 @@ sum rounded once in f32 as the reference's.
 
 The reshape-broadcast form of the int8-grid dequantize-and-dot (csrc/qmm_rb.cu):
 
-  qmm_r8, qmm_rb8  the functions of qmm_f and qmm_b (replaces _qmm_rb_kernel,
-                   modes "r" and "rb"), with their "_legacy" forms on the
-                   unfactored grids
+  qmm_r8  the function of qmm_f (replaces _qmm_rb_kernel, mode "r"), with
+          its "_legacy" form on the unfactored grids
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, which computes the same function with torch ops (and is what
@@ -282,6 +289,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ct_qmm_g_split_capacity": [I] * 2,
         "ct_qmm_q8_split_plan": [I] * 6,
         "ct_qmm_q8_split_capacity": [I] * 5,
+        "ct_qmm_rb8_split_plan": [I] * 6,
+        "ct_qmm_rb8_split_capacity": [I] * 5,
         "ct_qmm_ks_split_plan": [I] * 7,
         "ct_qmm_ks_split_capacity": [I] * 6,
         "ct_qmm_si_gptq": [P] * 5 + [I, I, I, I, P],
@@ -847,19 +856,20 @@ _SPECS = {
     "qmm_r_ks": ("qmm_rb", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 872),
     "qmm_rb_ks": ("qmm_rb", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 872),
     "qmm_r8": ("qmm_rb", check_grid_qtensor, plain_f, _group, 1459),
-    "qmm_rb8": ("qmm_rb", check_grid_qtensor, plain_b, _group, 1459),
+    "qmm_rb8": ("qmm_grid", check_grid_qtensor, plain_b, _group, 1459),
     "qmm_r8_legacy": ("qmm_rb", check_legacy_grid_qtensor, plain_f, _has_mins, 1459),
-    "qmm_rb8_legacy": ("qmm_rb", check_legacy_grid_qtensor, plain_b, _has_mins, 1459),
+    "qmm_rb8_legacy": ("qmm_grid", check_legacy_grid_qtensor, plain_b, _has_mins, 1459),
 }
 KERNELS = {n: _wrapper(n, lib, chk, pl, ints) for n, (lib, chk, pl, ints, _) in _SPECS.items()}
 PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
 # the K split of csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f and qmm_g
-# (symbols in qmm_float.cu), qmm_qx (qmm_decode.cu), qmm_q8 and
-# qmm_q8_legacy (qmm_grid.cu), qmm_f_ks and qmm_s_ks (qmm_ksplit.cu); their
-# files' own designs serve m > 32
+# (symbols in qmm_float.cu), qmm_qx (qmm_decode.cu), qmm_q8, qmm_q8_legacy,
+# qmm_rb8 and qmm_rb8_legacy (qmm_grid.cu), qmm_f_ks and qmm_s_ks
+# (qmm_ksplit.cu); their files' own designs serve m > 32 (qmm_rb8's the
+# Hopper GEMM core)
 SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g", "qmm_q8", "qmm_q8_legacy", "qmm_f_ks",
-                 "qmm_s_ks")
+                 "qmm_s_ks", "qmm_rb8", "qmm_rb8_legacy")
 SOURCE_OF.update(dict.fromkeys(SPLIT_KERNELS, "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"))
 # the symbols that run the Hopper GEMM core: those of qmm_grid.cu and every
 # adjk nibble GEMM of qmm_prefill.cu (the core's adjk nibble tile) at every
@@ -898,7 +908,7 @@ NIBBLE_SPLIT_CONFIG = "n128k32r2c8"
 KSPLIT_SPLIT_CONFIG = "n128k16h2r2c8"
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
 GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
-GEMM_KERNELS = ("qmm_b_ks", "qmm_rb_ks", "qmm_rb8", "qmm_rb8_legacy")
+GEMM_KERNELS = ("qmm_b_ks", "qmm_rb_ks")
 # 128 x 128 output tile over two wgmma warpgroups, K split over a cluster of
 # 3 (csrc/qmm_wgmma.cuh)
 WGMMA_CONFIG = "wg128n128c3"
@@ -916,6 +926,8 @@ CONFIG_OF.update(dict.fromkeys(("qmm_qx", "qmm_g"), f"{NIBBLE_SPLIT_CONFIG}|{DEC
 CONFIG_OF.update(dict.fromkeys(("qmm_f_ks", "qmm_s_ks"),
                                f"{KSPLIT_SPLIT_CONFIG}|{KSPLIT_FLOAT_CONFIG}"))
 CONFIG_OF.update(qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
+# qmm_rb8, qmm_rb8_legacy: the K split's bf16 form at m <= 32, the core above
+CONFIG_OF.update(dict.fromkeys(("qmm_rb8", "qmm_rb8_legacy"), f"{SPLIT_CONFIG}|{WGMMA_CONFIG}"))
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
 # name for its "q" with packed4=False; "qx" is in no candidate list, as in
 # the JAX package: a table sends keys there, ops/qmatmul.py:qx_mode_entries)
@@ -930,7 +942,8 @@ _KSPLIT_KERNELS = {"": "qmm_f_ks", "s": "qmm_s_ks", "b": "qmm_b_ks", "sb": "qmm_
 def grid_split_plan(name: str, qt, m: int) -> int:
     """The blocks P of a cluster that a K-split kernel (`name`, one of
     SPLIT_KERNELS) splits K over for weight `qt` (on the card; qmm_g8,
-    qmm_f and qmm_q8: Q6_K or Q5_K, qmm_q8_legacy: Q8_0, Q5_0 or Q5_1,
+    qmm_f, qmm_q8 and qmm_rb8: Q6_K or Q5_K, qmm_q8_legacy and qmm_rb8_legacy:
+    Q8_0, Q5_0 or Q5_1,
     qmm_qx and qmm_g: Q4_K, qmm_f_ks and qmm_s_ks: the ksplit nibbles of
     every kind) at batch size m <= 32: the first of 8, 6, 4, 3 and 2, up to
     the weight's stages, whose clusters all fit on the card at once, else 1
@@ -943,9 +956,9 @@ def grid_split_plan(name: str, qt, m: int) -> int:
         raise ValueError(f"{name}: the plan asks the card; the weight is on {qt.qs.device}")
     if name in ("qmm_g8", "qmm_f"):
         p = _fn(lib, "ct_qmm_grid_split_plan")(int(name == "qmm_g8"), qt.group, m, kp, np_)
-    elif name in ("qmm_q8", "qmm_q8_legacy"):
-        p = _fn(lib, "ct_qmm_q8_split_plan")(int(qt.sfactor == 0), int(qt.mins is not None),
-                                             qt.group, m, kp, np_)
+    elif name in ("qmm_q8", "qmm_q8_legacy", "qmm_rb8", "qmm_rb8_legacy"):
+        p = _fn(lib, f"ct_{name.removesuffix('_legacy')}_split_plan")(
+            int(qt.sfactor == 0), int(qt.mins is not None), qt.group, m, kp, np_)
     elif name in ("qmm_f_ks", "qmm_s_ks"):
         p = _fn(lib, "ct_qmm_ks_split_plan")(int(name == "qmm_s_ks"), qt.group,
                                              int(qt.mins is not None), qt.sfactor, m, kp, np_)

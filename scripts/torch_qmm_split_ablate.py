@@ -1,17 +1,18 @@
-"""Time the K-split decode GEMVs of csrc/qmm_splitk.cuh, ct_qmm_g8, ct_qmm_f
-and ct_qmm_q8 on the factored int8 grids, ct_qmm_q8_legacy on the legacy
-ones, ct_qmm_qx and ct_qmm_g on Q4_K nibbles and ct_qmm_f_ks and ct_qmm_s_ks
-on the ksplit nibbles of every kind, against variants of their design on
-one card, in one process.
+"""Time the K-split decode GEMVs of csrc/qmm_splitk.cuh, ct_qmm_g8, ct_qmm_f,
+ct_qmm_q8 and ct_qmm_rb8 on the factored int8 grids, ct_qmm_q8_legacy and
+ct_qmm_rb8_legacy on the legacy ones, ct_qmm_qx and ct_qmm_g on Q4_K nibbles
+and ct_qmm_f_ks and ct_qmm_s_ks on the ksplit nibbles of every kind, against
+variants of their design on one card, in one process.
 
     python3 scripts/torch_qmm_split_ablate.py [--m 1 8] [--reps 50]
         [--cases REGEX] [--symbols REGEX] [--no-check] VARIANT [VARIANT ...]
 
 Each VARIANT is the libraries of the timed symbols (qmm_float.cu,
 qmm_decode.cu, qmm_grid.cu, qmm_ksplit.cu; a checkout without qmm_ksplit.cu
-has the ksplit symbols in qmm_float.cu) built by nvcc (the package's flags,
-all started together) from a copy of csrc/ under build/split_ablate/ with
-edits to qmm_splitk.cuh:
+has the ksplit symbols in qmm_float.cu, one without the rb8 symbols in
+qmm_grid.cu has them in qmm_rb.cu) built by nvcc (the package's flags, all
+started together) from a copy of csrc/ under build/split_ablate/ with edits
+to qmm_splitk.cuh:
 
   base         the sources as they are
   stages3      a ring of 3 stages (the design: 2, one in flight while a
@@ -44,6 +45,9 @@ edits to qmm_splitk.cuh:
                unrolled)
   no_mma       g on nibbles at m > 1: f32 products as at m = 1 (the
                design: bf16 mma.sync on tensor cores)
+  rb_f32       rb8 on the grids at m > 1: f32 products of the bf16
+               operands as at m = 1 (the design: bf16 mma.sync on tensor
+               cores)
   root:PATH    the sources of another checkout (PATH/ctransformers_tpu_torch/
                csrc), e.g. a `git archive` of the parent unpacked under build/
 
@@ -51,12 +55,15 @@ For each (Q6_K v, down, output; Q5_K fused QKV, o, gate/up, down; Q8_0
 fused QKV, o, gate/up, down, output; Q5_1 o; Q4_K o, fused QKV, gate/up,
 down, output; packed ksplit ("ks:"): Q4_K at those five, GPTQ4 group 128
 at fused QKV, o, gate/up and down, groups 32 and 64 at o, Q4_0, Q2_K and
-Q3_K at o and down; at their padded llama-2-7B shapes) x m x symbol
+Q3_K at o and down; at their padded llama-2-7B shapes; the rb8 symbols only
+on the cases of PERF.md's rows 8b and 8d, chip_smoke.py's, and without
+--m at m = 128 too, where they run the Hopper GEMM core) x m x symbol
 (those of --symbols): the kernel ms from a replayed CUDA graph cycling over weight copies
 past the 50 MB L2 (as chip_smoke.py phase 3 times it; q8 on activations
 quantized outside, as its wrapper takes them), the bytes bound, the
 error against the plain version (a variant that computes the function fails
-the run above 1e-5 unless --no-check; no_weights and no_compute print
+the run above chip_smoke.py's tolerance, 1e-5 or for rb8 1e-3, unless
+--no-check; no_weights and no_compute print
 theirs, meaningless by design) and the split's P of the variant's plan. The
 build log's ptxas lines of the split's kernels (registers, spills) are
 printed per variant first. Last line: a JSON object
@@ -99,12 +106,20 @@ CASES = [("Q6_K", "v"), ("Q6_K", "down"), ("Q6_K", "lm_head"), ("Q5_K", "qkv"), 
     ("ks:GPTQ4/32", "o"), ("ks:GPTQ4/64", "o")] + [
     (f"ks:{kind}", s) for kind in ("Q4_0", "Q2_K", "Q3_K") for s in ("o", "down")]
 # the split's symbols of a weight kind, and the library each is built into
-SYMBOLS = {"Q6_K": ("qmm_g8", "qmm_f", "qmm_q8"), "Q5_K": ("qmm_g8", "qmm_f", "qmm_q8"),
-           "Q8_0": ("qmm_q8_legacy",), "Q5_1": ("qmm_q8_legacy",), "Q4_K": ("qmm_qx", "qmm_g"),
-           "ks": ("qmm_f_ks", "qmm_s_ks")}
+SYMBOLS = {"Q6_K": ("qmm_g8", "qmm_f", "qmm_q8", "qmm_rb8"),
+           "Q5_K": ("qmm_g8", "qmm_f", "qmm_q8", "qmm_rb8"),
+           "Q8_0": ("qmm_q8_legacy", "qmm_rb8_legacy"),
+           "Q5_1": ("qmm_q8_legacy", "qmm_rb8_legacy"),
+           "Q4_K": ("qmm_qx", "qmm_g"), "ks": ("qmm_f_ks", "qmm_s_ks")}
 LIB_OF = {"qmm_g8": "qmm_float", "qmm_f": "qmm_float", "qmm_g": "qmm_float",
           "qmm_qx": "qmm_decode", "qmm_q8": "qmm_grid", "qmm_q8_legacy": "qmm_grid",
-          "qmm_f_ks": "qmm_ksplit", "qmm_s_ks": "qmm_ksplit"}
+          "qmm_f_ks": "qmm_ksplit", "qmm_s_ks": "qmm_ksplit", "qmm_rb8": "qmm_grid",
+          "qmm_rb8_legacy": "qmm_grid"}
+RB8 = ("qmm_rb8", "qmm_rb8_legacy")
+# the cases (and batch sizes) chip_smoke.py times the rb8 symbols at: rows
+# 8b and 8d
+RB8_RUNS = {(kind, shape): sorted(m for name, m in runs if name in RB8)
+            for kind, shape, runs in C.KERNEL_CASES if any(name in RB8 for name, _ in runs)}
 # the ksplit layouts (group, has mins, superblock factor count) whose
 # cluster capacities are printed
 KS_LAYOUTS = ((32, 1, 8), (16, 1, 16), (16, 0, 16), (32, 1, 0), (64, 1, 0), (128, 1, 0), (32, 0, 0))
@@ -125,6 +140,8 @@ VARIANTS = {
                     "for (int q = 0; q < 0; ++q) {\n        uint32_t wv[4];"),
                    ("      for (int j = 0; j < ctq::kGroup / 2; j += 2) {",
                     "      for (int j = 0; j < 0; j += 2) {"),
+                   ("for (int h = 0; h < 2; ++h) {\n        // words h",
+                    "for (int h = 0; h < 0; ++h) {\n        // words h"),
                    ("      for (int k = 0; k < 2; ++k) {", "      for (int k = 0; k < 0; ++k) {")),
     "no_weights": (("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), "
                     "wp + u * wstep);", "    (void)wp;"),
@@ -133,6 +150,7 @@ VARIANTS = {
     "imad_dot": (("constexpr bool kNibbleDp4a = true;", "constexpr bool kNibbleDp4a = false;"),),
     "i2f": (("constexpr bool kNibbleMagic = true;", "constexpr bool kNibbleMagic = false;"),),
     "no_mma": (("constexpr bool kNibbleMma = true;", "constexpr bool kNibbleMma = false;"),),
+    "rb_f32": (("constexpr bool kGridMma = true;", "constexpr bool kGridMma = false;"),),
     "byte_mad": (("constexpr bool kGridDp4a = true;", "constexpr bool kGridDp4a = false;"),),
     "lo_mul": (("constexpr bool kKsLoFma = true;", "constexpr bool kKsLoFma = false;"),),
     "m1occ": (("constexpr int kKsMinBlocks = MT == 1 ? 3 : 2;",
@@ -205,7 +223,8 @@ def build(names, libraries):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="+")
-    ap.add_argument("--m", type=int, nargs="+", default=[1, 8])
+    ap.add_argument("--m", type=int, nargs="+",
+                    help="batch sizes (default 1 and 8, and 128 for rb8)")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--cases", default="", help="regex over 'kind shape'")
     ap.add_argument("--symbols", default="", help="regex over the symbols (qmm_g8, qmm_q8, ...)")
@@ -224,10 +243,13 @@ def main() -> int:
     cases = [(kind, shape, syms) for kind, shape in CASES
              if re.search(opts.cases, f"{kind} {shape}")
              for syms in [[sym for sym in SYMBOLS[kind.split(":")[0]]
-                           if re.search(opts.symbols, sym)]] if syms]
+                           if re.search(opts.symbols, sym)
+                           and (sym not in RB8 or (kind, shape) in RB8_RUNS)]] if syms]
     libraries = {LIB_OF[sym] for _, _, syms in cases for sym in syms}
     if "qmm_ksplit" in libraries:  # where an older checkout keeps the ksplit symbols
         libraries.add("qmm_float")
+    if any(sym in RB8 for _, _, syms in cases for sym in syms):  # and the rb8 ones
+        libraries.add("qmm_rb")
     libs = build(names, sorted(libraries))
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (dlls, ptxas) in libs.items():
@@ -247,6 +269,14 @@ def main() -> int:
                           f"mins {mins} m={m}: " + " ".join(
                               f"P={p}:{cap(plain, mins, group, m, p)}" for p in (8, 6, 4, 3, 2, 1)),
                           flush=True)
+        cap = getattr(dlls.get("qmm_grid"), "ct_qmm_rb8_split_capacity", None)
+        for (plain, mins, group), m in itertools.product(((0, 0, 16), (0, 1, 32), (1, 0, 32),
+                                                          (1, 1, 32)), (1, 8)):
+            if cap:
+                print(f"[occupancy] {name}: rb8 {'legacy' if plain else 'grid'} group {group} "
+                      f"mins {mins} m={m}: " + " ".join(
+                          f"P={p}:{cap(plain, mins, group, m, p)}" for p in (8, 6, 4, 3, 2, 1)),
+                      flush=True)
         for sym in ("qmm_qx", "qmm_g"):
             cap = getattr(dlls.get(LIB_OF[sym]), f"ct_{sym}_split_capacity", None)
             for m in (1, 8) if cap else ():
@@ -269,18 +299,24 @@ def main() -> int:
         wbytes = C.plane_bytes(qts[0])
         qts += [C.random_planes(K, kind, kp, npad, k, n, gen)
                 for _ in range(max(0, math.ceil(150e6 / wbytes) - 1))]
-        for m in opts.m:
+        sizes = opts.m or sorted({1, 8}.union(*(RB8_RUNS.get((kind, shape), [])
+                                                for sym in syms if sym in RB8)))
+        for m in sizes:
             x = torch.zeros((m, kp), device=dev)
             x[:, :k] = torch.randn((m, k), generator=gen, device=dev)
             out = torch.empty(m, npad, device=dev)
             for sym in syms:
+                if m > 8 and not opts.m and sym not in RB8:
+                    continue
                 acts = K.quantize_activations(x, qts[0].group) if sym in K.PREQUANTIZED else (x,)
                 nbytes = wbytes + sum(a.numel() * a.element_size() for a in acts) + 4 * m * npad
                 bound = nbytes / C.PEAK_BYTES_S * 1e3
                 ref = K.PLAIN[sym](*acts, qts[0])
                 ints = K._SPECS[sym][3](qts[0])  # the symbol's own ints (the grids: group)
                 for j, name in enumerate(opts.variants):
-                    lib = libs[name][0].get(LIB_OF[sym]) or libs[name][0]["qmm_float"]
+                    dlls = libs[name][0]
+                    lib = next(d for d in [dlls.get(LIB_OF[sym])] + list(dlls.values())
+                               if d is not None and hasattr(d, "ct_" + sym))
                     fn = getattr(lib, "ct_" + sym)
 
                     def call(i, fn=fn):
@@ -302,8 +338,9 @@ def main() -> int:
                     elif kind == "Q4_K":
                         plan = getattr(lib, f"ct_{sym}_split_plan", None)
                         p = plan(m, kp, npad) if plan else "-"
-                    elif sym in ("qmm_q8", "qmm_q8_legacy"):
-                        plan = getattr(lib, "ct_qmm_q8_split_plan", None)
+                    elif sym in ("qmm_q8", "qmm_q8_legacy") + RB8:
+                        plan = getattr(lib, f"ct_{sym.removesuffix('_legacy')}_split_plan", None)
+                        plan = plan if m <= 32 else None  # rb8 above: the GEMM core
                         qt = qts[0]
                         p = plan(int(qt.sfactor == 0), int(qt.mins is not None), qt.group, m, kp,
                                  npad) if plan else "-"
@@ -316,7 +353,7 @@ def main() -> int:
                           f"(bound {bound:.4f}, x{ms / bound:.2f}; rel err {err:.2e})",
                           flush=True)
                     if not opts.no_check and (name in CHECKED or name.startswith("root:")) \
-                            and not err <= 1e-5:
+                            and not err <= C.TOL[sym]:
                         raise SystemExit(f"{name} {sym} {kind} {shape} m={m}: rel err {err:.2e}")
         del qts
         torch.cuda.empty_cache()

@@ -3,7 +3,7 @@ port on one card, one fresh process per run, so that two versions of the
 engine's host path (not only of a kernel) are compared under the same card,
 power limit and host.
 
-    python3 scripts/torch_serve_ab.py [--layers 32] [--steps 64] [--fused]
+    python3 scripts/torch_serve_ab.py [--layers 32] [--steps 64] [--fused] [--rb]
         [--models Q4_K_M,GPTQ4-g128,...] RUN [RUN ...]
 
 Each RUN is ROOT or ROOT:NAME=VALUE[,NAME=VALUE...]: a checkout of this
@@ -30,7 +30,13 @@ on the host clock: mean, median and least; the first 16 sampled tokens),
 the device's busy time over four more steps, and, where the checkout has
 kernel selection, the host's cost of one settled `pick_mode` call (the
 mean over 20 passes over the engine's weights at m = 1) and the modes the
-128-token chunk ran (weights by weight type and mode). With --fused, also the fused decode as
+128-token chunk ran (weights by weight type and mode). With --rb, each run
+serves under a user's table that names the reshape-broadcast modes (r at
+m <= 32, rb above) for every ksplit and int8-grid key, as chip_smoke.py's
+"rb" paths do: a first load tells the keys, the checkout's own
+rb_mode_entries writes its table (one a run, tied to that checkout's
+kernel sources), and the model is loaded again under it with
+CT_QMM_AUTOTUNE=precompiled. With --fused, also the fused decode as
 chip_smoke.py's serve_fast takes it (the checkout's own chip_smoke.py
 helpers): a greedy generate_fast of 64 tokens in segments of 32 that
 captures, a second one whose engine timings give the fused ms per token,
@@ -70,9 +76,20 @@ def device_us(prof):
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 out = []
+base_table = os.environ.get("CT_QMM_TILE_CACHE", "")
 ids = [1] + [int(t) for t in np.random.default_rng(11).integers(3, 32000, 136)]
 for label, path, layout in {models!r}:
     os.environ["CT_PACK4_LAYOUT"] = layout
+    if {rb}:
+        from ctransformers_tpu_torch.ops import qmatmul as qm
+        os.environ["CT_QMM_AUTOTUNE"] = "precompiled"
+        table = base_table + f".rb_{{label}}.json"
+        llm = AutoModelForCausalLM.from_pretrained(path)
+        qm.save_table(table, torch.cuda.get_device_name(0),
+                      qm.rb_mode_entries(qm.qtensors(llm._engine.params), (1, 8, 128)))
+        del llm
+        torch.cuda.empty_cache()
+        os.environ["CT_QMM_TILE_CACHE"] = table
     t0 = time.perf_counter()
     llm = AutoModelForCausalLM.from_pretrained(path)
     load_s = time.perf_counter() - t0
@@ -157,6 +174,8 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--fused", action="store_true", help="also time generate_fast")
+    ap.add_argument("--rb", action="store_true",
+                    help="serve under a table naming r and rb (rb_mode_entries)")
     ap.add_argument("--models", default="Q4_K_M,GPTQ4-g128",
                     help=f"comma-separated, of {','.join(MODELS)}")
     ap.add_argument("runs", nargs="+")
@@ -195,7 +214,7 @@ def main() -> int:
             r = subprocess.run(
                 [sys.executable, "-c",
                  CHILD.format(root=os.path.abspath(root), models=models, steps=args.steps,
-                              fused=args.fused)],
+                              fused=args.fused, rb=args.rb)],
                 capture_output=True, text=True, cwd=os.path.abspath(root), env=env)
             if r.returncode != 0:
                 print(r.stdout[-2000:], r.stderr[-4000:], file=sys.stderr)

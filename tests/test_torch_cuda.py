@@ -690,6 +690,98 @@ def test_ksplit_split_refuses_what_it_does_not_take(dev):
     assert torch.all(out == 7.0)
 
 
+# the int8 grids' "rb": the K split's bf16 form at m <= 32, ct_qmm_b's core
+# above (33, 128, 200); every grid layout, at llama-2-7B shapes
+RB8_CASES = [("qmm_rb8", kind) for kind in ("Q6_K", "Q5_K")] + [
+    ("qmm_rb8_legacy", kind) for kind in ("Q8_0", "Q5_0", "Q5_1")]
+
+
+@pytest.mark.parametrize("name,kind", RB8_CASES)
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 17, 32, 33, 128, 200])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 32000)])
+def test_rb8_matches_plain_b_at_every_m(dev, name, kind, k, n, m):
+    """qmm_rb8 and qmm_rb8_legacy against plain_b (the function of qmm_b)
+    within 1e-3, bitwise repeatable; the split's P where it serves m."""
+    qt = (random_legacy if name.endswith("_legacy") else random_grid)(kind, k, n, k + m, dev)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
+    p = K.grid_split_plan(name, qt, m) if m <= 32 else None
+    assert p is None or (p in (1, 2, 3, 4, 6, 8) and p <= k // 128)
+    before = K.LAUNCHES[name]
+    got = K.KERNELS[name](x, qt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    ref = K.plain_b(x, qt)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-3, (p, _rel(got, ref))
+    assert torch.equal(got, K.KERNELS[name](x, qt)), ("runs are not bitwise repeatable", p)
+
+
+@pytest.mark.parametrize("name,kind,m", [("qmm_rb8", "Q6_K", 1), ("qmm_rb8", "Q5_K", 8),
+                                         ("qmm_rb8_legacy", "Q8_0", 8),
+                                         ("qmm_rb8_legacy", "Q5_1", 1),
+                                         ("qmm_rb8_legacy", "Q5_1", 128)])
+def test_rb8_replays_in_a_graph(dev, name, kind, m):
+    """One captured qmm_rb8 call (the split at m <= 32, the core at 128)
+    replayed on new activations equals eager calls, bitwise."""
+    qt = (random_legacy if name.endswith("_legacy") else random_grid)(kind, 11264, 4096, 5, dev)
+    x = torch.randn(m, 11264, generator=torch.Generator().manual_seed(6)).to(dev)
+    kern = K.KERNELS[name]
+    kern(x, qt)  # builds, plans and warms
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern(x, qt)
+    for seed in (7, 8, 9):
+        x.copy_(torch.randn(m, 11264, generator=torch.Generator().manual_seed(seed)))
+        graph.replay()
+        eager = kern(x, qt)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), seed
+        assert _rel(out, K.plain_b(x, qt)) <= 1e-3
+
+
+def test_rb8_split_refuses_what_it_does_not_take(dev):
+    """At m <= 32 ct_qmm_rb8 and ct_qmm_rb8_legacy take a K padded to 256
+    rows and an N to 128 columns; ct_qmm_rb8 group 16 without mins or 32
+    with both min planes, ct_qmm_rb8_legacy a min plane exactly when told
+    there are mins; a refusal launches nothing. The plan raises at m = 33
+    (the core's) and on another layout, and its symbol gives a negative
+    code for a layout there is not."""
+    x = torch.randn(8, 256, device=dev)
+    out = torch.full((8, 128), 7.0, device=dev)
+    q6k, q5k = random_grid("Q6_K", 256, 128, 1, dev), random_grid("Q5_K", 256, 128, 2, dev)
+    fn = K._fn("qmm_grid", "ct_qmm_rb8")
+    for qt, kp, np_, group in ((q6k, 128, 128, 16), (q6k, 256, 64, 16), (q6k, 256, 128, 32),
+                               (q5k, 256, 128, 16), (q5k, 128, 128, 32)):
+        assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, qt.sd, qt.sm, out), 8, kp, np_, group,
+                  K._stream(dev)) != 0, (qt.kind, kp, np_, group)
+    # Q5_K's sub-mins without sm, and a Q6_K sm plane
+    assert fn(*K._ptrs(x, q5k.qs, q5k.scales, q5k.mins, q5k.sd, None, out), 8, 256, 128, 32,
+              K._stream(dev)) != 0
+    assert fn(*K._ptrs(x, q6k.qs, q6k.scales, None, q6k.sd, q5k.sm, out), 8, 256, 128, 16,
+              K._stream(dev)) != 0
+    fn = K._fn("qmm_grid", "ct_qmm_rb8_legacy")
+    q51, q80 = random_legacy("Q5_1", 256, 128, 3, dev), random_legacy("Q8_0", 256, 128, 4, dev)
+    for qt, mn, flag in ((q51, None, 1), (q51, q51.mins, 0), (q80, q51.mins, 0)):
+        assert fn(*K._ptrs(x, qt.qs, qt.scales, mn, out), 8, 256, 128, flag,
+                  K._stream(dev)) != 0
+    for qt in (q51, q80):  # K or N off the grid
+        for kp, np_ in ((128, 128), (256, 64)):
+            assert fn(*K._ptrs(x, qt.qs, qt.scales, qt.mins, out), 8, kp, np_,
+                      int(qt.mins is not None), K._stream(dev)) != 0
+    for name, qt in (("qmm_rb8", q5k), ("qmm_rb8_legacy", q80)):
+        with pytest.raises(RuntimeError):
+            K.grid_split_plan(name, qt, 33)
+    with pytest.raises(NotImplementedError):
+        K.grid_split_plan("qmm_rb8_legacy", q6k, 1)
+    plan = K._fn("qmm_grid", "ct_qmm_rb8_split_plan")
+    for ints in ((0, 1, 16), (0, 0, 32), (1, 0, 16), (1, 1, 64)):
+        assert plan(*ints, 1, 256, 128) < 0, ints
+    assert plan(1, 1, 32, 8, 256, 128) >= 1 and plan(0, 0, 16, 1, 256, 128) >= 1
+    torch.cuda.synchronize()
+    assert torch.all(out == 7.0)
+
+
 @pytest.mark.parametrize("name", K16)
 @pytest.mark.parametrize("kind", ["Q2_K", "Q3_K"])
 @pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 12288), (4096, 22528)])

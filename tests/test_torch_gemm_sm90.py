@@ -122,6 +122,9 @@ SB_KS_CONFIG = "n32k512|wg128n128c3"
 # qmm_g8, qmm_f, qmm_q8 and qmm_q8_legacy: the K split ("n128k16r2c8") at
 # m <= 32, the decode design ("n32k1024") above
 GRID_SPLIT_CONFIG = "n128k16r2c8|n32k1024"
+# the int8 grids' "rb" (qmm_rb8, qmm_rb8_legacy): the same split at m <= 32,
+# the Hopper core above
+RB8_CONFIG = "n128k16r2c8|wg128n128c3"
 # qmm_qx and qmm_g on Q4_K: the nibble K split ("n128k32r2c8") at m <= 32,
 # the decode design above
 NIBBLE_SPLIT_CONFIG = "n128k32r2c8|n32k1024"
@@ -183,17 +186,21 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
                                              ("qmm_f_ks", "ks:Q4_K", "Q4_K"),
                                              ("qmm_f_ks", "ks:GPTQ4/128", "GPTQ4/128"),
                                              ("qmm_s_ks", "ks:Q4_K", "Q4_K"),
-                                             ("qmm_s_ks", "ks:GPTQ4/128", "GPTQ4/128")])
+                                             ("qmm_s_ks", "ks:GPTQ4/128", "GPTQ4/128"),
+                                             ("qmm_rb8", "Q6_K", "Q4_K"),
+                                             ("qmm_rb8", "Q5_K", "Q4_K"),
+                                             ("qmm_rb8_legacy", "Q8_0", "Q6_K")])
 def test_split_kernels_name_their_design(name, kind, other, monkeypatch):
     """The kernels that split K over a cluster at m <= 32 name
-    csrc/qmm_splitk.cuh and their split configuration; the plan asks the
-    card, so a weight on the CPU raises, as do another kind's weight (for
-    a ksplit kernel the same kind packed adjk) and a kernel that the split
-    does not serve."""
+    csrc/qmm_splitk.cuh and their split configuration (the int8 grids'
+    "rb" the Hopper core's above); the plan asks the card, so a weight on
+    the CPU raises, as do another kind's weight (for a ksplit kernel the
+    same kind packed adjk) and a kernel that the split does not serve."""
     assert name in K.SPLIT_KERNELS
     assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"
     assert K.CONFIG_OF[name] == (KSPLIT_SPLIT_CONFIG if kind.startswith("ks:") else
-                                 NIBBLE_SPLIT_CONFIG if kind == "Q4_K" else GRID_SPLIT_CONFIG)
+                                 NIBBLE_SPLIT_CONFIG if kind == "Q4_K" else
+                                 RB8_CONFIG if name.startswith("qmm_rb8") else GRID_SPLIT_CONFIG)
     monkeypatch.setenv("CT_PACK4_LAYOUT", "adjk")
     other = _real(other)
     if kind.startswith("ks:"):

@@ -195,14 +195,44 @@ def test_ksplit_plain_matches_pallas(kind, mode, k, n):
 def test_rb_grid_plain_matches_pallas(kind, mode):
     """qmm_r8 / qmm_rb8 (and their _legacy forms) against _qmm_rb_kernel in
     modes "r" and "rb", factored (Q6_K, Q5_K) and plain (Q8_0, Q5_1) planes,
-    with and without mins."""
+    with and without mins; at m 1 and 8 (the card's K split times these),
+    3, 33 (the GEMM core's first ragged m) and 40."""
     jq, tq = _both(kind, 512, 256, seed=7)
     name = K.kernel_name(mode, tq)
     assert name == {"r": "qmm_r8", "rb": "qmm_rb8"}[mode] + ("_legacy" if kind in ("Q8_0", "Q5_1")
                                                              else "")
-    for m in (3, 40):
+    for m in (3, 40, 1, 8, 33):
         x = np.random.RandomState(m).randn(m, 512).astype(np.float32)
         _check(mode, _port(mode, x, tq), _pallas(mode, x, jq, m))
+
+
+@pytest.mark.parametrize("kind", GRID_KINDS + ("Q5_0",))
+def test_rb_grid_names_and_entries_stay(kind, tmp_path, monkeypatch):
+    """Mode "rb" on an int8 grid is qmm_rb8 (qmm_rb8_legacy on the plain
+    planes): the K split at m <= 32 and the GEMM core above, one name and
+    config for both. rb_mode_entries still sends the grid's keys to "r" at
+    m <= 32 and "rb" above; a user's table naming "rb" at m = 8 serves
+    through the wrapper (its plain version here), as it does at 128."""
+    _, tq = _both(kind, 512, 256, seed=3)
+    name = "qmm_rb8" + ("_legacy" if tq.sfactor == 0 else "")
+    assert K.kernel_name("rb", tq) == name and K.kernel_name("r", tq) == name.replace("rb8", "r8")
+    assert name in K.SPLIT_KERNELS and name not in K.GEMM_KERNELS
+    assert K.CONFIG_OF[name] == f"{K.SPLIT_CONFIG}|{K.WGMMA_CONFIG}"
+    assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"
+    entries = tqm.rb_mode_entries([tq], (1, 8, 128))
+    assert {m: entries[tqm.cache_key(m, tq)]["pick"] for m in (1, 8, 128)} == {
+        1: ("r", K.R_CONFIG), 8: ("r", K.R_CONFIG), 128: ("rb", K.CONFIG_OF[name])}
+    table = str(tmp_path / "rb.json")
+    tqm.save_table(table, "cpu", {tqm.cache_key(m, tq): {"pick": ("rb", K.CONFIG_OF[name])}
+                                  for m in (8, 128)})
+    monkeypatch.setenv("CT_QMM_TILE_CACHE", table)
+    monkeypatch.setenv("CT_QMM_AUTOTUNE", "precompiled")
+    k, n = tq.shape
+    for m in (8, 128):
+        x = torch.from_numpy(np.random.RandomState(m).randn(m, k).astype(np.float32))
+        before = K.PLAIN_CALLS[name]
+        got = tqm.qmatmul(x, tq)
+        assert K.PLAIN_CALLS[name] == before + 1 and got.shape == (m, n)
 
 
 # -- layout checks and kernel selection ----------------------------------------

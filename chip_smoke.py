@@ -25,18 +25,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
                Q5_1 and on Q8_0 without mins, qmm_si and qmm_i on Q4_K,
                qmm_si_gptq and qmm_i_gptq on GPTQ4 at groups 32, 64 and
                128 and on Q4_1, qmm_si_k16 and qmm_i_k16 on Q2_K and Q3_K,
-               qmm_si_q4_0 and qmm_i_q4_0 on Q4_0, qmm_sb_ks on
-               the ksplit nibbles of Q4_K, GPTQ4 at groups 32, 64 and 128,
-               Q4_0, Q2_K and Q3_K, and qmm_rb8 / qmm_rb8_legacy, which run
-               qmm_b's / qmm_b_legacy's instantiations above m = 32) held
-               at m = 33, 64, 256 and 2048 as well (qmm_sb_ks also at its
-               decode design's m = 1, 8 and 32), and every call of theirs
-               checked bitwise against a second call; the kernels of the K
-               split over a cluster (csrc/qmm_splitk.cuh at m <= 32:
-               qmm_g8, qmm_f, qmm_q8 and qmm_rb8 on the Q6_K and Q5_K
-               cases, qmm_q8_legacy and qmm_rb8_legacy on the Q8_0 and
-               Q5_1 ones, qmm_qx and qmm_g on the Q4_K ones, qmm_f_ks and
-               qmm_s_ks on the ksplit ones) also
+               qmm_si_q4_0 and qmm_i_q4_0 on Q4_0, qmm_sb_ks, qmm_b_ks and
+               qmm_rb_ks on the ksplit nibbles of Q4_K, GPTQ4 at groups 32,
+               64 and 128, Q4_0, Q2_K and Q3_K, and qmm_rb8 /
+               qmm_rb8_legacy, which run qmm_b's / qmm_b_legacy's
+               instantiations above m = 32) held at m = 33, 64, 256 and
+               2048 as well (the ksplit ones also at m = 1, 8 and 32), and
+               every call of theirs checked bitwise against a second call;
+               the kernels of the K split over a cluster
+               (csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f, qmm_q8 and
+               qmm_rb8 on the Q6_K and Q5_K cases, qmm_q8_legacy and
+               qmm_rb8_legacy on the Q8_0 and Q5_1 ones, qmm_qx and qmm_g
+               on the Q4_K ones, qmm_f_ks, qmm_s_ks, qmm_b_ks and qmm_rb_ks
+               on the ksplit ones) also
                held at m = 3 and 32, every call checked bitwise against a
                second one, the split's P logged, and PERF.md's row of each
                summed (SPLIT_ROWS);
@@ -245,13 +246,15 @@ KERNEL_CASES = [
 # qmm_si and qmm_i; GPTQ4 at its three groups and Q4_1 (at down: its o key
 # is GPTQ4 group 32's) for qmm_si_gptq and qmm_i_gptq; Q2_K and Q3_K for
 # qmm_si_k16 and qmm_i_k16; Q4_0 at qkv and down for qmm_si_q4_0 and
-# qmm_i_q4_0; the ksplit nibbles of every layout for qmm_sb_ks, also at
-# CORE_KS_HELD_M, its decode design's m; the int8 grids' cases for qmm_rb8
-# and qmm_rb8_legacy, qmm_b's and qmm_b_legacy's instantiations above
-# m = 32), each call checked bitwise against a second one
+# qmm_i_q4_0; the ksplit nibbles of every layout for qmm_sb_ks, qmm_b_ks
+# and qmm_rb_ks, also at CORE_KS_HELD_M, their designs' m below the core;
+# the int8 grids' cases for qmm_rb8 and qmm_rb8_legacy, qmm_b's and
+# qmm_b_legacy's instantiations above m = 32), each call checked bitwise
+# against a second one
 CORE_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si", "qmm_i",
                 "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_i_k16", "qmm_si_q4_0",
-                "qmm_i_q4_0", "qmm_sb_ks", "qmm_rb8", "qmm_rb8_legacy")
+                "qmm_i_q4_0", "qmm_sb_ks", "qmm_rb8", "qmm_rb8_legacy", "qmm_b_ks",
+                "qmm_rb_ks")
 CORE_HELD_M = (33, 64, 256, 2048)
 CORE_KS_HELD_M = (1, 8, 32)
 CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
@@ -267,13 +270,14 @@ CORE_HELD_CASES = {("Q4_K", "qkv"), ("Q4_K", "down"),
 # the kernels that split K over a cluster at m <= 32 (csrc/qmm_splitk.cuh):
 # qmm_g8, qmm_f, qmm_q8 and qmm_rb8 held on the Q6_K and Q5_K cases,
 # qmm_q8_legacy and qmm_rb8_legacy on the Q8_0 and Q5_1 ones, qmm_qx and
-# qmm_g on the Q4_K ones, qmm_f_ks and qmm_s_ks on the ksplit ones, at
-# SPLIT_HELD_M beside the timed m = 1 and 8, each call checked bitwise
-# against a second one, its plan's P logged; PERF.md's kernel-table row of
-# each (rows 8b and 8d sum the rb8 kernels' m = 128 cases, on the core, too)
+# qmm_g on the Q4_K ones, qmm_f_ks, qmm_s_ks, qmm_b_ks and qmm_rb_ks on the
+# ksplit ones, at SPLIT_HELD_M beside the timed m = 1 and 8, each call
+# checked bitwise against a second one, its plan's P logged; PERF.md's
+# kernel-table row of each (rows 8b, 8d, 9b and 10b sum the m = 128 cases,
+# on the core, too)
 SPLIT_ROWS = {"qmm_g8": "7c", "qmm_f": "5b", "qmm_qx": "1a", "qmm_g": "7a", "qmm_q8": "2b",
               "qmm_q8_legacy": "2e", "qmm_f_ks": "9a", "qmm_s_ks": "11a", "qmm_rb8": "8b",
-              "qmm_rb8_legacy": "8d"}
+              "qmm_rb8_legacy": "8d", "qmm_b_ks": "9b", "qmm_rb_ks": "10b"}
 SPLIT_KERNELS = tuple(SPLIT_ROWS)
 SPLIT_HELD_M = (3, 32)
 # (kernel, table key) held against its plain version in phase 3
@@ -733,7 +737,8 @@ def phase_kernels(K, copy_bw: float):
         if base.pack_layout == "ksplit" or base.sfactor or not base.packed:
             # the K split at more m (Q4_K, the int8 grids, the ksplit nibbles)
             served = {K.kernel_name(mode, base) for mode in (
-                ("", "s") if base.pack_layout == "ksplit" else ("g", "", "qx", "q", "rb"))}
+                ("", "s", "b", "rb") if base.pack_layout == "ksplit"
+                else ("g", "", "qx", "q", "rb"))}
             others += [(name, m) for name in SPLIT_KERNELS if name in served
                        for m in SPLIT_HELD_M]
         if (kind, sname) in CORE_HELD_CASES:  # the GEMM core at more m
@@ -742,7 +747,7 @@ def phase_kernels(K, copy_bw: float):
                                       for mode in (("si", "i") if adjk else ("b", "sb", "rb"))):
                 if core in CORE_KERNELS:
                     others += [(core, m) for m in CORE_HELD_M + (
-                        CORE_KS_HELD_M if core == "qmm_sb_ks" else ())]
+                        CORE_KS_HELD_M if core.endswith("_ks") else ())]
         others = [r for r in dict.fromkeys(others) if r not in runs]
         for j, (name, m) in enumerate(runs + others):
             timed = j < len(runs)

@@ -1,8 +1,8 @@
 // Quantized matmuls on float activations for small m (decode and short
 // chunks): the grouped dot "g" on every served layout, the f32
 // dequantize-and-dot modes "" and "s" on the int8 grids, and "sb" on ksplit
-// nibbles (at m > 32 on the Hopper core). The ksplit modes "" and "s" are
-// qmm_ksplit.cu's.
+// nibbles (at m > 32 on the Hopper core). The ksplit modes "", "s", "b" and
+// "rb" are qmm_ksplit.cu's.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_g_kernel (mode "g")  -> ct_qmm_g, ct_qmm_g_gptq, ct_qmm_g_q4_0,

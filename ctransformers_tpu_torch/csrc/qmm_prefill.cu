@@ -29,86 +29,12 @@
 // "i") is rounded once to bf16 and, in mode "si", B = 8 s + m folded
 // through the f32 group sums of x.
 //
-// The ksplit nibbles of every kind (ops/qmatmul.py; qmm_common.cuh) take
-// qmm_gemm.cuh's 64 x 64 WMMA GEMM (tiles, fixed-order sums, no fold)
-// through a tile of this file:
-//   _qmm_pack4_kernel,   mode "b":  out = bf16(x) @ bf16(v * s + B)
-//                                    -> ct_qmm_b_ks
-// with v = l in the low half of K and f in the high half and B that half's
-// bias. A byte row holds one row of each half; a 32-row K step lies wholly
-// in one half (kp/2 is a multiple of 128), so the tile knows its nibble and
-// its half's bias and reads only the byte rows of its step (one nibble of
-// each byte: ksplit streams the weight twice over a prompt chunk, once per
-// half). One symbol serves every kind; it reads the layout from its ints
-// (ctq::dispatch_ksplit). Mode "sb" on ksplit (ct_qmm_sb_ks) is
-// qmm_float.cu's, on the Hopper core's ksplit tile at m > 32.
-#include "qmm_gemm.cuh"
+// The ksplit nibbles' GEMMs ("b", "rb", "sb": ct_qmm_b_ks, ct_qmm_rb_ks in
+// qmm_ksplit.cu, ct_qmm_sb_ks in qmm_float.cu) take the core's ksplit
+// nibble tile above m = 32.
 #include "qmm_wgmma.cuh"
 
 namespace {
-
-// ksplit nibbles (kp/2, np) of any kind: G, SF groups a superblock (0:
-// the f32 planes s and m come as sd and sm) and whether there are mins. Each
-// of the 128 threads takes 4 byte rows x 4 columns of the step (one 32-bit
-// load per row), which lie in one group. Mode "b".
-template <int G, int SF, bool HAS_MINS>
-struct KsplitTile {
-  static constexpr int kGroup = G;
-  static constexpr int kWRows = ctq::kGemmBK * ctq::kGemmBN / 4 / ctq::kGemmThreads;
-  static_assert(kWRows * ctq::kGemmThreads * 4 == ctq::kGemmBK * ctq::kGemmBN,
-                "threads must tile the weight step");
-  static_assert(G % kWRows == 0, "a thread's rows lie in one quant group");
-
-  __device__ __forceinline__ static void load(
-      const int8_t* __restrict__ qs,     // (kp/2, np) ksplit bytes
-      const int8_t* __restrict__ sub_s,  // (kp/G, np)     [SF]
-      const int8_t* __restrict__ sub_m,  // (kp/G, np)     [SF, HAS_MINS]
-      const float* __restrict__ sd,      // (kp/256, np); SF 0: s (kp/G, np)
-      const float* __restrict__ sm,      // (kp/256, np) [HAS_MINS]; SF 0: m
-      int np, int kp, int k0, int col0, int tid, __nv_bfloat16* Bs) {
-    const int half = kp / 2;
-    const bool hi = k0 >= half;  // the step's half: its nibble and its bias
-    // logical rows wr .. wr+kWRows-1 of the step, columns wc .. wc+3
-    const int wr = (tid / 16) * kWRows, wc = (tid % 16) * 4;
-    const int n = col0 + wc;
-    const int g = (k0 + wr) / G;
-    float s[4], b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float mv;
-      ctq::group_sm<SF, HAS_MINS>(sub_s, sub_m, sd, sm, np, g, n + j, &s[j], &mv);
-      b[j] = ctq::ksplit_bias<HAS_MINS>(s[j], mv, hi);
-    }
-    const int8_t* qrow = qs + (size_t)(k0 - (hi ? half : 0) + wr) * np + n;
-    uint32_t w[kWRows];
-#pragma unroll
-    for (int r = 0; r < kWRows; ++r)
-      w[r] = __ldg(reinterpret_cast<const unsigned int*>(qrow + (size_t)r * np));
-#pragma unroll
-    for (int r = 0; r < kWRows; ++r) {
-      __nv_bfloat16* dst = Bs + (wr + r) * ctq::kGemmLDB + wc;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int v = ctq::ksplit_value(ctq::sbyte(w[r], j), hi);
-        dst[j] = __float2bfloat16(__fadd_rn(__fmul_rn(static_cast<float>(v), s[j]), b[j]));
-      }
-    }
-  }
-};
-
-// The ksplit "b" GEMM of a layout dispatch_ksplit names.
-struct KsplitGemm {
-  const float* x;
-  const int8_t* qs;
-  float* out;
-  int m, kp, np;
-  cudaStream_t st;
-  template <int G, int SF, bool HAS_MINS>
-  int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
-    return ctq::launch_gemm<KsplitTile<G, SF, HAS_MINS>>(x, qs, sub_s, sub_m, sd, sm, out, m,
-                                                         kp, np, st);
-  }
-};
 
 // GPTQ4 and Q4_1 at group 32, 64 or 128 on the Hopper core's adjk tile:
 // mode "i" or, FOLD, mode "si"; both planes are needed
@@ -232,18 +158,6 @@ int ct_qmm_si_k16(const float* x, const int8_t* qs, const int8_t* sub_s, const i
                   int has_mins, void* stream) {
   return launch_k16<true>(x, qs, sub_s, sub_m, sd, sm, out, m, kp, np, has_mins,
                           static_cast<cudaStream_t>(stream));
-}
-
-// mode "b" on ksplit nibbles: scales and mins the QTensor's planes
-// (int8 sub-planes where sfactor > 0, else f32 s and m), sd and sm its
-// factors (null where sfactor is 0); group, has_mins, zp and sfactor name
-// the layout (ctq::dispatch_ksplit refuses one there is not).
-int ct_qmm_b_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
-                const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
-                int has_mins, int zp, int sfactor, void* stream) {
-  return ctq::dispatch_ksplit(
-      KsplitGemm{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins, sd, sm,
-      group, has_mins, zp, sfactor);
 }
 
 }  // extern "C"

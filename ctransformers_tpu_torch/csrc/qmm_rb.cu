@@ -1,60 +1,54 @@
-// The reshape-broadcast dequantize-and-matmul ("r": f32 dots, "rb": bf16
-// operands) on int8 grids ("r") and on ksplit nibbles ("r", "rb"). The int8
-// grids' "rb", ct_qmm_rb8 and ct_qmm_rb8_legacy, computes ct_qmm_b's
-// function and runs its designs (qmm_grid.cu).
+// The reshape-broadcast dequantize-and-matmul "r" (f32 dots) on int8 grids
+// and on ksplit nibbles. Its bf16 form "rb" computes the function of "b"
+// and runs "b"'s designs: the int8 grids' ct_qmm_rb8 and ct_qmm_rb8_legacy
+// in qmm_grid.cu, the ksplit ct_qmm_rb_ks in qmm_ksplit.cu.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py:
 //   _qmm_rb_kernel       (mode "r") -> ct_qmm_r8 (Q6_K, Q5_K) and
 //       ct_qmm_r8_legacy (Q8_0, Q5_0, Q5_1): out = x @ (q * s + m), all f32
-//   _qmm_pack4_rb_kernel (modes "r", "rb") -> ct_qmm_r_ks, ct_qmm_rb_ks on
-//       the ksplit nibbles of every kind (qmm_common.cuh):
+//   _qmm_pack4_rb_kernel (mode "r") -> ct_qmm_r_ks on the ksplit nibbles of
+//       every kind (qmm_common.cuh):
 //       out = x_lo @ (l * s + B_lo) + x_hi @ (f * s + B_hi), the same way
 // These compute the functions of _qmm_kernel and _qmm_pack4_kernel (ct_qmm_f,
-// ct_qmm_f_ks, ct_qmm_b_ks). The reference's variant applies the
-// per-group planes through a (groups, group, columns) reshape and a
-// broadcast instead of a repeat along the rows; the Hopper reading of that
-// form organises the dequantization by (group, column) pair:
+// ct_qmm_f_ks). The reference's variant applies the per-group planes
+// through a (groups, group, columns) reshape and a broadcast instead of a
+// repeat along the rows; the Hopper reading of that form organises the
+// dequantization by (group, column) pair:
 //   1. a thread holds one pair's s and B in registers (read once),
 //   2. it dequantizes that group's rows of the K step in its column into a
 //      tile in shared memory (each row an f32 product and sum rounded once,
 //      as the reference's),
 //   3. the dot reads the tile.
-// ct_qmm_f / ct_qmm_b and the ksplit kernels instead apply the scale per row
-// inside the dot loop. "rb" on ksplit feeds the tile to the WMMA loop of
-// qmm_gemm.cuh (a tile type of its own: 64 columns x 2 segments of 16 rows
-// a 32-row step, one pair each). "r" keeps the dot on the f32 pipes: a
-// block owns 8 rows (1 at decode) x 32 output columns and all of K, its 256
-// threads dequantize a 128-row step of the 32 columns into an f32 tile, 16
-// rows (one pair) each, then each thread sums 16 rows of the tile, taken 8
-// apart, for its column; the 8 partial sums of a column are added in a
-// fixed order at the end, so runs are bitwise repeatable. A segment of 16
-// rows lies in one group (G is 16 to 128) and a 128-row step in one half of
-// a ksplit weight (kp/2 is a multiple of 128).
+// ct_qmm_f and the ksplit kernels instead apply the scale per row inside
+// the dot loop. "r" keeps the dot on the f32 pipes: a block owns 8 rows (1
+// at decode) x 32 output columns and all of K, its 256 threads dequantize a
+// 128-row step of the 32 columns into an f32 tile, 16 rows (one pair) each,
+// then each thread sums 16 rows of the tile, taken 8 apart, for its column;
+// the 8 partial sums of a column are added in a fixed order at the end, so
+// runs are bitwise repeatable. A segment of 16 rows lies in one group (G is
+// 16 to 128) and a 128-row step in one half of a ksplit weight (kp/2 is a
+// multiple of 128).
 //
-// Bound on an H100: "r" as "" (bytes at decode, f32 operations above
-// m = 8), "rb" as "b" (about equally bytes and tensor-core operations at
-// m = 128). This simple version reads one byte per thread and row (a warp
-// reads 32 neighbouring bytes of a row), and "r" re-reads the weight once
-// per 8 rows of x; no gain over the per-row forms is claimed.
-#include "qmm_gemm.cuh"
+// Bound on an H100: as "" (bytes at decode, f32 operations above m = 8).
+// This simple version reads one byte per thread and row (a warp reads 32
+// neighbouring bytes of a row) and re-reads the weight once per 8 rows of
+// x; no gain over the per-row forms is claimed.
+#include "qmm_common.cuh"
 
 namespace {
 
 enum Fmt { kGridFmt, kKsplitFmt };
 
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 // Rows k .. k+ROWS-1 (one group, one ksplit half) of column n dequantized
 // into dst[0], dst[ld], ...: q * s (+ m) on a grid, v * s + B on ksplit
 // nibbles, the pair's s and B read once.
-template <int FMT, int G, int SF, bool HAS_MINS, int ROWS, class T>
+template <int FMT, int G, int SF, bool HAS_MINS, int ROWS>
 __device__ __forceinline__ void dequant_pair(const int8_t* __restrict__ qs,
                                              const int8_t* __restrict__ sub_s,
                                              const int8_t* __restrict__ sub_m,
                                              const float* __restrict__ sd,
                                              const float* __restrict__ sm, int np, int kp,
-                                             int k, int n, T* dst, int ld) {
+                                             int k, int n, float* dst, int ld) {
   static_assert(G % ROWS == 0, "a segment lies in one group");
   float s, b;
   ctq::group_sm<SF, HAS_MINS>(sub_s, sub_m, sd, sm, np, k / G, n, &s, &b);
@@ -69,7 +63,7 @@ __device__ __forceinline__ void dequant_pair(const int8_t* __restrict__ qs,
     const int v = FMT == kKsplitFmt ? ctq::ksplit_value(raw[r], hi) : raw[r];
     float w = __fmul_rn(static_cast<float>(v), s);
     if (FMT == kKsplitFmt || HAS_MINS) w = __fadd_rn(w, b);
-    put(dst + r * ld, w);
+    dst[r * ld] = w;
   }
 }
 
@@ -160,42 +154,6 @@ struct RLaunch {
   }
 };
 
-// ---- "rb" on ksplit: the pair tile of qmm_gemm.cuh ------------------------
-
-// 128 threads: column tid % 64 of the step, rows 16 (tid / 64) .. +15, one
-// (group, column) pair each. "rb" computes the function of "b".
-template <int G, int SF, bool HAS_MINS>
-struct RbTile {
-  static constexpr int kGroup = G;
-  static_assert(ctq::kGemmThreads * 16 == ctq::kGemmBK * ctq::kGemmBN,
-                "64 columns x 2 segments of 16 rows tile the step");
-
-  __device__ __forceinline__ static void load(
-      const int8_t* __restrict__ qs, const int8_t* __restrict__ sub_s,
-      const int8_t* __restrict__ sub_m, const float* __restrict__ sd,
-      const float* __restrict__ sm, int np, int kp, int k0, int col0, int tid,
-      __nv_bfloat16* Bs) {
-    const int c = tid % ctq::kGemmBN, seg = tid / ctq::kGemmBN;
-    dequant_pair<kKsplitFmt, G, SF, HAS_MINS, 16>(qs, sub_s, sub_m, sd, sm, np, kp,
-                                                  k0 + 16 * seg, col0 + c,
-                                                  Bs + 16 * seg * ctq::kGemmLDB + c,
-                                                  ctq::kGemmLDB);
-  }
-};
-
-struct RbLaunch {
-  const float* x;
-  const int8_t* qs;
-  float* out;
-  int m, kp, np;
-  cudaStream_t st;
-  template <int G, int SF, bool HAS_MINS>
-  int run(const int8_t* sub_s, const int8_t* sub_m, const float* sd, const float* sm) const {
-    return ctq::launch_gemm<RbTile<G, SF, HAS_MINS>>(x, qs, sub_s, sub_m, sd, sm, out, m, kp,
-                                                     np, st);
-  }
-};
-
 // factored int8 grids: group 16 without mins (Q6_K) or 32 with mins (Q5_K)
 template <class L>
 int dispatch_grid(const L& l, const int8_t* sub_s, const int8_t* sub_m, const float* sd,
@@ -236,7 +194,7 @@ int ct_qmm_r8_legacy(const float* x, const int8_t* qs, const float* s, const flo
       has_mins);
 }
 
-// mode "r" / "rb" on ksplit nibbles: scales and mins the QTensor's planes
+// mode "r" on ksplit nibbles: scales and mins the QTensor's planes
 // (int8 sub-planes where sfactor > 0, else f32 s and m), sd and sm its
 // factors (null where sfactor is 0); group, has_mins, zp and sfactor name
 // the layout (ctq::dispatch_ksplit refuses one there is not).
@@ -246,14 +204,6 @@ int ct_qmm_r_ks(const float* x, const int8_t* qs, const void* scales, const void
   return ctq::dispatch_ksplit(
       RLaunch<kKsplitFmt>{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales,
       mins, sd, sm, group, has_mins, zp, sfactor);
-}
-
-int ct_qmm_rb_ks(const float* x, const int8_t* qs, const void* scales, const void* mins,
-                 const float* sd, const float* sm, float* out, int m, int kp, int np, int group,
-                 int has_mins, int zp, int sfactor, void* stream) {
-  return ctq::dispatch_ksplit(
-      RbLaunch{x, qs, out, m, kp, np, static_cast<cudaStream_t>(stream)}, scales, mins, sd, sm,
-      group, has_mins, zp, sfactor);
 }
 
 }  // extern "C"

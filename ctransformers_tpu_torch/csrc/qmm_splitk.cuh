@@ -7,9 +7,10 @@
 // function of "b") of qmm_grid.cu; on the Q4_K adjk nibbles (group 32, with
 // mins), ct_qmm_qx (mode "qx") of qmm_decode.cu and ct_qmm_g (mode "g") of
 // qmm_float.cu; and on the ksplit nibbles of every kind, ct_qmm_f_ks (mode
-// "") and ct_qmm_s_ks (mode "s") of qmm_ksplit.cu: each symbol takes this
-// design there, its file's own (qmm_float.cuh for the ksplit ones, the
-// Hopper core of qmm_wgmma.cuh for the rb8 ones) above.
+// ""), ct_qmm_s_ks (mode "s"), ct_qmm_b_ks (mode "b") and ct_qmm_rb_ks
+// (mode "rb", the function of "b") of qmm_ksplit.cu: each symbol takes this
+// design there, its file's own (qmm_float.cuh for f_ks and s_ks, the Hopper
+// core of qmm_wgmma.cuh for the rb8, b_ks and rb_ks ones) above.
 //
 // Replaces, in ctransformers_tpu/ops/qmatmul.py (what they compute is the
 // files' first designs', unchanged):
@@ -32,6 +33,10 @@
 //       out = x_lo @ (l * s + B_lo) + x_hi @ (f * s + B_hi), all f32
 //   _qmm_pack4_s_kernel (:957) mode "s" -> ct_qmm_s_ks
 //       out = xs_lo @ B_lo + xs_hi @ B_hi + x_lo @ (l * s) + x_hi @ (f * s)
+//   _qmm_pack4_kernel (:783) mode "b", _qmm_pack4_rb_kernel (:872) mode
+//   "rb" -> ct_qmm_b_ks, ct_qmm_rb_ks
+//       out = bf16(x) @ bf16(v * s + B), f32 sums (v = l in the low half,
+//       f in the high one)
 // with w4 the stored nibble and B = 8 s + m; on ksplit (qmm_common.cuh) l
 // and f the low and high nibble's values, x_lo and x_hi the halves of x,
 // xs their group sums, B_lo = -zp s + m, B_hi = (8 - zp) s + m.
@@ -120,7 +125,7 @@
 //     to the first through shared memory (a barrier of the pair), so each
 //     group has one whole dot and one f32 rescale, as the first design:
 //     (dot * sx) * s, then + xsum * m.
-//   - ksplit (ksplit_kernel, modes "" and "s", every layout of
+//   - ksplit (ksplit_kernel, modes "", "s" and "b", every layout of
 //     ctq::ksplit_layout): the grids' stage of 128 byte rows, warp w's 16
 //     byte rows carrying logical rows r of the low half and kp / 2 + r of
 //     the high one; the ring carries, besides the bytes, both halves'
@@ -139,6 +144,19 @@
 //     accumulators for every row of x (no TF32); "s" adds each half's
 //     xs * B once a group, by the group's first warp (a group of 64 or 128
 //     rows spans 4 or 8 warps).
+//   - ksplit "b" (ct_qmm_b_ks, ct_qmm_rb_ks): each weight dequantized as ""
+//     does, then rounded once to bf16; x rounded to bf16 as it is staged.
+//     At m = 1 the exact products of the two bf16 operands are summed in
+//     f32, as "". At m > 1 (8 rows of x) on tensor cores, mma.sync m16n8k16
+//     as the grids' "b", one k16 tile a half: a warp's 16 byte rows are 16
+//     K rows of the low half and the same 16 of the high one, so lane
+//     (4 g + t) dequantizes byte rows 2 t, 2 t + 1, 2 t + 8, 2 t + 9 (A's
+//     K slots as they stand) x 16 columns [16 g, 16 g + 16) once, the low
+//     nibbles into one tile against x's low-half rows and the high ones
+//     into another against its high-half rows; no MMA mixes the halves,
+//     both add into the same f32 sums. x is staged as bf16 pairs, each
+//     half's rows apart, rows padded to meet 32 banks; the byte rows'
+//     16-byte chunk j of row r lies at j ^ 2 (r / 2 % 4).
 //   - "g" at m > 1 (8 rows of x) runs out of f32 pipes (8 products a
 //     weight), so it multiplies on tensor cores: mma.sync m16n8k16 with 16
 //     columns x 16 K rows of nibbles as A, one adjk byte a register (K rows
@@ -174,8 +192,8 @@ constexpr bool kNibbleMma = true;
 // "q" on the grids: dp4a on transposed grid bytes (false: a byte extract and
 // a multiply-add a weight and row of x, the first design's form)
 constexpr bool kGridDp4a = true;
-// "b" on the grids at m > 1: bf16 mma.sync on tensor cores (false: f32
-// products, as at m = 1)
+// "b" on the grids and on ksplit at m > 1: bf16 mma.sync on tensor cores
+// (false: f32 products, as at m = 1)
 constexpr bool kGridMma = true;
 // the ksplit kernels' low nibble: l * s as one fma of 2^23 + l with s and
 // -2^23 s (exact: the fma rounds l * s once, as __fmul_rn does, one f32
@@ -346,6 +364,31 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// reduce_tile of the tensor cores' sums: dm[j], tile j of the lane
+// (4 g + t), holds output columns 16 g + j (d[0], d[1]) and 16 g + 8 + j
+// (d[2], d[3]) x rows 2 t (d[0], d[2]) and 2 t + 1 of x
+template <int MT>
+__device__ __forceinline__ void reduce_mma(const float (&dm)[8][4], uint8_t* smem,
+                                           float* __restrict__ out, int m, int np, int n0,
+                                           int t0, uint32_t rank, int parts) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  reduce_tile<MT>(
+      [&](float* red) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // rows 2 t + r of x
+          float* d = red + (w * MT + 2 * t + r) * kTN + 16 * g;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)  // columns 16 g + 8 e + j
+#pragma unroll
+            for (int j4 = 0; j4 < 8; j4 += 4)
+              *reinterpret_cast<float4*>(d + 8 * e + j4) =
+                  make_float4(dm[j4][2 * e + r], dm[j4 + 1][2 * e + r], dm[j4 + 2][2 * e + r],
+                              dm[j4 + 3][2 * e + r]);
+        }
+      },
+      smem, out, m, np, n0, t0, rank, parts);
 }
 
 // The group's scale (and min) of NC columns [col0, col0 + NC) of stage b,
@@ -637,26 +680,10 @@ splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
     }
   }
 
-  if constexpr (kMma) {
-    const int g = lane >> 2, t = lane & 3;
-    reduce_tile<MT>(
-        [&](float* red) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {  // rows 2 t + r of x
-            float* d = red + (w * MT + 2 * t + r) * kTN + 16 * g;
-#pragma unroll
-            for (int e = 0; e < 2; ++e)  // columns 16 g + 8 e + j
-#pragma unroll
-              for (int j4 = 0; j4 < 8; j4 += 4)
-                *reinterpret_cast<float4*>(d + 8 * e + j4) =
-                    make_float4(dm[j4][2 * e + r], dm[j4 + 1][2 * e + r], dm[j4 + 2][2 * e + r],
-                                dm[j4 + 3][2 * e + r]);
-          }
-        },
-        smem, out, m, np, n0, t0, rank, parts);
-  } else {
+  if constexpr (kMma)
+    reduce_mma<MT>(dm, smem, out, m, np, n0, t0, rank, parts);
+  else
     reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
-  }
 }
 
 // The loop of a kernel that stages its block's x once, in windows of
@@ -1106,12 +1133,14 @@ nibble_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   }
 }
 
-// ---- ksplit nibbles: ct_qmm_f_ks ("") and ct_qmm_s_ks ("s") ----
+// ---- ksplit nibbles: ct_qmm_f_ks (""), ct_qmm_s_ks ("s"), ct_qmm_b_ks and
+// ct_qmm_rb_ks ("b") ----
 
 // the modes of the ksplit family: "" (each weight dequantized with its
-// bias, w = v s + B) and "s" (w = v s, the biases through the group sums of
-// x, once a group and half)
-enum KsMode { kKsF, kKsS };
+// bias, w = v s + B), "s" (w = v s, the biases through the group sums of
+// x, once a group and half) and "b" (w = v s + B rounded to bf16, x rounded
+// to bf16)
+enum KsMode { kKsF, kKsS, kKsB };
 
 // byte offsets of one ksplit stage's parts (each a multiple of 16): kKR
 // byte rows (the low nibbles logical rows [r, r + kKR), the high ones
@@ -1149,21 +1178,91 @@ constexpr int kKsUnroll = MT == 1 ? 4 : 4;  // steps of the inner loop unrolled
 template <int MT>
 constexpr int kKsWinRows = MT == 1 ? 2048 : 512;
 
+// "b" at m > 1 on tensor cores
+template <int MT, int MODE>
+constexpr bool kMmaKs = MODE == kKsB && MT == 8 && kGridMma;
+
 // shared memory of a ksplit block: the ring, then the window's x and ("s")
-// its group sums
+// its group sums. "b" on tensor cores stages x as bf16 pairs: a window of
+// twice the rows in the same bytes.
 template <int MT, int MODE, int G, int SF, bool HAS_MINS>
 struct KsSmem {
-  static constexpr int kW = kKsWinRows<MT>;
+  static constexpr bool kMma = kMmaKs<MT, MODE>;
+  static constexpr int kW = kMma ? 2 * kKsWinRows<MT> : kKsWinRows<MT>;
+  // words a row of bf16 pairs (tensor cores), padded so that the lanes' B
+  // fragments meet 32 banks
+  static constexpr int kXStride = kW / 2 + 4;
   static constexpr int kRing = kStages * KsStage<G, SF, HAS_MINS>::kBytes;
-  static constexpr int kX0 = kRing;                   // f32 [MT][2][kW]
-  static constexpr int kXs0 = kX0 + MT * 2 * kW * 4;  // "s": f32 [MT][2][kW / G]
+  // f32 [MT][2][kW]; on tensor cores bf16 pairs [2][MT][kXStride]
+  static constexpr int kX0 = kRing;
+  static constexpr int kXs0 = kX0 + (kMma ? 2 * MT * kXStride * 4 : MT * 2 * kW * 4);
+  // "s": f32 [MT][2][kW / G]
   static constexpr int kBytes = kXs0 + (MODE == kKsS ? MT * 2 * (kW / G) * 4 : 0);
-  static_assert(kW % kKR == 0, "a window holds whole stages");
+  static_assert(kW % kKR == 0 && kW / 2 % 32 == 0, "a window holds whole stages");
   static_assert((kWarps + 1) * MT * kTN * 4 <= kBytes, "the reduction fits in the ring and x");
 };
 
-// MT: rows of x a block (1, or kMT at m > 1); MODE: kKsF or kKsS; G, SF,
-// HAS_MINS: the layout (qmm_common.cuh:ksplit_layout), SF == 0 with the
+// The scale s and bias B of the group of byte row r of a stage in half h
+// (0 low, 1 high) for the 4 columns [col0, col0 + 4) of stage b: factored,
+// each an f32 product rounded once (the signed sub-scale through the
+// mantissa), or the plain f32 rows
+template <class St, int G, bool HAS_MINS>
+__device__ __forceinline__ void ks_scales(const uint8_t* b, int h, int r, int col0, float (&s)[4],
+                                          float (&bias)[4]) {
+  const int pr = h * St::kR + r / G;  // the group's plane row in the stage
+  float mv[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (St::kPlain) {
+    const float4 s4 = *reinterpret_cast<const float4*>(b + St::kS + pr * St::kRow + 4 * col0);
+    s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+    if (HAS_MINS) {
+      const float4 m4 = *reinterpret_cast<const float4*>(b + St::kM + pr * St::kRow + 4 * col0);
+      mv[0] = m4.x, mv[1] = m4.y, mv[2] = m4.z, mv[3] = m4.w;
+    }
+  } else {
+    const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kS + pr * kTN + col0);
+    const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + h * 4 * kTN + 4 * col0);
+    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = __fmul_rn(dv[c], mantissa_f32<128>(sw ^ 0x80808080u, c));
+    if (HAS_MINS) {
+      const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kM + pr * kTN + col0);
+      const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + h * 4 * kTN + 4 * col0);
+      const float dm[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mv[c] = __fmul_rn(dm[c], mantissa_f32<128>(mw ^ 0x80808080u, c));
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) bias[c] = ctq::ksplit_bias<HAS_MINS>(s[c], mv[c], h == 1);
+}
+
+// a word of 4 ksplit bytes as one nibble a byte: the low nibbles l, or the
+// high ones as f + 8
+__device__ __forceinline__ uint32_t ks_nibbles(uint32_t wd, bool hi) {
+  return hi ? ((wd >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u : wd & 0x0F0F0F0Fu;
+}
+
+// The weight of byte c of the ksplit word wd in its half, nib its
+// ks_nibbles: v * s, rounded once as __fmul_rn (the low nibble's as one fma
+// with lo_off = -2^23 s), then ("" and "b") + B rounded once, the high
+// half's B only with mins. The nibble goes through the mantissa of 2^23
+// (kNibbleMagic; else an I2F).
+template <int MODE, bool HAS_MINS>
+__device__ __forceinline__ float ks_weight(uint32_t nib, uint32_t wd, int c, bool hi, float s,
+                                           float bias, float lo_off) {
+  float v;
+  if constexpr (!kNibbleMagic)
+    v = __fmul_rn(static_cast<float>(ctq::ksplit_value(ctq::sbyte(wd, c), hi)), s);
+  else if (hi)
+    v = __fmul_rn(mantissa_f32<8>(nib, c), s);
+  else
+    v = kKsLoFma ? fmaf(mantissa_raw(nib, c), s, lo_off) : __fmul_rn(mantissa_f32<0>(nib, c), s);
+  if (MODE != kKsS && (!hi || HAS_MINS)) v = __fadd_rn(v, bias);
+  return v;
+}
+
+// MT: rows of x a block (1, or kMT at m > 1); MODE: kKsF, kKsS or kKsB; G,
+// SF, HAS_MINS: the layout (qmm_common.cuh:ksplit_layout), SF == 0 with the
 // f32 planes s and m passed as sd and sm and no sub-planes. Grid
 // (np / kTN * parts, ceil(m / MT)) in clusters of `parts` along x.
 template <int MT, int MODE, int G, int SF, bool HAS_MINS>
@@ -1181,6 +1280,7 @@ ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
                 "stage lies in one superblock");
   extern __shared__ __align__(16) uint8_t smem[];
   float* xf = reinterpret_cast<float*>(smem + Sm::kX0);
+  uint32_t* xb = reinterpret_cast<uint32_t*>(smem + Sm::kX0);
   float* xs = reinterpret_cast<float*>(smem + Sm::kXs0);
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -1194,14 +1294,16 @@ ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
 
   // ---- stage it of this block's range into ring slot it % kStages ----
   // Each thread's copies are fixed: 16-byte chunks tid + u * kThreads of the
-  // byte rows (row tid / 8 + u * kThreads / 8, chunk tid % 8) and chunks
-  // tid + j * kThreads of the planes. A plane chunk's source row at stage it
-  // is (first + it kKR) / G (a row of s or m; first is the logical row of
-  // the block's first stage in its half) or / 256 (a factor row), so each
-  // is set up once: its column's pointer and first.
+  // byte rows (row tid / 8 + u * kThreads / 8, chunk tid % 8; on tensor
+  // cores at chunk tid % 8 ^ 2 (row / 2 % 4)) and chunks tid + j * kThreads
+  // of the planes. A plane chunk's source row at stage it is
+  // (first + it kKR) / G (a row of s or m; first is the logical row of the
+  // block's first stage in its half) or / 256 (a factor row), so each is set
+  // up once: its column's pointer and first.
   static_assert(kKR * kTN / 16 == 4 * kThreads, "four weight chunks a thread");
   const int8_t* wsrc = qs + (size_t)(s0 * kKR + tid / 8) * np + n0 + 16 * (tid % 8);
   const size_t wstep = (size_t)kThreads / 8 * np;  // rows between a thread's chunks
+  const int wswz = Sm::kMma ? 16 * ((tid % 8 ^ 2 * (tid / 16 % 4)) - tid % 8) : 0;
   const uint8_t* psrc[St::kPPer];
   int pfirst[St::kPPer];
   bool pfac[St::kPPer];
@@ -1230,7 +1332,7 @@ ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
     uint8_t* b = smem + (it % kStages) * St::kBytes;
     const int8_t* wp = wsrc + (size_t)it * kKR * np;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), wp + u * wstep);
+    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads) + wswz, wp + u * wstep);
 #pragma unroll
     for (int j = 0; j < St::kPPer; ++j) {
       const int c = tid + j * kThreads;
@@ -1243,11 +1345,11 @@ ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   };
 
   // ---- x of stages [it0, it0 + nw) of the block's range, staged once ----
-  // Both halves (the byte rows' columns of x, then those kp / 2 on), f32
-  // as they are; a thread takes 8 columns of one row and half, G / 8
-  // neighbouring threads a group (a warp's items are whole groups of one
-  // row and half: a window's columns a half are a multiple of 128), whose
-  // sum "s" takes.
+  // Both halves (the byte rows' columns of x, then those kp / 2 on); a
+  // thread takes 8 columns of one row and half, G / 8 neighbouring threads a
+  // group (a warp's items are whole groups of one row and half: a window's
+  // columns a half are a multiple of 128), whose sum "s" takes. f32 as they
+  // are ("b": rounded to bf16); on tensor cores bf16 pairs.
   auto stage_x = [&](int it0, int nw) {
     const int k0 = (s0 + it0) * kKR;
     const int per = nw * kKR / 8;  // items of a row and half
@@ -1261,9 +1363,18 @@ ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
         a = __ldg(src);
         z = __ldg(src + 1);
       }
-      float4* d = reinterpret_cast<float4*>(xf + ih * kW + 8 * c8);
-      d[0] = a;
-      d[1] = z;
+      if constexpr (Sm::kMma) {
+        *reinterpret_cast<uint4*>(xb + ((ih & 1) * MT + i) * Sm::kXStride + 4 * c8) =
+            make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w), bf16x2(z.x, z.y), bf16x2(z.z, z.w));
+      } else {
+        if constexpr (MODE == kKsB) {
+          a = make_float4(bf16_round(a.x), bf16_round(a.y), bf16_round(a.z), bf16_round(a.w));
+          z = make_float4(bf16_round(z.x), bf16_round(z.y), bf16_round(z.z), bf16_round(z.w));
+        }
+        float4* d = reinterpret_cast<float4*>(xf + ih * kW + 8 * c8);
+        d[0] = a;
+        d[1] = z;
+      }
       if constexpr (MODE == kKsS) {
         float s = __fadd_rn(__fadd_rn(__fadd_rn(a.x, a.y), __fadd_rn(a.z, a.w)),
                             __fadd_rn(__fadd_rn(z.x, z.y), __fadd_rn(z.z, z.w)));
@@ -1280,117 +1391,142 @@ ksplit_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+  // tensor cores: tile j's sums (reduce_mma)
+  float dm[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dm[j][c] = 0.0f;
 
   ring_windows<kW / kKR>(n_it, load, stage_x, [&](int it, int jw) {
     const uint8_t* b = smem + (it % kStages) * St::kBytes;
-    // the scale s and bias B of this warp's group in each half (both its
-    // 16 byte rows' groups) for this thread's 4 columns
-    float s[2][4], bias[2][4];
+    if constexpr (Sm::kMma) {
+      // ---- "b" on tensor cores: one k16 tile of each half ----
+      // Lane (4 g + t) takes byte rows 2 t, 2 t + 1, 2 t + 8, 2 t + 9 of
+      // the warp's 16 (A's K slots 2 t, 2 t + 1, 2 t + 8, 2 t + 9) at
+      // columns [16 g, 16 g + 16); tile 4 e + c's A rows g and g + 8 are
+      // columns 16 g + 4 e + c and 16 g + 8 + 4 e + c, its B column g row g
+      // of x: in the low half's tile K row r of the stage is logical row r,
+      // in the high one's kp / 2 + r.
+      const int g = lane >> 2, t = lane & 3;
+      uint4 wq[4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int pr = h * St::kR + w * kLR / G;  // the group's plane row in the stage
-      float mv[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (St::kPlain) {
-        const float4 s4 = *reinterpret_cast<const float4*>(b + St::kS + pr * St::kRow + 16 * lane);
-        s[h][0] = s4.x, s[h][1] = s4.y, s[h][2] = s4.z, s[h][3] = s4.w;
-        if (HAS_MINS) {
-          const float4 m4 = *reinterpret_cast<const float4*>(b + St::kM + pr * St::kRow + 16 * lane);
-          mv[0] = m4.x, mv[1] = m4.y, mv[2] = m4.z, mv[3] = m4.w;
-        }
-      } else {
-        const uint32_t sw = *reinterpret_cast<const uint32_t*>(b + St::kS + pr * kTN + 4 * lane);
-        const float4 d4 = *reinterpret_cast<const float4*>(b + St::kSd + h * 4 * kTN + 16 * lane);
-        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      for (int q = 0; q < 4; ++q)
+        wq[q] = *reinterpret_cast<const uint4*>(
+            b + St::kW + (w * kLR + 2 * t + (q & 1) + 8 * (q >> 1)) * kTN + 16 * (g ^ 2 * t));
+      const uint32_t* xr = xb + g * Sm::kXStride + (jw * kKR + w * kLR) / 2 + t;
 #pragma unroll
-        for (int c = 0; c < 4; ++c)  // the signed sub-scale through the mantissa too
-          s[h][c] = __fmul_rn(dv[c], mantissa_f32<128>(sw ^ 0x80808080u, c));
-        if (HAS_MINS) {
-          const uint32_t mw = *reinterpret_cast<const uint32_t*>(b + St::kM + pr * kTN + 4 * lane);
-          const float4 m4 = *reinterpret_cast<const float4*>(b + St::kSm + h * 4 * kTN + 16 * lane);
-          const float dm[4] = {m4.x, m4.y, m4.z, m4.w};
+      for (int h = 0; h < 2; ++h) {
+        const bool hi = h == 1;
+        const uint32_t xb0 = xr[h * MT * Sm::kXStride], xb1 = xr[h * MT * Sm::kXStride + 4];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) mv[c] = __fmul_rn(dm[c], mantissa_f32<128>(mw ^ 0x80808080u, c));
-        }
-      }
+        for (int e = 0; e < 2; ++e) {
+          // words e (A row g) and 2 + e (A row g + 8) of each byte row
+          float sl[4], bl[4], su[4], bu[4], ol[4], ou[4];
+          ks_scales<St, G, HAS_MINS>(b, h, w * kLR, 16 * g + 4 * e, sl, bl);
+          ks_scales<St, G, HAS_MINS>(b, h, w * kLR, 16 * g + 8 + 4 * e, su, bu);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) bias[h][c] = ctq::ksplit_bias<HAS_MINS>(s[h][c], mv[c], h == 1);
-    }
-    float lo_off[4];  // kKsLoFma: -2^23 s of the low half, exact
-#pragma unroll
-    for (int c = 0; c < 4; ++c) lo_off[c] = __fmul_rn(-8388608.0f, s[0][c]);
-    // byte row r of this warp's 16 for this thread's columns, and x of its
-    // logical rows in each half
-    const uint8_t* wb = b + St::kW + w * kLR * kTN + 4 * lane;
-    const float* xw = xf + jw * kKR + w * kLR;
-
-    // ---- the warp's 16 byte rows, kQ at a time: both nibbles of each ----
-    constexpr int kQ = kKsStep<MT>, kU = kKsUnroll<MT>;
-    static_assert(kQ == 2 || kQ == 4, "two or four byte rows a step");
-#pragma unroll (kU)
-    for (int rr = 0; rr < kLR; rr += kQ) {
-      // v * s (+ B), rounded as the reference's f32 multiply and add; the
-      // high half has no B without mins
-      float wl[kQ][4], wh[kQ][4];
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const uint32_t wd = *reinterpret_cast<const uint32_t*>(wb + (rr + q) * kTN);
-        const uint32_t lo = wd & 0x0F0F0F0Fu;                       // l
-        const uint32_t hi = ((wd >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;  // f + 8
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if constexpr (kNibbleMagic) {
-            wl[q][c] = kKsLoFma ? fmaf(mantissa_raw(lo, c), s[0][c], lo_off[c])
-                                : __fmul_rn(mantissa_f32<0>(lo, c), s[0][c]);
-            wh[q][c] = __fmul_rn(mantissa_f32<8>(hi, c), s[1][c]);
-          } else {  // the first design's form: an I2F a nibble
-            wl[q][c] = __fmul_rn(static_cast<float>(ctq::ksplit_value(ctq::sbyte(wd, c), false)),
-                                 s[0][c]);
-            wh[q][c] = __fmul_rn(static_cast<float>(ctq::ksplit_value(ctq::sbyte(wd, c), true)),
-                                 s[1][c]);
+          for (int c = 0; c < 4; ++c) {  // kKsLoFma: -2^23 s of the low half, exact
+            ol[c] = __fmul_rn(-8388608.0f, sl[c]);
+            ou[c] = __fmul_rn(-8388608.0f, su[c]);
           }
-          if (MODE == kKsF) {
-            wl[q][c] = __fadd_rn(wl[q][c], bias[0][c]);
-            if (HAS_MINS) wh[q][c] = __fadd_rn(wh[q][c], bias[1][c]);
+          uint32_t wl[4], wu[4], nl[4], nu[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            wl[q] = e ? wq[q].y : wq[q].x;
+            wu[q] = e ? wq[q].w : wq[q].z;
+            nl[q] = ks_nibbles(wl[q], hi);
+            nu[q] = ks_nibbles(wu[q], hi);
           }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        float xl[kQ], xh[kQ];
-        if constexpr (kQ == 4) {
-          const float4 l4 = *reinterpret_cast<const float4*>(xw + 2 * i * kW + rr);
-          const float4 h4 = *reinterpret_cast<const float4*>(xw + (2 * i + 1) * kW + rr);
-          xl[0] = l4.x, xl[1] = l4.y, xl[2] = l4.z, xl[3] = l4.w;
-          xh[0] = h4.x, xh[1] = h4.y, xh[2] = h4.z, xh[3] = h4.w;
-        } else {
-          const float2 l2 = *reinterpret_cast<const float2*>(xw + 2 * i * kW + rr);
-          const float2 h2 = *reinterpret_cast<const float2*>(xw + (2 * i + 1) * kW + rr);
-          xl[0] = l2.x, xl[1] = l2.y, xh[0] = h2.x, xh[1] = h2.y;
-        }
-#pragma unroll
-        for (int q = 0; q < kQ; ++q)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xh[q], wh[q][c], fmaf(xl[q], wl[q][c], acc[i][c]));
-      }
-    }
-
-    // "s": the group's first warp adds each half's xs @ B once
-    if constexpr (MODE == kKsS) {
-      if (w % (G / kLR) == 0) {
-        const int g = (jw * kKR + w * kLR) / G;  // the group in the window
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(xs[2 * i * kXG + g], bias[0][c]));
-            if (HAS_MINS)
-              acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(xs[(2 * i + 1) * kXG + g], bias[1][c]));
+            float al[4], au[4];  // the byte rows' weights, rounded to bf16 in pairs below
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              al[q] = ks_weight<MODE, HAS_MINS>(nl[q], wl[q], c, hi, sl[c], bl[c], ol[c]);
+              au[q] = ks_weight<MODE, HAS_MINS>(nu[q], wu[q], c, hi, su[c], bu[c], ou[c]);
+            }
+            mma_bf16(dm[4 * e + c], bf16x2(al[0], al[1]), bf16x2(au[0], au[1]),
+                     bf16x2(al[2], al[3]), bf16x2(au[2], au[3]), xb0, xb1);
           }
+        }
+      }
+    } else {
+      // the scale s and bias B of this warp's group in each half (both its
+      // 16 byte rows' groups) for this thread's 4 columns
+      float s[2][4], bias[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ks_scales<St, G, HAS_MINS>(b, h, w * kLR, 4 * lane, s[h], bias[h]);
+      float lo_off[4];  // kKsLoFma: -2^23 s of the low half, exact
+#pragma unroll
+      for (int c = 0; c < 4; ++c) lo_off[c] = __fmul_rn(-8388608.0f, s[0][c]);
+      // byte row r of this warp's 16 for this thread's columns, and x of its
+      // logical rows in each half
+      const uint8_t* wb = b + St::kW + w * kLR * kTN + 4 * lane;
+      const float* xw = xf + jw * kKR + w * kLR;
+
+      // ---- the warp's 16 byte rows, kQ at a time: both nibbles of each ----
+      constexpr int kQ = kKsStep<MT>, kU = kKsUnroll<MT>;
+      static_assert(kQ == 2 || kQ == 4, "two or four byte rows a step");
+#pragma unroll (kU)
+      for (int rr = 0; rr < kLR; rr += kQ) {
+        float wl[kQ][4], wh[kQ][4];
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          const uint32_t wd = *reinterpret_cast<const uint32_t*>(wb + (rr + q) * kTN);
+          const uint32_t lo = ks_nibbles(wd, false), hi = ks_nibbles(wd, true);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            wl[q][c] = ks_weight<MODE, HAS_MINS>(lo, wd, c, false, s[0][c], bias[0][c], lo_off[c]);
+            wh[q][c] = ks_weight<MODE, HAS_MINS>(hi, wd, c, true, s[1][c], bias[1][c], 0.0f);
+            if (MODE == kKsB) {  // then once to bf16
+              wl[q][c] = bf16_round(wl[q][c]);
+              wh[q][c] = bf16_round(wh[q][c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          float xl[kQ], xh[kQ];
+          if constexpr (kQ == 4) {
+            const float4 l4 = *reinterpret_cast<const float4*>(xw + 2 * i * kW + rr);
+            const float4 h4 = *reinterpret_cast<const float4*>(xw + (2 * i + 1) * kW + rr);
+            xl[0] = l4.x, xl[1] = l4.y, xl[2] = l4.z, xl[3] = l4.w;
+            xh[0] = h4.x, xh[1] = h4.y, xh[2] = h4.z, xh[3] = h4.w;
+          } else {
+            const float2 l2 = *reinterpret_cast<const float2*>(xw + 2 * i * kW + rr);
+            const float2 h2 = *reinterpret_cast<const float2*>(xw + (2 * i + 1) * kW + rr);
+            xl[0] = l2.x, xl[1] = l2.y, xh[0] = h2.x, xh[1] = h2.y;
+          }
+#pragma unroll
+          for (int q = 0; q < kQ; ++q)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xh[q], wh[q][c], fmaf(xl[q], wl[q][c], acc[i][c]));
+        }
+      }
+
+      // "s": the group's first warp adds each half's xs @ B once
+      if constexpr (MODE == kKsS) {
+        if (w % (G / kLR) == 0) {
+          const int g = (jw * kKR + w * kLR) / G;  // the group in the window
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(xs[2 * i * kXG + g], bias[0][c]));
+              if (HAS_MINS)
+                acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(xs[(2 * i + 1) * kXG + g], bias[1][c]));
+            }
+        }
       }
     }
   });
 
-  reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
+  if constexpr (Sm::kMma)
+    reduce_mma<MT>(dm, smem, out, m, np, n0, t0, rank, parts);
+  else
+    reduce_out<MT>(acc, smem, out, m, np, n0, t0, rank, parts);
 }
 
 // ---- pre-quantized x on the int8 grids: ct_qmm_q8 and ct_qmm_q8_legacy ----
@@ -1853,8 +1989,9 @@ int nibble_plan_of(int m, int kp, int np) {
   return plan_family<NibbleKernel<1, QX>, NibbleKernel<kMT, QX>>(m, kp, np);
 }
 
-// ct_qmm_f_ks (kKsF) or ct_qmm_s_ks (kKsS) at 1 <= m <= kMaxM on a layout
-// of ctq::ksplit_layout, its planes as ctq::dispatch_ksplit passes them
+// ct_qmm_f_ks (kKsF), ct_qmm_s_ks (kKsS), ct_qmm_b_ks or ct_qmm_rb_ks
+// (kKsB) at 1 <= m <= kMaxM on a layout of ctq::ksplit_layout, its planes as
+// ctq::dispatch_ksplit passes them
 template <int MODE, int G, int SF, bool HAS_MINS>
 int run_ksplit(const float* x, const int8_t* qs, const int8_t* sub_s, const int8_t* sub_m,
                const float* sd, const float* sm, float* out, int m, int kp, int np,

@@ -3,21 +3,23 @@
 // ct_qmm_sb_legacy (Q5_1 with mins, Q8_0 and Q5_0 without; plain f32
 // planes), and above m = 32 ct_qmm_rb8 and ct_qmm_rb8_legacy (ct_qmm_b's
 // function and instantiations), routed here by qmm_grid.cu; on ksplit
-// nibbles, ct_qmm_sb_ks at m > 32 (every nibble kind; qmm_float.cu); and
-// on adjk nibbles (all in
-// qmm_prefill.cu), ct_qmm_si_gptq and ct_qmm_i_gptq (GPTQ4 at groups 32, 64
-// and 128, Q4_1), ct_qmm_si and ct_qmm_i (Q4_K, group 32, factored scales),
-// ct_qmm_si_k16 and ct_qmm_i_k16 (Q2_K and Q3_K, group 16, factored scales)
-// and ct_qmm_si_q4_0 and ct_qmm_i_q4_0 (Q4_0, group 32, the plain s plane
-// without mins). It replaces, for those symbols, the 64 x 64 WMMA tiles of
-// qmm_gemm.cuh, which the ksplit "b" and "rb" GEMMs keep.
+// nibbles above m = 32 (every nibble kind), ct_qmm_sb_ks (qmm_float.cu) and
+// ct_qmm_b_ks and ct_qmm_rb_ks (qmm_ksplit.cu: the ksplit tile without the
+// fold); and on adjk nibbles (all in qmm_prefill.cu), ct_qmm_si_gptq and
+// ct_qmm_i_gptq (GPTQ4 at groups 32, 64 and 128, Q4_1), ct_qmm_si and
+// ct_qmm_i (Q4_K, group 32, factored scales), ct_qmm_si_k16 and
+// ct_qmm_i_k16 (Q2_K and Q3_K, group 16, factored scales) and
+// ct_qmm_si_q4_0 and ct_qmm_i_q4_0 (Q4_0, group 32, the plain s plane
+// without mins). Every prompt GEMM of the port runs here.
 //
 // Function (the JAX package's _qmm_kernel mode "b", _qmm_s_kernel mode
-// "sb", _qmm_pack4_s_kernel mode "sb", _qmm_i4_s_kernel and _qmm_i4_kernel,
-// ctransformers_tpu/ops/qmatmul.py:734, :1040, :957, :1148 and :1090):
+// "sb", _qmm_pack4_s_kernel mode "sb", _qmm_pack4_kernel mode "b",
+// _qmm_i4_s_kernel and _qmm_i4_kernel, ctransformers_tpu/ops/qmatmul.py:734,
+// :1040, :957, :783, :1148 and :1090):
 //   b:     out = bf16(x) @ bf16(q * s + m)         (m only with mins)
 //   sb:    out = xsum @ M + bf16(x) @ bf16(q * s)  (the fold only with mins)
 //   sb_ks: out = xs_lo @ B_lo + xs_hi @ B_hi + bf16(x) @ bf16(v * s)
+//   b_ks:  out = bf16(x) @ bf16(v * s + B)
 //   si:    out = xsum @ B + bf16(x) @ bf16(w4 * s)  (the fold only with a bias)
 //   i:     out = bf16(x) @ bf16(w4 * s + B)
 // with f32 accumulation; s = sd * sub_s (factored) or the f32 plane s, each
@@ -79,15 +81,19 @@
 // the stage's two x boxes lie at K offsets r and r + kp/2. Each consumer
 // thread reads 4 byte rows x 4 columns once and unpacks both nibbles
 // (ctq::ksplit_value), rounding v * s of each half to bf16 into B rows
-// r (low) and 32 + r (high) of the tile; the products are as above. The
-// stage's scale rows (5 KB at most) lie in the weight slot's unused half
-// and the scale slot. The fold is general: groups of 16 to 128 rows,
-// factored or plain planes; the first thread rows of each group write its
-// two biases into the stage (bias rows beside the scales), each warpgroup
-// thread sums its rows of x over each group's columns of the stage and,
-// once the stage's products are done, adds sum * B in f32; a group of 64
-// or 128 rows carries its sum across its stages and adds it once, at its
-// last stage (or the block's last: a cluster's K split may cut a group).
+// r (low) and 32 + r (high) of the tile; the products are as above.
+// Without the fold (b_ks) each half's bias is added to each weight before
+// that rounding (none in the high half of Q4_0 and Q3_K), so a stage reads
+// only its own groups' rows and no group is carried across stages or the
+// cluster's K split. The stage's scale rows (5 KB at most) lie in the
+// weight slot's unused half and the scale slot. The fold is general: groups
+// of 16 to 128 rows, factored or plain planes; the first thread rows of
+// each group write its two biases into the stage (bias rows beside the
+// scales), each warpgroup thread sums its rows of x over each group's
+// columns of the stage and, once the stage's products are done, adds
+// sum * B in f32; a group of 64 or 128 rows carries its sum across its
+// stages and adds it once, at its last stage (or the block's last: a
+// cluster's K split may cut a group).
 //
 // The adjk nibble tile (AJ). A stage is 64 contiguous K rows, as on the
 // grid: the same two x boxes, and 32 byte rows x 128 columns of the
@@ -564,7 +570,7 @@ __device__ __forceinline__ void consume(const Smem& sh, int it, int step, bool l
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             v[h][q] = __fmul_rn(static_cast<float>(ctq::ksplit_value(byte, h == 1)), s[h][q]);
-            if (!FOLD) v[h][q] = __fadd_rn(v[h][q], b[h][q]);
+            if (!FOLD && (HAS_MINS || h == 0)) v[h][q] = __fadd_rn(v[h][q], b[h][q]);
           }
         }
         store_b(bt, k_slot(k), c, v[0]);

@@ -121,14 +121,18 @@ zero point and the superblock factor count:
              I2F, csrc/qmm_splitk.cuh; grid_split_plan gives the cluster's
              size)
   qmm_b_ks   the function of qmm_f_ks on bf16 operands, f32 sums
-             (replaces _qmm_pack4_kernel, mode "b"; csrc/qmm_prefill.cu)
+             (replaces _qmm_pack4_kernel, mode "b"; csrc/qmm_ksplit.cu: the
+             K split of qmm_f_ks with each weight and x rounded once to
+             bf16 at m <= 32, mma.sync at m > 1; the Hopper GEMM core's
+             ksplit nibble tile without the sum fold above)
   qmm_sb_ks  the function of qmm_s_ks with the two dots on bf16 operands
              (replaces _qmm_pack4_s_kernel, mode "sb"; csrc/qmm_float.cu:
              the first design of qmm_float.cuh at m <= 32, the Hopper GEMM
              core's ksplit nibble tile above)
-  qmm_r_ks, qmm_rb_ks  the functions of qmm_f_ks and qmm_b_ks, dequantized
-             per (group, column) pair (replaces _qmm_pack4_rb_kernel, modes
-             "r" and "rb"; csrc/qmm_rb.cu)
+  qmm_r_ks   the function of qmm_f_ks, dequantized per (group, column)
+             pair (replaces _qmm_pack4_rb_kernel, mode "r"; csrc/qmm_rb.cu)
+  qmm_rb_ks  the function of qmm_b_ks and its instantiations (replaces
+             _qmm_pack4_rb_kernel, mode "rb"; csrc/qmm_ksplit.cu)
 
 with x_lo, x_hi the two halves of x's columns, xs their f32 sums over each
 group, B_lo = -zp * s + m and B_hi = (8 - zp) * s + m (zp = 8, no mins:
@@ -851,10 +855,10 @@ _SPECS = {
     "qmm_g_k16": ("qmm_float", check_k16_qtensor, plain_g, _has_mins, 1206),
     "qmm_f_ks": ("qmm_ksplit", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 783),
     "qmm_s_ks": ("qmm_ksplit", check_ksplit_qtensor, plain_s_ks, _ksplit_ints, 957),
-    "qmm_b_ks": ("qmm_prefill", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 783),
+    "qmm_b_ks": ("qmm_ksplit", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 783),
     "qmm_sb_ks": ("qmm_float", check_ksplit_qtensor, plain_sb_ks, _ksplit_ints, 957),
     "qmm_r_ks": ("qmm_rb", check_ksplit_qtensor, plain_f_ks, _ksplit_ints, 872),
-    "qmm_rb_ks": ("qmm_rb", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 872),
+    "qmm_rb_ks": ("qmm_ksplit", check_ksplit_qtensor, plain_b_ks, _ksplit_ints, 872),
     "qmm_r8": ("qmm_rb", check_grid_qtensor, plain_f, _group, 1459),
     "qmm_rb8": ("qmm_grid", check_grid_qtensor, plain_b, _group, 1459),
     "qmm_r8_legacy": ("qmm_rb", check_legacy_grid_qtensor, plain_f, _has_mins, 1459),
@@ -865,20 +869,21 @@ PLAIN = {n: spec[2] for n, spec in _SPECS.items()}
 SOURCE_OF = {n: f"ctransformers_tpu_torch/csrc/{spec[0]}.cu" for n, spec in _SPECS.items()}
 # the K split of csrc/qmm_splitk.cuh at m <= 32: qmm_g8, qmm_f and qmm_g
 # (symbols in qmm_float.cu), qmm_qx (qmm_decode.cu), qmm_q8, qmm_q8_legacy,
-# qmm_rb8 and qmm_rb8_legacy (qmm_grid.cu), qmm_f_ks and qmm_s_ks
-# (qmm_ksplit.cu); their files' own designs serve m > 32 (qmm_rb8's the
-# Hopper GEMM core)
+# qmm_rb8 and qmm_rb8_legacy (qmm_grid.cu), qmm_f_ks, qmm_s_ks, qmm_b_ks
+# and qmm_rb_ks (qmm_ksplit.cu); their files' own designs serve m > 32
+# (qmm_rb8's, qmm_b_ks's and qmm_rb_ks's the Hopper GEMM core)
 SPLIT_KERNELS = ("qmm_g8", "qmm_f", "qmm_qx", "qmm_g", "qmm_q8", "qmm_q8_legacy", "qmm_f_ks",
-                 "qmm_s_ks", "qmm_rb8", "qmm_rb8_legacy")
+                 "qmm_s_ks", "qmm_rb8", "qmm_rb8_legacy", "qmm_b_ks", "qmm_rb_ks")
 SOURCE_OF.update(dict.fromkeys(SPLIT_KERNELS, "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"))
 # the symbols that run the Hopper GEMM core: those of qmm_grid.cu and every
 # adjk nibble GEMM of qmm_prefill.cu (the core's adjk nibble tile) at every
-# m, qmm_sb_ks of qmm_float.cu (its source) at m > 32
+# m, the ksplit GEMMs at m > 32 (qmm_sb_ks of qmm_float.cu, its source;
+# qmm_b_ks and qmm_rb_ks, named by their split's source)
 WGMMA_KERNELS = ("qmm_b", "qmm_sb", "qmm_b_legacy", "qmm_sb_legacy", "qmm_si", "qmm_i",
                  "qmm_si_gptq", "qmm_i_gptq", "qmm_si_k16", "qmm_i_k16", "qmm_si_q4_0",
-                 "qmm_i_q4_0", "qmm_sb_ks")
+                 "qmm_i_q4_0", "qmm_sb_ks", "qmm_b_ks", "qmm_rb_ks")
 SOURCE_OF.update({n: "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh" for n in WGMMA_KERNELS
-                  if n != "qmm_sb_ks"})
+                  if n != "qmm_sb_ks" and n not in SPLIT_KERNELS})
 REPLACES = {n: f"{_QMATMUL_PY}:{spec[4]}" for n, spec in _SPECS.items()}
 # the wrappers as module functions: qmm_qx(x, qt), qmm_q(xq, sx, xsum, qt), ...
 # (ops/qmatmul.py looks them up here by name at call time)
@@ -907,12 +912,10 @@ NIBBLE_SPLIT_CONFIG = "n128k32r2c8"
 # the same on ksplit bytes: 16 byte rows a warp, both nibbles (halves) of each
 KSPLIT_SPLIT_CONFIG = "n128k16h2r2c8"
 R_CONFIG = "m8n32k128"  # 8 x 32 output tile, 128-row K steps dequantized to f32
-GEMM_CONFIG = "m64n64k32"  # 64 x 64 output tile, 32-row K steps (csrc/qmm_gemm.cuh)
-GEMM_KERNELS = ("qmm_b_ks", "qmm_rb_ks")
 # 128 x 128 output tile over two wgmma warpgroups, K split over a cluster of
 # 3 (csrc/qmm_wgmma.cuh)
 WGMMA_CONFIG = "wg128n128c3"
-CONFIG_OF = {n: GEMM_CONFIG if n in GEMM_KERNELS else DECODE_CONFIG for n in _SPECS}
+CONFIG_OF = dict.fromkeys(_SPECS, DECODE_CONFIG)
 CONFIG_OF.update(dict.fromkeys(WGMMA_KERNELS, WGMMA_CONFIG))
 # qmm_sb_ks: the float design at m <= 32, the core above
 CONFIG_OF.update(qmm_sb_ks=f"{KSPLIT_FLOAT_CONFIG}|{WGMMA_CONFIG}")
@@ -928,6 +931,8 @@ CONFIG_OF.update(dict.fromkeys(("qmm_f_ks", "qmm_s_ks"),
 CONFIG_OF.update(qmm_r_ks=R_CONFIG, qmm_r8=R_CONFIG, qmm_r8_legacy=R_CONFIG)
 # qmm_rb8, qmm_rb8_legacy: the K split's bf16 form at m <= 32, the core above
 CONFIG_OF.update(dict.fromkeys(("qmm_rb8", "qmm_rb8_legacy"), f"{SPLIT_CONFIG}|{WGMMA_CONFIG}"))
+# qmm_b_ks, qmm_rb_ks: the ksplit K split's bf16 form at m <= 32, the core above
+CONFIG_OF.update(dict.fromkeys(("qmm_b_ks", "qmm_rb_ks"), f"{KSPLIT_SPLIT_CONFIG}|{WGMMA_CONFIG}"))
 # the modes of an int8 grid by the JAX package's names ("q8" is the port's
 # name for its "q" with packed4=False; "qx" is in no candidate list, as in
 # the JAX package: a table sends keys there, ops/qmatmul.py:qx_mode_entries)
@@ -937,6 +942,8 @@ _GRID_KERNELS = {"": "qmm_f", "s": "qmm_s", "b": "qmm_b", "sb": "qmm_sb", "g": "
 # the modes a ksplit weight takes ("" is the f32 dequantize-and-dot "f")
 _KSPLIT_KERNELS = {"": "qmm_f_ks", "s": "qmm_s_ks", "b": "qmm_b_ks", "sb": "qmm_sb_ks",
                    "r": "qmm_r_ks", "rb": "qmm_rb_ks"}
+# the ksplit split's mode of each kernel it serves (ct_qmm_ks_split_plan)
+_KS_SPLIT_MODE = {"qmm_f_ks": 0, "qmm_s_ks": 1, "qmm_b_ks": 2, "qmm_rb_ks": 2}
 
 
 def grid_split_plan(name: str, qt, m: int) -> int:
@@ -944,8 +951,8 @@ def grid_split_plan(name: str, qt, m: int) -> int:
     SPLIT_KERNELS) splits K over for weight `qt` (on the card; qmm_g8,
     qmm_f, qmm_q8 and qmm_rb8: Q6_K or Q5_K, qmm_q8_legacy and qmm_rb8_legacy:
     Q8_0, Q5_0 or Q5_1,
-    qmm_qx and qmm_g: Q4_K, qmm_f_ks and qmm_s_ks: the ksplit nibbles of
-    every kind) at batch size m <= 32: the first of 8, 6, 4, 3 and 2, up to
+    qmm_qx and qmm_g: Q4_K, qmm_f_ks, qmm_s_ks, qmm_b_ks and qmm_rb_ks: the
+    ksplit nibbles of every kind) at batch size m <= 32: the first of 8, 6, 4, 3 and 2, up to
     the weight's stages, whose clusters all fit on the card at once, else 1
     (csrc/qmm_splitk.cuh:plan)."""
     if name not in SPLIT_KERNELS:
@@ -959,8 +966,8 @@ def grid_split_plan(name: str, qt, m: int) -> int:
     elif name in ("qmm_q8", "qmm_q8_legacy", "qmm_rb8", "qmm_rb8_legacy"):
         p = _fn(lib, f"ct_{name.removesuffix('_legacy')}_split_plan")(
             int(qt.sfactor == 0), int(qt.mins is not None), qt.group, m, kp, np_)
-    elif name in ("qmm_f_ks", "qmm_s_ks"):
-        p = _fn(lib, "ct_qmm_ks_split_plan")(int(name == "qmm_s_ks"), qt.group,
+    elif name in _KS_SPLIT_MODE:
+        p = _fn(lib, "ct_qmm_ks_split_plan")(_KS_SPLIT_MODE[name], qt.group,
                                              int(qt.mins is not None), qt.sfactor, m, kp, np_)
     else:
         p = _fn(lib, f"ct_{name}_split_plan")(m, kp, np_)

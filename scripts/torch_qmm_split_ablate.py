@@ -1,8 +1,9 @@
 """Time the K-split decode GEMVs of csrc/qmm_splitk.cuh, ct_qmm_g8, ct_qmm_f,
 ct_qmm_q8 and ct_qmm_rb8 on the factored int8 grids, ct_qmm_q8_legacy and
 ct_qmm_rb8_legacy on the legacy ones, ct_qmm_qx and ct_qmm_g on Q4_K nibbles
-and ct_qmm_f_ks and ct_qmm_s_ks on the ksplit nibbles of every kind, against
-variants of their design on one card, in one process.
+and ct_qmm_f_ks, ct_qmm_s_ks, ct_qmm_b_ks and ct_qmm_rb_ks on the ksplit
+nibbles of every kind, against variants of their design on one card, in one
+process.
 
     python3 scripts/torch_qmm_split_ablate.py [--m 1 8] [--reps 50]
         [--cases REGEX] [--symbols REGEX] [--no-check] VARIANT [VARIANT ...]
@@ -10,7 +11,8 @@ variants of their design on one card, in one process.
 Each VARIANT is the libraries of the timed symbols (qmm_float.cu,
 qmm_decode.cu, qmm_grid.cu, qmm_ksplit.cu; a checkout without qmm_ksplit.cu
 has the ksplit symbols in qmm_float.cu, one without the rb8 symbols in
-qmm_grid.cu has them in qmm_rb.cu) built by nvcc (the package's flags, all
+qmm_grid.cu has them in qmm_rb.cu, one without ct_qmm_b_ks and ct_qmm_rb_ks
+in qmm_ksplit.cu has them in qmm_prefill.cu and qmm_rb.cu) built by nvcc (the package's flags, all
 started together) from a copy of csrc/ under build/split_ablate/ with edits
 to qmm_splitk.cuh:
 
@@ -45,9 +47,9 @@ to qmm_splitk.cuh:
                unrolled)
   no_mma       g on nibbles at m > 1: f32 products as at m = 1 (the
                design: bf16 mma.sync on tensor cores)
-  rb_f32       rb8 on the grids at m > 1: f32 products of the bf16
-               operands as at m = 1 (the design: bf16 mma.sync on tensor
-               cores)
+  rb_f32       rb8 on the grids and b_ks / rb_ks on ksplit at m > 1: f32
+               products of the bf16 operands as at m = 1 (the design: bf16
+               mma.sync on tensor cores; on ksplit one k16 tile a half)
   root:PATH    the sources of another checkout (PATH/ctransformers_tpu_torch/
                csrc), e.g. a `git archive` of the parent unpacked under build/
 
@@ -57,7 +59,8 @@ down, output; packed ksplit ("ks:"): Q4_K at those five, GPTQ4 group 128
 at fused QKV, o, gate/up and down, groups 32 and 64 at o, Q4_0, Q2_K and
 Q3_K at o and down; at their padded llama-2-7B shapes; the rb8 symbols only
 on the cases of PERF.md's rows 8b and 8d, chip_smoke.py's, and without
---m at m = 128 too, where they run the Hopper GEMM core) x m x symbol
+--m at m = 128 too, where they run the Hopper GEMM core, as the ksplit b_ks
+and rb_ks do on their rows 9b and 10b) x m x symbol
 (those of --symbols): the kernel ms from a replayed CUDA graph cycling over weight copies
 past the 50 MB L2 (as chip_smoke.py phase 3 times it; q8 on activations
 quantized outside, as its wrapper takes them), the bytes bound, the
@@ -110,16 +113,21 @@ SYMBOLS = {"Q6_K": ("qmm_g8", "qmm_f", "qmm_q8", "qmm_rb8"),
            "Q5_K": ("qmm_g8", "qmm_f", "qmm_q8", "qmm_rb8"),
            "Q8_0": ("qmm_q8_legacy", "qmm_rb8_legacy"),
            "Q5_1": ("qmm_q8_legacy", "qmm_rb8_legacy"),
-           "Q4_K": ("qmm_qx", "qmm_g"), "ks": ("qmm_f_ks", "qmm_s_ks")}
+           "Q4_K": ("qmm_qx", "qmm_g"), "ks": ("qmm_f_ks", "qmm_s_ks", "qmm_b_ks", "qmm_rb_ks")}
 LIB_OF = {"qmm_g8": "qmm_float", "qmm_f": "qmm_float", "qmm_g": "qmm_float",
           "qmm_qx": "qmm_decode", "qmm_q8": "qmm_grid", "qmm_q8_legacy": "qmm_grid",
           "qmm_f_ks": "qmm_ksplit", "qmm_s_ks": "qmm_ksplit", "qmm_rb8": "qmm_grid",
-          "qmm_rb8_legacy": "qmm_grid"}
+          "qmm_rb8_legacy": "qmm_grid", "qmm_b_ks": "qmm_ksplit", "qmm_rb_ks": "qmm_ksplit"}
 RB8 = ("qmm_rb8", "qmm_rb8_legacy")
-# the cases (and batch sizes) chip_smoke.py times the rb8 symbols at: rows
-# 8b and 8d
-RB8_RUNS = {(kind, shape): sorted(m for name, m in runs if name in RB8)
-            for kind, shape, runs in C.KERNEL_CASES if any(name in RB8 for name, _ in runs)}
+# the symbols that take the Hopper GEMM core above m = 32 (timed at 128 too)
+CORE_TOO = RB8 + ("qmm_b_ks", "qmm_rb_ks")
+# the split's mode of each ksplit symbol (ct_qmm_ks_split_plan)
+KS_MODE = {"qmm_f_ks": 0, "qmm_s_ks": 1, "qmm_b_ks": 2, "qmm_rb_ks": 2}
+# the cases (and batch sizes) chip_smoke.py times those symbols at: rows
+# 8b, 8d, 9b and 10b
+CORE_RUNS = {(kind, shape, name): sorted(m for nm, m in runs if nm == name)
+             for kind, shape, runs in C.KERNEL_CASES for name in CORE_TOO
+             if any(nm == name for nm, _ in runs)}
 # the ksplit layouts (group, has mins, superblock factor count) whose
 # cluster capacities are printed
 KS_LAYOUTS = ((32, 1, 8), (16, 1, 16), (16, 0, 16), (32, 1, 0), (64, 1, 0), (128, 1, 0), (32, 0, 0))
@@ -142,7 +150,9 @@ VARIANTS = {
                     "      for (int j = 0; j < 0; j += 2) {"),
                    ("for (int h = 0; h < 2; ++h) {\n        // words h",
                     "for (int h = 0; h < 0; ++h) {\n        // words h"),
-                   ("      for (int k = 0; k < 2; ++k) {", "      for (int k = 0; k < 0; ++k) {")),
+                   ("      for (int k = 0; k < 2; ++k) {", "      for (int k = 0; k < 0; ++k) {"),
+                   ("for (int h = 0; h < 2; ++h) {\n        const bool hi = h == 1;",
+                    "for (int h = 0; h < 0; ++h) {\n        const bool hi = h == 1;")),
     "no_weights": (("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads), "
                     "wp + u * wstep);", "    (void)wp;"),
                    ("    for (int u = 0; u < 4; ++u) cp16(b + St::kW + 16 * (tid + u * kThreads) + "
@@ -244,12 +254,14 @@ def main() -> int:
              if re.search(opts.cases, f"{kind} {shape}")
              for syms in [[sym for sym in SYMBOLS[kind.split(":")[0]]
                            if re.search(opts.symbols, sym)
-                           and (sym not in RB8 or (kind, shape) in RB8_RUNS)]] if syms]
+                           and (sym not in RB8 or (kind, shape, sym) in CORE_RUNS)]] if syms]
     libraries = {LIB_OF[sym] for _, _, syms in cases for sym in syms}
     if "qmm_ksplit" in libraries:  # where an older checkout keeps the ksplit symbols
         libraries.add("qmm_float")
-    if any(sym in RB8 for _, _, syms in cases for sym in syms):  # and the rb8 ones
-        libraries.add("qmm_rb")
+    if any(sym in RB8 + ("qmm_rb_ks",) for _, _, syms in cases for sym in syms):
+        libraries.add("qmm_rb")  # and the rb8 and rb_ks ones
+    if any(sym == "qmm_b_ks" for _, _, syms in cases for sym in syms):
+        libraries.add("qmm_prefill")  # and the b_ks one
     libs = build(names, sorted(libraries))
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (dlls, ptxas) in libs.items():
@@ -283,11 +295,11 @@ def main() -> int:
                 print(f"[occupancy] {name}: {sym} m={m}: " + " ".join(
                     f"P={p}:{cap(m, p)}" for p in (8, 6, 4, 3, 2, 1)), flush=True)
         cap = getattr(dlls.get("qmm_ksplit"), "ct_qmm_ks_split_capacity", None)
-        for mode_s, (group, mins, sf), m in itertools.product((0, 1), KS_LAYOUTS, (1, 8)):
+        for mode, (group, mins, sf), m in itertools.product((0, 1, 2), KS_LAYOUTS, (1, 8)):
             if cap and any(s.endswith("_ks") for _, _, syms in cases for s in syms):
-                print(f"[occupancy] {name}: {'s' if mode_s else 'f'}_ks group {group} mins {mins} "
+                print(f"[occupancy] {name}: {'fsb'[mode]}_ks group {group} mins {mins} "
                       f"sfactor {sf} m={m}: " + " ".join(
-                          f"P={p}:{cap(mode_s, group, mins, sf, m, p)}" for p in (8, 6, 4, 3, 2, 1)),
+                          f"P={p}:{cap(mode, group, mins, sf, m, p)}" for p in (8, 6, 4, 3, 2, 1)),
                       flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -299,14 +311,14 @@ def main() -> int:
         wbytes = C.plane_bytes(qts[0])
         qts += [C.random_planes(K, kind, kp, npad, k, n, gen)
                 for _ in range(max(0, math.ceil(150e6 / wbytes) - 1))]
-        sizes = opts.m or sorted({1, 8}.union(*(RB8_RUNS.get((kind, shape), [])
-                                                for sym in syms if sym in RB8)))
+        sizes = opts.m or sorted({1, 8}.union(*(CORE_RUNS.get((kind, shape, sym), [])
+                                                for sym in syms if sym in CORE_TOO)))
         for m in sizes:
             x = torch.zeros((m, kp), device=dev)
             x[:, :k] = torch.randn((m, k), generator=gen, device=dev)
             out = torch.empty(m, npad, device=dev)
             for sym in syms:
-                if m > 8 and not opts.m and sym not in RB8:
+                if m > 8 and not opts.m and sym not in CORE_TOO:
                     continue
                 acts = K.quantize_activations(x, qts[0].group) if sym in K.PREQUANTIZED else (x,)
                 nbytes = wbytes + sum(a.numel() * a.element_size() for a in acts) + 4 * m * npad
@@ -332,8 +344,9 @@ def main() -> int:
                     err = ((out - ref).norm() / ref.norm()).item()
                     if kind.startswith("ks:"):
                         plan = getattr(lib, "ct_qmm_ks_split_plan", None)
+                        plan = plan if m <= 32 else None  # b_ks and rb_ks above: the core
                         qt = qts[0]
-                        p = plan(int(sym == "qmm_s_ks"), qt.group, int(qt.mins is not None),
+                        p = plan(KS_MODE[sym], qt.group, int(qt.mins is not None),
                                  qt.sfactor, m, kp, npad) if plan else "-"
                     elif kind == "Q4_K":
                         plan = getattr(lib, f"ct_{sym}_split_plan", None)

@@ -125,7 +125,7 @@ def test_table_round_trip(tmp_path):
     entries = {
         qm.cache_key(1, q4k): dict(_entry("g", q4k), ms={"g": 0.02, "qx": 0.03, "dense": 1.5}),
         qm.cache_key(8, q5k): _entry("", q5k),
-        qm.cache_key(128, q5k): dict(_entry("dense", q5k), kernel=("sb", K.GEMM_CONFIG)),
+        qm.cache_key(128, q5k): dict(_entry("dense", q5k), kernel=("sb", K.WGMMA_CONFIG)),
     }
     path = str(tmp_path / "t.json")
     qm.save_table(path, H100, entries, "700.00 W")

@@ -11,11 +11,11 @@ layouts, at every llama head width (above 256 in column slices) and any
 number of query heads a kv head; the symbols of the Hopper GEMM core
 (qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si_gptq, qmm_i_gptq,
 qmm_si, qmm_i, qmm_si_k16, qmm_i_k16, qmm_si_q4_0, qmm_i_q4_0, and
-qmm_sb_ks with its decode design at m <= 32) at prompt sizes up to
-m = 2048; qmm_g8 and qmm_f on the grids and qmm_qx and qmm_g
-on Q4_K, qmm_q8 and qmm_q8_legacy on every int8 grid and qmm_f_ks and
-qmm_s_ks on every ksplit layout at m <= 32 (K split over a cluster) at the
-llama-2-7B keys, the
+qmm_sb_ks, qmm_b_ks and qmm_rb_ks with their designs at m <= 32) at prompt
+sizes up to m = 2048; qmm_g8 and qmm_f on the grids and qmm_qx and qmm_g
+on Q4_K, qmm_q8 and qmm_q8_legacy on every int8 grid and qmm_f_ks,
+qmm_s_ks, qmm_b_ks and qmm_rb_ks on every ksplit layout at m <= 32 (K split
+over a cluster) at the llama-2-7B keys, the
 split's edges and in a CUDA graph; the IEEE scale divisions of kv_quantize and the
 probes' quantizers; and the fused decode loop of engine/engine.py (a
 captured CUDA graph per key) against the eager loop on a tiny model.
@@ -357,9 +357,10 @@ CORE = [("qmm_b", "Q6_K"), ("qmm_b", "Q5_K"), ("qmm_sb", "Q5_K"), ("qmm_sb", "Q6
     ("qmm_si_k16", "Q2_K"), ("qmm_si_k16", "Q3_K"), ("qmm_si", "Q4_K"), ("qmm_i", "Q4_K"),
     ("qmm_i_q4_0", "Q4_0"), ("qmm_si_q4_0", "Q4_0"), ("qmm_i_k16", "Q2_K"),
     ("qmm_i_k16", "Q3_K")]
-# and qmm_sb_ks on every ksplit layout (ctq::dispatch_ksplit: Q4_K, Q2_K,
-# Q3_K, GPTQ4 / Q4_1 at groups 32, 64 and 128, Q4_0), at the decode design's
-# m <= 32 and the core's m > 32
+# and qmm_sb_ks, qmm_b_ks and qmm_rb_ks on every ksplit layout
+# (ctq::dispatch_ksplit: Q4_K, Q2_K, Q3_K, GPTQ4 / Q4_1 at groups 32, 64 and
+# 128, Q4_0), at their designs' m <= 32 (the float design, the K split) and
+# the core's m > 32 (the ksplit tile with and without the fold)
 CORE_KSPLIT_KINDS = ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/32", "GPTQ4/64", "GPTQ4/128", "Q4_0")
 
 
@@ -379,23 +380,25 @@ def test_core_kernel_matches_plain_at_prompt_sizes(dev, name, kind, k, n, m):
     assert torch.equal(got, K.KERNELS[name](x, qt)), "kernel runs are not bitwise repeatable"
 
 
+@pytest.mark.parametrize("name", ["qmm_sb_ks", "qmm_b_ks", "qmm_rb_ks"])
 @pytest.mark.parametrize("kind", CORE_KSPLIT_KINDS)
 @pytest.mark.parametrize("m", [1, 8, 17, 32, 33, 64, 128, 256, 2048])
 @pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096)])
-def test_core_ksplit_kernel_matches_plain_at_every_m(dev, kind, k, n, m):
+def test_core_ksplit_kernel_matches_plain_at_every_m(dev, name, kind, k, n, m):
     """qmm_sb_ks: the float design at m <= 32, the core's ksplit nibble
-    tile above (the halves meet at 2048 and 5632 byte rows; a group of 128
-    rows may be cut by the cluster's K split)."""
+    tile above; qmm_b_ks and qmm_rb_ks: the K split's "b" at m <= 32, the
+    core's tile without the fold above (the halves meet at 2048 and 5632
+    byte rows; a group of 128 rows may be cut by the cluster's K split)."""
     qt = random_ksplit(kind, k, n, seed=k + m, device=dev)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(dev)
-    before = K.LAUNCHES["qmm_sb_ks"]
-    got = K.KERNELS["qmm_sb_ks"](x, qt)
+    before = K.LAUNCHES[name]
+    got = K.KERNELS[name](x, qt)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["qmm_sb_ks"] == before + 1
-    ref = K.PLAIN["qmm_sb_ks"](x, qt)
+    assert K.LAUNCHES[name] == before + 1
+    ref = K.PLAIN[name](x, qt)
     assert got.shape == (m, n) and torch.isfinite(got).all()
     assert _rel(got, ref) <= 1e-3
-    assert torch.equal(got, K.KERNELS["qmm_sb_ks"](x, qt)), "runs are not bitwise repeatable"
+    assert torch.equal(got, K.KERNELS[name](x, qt)), "runs are not bitwise repeatable"
 
 
 def test_core_symbols_refuse_what_they_do_not_take(dev):
@@ -487,7 +490,8 @@ def test_core_symbols_refuse_what_they_do_not_take(dev):
 # qmm_s_ks on the ksplit nibbles (128 byte rows a stage, both halves): Q4_K
 # at the Q4_K keys and edges, GPTQ4 group 128 at its four keys, groups 32
 # and 64, Q4_0, Q2_K and Q3_K at o and down, and every layout at K 256,
-# where one superblock spans both halves, and 13 stages at N 256
+# where one superblock spans both halves, and 13 stages at N 256; qmm_b_ks
+# at the same ksplit shapes, qmm_rb_ks (b_ks's instantiations) at Q4_K's
 SPLIT_KEYS = [("Q6_K", 4096, 4096), ("Q6_K", 11264, 4096), ("Q6_K", 4096, 32768),
               ("Q5_K", 4096, 12288), ("Q5_K", 11264, 4096)]
 SPLIT_EDGES = [("Q6_K", 256, 128), ("Q5_K", 256, 128), ("Q6_K", 1280, 4096),
@@ -506,7 +510,9 @@ SPLIT_CASES = [(name, kind, k, n) for name in ("qmm_g8", "qmm_f", "qmm_q8")
     (name, "Q4_K", k, n) for name in ("qmm_qx", "qmm_g")
     for k, n in NIBBLE_SPLIT_KEYS + NIBBLE_SPLIT_EDGES] + [
     ("qmm_q8_legacy", kind, k, n) for kind in ("Q8_0", "Q5_1") for k, n in LEGACY_SPLIT_SHAPES] + [
-    (name, kind, k, n) for name in ("qmm_f_ks", "qmm_s_ks") for kind, k, n in KSPLIT_SPLIT_SHAPES]
+    (name, kind, k, n) for name in ("qmm_f_ks", "qmm_s_ks", "qmm_b_ks")
+    for kind, k, n in KSPLIT_SPLIT_SHAPES] + [
+    ("qmm_rb_ks", kind, k, n) for kind, k, n in KSPLIT_SPLIT_SHAPES if kind == "ks:Q4_K"]
 
 
 def split_args(name, x, qt):
@@ -541,7 +547,10 @@ def test_grid_split_matches_plain(dev, name, kind, k, n, m):
                                          ("qmm_qx", "Q4_K", 1), ("qmm_qx", "Q4_K", 8),
                                          ("qmm_g", "Q4_K", 1), ("qmm_g", "Q4_K", 8),
                                          ("qmm_q8", "Q5_K", 8), ("qmm_q8_legacy", "Q5_1", 1),
-                                         ("qmm_f_ks", "ks:Q4_K", 1), ("qmm_s_ks", "ks:Q2_K", 8)])
+                                         ("qmm_f_ks", "ks:Q4_K", 1), ("qmm_s_ks", "ks:Q2_K", 8),
+                                         ("qmm_b_ks", "ks:Q4_K", 8),
+                                         ("qmm_b_ks", "ks:GPTQ4/128", 1),
+                                         ("qmm_rb_ks", "ks:Q3_K", 8)])
 def test_grid_split_replays_in_a_graph(dev, name, kind, m):
     """One captured call replayed on new activations (copied into the
     tensors the graph reads) equals eager calls, bitwise."""
@@ -654,17 +663,18 @@ def test_nibble_split_refuses_what_it_does_not_take(dev):
     assert torch.all(out == 7.0)
 
 def test_ksplit_split_refuses_what_it_does_not_take(dev):
-    """At m <= 32 ct_qmm_f_ks and ct_qmm_s_ks take a K padded to 256 rows
-    and an N to 128 columns, on the layouts ctq::dispatch_ksplit takes
-    (ints that no layout has, or pointers that disagree with them, are
-    refused before the split); a refusal launches nothing. The plan raises
-    at m = 33 (the float design's, not the split's) and on an adjk weight,
-    and its symbol gives a negative code for a layout there is not."""
+    """At m <= 32 ct_qmm_f_ks, ct_qmm_s_ks, ct_qmm_b_ks and ct_qmm_rb_ks
+    take a K padded to 256 rows and an N to 128 columns, on the layouts
+    ctq::dispatch_ksplit takes (ints that no layout has, or pointers that
+    disagree with them, are refused before the split); a refusal launches
+    nothing. The plan raises at m = 33 (the float design's or the core's,
+    not the split's) and on an adjk weight, and its symbol gives a
+    negative code for a mode or a layout there is not."""
     x = torch.randn(8, 512, device=dev)
     out = torch.full((8, 128), 7.0, device=dev)
     q4k = random_ksplit("Q4_K", 512, 128, 1, dev)
     q40 = random_ksplit("Q4_0", 512, 128, 2, dev)
-    for name in ("qmm_f_ks", "qmm_s_ks"):
+    for name in ("qmm_f_ks", "qmm_s_ks", "qmm_b_ks", "qmm_rb_ks"):
         fn = K._fn("qmm_ksplit", "ct_" + name)
 
         def call(qt, kp, np_, *ints):
@@ -685,6 +695,8 @@ def test_ksplit_split_refuses_what_it_does_not_take(dev):
     for ints in ((32, 0, 8), (64, 1, 8), (16, 1, 8), (128, 0, 0), (48, 1, 0)):
         assert plan(0, *ints, 1, 512, 128) < 0, ints
     assert plan(1, 32, 1, 8, 1, 512, 128) >= 1 and plan(0, 128, 1, 0, 8, 512, 128) >= 1
+    assert plan(2, 32, 1, 8, 1, 512, 128) >= 1 and plan(2, 16, 0, 16, 8, 512, 128) >= 1
+    assert plan(3, 32, 1, 8, 1, 512, 128) < 0 and plan(-1, 32, 1, 8, 1, 512, 128) < 0
     assert plan(0, 32, 1, 8, 0, 512, 128) < 0 and plan(0, 32, 1, 8, 1, 384, 128) < 0
     torch.cuda.synchronize()
     assert torch.all(out == 7.0)

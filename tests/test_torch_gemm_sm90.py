@@ -2,8 +2,8 @@
 on Q6_K and Q5_K, qmm_b_legacy and qmm_sb_legacy on Q5_1, Q8_0 and Q5_0,
 qmm_si and qmm_i on Q4_K, qmm_si_gptq and qmm_i_gptq on GPTQ4 at groups 32,
 64 and 128 and on Q4_1, qmm_si_k16 and qmm_i_k16 on Q2_K and Q3_K,
-qmm_si_q4_0 and qmm_i_q4_0 on Q4_0, qmm_sb_ks on the ksplit nibbles of
-every kind)
+qmm_si_q4_0 and qmm_i_q4_0 on Q4_0, qmm_sb_ks, qmm_b_ks and qmm_rb_ks on
+the ksplit nibbles of every kind)
 on the CPU: what the core makes of x
 (bf16 rounding, group sums) against numpy, the plain versions at ragged m
 against the Pallas kernels in interpret mode, the launch configuration the
@@ -51,7 +51,9 @@ def test_x_operands_match_numpy(m, kp, group):
 
 
 # (weight type, port mode, Pallas mode): the core's instantiations; "ks:"
-# the ksplit nibbles of a kind (qmm_sb_ks against _qmm_pack4_s_kernel);
+# the ksplit nibbles of a kind (qmm_sb_ks against _qmm_pack4_s_kernel,
+# qmm_b_ks against _qmm_pack4_kernel mode "b" and qmm_rb_ks against
+# _qmm_pack4_rb_kernel mode "rb": the core's ksplit tile without the fold);
 # GPTQ4 and Q4_1 adjk nibbles (qmm_si_gptq against _qmm_i4_s_kernel,
 # qmm_i_gptq against _qmm_i4_kernel); Q2_K and Q3_K adjk nibbles at group 16
 # (qmm_si_k16 against _qmm_i4_s_kernel: Q2_K's bias folded four groups a
@@ -68,19 +70,20 @@ CORE_CASES = [("Q6_K", "b", "b"), ("Q5_K", "b", "b"), ("Q8_0", "b", "b"), ("Q5_1
     (kind, "si", "si") for kind in ("Q2_K", "Q3_K")] + [
     ("Q4_K", "si", "si"), ("Q4_K", "i", "i")] + [
     ("Q4_0", "i", "i"), ("Q4_0", "si", "si"), ("Q2_K", "i", "i"), ("Q3_K", "i", "i")] + [
-    (f"ks:{kind}", "sb", "sb") for kind in ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/128", "Q4_0")]
+    (f"ks:{kind}", "sb", "sb") for kind in ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/128", "Q4_0")] + [
+    (f"ks:{kind}", "b", "b") for kind in ("Q4_K", "Q2_K", "Q3_K", "GPTQ4/128", "Q4_0")] + [
+    ("ks:Q4_K", "rb", "rb")]
 
 
 @pytest.mark.parametrize("kind,mode,pallas_mode", CORE_CASES)
 @pytest.mark.parametrize("m", [33, 100])
 def test_core_plain_versions_match_pallas_at_ragged_m(kind, mode, pallas_mode, m, monkeypatch):
-    """plain_b, plain_sb, plain_si, plain_i and plain_sb_ks (the functions
-    of qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si, qmm_i,
-    qmm_si_gptq, qmm_si_k16, qmm_i_k16, qmm_i_gptq, qmm_si_q4_0, qmm_i_q4_0
-    and qmm_sb_ks) at m that fill no
-    128-row tile, against
-    _qmm_kernel, _qmm_s_kernel, _qmm_i4_s_kernel, _qmm_i4_kernel and
-    _qmm_pack4_s_kernel."""
+    """plain_b, plain_sb, plain_si, plain_i, plain_sb_ks and plain_b_ks (the
+    functions of qmm_b, qmm_sb, qmm_b_legacy, qmm_sb_legacy, qmm_si, qmm_i,
+    qmm_si_gptq, qmm_si_k16, qmm_i_k16, qmm_i_gptq, qmm_si_q4_0, qmm_i_q4_0,
+    qmm_sb_ks, qmm_b_ks and qmm_rb_ks) at m that fill no 128-row tile,
+    against _qmm_kernel, _qmm_s_kernel, _qmm_i4_s_kernel, _qmm_i4_kernel,
+    _qmm_pack4_s_kernel, _qmm_pack4_kernel and _qmm_pack4_rb_kernel."""
     k, n = 256, 256
     x = (np.random.RandomState(m).randn(m, k) * 0.5).astype(np.float32)
     if kind.startswith("ks:"):
@@ -131,6 +134,9 @@ NIBBLE_SPLIT_CONFIG = "n128k32r2c8|n32k1024"
 # qmm_f_ks and qmm_s_ks: the ksplit K split ("n128k16h2r2c8") at m <= 32,
 # the ksplit float design above
 KSPLIT_SPLIT_CONFIG = "n128k16h2r2c8|n32k512"
+# the ksplit "b" and "rb" (qmm_b_ks, qmm_rb_ks): the same split at m <= 32,
+# the Hopper core above
+B_KS_CONFIG = "n128k16h2r2c8|wg128n128c3"
 
 
 @pytest.mark.parametrize("kind,m,want", [
@@ -149,8 +155,8 @@ KSPLIT_SPLIT_CONFIG = "n128k16h2r2c8|n32k512"
     ("Q4_0", 128, {"i": K.WGMMA_CONFIG, "si": K.WGMMA_CONFIG}),
     ("Q5_1", 128, {"b": K.WGMMA_CONFIG, "sb": K.WGMMA_CONFIG}),
     ("Q8_0", 128, {"b": K.WGMMA_CONFIG}),
-    ("ks:Q4_K", 128, {"b": K.GEMM_CONFIG, "sb": SB_KS_CONFIG}),
-    ("ks:Q3_K", 8, {"": KSPLIT_SPLIT_CONFIG, "s": KSPLIT_SPLIT_CONFIG, "b": K.GEMM_CONFIG,
+    ("ks:Q4_K", 128, {"b": B_KS_CONFIG, "sb": SB_KS_CONFIG}),
+    ("ks:Q3_K", 8, {"": KSPLIT_SPLIT_CONFIG, "s": KSPLIT_SPLIT_CONFIG, "b": B_KS_CONFIG,
                     "sb": SB_KS_CONFIG}),
 ])
 def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
@@ -173,10 +179,10 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
                  "qmm_si_q4_0"):
         assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_wgmma.cuh"
     assert K.SOURCE_OF["qmm_sb_ks"] == "ctransformers_tpu_torch/csrc/qmm_float.cu"
-    # the other GEMMs keep qmm_gemm.cuh's tile
-    for name in ("qmm_b_ks",):
-        assert K.CONFIG_OF[name] == K.GEMM_CONFIG, name
-        assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_prefill.cu", name
+    # the ksplit "b" GEMMs: the split at m <= 32, the core above
+    for name in ("qmm_b_ks", "qmm_rb_ks"):
+        assert K.CONFIG_OF[name] == B_KS_CONFIG, name
+        assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_splitk.cuh", name
 
 
 @pytest.mark.parametrize("name,kind,other", [("qmm_g8", "Q6_K", "Q4_K"), ("qmm_f", "Q5_K", "Q4_K"),
@@ -189,16 +195,20 @@ def test_candidates_name_the_core_config(kind, m, want, monkeypatch):
                                              ("qmm_s_ks", "ks:GPTQ4/128", "GPTQ4/128"),
                                              ("qmm_rb8", "Q6_K", "Q4_K"),
                                              ("qmm_rb8", "Q5_K", "Q4_K"),
-                                             ("qmm_rb8_legacy", "Q8_0", "Q6_K")])
+                                             ("qmm_rb8_legacy", "Q8_0", "Q6_K"),
+                                             ("qmm_b_ks", "ks:Q4_K", "Q4_K"),
+                                             ("qmm_rb_ks", "ks:GPTQ4/128", "GPTQ4/128")])
 def test_split_kernels_name_their_design(name, kind, other, monkeypatch):
     """The kernels that split K over a cluster at m <= 32 name
     csrc/qmm_splitk.cuh and their split configuration (the int8 grids'
-    "rb" the Hopper core's above); the plan asks the card, so a weight on
-    the CPU raises, as do another kind's weight (for a ksplit kernel the
-    same kind packed adjk) and a kernel that the split does not serve."""
+    "rb" and the ksplit "b" and "rb" the Hopper core's above); the plan
+    asks the card, so a weight on the CPU raises, as do another kind's
+    weight (for a ksplit kernel the same kind packed adjk) and a kernel
+    that the split does not serve."""
     assert name in K.SPLIT_KERNELS
     assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"
-    assert K.CONFIG_OF[name] == (KSPLIT_SPLIT_CONFIG if kind.startswith("ks:") else
+    assert K.CONFIG_OF[name] == (B_KS_CONFIG if name in ("qmm_b_ks", "qmm_rb_ks") else
+                                 KSPLIT_SPLIT_CONFIG if kind.startswith("ks:") else
                                  NIBBLE_SPLIT_CONFIG if kind == "Q4_K" else
                                  RB8_CONFIG if name.startswith("qmm_rb8") else GRID_SPLIT_CONFIG)
     monkeypatch.setenv("CT_PACK4_LAYOUT", "adjk")

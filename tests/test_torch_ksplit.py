@@ -216,7 +216,7 @@ def test_rb_grid_names_and_entries_stay(kind, tmp_path, monkeypatch):
     _, tq = _both(kind, 512, 256, seed=3)
     name = "qmm_rb8" + ("_legacy" if tq.sfactor == 0 else "")
     assert K.kernel_name("rb", tq) == name and K.kernel_name("r", tq) == name.replace("rb8", "r8")
-    assert name in K.SPLIT_KERNELS and name not in K.GEMM_KERNELS
+    assert name in K.SPLIT_KERNELS
     assert K.CONFIG_OF[name] == f"{K.SPLIT_CONFIG}|{K.WGMMA_CONFIG}"
     assert K.SOURCE_OF[name] == "ctransformers_tpu_torch/csrc/qmm_splitk.cuh"
     entries = tqm.rb_mode_entries([tq], (1, 8, 128))
